@@ -1,0 +1,56 @@
+// Shared device helpers of the hit-path kernels (block_march.cu,
+// tile_raster.cu).
+//
+// Every arithmetic step here mirrors the plain PyTorch versions in
+// ops/kernels/*.py operation for operation, and the library is built with
+// -fmad=false, so a kernel and its plain version round identically:
+// chip_smoke.py compares them with no exceptions.
+#pragma once
+
+#include <cuda_runtime.h>
+#include <math.h>
+
+#define ORT_INF 1e16f        // the miss sentinel (utils/vecmath.INF), not inf
+#define ORT_CHUNK 256        // triangles per cluster (ops/sweep.CHUNK)
+#define ORT_WOOP_ROWS 16     // woop_t rows per cluster (12 used)
+
+// 1/d where |d| > 1e-12, else +1e12 whatever the sign of d.
+__device__ __forceinline__ float ort_inv_dir(float d) {
+  return fabsf(d) > 1e-12f ? 1.0f / d : 1e12f;
+}
+
+// Slab entry of one box [min xyz, max xyz] (stride given by the caller's
+// row layout), or ORT_INF when the ray misses it within [tmin, box exit].
+// Padding boxes are NaN: the flag below keeps them from ever firing, which
+// is what NaN-propagating min/max give on the JAX side (fminf/fmaxf would
+// drop the NaN and let the box hit).
+__device__ __forceinline__ float ort_slab_entry(
+    const float* box, float ox, float oy, float oz,
+    float ix, float iy, float iz, float tmin) {
+  float ent = -ORT_INF, ext = ORT_INF;
+  bool nan = false;
+  float t0 = (box[0] - ox) * ix, t1 = (box[3] - ox) * ix;
+  nan |= isnan(t0) | isnan(t1);
+  ent = fmaxf(ent, fminf(t0, t1));
+  ext = fminf(ext, fmaxf(t0, t1));
+  t0 = (box[1] - oy) * iy; t1 = (box[4] - oy) * iy;
+  nan |= isnan(t0) | isnan(t1);
+  ent = fmaxf(ent, fminf(t0, t1));
+  ext = fminf(ext, fmaxf(t0, t1));
+  t0 = (box[2] - oz) * iz; t1 = (box[5] - oz) * iz;
+  nan |= isnan(t0) | isnan(t1);
+  ent = fmaxf(ent, fminf(t0, t1));
+  ext = fminf(ext, fmaxf(t0, t1));
+  ent = fmaxf(ent, tmin);
+  return (!nan && ent <= ext) ? ent : ORT_INF;
+}
+
+// Order-preserving map of a non-NaN float onto uint32.
+__device__ __forceinline__ unsigned ort_ordered(float f) {
+  unsigned u = __float_as_uint(f);
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+}
+
+__device__ __forceinline__ float ort_unordered(unsigned u) {
+  return __uint_as_float((u & 0x80000000u) ? (u & 0x7fffffffu) : ~u);
+}

@@ -1,0 +1,323 @@
+"""Block marcher and cluster probe (port of
+``optix_ray_tracer_tpu/ops/pallas/block_march.py``, flat kernel only).
+
+Kernel B (``march_call``) answers a nearest-hit or occlusion query for
+blocks of rays over a ClusterSet; kernel C (``probe_call``) returns each
+ray's nearest entered cluster, the sort key of incoherent waves.  Both are
+CUDA (``csrc/block_march.cu``, design notes there).  Each wrapper launches
+its kernel for CUDA tensors, or raises; for CPU tensors it runs the plain
+PyTorch version beside it, a vectorised loop over clusters that computes
+the same function: the exact nearest t (or hit / miss), with equal-t ties
+free to resolve to another triangle.
+
+Not ported yet: the instanced (TLAS) and hierarchical variants; the flat
+kernel serves every scene size (both are exact, so only speed differs).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from optix_ray_tracer_tpu_torch.ops.kernels import _lib
+from optix_ray_tracer_tpu_torch.ops.sweep import CHUNK, SUBS_PER_CLUSTER
+from optix_ray_tracer_tpu_torch.utils.tensors import nanmax, nanmin
+from optix_ray_tracer_tpu_torch.utils.vecmath import INF, dot
+
+BLOCK_RAYS = 128          # minimum block granularity callers pad to
+CLUSTER_TRIS = CHUNK
+MAX_CLUSTERS = 8192       # the keys of one CTA's sort must fit shared memory
+N_SUBS = SUBS_PER_CLUSTER
+N_SUBS_INCOHERENT = 2     # incoherent waves pair-merge the sub boxes
+
+
+def choose_block_rays(n_clusters: int, coherent: bool = True) -> int:
+    """Block width by wave coherence (the JAX package's TPU-measured
+    choice, kept as the starting point: coherent waves share their cluster
+    set, so wide blocks amortize per-visit work; incoherent ones don't)."""
+    if not coherent:
+        return BLOCK_RAYS
+    c_pad = ((n_clusters + 7) // 8) * 8
+    for w in (512, 256):
+        if c_pad * w * 4 <= 3 * 1024 * 1024:
+            return w
+    return BLOCK_RAYS
+
+
+def inv_dir(d):
+    """1/d where |d| > 1e-12, else +1e12 whatever the sign."""
+    return torch.where(torch.abs(d) > 1e-12, 1.0 / d,
+                       torch.full_like(d, 1e12))
+
+
+def slab_entry(bmin, bmax, o, inv_d, tmin):
+    """Slab entry of boxes [bmin, bmax] (..., 3) for rays (..., 3): entry t,
+    or INF where missed.  NaN (padding) boxes propagate NaN through
+    minimum/maximum and never fire."""
+    ent = torch.full(torch.broadcast_shapes(bmin.shape[:-1], o.shape[:-1]),
+                     -INF, device=o.device)
+    ext = torch.full_like(ent, INF)
+    for ax in range(3):
+        t0 = (bmin[..., ax] - o[..., ax]) * inv_d[..., ax]
+        t1 = (bmax[..., ax] - o[..., ax]) * inv_d[..., ax]
+        ent = torch.maximum(ent, torch.minimum(t0, t1))
+        ext = torch.minimum(ext, torch.maximum(t0, t1))
+    ent = torch.maximum(ent, tmin)
+    return torch.where(ent <= ext, ent, torch.full_like(ent, INF))
+
+
+def woop_dots(w, o, d):
+    """Ray x triangle Woop projections, in the kernels' operation order.
+
+    w: (..., 12, T) woop_t rows; o, d: (..., R, 3).  Returns
+    (opx, opy, opz, dpx, dpy, dpz), each (..., R, T)."""
+    def row(k):
+        return w[..., k, None, :]
+
+    def comp(x, k):
+        return x[..., :, k, None]
+
+    ox, oy, oz = comp(o, 0), comp(o, 1), comp(o, 2)
+    dx, dy, dz = comp(d, 0), comp(d, 1), comp(d, 2)
+    ops = tuple(((row(4 * i) * ox + row(4 * i + 1) * oy)
+                 + row(4 * i + 2) * oz) - row(4 * i + 3) for i in range(3))
+    dps = tuple((row(4 * i) * dx + row(4 * i + 1) * dy)
+                + row(4 * i + 2) * dz for i in range(3))
+    return ops + dps
+
+
+def woop_hit(opx, opy, opz, dpx, dpy, dpz):
+    """(t, uu, vv, dz_ok) from the Woop projections."""
+    dz_ok = torch.abs(dpz) > 1e-12
+    t = (-opz) / torch.where(dz_ok, dpz, torch.full_like(dpz, 1e-12))
+    return t, opx + t * dpx, opy + t * dpy, dz_ok
+
+
+def march_plain(rays, boxes, sub_boxes, woop_t, n_clusters: int,
+                n_subs: int, any_hit: bool):
+    """Plain version of kernel B (same arguments as :func:`march_call`):
+    clusters in id order, each ray gated on its own entries."""
+    o = rays[0:3].T
+    d = rays[3:6].T
+    tmin = rays[6]
+    bt = rays[7].clone()
+    inv = inv_dir(d)
+    slot = torch.full_like(tmin, -1, dtype=torch.int32)
+    step = CLUSTER_TRIS // n_subs
+    for c in range(n_clusters):
+        idx = torch.nonzero(slab_entry(boxes[c, 0:3], boxes[c, 3:6], o, inv,
+                                       tmin) < bt)[:, 0]
+        for part in range(n_subs):
+            if idx.numel() == 0:
+                break
+            sb = sub_boxes[c, part]
+            live = idx[slab_entry(sb[0:3], sb[3:6], o[idx], inv[idx],
+                                  tmin[idx]) < bt[idx]]
+            if live.numel() == 0:
+                continue
+            ws = woop_t[c, :12, part * step:(part + 1) * step]
+            t, uu, vv, dz_ok = woop_hit(*woop_dots(ws, o[live], d[live]))
+            bl = bt[live, None]
+            ok = (dz_ok & (uu >= 0.0) & (vv >= 0.0) & (uu + vv <= 1.0)
+                  & (t > tmin[live, None]) & (t < bl))
+            t = torch.where(ok, t, torch.full_like(t, INF))
+            li = torch.argmin(t, dim=1)
+            tb = torch.gather(t, 1, li[:, None])[:, 0]
+            closer = tb < bl[:, 0]
+            rows = live[closer]
+            slot[rows] = (c * CLUSTER_TRIS + part * step + li[closer]
+                          ).to(torch.int32)
+            bt[rows] = -INF if any_hit else tb[closer]
+    return bt, slot
+
+
+def march_call(rays, boxes, sub_boxes, woop_t, n_clusters: int,
+               n_subs: int, any_hit: bool = False, w: int = BLOCK_RAYS):
+    """Kernel B.  rays: (8, R) rows [o, d, t_min, t_max] with R % w == 0
+    and t_max <= INF (dead lanes: t_min=1, t_max=0); boxes: (C_pad, 8);
+    sub_boxes: (C_pad, n_subs, 8); woop_t: (C, 16, CHUNK).
+
+    Returns (t, slot, visits): best t (-INF for any-hit hits), slot into
+    the sorted triangles (-1 miss), and on the card the clusters each
+    block visited (None for the plain version)."""
+    if not rays.is_cuda:
+        t, slot = march_plain(rays, boxes, sub_boxes, woop_t, n_clusters,
+                              n_subs, any_hit)
+        return t, slot, None
+    dev = rays.device
+    R = rays.shape[1]
+    if R % w or w % 32 or not 32 <= w <= 1024:
+        raise ValueError(f"{R} rays in blocks of {w}: need R % w == 0 and "
+                         f"w a multiple of 32 in [32, 1024]")
+    if not 0 < n_clusters <= MAX_CLUSTERS or CLUSTER_TRIS % n_subs:
+        raise ValueError(f"{n_clusters} clusters / {n_subs} sub boxes "
+                         f"unsupported (max {MAX_CLUSTERS} clusters)")
+    _lib.check(rays, "rays", torch.float32, dev, (8, R))
+    _lib.check(boxes, "boxes", torch.float32, dev, (-1, 8))
+    _lib.check(sub_boxes, "sub_boxes", torch.float32, dev, (-1, n_subs, 8))
+    _lib.check(woop_t, "woop_t", torch.float32, dev, (-1, 16, CLUSTER_TRIS))
+    if boxes.shape[0] < n_clusters or sub_boxes.shape[0] < n_clusters or \
+            woop_t.shape[0] < n_clusters:
+        raise ValueError("boxes, sub_boxes and woop_t must cover "
+                         f"{n_clusters} clusters")
+    t = torch.empty(R, dtype=torch.float32, device=dev)
+    slot = torch.empty(R, dtype=torch.int32, device=dev)
+    visits = torch.zeros(R // w, dtype=torch.int32, device=dev)
+    if R:
+        _lib.BLOCK_MARCH(dev, rays.data_ptr(), R, boxes.data_ptr(),
+                         n_clusters, sub_boxes.data_ptr(), n_subs,
+                         woop_t.data_ptr(), int(any_hit), w, t.data_ptr(),
+                         slot.data_ptr(), visits.data_ptr())
+    return t, slot, visits
+
+
+def probe_plain(rays, boxes, n_clusters: int, c_pad: int):
+    """Plain version of kernel C (same arguments as :func:`probe_call`)."""
+    o = rays[0:3].T[:, None, :]
+    inv = inv_dir(rays[3:6].T)[:, None, :]
+    tmin = rays[6][:, None]
+    tmax = rays[7][:, None]
+    R = rays.shape[1]
+    emin = torch.full((R,), INF, device=rays.device)
+    first = torch.full((R,), c_pad, dtype=torch.int64, device=rays.device)
+    for c0 in range(0, n_clusters, 512):   # ascending chunks: lowest id wins
+        b = boxes[c0:min(c0 + 512, n_clusters)]
+        e = slab_entry(b[None, :, 0:3], b[None, :, 3:6], o, inv, tmin)
+        e = torch.where(e < tmax, e, torch.full_like(e, INF))
+        arg = torch.argmin(e, dim=1)
+        cmin = torch.gather(e, 1, arg[:, None])[:, 0]
+        better = cmin < emin
+        emin = torch.where(better, cmin, emin)
+        first = torch.where(better, c0 + arg, first)
+    return torch.where(emin < INF, first, torch.full_like(first, c_pad)
+                       ).to(torch.int32)
+
+
+def probe_call(rays, boxes, n_clusters: int, c_pad: int):
+    """Kernel C.  rays: (8, R); boxes: (C_pad, 8).  Returns (R,) int32: the
+    nearest cluster each ray enters before t_max (lowest id on ties), else
+    c_pad."""
+    if not rays.is_cuda:
+        return probe_plain(rays, boxes, n_clusters, c_pad)
+    dev = rays.device
+    R = rays.shape[1]
+    if not 0 < n_clusters <= MAX_CLUSTERS:
+        raise ValueError(f"{n_clusters} clusters unsupported "
+                         f"(max {MAX_CLUSTERS})")
+    _lib.check(rays, "rays", torch.float32, dev, (8, R))
+    _lib.check(boxes, "boxes", torch.float32, dev, (-1, 8))
+    out = torch.empty(R, dtype=torch.int32, device=dev)
+    if R:
+        _lib.PROBE(dev, rays.data_ptr(), R, boxes.data_ptr(), n_clusters,
+                   c_pad, out.data_ptr())
+    return out
+
+
+def pack_rays(o, d, t_min, t_max):
+    """(8, R) SoA ray rows [o, d, t_min, t_max] (t_max clamped to INF: a
+    larger bound would make sentinel entries and misses look needed)."""
+    return torch.cat([o.T, d.T, t_min[None, :],
+                      torch.clamp(t_max, max=INF)[None, :]], 0).contiguous()
+
+
+def pad_rays(o, d, t_min, t_max, w: int):
+    """Pad a wave to a multiple of ``w`` with dead rays (t_min=1, t_max=0,
+    d = +z)."""
+    n = o.shape[0]
+    pad = (-n) % w
+    if not pad:
+        return o, d, t_min, t_max
+    dev = o.device
+    dead_d = torch.zeros((pad, 3), device=dev)
+    dead_d[:, 2] = 1.0
+    return (torch.cat([o, torch.zeros((pad, 3), device=dev)]),
+            torch.cat([d, dead_d]),
+            torch.cat([t_min, torch.ones(pad, device=dev)]),
+            torch.cat([t_max, torch.zeros(pad, device=dev)]))
+
+
+def _pad_boxes(bmin, bmax, pad: int):
+    """(C + pad, 8) rows [min3, max3, 0, 0], NaN rows for the padding."""
+    if pad:
+        nan = torch.full((pad, 3), float("nan"), device=bmin.device)
+        bmin = torch.cat([bmin, nan])
+        bmax = torch.cat([bmax, nan])
+    return torch.cat([bmin, bmax, torch.zeros((bmin.shape[0], 2),
+                                              device=bmin.device)], 1)
+
+
+def _wave_sub_boxes(clusters, c_pad: int, coherent: bool):
+    """(sub_boxes (c_pad, n_subs, 8), n_subs) for the wave's coherence
+    class; incoherent waves merge the build's sub boxes pairwise (a NaN
+    union: all-padding halves stay NaN)."""
+    C = clusters.num_clusters
+    n_subs = N_SUBS if coherent else N_SUBS_INCOHERENT
+    sub_min, sub_max = clusters.sub_min, clusters.sub_max
+    if n_subs != N_SUBS:
+        f = N_SUBS // n_subs
+        sub_min = nanmin(sub_min.reshape(C, n_subs, f, 3), 2
+                         ).reshape(C * n_subs, 3)
+        sub_max = nanmax(sub_max.reshape(C, n_subs, f, 3), 2
+                         ).reshape(C * n_subs, 3)
+    boxes = _pad_boxes(sub_min, sub_max, (c_pad - C) * n_subs)
+    return boxes.reshape(c_pad, n_subs, 8), n_subs
+
+
+def probe_inputs(clusters, o, d, t_min, t_max) -> dict:
+    """The ``probe_call`` arguments for a wave."""
+    C = clusters.num_clusters
+    c_pad = ((C + 7) // 8) * 8
+    return dict(rays=pack_rays(o, d, t_min, t_max),
+                boxes=_pad_boxes(clusters.cluster_min, clusters.cluster_max,
+                                 c_pad - C),
+                n_clusters=C, c_pad=c_pad)
+
+
+def probe_first_cluster(clusters, o, d, t_min, t_max):
+    """Per-ray id of the nearest cluster the ray enters (C_pad if none):
+    the cull-only pass that coherence-sorts incoherent waves."""
+    return probe_call(**probe_inputs(clusters, o, d, t_min, t_max))
+
+
+def march_inputs(clusters, o, d, t_min, t_max, coherent: bool = True,
+                 block_rays: int | None = None) -> dict:
+    """The ``march_call`` arguments for a wave (padded to whole blocks)."""
+    C = clusters.num_clusters
+    if C > MAX_CLUSTERS:
+        raise ValueError(
+            f"scene has {C} clusters; the marcher caps at {MAX_CLUSTERS} "
+            f"clusters = {MAX_CLUSTERS * CLUSTER_TRIS} triangles")
+    c_pad = ((C + 7) // 8) * 8
+    W = block_rays or choose_block_rays(C, coherent)
+    sub_boxes, n_subs = _wave_sub_boxes(clusters, c_pad, coherent)
+    return dict(rays=pack_rays(*pad_rays(o, d, t_min, t_max, W)),
+                boxes=_pad_boxes(clusters.cluster_min, clusters.cluster_max,
+                                 c_pad - C),
+                sub_boxes=sub_boxes, woop_t=clusters.woop_t, n_clusters=C,
+                n_subs=n_subs, w=W)
+
+
+def block_march(clusters, o, d, t_min, t_max, any_hit: bool = False,
+                block_rays: int | None = None, coherent: bool = True):
+    """Nearest-hit (or, with ``any_hit``, occlusion) query.
+
+    o, d (R, 3), t bounds (R,); rays should be coherence-sorted by the
+    caller.  Returns (t, slot, u, v): slot indexes the sorted triangles
+    (-1 miss), u/v are recomputed from the winner's Woop row.  With
+    ``any_hit`` only slot's hit/miss distinction is meaningful."""
+    n = o.shape[0]
+    t, slot, _ = march_call(**march_inputs(clusters, o, d, t_min, t_max,
+                                           coherent, block_rays),
+                            any_hit=any_hit)
+    t, slot = t[:n], slot[:n]
+    miss = slot < 0
+    t = torch.where(miss, torch.full_like(t, INF), t)
+    zero = torch.zeros_like(t)
+    if any_hit:
+        return t, slot, zero, zero
+    w_rows = clusters.woop[torch.clamp(slot, min=0).long()]
+    t_safe = torch.where(miss, zero, t)   # keep INF out of the arithmetic
+    u = (dot(w_rows[:, 0:3], o) - w_rows[:, 9]
+         + t_safe * dot(w_rows[:, 0:3], d))
+    v = (dot(w_rows[:, 3:6], o) - w_rows[:, 10]
+         + t_safe * dot(w_rows[:, 3:6], d))
+    return t, slot, torch.where(miss, zero, u), torch.where(miss, zero, v)

@@ -1,0 +1,179 @@
+"""Tile-raster kernel (port of
+``optix_ray_tracer_tpu/ops/pallas/tile_raster.py``, cluster mode only).
+
+Kernel A (``raster_cluster_call``) runs a binned (ray tile, cluster
+window) pair schedule from ``ops/raster.py``: each tile tests its pairs in
+schedule order (near to far), gating every window part on its sub box
+block-wide, and keeps best t / slot / u / v per ray.  CUDA in
+``csrc/tile_raster.cu`` (design notes there); for CPU tensors the wrapper
+runs the plain PyTorch version below, which walks the same pairs in the
+same order with the same block-wide gates, so the two agree bit for bit.
+
+Not ported yet: the instanced (TLAS) variant.  Dropped TPU-only features:
+the packed pair encoding and its SMEM capacity cap, the slot carried as
+f32, and the bf16 measurement arm.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from optix_ray_tracer_tpu_torch.ops.kernels import _lib
+from optix_ray_tracer_tpu_torch.ops.kernels.block_march import (
+    inv_dir, slab_entry, woop_dots, woop_hit,
+)
+from optix_ray_tracer_tpu_torch.ops.sweep import CHUNK
+from optix_ray_tracer_tpu_torch.utils.vecmath import INF
+
+GROUP_TRIS = 8    # binning granularity of the schedule's rects
+
+
+def _tile_schedule(pair_tiles, pair_clusters, n_blocks: int):
+    """(pair ids, per-tile offsets (n_blocks + 1,)) as the kernel takes
+    them: tile b owns pairs [tile_start[b], tile_start[b + 1])."""
+    keys = torch.arange(n_blocks + 1, device=pair_tiles.device,
+                        dtype=pair_tiles.dtype)
+    tile_start = torch.searchsorted(pair_tiles.contiguous(), keys)
+    return (pair_clusters.to(torch.int32).contiguous(),
+            tile_start.to(torch.int32))
+
+
+def raster_cluster_plain(pair_tiles, pair_clusters, rays_t_ext, sub_boxes,
+                         woop_t, n_blocks: int, w: int = 1024,
+                         any_hit: bool = False, n_subs: int = 4,
+                         common: str | None = None, granularity: int = 1):
+    """Plain version of kernel A (the arguments and results of
+    :func:`raster_cluster_call`): the same pairs in the same order with the
+    same block-wide gates, vectorised over tiles."""
+    pair_ids, tile_start = _tile_schedule(pair_tiles, pair_clusters,
+                                          n_blocks)
+    common_origin = common == "origin"
+    rays = rays_t_ext
+    dev = rays.device
+    nw = n_blocks * w
+    o = rays[0:3, :nw].T.reshape(n_blocks, w, 3)
+    d = rays[3:6, :nw].T.reshape(n_blocks, w, 3)
+    inv = inv_dir(d)
+    tmin = rays[6, :nw].reshape(n_blocks, w)
+    bt = rays[7, :nw].reshape(n_blocks, w).clone()
+    slot = torch.full((n_blocks, w), -1, dtype=torch.int32, device=dev)
+    u = torch.zeros((n_blocks, w), device=dev)
+    v = torch.zeros((n_blocks, w), device=dev)
+    ct = CHUNK // granularity
+    step = ct // n_subs
+    start = tile_start[:-1].long()
+    cnt = tile_start[1:].long() - start
+    cols = torch.arange(ct, device=dev)
+    for k in range(int(cnt.max()) if n_blocks else 0):
+        tl = torch.nonzero(cnt > k)[:, 0]      # tiles with a k-th pair
+        pid = pair_ids[start[tl] + k].long()
+        sb = sub_boxes[pid]                               # (T, n_subs, 8)
+
+        def part_entry(part, tl=tl, sb=sb):
+            return slab_entry(sb[:, None, part, 0:3], sb[:, None, part, 3:6],
+                              o[tl], inv[tl], tmin[tl])
+
+        live = torch.zeros_like(bt[tl], dtype=torch.bool)
+        for part in range(n_subs):
+            live |= part_entry(part) < bt[tl]
+        keep = live.any(1)
+        tl, pid, sb = tl[keep], pid[keep], sb[keep]
+        if tl.numel() == 0:
+            continue
+        c = pid // granularity
+        col = (pid % granularity)[:, None] * ct + cols    # (T, ct)
+        ws = torch.gather(woop_t[c, :12, :], 2,
+                          col[:, None, :].expand(-1, 12, -1))  # (T, 12, ct)
+        for part in range(n_subs):
+            gate = (part_entry(part, tl, sb) < bt[tl]).any(1)
+            tp = tl[gate]
+            if tp.numel() == 0:
+                continue
+            wp = ws[gate][:, :, part * step:(part + 1) * step]
+            op_src = o[tp, :1] if common_origin else o[tp]
+            opx, opy, opz, _, _, _ = woop_dots(wp, op_src, d[tp])
+            _, _, _, dpx, dpy, dpz = woop_dots(wp, o[tp], d[tp])
+            t, uu, vv, dz_ok = woop_hit(*torch.broadcast_tensors(
+                opx, opy, opz, dpx, dpy, dpz))
+            b_cur = bt[tp][..., None]
+            ok = (dz_ok & (uu >= 0.0) & (vv >= 0.0)
+                  & (1.0 - (uu + vv) >= 0.0) & (t > tmin[tp][..., None])
+                  & (t < b_cur))
+            base = (pid[gate] * ct + part * step)[:, None]
+            if any_hit:
+                hit = ok.any(-1)
+                first = torch.argmax(ok.to(torch.int8), dim=-1)
+                s_new = (base + first).to(torch.int32)
+                slot[tp] = torch.where(hit, s_new, slot[tp])
+                bt[tp] = torch.where(hit, torch.full_like(bt[tp], -INF),
+                                     bt[tp])
+                continue
+            t = torch.where(ok, t, torch.full_like(t, INF))
+            li = torch.argmin(t, dim=-1)
+            tb = torch.gather(t, 2, li[..., None])[..., 0]
+            closer = tb < b_cur[..., 0]
+            slot[tp] = torch.where(closer, (base + li).to(torch.int32),
+                                   slot[tp])
+            bt[tp] = torch.where(closer, tb, bt[tp])
+            u[tp] = torch.where(closer, torch.gather(uu, 2, li[..., None])
+                                [..., 0], u[tp])
+            v[tp] = torch.where(closer, torch.gather(vv, 2, li[..., None])
+                                [..., 0], v[tp])
+    return bt, slot, u, v
+
+
+def raster_cluster_call(pair_tiles, pair_clusters, rays_t_ext, sub_boxes,
+                        woop_t, n_blocks: int, w: int = 1024,
+                        any_hit: bool = False, n_subs: int = 4,
+                        common: str | None = None, granularity: int = 1):
+    """Kernel A over a pair schedule.
+
+    pair_tiles / pair_clusters: (NP,) int32, real pairs first, grouped by
+        tile ascending (near to far within a tile), padding pairs with tile
+        == n_blocks; a pair id is ``cluster * granularity + sub``;
+    rays_t_ext: (8, (n_blocks + 1) * w) rays [o, d, t_min, t_max] in tile
+        order (one trailing dead block, the JAX layout);
+    sub_boxes: (C * granularity, n_subs, 8) per-pair sub-box rows;
+    woop_t: (C, 16, CHUNK), the marcher's array: window ``sub`` of a
+        cluster is its columns [sub * CHUNK/g, (sub + 1) * CHUNK/g).
+    ``common="origin"``: every ray of a tile starts at the tile's first
+        ray's origin, whose Woop o-projections are computed once.
+
+    Returns (t, slot, u, v), each (n_blocks, w): best t (t_max where
+    nothing hit; -INF for any-hit hits), slot into the sorted triangles
+    (-1 miss), barycentrics of the winner."""
+    if common not in (None, "origin"):
+        raise ValueError(f"common={common!r}: only None and 'origin'")
+    dev = rays_t_ext.device
+    if CHUNK % granularity or (CHUNK // granularity) % n_subs:
+        raise ValueError(f"granularity {granularity} / n_subs {n_subs} "
+                         f"must divide CHUNK={CHUNK}")
+    if not rays_t_ext.is_cuda:
+        return raster_cluster_plain(pair_tiles, pair_clusters, rays_t_ext,
+                                    sub_boxes, woop_t, n_blocks, w, any_hit,
+                                    n_subs, common, granularity)
+    pair_ids, tile_start = _tile_schedule(pair_tiles, pair_clusters,
+                                          n_blocks)
+    if w % 32 or not 32 <= w <= 1024:
+        raise ValueError(f"w={w}: need a multiple of 32 in [32, 1024]")
+    stride = rays_t_ext.shape[1]
+    if stride < n_blocks * w:
+        raise ValueError("rays_t_ext holds fewer than n_blocks * w rays")
+    _lib.check(rays_t_ext, "rays_t_ext", torch.float32, dev, (8, stride))
+    _lib.check(sub_boxes, "sub_boxes", torch.float32, dev, (-1, n_subs, 8))
+    _lib.check(woop_t, "woop_t", torch.float32, dev, (-1, 16, CHUNK))
+    _lib.check(pair_ids, "pair_clusters", torch.int32, dev)
+    if sub_boxes.shape[0] != woop_t.shape[0] * granularity:
+        raise ValueError("sub_boxes must hold one row block per window")
+    out_t = torch.empty((n_blocks, w), dtype=torch.float32, device=dev)
+    out_slot = torch.empty((n_blocks, w), dtype=torch.int32, device=dev)
+    out_u = torch.empty_like(out_t)
+    out_v = torch.empty_like(out_t)
+    if n_blocks:
+        _lib.TILE_RASTER(
+            dev, pair_ids.data_ptr(), tile_start.data_ptr(),
+            rays_t_ext.data_ptr(), stride, sub_boxes.data_ptr(), n_subs,
+            woop_t.data_ptr(), granularity, n_blocks, w, int(any_hit),
+            int(common == "origin"), out_t.data_ptr(), out_slot.data_ptr(),
+            out_u.data_ptr(), out_v.data_ptr())
+    return out_t, out_slot, out_u, out_v

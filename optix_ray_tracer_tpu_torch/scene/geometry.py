@@ -1,0 +1,117 @@
+"""Scene geometry as SoA tensors (port of
+``optix_ray_tracer_tpu/scene/geometry.py``, flat scenes only).
+
+Triangle vertices and normals are packed (T, 3, 3) float32.  Constructors
+build CPU tensors from host data; ``.to(device)`` moves a whole scene.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from optix_ray_tracer_tpu_torch.utils.tensors import TensorDataclass
+
+
+@dataclasses.dataclass(frozen=True)
+class Spheres(TensorDataclass):
+    """centers (S, 3), radii (S,), material_id (S,) int32."""
+    centers: torch.Tensor
+    radii: torch.Tensor
+    material_id: torch.Tensor
+
+    @property
+    def count(self) -> int:
+        return self.centers.shape[0]
+
+    @staticmethod
+    def empty() -> "Spheres":
+        return Spheres(torch.zeros((0, 3)), torch.zeros((0,)),
+                       torch.zeros((0,), dtype=torch.int32))
+
+    @staticmethod
+    def from_list(spheres: list[tuple]) -> "Spheres":
+        """spheres: [(center, radius, material_id), ...]."""
+        if not spheres:
+            return Spheres.empty()
+        return Spheres(
+            torch.as_tensor(np.asarray([s[0] for s in spheres], np.float32)),
+            torch.as_tensor(np.asarray([s[1] for s in spheres], np.float32)),
+            torch.as_tensor(np.asarray([s[2] for s in spheres], np.int32)))
+
+
+@dataclasses.dataclass(frozen=True)
+class Triangles(TensorDataclass):
+    """vertices (T, 3, 3), normals (T, 3, 3) per-vertex shading normals,
+    material_id (T,) int32, uvs (T, 3, 2) or None."""
+    vertices: torch.Tensor
+    normals: torch.Tensor
+    material_id: torch.Tensor
+    uvs: torch.Tensor | None = None
+
+    @property
+    def count(self) -> int:
+        return self.vertices.shape[0]
+
+    @staticmethod
+    def empty() -> "Triangles":
+        z = torch.zeros((0, 3, 3))
+        return Triangles(z, z, torch.zeros((0,), dtype=torch.int32))
+
+    @staticmethod
+    def from_arrays(vertices, normals=None, material_id=0,
+                    uvs=None) -> "Triangles":
+        vertices = torch.as_tensor(vertices, dtype=torch.float32
+                                   ).reshape(-1, 3, 3)
+        if normals is None:
+            normals = face_normals_as_vertex_normals(vertices)
+        else:
+            normals = torch.as_tensor(normals, dtype=torch.float32,
+                                      device=vertices.device
+                                      ).reshape(-1, 3, 3)
+        mid = torch.as_tensor(material_id, dtype=torch.int32,
+                              device=vertices.device
+                              ).expand(vertices.shape[0]).contiguous()
+        if uvs is not None:
+            uvs = torch.as_tensor(uvs, dtype=torch.float32,
+                                  device=vertices.device).reshape(-1, 3, 2)
+        return Triangles(vertices, normals, mid, uvs)
+
+    def concat(self, other: "Triangles") -> "Triangles":
+        if self.uvs is None and other.uvs is None:
+            uvs = None
+        else:
+            def _uv(t):
+                return (t.uvs if t.uvs is not None else torch.zeros(
+                    (t.count, 3, 2), device=t.vertices.device))
+            uvs = torch.cat([_uv(self), _uv(other)], 0)
+        return Triangles(
+            torch.cat([self.vertices, other.vertices], 0),
+            torch.cat([self.normals, other.normals], 0),
+            torch.cat([self.material_id, other.material_id], 0), uvs)
+
+
+def face_normals_as_vertex_normals(vertices):
+    """Per-face geometric normals replicated to the 3 vertices."""
+    e1 = vertices[:, 1] - vertices[:, 0]
+    e2 = vertices[:, 2] - vertices[:, 0]
+    n = torch.linalg.cross(e1, e2, dim=-1)
+    n = n / torch.clamp(torch.linalg.norm(n, dim=-1, keepdim=True), min=1e-30)
+    return n[:, None, :].expand(vertices.shape).contiguous()
+
+
+@dataclasses.dataclass(frozen=True)
+class Scene(TensorDataclass):
+    """A renderable world: spheres + triangles."""
+    spheres: Spheres
+    triangles: Triangles
+
+    @property
+    def sphere_count(self) -> int:
+        return self.spheres.count
+
+    @property
+    def triangle_count(self) -> int:
+        return self.triangles.count

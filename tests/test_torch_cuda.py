@@ -1,0 +1,182 @@
+"""Kernels A, B and C on the card against their plain PyTorch versions, on
+the same CUDA inputs at a small scene size.  Marked ``cuda``: they skip
+where no CUDA device is present; on a machine with one, run
+
+    python -m pytest tests/test_torch_cuda.py -m cuda --noconftest
+
+(``--noconftest``: tests/conftest.py configures jax, which a machine for
+the port need not have.)
+
+Tolerance: the hit rule (prim ids equal, or |dt| <= 1e-5 |t| + 1e-6)
+with no exceptions; u and v to 1e-6.  (The kernels and the plain versions
+round every operation alike, so the expected difference is zero.)"""
+
+import numpy as np
+import pytest
+import torch
+
+from optix_ray_tracer_tpu_torch.io.meshgen import sphere_with_n_triangles
+from optix_ray_tracer_tpu_torch.ops import raster
+from optix_ray_tracer_tpu_torch.ops.intersect import hit_mismatches
+from optix_ray_tracer_tpu_torch.ops.kernels import _lib
+from optix_ray_tracer_tpu_torch.ops.kernels import block_march as bm
+from optix_ray_tracer_tpu_torch.ops.kernels import tile_raster as tr
+from optix_ray_tracer_tpu_torch.ops.march import (
+    make_march_intersector, ray_probe_keys,
+)
+from optix_ray_tracer_tpu_torch.scene.camera import Camera
+from optix_ray_tracer_tpu_torch.scene.geometry import (
+    Scene, Spheres, Triangles,
+)
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture(scope="module")
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda", 0)
+
+
+@pytest.fixture(scope="module")
+def setup(dev):
+    v, n = sphere_with_n_triangles(20000)
+    scene = Scene(Spheres.empty(), Triangles.from_arrays(v, n)).to(dev)
+    inter = make_march_intersector(scene, raster=True)
+    cam = Camera.look_at((3.0, 0.0, 0.0), (0.0, 0.0, 0.0),
+                         (0.0, 0.0, 1.0)).to(dev)
+    o, d = cam.generate_rays(128, 128)
+    # 32x32 tiles, as the camera wave feeds the raster engine
+    o = o.reshape(4, 32, 4, 32, 3).transpose(1, 2).reshape(-1, 3)
+    d = d.reshape(4, 32, 4, 32, 3).transpose(1, 2).reshape(-1, 3)
+    r = np.random.default_rng(3)
+    oi = torch.as_tensor(r.uniform(-0.9, 0.9, (8192, 3)).astype(np.float32),
+                         device=dev)
+    di = torch.as_tensor(r.normal(size=(8192, 3)).astype(np.float32),
+                         device=dev)
+    di = di / torch.linalg.norm(di, dim=-1, keepdim=True)
+    return scene, inter, o, d, oi, di
+
+
+def _prims(clusters, slot):
+    return torch.where(slot < 0, -1,
+                       clusters.prim_index[slot.clamp(min=0).long()])
+
+
+def _check(clusters, kern, plain):
+    (tk, sk), (tp, sp) = kern[:2], plain[:2]
+    torch.cuda.synchronize()
+    assert hit_mismatches(_prims(clusters, sk), tk, _prims(clusters, sp),
+                          tp) == 0
+    return int((sk != sp).sum())
+
+
+@pytest.mark.parametrize("coherent", [True, False])
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_block_march_kernel(setup, dev, coherent, any_hit):
+    scene, inter, _, _, oi, di = setup
+    cs = inter.clusters
+    n = oi.shape[0]
+    tmin = torch.full((n,), 1e-3, device=dev)
+    tmax = torch.full((n,), 0.5 if any_hit else 1e16, device=dev)
+    perm = torch.argsort(ray_probe_keys(cs, oi, di, tmin, tmax), stable=True)
+    inp = bm.march_inputs(cs, oi[perm], di[perm], tmin, tmax, coherent)
+    before = _lib.BLOCK_MARCH.launches
+    kern = bm.march_call(**inp, any_hit=any_hit)
+    assert _lib.BLOCK_MARCH.launches == before + 1
+    assert kern[2].shape == (inp["rays"].shape[1] // inp["w"],)
+    plain = bm.march_plain(**{k: v for k, v in inp.items() if k != "w"},
+                           any_hit=any_hit)
+    if any_hit:
+        assert torch.equal(kern[1] >= 0, plain[1] >= 0)
+    else:
+        _check(cs, kern, plain)
+
+
+def test_probe_kernel(setup, dev):
+    _, inter, _, _, oi, di = setup
+    n = oi.shape[0]
+    tmax = torch.full((n,), 1e16, device=dev)
+    tmax[::9] = 0.0
+    inp = bm.probe_inputs(inter.clusters, oi, di,
+                          torch.full((n,), 1e-3, device=dev), tmax)
+    assert torch.equal(bm.probe_call(**inp), bm.probe_plain(**inp))
+
+
+@pytest.mark.parametrize("mode,any_hit,g", [("origin", False, 4),
+                                            ("origin", True, 2),
+                                            ("target", False, 4)])
+def test_tile_raster_kernel(setup, dev, mode, any_hit, g):
+    scene, inter, o, d, _, _ = setup
+    n = o.shape[0]
+    tmin = torch.full((n,), 1e-3, device=dev)
+    tmax = torch.full((n,), 1e16, device=dev)
+    point = o[0]
+    if mode == "target":
+        h = inter.intersect(scene, o, d)
+        light = torch.tensor([3.0, 3.0, 3.0], device=dev)
+        p = torch.where(h.is_hit[:, None], o + h.t[:, None] * d, o)
+        wl = light - p
+        tmax = torch.linalg.norm(wl, dim=-1) - 1e-3
+        wl = wl / torch.linalg.norm(wl, dim=-1, keepdim=True)
+        o, d, point = p + wl * 1e-3, wl, light
+    S = raster._coarse_stage(inter.raster, inter.clusters, o, d, tmin, tmax,
+                             mode, point, 1024, 1 << 16, g)
+    assert int(S["pc_total"]) <= 1 << 16
+    inp = raster.schedule_inputs(inter.clusters, S, S["nb"], g)
+    common = "origin" if mode == "origin" else None
+    kern = tr.raster_cluster_call(**inp, w=1024, any_hit=any_hit,
+                                  common=common)
+    plain = tr.raster_cluster_plain(**inp, w=1024, any_hit=any_hit,
+                                    common=common)
+    if any_hit:
+        assert torch.equal(kern[1] >= 0, plain[1] >= 0)
+        return
+    _check(inter.clusters, [x.reshape(-1) for x in kern],
+           [x.reshape(-1) for x in plain])
+    torch.testing.assert_close(kern[2], plain[2], rtol=0, atol=1e-6)
+    torch.testing.assert_close(kern[3], plain[3], rtol=0, atol=1e-6)
+
+
+def test_overflow_fallback_on_card(setup, dev):
+    """A tiny pair capacity sends the camera wave to kernel B (coherent);
+    the hits equal the raster route's under the hit rule."""
+    scene, inter, o, d, _, _ = setup
+    before = (_lib.TILE_RASTER.launches, _lib.BLOCK_MARCH.launches)
+    h_f = inter.intersect_from(scene, o, d, mode="origin", point=o[0],
+                               pc_max=64)
+    assert _lib.TILE_RASTER.launches == before[0]
+    assert _lib.BLOCK_MARCH.launches == before[1] + 1
+    h_r = inter.intersect_from(scene, o, d, mode="origin", point=o[0])
+    assert _lib.TILE_RASTER.launches == before[0] + 1
+    assert hit_mismatches(h_f.prim_id, h_f.t, h_r.prim_id, h_r.t) == 0
+
+
+def test_render_matches_cpu(dev):
+    """The Whitted path on the card against the same call on CPU tensors
+    (the plain versions): same image to fp noise."""
+    from optix_ray_tracer_tpu_torch.io.meshgen import quad
+    from optix_ray_tracer_tpu_torch.render import wavefront
+    from optix_ray_tracer_tpu_torch.scene.materials import MaterialBuilder
+
+    mb = MaterialBuilder()
+    metal = mb.add_metal((0.8, 0.85, 0.88), 0.05)
+    ground = mb.add_rough((0.7, 0.6, 0.5))
+    v, n = sphere_with_n_triangles(2500)
+    qv, qn = quad((-4, -4, -1), (4, -4, -1), (4, 4, -1), (-4, 4, -1))
+    tris = Triangles.from_arrays(v, n, metal).concat(
+        Triangles.from_arrays(qv, qn, ground))
+    imgs = []
+    for device in (dev, torch.device("cpu")):
+        scene = Scene(Spheres.from_list([((0.2, 1.5, -0.6), 0.4, ground)]),
+                      tris).to(device)
+        inter = make_march_intersector(scene, raster=True)
+        cam = Camera.look_at((3.0, 0.0, 0.5), (0.0, 0.0, 0.0),
+                             (0.0, 0.0, 1.0)).to(device)
+        imgs.append(wavefront.render(scene, mb.build().to(device), cam, 64,
+                                     64, spp=4, seed=7,
+                                     intersector=inter)[0].cpu())
+    diff = (imgs[0] - imgs[1]).abs()
+    assert float(diff.mean()) <= 1e-5
+    assert float((diff.amax(-1) <= 1e-4).float().mean()) >= 0.999
