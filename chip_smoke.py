@@ -23,11 +23,30 @@ CPU or to the plain versions):
    1M-ray metric;
 4. a 1024x1024, spp=4, depth-5 Whitted frame through wavefront.render with
    a raster-enabled MarchIntersector; the launch counts of A, B and C are
-   zeroed just before and read just after it, and each must be > 0.
+   zeroed just before and read just after it, and each must be > 0;
+5. the Time scene (models/renderer_time.py): a 4,096-particle DEM pile of
+   three sphere shapes as instances over a static ground quad, its TLAS
+   library and pairs (<= 8192) and its flatten route (>= 3072 clusters, so
+   coherent waves take kernel F);
+6. kernels D (instanced tile raster: the 1024x1024 camera wave and a
+   flipped point-light shadow wave, calibrated capacities, no overflow),
+   E (instanced block march: 1M incoherent rays inside the pile, nearest
+   and any-hit) and F (hierarchical block march: the flatten route's
+   Morton-sorted camera wave through block_march's routing, nearest and
+   any-hit, timed beside kernel B) against their plain versions on subsets
+   of 16,384 rays (8,192 for E), with the hit rule and no exceptions;
+7. the slice's main path: the camera wave's primary hits through both
+   routes (counts zeroed, then D and F > 0; the hit rule on all but 1e-4
+   of the rays), then frames 0 and 1 (poses refit between them) through
+   the TLAS route and frame 0 through the flatten route at 1024x1024, spp
+   4, depth 5 (counts zeroed before the TLAS frames, then D and E > 0);
+   the TLAS and flatten images agree, both are finite, sky pixels are the
+   background.
 
 The last two lines of standard output are the kernels' JSON object and
 the device JSON object.  ``tools/prof_port.py`` profiles the same cells
-through :func:`bench_setup`, :func:`bench_step` and :func:`whitted_setup`.
+through :func:`bench_setup`, :func:`bench_step`, :func:`whitted_setup`,
+:func:`time_setup` and :func:`time_frame`.
 """
 
 from __future__ import annotations
@@ -51,6 +70,18 @@ SUBSET = 65_536
 LIGHT = (3.0, 3.0, 3.0)
 SKY = (218, 232, 244)     # sRGB of the default background (0.7, 0.8, 0.9)
 OUT_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke"
+# the Time scene (phases 5-7)
+N_PARTICLES = 4096
+TIME_LIBRARY = (80, 200, 450)      # sphere shapes of 60, 168, 396 triangles
+TIME_EYE = (45.0, 3.0, 5.0)
+TIME_FOCAL = 2.25                  # view axis length: a 48-degree view
+TIME_LIGHT = (30.0, 20.0, 40.0)
+TIME_DURATION = 1.0
+TIME_FRAMES = 2
+SUBSET_TIME = 16_384
+SUBSET_E = 8_192          # the plain E visits every pair: the slowest twin
+#: the kernels by letter, filled in by main()
+K: dict = {}
 
 
 def card_line() -> str:
@@ -83,12 +114,18 @@ def tile_order(x, h: int, w: int):
             .reshape(-1, 3))
 
 
-def compare(name: str, clusters, kern, plain, any_hit: bool) -> float:
-    """Hold a kernel's (t, slot) against its plain version's: hit/miss for
-    occlusion waves, the hit rule otherwise.  Returns max |dt| over rays
-    both hit (0 for occlusion waves, whose t is the -INF hit marker)."""
+def prim_keys(clusters):
+    """slot -> triangle id (-1 for a miss) of a flat ClusterSet."""
     import torch
+    return lambda s: torch.where(
+        s < 0, -1, clusters.prim_index[s.clamp(min=0).long()])
 
+
+def compare(name: str, keys, kern, plain, any_hit: bool) -> float:
+    """Hold a kernel's (t, slot) against its plain version's: hit/miss for
+    occlusion waves, the hit rule on the hit identities ``keys(slot)``
+    otherwise.  Returns max |dt| over rays both hit (0 for occlusion
+    waves, whose t is the -INF hit marker)."""
     from optix_ray_tracer_tpu_torch.ops.intersect import hit_mismatches
     tk, sk = kern[0].reshape(-1), kern[1].reshape(-1)
     tp, sp = plain[0].reshape(-1), plain[1].reshape(-1)
@@ -96,15 +133,12 @@ def compare(name: str, clusters, kern, plain, any_hit: bool) -> float:
         bad = int(((sk >= 0) != (sp >= 0)).sum())
         err = 0.0
     else:
-        def prims(s):
-            return torch.where(s < 0, -1,
-                               clusters.prim_index[s.clamp(min=0).long()])
-        bad = hit_mismatches(prims(sk), tk, prims(sp), tp)
+        bad = hit_mismatches(keys(sk), tk, keys(sp), tp)
         both = (sk >= 0) & (sp >= 0)
         err = float((tk - tp).abs()[both].max()) if bool(both.any()) else 0.0
-    same = int((sk == sp).sum())
-    print(f"  {name}: {bad} mismatches of {sk.numel()} rays "
-          f"(slots identical on {same}), max |dt| {err:.3g}")
+    print(f"  {name}: {bad} mismatches of {sk.numel()} rays (slots "
+          f"identical on {int((sk == sp).sum())}, {int((sk >= 0).sum())} "
+          f"hits), max |dt| {err:.3g}")
     if bad:
         raise AssertionError(f"{name}: kernel disagrees with its plain "
                              f"version on {bad} rays")
@@ -237,7 +271,7 @@ def check_kernels(b: SimpleNamespace) -> dict:
         args = dict(sub, w=W, any_hit=any_hit, common="origin")
         kern = tr.raster_cluster_call(**args)
         plain = tr.raster_cluster_plain(**args)
-        err = compare(f"A {label}", cs, kern, plain, any_hit)
+        err = compare(f"A {label}", prim_keys(cs), kern, plain, any_hit)
         if not any_hit:
             du = float((kern[2] - plain[2]).abs().max())
             dv = float((kern[3] - plain[3]).abs().max())
@@ -275,7 +309,7 @@ def check_kernels(b: SimpleNamespace) -> dict:
         full_ms = time_ms(lambda: bm.march_call(**inp), REPS)
         sub = dict(inp, rays=inp["rays"][:, :SUBSET].contiguous())
         plain_args = {k: v for k, v in sub.items() if k != "w"}
-        err = compare(f"B {label}", cs, bm.march_call(**sub),
+        err = compare(f"B {label}", prim_keys(cs), bm.march_call(**sub),
                       bm.march_plain(**plain_args, any_hit=False), False)
         ms = time_ms(lambda: bm.march_call(**sub), REPS)
         p_ms = time_ms(lambda: bm.march_plain(**plain_args,
@@ -423,7 +457,7 @@ def whitted(device, card: str) -> dict:
                                      intersector=inter)
     torch.cuda.synchronize()
     s_frame = time.perf_counter() - t0
-    launches = {k.name: k.launches for k in _lib.KERNELS}
+    launches = {k.name: k.launches for k in (K["A"], K["B"], K["C"])}
     print(f"[whitted] {WIDTH}x{HEIGHT} spp={SPP} depth {DEPTH}: "
           f"{s_frame:.3f} s/frame (first frame) [{card}]; launches "
           f"{launches}")
@@ -452,6 +486,411 @@ def whitted(device, card: str) -> dict:
     return launches
 
 
+def time_once(fn):
+    """(result, ms) of one call by CUDA events (the plain versions, too
+    slow to repeat)."""
+    import torch
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    out = fn()
+    b.record()
+    b.synchronize()
+    return out, a.elapsed_time(b)
+
+
+def time_setup(device) -> SimpleNamespace:
+    """Phase 5: the Time scene.  A DEM pile of P unit-sphere particles
+    (shape ids and quaternions as tools/tlas_bench.py draws them, positions
+    uniform in [-15, 15]^3), a second quaternion set and velocities that
+    move them between frames 0 and 1, ROUGH / METAL by particle, over a
+    static 80x80 ROUGH ground quad at z = -16; the TLAS library, and the
+    flatten route's frame-0 scene and cluster build."""
+    import torch
+
+    from optix_ray_tracer_tpu_torch.io.meshgen import (
+        quad, sphere_with_n_triangles,
+    )
+    from optix_ray_tracer_tpu_torch.models import renderer_time as rt
+    from optix_ray_tracer_tpu_torch.ops import raster
+    from optix_ray_tracer_tpu_torch.ops import raster_instanced as ri
+    from optix_ray_tracer_tpu_torch.ops.instanced import (
+        build_instanced_library,
+    )
+    from optix_ray_tracer_tpu_torch.ops.march import make_march_intersector
+    from optix_ray_tracer_tpu_torch.scene.camera import Camera
+    from optix_ray_tracer_tpu_torch.scene.geometry import (
+        Scene, ShapeLibrary, Spheres, Triangles,
+    )
+    from optix_ray_tracer_tpu_torch.scene.materials import MaterialBuilder
+
+    shapes = ShapeLibrary.from_meshes(
+        [sphere_with_n_triangles(s) for s in TIME_LIBRARY]).to(device)
+    library = build_instanced_library(shapes.vertices.cpu().numpy(),
+                                      shapes.offsets, shapes.counts
+                                      ).to(device)
+    gen = np.random.default_rng(7)
+    sid = gen.integers(0, len(TIME_LIBRARY), N_PARTICLES)
+    q = gen.normal(size=(N_PARTICLES, 4))
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    pos = gen.uniform(-15.0, 15.0, (N_PARTICLES, 3))
+    q_next = gen.normal(size=(N_PARTICLES, 4))
+    q_next /= np.linalg.norm(q_next, axis=1, keepdims=True)
+    vel = gen.normal(size=(N_PARTICLES, 3)) * 0.5
+    mb = MaterialBuilder()
+    rough = mb.add_rough((0.65, 0.30, 0.20))
+    metal = mb.add_metal((0.80, 0.85, 0.88), 0.05)
+    ground = mb.add_rough((0.70, 0.60, 0.50))
+    pmat = np.where(np.arange(N_PARTICLES) % 2 == 0, rough, metal)
+    valid = np.ones(N_PARTICLES, bool)
+    tri_lib, tri_inst, tri_ok = rt.packing_tables(shapes, sid[None],
+                                                  valid[None])
+
+    def dev(x, dtype=torch.float32):
+        return torch.as_tensor(np.asarray(x), dtype=dtype, device=device)
+
+    poses = dict(positions=dev(pos), quats=dev(q), quats_next=dev(q_next),
+                 velocities=dev(vel))
+    qv, qn = quad((-40, -40, -16), (40, -40, -16), (40, 40, -16),
+                  (-40, 40, -16))
+    static = Scene(Spheres.empty(),
+                   Triangles.from_arrays(qv, qn, ground)).to(device)
+    # look_at's view spans +-1 at its target: a target TIME_FOCAL units
+    # along the axis toward the origin frames the pile and some sky
+    eye = np.asarray(TIME_EYE, np.float32)
+    axis = -eye / np.linalg.norm(eye)
+    cam = Camera.look_at(tuple(eye), tuple(eye + TIME_FOCAL * axis),
+                         (0.0, 0.0, 1.0)).to(device)
+    t = SimpleNamespace(
+        shapes=shapes, library=library, sid=sid, valid=valid,
+        tri=(dev(tri_lib[0], torch.int32), dev(tri_inst[0], torch.int32),
+             dev(tri_ok[0], torch.bool)),
+        pmat=dev(pmat, torch.int32), poses=poses, static=static,
+        mats=mb.build().to(device), cam=cam, device=device)
+
+    v, n, mat = rt._frame_triangles(
+        shapes.vertices, shapes.normals, *t.tri, poses["positions"],
+        poses["quats"], poses["quats_next"], poses["velocities"], t.pmat,
+        TIME_DURATION, 0.0, 1.0 / (TIME_FRAMES - 1), 1.0 / TIME_FRAMES,
+        (0.0, 0.0, 0.0), 1.0, False)
+    t.flat = Scene(Spheres.empty(),
+                   Triangles(v, n, mat).concat(static.triangles))
+    t0 = time.perf_counter()
+    t.finter = make_march_intersector(t.flat, raster=True)
+    C = t.finter.clusters.num_clusters
+    tlas0 = time_frame(t, 0)
+    n_pairs = tlas0.tlas.pair_min.shape[0]
+    print(f"[time] {N_PARTICLES} particles, library "
+          f"{shapes.counts.tolist()} triangles in "
+          f"{library.woop_t.shape[0]} clusters; {n_pairs} TLAS pairs; "
+          f"flatten route: {t.flat.triangle_count} triangles, {C} clusters "
+          f"(host SAH build {time.perf_counter() - t0:.2f} s)")
+    from optix_ray_tracer_tpu_torch.ops.kernels import block_march as bm
+    if n_pairs > bm.MAX_CLUSTERS:
+        raise AssertionError(f"{n_pairs} pairs exceed {bm.MAX_CLUSTERS}")
+    if C < bm.HIER_MIN_CLUSTERS:
+        raise AssertionError(f"{C} clusters: coherent waves would not take "
+                             f"kernel F (>= {bm.HIER_MIN_CLUSTERS})")
+    o, d = t.cam.generate_rays(WIDTH, HEIGHT)
+    t.o, t.d = tile_order(o, HEIGHT, WIDTH), tile_order(d, HEIGHT, WIDTH)
+    R = t.o.shape[0]
+    t.tmin = torch.full((R,), 1e-3, device=device)
+    t.tmax = torch.full((R,), 1e16, device=device)
+    # the camera wave's pair count; the frames' waves merge SPP samples,
+    # SPP times the tiles, so their capacity is SPP times as large
+    t.pc1 = ri.measure_instanced_pair_count(tlas0.tlas, t.o, t.d, t.tmin,
+                                            t.tmax, "origin", t.o[0])
+    t.pc_max1 = raster.round_pc_max(SPP * t.pc1)
+    print(f"[calibrate] TLAS camera wave: {t.pc1} pairs -> the frames' "
+          f"pc_max {t.pc_max1} ({SPP} samples per wave)")
+    return t
+
+
+def time_frame(t: SimpleNamespace, k: int, pc_max: int | None = None):
+    """Frame k's TLASSceneIntersector (the refit for its poses)."""
+    from optix_ray_tracer_tpu_torch.models import renderer_time as rt
+    return rt.tlas_frame_intersector(
+        t.library, t.shapes, t.sid, t.valid, t.tri[0], t.tri[1], t.pmat,
+        **t.poses, duration=TIME_DURATION, frame_idx=float(k),
+        n_frames=TIME_FRAMES, pc_max=pc_max)
+
+
+def check_time_kernels(t: SimpleNamespace) -> dict:
+    """Phase 6: kernels D, E and F against their plain versions at the Time
+    scene's full-size waves (compared on subsets), with both full-wave
+    times, and F beside B on the same coherent wave.  Returns {name:
+    (max_abs_err, ms, plain_ms)}."""
+    import torch
+
+    from optix_ray_tracer_tpu_torch.ops import raster
+    from optix_ray_tracer_tpu_torch.ops import raster_instanced as ri
+    from optix_ray_tracer_tpu_torch.ops.kernels import block_march as bm
+    from optix_ray_tracer_tpu_torch.ops.kernels import tile_raster as tr
+    from optix_ray_tracer_tpu_torch.ops.raysort import ray_sort_keys
+
+    dev = t.device
+    R = t.o.shape[0]
+    tlas = time_frame(t, 0)
+    inter = tlas.tlas
+    W = TILE * TILE
+    rows = {}
+    print(f"[time kernels vs plain] hit rule, no exceptions [{SUBSET_TIME} "
+          f"rays or {SUBSET_TIME // W} tiles where the plain version is "
+          f"slow]")
+
+    def keys(slot):
+        """(instance << 16) + library triangle of TLAS slots."""
+        pos = slot.clamp(min=0).long()
+        pair = pos // 256
+        lib_slot = inter.pair_shape.long()[pair] * 256 + pos % 256
+        key = (inter.pair_inst.long()[pair] << 16) \
+            + inter.library.prim_index.long()[lib_slot]
+        return torch.where(slot < 0, -1, key)
+
+    # D: the frame's camera wave (nearest) and a point-light shadow wave
+    # (any-hit, flipped to the light), each at its calibrated capacity
+    light = torch.tensor(TIME_LIGHT, device=dev)
+    pc1 = t.pc1
+    h0, _ = inter.intersect_from(t.o, t.d, point=t.o[0],
+                                 pc_max=raster.round_pc_max(pc1))
+    p0 = torch.where(h0.is_hit[:, None], t.o + h0.t[:, None] * t.d, t.o)
+    dist0 = torch.linalg.norm(light - p0, dim=-1)
+    wl0 = (light - p0) / torch.clamp(dist0[:, None], min=1e-6)
+    d0 = ((light - (p0 + wl0 * 1e-3)) * wl0).sum(-1)
+    shadow = (light.expand(R, 3).contiguous(), -wl0, d0 - dist0, d0 - 1e-3)
+    pc2 = ri.measure_instanced_pair_count(inter, *shadow, "origin", light)
+    print(f"[calibrate] TLAS shadow wave: {pc2} pairs")
+    nbs = SUBSET_TIME // W
+    d_rows = []
+    for label, wave, point, pc, any_hit in (
+            ("camera wave", (t.o, t.d, t.tmin, t.tmax), t.o[0], pc1, False),
+            ("shadow wave", shadow, light, pc2, True)):
+        S = ri.instanced_coarse_stage(inter.pair_min, inter.pair_max, *wave,
+                                      "origin", point, W,
+                                      raster.round_pc_max(pc))
+        if int(S["pc_total"]) > raster.round_pc_max(pc):
+            raise AssertionError(f"D {label}: the schedule overflowed")
+        inp = ri.instanced_schedule_inputs(inter, S)
+        args = dict(w=W, any_hit=any_hit, common="origin")
+        full_ms = time_ms(lambda: tr.raster_instanced_call(**inp, **args),
+                          REPS)
+        k = int((inp["pair_tiles"] < nbs).sum())
+        sub = dict(inp, **{n: inp[n][:k].contiguous() for n in (
+            "pair_tiles", "pair_libs", "pair_ids", "pair_insts")},
+            rays_t_ext=inp["rays_t_ext"][:, :(nbs + 1) * W].contiguous(),
+            n_blocks=nbs)
+        kern = tr.raster_instanced_call(**sub, **args)
+        plain, p_ms = time_once(lambda: tr.raster_instanced_plain(**sub,
+                                                                  **args))
+        err = compare(f"D {label}", keys, kern, plain, any_hit)
+        if not any_hit:
+            duv = max(float((kern[i] - plain[i]).abs().max()) for i in (2, 3))
+            print(f"    max |du|, |dv| {duv:.3g}")
+            if duv > 1e-5:
+                raise AssertionError(f"D {label}: u/v differ by {duv}")
+        ms = time_ms(lambda: tr.raster_instanced_call(**sub, **args), REPS)
+        print(f"    {label}: kernel {ms:.3f} ms vs plain {p_ms:.1f} ms on "
+              f"{nbs * W} rays; full wave ({R} rays, {int(S['pc_total'])} "
+              f"pairs) {full_ms:.3f} ms")
+        d_rows.append((err, ms, p_ms))
+    rows["tile_raster_instanced"] = (max(r[0] for r in d_rows),) \
+        + d_rows[0][1:]
+
+    # E: 1M incoherent rays inside the particle cloud, Morton-sorted as the
+    # TLAS marcher sorts them
+    gen = np.random.default_rng(11)
+    oi = torch.as_tensor(gen.uniform(-15, 15, (R, 3)).astype(np.float32),
+                         device=dev)
+    di = gen.normal(size=(R, 3)).astype(np.float32)
+    di = torch.as_tensor(di / np.linalg.norm(di, axis=-1, keepdims=True),
+                         device=dev)
+    perm = torch.argsort(ray_sort_keys(oi, di, inter.scene_lo,
+                                       inter.scene_hi), stable=True)
+    e_rows = []
+    for any_hit in (False, True):
+        tmax = torch.full((R,), 2.0 if any_hit else 1e16, device=dev)
+        inp = bm.march_instanced_inputs(
+            inter.pair_min, inter.pair_max, inter.sub_min, inter.sub_max,
+            inter.pair_shape, inter.pair_inst, inter.inst_rows,
+            inter.library.woop_t, oi[perm], di[perm], t.tmin, tmax)
+        visits = bm.march_instanced_call(**inp, any_hit=any_hit)[2]
+        full_ms = time_ms(lambda: bm.march_instanced_call(
+            **inp, any_hit=any_hit), REPS)
+        sub = dict(inp, rays=inp["rays"][:, :SUBSET_E].contiguous())
+        kern = bm.march_instanced_call(**sub, any_hit=any_hit)
+        plain, p_ms = time_once(lambda: bm.march_instanced_plain(
+            **{k: v for k, v in sub.items() if k != "w"}, any_hit=any_hit))
+        label = "any-hit" if any_hit else "nearest"
+        err = compare(f"E incoherent {label}", keys, kern, plain, any_hit)
+        ms = time_ms(lambda: bm.march_instanced_call(**sub, any_hit=any_hit),
+                     REPS)
+        print(f"    {label}: kernel {ms:.3f} ms vs plain {p_ms:.1f} ms on "
+              f"{SUBSET_E} rays; full wave ({R} rays, {inp['n_pairs']} "
+              f"pairs) {full_ms:.3f} ms, mean "
+              f"{visits.float().mean().item():.2f} pair visits per block")
+        e_rows.append((err, ms, p_ms))
+    rows["block_march_instanced"] = (max(r[0] for r in e_rows),) \
+        + e_rows[0][1:]
+
+    # F: the flatten route's Morton-sorted camera wave, through
+    # block_march's routing, against the plain F and beside flat B
+    cs = t.finter.clusters
+    perm = torch.argsort(ray_sort_keys(t.o, t.d, t.finter.scene_lo,
+                                       t.finter.scene_hi), stable=True)
+    fo, fd = t.o[perm], t.d[perm]
+
+    prims = prim_keys(cs)
+    f_rows = []
+    for any_hit in (False, True):
+        tmax = torch.full((R,), 40.0 if any_hit else 1e16, device=dev)
+        before = (K["F"].launches, K["B"].launches)
+        routed = bm.block_march(cs, fo, fd, t.tmin, tmax, any_hit=any_hit)
+        torch.cuda.synchronize()
+        if (K["F"].launches - before[0], K["B"].launches - before[1]) \
+                != (1, 0):
+            raise AssertionError("block_march did not route the coherent "
+                                 "wave to kernel F")
+        inp = bm.hier_inputs(cs, fo, fd, t.tmin, tmax)
+        kern_full = bm.march_hier_call(**inp, any_hit=any_hit)
+        if not torch.equal(kern_full[1][:R], routed[1]):
+            raise AssertionError("F through block_march differs from F")
+        full_ms = time_ms(lambda: bm.march_hier_call(**inp, any_hit=any_hit),
+                          REPS)
+        b_inp = bm.march_inputs(cs, fo, fd, t.tmin, tmax, True)
+        b_ms = time_ms(lambda: bm.march_call(**b_inp, any_hit=any_hit),
+                       REPS)
+        flat = bm.march_call(**b_inp, any_hit=any_hit)
+        label = "any-hit" if any_hit else "nearest"
+        compare(f"F vs B camera {label} (full wave)", prims, kern_full, flat,
+                any_hit)
+        sub = dict(inp, rays=inp["rays"][:, :SUBSET_TIME].contiguous())
+        kern = bm.march_hier_call(**sub, any_hit=any_hit)
+        plain, p_ms = time_once(lambda: bm.march_hier_plain(
+            **{k: v for k, v in sub.items() if k != "w"}, any_hit=any_hit))
+        err = compare(f"F camera {label}", prims, kern, plain, any_hit)
+        ms = time_ms(lambda: bm.march_hier_call(**sub, any_hit=any_hit),
+                     REPS)
+        print(f"    {label}: kernel {ms:.3f} ms vs plain {p_ms:.1f} ms on "
+              f"{SUBSET_TIME} rays; full wave ({R} rays, "
+              f"{cs.num_clusters} clusters): F {full_ms:.3f} ms "
+              f"(W={inp['w']}, {kern_full[2].float().mean().item():.2f} "
+              f"cluster visits per block) vs B {b_ms:.3f} ms "
+              f"(W={b_inp['w']}, "
+              f"{flat[2].float().mean().item():.2f}) [{t.card}]")
+        f_rows.append((err, ms, p_ms))
+    rows["block_march_hier"] = (max(r[0] for r in f_rows),) + f_rows[0][1:]
+    return rows
+
+
+def time_frames(t: SimpleNamespace, card: str) -> dict:
+    """Phase 7, the slice's main path: the camera wave's primary hits on
+    both routes (counts zeroed before, read after: D and F), then frames 0
+    and 1 through the TLAS route and frame 0 through the flatten route at
+    1024x1024, spp 4, depth 5 (counts zeroed before the TLAS frames, read
+    after: D and E).  Returns the launch counts of D, E and F."""
+    import torch
+
+    from optix_ray_tracer_tpu_torch.ops.instanced import refit_instanced
+    from optix_ray_tracer_tpu_torch.ops.intersect import hit_mismatches
+    from optix_ray_tracer_tpu_torch.ops.kernels import _lib
+    from optix_ray_tracer_tpu_torch.render import wavefront
+    from optix_ray_tracer_tpu_torch.utils.color import (
+        color_to_uint8, write_png,
+    )
+
+    launches = {}
+    tlas0 = time_frame(t, 0, t.pc_max1)
+    for k in _lib.KERNELS:
+        k.launches = 0
+    h_t = tlas0.intersect_from(t.static, t.o, t.d, point=t.o[0])
+    h_f = t.finter.intersect(t.flat, t.o, t.d)
+    torch.cuda.synchronize()
+    launches["block_march_hier"] = K["F"].launches
+    bad = hit_mismatches(h_t.prim_id, h_t.t, h_f.prim_id, h_f.t)
+    R = t.o.shape[0]
+    print(f"[time frame] primary hits, TLAS (D) vs flatten (F): {bad} of "
+          f"{R} rays differ under the hit rule (silhouette grazes), "
+          f"{int(h_t.is_hit.sum())} hits; launches D "
+          f"{K['D'].launches}, F {K['F'].launches}")
+    if bad > 1e-4 * R:
+        raise AssertionError(f"TLAS and flatten primary hits differ on "
+                             f"{bad} rays")
+    if min(K["D"].launches, K["F"].launches) == 0:
+        raise AssertionError("the primary-hit phase missed kernel D or F")
+
+    def render(inter, scene, seed):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = wavefront.render(scene, t.mats, t.cam, WIDTH, HEIGHT, spp=SPP,
+                               seed=seed, max_depth=DEPTH, intersector=inter)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    for k in _lib.KERNELS:
+        k.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tlas0 = time_frame(t, 0, t.pc_max1)
+    torch.cuda.synchronize()
+    build0 = time.perf_counter() - t0
+    img0, s0 = render(tlas0, t.static, 1)
+    t0 = time.perf_counter()
+    tlas1 = time_frame(t, 1, t.pc_max1)
+    torch.cuda.synchronize()
+    build1 = time.perf_counter() - t0
+    img1, s1 = render(tlas1, t.static, 2)
+    torch.cuda.synchronize()
+    launches["tile_raster_instanced"] = K["D"].launches
+    launches["block_march_instanced"] = K["E"].launches
+    print(f"[time frame] TLAS route {WIDTH}x{HEIGHT} spp={SPP} depth "
+          f"{DEPTH}: frame 0 {s0:.3f} s, frame 1 {s1:.3f} s (frame "
+          f"builds {build0 * 1e3:.1f} / {build1 * 1e3:.1f} ms) [{card}]; "
+          f"launches {({k.name: k.launches for k in _lib.KERNELS})}")
+    if min(K["D"].launches, K["E"].launches) == 0:
+        raise AssertionError("the TLAS frames missed kernel D or E")
+    tl = tlas1.tlas
+    valid = torch.as_tensor(t.valid, device=t.device)
+    refit_ms = time_ms(lambda: refit_instanced(
+        t.library, tl.pair_shape, tl.pair_inst, tlas1.rot,
+        tl.inst_rows[:, 9:12], 1.0, valid), REPS)
+    print(f"[time frame] refit {refit_ms:.3f} ms ({tl.pair_min.shape[0]} "
+          f"pairs, CUDA events) [{card}]")
+
+    imgf, sf = render(t.finter, t.flat, 1)
+    print(f"[time frame] flatten route frame 0: {sf:.3f} s [{card}]")
+    rgba = []
+    for name, out in (("tlas_frame0", img0), ("tlas_frame1", img1),
+                      ("flatten_frame0", imgf)):
+        if not all(bool(torch.isfinite(x).all()) for x in out):
+            raise AssertionError(f"{name} has non-finite values")
+        rgba.append(color_to_uint8(out[0]))
+        OUT_DIR.mkdir(parents=True, exist_ok=True)
+        write_png(OUT_DIR / f"{name}.png", rgba[-1])
+    diff = (rgba[0].int() - rgba[2].int()).abs()
+    over2 = float((diff > 2).float().mean())
+    over6 = float((diff > 6).float().mean())
+    sky = (rgba[0][..., :3] == torch.tensor(SKY, device=t.device,
+                                            dtype=torch.uint8)).all(-1)
+    sky_f = (rgba[2][..., :3] == torch.tensor(SKY, device=t.device,
+                                              dtype=torch.uint8)).all(-1)
+    print(f"[time frame] TLAS vs flatten frame 0: max {int(diff.max())} "
+          f"LSB, {over2:.6f} of channels > 2 LSB, {over6:.6f} > 6 LSB, mean "
+          f"{float(diff.float().mean()):.4f} LSB; {int(sky.sum())} sky "
+          f"pixels equal {SKY} (flatten {int(sky_f.sum())}); wrote "
+          f"{OUT_DIR}/tlas_frame0.png, tlas_frame1.png, flatten_frame0.png")
+    # the two routes round each hit differently (object-space vs baked
+    # triangles); after a few bounces between convex mirrors a rare path
+    # sample diverges, which moves its pixel by up to 1/SPP of its range
+    # (more in sRGB where the pixel is dark): no bound on the maximum, 6
+    # LSB on all but 0.5% of the channels
+    if over2 >= 0.01 or over6 >= 5e-3:
+        raise AssertionError("TLAS and flatten frames disagree")
+    if int(sky.sum()) == 0:
+        raise AssertionError("no sky pixel in the TLAS frame")
+    return launches
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -459,6 +898,9 @@ def main() -> None:
                          "(torch.cuda.is_available() is False)")
     import optix_ray_tracer_tpu_torch  # noqa: F401  (fails outside the repo)
     from optix_ray_tracer_tpu_torch.ops.kernels import _lib
+    K.update(A=_lib.TILE_RASTER, B=_lib.BLOCK_MARCH, C=_lib.PROBE,
+             D=_lib.TILE_RASTER_INSTANCED, E=_lib.BLOCK_MARCH_INSTANCED,
+             F=_lib.BLOCK_MARCH_HIER)
     card = card_line()
     print(card)      # name and power limit, as nvidia-smi reports them
     device = torch.device("cuda", 0)
@@ -467,6 +909,10 @@ def main() -> None:
     rows = check_kernels(b)
     bench(b, card)
     launches = whitted(device, card)
+    t = time_setup(device)
+    t.card = card
+    rows.update(check_time_kernels(t))
+    launches.update(time_frames(t, card))
     print(json.dumps({"kernels": [
         {"name": k.name, "route": "cuda", "source": k.source,
          "replaces": k.replaces, "launches": launches[k.name],

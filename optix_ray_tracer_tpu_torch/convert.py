@@ -5,7 +5,8 @@ into this package's tensors.
 into a dict of numpy arrays keyed by field name, nested dataclasses into
 nested dicts; it touches no JAX API.  The other functions build the
 port's counterparts from such dicts, so tests can give both packages the
-very same acceleration structure, scene, materials and camera.
+very same acceleration structure (flat or two-level, with one frame's
+refit state), scene, materials and camera.
 """
 
 from __future__ import annotations
@@ -15,10 +16,15 @@ import dataclasses
 import numpy as np
 import torch
 
+from optix_ray_tracer_tpu_torch.ops.instanced import (
+    InstancedLibrary, InstancedMarchIntersector,
+)
+from optix_ray_tracer_tpu_torch.ops.intersect import Hit
 from optix_ray_tracer_tpu_torch.ops.march import (
     MarchIntersector, march_intersector_from_clusters,
 )
 from optix_ray_tracer_tpu_torch.ops.sweep import ClusterSet
+from optix_ray_tracer_tpu_torch.ops.tlas import TLASSceneIntersector
 from optix_ray_tracer_tpu_torch.scene.camera import Camera
 from optix_ray_tracer_tpu_torch.scene.geometry import (
     Scene, Spheres, Triangles,
@@ -66,6 +72,11 @@ def scene(arrays: dict) -> Scene:
                             None if uvs is None else _t(uvs).float()))
 
 
+def hit(arrays: dict) -> Hit:
+    """Hit from its arrays (prim_type, prim_id as int32)."""
+    return _tensors(arrays, Hit)
+
+
 def materials(arrays: dict) -> MaterialTable:
     return MaterialTable(mtype=_t(arrays["mtype"]).to(torch.int32),
                          albedo=_t(arrays["albedo"]).float(),
@@ -86,3 +97,41 @@ def march_intersector(cluster_arrays: dict, scene_: Scene,
     package) for ``scene_``, with raster tables when ``raster``."""
     return march_intersector_from_clusters(clusters(cluster_arrays), scene_,
                                            raster=raster)
+
+
+def _tensors(arrays: dict, cls, **nested):
+    """``cls`` from its fields' arrays; ``nested`` converts dataclass
+    fields, integer arrays stay integer (int32)."""
+    out = {}
+    for f in dataclasses.fields(cls):
+        val = arrays[f.name]
+        if f.name in nested:
+            out[f.name] = nested[f.name](val)
+        elif isinstance(val, np.ndarray) and val.dtype.kind in "iu":
+            out[f.name] = _t(val).to(torch.int32)
+        else:
+            out[f.name] = _t(val).float()
+    return cls(**out)
+
+
+def instanced_library(arrays: dict) -> InstancedLibrary:
+    """InstancedLibrary from its arrays (``shape_cluster_offset`` comes
+    back as the host tuple)."""
+    sco = tuple(int(x) for x in np.asarray(arrays["shape_cluster_offset"]))
+    return _tensors(dict(arrays, shape_cluster_offset=sco), InstancedLibrary,
+                    shape_cluster_offset=lambda x: x)
+
+
+def instanced_intersector(arrays: dict) -> InstancedMarchIntersector:
+    """InstancedMarchIntersector (library, pair arrays and one frame's
+    refit state) from its arrays."""
+    return _tensors(arrays, InstancedMarchIntersector,
+                    library=instanced_library)
+
+
+def tlas_intersector(arrays: dict) -> TLASSceneIntersector:
+    """TLASSceneIntersector from its arrays (the JAX one has no
+    ``pc_max``: the heuristic, as there)."""
+    return _tensors(dict(arrays, pc_max=arrays.get("pc_max")),
+                    TLASSceneIntersector, tlas=instanced_intersector,
+                    pc_max=lambda x: x)

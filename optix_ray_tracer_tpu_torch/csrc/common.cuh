@@ -45,6 +45,24 @@ __device__ __forceinline__ float ort_slab_entry(
   return (!nan && ent <= ext) ? ent : ORT_INF;
 }
 
+// World ray -> instance space for the TLAS kernels: o' = A (o - b),
+// d' = A d with the affine row m = [A (3x3 row-major), b].  A = R^T / s
+// for a rigid + uniform-scale pose, so d' is left unnormalised and t is
+// the same parameter in both spaces.  Sums run left to right, as
+// ops/kernels/block_march.instance_points / instance_dirs compute them.
+__device__ __forceinline__ void ort_to_instance(
+    const float* __restrict__ m, float ox, float oy, float oz, float dx,
+    float dy, float dz, float& tox, float& toy, float& toz, float& tdx,
+    float& tdy, float& tdz) {
+  const float wx = ox - m[9], wy = oy - m[10], wz = oz - m[11];
+  tox = (m[0] * wx + m[1] * wy) + m[2] * wz;
+  toy = (m[3] * wx + m[4] * wy) + m[5] * wz;
+  toz = (m[6] * wx + m[7] * wy) + m[8] * wz;
+  tdx = (m[0] * dx + m[1] * dy) + m[2] * dz;
+  tdy = (m[3] * dx + m[4] * dy) + m[5] * dz;
+  tdz = (m[6] * dx + m[7] * dy) + m[8] * dz;
+}
+
 // Order-preserving map of a non-NaN float onto uint32.
 __device__ __forceinline__ unsigned ort_ordered(float f) {
   unsigned u = __float_as_uint(f);

@@ -157,4 +157,25 @@ PROBE = Kernel(
     source="optix_ray_tracer_tpu_torch/csrc/block_march.cu",
     replaces="optix_ray_tracer_tpu/ops/pallas/block_march.py:694")
 
-KERNELS = (TILE_RASTER, BLOCK_MARCH, PROBE)
+#: kernel D (instanced tile raster)
+TILE_RASTER_INSTANCED = Kernel(
+    "tile_raster_instanced", "ort_tile_raster_instanced",
+    [_P, _P, _P, _P, _P, _I, _P, _I, _P, _P, _I, _I, _I, _I, _P, _P, _P,
+     _P],
+    source="optix_ray_tracer_tpu_torch/csrc/tile_raster.cu",
+    replaces="optix_ray_tracer_tpu/ops/pallas/tile_raster.py:376")
+#: kernel E (instanced block march)
+BLOCK_MARCH_INSTANCED = Kernel(
+    "block_march_instanced", "ort_block_march_instanced",
+    [_P, _I, _P, _I, _P, _I, _P, _P, _P, _P, _I, _I, _P, _P, _P],
+    source="optix_ray_tracer_tpu_torch/csrc/block_march.cu",
+    replaces="optix_ray_tracer_tpu/ops/pallas/block_march.py:916")
+#: kernel F (hierarchical block march)
+BLOCK_MARCH_HIER = Kernel(
+    "block_march_hier", "ort_block_march_hier",
+    [_P, _I, _P, _I, _P, _I, _P, _I, _P, _I, _I, _P, _P, _P],
+    source="optix_ray_tracer_tpu_torch/csrc/block_march.cu",
+    replaces="optix_ray_tracer_tpu/ops/pallas/block_march.py:463")
+
+KERNELS = (TILE_RASTER, BLOCK_MARCH, PROBE, TILE_RASTER_INSTANCED,
+           BLOCK_MARCH_INSTANCED, BLOCK_MARCH_HIER)

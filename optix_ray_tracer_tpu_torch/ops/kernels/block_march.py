@@ -1,17 +1,17 @@
-"""Block marcher and cluster probe (port of
-``optix_ray_tracer_tpu/ops/pallas/block_march.py``, flat kernel only).
+"""Block marchers and cluster probe (port of
+``optix_ray_tracer_tpu/ops/pallas/block_march.py``).
 
 Kernel B (``march_call``) answers a nearest-hit or occlusion query for
-blocks of rays over a ClusterSet; kernel C (``probe_call``) returns each
-ray's nearest entered cluster, the sort key of incoherent waves.  Both are
-CUDA (``csrc/block_march.cu``, design notes there).  Each wrapper launches
-its kernel for CUDA tensors, or raises; for CPU tensors it runs the plain
-PyTorch version beside it, a vectorised loop over clusters that computes
+blocks of rays over a ClusterSet; kernel F (``march_hier_call``) does the
+same over 8-cluster superclusters, for coherent waves of large scenes;
+kernel E (``march_instanced_call``) over the (instance, library cluster)
+pairs of a TLAS; kernel C (``probe_call``) returns each ray's nearest
+entered cluster, the sort key of incoherent waves.  All are CUDA
+(``csrc/block_march.cu``, design notes there).  Each wrapper launches its
+kernel for CUDA tensors, or raises; for CPU tensors it runs the plain
+PyTorch version beside it, a vectorised loop over cull rows that computes
 the same function: the exact nearest t (or hit / miss), with equal-t ties
 free to resolve to another triangle.
-
-Not ported yet: the instanced (TLAS) and hierarchical variants; the flat
-kernel serves every scene size (both are exact, so only speed differs).
 """
 
 from __future__ import annotations
@@ -28,6 +28,11 @@ CLUSTER_TRIS = CHUNK
 MAX_CLUSTERS = 8192       # the keys of one CTA's sort must fit shared memory
 N_SUBS = SUBS_PER_CLUSTER
 N_SUBS_INCOHERENT = 2     # incoherent waves pair-merge the sub boxes
+GROUP = 8                 # clusters per supercluster (kernel F)
+#: coherent waves of at least this many clusters go to kernel F (the JAX
+#: package's TPU-measured crossover, kept for parity; the card's own
+#: crossover is not measured yet)
+HIER_MIN_CLUSTERS = 3072
 
 
 def choose_block_rays(n_clusters: int, coherent: bool = True) -> int:
@@ -92,41 +97,119 @@ def woop_hit(opx, opy, opz, dpx, dpy, dpz):
     return t, opx + t * dpx, opy + t * dpy, dz_ok
 
 
+def instance_points(rows, p):
+    """World points -> instance space, A (p - b), for affine rows [A (3x3
+    row-major), b, ...] (one row for every point, or one per point),
+    summed left to right as the kernels sum them (ort_to_instance)."""
+    return _apply_rows(rows, *(p[..., k] - rows[..., 9 + k]
+                               for k in range(3)))
+
+
+def instance_dirs(rows, d):
+    """World directions -> instance space, A d (left unnormalised)."""
+    return _apply_rows(rows, d[..., 0], d[..., 1], d[..., 2])
+
+
+def _apply_rows(rows, x, y, z):
+    return torch.stack([(rows[..., 3 * k] * x + rows[..., 3 * k + 1] * y)
+                        + rows[..., 3 * k + 2] * z for k in range(3)], -1)
+
+
+def _unpack(rays):
+    """(o, d, t_min, best t, 1/d, slot) of an (8, R) ray block."""
+    o = rays[0:3].T
+    d = rays[3:6].T
+    tmin = rays[6]
+    return (o, d, tmin, rays[7].clone(), inv_dir(d),
+            torch.full_like(tmin, -1, dtype=torch.int32))
+
+
+def _enter(box, o, inv, tmin, bt, idx):
+    """The rays of ``idx`` whose entry into ``box`` (8,) is < their best
+    t."""
+    return idx[slab_entry(box[0:3], box[3:6], o[idx], inv[idx], tmin[idx])
+               < bt[idx]]
+
+
+def _visit(o, d, inv, tmin, bt, slot, idx, c, sub_boxes, n_subs, ws_c,
+           any_hit: bool, rows=None):
+    """One visit of the plain marchers to cull row ``c`` for the rays
+    ``idx`` that enter its box: each part gated per ray on its sub box,
+    then Woop-tested against ``ws_c`` (12, CHUNK), the rays moved by the
+    affine ``rows`` first where given; slot = c * CHUNK + row."""
+    step = CLUSTER_TRIS // n_subs
+    if idx.numel() == 0:
+        return
+    sb = sub_boxes[c, :, None, :]                # (n_subs, 1, 8)
+    ent = slab_entry(sb[..., 0:3], sb[..., 3:6], o[idx], inv[idx],
+                     tmin[idx])                  # (n_subs, len(idx))
+    for part in range(n_subs):
+        live = idx[ent[part] < bt[idx]]          # gated on the current t
+        if live.numel() == 0:
+            continue
+        ol, dl = o[live], d[live]
+        if rows is not None:
+            ol, dl = instance_points(rows, ol), instance_dirs(rows, dl)
+        ws = ws_c[:, part * step:(part + 1) * step]
+        t, uu, vv, dz_ok = woop_hit(*woop_dots(ws, ol, dl))
+        bl = bt[live, None]
+        ok = (dz_ok & (uu >= 0.0) & (vv >= 0.0) & (uu + vv <= 1.0)
+              & (t > tmin[live, None]) & (t < bl))
+        t = torch.where(ok, t, torch.full_like(t, INF))
+        li = torch.argmin(t, dim=1)
+        tb = torch.gather(t, 1, li[:, None])[:, 0]
+        closer = tb < bl[:, 0]
+        hit = live[closer]
+        slot[hit] = (c * CLUSTER_TRIS + part * step + li[closer]
+                     ).to(torch.int32)
+        bt[hit] = -INF if any_hit else tb[closer]
+
+
 def march_plain(rays, boxes, sub_boxes, woop_t, n_clusters: int,
                 n_subs: int, any_hit: bool):
     """Plain version of kernel B (same arguments as :func:`march_call`):
     clusters in id order, each ray gated on its own entries."""
-    o = rays[0:3].T
-    d = rays[3:6].T
-    tmin = rays[6]
-    bt = rays[7].clone()
-    inv = inv_dir(d)
-    slot = torch.full_like(tmin, -1, dtype=torch.int32)
-    step = CLUSTER_TRIS // n_subs
+    o, d, tmin, bt, inv, slot = _unpack(rays)
+    every = torch.arange(o.shape[0], device=o.device)
     for c in range(n_clusters):
-        idx = torch.nonzero(slab_entry(boxes[c, 0:3], boxes[c, 3:6], o, inv,
-                                       tmin) < bt)[:, 0]
-        for part in range(n_subs):
-            if idx.numel() == 0:
+        idx = _enter(boxes[c], o, inv, tmin, bt, every)
+        _visit(o, d, inv, tmin, bt, slot, idx, c, sub_boxes, n_subs,
+               woop_t[c, :12], any_hit)
+    return bt, slot
+
+
+def march_instanced_plain(rays, boxes, sub_boxes, pair_shape, pair_inst,
+                          inst_rows, woop_t, n_pairs: int, any_hit: bool):
+    """Plain version of kernel E (same arguments as
+    :func:`march_instanced_call`): pairs in id order."""
+    o, d, tmin, bt, inv, slot = _unpack(rays)
+    every = torch.arange(o.shape[0], device=o.device)
+    shapes = pair_shape[:n_pairs].tolist()
+    insts = pair_inst[:n_pairs].tolist()
+    for c in range(n_pairs):
+        idx = _enter(boxes[c], o, inv, tmin, bt, every)
+        if idx.numel():
+            _visit(o, d, inv, tmin, bt, slot, idx, c, sub_boxes,
+                   sub_boxes.shape[1], woop_t[shapes[c], :12], any_hit,
+                   rows=inst_rows[insts[c]])
+    return bt, slot
+
+
+def march_hier_plain(rays, sup_boxes, boxes, sub_boxes, woop_t,
+                     n_clusters: int, n_subs: int, any_hit: bool):
+    """Plain version of kernel F (same arguments as
+    :func:`march_hier_call`): superclusters in id order, each gating its
+    clusters, all per ray."""
+    o, d, tmin, bt, inv, slot = _unpack(rays)
+    every = torch.arange(o.shape[0], device=o.device)
+    for s in range(-(-n_clusters // GROUP)):
+        sidx = _enter(sup_boxes[s], o, inv, tmin, bt, every)
+        for c in range(s * GROUP, min(s * GROUP + GROUP, n_clusters)):
+            if sidx.numel() == 0:
                 break
-            sb = sub_boxes[c, part]
-            live = idx[slab_entry(sb[0:3], sb[3:6], o[idx], inv[idx],
-                                  tmin[idx]) < bt[idx]]
-            if live.numel() == 0:
-                continue
-            ws = woop_t[c, :12, part * step:(part + 1) * step]
-            t, uu, vv, dz_ok = woop_hit(*woop_dots(ws, o[live], d[live]))
-            bl = bt[live, None]
-            ok = (dz_ok & (uu >= 0.0) & (vv >= 0.0) & (uu + vv <= 1.0)
-                  & (t > tmin[live, None]) & (t < bl))
-            t = torch.where(ok, t, torch.full_like(t, INF))
-            li = torch.argmin(t, dim=1)
-            tb = torch.gather(t, 1, li[:, None])[:, 0]
-            closer = tb < bl[:, 0]
-            rows = live[closer]
-            slot[rows] = (c * CLUSTER_TRIS + part * step + li[closer]
-                          ).to(torch.int32)
-            bt[rows] = -INF if any_hit else tb[closer]
+            idx = _enter(boxes[c], o, inv, tmin, bt, sidx)
+            _visit(o, d, inv, tmin, bt, slot, idx, c, sub_boxes, n_subs,
+                   woop_t[c, :12], any_hit)
     return bt, slot
 
 
@@ -144,29 +227,107 @@ def march_call(rays, boxes, sub_boxes, woop_t, n_clusters: int,
                               n_subs, any_hit)
         return t, slot, None
     dev = rays.device
-    R = rays.shape[1]
-    if R % w or w % 32 or not 32 <= w <= 1024:
-        raise ValueError(f"{R} rays in blocks of {w}: need R % w == 0 and "
-                         f"w a multiple of 32 in [32, 1024]")
-    if not 0 < n_clusters <= MAX_CLUSTERS or CLUSTER_TRIS % n_subs:
-        raise ValueError(f"{n_clusters} clusters / {n_subs} sub boxes "
-                         f"unsupported (max {MAX_CLUSTERS} clusters)")
-    _lib.check(rays, "rays", torch.float32, dev, (8, R))
-    _lib.check(boxes, "boxes", torch.float32, dev, (-1, 8))
-    _lib.check(sub_boxes, "sub_boxes", torch.float32, dev, (-1, n_subs, 8))
+    R = _check_march(rays, boxes, sub_boxes, n_clusters, n_subs, w)
     _lib.check(woop_t, "woop_t", torch.float32, dev, (-1, 16, CLUSTER_TRIS))
-    if boxes.shape[0] < n_clusters or sub_boxes.shape[0] < n_clusters or \
-            woop_t.shape[0] < n_clusters:
-        raise ValueError("boxes, sub_boxes and woop_t must cover "
-                         f"{n_clusters} clusters")
-    t = torch.empty(R, dtype=torch.float32, device=dev)
-    slot = torch.empty(R, dtype=torch.int32, device=dev)
-    visits = torch.zeros(R // w, dtype=torch.int32, device=dev)
+    if woop_t.shape[0] < n_clusters:
+        raise ValueError(f"woop_t must cover {n_clusters} clusters")
+    t, slot, visits = _march_outputs(R, w, dev)
     if R:
         _lib.BLOCK_MARCH(dev, rays.data_ptr(), R, boxes.data_ptr(),
                          n_clusters, sub_boxes.data_ptr(), n_subs,
                          woop_t.data_ptr(), int(any_hit), w, t.data_ptr(),
                          slot.data_ptr(), visits.data_ptr())
+    return t, slot, visits
+
+
+def _check_march(rays, boxes, sub_boxes, n_rows: int, n_subs: int,
+                 w: int) -> int:
+    """Validate a march's rays and cull rows for the card; returns R."""
+    dev = rays.device
+    R = rays.shape[1]
+    if R % w or w % 32 or not 32 <= w <= 1024:
+        raise ValueError(f"{R} rays in blocks of {w}: need R % w == 0 and "
+                         f"w a multiple of 32 in [32, 1024]")
+    if not 0 < n_rows <= MAX_CLUSTERS or CLUSTER_TRIS % n_subs:
+        raise ValueError(f"{n_rows} cull rows / {n_subs} sub boxes "
+                         f"unsupported (max {MAX_CLUSTERS} rows)")
+    _lib.check(rays, "rays", torch.float32, dev, (8, R))
+    _lib.check(boxes, "boxes", torch.float32, dev, (-1, 8))
+    _lib.check(sub_boxes, "sub_boxes", torch.float32, dev, (-1, n_subs, 8))
+    if boxes.shape[0] < n_rows or sub_boxes.shape[0] < n_rows:
+        raise ValueError(f"boxes and sub_boxes must cover {n_rows} rows")
+    return R
+
+
+def _march_outputs(R: int, w: int, dev):
+    return (torch.empty(R, dtype=torch.float32, device=dev),
+            torch.empty(R, dtype=torch.int32, device=dev),
+            torch.zeros(R // w, dtype=torch.int32, device=dev))
+
+
+def march_instanced_call(rays, boxes, sub_boxes, pair_shape, pair_inst,
+                         inst_rows, woop_t, n_pairs: int,
+                         any_hit: bool = False, w: int = BLOCK_RAYS):
+    """Kernel E, the TLAS march.  rays: (8, R) as :func:`march_call`;
+    boxes: (>= n_pairs, 8) and sub_boxes (>= n_pairs, n_subs, 8) WORLD
+    pair boxes (NaN for invalid instances and padding); pair_shape /
+    pair_inst: (n_pairs,) int32 library cluster and instance of each pair;
+    inst_rows: (P, 128) rows [A(9), b(3), 0...] of the world->object
+    affine o' = A (o - b); woop_t: (SC, 16, CHUNK) library rows.
+
+    Returns (t, slot, visits) as :func:`march_call`, with slot = pair *
+    CHUNK + row."""
+    if not rays.is_cuda:
+        t, slot = march_instanced_plain(rays, boxes, sub_boxes, pair_shape,
+                                        pair_inst, inst_rows, woop_t,
+                                        n_pairs, any_hit)
+        return t, slot, None
+    dev = rays.device
+    n_subs = sub_boxes.shape[1]
+    R = _check_march(rays, boxes, sub_boxes, n_pairs, n_subs, w)
+    _lib.check(woop_t, "woop_t", torch.float32, dev, (-1, 16, CLUSTER_TRIS))
+    _lib.check(inst_rows, "inst_rows", torch.float32, dev, (-1, 128))
+    _lib.check(pair_shape, "pair_shape", torch.int32, dev)
+    _lib.check(pair_inst, "pair_inst", torch.int32, dev)
+    if pair_shape.numel() < n_pairs or pair_inst.numel() < n_pairs:
+        raise ValueError(f"pair_shape and pair_inst must cover {n_pairs} "
+                         f"pairs")
+    t, slot, visits = _march_outputs(R, w, dev)
+    if R:
+        _lib.BLOCK_MARCH_INSTANCED(
+            dev, rays.data_ptr(), R, boxes.data_ptr(), n_pairs,
+            sub_boxes.data_ptr(), n_subs, pair_shape.data_ptr(),
+            pair_inst.data_ptr(), inst_rows.data_ptr(), woop_t.data_ptr(),
+            int(any_hit), w, t.data_ptr(), slot.data_ptr(),
+            visits.data_ptr())
+    return t, slot, visits
+
+
+def march_hier_call(rays, sup_boxes, boxes, sub_boxes, woop_t,
+                    n_clusters: int, n_subs: int, any_hit: bool = False,
+                    w: int = BLOCK_RAYS):
+    """Kernel F, the hierarchical march.  As :func:`march_call`, plus
+    sup_boxes: (>= ceil(n_clusters / GROUP), 8) NaN-aware union boxes of
+    clusters [GROUP s, GROUP s + GROUP)."""
+    if not rays.is_cuda:
+        t, slot = march_hier_plain(rays, sup_boxes, boxes, sub_boxes,
+                                   woop_t, n_clusters, n_subs, any_hit)
+        return t, slot, None
+    dev = rays.device
+    R = _check_march(rays, boxes, sub_boxes, n_clusters, n_subs, w)
+    n_sup = -(-n_clusters // GROUP)
+    _lib.check(sup_boxes, "sup_boxes", torch.float32, dev, (-1, 8))
+    _lib.check(woop_t, "woop_t", torch.float32, dev, (-1, 16, CLUSTER_TRIS))
+    if sup_boxes.shape[0] < n_sup or woop_t.shape[0] < n_clusters:
+        raise ValueError(f"sup_boxes must cover {n_sup} superclusters and "
+                         f"woop_t {n_clusters} clusters")
+    t, slot, visits = _march_outputs(R, w, dev)
+    if R:
+        _lib.BLOCK_MARCH_HIER(
+            dev, rays.data_ptr(), R, sup_boxes.data_ptr(), n_sup,
+            boxes.data_ptr(), n_clusters, sub_boxes.data_ptr(), n_subs,
+            woop_t.data_ptr(), int(any_hit), w, t.data_ptr(),
+            slot.data_ptr(), visits.data_ptr())
     return t, slot, visits
 
 
@@ -278,14 +439,18 @@ def probe_first_cluster(clusters, o, d, t_min, t_max):
     return probe_call(**probe_inputs(clusters, o, d, t_min, t_max))
 
 
-def march_inputs(clusters, o, d, t_min, t_max, coherent: bool = True,
-                 block_rays: int | None = None) -> dict:
-    """The ``march_call`` arguments for a wave (padded to whole blocks)."""
-    C = clusters.num_clusters
+def _check_clusters(C: int) -> None:
     if C > MAX_CLUSTERS:
         raise ValueError(
             f"scene has {C} clusters; the marcher caps at {MAX_CLUSTERS} "
             f"clusters = {MAX_CLUSTERS * CLUSTER_TRIS} triangles")
+
+
+def march_inputs(clusters, o, d, t_min, t_max, coherent: bool = True,
+                 block_rays: int | None = None) -> dict:
+    """The ``march_call`` arguments for a wave (padded to whole blocks)."""
+    C = clusters.num_clusters
+    _check_clusters(C)
     c_pad = ((C + 7) // 8) * 8
     W = block_rays or choose_block_rays(C, coherent)
     sub_boxes, n_subs = _wave_sub_boxes(clusters, c_pad, coherent)
@@ -296,6 +461,44 @@ def march_inputs(clusters, o, d, t_min, t_max, coherent: bool = True,
                 n_subs=n_subs, w=W)
 
 
+def hier_inputs(clusters, o, d, t_min, t_max,
+                coherent: bool = True) -> dict:
+    """The ``march_hier_call`` arguments for a wave: superclusters of
+    GROUP clusters, each box the NaN-aware union of its clusters' (a
+    pure-padding supercluster stays NaN and is never entered)."""
+    C = clusters.num_clusters
+    _check_clusters(C)
+    c_pad = ((C + 7) // 8) * 8
+    boxes = _pad_boxes(clusters.cluster_min, clusters.cluster_max, c_pad - C)
+    S = c_pad // GROUP
+    sup_boxes = _pad_boxes(
+        nanmin(boxes[:, 0:3].reshape(S, GROUP, 3), 1),
+        nanmax(boxes[:, 3:6].reshape(S, GROUP, 3), 1),
+        ((S + 7) // 8) * 8 - S)
+    sub_boxes, n_subs = _wave_sub_boxes(clusters, c_pad, coherent)
+    return dict(rays=pack_rays(*pad_rays(o, d, t_min, t_max, BLOCK_RAYS)),
+                sup_boxes=sup_boxes, boxes=boxes, sub_boxes=sub_boxes,
+                woop_t=clusters.woop_t, n_clusters=C, n_subs=n_subs,
+                w=BLOCK_RAYS)
+
+
+def _finish(t, slot, any_hit: bool, winners):
+    """(t, slot, u, v) of a march: INF t on misses; for nearest-hit
+    queries u, v recomputed from ``winners()`` = (the winners' Woop rows
+    (R, 12), o, d in the rows' space); zero for misses and for occlusion
+    queries, which never call ``winners``."""
+    miss = slot < 0
+    t = torch.where(miss, torch.full_like(t, INF), t)
+    zero = torch.zeros_like(t)
+    if any_hit:
+        return t, slot, zero, zero
+    woop, o, d = winners()
+    t_safe = torch.where(miss, zero, t)   # keep INF out of the arithmetic
+    u = dot(woop[:, 0:3], o) - woop[:, 9] + t_safe * dot(woop[:, 0:3], d)
+    v = dot(woop[:, 3:6], o) - woop[:, 10] + t_safe * dot(woop[:, 3:6], d)
+    return t, slot, torch.where(miss, zero, u), torch.where(miss, zero, v)
+
+
 def block_march(clusters, o, d, t_min, t_max, any_hit: bool = False,
                 block_rays: int | None = None, coherent: bool = True):
     """Nearest-hit (or, with ``any_hit``, occlusion) query.
@@ -303,21 +506,85 @@ def block_march(clusters, o, d, t_min, t_max, any_hit: bool = False,
     o, d (R, 3), t bounds (R,); rays should be coherence-sorted by the
     caller.  Returns (t, slot, u, v): slot indexes the sorted triangles
     (-1 miss), u/v are recomputed from the winner's Woop row.  With
-    ``any_hit`` only slot's hit/miss distinction is meaningful."""
+    ``any_hit`` only slot's hit/miss distinction is meaningful.
+
+    Coherent waves at HIER_MIN_CLUSTERS clusters or more (and no explicit
+    ``block_rays``) go to the hierarchical kernel F; every other wave to
+    the flat kernel B.  Both are exact; on a tie at exactly equal t they
+    may pick different triangles."""
+    _check_clusters(clusters.num_clusters)
+    if (clusters.num_clusters >= HIER_MIN_CLUSTERS and coherent
+            and block_rays is None):
+        return block_march_hier(clusters, o, d, t_min, t_max,
+                                any_hit=any_hit, coherent=coherent)
     n = o.shape[0]
     t, slot, _ = march_call(**march_inputs(clusters, o, d, t_min, t_max,
                                            coherent, block_rays),
                             any_hit=any_hit)
     t, slot = t[:n], slot[:n]
-    miss = slot < 0
-    t = torch.where(miss, torch.full_like(t, INF), t)
-    zero = torch.zeros_like(t)
-    if any_hit:
-        return t, slot, zero, zero
-    w_rows = clusters.woop[torch.clamp(slot, min=0).long()]
-    t_safe = torch.where(miss, zero, t)   # keep INF out of the arithmetic
-    u = (dot(w_rows[:, 0:3], o) - w_rows[:, 9]
-         + t_safe * dot(w_rows[:, 0:3], d))
-    v = (dot(w_rows[:, 3:6], o) - w_rows[:, 10]
-         + t_safe * dot(w_rows[:, 3:6], d))
-    return t, slot, torch.where(miss, zero, u), torch.where(miss, zero, v)
+    return _finish(t, slot, any_hit, lambda: (
+        clusters.woop[torch.clamp(slot, min=0).long()], o, d))
+
+
+def block_march_hier(clusters, o, d, t_min, t_max, any_hit: bool = False,
+                     coherent: bool = True):
+    """Hierarchical (supercluster) variant of :func:`block_march`: the same
+    contract and the same exact results, through kernel F."""
+    n = o.shape[0]
+    t, slot, _ = march_hier_call(**hier_inputs(clusters, o, d, t_min, t_max,
+                                               coherent), any_hit=any_hit)
+    t, slot = t[:n], slot[:n]
+    return _finish(t, slot, any_hit, lambda: (
+        clusters.woop[torch.clamp(slot, min=0).long()], o, d))
+
+
+def march_instanced_inputs(pair_min, pair_max, sub_min, sub_max, pair_shape,
+                           pair_inst, inst_rows, lib_woop_t, o, d, t_min,
+                           t_max) -> dict:
+    """The ``march_instanced_call`` arguments for a TLAS wave: N_SUBS sub
+    boxes per pair on every wave, 128-ray blocks."""
+    C = pair_min.shape[0]
+    if C > MAX_CLUSTERS:
+        raise ValueError(f"{C} instance pairs exceed {MAX_CLUSTERS}")
+    c_pad = ((C + 7) // 8) * 8
+    return dict(
+        rays=pack_rays(*pad_rays(o, d, t_min, t_max, BLOCK_RAYS)),
+        boxes=_pad_boxes(pair_min, pair_max, c_pad - C),
+        sub_boxes=_pad_boxes(sub_min, sub_max, (c_pad - C) * N_SUBS
+                             ).reshape(c_pad, N_SUBS, 8),
+        pair_shape=pair_shape.to(torch.int32).contiguous(),
+        pair_inst=pair_inst.to(torch.int32).contiguous(),
+        inst_rows=inst_rows.contiguous(), woop_t=lib_woop_t, n_pairs=C,
+        w=BLOCK_RAYS)
+
+
+def block_march_instanced(pair_min, pair_max, sub_min, sub_max, pair_shape,
+                          pair_inst, inst_rows, lib_woop_t, lib_woop, o, d,
+                          t_min, t_max, any_hit: bool = False):
+    """Instance-level (TLAS) nearest-hit or occlusion query through kernel
+    E: each cull row is an (instance, library cluster) pair.
+
+    pair_min/pair_max: (Cp, 3) world pair boxes; sub_min/sub_max:
+    (Cp * N_SUBS, 3) world sub boxes; pair_shape/pair_inst: (Cp,) int32;
+    inst_rows: (P, 128) world->object affine rows; lib_woop_t: (SC, 16,
+    CHUNK); lib_woop: (SC * CHUNK, 12) object-space rows for the u/v
+    recompute.  Returns (t, slot, u, v) with slot = pair * CHUNK + row
+    (-1 miss); u, v are recomputed in the winner's object space."""
+    n = o.shape[0]
+    C = pair_min.shape[0]
+    t, slot, _ = march_instanced_call(
+        **march_instanced_inputs(pair_min, pair_max, sub_min, sub_max,
+                                 pair_shape, pair_inst, inst_rows,
+                                 lib_woop_t, o, d, t_min, t_max),
+        any_hit=any_hit)
+    t, slot = t[:n], slot[:n]
+
+    def winners():
+        pos = torch.clamp(slot, min=0).long()
+        pair = torch.clamp(pos // CLUSTER_TRIS, max=C - 1)
+        rows = inst_rows[pair_inst.long()[pair], :12]
+        return (lib_woop[pair_shape.long()[pair] * CLUSTER_TRIS
+                         + pos % CLUSTER_TRIS],
+                instance_points(rows, o), instance_dirs(rows, d))
+
+    return _finish(t, slot, any_hit, winners)

@@ -1,17 +1,19 @@
-"""Tile-raster kernel (port of
-``optix_ray_tracer_tpu/ops/pallas/tile_raster.py``, cluster mode only).
+"""Tile-raster kernels (port of
+``optix_ray_tracer_tpu/ops/pallas/tile_raster.py``).
 
 Kernel A (``raster_cluster_call``) runs a binned (ray tile, cluster
 window) pair schedule from ``ops/raster.py``: each tile tests its pairs in
 schedule order (near to far), gating every window part on its sub box
-block-wide, and keeps best t / slot / u / v per ray.  CUDA in
-``csrc/tile_raster.cu`` (design notes there); for CPU tensors the wrapper
-runs the plain PyTorch version below, which walks the same pairs in the
-same order with the same block-wide gates, so the two agree bit for bit.
+block-wide, and keeps best t / slot / u / v per ray.  Kernel D
+(``raster_instanced_call``) runs a (ray tile, TLAS pair) schedule from
+``ops/raster_instanced.py`` the same way, moving the tile's rays into each
+pair's instance space before the Woop test.  CUDA in
+``csrc/tile_raster.cu`` (design notes there); for CPU tensors the wrappers
+run the plain PyTorch versions below, which walk the same pairs in the
+same order with the same block-wide gates, so they agree bit for bit.
 
-Not ported yet: the instanced (TLAS) variant.  Dropped TPU-only features:
-the packed pair encoding and its SMEM capacity cap, the slot carried as
-f32, and the bf16 measurement arm.
+Dropped TPU-only features: the packed pair encoding and its SMEM
+capacity cap, the slot carried as f32, and the bf16 measurement arm.
 """
 
 from __future__ import annotations
@@ -20,7 +22,8 @@ import torch
 
 from optix_ray_tracer_tpu_torch.ops.kernels import _lib
 from optix_ray_tracer_tpu_torch.ops.kernels.block_march import (
-    inv_dir, slab_entry, woop_dots, woop_hit,
+    instance_dirs, instance_points, inv_dir, slab_entry, woop_dots,
+    woop_hit,
 )
 from optix_ray_tracer_tpu_torch.ops.sweep import CHUNK
 from optix_ray_tracer_tpu_torch.utils.vecmath import INF
@@ -47,8 +50,34 @@ def raster_cluster_plain(pair_tiles, pair_clusters, rays_t_ext, sub_boxes,
     same block-wide gates, vectorised over tiles."""
     pair_ids, tile_start = _tile_schedule(pair_tiles, pair_clusters,
                                           n_blocks)
-    common_origin = common == "origin"
-    rays = rays_t_ext
+    return _raster_plain(tile_start, pair_ids, pair_ids, None, None,
+                         rays_t_ext, sub_boxes, woop_t, n_blocks, w, any_hit,
+                         n_subs, common == "origin", granularity)
+
+
+def raster_instanced_plain(pair_tiles, pair_libs, pair_ids, pair_insts,
+                           rays_t_ext, sub_boxes, inst_rows, woop_t,
+                           n_blocks: int, w: int = 1024,
+                           any_hit: bool = False,
+                           common: str | None = None):
+    """Plain version of kernel D (the arguments and results of
+    :func:`raster_instanced_call`)."""
+    libs, tile_start = _tile_schedule(pair_tiles, pair_libs, n_blocks)
+    return _raster_plain(tile_start, libs, pair_ids.to(torch.int32),
+                         pair_insts.to(torch.int32), inst_rows, rays_t_ext,
+                         sub_boxes, woop_t, n_blocks, w, any_hit,
+                         sub_boxes.shape[1], common == "origin", 1)
+
+
+def _raster_plain(tile_start, win_ids, box_ids, inst_ids, inst_rows, rays,
+                  sub_boxes, woop_t, n_blocks: int, w: int, any_hit: bool,
+                  n_subs: int, common_origin: bool, granularity: int):
+    """Kernels A and D in plain PyTorch.  Entry p of tile b (p in
+    [tile_start[b], tile_start[b + 1])) gates on sub boxes
+    ``sub_boxes[box_ids[p]]``, tests window ``win_ids[p]`` (cluster * g +
+    sub) and writes slot box_ids[p] * CHUNK/g + row; with ``inst_ids``
+    the tile's rays are first moved by the affine row
+    ``inst_rows[inst_ids[p]]``."""
     dev = rays.device
     nw = n_blocks * w
     o = rays[0:3, :nw].T.reshape(n_blocks, w, 3)
@@ -66,8 +95,9 @@ def raster_cluster_plain(pair_tiles, pair_clusters, rays_t_ext, sub_boxes,
     cols = torch.arange(ct, device=dev)
     for k in range(int(cnt.max()) if n_blocks else 0):
         tl = torch.nonzero(cnt > k)[:, 0]      # tiles with a k-th pair
-        pid = pair_ids[start[tl] + k].long()
-        sb = sub_boxes[pid]                               # (T, n_subs, 8)
+        entry = start[tl] + k
+        box = box_ids[entry].long()
+        sb = sub_boxes[box]                               # (T, n_subs, 8)
 
         def part_entry(part, tl=tl, sb=sb):
             return slab_entry(sb[:, None, part, 0:3], sb[:, None, part, 3:6],
@@ -77,29 +107,36 @@ def raster_cluster_plain(pair_tiles, pair_clusters, rays_t_ext, sub_boxes,
         for part in range(n_subs):
             live |= part_entry(part) < bt[tl]
         keep = live.any(1)
-        tl, pid, sb = tl[keep], pid[keep], sb[keep]
+        tl, entry, box, sb = tl[keep], entry[keep], box[keep], sb[keep]
         if tl.numel() == 0:
             continue
-        c = pid // granularity
-        col = (pid % granularity)[:, None] * ct + cols    # (T, ct)
+        win = win_ids[entry].long()
+        c = win // granularity
+        col = (win % granularity)[:, None] * ct + cols    # (T, ct)
         ws = torch.gather(woop_t[c, :12, :], 2,
                           col[:, None, :].expand(-1, 12, -1))  # (T, 12, ct)
+        rows = (None if inst_ids is None
+                else inst_rows[inst_ids[entry].long()][:, None, :])
         for part in range(n_subs):
             gate = (part_entry(part, tl, sb) < bt[tl]).any(1)
             tp = tl[gate]
             if tp.numel() == 0:
                 continue
             wp = ws[gate][:, :, part * step:(part + 1) * step]
-            op_src = o[tp, :1] if common_origin else o[tp]
-            opx, opy, opz, _, _, _ = woop_dots(wp, op_src, d[tp])
-            _, _, _, dpx, dpy, dpz = woop_dots(wp, o[tp], d[tp])
+            # a common origin's o-projections come from the tile's first
+            # ray (one column, broadcast over the tile)
+            o_t = o[tp, :1] if common_origin else o[tp]
+            d_t = d[tp]
+            if rows is not None:
+                o_t = instance_points(rows[gate], o_t)
+                d_t = instance_dirs(rows[gate], d_t)
             t, uu, vv, dz_ok = woop_hit(*torch.broadcast_tensors(
-                opx, opy, opz, dpx, dpy, dpz))
+                *woop_dots(wp, o_t, d_t)))
             b_cur = bt[tp][..., None]
             ok = (dz_ok & (uu >= 0.0) & (vv >= 0.0)
                   & (1.0 - (uu + vv) >= 0.0) & (t > tmin[tp][..., None])
                   & (t < b_cur))
-            base = (pid[gate] * ct + part * step)[:, None]
+            base = (box[gate] * ct + part * step)[:, None]
             if any_hit:
                 hit = ok.any(-1)
                 first = torch.argmax(ok.to(torch.int8), dim=-1)
@@ -154,6 +191,26 @@ def raster_cluster_call(pair_tiles, pair_clusters, rays_t_ext, sub_boxes,
                                     n_subs, common, granularity)
     pair_ids, tile_start = _tile_schedule(pair_tiles, pair_clusters,
                                           n_blocks)
+    stride = _check_raster(rays_t_ext, sub_boxes, woop_t, n_subs, n_blocks,
+                           w)
+    _lib.check(pair_ids, "pair_clusters", torch.int32, dev)
+    if sub_boxes.shape[0] != woop_t.shape[0] * granularity:
+        raise ValueError("sub_boxes must hold one row block per window")
+    out = _raster_outputs(n_blocks, w, dev)
+    if n_blocks:
+        _lib.TILE_RASTER(
+            dev, pair_ids.data_ptr(), tile_start.data_ptr(),
+            rays_t_ext.data_ptr(), stride, sub_boxes.data_ptr(), n_subs,
+            woop_t.data_ptr(), granularity, n_blocks, w, int(any_hit),
+            int(common == "origin"), *(x.data_ptr() for x in out))
+    return out
+
+
+def _check_raster(rays_t_ext, sub_boxes, woop_t, n_subs: int, n_blocks: int,
+                  w: int) -> int:
+    """Validate a raster schedule's rays and tables for the card; returns
+    the ray stride."""
+    dev = rays_t_ext.device
     if w % 32 or not 32 <= w <= 1024:
         raise ValueError(f"w={w}: need a multiple of 32 in [32, 1024]")
     stride = rays_t_ext.shape[1]
@@ -162,18 +219,60 @@ def raster_cluster_call(pair_tiles, pair_clusters, rays_t_ext, sub_boxes,
     _lib.check(rays_t_ext, "rays_t_ext", torch.float32, dev, (8, stride))
     _lib.check(sub_boxes, "sub_boxes", torch.float32, dev, (-1, n_subs, 8))
     _lib.check(woop_t, "woop_t", torch.float32, dev, (-1, 16, CHUNK))
-    _lib.check(pair_ids, "pair_clusters", torch.int32, dev)
-    if sub_boxes.shape[0] != woop_t.shape[0] * granularity:
-        raise ValueError("sub_boxes must hold one row block per window")
+    return stride
+
+
+def _raster_outputs(n_blocks: int, w: int, dev):
     out_t = torch.empty((n_blocks, w), dtype=torch.float32, device=dev)
-    out_slot = torch.empty((n_blocks, w), dtype=torch.int32, device=dev)
-    out_u = torch.empty_like(out_t)
-    out_v = torch.empty_like(out_t)
+    return (out_t, torch.empty((n_blocks, w), dtype=torch.int32, device=dev),
+            torch.empty_like(out_t), torch.empty_like(out_t))
+
+
+def raster_instanced_call(pair_tiles, pair_libs, pair_ids, pair_insts,
+                          rays_t_ext, sub_boxes, inst_rows, woop_t,
+                          n_blocks: int, w: int = 1024,
+                          any_hit: bool = False, common: str | None = None):
+    """Kernel D, the TLAS raster, over a (ray tile, TLAS pair) schedule.
+
+    pair_tiles: (NP,) int32 schedule tiles as :func:`raster_cluster_call`
+        (real entries grouped by tile near to far, padding -> n_blocks);
+    pair_libs: (NP,) int32 LIBRARY cluster of each entry (its Woop rows);
+    pair_ids: (NP,) int32 TLAS pair of each entry (its world sub boxes,
+        and the slot base: slot = pair * CHUNK + row);
+    pair_insts: (NP,) int32 instance of each entry (its affine row);
+    rays_t_ext: (8, (n_blocks + 1) * w) WORLD rays in tile order;
+    sub_boxes: (Cp, n_subs, 8) world sub boxes per pair (refit per frame);
+    inst_rows: (P, 128) rows [A(9), b(3), 0...] of o' = A (o - b);
+    woop_t: (SC, 16, CHUNK) object-space library rows.
+
+    Returns (t, slot, u, v), each (n_blocks, w), as
+    :func:`raster_cluster_call`."""
+    if common not in (None, "origin"):
+        raise ValueError(f"common={common!r}: only None and 'origin'")
+    dev = rays_t_ext.device
+    if not rays_t_ext.is_cuda:
+        return raster_instanced_plain(pair_tiles, pair_libs, pair_ids,
+                                      pair_insts, rays_t_ext, sub_boxes,
+                                      inst_rows, woop_t, n_blocks, w,
+                                      any_hit, common)
+    libs, tile_start = _tile_schedule(pair_tiles, pair_libs, n_blocks)
+    n_subs = sub_boxes.shape[1]
+    if CHUNK % n_subs:
+        raise ValueError(f"n_subs {n_subs} must divide CHUNK={CHUNK}")
+    stride = _check_raster(rays_t_ext, sub_boxes, woop_t, n_subs, n_blocks,
+                           w)
+    ids = pair_ids.to(torch.int32).contiguous()
+    insts = pair_insts.to(torch.int32).contiguous()
+    for name, x in (("pair_libs", libs), ("pair_ids", ids),
+                    ("pair_insts", insts)):
+        _lib.check(x, name, torch.int32, dev, (pair_tiles.shape[0],))
+    _lib.check(inst_rows, "inst_rows", torch.float32, dev, (-1, 128))
+    out = _raster_outputs(n_blocks, w, dev)
     if n_blocks:
-        _lib.TILE_RASTER(
-            dev, pair_ids.data_ptr(), tile_start.data_ptr(),
-            rays_t_ext.data_ptr(), stride, sub_boxes.data_ptr(), n_subs,
-            woop_t.data_ptr(), granularity, n_blocks, w, int(any_hit),
-            int(common == "origin"), out_t.data_ptr(), out_slot.data_ptr(),
-            out_u.data_ptr(), out_v.data_ptr())
-    return out_t, out_slot, out_u, out_v
+        _lib.TILE_RASTER_INSTANCED(
+            dev, libs.data_ptr(), ids.data_ptr(), insts.data_ptr(),
+            tile_start.data_ptr(), rays_t_ext.data_ptr(), stride,
+            sub_boxes.data_ptr(), n_subs, inst_rows.data_ptr(),
+            woop_t.data_ptr(), n_blocks, w, int(any_hit),
+            int(common == "origin"), *(x.data_ptr() for x in out))
+    return out

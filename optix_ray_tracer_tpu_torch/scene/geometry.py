@@ -1,5 +1,7 @@
 """Scene geometry as SoA tensors (port of
-``optix_ray_tracer_tpu/scene/geometry.py``, flat scenes only).
+``optix_ray_tracer_tpu/scene/geometry.py``: flat scenes and the
+``ShapeLibrary`` of the Time frontend; ``Instances`` and baked
+instancing wait for the frontends slice).
 
 Triangle vertices and normals are packed (T, 3, 3) float32.  Constructors
 build CPU tensors from host data; ``.to(device)`` moves a whole scene.
@@ -115,3 +117,42 @@ class Scene(TensorDataclass):
     @property
     def triangle_count(self) -> int:
         return self.triangles.count
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeLibrary(TensorDataclass):
+    """Triangle meshes sharing one packed buffer: shape i owns rows
+    [offsets[i], offsets[i] + counts[i]) of ``vertices``/``normals``
+    (T, 3, 3).  ``offsets``/``counts`` are host int64 arrays."""
+    vertices: torch.Tensor
+    normals: torch.Tensor
+    offsets: np.ndarray
+    counts: np.ndarray
+
+    @staticmethod
+    def from_meshes(meshes: list[tuple[np.ndarray, np.ndarray]]
+                    ) -> "ShapeLibrary":
+        """meshes: list of (vertices (t, 3, 3), normals (t, 3, 3))."""
+        if not meshes:
+            z = torch.zeros((0, 3, 3))
+            return ShapeLibrary(z, z, np.zeros(0, np.int64),
+                                np.zeros(0, np.int64))
+        counts = np.asarray([m[0].shape[0] for m in meshes], np.int64)
+        offsets = np.concatenate([[0], np.cumsum(counts)[:-1]])
+        return ShapeLibrary(
+            torch.as_tensor(np.concatenate(
+                [np.asarray(m[0], np.float32) for m in meshes], 0)),
+            torch.as_tensor(np.concatenate(
+                [np.asarray(m[1], np.float32) for m in meshes], 0)),
+            offsets, counts)
+
+    @property
+    def num_shapes(self) -> int:
+        return len(self.counts)
+
+    def shape(self, i: int) -> Triangles:
+        lo = int(self.offsets[i])
+        hi = lo + int(self.counts[i])
+        return Triangles(self.vertices[lo:hi], self.normals[lo:hi],
+                         torch.zeros((hi - lo,), dtype=torch.int32,
+                                     device=self.vertices.device))

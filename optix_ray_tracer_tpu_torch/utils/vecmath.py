@@ -51,6 +51,14 @@ def refract(uv, n, eta_ratio):
     return r_perp + r_par
 
 
+def degrees_to_radians(deg):
+    return deg * (PI / 180.0)
+
+
+def radians_to_degrees(rad):
+    return rad * (180.0 / PI)
+
+
 def schlick_fresnel(cosine, ref_idx):
     r0 = ((1.0 - ref_idx) / (1.0 + ref_idx)) ** 2
     return r0 + (1.0 - r0) * (1.0 - cosine) ** 5

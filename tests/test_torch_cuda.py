@@ -1,5 +1,5 @@
-"""Kernels A, B and C on the card against their plain PyTorch versions, on
-the same CUDA inputs at a small scene size.  Marked ``cuda``: they skip
+"""Kernels A-F on the card against their plain PyTorch versions, on the
+same CUDA inputs at a small scene size.  Marked ``cuda``: they skip
 where no CUDA device is present; on a machine with one, run
 
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest
@@ -180,3 +180,132 @@ def test_render_matches_cpu(dev):
     diff = (imgs[0] - imgs[1]).abs()
     assert float(diff.mean()) <= 1e-5
     assert float((diff.amax(-1) <= 1e-4).float().mean()) >= 0.999
+
+
+@pytest.fixture(scope="module")
+def tlas(dev):
+    """A small TLAS on the card: the library of tests/test_instanced.py
+    (80, 200, 450 triangles), 40 posed instances, one invalid."""
+    from optix_ray_tracer_tpu_torch.ops.instanced import (
+        build_instanced_library, make_instanced_intersector,
+    )
+    from optix_ray_tracer_tpu_torch.utils.transforms import (
+        quat_to_rotation_matrix,
+    )
+    meshes = [sphere_with_n_triangles(s)[0] for s in (80, 200, 450)]
+    counts = np.asarray([m.shape[0] for m in meshes])
+    lib = build_instanced_library(np.concatenate(meshes), np.concatenate(
+        [[0], np.cumsum(counts)[:-1]]), counts).to(dev)
+    r = np.random.default_rng(5)
+    P = 40
+    q = torch.as_tensor(r.normal(size=(P, 4)).astype(np.float32), device=dev)
+    valid = torch.ones(P, dtype=torch.bool, device=dev)
+    valid[7] = False
+    inter = make_instanced_intersector(
+        lib, r.integers(0, 3, P), quat_to_rotation_matrix(q),
+        torch.as_tensor(r.uniform(-6, 6, (P, 3)).astype(np.float32),
+                        device=dev), 0.8, valid)
+    oi = torch.as_tensor(r.uniform(-5, 5, (8192, 3)).astype(np.float32),
+                         device=dev)
+    di = torch.as_tensor(r.normal(size=(8192, 3)).astype(np.float32),
+                         device=dev)
+    return inter, oi, di / torch.linalg.norm(di, dim=-1, keepdim=True)
+
+
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_block_march_instanced_kernel(tlas, dev, any_hit):
+    """Kernel E against its plain version: the same slots."""
+    inter, oi, di = tlas
+    n = oi.shape[0]
+    inp = bm.march_instanced_inputs(
+        inter.pair_min, inter.pair_max, inter.sub_min, inter.sub_max,
+        inter.pair_shape, inter.pair_inst, inter.inst_rows,
+        inter.library.woop_t, oi, di, torch.full((n,), 1e-3, device=dev),
+        torch.full((n,), 2.0 if any_hit else 1e16, device=dev))
+    before = _lib.BLOCK_MARCH_INSTANCED.launches
+    kern = bm.march_instanced_call(**inp, any_hit=any_hit)
+    assert _lib.BLOCK_MARCH_INSTANCED.launches == before + 1
+    plain = bm.march_instanced_plain(
+        **{k: v for k, v in inp.items() if k != "w"}, any_hit=any_hit)
+    torch.cuda.synchronize()
+    assert torch.equal(kern[1] >= 0, plain[1] >= 0)
+    assert 0 < int((kern[1] >= 0).sum()) < n
+    if not any_hit:
+        tk, tp = kern[0], plain[0]
+        assert bool((torch.abs(tk - tp) <= 1e-5 * torch.abs(tp) + 1e-6)
+                    [plain[1] >= 0].all())
+
+
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_tile_raster_instanced_kernel(tlas, dev, any_hit):
+    """Kernel D against its plain version on a camera wave (origin mode):
+    the same slots, t, u and v."""
+    from optix_ray_tracer_tpu_torch.ops import raster_instanced as ri
+    inter, _, _ = tlas
+    cam = Camera.look_at((16.0, 2.0, 3.0), (0.0, 0.0, 0.0),
+                         (0.0, 0.0, 1.0)).to(dev)
+    o, d = cam.generate_rays(128, 128)
+    o = o.reshape(4, 32, 4, 32, 3).transpose(1, 2).reshape(-1, 3)
+    d = d.reshape(4, 32, 4, 32, 3).transpose(1, 2).reshape(-1, 3)
+    n = o.shape[0]
+    tmax = torch.full((n,), 16.0 if any_hit else 1e16, device=dev)
+    S = ri.instanced_coarse_stage(inter.pair_min, inter.pair_max, o, d,
+                                  torch.full((n,), 1e-3, device=dev), tmax,
+                                  "origin", o[0], 1024, 1 << 16)
+    assert int(S["pc_total"]) <= 1 << 16
+    inp = ri.instanced_schedule_inputs(inter, S)
+    before = _lib.TILE_RASTER_INSTANCED.launches
+    kern = ri.raster_instanced_call(**inp, w=1024, any_hit=any_hit,
+                                    common="origin")
+    assert _lib.TILE_RASTER_INSTANCED.launches == before + 1
+    plain = tr.raster_instanced_plain(**inp, w=1024, any_hit=any_hit,
+                                      common="origin")
+    torch.cuda.synchronize()
+    assert torch.equal(kern[1] >= 0, plain[1] >= 0)
+    assert int((kern[1] >= 0).sum()) > 0
+    if not any_hit:
+        assert torch.equal(kern[1], plain[1])
+        for a, b in zip(kern, plain):
+            torch.testing.assert_close(a, b, rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("coherent", [True, False])
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_block_march_hier_kernel(setup, dev, coherent, any_hit):
+    """Kernel F against its plain version, and against kernel B, on the
+    same sorted wave."""
+    scene, inter, o, d, oi, di = setup
+    cs = inter.clusters
+    wo, wd = (o, d) if coherent else (oi, di)
+    n = wo.shape[0]
+    tmin = torch.full((n,), 1e-3, device=dev)
+    tmax = torch.full((n,), 0.5 if any_hit else 1e16, device=dev)
+    perm = torch.argsort(ray_probe_keys(cs, wo, wd, tmin, tmax), stable=True)
+    inp = bm.hier_inputs(cs, wo[perm], wd[perm], tmin, tmax, coherent)
+    before = _lib.BLOCK_MARCH_HIER.launches
+    kern = bm.march_hier_call(**inp, any_hit=any_hit)
+    assert _lib.BLOCK_MARCH_HIER.launches == before + 1
+    plain = bm.march_hier_plain(**{k: v for k, v in inp.items() if k != "w"},
+                                any_hit=any_hit)
+    flat = bm.march_call(**bm.march_inputs(cs, wo[perm], wd[perm], tmin,
+                                           tmax, coherent, 128),
+                         any_hit=any_hit)
+    if any_hit:
+        assert torch.equal(kern[1] >= 0, plain[1] >= 0)
+        assert torch.equal(kern[1] >= 0, flat[1] >= 0)
+    else:
+        _check(cs, kern, plain)
+        _check(cs, kern, flat)
+
+
+def test_routing_on_card(setup, dev, monkeypatch):
+    """block_march sends coherent waves past HIER_MIN_CLUSTERS to F."""
+    scene, inter, o, d, _, _ = setup
+    monkeypatch.setattr(bm, "HIER_MIN_CLUSTERS", 8)
+    before = (_lib.BLOCK_MARCH.launches, _lib.BLOCK_MARCH_HIER.launches)
+    h = inter.intersect(scene, o, d)
+    assert (_lib.BLOCK_MARCH.launches, _lib.BLOCK_MARCH_HIER.launches) == \
+        (before[0], before[1] + 1)
+    monkeypatch.setattr(bm, "HIER_MIN_CLUSTERS", 3072)
+    h_b = inter.intersect(scene, o, d)
+    assert hit_mismatches(h.prim_id, h.t, h_b.prim_id, h_b.t) == 0

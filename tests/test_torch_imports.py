@@ -1,6 +1,7 @@
 """Import hygiene of the port: optix_ray_tracer_tpu_torch and every module
-of the ported slice import neither jax nor the JAX package; on CPU tensors
-no kernel launches; chip_smoke.py refuses to run without CUDA."""
+of the ported slices import neither jax nor the JAX package; on CPU
+tensors no kernel (A-F) launches; chip_smoke.py refuses to run without
+CUDA."""
 
 import os
 import subprocess
@@ -15,15 +16,19 @@ MODULES = [
     "optix_ray_tracer_tpu_torch",
     "optix_ray_tracer_tpu_torch.convert",
     "optix_ray_tracer_tpu_torch.io.meshgen",
+    "optix_ray_tracer_tpu_torch.models.renderer_time",
     "optix_ray_tracer_tpu_torch.ops.bvh",
+    "optix_ray_tracer_tpu_torch.ops.instanced",
     "optix_ray_tracer_tpu_torch.ops.intersect",
     "optix_ray_tracer_tpu_torch.ops.kernels._lib",
     "optix_ray_tracer_tpu_torch.ops.kernels.block_march",
     "optix_ray_tracer_tpu_torch.ops.kernels.tile_raster",
     "optix_ray_tracer_tpu_torch.ops.march",
     "optix_ray_tracer_tpu_torch.ops.raster",
+    "optix_ray_tracer_tpu_torch.ops.raster_instanced",
     "optix_ray_tracer_tpu_torch.ops.raysort",
     "optix_ray_tracer_tpu_torch.ops.sweep",
+    "optix_ray_tracer_tpu_torch.ops.tlas",
     "optix_ray_tracer_tpu_torch.render.wavefront",
     "optix_ray_tracer_tpu_torch.scene.camera",
     "optix_ray_tracer_tpu_torch.scene.geometry",
@@ -31,6 +36,7 @@ MODULES = [
     "optix_ray_tracer_tpu_torch.utils.color",
     "optix_ray_tracer_tpu_torch.utils.rng",
     "optix_ray_tracer_tpu_torch.utils.tensors",
+    "optix_ray_tracer_tpu_torch.utils.transforms",
     "optix_ray_tracer_tpu_torch.utils.vecmath",
 ]
 
@@ -51,19 +57,47 @@ _LAUNCHES = """
 import numpy as np, torch
 torch.set_num_threads(1)
 from optix_ray_tracer_tpu_torch.io.meshgen import sphere_with_n_triangles
+from optix_ray_tracer_tpu_torch.models.renderer_time import (
+    packing_tables, tlas_frame_intersector)
+from optix_ray_tracer_tpu_torch.ops.instanced import build_instanced_library
 from optix_ray_tracer_tpu_torch.ops.kernels import _lib
+from optix_ray_tracer_tpu_torch.ops.kernels import block_march as bm
 from optix_ray_tracer_tpu_torch.ops.march import make_march_intersector
 from optix_ray_tracer_tpu_torch.render import wavefront
 from optix_ray_tracer_tpu_torch.scene.camera import Camera
-from optix_ray_tracer_tpu_torch.scene.geometry import Scene, Spheres, Triangles
+from optix_ray_tracer_tpu_torch.scene.geometry import (
+    Scene, ShapeLibrary, Spheres, Triangles)
 from optix_ray_tracer_tpu_torch.scene.materials import MaterialBuilder
 v, n = sphere_with_n_triangles(2500)
-mb = MaterialBuilder(); mb.add_metal((0.8, 0.8, 0.8), 0.1)
+mb = MaterialBuilder(); metal = mb.add_metal((0.8, 0.8, 0.8), 0.1)
 scene = Scene(Spheres.empty(), Triangles.from_arrays(v, n))
 inter = make_march_intersector(scene, raster=True)
 cam = Camera.look_at((3.0, 0.0, 0.5), (0.0, 0.0, 0.0), (0.0, 0.0, 1.0))
 img, _, _ = wavefront.render(scene, mb.build(), cam, 32, 32, spp=1,
                              intersector=inter, max_depth=2)
+assert torch.isfinite(img).all()
+# a coherent query routed to the hierarchical marcher (F)
+bm.HIER_MIN_CLUSTERS = 8
+o, d = cam.generate_rays(16, 16)
+assert inter.intersect(scene, o.reshape(-1, 3), d.reshape(-1, 3)).is_hit.any()
+# a TLAS frame: camera wave through D, bounce waves through E
+shapes = ShapeLibrary.from_meshes([sphere_with_n_triangles(80),
+                                   sphere_with_n_triangles(200)])
+lib = build_instanced_library(shapes.vertices.numpy(), shapes.offsets,
+                              shapes.counts)
+r = np.random.default_rng(1)
+sid, valid = r.integers(0, 2, 6), np.ones(6, bool)
+tl, ti, _ = packing_tables(shapes, sid[None], valid[None])
+q = torch.as_tensor(r.normal(size=(6, 4)).astype(np.float32))
+tlas = tlas_frame_intersector(
+    lib, shapes, sid, valid, torch.as_tensor(tl[0]), torch.as_tensor(ti[0]),
+    torch.full((6,), metal, dtype=torch.int32),
+    torch.as_tensor(r.uniform(-2, 2, (6, 3)).astype(np.float32)), q, q,
+    torch.zeros((6, 3)), 1.0, 0.0, 1)
+cam = Camera.look_at((9.0, 0.0, 0.5), (0.0, 0.0, 0.0), (0.0, 0.0, 1.0))
+img, _, _ = wavefront.render(Scene(Spheres.empty(), Triangles.empty()),
+                             mb.build(), cam, 32, 32, spp=1,
+                             intersector=tlas, max_depth=2)
 assert torch.isfinite(img).all()
 print("LAUNCHES", [k.launches for k in _lib.KERNELS], _lib._lib is None)
 """
@@ -82,11 +116,12 @@ def test_port_imports_no_jax():
 
 
 def test_cpu_path_launches_no_kernel():
-    """A whole raster + march render on CPU tensors takes the plain
-    versions: every launch count stays 0 and the library is never built."""
+    """Renders on CPU tensors (a raster + march frame, a TLAS frame) and a
+    query routed to the hierarchical marcher take the plain versions:
+    every launch count (A-F) stays 0 and the library is never built."""
     proc = _run(_LAUNCHES)
     assert proc.returncode == 0, proc.stderr
-    assert "LAUNCHES [0, 0, 0] True" in proc.stdout, proc.stdout
+    assert "LAUNCHES [0, 0, 0, 0, 0, 0] True" in proc.stdout, proc.stdout
 
 
 @pytest.mark.parametrize("where", ["repo", "alone"])

@@ -1,7 +1,9 @@
 """Device-time breakdown of the PyTorch + CUDA port's cells on one NVIDIA
 GPU: the bench step (camera wave + point-light shadow wave), the
-incoherent 1M-ray wave and the 1024x1024 spp-4 depth-5 Whitted frame,
-set up exactly as chip_smoke.py sets them up.
+incoherent 1M-ray wave, the 1024x1024 spp-4 depth-5 Whitted frame, and
+frame 0 of the 4,096-particle Time scene through the TLAS route and
+through the flatten route (same size), set up exactly as chip_smoke.py
+sets them up.
 
 Usage: python3 tools/prof_port.py  (from the repository root; needs CUDA).
 
@@ -18,6 +20,7 @@ go to build/prof_port/.
 from __future__ import annotations
 
 import json
+import re
 import sys
 from collections import defaultdict
 from pathlib import Path
@@ -29,18 +32,35 @@ import torch  # noqa: E402
 import chip_smoke  # noqa: E402
 
 OUT = Path("build") / "prof_port"
-ITERS = {"bench_step": 10, "incoherent_wave": 5, "whitted_frame": 2}
+ITERS = {"bench_step": 10, "incoherent_wave": 5, "whitted_frame": 2,
+         "tlas_frame": 2, "flatten_frame": 2}
+
+
+def _template_args(name: str, kernel: str) -> list[bool]:
+    """The bool template arguments of ``kernel`` in a demangled
+    (``kernel<true, false>``) or mangled (``kernelILb1ELb0E``) name."""
+    if f"{kernel}<" in name:
+        args = name.split(f"{kernel}<", 1)[1].split(">", 1)[0]
+        return [a.strip() == "true" for a in args.split(",")]
+    m = re.search(kernel + r"I((?:Lb[01]E)+)", name)
+    return [b == "1" for b in re.findall(r"Lb([01])E", m.group(1))] \
+        if m else []
 
 
 def group(name: str, cat: str) -> str:
     """The breakdown's group of one device event."""
     if cat != "kernel":
         return "memcpy/memset"
-    for kernel, label in (("tile_raster_kernel", "A tile_raster"),
-                          ("block_march_kernel", "B block_march"),
-                          ("probe_kernel", "C probe")):
+    if "block_march_hier_kernel" in name:
+        return "F block_march_hier"
+    for kernel, plain, instanced in (
+            ("tile_raster_kernel", "A tile_raster", "D tile_raster_inst"),
+            ("block_march_kernel", "B block_march", "E block_march_inst")):
         if kernel in name:
-            return label
+            args = _template_args(name, kernel)
+            return instanced if args and args[-1] else plain
+    if "probe_kernel" in name:
+        return "C probe"
     if "sort" in name.lower():
         return "sort"
     if any(k in name for k in ("gather", "index", "scatter")):
@@ -102,13 +122,21 @@ def main() -> None:
     inc = b.inter.for_incoherent()
     v, n = sphere_with_n_triangles(chip_smoke.N_TRIS)
     scene, mats, cam, inter = chip_smoke.whitted_setup(v, n, device)
+    t = chip_smoke.time_setup(device)
+    tlas = chip_smoke.time_frame(t, 0, t.pc_max1)
+
+    def frame(scene_, mats_, cam_, inter_):
+        return lambda: wavefront.render(
+            scene_, mats_, cam_, chip_smoke.WIDTH, chip_smoke.HEIGHT,
+            spp=chip_smoke.SPP, seed=1, max_depth=chip_smoke.DEPTH,
+            intersector=inter_)
+
     cells = {
         "bench_step": lambda: chip_smoke.bench_step(b),
         "incoherent_wave": lambda: inc.intersect(b.scene, b.oi, b.di),
-        "whitted_frame": lambda: wavefront.render(
-            scene, mats, cam, chip_smoke.WIDTH, chip_smoke.HEIGHT,
-            spp=chip_smoke.SPP, seed=1, max_depth=chip_smoke.DEPTH,
-            intersector=inter)}
+        "whitted_frame": frame(scene, mats, cam, inter),
+        "tlas_frame": frame(t.static, t.mats, t.cam, tlas),
+        "flatten_frame": frame(t.flat, t.mats, t.cam, t.finter)}
     for name, fn in cells.items():
         profile(name, fn, ITERS[name], card)
 
