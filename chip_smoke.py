@@ -41,12 +41,29 @@ CPU or to the plain versions):
    the TLAS route and frame 0 through the flatten route at 1024x1024, spp
    4, depth 5 (counts zeroed before the TLAS frames, then D and E > 0);
    the TLAS and flatten images agree, both are finite, sky pixels are the
-   background.
+   background;
+8. the sweep path on the bench scene (388 clusters): kernel G (leaf
+   sweep) against its plain version on the first pass's blocks of the 1M
+   camera wave and the 1M incoherent wave (65,536-ray subsets, exact
+   equality); SweepIntersector on both full waves against the marcher's
+   hits (the hit rule on all but 1e-5 of the rays, no ray active at the
+   pass cap); then phase 4's frame through SweepIntersector (G's count
+   zeroed before, > 0 after), held to phase 4's marcher frame;
+9. the frame's tail on phase 4's frame: render_frame with the a-trous and
+   the neural denoiser (committed weights), each against the same
+   denoiser on the CPU copy of the frame, accumulated into a Film and
+   written as PNGs.
 
-The last two lines of standard output are the kernels' JSON object and
-the device JSON object.  ``tools/prof_port.py`` profiles the same cells
-through :func:`bench_setup`, :func:`bench_step`, :func:`whitted_setup`,
-:func:`time_setup` and :func:`time_frame`.
+Every kernel's row in the kernels' JSON object carries its launches on
+the main path, its error against its plain version, its time and the
+plain version's (same inputs), and the bound: the larger of the bytes
+its inputs and outputs take over 3.35 TB/s and its float operations
+(counted from this run's work: pairs, visits) over 67 TFLOP/s FP32, the
+H100 SXM's published peaks.  The last two lines of standard output are
+the kernels' JSON object and the device JSON object.
+``tools/prof_port.py`` profiles the same cells through
+:func:`bench_setup`, :func:`bench_step`, :func:`whitted_setup`,
+:func:`time_setup`, :func:`time_frame` and :func:`tail_setup`.
 """
 
 from __future__ import annotations
@@ -80,6 +97,17 @@ TIME_DURATION = 1.0
 TIME_FRAMES = 2
 SUBSET_TIME = 16_384
 SUBSET_E = 8_192          # the plain E visits every pair: the slowest twin
+SWEEP_HIT_EXCEPTIONS = 1e-5   # sweep vs marcher: allowed share of rays
+# card vs CPU, relative: tests/test_torch_denoise.py's tolerances
+DENOISE_RTOL = {"atrous": 8e-6, "neural": 2.4e-5}
+# the bound: float operations per unit of work (a compare, abs or negate
+# counts as one) over the H100 SXM's published peaks
+WOOP_OPS = 47     # one (ray, triangle) Woop test: projections, t, u, v, test
+SLAB_OPS = 26     # one (ray, box) slab entry
+INST_OPS = 33     # one ray moved into an instance's space
+FP32_FLOPS = 67e12
+HBM_BYTES_PER_S = 3.35e12
+CHUNK = 256       # triangles per cluster (ops/sweep.CHUNK)
 #: the kernels by letter, filled in by main()
 K: dict = {}
 
@@ -106,6 +134,37 @@ def time_ms(fn, reps: int) -> float:
     b.record()
     b.synchronize()
     return a.elapsed_time(b) / reps
+
+
+def tensor_bytes(*objs) -> int:
+    """Bytes of every tensor among ``objs`` (dicts, tuples and lists are
+    searched), each counted once."""
+    import torch
+    seen, total = set(), 0
+    stack = list(objs)
+    while stack:
+        x = stack.pop()
+        if isinstance(x, dict):
+            stack.extend(x.values())
+        elif isinstance(x, (tuple, list)):
+            stack.extend(x)
+        elif isinstance(x, torch.Tensor) and x.data_ptr() not in seen:
+            seen.add(x.data_ptr())
+            total += x.numel() * x.element_size()
+    return total
+
+
+def row(err: float, ms: float, plain_ms: float, io_bytes: int,
+        ops: float) -> dict:
+    """A kernel's JSON row from its measurements and its work: the bound
+    is the larger of bytes over the memory rate and operations over the
+    FP32 rate."""
+    t_bytes = io_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / FP32_FLOPS * 1e3
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                library_ms=None)
 
 
 def tile_order(x, h: int, w: int):
@@ -177,15 +236,16 @@ def bench_setup(device) -> SimpleNamespace:
     )
 
     v, n = sphere_with_n_triangles(N_TRIS)
-    scene = Scene(Spheres.empty(), Triangles.from_arrays(v, n)).to(device)
+    scene = Scene(Spheres.empty(device), Triangles.from_arrays(v, n,
+                                                               device=device))
     t0 = time.perf_counter()
     inter = make_march_intersector(scene, raster=True)
     print(f"[scene] {scene.triangle_count} triangles, "
           f"{inter.clusters.num_clusters} clusters (host SAH build "
           f"{time.perf_counter() - t0:.2f} s)")
     cs = inter.clusters
-    cam = Camera.look_at((3.0, 0.0, 0.0), (0.0, 0.0, 0.0),
-                         (0.0, 0.0, 1.0)).to(device)
+    cam = Camera.look_at((3.0, 0.0, 0.0), (0.0, 0.0, 0.0), (0.0, 0.0, 1.0),
+                         device=device)
     o, d = cam.generate_rays(WIDTH, HEIGHT)
     o, d = tile_order(o, HEIGHT, WIDTH), tile_order(d, HEIGHT, WIDTH)
     R = o.shape[0]
@@ -240,7 +300,7 @@ def bench_step(b: SimpleNamespace):
 
 def check_kernels(b: SimpleNamespace) -> dict:
     """Phase 2: each kernel against its plain version at the main path's
-    shapes; returns {name: (max_abs_err, ms, plain_ms)}."""
+    shapes; returns {name: JSON row (see :func:`row`)}."""
     import torch
 
     from optix_ray_tracer_tpu_torch.ops import raster
@@ -284,16 +344,18 @@ def check_kernels(b: SimpleNamespace) -> dict:
         print(f"    {label}: kernel {ms:.3f} ms vs plain {p_ms:.1f} ms "
               f"on {nbs * W} rays; kernel on the full wave ({R} rays, "
               f"{int(S['pc_total'])} pairs) {full_ms:.3f} ms")
-        return err, ms, p_ms
+        ops = k * W * (CHUNK // g * WOOP_OPS + inp["n_subs"] * SLAB_OPS)
+        return row(err, ms, p_ms, tensor_bytes(sub, kern), ops)
 
     G, GS = DEFAULT_GRANULARITY, DEFAULT_ANYHIT_GRANULARITY
     S1 = raster._coarse_stage(b.inter.raster, cs, b.o, b.d, b.tmin0,
                               b.tmax_inf, "origin", b.o[0], W, b.pc_max1, G)
     S2 = raster._coarse_stage(b.inter.raster, cs, *b.shadow, "origin",
                               b.light, W, b.pc_max2, GS)
-    e1, ms_a, plain_a = raster_case("camera wave", S1, G, False)
-    e2, _, _ = raster_case("shadow wave", S2, GS, True)
-    rows["tile_raster"] = (max(e1, e2), ms_a, plain_a)
+    r1 = raster_case("camera wave", S1, G, False)
+    r2 = raster_case("shadow wave", S2, GS, True)
+    rows["tile_raster"] = dict(r1, max_abs_err=max(r1["max_abs_err"],
+                                                   r2["max_abs_err"]))
 
     waves = {
         "incoherent": (b.oi, b.di, ray_probe_keys(cs, b.oi, b.di, b.tmin0,
@@ -309,7 +371,8 @@ def check_kernels(b: SimpleNamespace) -> dict:
         full_ms = time_ms(lambda: bm.march_call(**inp), REPS)
         sub = dict(inp, rays=inp["rays"][:, :SUBSET].contiguous())
         plain_args = {k: v for k, v in sub.items() if k != "w"}
-        err = compare(f"B {label}", prim_keys(cs), bm.march_call(**sub),
+        kern = bm.march_call(**sub)
+        err = compare(f"B {label}", prim_keys(cs), kern,
                       bm.march_plain(**plain_args, any_hit=False), False)
         ms = time_ms(lambda: bm.march_call(**sub), REPS)
         p_ms = time_ms(lambda: bm.march_plain(**plain_args,
@@ -318,7 +381,10 @@ def check_kernels(b: SimpleNamespace) -> dict:
               f"on {SUBSET} rays; full wave ({R} rays, W={inp['w']}, "
               f"n_subs={inp['n_subs']}) {full_ms:.3f} ms, mean "
               f"{visits:.2f} cluster visits per block (nearest-first order)")
-        march_rows.append((err, ms, p_ms))
+        C, W = inp["n_clusters"], inp["w"]
+        ops = SUBSET * C * SLAB_OPS + int(kern[2].sum()) * W * (
+            CHUNK * WOOP_OPS + (inp["n_subs"] + 1) * SLAB_OPS)
+        march_rows.append(row(err, ms, p_ms, tensor_bytes(sub, kern), ops))
 
         pin = bm.probe_inputs(cs, wo, wd, b.tmin0, b.tmax_inf)
         psub = dict(pin, rays=pin["rays"][:, :SUBSET].contiguous())
@@ -332,8 +398,10 @@ def check_kernels(b: SimpleNamespace) -> dict:
         p_ms = time_ms(lambda: bm.probe_plain(**psub), 1)
         print(f"    {label}: kernel {ms:.3f} ms vs plain {p_ms:.1f} ms "
               f"on {SUBSET} rays; full wave ({R} rays) {full_ms:.3f} ms")
-        probe_rows.append((0.0, ms, p_ms))
-    rows["block_march"] = (max(r[0] for r in march_rows),) + march_rows[0][1:]
+        probe_rows.append(row(0.0, ms, p_ms, tensor_bytes(psub, ids_k),
+                              SUBSET * pin["n_clusters"] * SLAB_OPS))
+    rows["block_march"] = dict(march_rows[0], max_abs_err=max(
+        r["max_abs_err"] for r in march_rows))
     rows["probe_first_cluster"] = probe_rows[0]
     return rows
 
@@ -409,19 +477,21 @@ def whitted_setup(v, n, device):
     metal = mb.add_metal((0.8, 0.85, 0.88), 0.05)
     ground = mb.add_rough((0.70, 0.60, 0.50))
     qv, qn = quad((-6, -6, -1), (6, -6, -1), (6, 6, -1), (-6, 6, -1))
-    scene = Scene(Spheres.empty(), Triangles.from_arrays(v, n, metal)
-                  .concat(Triangles.from_arrays(qv, qn, ground))).to(device)
-    cam = Camera.look_at((3.0, 0.0, 0.5), (0.0, 0.0, 0.0),
-                         (0.0, 0.0, 1.0)).to(device)
-    return (scene, mb.build().to(device), cam,
+    scene = Scene(Spheres.empty(device),
+                  Triangles.from_arrays(v, n, metal, device=device).concat(
+                      Triangles.from_arrays(qv, qn, ground, device=device)))
+    cam = Camera.look_at((3.0, 0.0, 0.5), (0.0, 0.0, 0.0), (0.0, 0.0, 1.0),
+                         device=device)
+    return (scene, mb.build(device), cam,
             make_march_intersector(scene, raster=True))
 
 
-def whitted(device, card: str) -> dict:
+def whitted(device, card: str):
     """Phase 4: the main path.  A 64x64 frame on the card is first held
     against the same call on CPU tensors (the plain versions); then the
     full frame runs with the launch counts zeroed just before it.  Returns
-    the counts."""
+    the counts and the frame (scene, materials, camera, marcher, seed,
+    image, albedo, normal, sRGB frame) for phases 8 and 9."""
     import torch
 
     from optix_ray_tracer_tpu_torch.io.meshgen import sphere_with_n_triangles
@@ -483,7 +553,9 @@ def whitted(device, card: str) -> dict:
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     write_png(OUT_DIR / "whitted.png", rgba)
     print(f"[whitted] wrote {OUT_DIR / 'whitted.png'}")
-    return launches
+    return launches, SimpleNamespace(scene=scene, mats=mats, cam=cam,
+                                     inter=inter, seed=1, img=img, alb=alb,
+                                     nrm=nrm, rgba=rgba)
 
 
 def time_once(fn):
@@ -498,6 +570,13 @@ def time_once(fn):
     b.record()
     b.synchronize()
     return out, a.elapsed_time(b)
+
+
+def time_host(fn):
+    """(result, ms) of one call on the host clock (CPU work)."""
+    t0 = time.perf_counter()
+    out = fn()
+    return out, (time.perf_counter() - t0) * 1e3
 
 
 def time_setup(device) -> SimpleNamespace:
@@ -526,10 +605,9 @@ def time_setup(device) -> SimpleNamespace:
     from optix_ray_tracer_tpu_torch.scene.materials import MaterialBuilder
 
     shapes = ShapeLibrary.from_meshes(
-        [sphere_with_n_triangles(s) for s in TIME_LIBRARY]).to(device)
+        [sphere_with_n_triangles(s) for s in TIME_LIBRARY], device)
     library = build_instanced_library(shapes.vertices.cpu().numpy(),
-                                      shapes.offsets, shapes.counts
-                                      ).to(device)
+                                      shapes.offsets, shapes.counts, device)
     gen = np.random.default_rng(7)
     sid = gen.integers(0, len(TIME_LIBRARY), N_PARTICLES)
     q = gen.normal(size=(N_PARTICLES, 4))
@@ -554,27 +632,27 @@ def time_setup(device) -> SimpleNamespace:
                  velocities=dev(vel))
     qv, qn = quad((-40, -40, -16), (40, -40, -16), (40, 40, -16),
                   (-40, 40, -16))
-    static = Scene(Spheres.empty(),
-                   Triangles.from_arrays(qv, qn, ground)).to(device)
+    static = Scene(Spheres.empty(device),
+                   Triangles.from_arrays(qv, qn, ground, device=device))
     # look_at's view spans +-1 at its target: a target TIME_FOCAL units
     # along the axis toward the origin frames the pile and some sky
     eye = np.asarray(TIME_EYE, np.float32)
     axis = -eye / np.linalg.norm(eye)
     cam = Camera.look_at(tuple(eye), tuple(eye + TIME_FOCAL * axis),
-                         (0.0, 0.0, 1.0)).to(device)
+                         (0.0, 0.0, 1.0), device=device)
     t = SimpleNamespace(
         shapes=shapes, library=library, sid=sid, valid=valid,
         tri=(dev(tri_lib[0], torch.int32), dev(tri_inst[0], torch.int32),
              dev(tri_ok[0], torch.bool)),
         pmat=dev(pmat, torch.int32), poses=poses, static=static,
-        mats=mb.build().to(device), cam=cam, device=device)
+        mats=mb.build(device), cam=cam, device=device)
 
     v, n, mat = rt._frame_triangles(
         shapes.vertices, shapes.normals, *t.tri, poses["positions"],
         poses["quats"], poses["quats_next"], poses["velocities"], t.pmat,
         TIME_DURATION, 0.0, 1.0 / (TIME_FRAMES - 1), 1.0 / TIME_FRAMES,
         (0.0, 0.0, 0.0), 1.0, False)
-    t.flat = Scene(Spheres.empty(),
+    t.flat = Scene(Spheres.empty(device),
                    Triangles(v, n, mat).concat(static.triangles))
     t0 = time.perf_counter()
     t.finter = make_march_intersector(t.flat, raster=True)
@@ -619,8 +697,8 @@ def time_frame(t: SimpleNamespace, k: int, pc_max: int | None = None):
 def check_time_kernels(t: SimpleNamespace) -> dict:
     """Phase 6: kernels D, E and F against their plain versions at the Time
     scene's full-size waves (compared on subsets), with both full-wave
-    times, and F beside B on the same coherent wave.  Returns {name:
-    (max_abs_err, ms, plain_ms)}."""
+    times, and F beside B on the same coherent wave.  Returns {name: JSON
+    row (see :func:`row`)}."""
     import torch
 
     from optix_ray_tracer_tpu_torch.ops import raster
@@ -693,9 +771,10 @@ def check_time_kernels(t: SimpleNamespace) -> dict:
         print(f"    {label}: kernel {ms:.3f} ms vs plain {p_ms:.1f} ms on "
               f"{nbs * W} rays; full wave ({R} rays, {int(S['pc_total'])} "
               f"pairs) {full_ms:.3f} ms")
-        d_rows.append((err, ms, p_ms))
-    rows["tile_raster_instanced"] = (max(r[0] for r in d_rows),) \
-        + d_rows[0][1:]
+        ops = k * W * (CHUNK * WOOP_OPS + 4 * SLAB_OPS + INST_OPS)
+        d_rows.append(row(err, ms, p_ms, tensor_bytes(sub, kern), ops))
+    rows["tile_raster_instanced"] = dict(d_rows[0], max_abs_err=max(
+        r["max_abs_err"] for r in d_rows))
 
     # E: 1M incoherent rays inside the particle cloud, Morton-sorted as the
     # TLAS marcher sorts them
@@ -729,9 +808,11 @@ def check_time_kernels(t: SimpleNamespace) -> dict:
               f"{SUBSET_E} rays; full wave ({R} rays, {inp['n_pairs']} "
               f"pairs) {full_ms:.3f} ms, mean "
               f"{visits.float().mean().item():.2f} pair visits per block")
-        e_rows.append((err, ms, p_ms))
-    rows["block_march_instanced"] = (max(r[0] for r in e_rows),) \
-        + e_rows[0][1:]
+        ops = SUBSET_E * inp["n_pairs"] * SLAB_OPS + int(kern[2].sum()) \
+            * inp["w"] * (CHUNK * WOOP_OPS + 5 * SLAB_OPS + INST_OPS)
+        e_rows.append(row(err, ms, p_ms, tensor_bytes(sub, kern), ops))
+    rows["block_march_instanced"] = dict(e_rows[0], max_abs_err=max(
+        r["max_abs_err"] for r in e_rows))
 
     # F: the flatten route's Morton-sorted camera wave, through
     # block_march's routing, against the plain F and beside flat B
@@ -778,8 +859,12 @@ def check_time_kernels(t: SimpleNamespace) -> dict:
               f"cluster visits per block) vs B {b_ms:.3f} ms "
               f"(W={b_inp['w']}, "
               f"{flat[2].float().mean().item():.2f}) [{t.card}]")
-        f_rows.append((err, ms, p_ms))
-    rows["block_march_hier"] = (max(r[0] for r in f_rows),) + f_rows[0][1:]
+        n_sup = -(-cs.num_clusters // 8)
+        ops = SUBSET_TIME * n_sup * SLAB_OPS + int(kern[2].sum()) \
+            * inp["w"] * (CHUNK * WOOP_OPS + (inp["n_subs"] + 1) * SLAB_OPS)
+        f_rows.append(row(err, ms, p_ms, tensor_bytes(sub, kern), ops))
+    rows["block_march_hier"] = dict(f_rows[0], max_abs_err=max(
+        r["max_abs_err"] for r in f_rows))
     return rows
 
 
@@ -891,6 +976,198 @@ def time_frames(t: SimpleNamespace, card: str) -> dict:
     return launches
 
 
+def first_pass_blocks(clusters, o, d):
+    """The leaf sweep's arguments (woop, starts, o, d, t_min, best) in the
+    first pass of a sweep query over the wave (o, d), as the pass builds
+    them: every group's rays padded to whole 128-ray blocks."""
+    import torch
+
+    from optix_ray_tracer_tpu_torch.ops import sweep as sw
+    from optix_ray_tracer_tpu_torch.ops.kernels import leaf_sweep as ls
+    seen = []
+    real = ls.window_sweep_call
+
+    def record(*args):
+        seen.append(args)
+        return real(*args)
+
+    ls.window_sweep_call = record
+    try:
+        R = o.shape[0]
+        state = sw._initial_state(o, torch.full((R,), 1e16, device=o.device))
+        sw._sweep_pass(clusters, o, d, torch.full((R,), 1e-3,
+                                                  device=o.device), **state)
+    finally:
+        ls.window_sweep_call = real
+    return seen[0]
+
+
+def sweep_phase(b: SimpleNamespace, f: SimpleNamespace, card: str):
+    """Phase 8: kernel G against its plain version on the first pass's
+    blocks of the camera and incoherent waves; SweepIntersector on both
+    full waves against the marcher; phase 4's frame through the sweep,
+    with the launch counts zeroed just before it.  Returns (G's JSON row,
+    G's launches in the frame)."""
+    import torch
+
+    from optix_ray_tracer_tpu_torch.ops import sweep as sw
+    from optix_ray_tracer_tpu_torch.ops.intersect import hit_mismatches
+    from optix_ray_tracer_tpu_torch.ops.kernels import _lib
+    from optix_ray_tracer_tpu_torch.ops.kernels import leaf_sweep as ls
+    from optix_ray_tracer_tpu_torch.render import wavefront
+    from optix_ray_tracer_tpu_torch.utils.color import (
+        color_to_uint8, write_png,
+    )
+
+    waves = {"camera": (b.o, b.d), "incoherent": (b.oi, b.di)}
+    print(f"[sweep kernels vs plain] G on the first pass's blocks, "
+          f"{SUBSET}-ray subsets spread over the windows, exact equality")
+    g_rows = []
+    for label, (o, d) in waves.items():
+        args = first_pass_blocks(b.cs, o, d)
+        nb = args[1].shape[0]
+        full_ms = time_ms(lambda: ls.window_sweep_call(*args), REPS)
+        pick = torch.linspace(0, nb - 1, SUBSET // 128,
+                              device=o.device).round().long()
+        sub = (args[0],) + tuple(x[pick].contiguous() for x in args[1:5]) \
+            + (tuple(x[pick].contiguous() for x in args[5]),)
+        kern = ls.window_sweep_call(*sub)
+        plain, p_ms = time_once(lambda: ls.window_sweep_plain(*sub))
+        bad = int((kern[1] != plain[1]).sum())
+        errs = [float((kern[i] - plain[i]).abs().max()) for i in (0, 2, 3)]
+        ms = time_ms(lambda: ls.window_sweep_call(*sub), REPS)
+        print(f"  G {label}: {bad} slot mismatches of {SUBSET} rays "
+              f"({int((kern[1] >= 0).sum())} hits), max |dt| {errs[0]:.3g}, "
+              f"|du| {errs[1]:.3g}, |dv| {errs[2]:.3g}; kernel {ms:.3f} ms vs "
+              f"plain {p_ms:.1f} ms; the full pass ({nb} blocks) "
+              f"{full_ms:.3f} ms [{card}]")
+        if bad or max(errs) > 0:
+            raise AssertionError(f"G {label}: kernel disagrees with its plain "
+                                 f"version")
+        g_rows.append(row(max(errs), ms, p_ms, tensor_bytes(sub, kern),
+                          SUBSET * CHUNK * WOOP_OPS))
+
+    si = sw.SweepIntersector(clusters=b.cs, log=[])
+    marcher = {
+        "camera": b.inter.intersect_from(b.scene, b.o, b.d, mode="origin",
+                                         point=b.o[0], pc_max=b.pc_max1),
+        "incoherent": b.inter.for_incoherent().intersect(b.scene, b.oi,
+                                                         b.di)}
+
+    def keys(h):
+        return torch.where(h.is_hit, h.prim_id, -1)
+
+    for label, (o, d) in waves.items():
+        si.log.clear()
+        h, ms = time_once(lambda: si.intersect(b.scene, o, d))
+        st = si.log[0]
+        ref = marcher[label]
+        bad = hit_mismatches(keys(h), h.t, keys(ref), ref.t)
+        print(f"[sweep] {label} wave ({b.R} rays): {st.passes} passes, live "
+              f"rays per pass {st.live}, {ms:.1f} ms by CUDA events "
+              f"[{card}]; {bad} rays differ from the marcher under the hit "
+              f"rule; " + ("a ray was still active at the cap"
+                           if st.unfinished else "no ray active at the cap"))
+        if st.unfinished:
+            raise AssertionError(f"sweep {label}: rays active at the cap")
+        if bad > SWEEP_HIT_EXCEPTIONS * b.R:
+            raise AssertionError(f"sweep {label}: {bad} rays differ from the "
+                                 f"marcher")
+
+    si = sw.SweepIntersector(clusters=f.inter.clusters, log=[])
+    for k in _lib.KERNELS:
+        k.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    img, alb, nrm = wavefront.render(f.scene, f.mats, f.cam, WIDTH, HEIGHT,
+                                     spp=SPP, seed=f.seed, max_depth=DEPTH,
+                                     intersector=si)
+    torch.cuda.synchronize()
+    s_frame = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in _lib.KERNELS}
+    passes = [st.passes for st in si.log]
+    print(f"[sweep frame] {WIDTH}x{HEIGHT} spp={SPP} depth {DEPTH} through "
+          f"SweepIntersector: {s_frame:.3f} s/frame [{card}]; launches "
+          f"{launches}; passes per wave {passes}")
+    if K["G"].launches == 0:
+        raise AssertionError("the sweep frame never launched kernel G")
+    if any(st.unfinished for st in si.log):
+        raise AssertionError("sweep frame: rays active at the cap")
+    if not all(bool(torch.isfinite(x).all()) for x in (img, alb, nrm)):
+        raise AssertionError("sweep frame has non-finite values")
+    rgba = color_to_uint8(img)
+    if tuple(rgba[0, 0, :3].tolist()) != SKY:
+        raise AssertionError(f"sweep frame sky pixel {rgba[0, 0, :3]}")
+    sky = int((rgba[..., :3] == torch.tensor(SKY, device=rgba.device,
+                                             dtype=torch.uint8)).all(-1)
+              .sum())
+    diff = (rgba.int() - f.rgba.int()).abs()
+    over2 = float((diff > 2).float().mean())
+    print(f"[sweep frame] finite; {sky} sky pixels equal {SKY}; vs phase "
+          f"4's marcher frame: max {int(diff.max())} LSB, {over2:.6f} of "
+          f"channels > 2 LSB, mean {float(diff.float().mean()):.4f} LSB")
+    if over2 >= 0.01:
+        raise AssertionError("sweep and marcher frames disagree")
+    write_png(OUT_DIR / "whitted_sweep.png", rgba)
+    return g_rows[0], K["G"].launches
+
+
+def tail_config(denoiser: str) -> SimpleNamespace:
+    """The frame step's config (read by attribute, as render_frame reads
+    the JAX package's RendererConfig)."""
+    return SimpleNamespace(integrator="whitted", background=(0.7, 0.8, 0.9),
+                           max_depth=DEPTH, sampler="pcg", denoise=True,
+                           denoiser=denoiser)
+
+
+def tail_setup(f: SimpleNamespace, denoiser: str):
+    """The denoiser tail on phase 4's frame, as a callable."""
+    from optix_ray_tracer_tpu_torch.models.common import apply_denoiser
+    cfg = tail_config(denoiser)
+    return lambda: apply_denoiser(f.img, f.alb, f.nrm, cfg)
+
+
+def frame_tail(f: SimpleNamespace, card: str) -> None:
+    """Phase 9: render_frame with each denoiser; each denoiser on phase
+    4's frame timed, and held to the same call on the frame's CPU copy;
+    the 4 samples accumulated into a Film and written as PNGs."""
+    import torch
+
+    from optix_ray_tracer_tpu_torch.models.common import (
+        apply_denoiser, render_frame, resolve_denoiser,
+    )
+    from optix_ray_tracer_tpu_torch.render.film import Film
+
+    cpu = [x.cpu() for x in (f.img, f.alb, f.nrm)]
+    for name in ("atrous", "neural"):
+        cfg = tail_config(name)
+        if resolve_denoiser(cfg) != name:
+            raise AssertionError(f"resolve_denoiser gave "
+                                 f"{resolve_denoiser(cfg)} for {name}")
+        img, alb, nrm = render_frame(cfg, f.scene, f.mats, f.cam, WIDTH,
+                                     HEIGHT, SPP, f.seed, f.inter)
+        if not all(bool(torch.isfinite(x).all()) for x in (img, alb, nrm)):
+            raise AssertionError(f"render_frame ({name}) is not finite")
+        ms = time_ms(tail_setup(f, name), REPS)
+        card_out = tail_setup(f, name)()
+        cpu_out, cpu_ms = time_host(lambda: apply_denoiser(*cpu, cfg))
+        rel = (card_out.cpu() - cpu_out).abs() / cpu_out.abs()
+        err = float(torch.nan_to_num(rel, nan=0.0).max())
+        film = Film.create(WIDTH, HEIGHT, img.device).add(img, alb, nrm,
+                                                          samples=SPP)
+        path = OUT_DIR / f"whitted_denoised_{name}.png"
+        film.save(str(path))
+        print(f"[tail] {name}: {ms:.3f} ms per {WIDTH}x{HEIGHT} frame on "
+              f"the card (CUDA events) [{card}], {cpu_ms:.0f} ms on the "
+              f"host CPU; card vs CPU max |diff| / |cpu| {err:.3g} "
+              f"(tolerance {DENOISE_RTOL[name]}); film spp {film.spp}; "
+              f"wrote {path}")
+        if film.spp != SPP:
+            raise AssertionError("the film did not accumulate the samples")
+        if not err <= DENOISE_RTOL[name]:
+            raise AssertionError(f"{name}: card and CPU disagree by {err}")
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -900,7 +1177,7 @@ def main() -> None:
     from optix_ray_tracer_tpu_torch.ops.kernels import _lib
     K.update(A=_lib.TILE_RASTER, B=_lib.BLOCK_MARCH, C=_lib.PROBE,
              D=_lib.TILE_RASTER_INSTANCED, E=_lib.BLOCK_MARCH_INSTANCED,
-             F=_lib.BLOCK_MARCH_HIER)
+             F=_lib.BLOCK_MARCH_HIER, G=_lib.LEAF_SWEEP)
     card = card_line()
     print(card)      # name and power limit, as nvidia-smi reports them
     device = torch.device("cuda", 0)
@@ -908,16 +1185,17 @@ def main() -> None:
     b = bench_setup(device)
     rows = check_kernels(b)
     bench(b, card)
-    launches = whitted(device, card)
+    launches, frame = whitted(device, card)
     t = time_setup(device)
     t.card = card
     rows.update(check_time_kernels(t))
     launches.update(time_frames(t, card))
+    rows["leaf_sweep"], launches["leaf_sweep"] = sweep_phase(b, frame, card)
+    frame_tail(frame, card)
     print(json.dumps({"kernels": [
         {"name": k.name, "route": "cuda", "source": k.source,
          "replaces": k.replaces, "launches": launches[k.name],
-         "max_abs_err": rows[k.name][0], "ms": rows[k.name][1],
-         "plain_ms": rows[k.name][2]} for k in _lib.KERNELS]}))
+         **rows[k.name]} for k in _lib.KERNELS]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -9,9 +9,12 @@ is a CUDA kernel written for Hopper (``csrc/``, loaded by
 ``ops/kernels/_lib.py``), with a plain PyTorch version beside it that
 serves CPU tensors.
 
-The device is explicit: every function runs on the device of the tensors
-it is given; nothing picks a device by itself.  This package imports
-neither ``jax`` nor ``optix_ray_tracer_tpu``.
+Entry points that build tensors from host data (scene constructors, the
+cluster builds, ``convert.*``, ``Film.create``, the denoiser weights)
+take ``device=None``, which means the card: without CUDA they raise
+unless the caller passes ``device="cpu"``.  Functions that take tensors
+run on their inputs' device.  This package imports neither ``jax`` nor
+``optix_ray_tracer_tpu``.
 """
 
 __version__ = "0.1.0"

@@ -150,7 +150,7 @@ def tlas_frame_intersector(library: InstancedLibrary, shapes: ShapeLibrary,
     dev = library.woop_t.device
     sid = np.asarray(shape_ids, np.int64).reshape(-1)
     valid = np.asarray(valid, bool).reshape(-1)
-    pair_shape, pair_inst = (x.to(dev) for x in make_pairs(library, sid))
+    pair_shape, pair_inst = make_pairs(library, sid)
     sizes = np.where(valid, np.asarray(shapes.counts, np.int64)[sid], 0)
     inst_base = torch.as_tensor(np.cumsum(sizes) - sizes, dtype=torch.int32,
                                 device=dev)

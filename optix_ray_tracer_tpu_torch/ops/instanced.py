@@ -36,7 +36,9 @@ from optix_ray_tracer_tpu_torch.ops.raysort import ray_sort_keys
 from optix_ray_tracer_tpu_torch.ops.sweep import (
     SUBS_PER_CLUSTER, build_clusters,
 )
-from optix_ray_tracer_tpu_torch.utils.tensors import TensorDataclass
+from optix_ray_tracer_tpu_torch.utils.tensors import (
+    TensorDataclass, resolve_device,
+)
 from optix_ray_tracer_tpu_torch.utils.vecmath import INF, dot
 
 
@@ -58,16 +60,17 @@ class InstancedLibrary(TensorDataclass):
     shape_cluster_offset: tuple
 
 
-def build_instanced_library(lib_vertices, offsets, counts
+def build_instanced_library(lib_vertices, offsets, counts, device=None
                             ) -> InstancedLibrary:
-    """Cluster each shape of a packed library in object space (host build;
-    CPU tensors, ``.to(device)`` moves them)."""
+    """Cluster each shape of a packed library in object space (host build,
+    tensors on ``device``)."""
+    dev = resolve_device(device)
     lv = np.asarray(lib_vertices, np.float32)
     parts = []
     sco = [0]
     for s in range(len(counts)):
         lo = int(offsets[s])
-        cs = build_clusters(lv[lo:lo + int(counts[s])])
+        cs = build_clusters(lv[lo:lo + int(counts[s])], device=dev)
         parts.append((cs, lo))
         sco.append(sco[-1] + cs.num_clusters)
     if not parts:
@@ -86,9 +89,9 @@ def build_instanced_library(lib_vertices, offsets, counts
 
 
 def make_pairs(library: InstancedLibrary, shape_ids):
-    """(pair_shape, pair_inst) int32 CPU tensors for instances with the
-    given shape ids: one pair per (instance, library cluster), instance
-    major, clusters ascending."""
+    """(pair_shape, pair_inst) int32 tensors on the library's device for
+    instances with the given shape ids: one pair per (instance, library
+    cluster), instance major, clusters ascending."""
     sco = np.asarray(library.shape_cluster_offset, np.int64)
     sid = np.asarray(shape_ids, np.int64).reshape(-1)
     first, n = sco[sid], sco[sid + 1] - sco[sid]
@@ -96,8 +99,9 @@ def make_pairs(library: InstancedLibrary, shape_ids):
     starts = np.cumsum(n) - n
     pair_shape = np.repeat(first, n) + np.arange(pair_inst.shape[0]) \
         - np.repeat(starts, n)
-    return (torch.as_tensor(pair_shape.astype(np.int32)),
-            torch.as_tensor(pair_inst.astype(np.int32)))
+    dev = library.woop_t.device
+    return (torch.as_tensor(pair_shape.astype(np.int32), device=dev),
+            torch.as_tensor(pair_inst.astype(np.int32), device=dev))
 
 
 def _matvec(m, x):
@@ -271,8 +275,7 @@ def make_instanced_intersector(library: InstancedLibrary, shape_ids, rot,
     """The frame's TLAS intersector from instance poses, on the library's
     device."""
     dev = library.woop_t.device
-    pair_shape, pair_inst = (x.to(dev) for x in make_pairs(library,
-                                                           shape_ids))
+    pair_shape, pair_inst = make_pairs(library, shape_ids)
     P = np.asarray(shape_ids).reshape(-1).shape[0]
     if valid is None:
         valid = torch.ones((P,), dtype=torch.bool, device=dev)

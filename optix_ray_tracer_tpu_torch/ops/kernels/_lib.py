@@ -1,13 +1,15 @@
 """Build, load and launch the hand-written CUDA kernels of ``csrc/``.
 
-All kernels compile into one shared library with a plain C interface
-(``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared``), built on
-first use into ``build/kernels/`` beside the package and loaded with
-``ctypes``.  Pointers come from ``Tensor.data_ptr()`` and the stream from
-``torch.cuda.current_stream().cuda_stream``.  ``-fmad=false`` keeps every
-multiply and add rounded on its own, as PyTorch's elementwise kernels
-round them, so each kernel agrees bit for bit with its plain version: a
-choice made for the checks, which the hit rule does not require.
+All kernels compile into one shared library with a plain C interface,
+built on first use into ``build/kernels/`` beside the package and loaded
+with ``ctypes``: one ``nvcc -c`` per source (``-gencode
+arch=compute_90a,code=sm_90a -O3``), all started together, then one
+``nvcc -shared`` link.  Pointers come from ``Tensor.data_ptr()`` and the
+stream from ``torch.cuda.current_stream().cuda_stream``.  ``-fmad=false``
+keeps every multiply and add rounded on its own, as PyTorch's elementwise
+kernels round them, so each kernel agrees bit for bit with its plain
+version: a choice made for the checks, which the hit rule does not
+require.
 
 Nothing here runs at import: the CPU tests import every module, and a
 machine without ``nvcc`` never reaches :func:`load`.
@@ -28,8 +30,7 @@ import torch
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-Xptxas", "-v", "-shared",
-              "-Xcompiler", "-fPIC")
+              "-O3", "-fmad=false", "-Xptxas", "-v", "-Xcompiler", "-fPIC")
 
 _lib: ctypes.CDLL | None = None
 #: the last build's compiler output (``-Xptxas -v`` register and shared
@@ -54,6 +55,40 @@ def _nvcc() -> str:
                        "machine with the CUDA toolkit")
 
 
+def _build(srcs: list[Path], so: Path) -> str:
+    """Compile every source in its own nvcc process, all at once, then
+    link them into ``so``; returns the compilers' output."""
+    nvcc = _nvcc()
+    tag = f"{so.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in srcs]
+    procs = [subprocess.Popen(
+        [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for src, obj in zip(srcs, objs)]
+    logs, failed = [], []
+    for src, proc in zip(srcs, procs):
+        logs.append(proc.communicate()[0])
+        if proc.returncode:
+            failed.append(f"{src.name} ({proc.returncode})")
+    if not failed:
+        tmp = so.with_suffix(f".{os.getpid()}.tmp")
+        link = subprocess.run(
+            [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
+             "-o", str(tmp), *map(str, objs)],
+            capture_output=True, text=True)
+        logs.append(link.stdout + link.stderr)
+        if link.returncode:
+            failed.append(f"link ({link.returncode})")
+        else:
+            os.replace(tmp, so)
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    log = "".join(logs)
+    if failed:
+        raise RuntimeError(f"nvcc failed: {', '.join(failed)}\n{log}")
+    return log
+
+
 def load() -> ctypes.CDLL:
     """Build (if the sources changed) and load the kernel library."""
     global _lib, build_log, build_seconds
@@ -68,17 +103,9 @@ def load() -> ctypes.CDLL:
     so = BUILD_DIR / f"libort_kernels_{digest.hexdigest()[:12]}.so"
     if not so.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_suffix(f".{os.getpid()}.tmp")
         t0 = time.perf_counter()
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, srcs)],
-            capture_output=True, text=True)
+        build_log = _build(srcs, so)
         build_seconds = time.perf_counter() - t0
-        build_log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{build_log}")
-        os.replace(tmp, so)
     lib = ctypes.CDLL(str(so))
     for kernel in KERNELS:
         fn = getattr(lib, kernel.symbol)
@@ -177,5 +204,12 @@ BLOCK_MARCH_HIER = Kernel(
     source="optix_ray_tracer_tpu_torch/csrc/block_march.cu",
     replaces="optix_ray_tracer_tpu/ops/pallas/block_march.py:463")
 
+#: kernel G (leaf sweep)
+LEAF_SWEEP = Kernel(
+    "leaf_sweep", "ort_leaf_sweep",
+    [_P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P],
+    source="optix_ray_tracer_tpu_torch/csrc/leaf_sweep.cu",
+    replaces="optix_ray_tracer_tpu/ops/pallas/leaf_sweep.py:30")
+
 KERNELS = (TILE_RASTER, BLOCK_MARCH, PROBE, TILE_RASTER_INSTANCED,
-           BLOCK_MARCH_INSTANCED, BLOCK_MARCH_HIER)
+           BLOCK_MARCH_INSTANCED, BLOCK_MARCH_HIER, LEAF_SWEEP)

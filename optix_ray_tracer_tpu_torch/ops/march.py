@@ -13,7 +13,6 @@ from __future__ import annotations
 
 import dataclasses
 
-import numpy as np
 import torch
 
 from optix_ray_tracer_tpu_torch.ops.bvh import morton_codes
@@ -204,8 +203,9 @@ def make_march_intersector(scene: Scene, method: str = "sah",
                            raster: bool = False) -> MarchIntersector:
     """Build the ClusterSet on the host and the intersector on the scene's
     device."""
-    clusters = build_clusters(
-        np.asarray(scene.triangles.vertices.cpu().numpy()), method=method)
+    tv = scene.triangles.vertices
+    clusters = build_clusters(tv.cpu().numpy(), method=method,
+                              device=tv.device)
     return march_intersector_from_clusters(clusters, scene, raster=raster)
 
 

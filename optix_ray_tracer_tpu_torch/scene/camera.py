@@ -13,7 +13,9 @@ import dataclasses
 
 import torch
 
-from optix_ray_tracer_tpu_torch.utils.tensors import TensorDataclass
+from optix_ray_tracer_tpu_torch.utils.tensors import (
+    TensorDataclass, resolve_device,
+)
 from optix_ray_tracer_tpu_torch.utils.vecmath import (
     cross, dot, length, normalize,
 )
@@ -34,12 +36,11 @@ class Camera(TensorDataclass):
 
     @staticmethod
     def look_at(center, target, up, aperture: float = 0.0,
-                focus_dist: float = -1.0) -> "Camera":
-        center = torch.as_tensor(center, dtype=torch.float32)
-        target = torch.as_tensor(target, dtype=torch.float32,
-                                 device=center.device)
-        up = normalize(torch.as_tensor(up, dtype=torch.float32,
-                                       device=center.device))
+                focus_dist: float = -1.0, device=None) -> "Camera":
+        dev = resolve_device(device)
+        center = torch.as_tensor(center, dtype=torch.float32, device=dev)
+        target = torch.as_tensor(target, dtype=torch.float32, device=dev)
+        up = normalize(torch.as_tensor(up, dtype=torch.float32, device=dev))
         w = target - center
         u = normalize(cross(w, up))
         v = normalize(cross(u, w))

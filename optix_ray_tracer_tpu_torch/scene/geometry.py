@@ -4,7 +4,8 @@
 instancing wait for the frontends slice).
 
 Triangle vertices and normals are packed (T, 3, 3) float32.  Constructors
-build CPU tensors from host data; ``.to(device)`` moves a whole scene.
+build their tensors on ``device`` (None: the card, see
+``utils.tensors.resolve_device``); ``.to(device)`` moves a whole scene.
 """
 
 from __future__ import annotations
@@ -14,7 +15,9 @@ import dataclasses
 import numpy as np
 import torch
 
-from optix_ray_tracer_tpu_torch.utils.tensors import TensorDataclass
+from optix_ray_tracer_tpu_torch.utils.tensors import (
+    TensorDataclass, resolve_device,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -29,19 +32,25 @@ class Spheres(TensorDataclass):
         return self.centers.shape[0]
 
     @staticmethod
-    def empty() -> "Spheres":
-        return Spheres(torch.zeros((0, 3)), torch.zeros((0,)),
-                       torch.zeros((0,), dtype=torch.int32))
+    def empty(device=None) -> "Spheres":
+        dev = resolve_device(device)
+        return Spheres(torch.zeros((0, 3), device=dev),
+                       torch.zeros((0,), device=dev),
+                       torch.zeros((0,), dtype=torch.int32, device=dev))
 
     @staticmethod
-    def from_list(spheres: list[tuple]) -> "Spheres":
+    def from_list(spheres: list[tuple], device=None) -> "Spheres":
         """spheres: [(center, radius, material_id), ...]."""
+        dev = resolve_device(device)
         if not spheres:
-            return Spheres.empty()
+            return Spheres.empty(dev)
         return Spheres(
-            torch.as_tensor(np.asarray([s[0] for s in spheres], np.float32)),
-            torch.as_tensor(np.asarray([s[1] for s in spheres], np.float32)),
-            torch.as_tensor(np.asarray([s[2] for s in spheres], np.int32)))
+            torch.as_tensor(np.asarray([s[0] for s in spheres], np.float32),
+                            device=dev),
+            torch.as_tensor(np.asarray([s[1] for s in spheres], np.float32),
+                            device=dev),
+            torch.as_tensor(np.asarray([s[2] for s in spheres], np.int32),
+                            device=dev))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -58,14 +67,21 @@ class Triangles(TensorDataclass):
         return self.vertices.shape[0]
 
     @staticmethod
-    def empty() -> "Triangles":
-        z = torch.zeros((0, 3, 3))
-        return Triangles(z, z, torch.zeros((0,), dtype=torch.int32))
+    def empty(device=None) -> "Triangles":
+        dev = resolve_device(device)
+        z = torch.zeros((0, 3, 3), device=dev)
+        return Triangles(z, z, torch.zeros((0,), dtype=torch.int32,
+                                           device=dev))
 
     @staticmethod
-    def from_arrays(vertices, normals=None, material_id=0,
-                    uvs=None) -> "Triangles":
-        vertices = torch.as_tensor(vertices, dtype=torch.float32
+    def from_arrays(vertices, normals=None, material_id=0, uvs=None,
+                    device=None) -> "Triangles":
+        """Triangles from host arrays on ``device``; a vertex tensor given
+        with no ``device`` keeps its own."""
+        if device is None and isinstance(vertices, torch.Tensor):
+            device = vertices.device
+        vertices = torch.as_tensor(vertices, dtype=torch.float32,
+                                   device=resolve_device(device)
                                    ).reshape(-1, 3, 3)
         if normals is None:
             normals = face_normals_as_vertex_normals(vertices)
@@ -130,20 +146,23 @@ class ShapeLibrary(TensorDataclass):
     counts: np.ndarray
 
     @staticmethod
-    def from_meshes(meshes: list[tuple[np.ndarray, np.ndarray]]
-                    ) -> "ShapeLibrary":
+    def from_meshes(meshes: list[tuple[np.ndarray, np.ndarray]],
+                    device=None) -> "ShapeLibrary":
         """meshes: list of (vertices (t, 3, 3), normals (t, 3, 3))."""
+        dev = resolve_device(device)
         if not meshes:
-            z = torch.zeros((0, 3, 3))
+            z = torch.zeros((0, 3, 3), device=dev)
             return ShapeLibrary(z, z, np.zeros(0, np.int64),
                                 np.zeros(0, np.int64))
         counts = np.asarray([m[0].shape[0] for m in meshes], np.int64)
         offsets = np.concatenate([[0], np.cumsum(counts)[:-1]])
         return ShapeLibrary(
             torch.as_tensor(np.concatenate(
-                [np.asarray(m[0], np.float32) for m in meshes], 0)),
+                [np.asarray(m[0], np.float32) for m in meshes], 0),
+                device=dev),
             torch.as_tensor(np.concatenate(
-                [np.asarray(m[1], np.float32) for m in meshes], 0)),
+                [np.asarray(m[1], np.float32) for m in meshes], 0),
+                device=dev),
             offsets, counts)
 
     @property

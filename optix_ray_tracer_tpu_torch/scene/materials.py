@@ -10,7 +10,9 @@ import dataclasses
 import numpy as np
 import torch
 
-from optix_ray_tracer_tpu_torch.utils.tensors import TensorDataclass
+from optix_ray_tracer_tpu_torch.utils.tensors import (
+    TensorDataclass, resolve_device,
+)
 
 ROUGH = 0       # Lambertian
 METAL = 1       # mirror + fuzz
@@ -65,15 +67,15 @@ class MaterialBuilder:
     def add_emissive(self, emission) -> int:
         return self.add(EMISSIVE, (0.0, 0.0, 0.0), 0.0, emission)
 
-    def build(self) -> MaterialTable:
+    def build(self, device=None) -> MaterialTable:
         if not self._rows:
             self.add_rough((0.5, 0.5, 0.5))
         rows = self._rows
-        return MaterialTable(
-            mtype=torch.as_tensor(np.asarray([r[0] for r in rows], np.int32)),
-            albedo=torch.as_tensor(np.asarray([r[1] for r in rows],
-                                              np.float32)),
-            param=torch.as_tensor(np.asarray([r[2] for r in rows],
-                                             np.float32)),
-            emission=torch.as_tensor(np.asarray([r[3] for r in rows],
-                                                np.float32)))
+        dev = resolve_device(device)
+
+        def col(k, dtype):
+            return torch.as_tensor(np.asarray([r[k] for r in rows], dtype),
+                                   device=dev)
+        return MaterialTable(mtype=col(0, np.int32), albedo=col(1, np.float32),
+                             param=col(2, np.float32),
+                             emission=col(3, np.float32))

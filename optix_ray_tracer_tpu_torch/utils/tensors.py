@@ -1,11 +1,24 @@
 """Helpers for the frozen dataclasses of tensors that stand in for the JAX
-package's pytrees (``ClusterSet``, ``Scene``, ``Hit``, ...)."""
+package's pytrees (``ClusterSet``, ``Scene``, ``Hit``, ...), and the
+device rule of the port's entry points."""
 
 from __future__ import annotations
 
 import dataclasses
 
 import torch
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point builds its tensors on: ``device`` where
+    given, else the card.  Decided at call time; without CUDA and without
+    a ``device`` it raises instead of falling back to the CPU."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError('no CUDA device: pass device="cpu" to build on '
+                           'the CPU')
+    return torch.device("cuda")
 
 
 def tree_map(fn, obj):

@@ -48,8 +48,9 @@ def assert_uv_close(woop, slot, d, dt, same, got_uv, ref_uv):
 def setup():
     v, n = sphere_with_n_triangles(2500)
     jc = jsweep.build_clusters(v)
-    tc = convert.clusters(convert.state_arrays(jc))
-    scene = Scene(Spheres.empty(), Triangles.from_arrays(v, n))
+    tc = convert.clusters(convert.state_arrays(jc), device="cpu")
+    scene = Scene(Spheres.empty(device="cpu"),
+                  Triangles.from_arrays(v, n, device="cpu"))
     rng = np.random.default_rng(21)
     oi = rng.uniform(-1.2, 1.2, (1024, 3)).astype(np.float32)
     di = rng.normal(size=(1024, 3)).astype(np.float32)

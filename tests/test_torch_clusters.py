@@ -29,7 +29,7 @@ def _tris(n_tri, with_quad):
 def test_build_clusters_identical(n_tri, with_quad, method):
     v = _tris(n_tri, with_quad)
     ref = convert.state_arrays(jsweep.build_clusters(v, method=method))
-    got = tsweep.build_clusters(v, method=method)
+    got = tsweep.build_clusters(v, method=method, device="cpu")
     for name in convert.CLUSTER_FIELDS:
         a = getattr(got, name).numpy()
         assert a.dtype == ref[name].dtype, name
@@ -41,7 +41,7 @@ def test_build_clusters_identical(n_tri, with_quad, method):
 def test_convert_roundtrip():
     v = _tris(700, False)
     ref = convert.state_arrays(jsweep.build_clusters(v))
-    cs = convert.clusters(ref)
+    cs = convert.clusters(ref, device="cpu")
     assert cs.num_clusters == ref["cluster_min"].shape[0]
     for name in convert.CLUSTER_FIELDS:
         np.testing.assert_array_equal(getattr(cs, name).numpy(), ref[name])

@@ -1,5 +1,6 @@
-"""Kernels A-F on the card against their plain PyTorch versions, on the
-same CUDA inputs at a small scene size.  Marked ``cuda``: they skip
+"""Kernels A-G on the card against their plain PyTorch versions, on the
+same CUDA inputs at a small scene size; the sweep intersector against the
+marcher, and the denoisers against their CPU runs.  Marked ``cuda``: they skip
 where no CUDA device is present; on a machine with one, run
 
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest
@@ -8,8 +9,10 @@ where no CUDA device is present; on a machine with one, run
 the port need not have.)
 
 Tolerance: the hit rule (prim ids equal, or |dt| <= 1e-5 |t| + 1e-6)
-with no exceptions; u and v to 1e-6.  (The kernels and the plain versions
-round every operation alike, so the expected difference is zero.)"""
+with no exceptions; u and v to 1e-6; G exact.  (The kernels and the
+plain versions round every operation alike, so the expected difference
+is zero.)  Denoisers, card against CPU: the tolerances of
+tests/test_torch_denoise.py."""
 
 import numpy as np
 import pytest
@@ -42,10 +45,9 @@ def dev():
 @pytest.fixture(scope="module")
 def setup(dev):
     v, n = sphere_with_n_triangles(20000)
-    scene = Scene(Spheres.empty(), Triangles.from_arrays(v, n)).to(dev)
+    scene = Scene(Spheres.empty(), Triangles.from_arrays(v, n))
     inter = make_march_intersector(scene, raster=True)
-    cam = Camera.look_at((3.0, 0.0, 0.0), (0.0, 0.0, 0.0),
-                         (0.0, 0.0, 1.0)).to(dev)
+    cam = Camera.look_at((3.0, 0.0, 0.0), (0.0, 0.0, 0.0), (0.0, 0.0, 1.0))
     o, d = cam.generate_rays(128, 128)
     # 32x32 tiles, as the camera wave feeds the raster engine
     o = o.reshape(4, 32, 4, 32, 3).transpose(1, 2).reshape(-1, 3)
@@ -169,13 +171,13 @@ def test_render_matches_cpu(dev):
         Triangles.from_arrays(qv, qn, ground))
     imgs = []
     for device in (dev, torch.device("cpu")):
-        scene = Scene(Spheres.from_list([((0.2, 1.5, -0.6), 0.4, ground)]),
-                      tris).to(device)
+        scene = Scene(Spheres.from_list([((0.2, 1.5, -0.6), 0.4, ground)],
+                                        device), tris.to(device))
         inter = make_march_intersector(scene, raster=True)
         cam = Camera.look_at((3.0, 0.0, 0.5), (0.0, 0.0, 0.0),
-                             (0.0, 0.0, 1.0)).to(device)
-        imgs.append(wavefront.render(scene, mb.build().to(device), cam, 64,
-                                     64, spp=4, seed=7,
+                             (0.0, 0.0, 1.0), device=device)
+        imgs.append(wavefront.render(scene, mb.build(device), cam, 64, 64,
+                                     spp=4, seed=7,
                                      intersector=inter)[0].cpu())
     diff = (imgs[0] - imgs[1]).abs()
     assert float(diff.mean()) <= 1e-5
@@ -195,7 +197,7 @@ def tlas(dev):
     meshes = [sphere_with_n_triangles(s)[0] for s in (80, 200, 450)]
     counts = np.asarray([m.shape[0] for m in meshes])
     lib = build_instanced_library(np.concatenate(meshes), np.concatenate(
-        [[0], np.cumsum(counts)[:-1]]), counts).to(dev)
+        [[0], np.cumsum(counts)[:-1]]), counts)
     r = np.random.default_rng(5)
     P = 40
     q = torch.as_tensor(r.normal(size=(P, 4)).astype(np.float32), device=dev)
@@ -242,8 +244,7 @@ def test_tile_raster_instanced_kernel(tlas, dev, any_hit):
     the same slots, t, u and v."""
     from optix_ray_tracer_tpu_torch.ops import raster_instanced as ri
     inter, _, _ = tlas
-    cam = Camera.look_at((16.0, 2.0, 3.0), (0.0, 0.0, 0.0),
-                         (0.0, 0.0, 1.0)).to(dev)
+    cam = Camera.look_at((16.0, 2.0, 3.0), (0.0, 0.0, 0.0), (0.0, 0.0, 1.0))
     o, d = cam.generate_rays(128, 128)
     o = o.reshape(4, 32, 4, 32, 3).transpose(1, 2).reshape(-1, 3)
     d = d.reshape(4, 32, 4, 32, 3).transpose(1, 2).reshape(-1, 3)
@@ -309,3 +310,68 @@ def test_routing_on_card(setup, dev, monkeypatch):
     monkeypatch.setattr(bm, "HIER_MIN_CLUSTERS", 3072)
     h_b = inter.intersect(scene, o, d)
     assert hit_mismatches(h.prim_id, h.t, h_b.prim_id, h_b.t) == 0
+
+
+@pytest.mark.parametrize("wave", ["camera", "incoherent"])
+def test_leaf_sweep_kernel(setup, dev, wave):
+    """Kernel G against its plain version on the first sweep pass's
+    blocks (as chip_smoke.py builds them): t, slot, u and v equal."""
+    from chip_smoke import first_pass_blocks
+    from optix_ray_tracer_tpu_torch.ops.kernels import leaf_sweep as ls
+    _, inter, o, d, oi, di = setup
+    wo, wd = (o, d) if wave == "camera" else (oi, di)
+    args = first_pass_blocks(inter.clusters, wo, wd)
+    before = _lib.LEAF_SWEEP.launches
+    kern = ls.window_sweep_call(*args)
+    assert _lib.LEAF_SWEEP.launches == before + 1
+    plain = ls.window_sweep_plain(*args)
+    torch.cuda.synchronize()
+    assert int((kern[1] >= 0).sum()) > 0
+    for a, b in zip(kern, plain):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("wave", ["camera", "incoherent"])
+def test_sweep_intersector_vs_marcher(setup, dev, wave):
+    """SweepIntersector (kernel G) against the marcher on the card: the
+    hit rule with no exceptions, and every ray finished."""
+    from optix_ray_tracer_tpu_torch.ops.sweep import SweepIntersector
+    scene, inter, o, d, oi, di = setup
+    wo, wd = (o, d) if wave == "camera" else (oi, di)
+    si = SweepIntersector(clusters=inter.clusters, log=[])
+    before = _lib.LEAF_SWEEP.launches
+    h = si.intersect(scene, wo, wd)
+    ref = inter.intersect(scene, wo, wd)
+    assert _lib.LEAF_SWEEP.launches > before
+    assert not si.log[0].unfinished
+
+    def keys(x):
+        return torch.where(x.is_hit, x.prim_id, -1)
+    assert hit_mismatches(keys(h), h.t, keys(ref), ref.t) == 0
+
+
+@pytest.mark.parametrize("name", ["atrous", "neural"])
+def test_denoiser_card_vs_cpu(dev, name):
+    """The a-trous and KPCN denoisers on the card against the same call on
+    the CPU copy (128x96 inputs): within tests/test_torch_denoise.py's
+    relative tolerances (8e-6 a-trous, 2.4e-5 KPCN; measured on the H100
+    here: 2.5e-6 and 6.2e-6)."""
+    from optix_ray_tracer_tpu_torch.render.denoise import denoise
+    from optix_ray_tracer_tpu_torch.render.neural_denoise import (
+        denoise_neural,
+    )
+    r = np.random.default_rng(4)
+    h, w = 96, 128
+    color = torch.as_tensor(r.gamma(4.0, 0.2, (h, w, 3)).astype(np.float32))
+    alb = torch.as_tensor(r.uniform(0.05, 0.9, (h, w, 3)).astype(np.float32))
+    nrm = r.normal(size=(h, w, 3))
+    nrm[..., 2] += 2.0
+    nrm = torch.as_tensor((nrm / np.linalg.norm(nrm, axis=-1, keepdims=True)
+                           ).astype(np.float32))
+    alb[:8] = 0.0
+    nrm[:8] = 0.0
+    fn, rtol = ((denoise, 8e-6) if name == "atrous"
+                else (denoise_neural, 2.4e-5))
+    got = fn(color.to(dev), alb.to(dev), nrm.to(dev)).cpu()
+    want = fn(color, alb, nrm)
+    assert bool(((got - want).abs() <= rtol * want.abs()).all())

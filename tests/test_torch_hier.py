@@ -35,7 +35,7 @@ def _t(x):
 def setup():
     v, _ = sphere_with_n_triangles(20000)
     jc = jsweep.build_clusters(v)
-    tc = convert.clusters(convert.state_arrays(jc))
+    tc = convert.clusters(convert.state_arrays(jc), device="cpu")
     assert tc.num_clusters >= 64
     cam = JCamera.look_at((3.0, 0.0, 0.3), (0.0, 0.0, 0.0), (0.0, 0.0, 1.0))
     oc, dc = cam.generate_rays(32, 24)

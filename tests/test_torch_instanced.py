@@ -57,7 +57,8 @@ def _setup(P, scale, seed, invalid=()):
     jlib = jinst.build_instanced_library(lib, offsets, counts)
     jinter = jinst.make_instanced_intersector(jlib, sid, rot, shift, scale,
                                               jnp.asarray(valid))
-    tinter = convert.instanced_intersector(convert.state_arrays(jinter))
+    tinter = convert.instanced_intersector(convert.state_arrays(jinter),
+                                           device="cpu")
     return dict(lib=lib, offsets=offsets, counts=counts, sid=sid, rot=rot,
                 shift=shift, scale=scale, valid=valid, jlib=jlib,
                 jinter=jinter, tinter=tinter, rng=rng)
@@ -121,7 +122,7 @@ def test_library_matches_jax():
     """The port's own host build gives the JAX arrays, NaNs included."""
     lib, offsets, counts = _library()
     jl = jinst.build_instanced_library(lib, offsets, counts)
-    tl = tinst.build_instanced_library(lib, offsets, counts)
+    tl = tinst.build_instanced_library(lib, offsets, counts, device="cpu")
     assert tl.shape_cluster_offset == jl.shape_cluster_offset
     for f in dataclasses.fields(tl):
         if f.name != "shape_cluster_offset":
@@ -134,7 +135,8 @@ def test_pairs_and_refit_match_jax(small):
     the JAX arrays: pairs exactly, boxes and affine rows to 1e-6 with the
     NaNs in the same places."""
     s = small
-    tl = convert.instanced_library(convert.state_arrays(s["jlib"]))
+    tl = convert.instanced_library(convert.state_arrays(s["jlib"]),
+                                   device="cpu")
     ps, pi = tinst.make_pairs(tl, s["sid"])
     jps, jpi = jinst.make_pairs(s["jlib"], s["sid"])
     np.testing.assert_array_equal(ps.numpy(), np.asarray(jps))
@@ -206,7 +208,8 @@ def test_block_march_instanced_matches_jax(scenes, any_hit):
 def _flat_scene(s):
     flat, base = _flatten(s["lib"], s["offsets"], s["counts"], s["sid"],
                           s["rot"], s["shift"], s["scale"])
-    return Scene(Spheres.empty(), Triangles.from_arrays(flat)), base
+    return Scene(Spheres.empty(device="cpu"),
+                 Triangles.from_arrays(flat, device="cpu")), base
 
 
 def test_intersector_matches_oracle(scenes):

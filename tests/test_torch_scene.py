@@ -47,7 +47,7 @@ def test_meshgen_copy_is_identical():
 @pytest.mark.parametrize("jitter", [False, True])
 def test_camera_rays_match(jitter):
     args = ((3.0, 0.2, 0.5), (0.0, 0.0, 0.0), (0.0, 0.0, 1.0))
-    jc, tc = JCamera.look_at(*args), Camera.look_at(*args)
+    jc, tc = JCamera.look_at(*args), Camera.look_at(*args, device="cpu")
     for k in ("u", "v", "w"):
         np.testing.assert_allclose(getattr(tc, k).numpy(),
                                    np.asarray(getattr(jc, k)), rtol=0,
@@ -56,8 +56,8 @@ def test_camera_rays_match(jitter):
            if jitter else None)
     jo, jd = jc.generate_rays(32, 24, None if jit is None else
                               jnp.asarray(jit))
-    to, td = convert.camera(convert.state_arrays(jc)).generate_rays(
-        32, 24, None if jit is None else _t(jit))
+    tcam = convert.camera(convert.state_arrays(jc), device="cpu")
+    to, td = tcam.generate_rays(32, 24, None if jit is None else _t(jit))
     np.testing.assert_array_equal(to.numpy(), np.asarray(jo))
     np.testing.assert_allclose(td.numpy(), np.asarray(jd), rtol=0,
                                atol=2e-7)
@@ -90,7 +90,7 @@ def _rays(n=512, seed=4):
 
 def test_bruteforce_oracle_matches():
     js = _scene()
-    ts = convert.scene(convert.state_arrays(js))
+    ts = convert.scene(convert.state_arrays(js), device="cpu")
     o, d = _rays()
     jh = jisect.intersect_scene_bruteforce(js, jnp.asarray(o), jnp.asarray(d))
     th = tisect.intersect_scene_bruteforce(ts, _t(o), _t(d))
@@ -106,12 +106,12 @@ def test_bruteforce_oracle_matches():
 
 def test_shading_and_scatter_match():
     js = _scene()
-    ts = convert.scene(convert.state_arrays(js))
+    ts = convert.scene(convert.state_arrays(js), device="cpu")
     mb = MaterialBuilder()
     mb.add_metal((0.8, 0.85, 0.88), 0.1)
     mb.add_rough((0.7, 0.6, 0.5))
     jm = mb.build()
-    tm = convert.materials(convert.state_arrays(jm))
+    tm = convert.materials(convert.state_arrays(jm), device="cpu")
     o, d = _rays(seed=6)
     jh = jisect.intersect_scene_bruteforce(js, jnp.asarray(o), jnp.asarray(d))
     th = tisect.intersect_scene_bruteforce(ts, _t(o), _t(d))

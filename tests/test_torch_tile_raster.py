@@ -36,9 +36,10 @@ def setup():
     jscene = JScene(spheres=JSpheres.empty(),
                     triangles=JTriangles.from_arrays(v, n))
     jinter = jmarch.make_march_intersector(jscene, raster=True)
-    tscene = convert.scene(convert.state_arrays(jscene))
+    tscene = convert.scene(convert.state_arrays(jscene), device="cpu")
     tinter = convert.march_intersector(
-        convert.state_arrays(jinter.clusters), tscene, raster=True)
+        convert.state_arrays(jinter.clusters), tscene, raster=True,
+        device="cpu")
     cam = JCamera.look_at((3.0, 0.0, 0.0), (0.0, 0.0, 0.0), (0.0, 0.0, 1.0))
     o, d = cam.generate_rays(48, 48)
     o = np.asarray(o).reshape(-1, 3)

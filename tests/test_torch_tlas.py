@@ -28,8 +28,8 @@ def _t(x):
 @pytest.fixture(scope="module")
 def adapters():
     jad, jflat, jstatic, n_dyn = _setup()
-    tad = convert.tlas_intersector(convert.state_arrays(jad))
-    tstatic = convert.scene(convert.state_arrays(jstatic))
+    tad = convert.tlas_intersector(convert.state_arrays(jad), device="cpu")
+    tstatic = convert.scene(convert.state_arrays(jstatic), device="cpu")
     return jad, jstatic, tad, tstatic, n_dyn, jflat
 
 
@@ -67,7 +67,7 @@ def test_shading_matches_jax(adapters):
     jad, jstatic, tad, tstatic, _, _ = adapters
     o, d = _rays(seed=12)
     ref_hit = jad.intersect(jstatic, o, d)
-    hit = convert.hit(convert.state_arrays(ref_hit))
+    hit = convert.hit(convert.state_arrays(ref_hit), device="cpu")
     ref = jad.shading_frame(jstatic, o, d, ref_hit)
     got = tad.shading_frame(tstatic, _t(o), _t(d), hit)
     m = np.asarray(ref_hit.is_hit)

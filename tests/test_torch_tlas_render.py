@@ -118,14 +118,14 @@ def frame():
                 poses=dict(positions=pos, quats=quat, quats_next=quat_next,
                            velocities=vel))
     return (jtlas, jstatic, jmats, jcam, convert.tlas_intersector(
-        convert.state_arrays(jtlas)), args)
+        convert.state_arrays(jtlas), device="cpu"), args)
 
 
 def _port(frame):
     _, jstatic, jmats, jcam, ttlas, _ = frame
-    return (ttlas, convert.scene(convert.state_arrays(jstatic)),
-            convert.materials(convert.state_arrays(jmats)),
-            convert.camera(convert.state_arrays(jcam)))
+    return (ttlas, convert.scene(convert.state_arrays(jstatic), device="cpu"),
+            convert.materials(convert.state_arrays(jmats), device="cpu"),
+            convert.camera(convert.state_arrays(jcam), device="cpu"))
 
 
 def test_frame_builder_matches_jax(frame):
@@ -134,7 +134,7 @@ def test_frame_builder_matches_jax(frame):
     jtlas, *_, ttlas, a = frame
     tl = tinst.build_instanced_library(np.asarray(a["shapes"].vertices),
                                        a["shapes"].offsets,
-                                       a["shapes"].counts)
+                                       a["shapes"].counts, device="cpu")
     got = trt.tlas_frame_intersector(
         tl, a["shapes"], a["sid"], a["valid"], torch.as_tensor(a["tri"][0]),
         torch.as_tensor(a["tri"][1]), torch.as_tensor(a["pmat"]),
@@ -184,7 +184,7 @@ def test_tlas_route_matches_flatten(frame, renders):
         torch.as_tensor(a["poses"]["velocities"]), torch.as_tensor(a["pmat"]),
         POSE["duration"], k, 1.0 / (n - 1), 1.0 / n, POSE["particle_shift"],
         1.0, False)
-    flat = Scene(Spheres.empty(), Triangles(v, nrm, mat).concat(
+    flat = Scene(Spheres.empty(device="cpu"), Triangles(v, nrm, mat).concat(
         tstatic.triangles))
     img = twave.render(flat, tmats, tcam, W, H, spp=SPP, seed=SEED,
                        intersector=make_march_intersector(flat,

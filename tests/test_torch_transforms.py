@@ -87,7 +87,7 @@ def test_quaternions(data):
 
 def _library():
     meshes = [sphere_with_n_triangles(s) for s in (80, 200, 450)]
-    return (ShapeLibrary.from_meshes(meshes),
+    return (ShapeLibrary.from_meshes(meshes, device="cpu"),
             JShapeLibrary.from_meshes(meshes))
 
 

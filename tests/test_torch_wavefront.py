@@ -59,11 +59,14 @@ def frames():
     ref = jwave.render(jscene, jmats, jcam, W, H, spp=SPP, seed=SEED,
                        intersector=jinter, want_aux=True)
 
-    tscene = convert.scene(convert.state_arrays(jscene))
+    tscene = convert.scene(convert.state_arrays(jscene), device="cpu")
     tinter = convert.march_intersector(
-        convert.state_arrays(jinter.clusters), tscene, raster=True)
-    got = twave.render(tscene, convert.materials(convert.state_arrays(jmats)),
-                       convert.camera(convert.state_arrays(jcam)), W, H,
+        convert.state_arrays(jinter.clusters), tscene, raster=True,
+        device="cpu")
+    got = twave.render(tscene, convert.materials(convert.state_arrays(jmats),
+                                                 device="cpu"),
+                       convert.camera(convert.state_arrays(jcam),
+                                      device="cpu"), W, H,
                        spp=SPP, seed=SEED, intersector=tinter, want_aux=True)
     return ([np.asarray(x) for x in ref[:3]] + [np.asarray(x) for x in ref[3]],
             [x.numpy() for x in got[:3]] + [x.numpy() for x in got[3]])
@@ -112,9 +115,10 @@ def test_matches_numpy_golden():
     jscene, jmats, jcam, spheres, omats = _test_scene()
     w, h, spp, seed = 24, 16, 2, 11
     img, _, _ = twave.render(
-        convert.scene(convert.state_arrays(jscene)),
-        convert.materials(convert.state_arrays(jmats)),
-        convert.camera(convert.state_arrays(jcam)), w, h, spp=spp,
+        convert.scene(convert.state_arrays(jscene), device="cpu"),
+        convert.materials(convert.state_arrays(jmats), device="cpu"),
+        convert.camera(convert.state_arrays(jcam), device="cpu"), w, h,
+        spp=spp,
         seed=seed, background=tuple(BG))
     ref = oracle_render([s[0] for s in spheres], [s[1] for s in spheres],
                         [s[2] for s in spheres], omats, jcam, w, h, spp, seed)
@@ -129,9 +133,11 @@ def test_empty_scene_is_background():
     from optix_ray_tracer_tpu_torch.scene.materials import (
         MaterialBuilder as TMaterialBuilder,
     )
-    cam = Camera.look_at((0, 0, 0), (1, 0, 0), (0, 0, 1))
-    img, _, _ = twave.render(Scene(Spheres.empty(), Triangles.empty()),
-                             TMaterialBuilder().build(), cam, 8, 8, spp=1)
+    cam = Camera.look_at((0, 0, 0), (1, 0, 0), (0, 0, 1), device="cpu")
+    img, _, _ = twave.render(Scene(Spheres.empty(device="cpu"),
+                                   Triangles.empty(device="cpu")),
+                             TMaterialBuilder().build(device="cpu"), cam, 8,
+                             8, spp=1)
     np.testing.assert_allclose(
         img.numpy(), np.broadcast_to(np.float32([0.7, 0.8, 0.9]), (8, 8, 3)),
         atol=1e-6)

@@ -1,9 +1,10 @@
 """Device-time breakdown of the PyTorch + CUDA port's cells on one NVIDIA
 GPU: the bench step (camera wave + point-light shadow wave), the
-incoherent 1M-ray wave, the 1024x1024 spp-4 depth-5 Whitted frame, and
-frame 0 of the 4,096-particle Time scene through the TLAS route and
-through the flatten route (same size), set up exactly as chip_smoke.py
-sets them up.
+incoherent 1M-ray wave, the 1024x1024 spp-4 depth-5 Whitted frame
+through the marcher and through the sweep intersector (kernel G), the
+frame's denoiser tail (a-trous and neural, 1024x1024), and frame 0 of the
+4,096-particle Time scene through the TLAS route and through the flatten
+route (same size), set up exactly as chip_smoke.py sets them up.
 
 Usage: python3 tools/prof_port.py  (from the repository root; needs CUDA).
 
@@ -33,6 +34,7 @@ import chip_smoke  # noqa: E402
 
 OUT = Path("build") / "prof_port"
 ITERS = {"bench_step": 10, "incoherent_wave": 5, "whitted_frame": 2,
+         "sweep_frame": 1, "atrous_tail": 5, "neural_tail": 5,
          "tlas_frame": 2, "flatten_frame": 2}
 
 
@@ -61,6 +63,11 @@ def group(name: str, cat: str) -> str:
             return instanced if args and args[-1] else plain
     if "probe_kernel" in name:
         return "C probe"
+    if "leaf_sweep_kernel" in name:
+        return "G leaf_sweep"
+    if any(k in name.lower() for k in ("conv", "xmma", "implicit", "gemm",
+                                        "winograd", "cudnn")):
+        return "convolution (cuDNN)"
     if "sort" in name.lower():
         return "sort"
     if any(k in name for k in ("gather", "index", "scatter")):
@@ -111,7 +118,10 @@ def profile(name: str, fn, iters: int, card: str) -> None:
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("prof_port: no CUDA device")
+    from types import SimpleNamespace
+
     from optix_ray_tracer_tpu_torch.io.meshgen import sphere_with_n_triangles
+    from optix_ray_tracer_tpu_torch.ops.sweep import SweepIntersector
     from optix_ray_tracer_tpu_torch.render import wavefront
 
     card = chip_smoke.card_line()
@@ -131,10 +141,16 @@ def main() -> None:
             spp=chip_smoke.SPP, seed=1, max_depth=chip_smoke.DEPTH,
             intersector=inter_)
 
+    img, alb, nrm = frame(scene, mats, cam, inter)()
+    tail = SimpleNamespace(img=img, alb=alb, nrm=nrm)
     cells = {
         "bench_step": lambda: chip_smoke.bench_step(b),
         "incoherent_wave": lambda: inc.intersect(b.scene, b.oi, b.di),
         "whitted_frame": frame(scene, mats, cam, inter),
+        "sweep_frame": frame(scene, mats, cam,
+                             SweepIntersector(clusters=inter.clusters)),
+        "atrous_tail": chip_smoke.tail_setup(tail, "atrous"),
+        "neural_tail": chip_smoke.tail_setup(tail, "neural"),
         "tlas_frame": frame(t.static, t.mats, t.cam, tlas),
         "flatten_frame": frame(t.flat, t.mats, t.cam, t.finter)}
     for name, fn in cells.items():
