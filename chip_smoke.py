@@ -13,9 +13,12 @@ CPU or to the plain versions):
    main path's shapes: A (tile raster) on the bench camera wave (g=4) and
    the flipped point-light shadow wave (g=2); B (block march) and C
    (cluster probe) on 1M random rays and on the camera wave.  Comparisons
-   run on the first 65,536 rays (64 tiles) where the plain version is slow,
-   with the hit rule (prim ids equal, or |dt| <= 1e-5 |t| + 1e-6) and no
-   exceptions;
+   run on 65,536 rays where the plain version is slow (A and C: the first
+   64 tiles; B: 2,048 warps spread over the wave), with the hit rule (prim
+   ids equal, or |dt| <= 1e-5 |t| + 1e-6) and no exceptions; B's resident
+   warps per SM (the runtime's occupancy number), Woop-tested rows per
+   warp, and its Woop tests beside the ones the subset needs
+   (:func:`needed_work`);
 3. the bench step of bench.py: a 1024x1024 camera wave plus a point-light
    shadow wave over a 100k-triangle sphere, per-wave calibrated pair
    capacities, both exactness guards, timed with CUDA events (best of 5
@@ -31,10 +34,12 @@ CPU or to the plain versions):
 6. kernels D (instanced tile raster: the 1024x1024 camera wave and a
    flipped point-light shadow wave, calibrated capacities, no overflow),
    E (instanced block march: 1M incoherent rays inside the pile, nearest
-   and any-hit) and F (hierarchical block march: the flatten route's
-   Morton-sorted camera wave through block_march's routing, nearest and
-   any-hit, timed beside kernel B) against their plain versions on subsets
-   of 16,384 rays (8,192 for E), with the hit rule and no exceptions;
+   and any-hit, and the TLAS frame's own first bounce wave, captured from
+   a depth-2 render of frame 0) and F (hierarchical block march: the
+   flatten route's Morton-sorted camera wave through block_march's
+   routing, nearest and any-hit, timed beside kernel B) against their
+   plain versions on subsets of 16,384 rays (8,192 for E: 256 warps
+   spread over each wave), with the hit rule and no exceptions;
 7. the slice's main path: the camera wave's primary hits through both
    routes (counts zeroed, then D and F > 0; the hit rule on all but 1e-4
    of the rays), then frames 0 and 1 (poses refit between them) through
@@ -58,8 +63,15 @@ Every kernel's row in the kernels' JSON object carries its launches on
 the main path, its error against its plain version, its time and the
 plain version's (same inputs), and the bound: the larger of the bytes
 its inputs and outputs take over 3.35 TB/s and its float operations
-(counted from this run's work: pairs, visits) over 67 TFLOP/s FP32, the
-H100 SXM's published peaks.  The last two lines of standard output are
+(counted from this run's work: for A, D and G the scheduled pairs and
+blocks; for the marchers B, E and F the work their answers need,
+:func:`needed_work`, whatever the kernel did) over 67 TFLOP/s FP32, the
+H100 SXM's published peaks.  B's and E's rows are their 1M-ray
+incoherent waves (a subset would leave most of the card idle): ``ms`` the
+full wave's time, ``bound_ms`` its bytes and the subset's needed work
+scaled by the rays of the wave over the subset's (the subset's warps are
+spread evenly over the wave), ``plain_ms`` the plain version on the
+subset.  The last two lines of standard output are
 the kernels' JSON object and the device JSON object.
 ``tools/prof_port.py`` profiles the same cells through
 :func:`bench_setup`, :func:`bench_step`, :func:`whitted_setup`,
@@ -154,6 +166,29 @@ def tensor_bytes(*objs) -> int:
     return total
 
 
+def needed_ops(work: dict) -> int:
+    """Float operations of ``block_march.needed_work``'s counts."""
+    return (work["slab"] * SLAB_OPS + work["inst"] * INST_OPS
+            + work["woop"] * WOOP_OPS)
+
+
+def march_work(label: str, visits, work: dict) -> None:
+    """Print a warp marcher's Woop tests (its per-warp Woop-tested rows x
+    32 lanes) beside the ones the answers need."""
+    run = int(visits.sum()) * 32
+    print(f"    {label}: {visits.float().mean().item():.1f} Woop-tested "
+          f"rows per warp; Woop tests run {run} vs needed {work['woop']} "
+          f"({run / max(work['woop'], 1):.2f}x); needed slab tests "
+          f"{work['slab']}, ray transforms {work['inst']}")
+
+
+def warp_rays(R: int, n: int):
+    """Indices of n rays: n // 32 warps spread evenly over R rays."""
+    import torch
+    starts = torch.linspace(0, R // 32 - 1, n // 32).round().long() * 32
+    return (starts[:, None] + torch.arange(32)).reshape(-1)
+
+
 def row(err: float, ms: float, plain_ms: float, io_bytes: int,
         ops: float) -> dict:
     """A kernel's JSON row from its measurements and its work: the bound
@@ -165,6 +200,21 @@ def row(err: float, ms: float, plain_ms: float, io_bytes: int,
                 bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
                 library_ms=None)
+
+
+def wave_row(name: str, err: float, full_ms: float, plain_ms: float,
+             io_bytes: int, work: dict, n_sub: int, n_full: int) -> dict:
+    """A marcher's JSON row for a whole wave: its time, and the bound of
+    its bytes and of the needed work of a subset of ``n_sub`` of its
+    ``n_full`` rays (warps spread evenly over the wave) scaled to the
+    wave; ``plain_ms`` is the plain version's on the subset."""
+    r = row(err, full_ms, plain_ms, io_bytes,
+            needed_ops(work) * n_full / n_sub)
+    print(f"    {name}: full-wave bound {r['bound_ms']:.4f} ms, by "
+          f"{r['bound_by']} (needed work scaled {n_full / n_sub:.0f}x from "
+          f"the subset), {100 * r['bound_ms'] / full_ms:.2f}% of the "
+          f"{full_ms:.3f} ms wave")
+    return r
 
 
 def tile_order(x, h: int, w: int):
@@ -298,6 +348,52 @@ def bench_step(b: SimpleNamespace):
     return hit.t, shadowed
 
 
+def b_waves(b: SimpleNamespace) -> dict:
+    """Kernel B's 1M-ray waves of the bench scene, sorted as the marcher
+    sorts them: label -> (march_call arguments, the unsorted (o, d))."""
+    import torch
+
+    from optix_ray_tracer_tpu_torch.ops.kernels import block_march as bm
+    from optix_ray_tracer_tpu_torch.ops.march import ray_probe_keys
+    from optix_ray_tracer_tpu_torch.ops.raysort import ray_sort_keys
+    waves = {
+        "incoherent": (b.oi, b.di, ray_probe_keys(b.cs, b.oi, b.di, b.tmin0,
+                                                  b.tmax_inf), False),
+        "camera": (b.o, b.d, ray_sort_keys(b.o, b.d, b.inter.scene_lo,
+                                           b.inter.scene_hi), True)}
+    out = {}
+    for label, (wo, wd, keys, coherent) in waves.items():
+        perm = torch.argsort(keys, stable=True)
+        out[label] = (bm.march_inputs(b.cs, wo[perm], wd[perm], b.tmin0,
+                                      b.tmax_inf, coherent), (wo, wd))
+    return out
+
+
+def e_waves(t: SimpleNamespace, inter) -> dict:
+    """Kernel E's 1M-ray waves: random rays inside the particle cloud,
+    Morton-sorted as the TLAS marcher sorts them, nearest (t_max INF) and
+    occlusion (t_max 2): any_hit -> march_instanced_call arguments."""
+    import torch
+
+    from optix_ray_tracer_tpu_torch.ops.kernels import block_march as bm
+    from optix_ray_tracer_tpu_torch.ops.raysort import ray_sort_keys
+    R, dev = t.o.shape[0], t.device
+    gen = np.random.default_rng(11)
+    oi = torch.as_tensor(gen.uniform(-15, 15, (R, 3)).astype(np.float32),
+                         device=dev)
+    di = gen.normal(size=(R, 3)).astype(np.float32)
+    di = torch.as_tensor(di / np.linalg.norm(di, axis=-1, keepdims=True),
+                         device=dev)
+    perm = torch.argsort(ray_sort_keys(oi, di, inter.scene_lo,
+                                       inter.scene_hi), stable=True)
+    return {any_hit: bm.march_instanced_inputs(
+        inter.pair_min, inter.pair_max, inter.sub_min, inter.sub_max,
+        inter.pair_shape, inter.pair_inst, inter.inst_rows,
+        inter.library.woop_t, oi[perm], di[perm], t.tmin,
+        torch.full((R,), 2.0 if any_hit else 1e16, device=dev))
+        for any_hit in (False, True)}
+
+
 def check_kernels(b: SimpleNamespace) -> dict:
     """Phase 2: each kernel against its plain version at the main path's
     shapes; returns {name: JSON row (see :func:`row`)}."""
@@ -307,9 +403,8 @@ def check_kernels(b: SimpleNamespace) -> dict:
     from optix_ray_tracer_tpu_torch.ops.kernels import block_march as bm
     from optix_ray_tracer_tpu_torch.ops.kernels import tile_raster as tr
     from optix_ray_tracer_tpu_torch.ops.march import (
-        DEFAULT_ANYHIT_GRANULARITY, DEFAULT_GRANULARITY, ray_probe_keys,
+        DEFAULT_ANYHIT_GRANULARITY, DEFAULT_GRANULARITY,
     )
-    from optix_ray_tracer_tpu_torch.ops.raysort import ray_sort_keys
 
     print("[kernels vs plain] hit rule, no exceptions; first "
           f"{SUBSET} rays where the plain version is slow")
@@ -357,34 +452,32 @@ def check_kernels(b: SimpleNamespace) -> dict:
     rows["tile_raster"] = dict(r1, max_abs_err=max(r1["max_abs_err"],
                                                    r2["max_abs_err"]))
 
-    waves = {
-        "incoherent": (b.oi, b.di, ray_probe_keys(cs, b.oi, b.di, b.tmin0,
-                                                  b.tmax_inf), False),
-        "camera": (b.o, b.d, ray_sort_keys(b.o, b.d, b.inter.scene_lo,
-                                           b.inter.scene_hi), True)}
     march_rows, probe_rows = [], []
-    for label, (wo, wd, keys, coherent) in waves.items():
-        perm = torch.argsort(keys, stable=True)
-        inp = bm.march_inputs(cs, wo[perm], wd[perm], b.tmin0, b.tmax_inf,
-                              coherent)
-        visits = bm.march_call(**inp)[2].float().mean().item()
+    print(f"  B: {bm.march_occupancy()} resident warps per SM (occupancy)")
+    for label, (inp, (wo, wd)) in b_waves(b).items():
+        full = bm.march_call(**inp)
         full_ms = time_ms(lambda: bm.march_call(**inp), REPS)
-        sub = dict(inp, rays=inp["rays"][:, :SUBSET].contiguous())
+        pick = warp_rays(inp["rays"].shape[1], SUBSET).to(b.o.device)
+        sub = dict(inp, rays=inp["rays"][:, pick].contiguous())
         plain_args = {k: v for k, v in sub.items() if k != "w"}
         kern = bm.march_call(**sub)
-        err = compare(f"B {label}", prim_keys(cs), kern,
-                      bm.march_plain(**plain_args, any_hit=False), False)
+        plain = bm.march_plain(**plain_args, any_hit=False)
+        err = compare(f"B {label}", prim_keys(cs), kern, plain, False)
         ms = time_ms(lambda: bm.march_call(**sub), REPS)
         p_ms = time_ms(lambda: bm.march_plain(**plain_args,
                                                any_hit=False), 1)
         print(f"    {label}: kernel {ms:.3f} ms vs plain {p_ms:.1f} ms "
               f"on {SUBSET} rays; full wave ({R} rays, W={inp['w']}, "
-              f"n_subs={inp['n_subs']}) {full_ms:.3f} ms, mean "
-              f"{visits:.2f} cluster visits per block (nearest-first order)")
-        C, W = inp["n_clusters"], inp["w"]
-        ops = SUBSET * C * SLAB_OPS + int(kern[2].sum()) * W * (
-            CHUNK * WOOP_OPS + (inp["n_subs"] + 1) * SLAB_OPS)
-        march_rows.append(row(err, ms, p_ms, tensor_bytes(sub, kern), ops))
+              f"n_subs={inp['n_subs']}) {full_ms:.3f} ms, "
+              f"{full[2].float().mean().item() / CHUNK:.2f} cluster-"
+              f"equivalent visits per warp")
+        work = bm.needed_work(sub["rays"], *plain, sub["boxes"],
+                              sub["sub_boxes"], inp["n_clusters"],
+                              inp["n_subs"])
+        march_work(f"{label} subset", kern[2], work)
+        march_rows.append(wave_row(f"B {label}", err, full_ms, p_ms,
+                                   tensor_bytes(inp, full), work,
+                                   SUBSET, inp["rays"].shape[1]))
 
         pin = bm.probe_inputs(cs, wo, wd, b.tmin0, b.tmax_inf)
         psub = dict(pin, rays=pin["rays"][:, :SUBSET].contiguous())
@@ -694,6 +787,30 @@ def time_frame(t: SimpleNamespace, k: int, pc_max: int | None = None):
         n_frames=TIME_FRAMES, pc_max=pc_max)
 
 
+def tlas_bounce_wave(t: SimpleNamespace) -> dict:
+    """The ``march_instanced_call`` arguments (any_hit aside) of the TLAS
+    frame's own first bounce wave: frame 0 (seed 1, as phase 7 renders it)
+    to depth 2, the camera wave through kernel D and bounce 1 through E,
+    whose call is recorded."""
+    from optix_ray_tracer_tpu_torch.ops.kernels import block_march as bm
+    from optix_ray_tracer_tpu_torch.render import wavefront
+    seen = []
+    real = bm.march_instanced_call
+
+    def record(**kw):
+        seen.append(kw)
+        return real(**kw)
+
+    bm.march_instanced_call = record
+    try:
+        wavefront.render(t.static, t.mats, t.cam, WIDTH, HEIGHT, spp=SPP,
+                         seed=1, max_depth=2,
+                         intersector=time_frame(t, 0, t.pc_max1))
+    finally:
+        bm.march_instanced_call = real
+    return {k: v for k, v in seen[-1].items() if k != "any_hit"}
+
+
 def check_time_kernels(t: SimpleNamespace) -> dict:
     """Phase 6: kernels D, E and F against their plain versions at the Time
     scene's full-size waves (compared on subsets), with both full-wave
@@ -776,41 +893,61 @@ def check_time_kernels(t: SimpleNamespace) -> dict:
     rows["tile_raster_instanced"] = dict(d_rows[0], max_abs_err=max(
         r["max_abs_err"] for r in d_rows))
 
-    # E: 1M incoherent rays inside the particle cloud, Morton-sorted as the
-    # TLAS marcher sorts them
-    gen = np.random.default_rng(11)
-    oi = torch.as_tensor(gen.uniform(-15, 15, (R, 3)).astype(np.float32),
-                         device=dev)
-    di = gen.normal(size=(R, 3)).astype(np.float32)
-    di = torch.as_tensor(di / np.linalg.norm(di, axis=-1, keepdims=True),
-                         device=dev)
-    perm = torch.argsort(ray_sort_keys(oi, di, inter.scene_lo,
-                                       inter.scene_hi), stable=True)
-    e_rows = []
-    for any_hit in (False, True):
-        tmax = torch.full((R,), 2.0 if any_hit else 1e16, device=dev)
-        inp = bm.march_instanced_inputs(
-            inter.pair_min, inter.pair_max, inter.sub_min, inter.sub_max,
-            inter.pair_shape, inter.pair_inst, inter.inst_rows,
-            inter.library.woop_t, oi[perm], di[perm], t.tmin, tmax)
-        visits = bm.march_instanced_call(**inp, any_hit=any_hit)[2]
+    # E: 1M incoherent rays inside the particle cloud, and the frame's
+    # first bounce wave
+    print(f"  E: {bm.march_occupancy(True)} resident warps per SM "
+          f"(occupancy; any-hit {bm.march_occupancy(True, True)})")
+
+    def e_case(label, inp, any_hit, pick, nearest=None):
+        """E on the wave ``inp`` (timed whole) against its plain version
+        on the rays ``pick``; returns (JSON row of the whole wave, plain
+        (t, slot))."""
+        full = bm.march_instanced_call(**inp, any_hit=any_hit)
+        sub_rays = inp["rays"][:, pick].contiguous()
+        reps = REPS if inp["rays"].shape[1] <= R else 2
         full_ms = time_ms(lambda: bm.march_instanced_call(
-            **inp, any_hit=any_hit), REPS)
-        sub = dict(inp, rays=inp["rays"][:, :SUBSET_E].contiguous())
+            **inp, any_hit=any_hit), reps)
+        sub = dict(inp, rays=sub_rays)
         kern = bm.march_instanced_call(**sub, any_hit=any_hit)
         plain, p_ms = time_once(lambda: bm.march_instanced_plain(
             **{k: v for k, v in sub.items() if k != "w"}, any_hit=any_hit))
-        label = "any-hit" if any_hit else "nearest"
-        err = compare(f"E incoherent {label}", keys, kern, plain, any_hit)
+        err = compare(f"E {label}", keys, kern, plain, any_hit)
         ms = time_ms(lambda: bm.march_instanced_call(**sub, any_hit=any_hit),
                      REPS)
         print(f"    {label}: kernel {ms:.3f} ms vs plain {p_ms:.1f} ms on "
-              f"{SUBSET_E} rays; full wave ({R} rays, {inp['n_pairs']} "
-              f"pairs) {full_ms:.3f} ms, mean "
-              f"{visits.float().mean().item():.2f} pair visits per block")
-        ops = SUBSET_E * inp["n_pairs"] * SLAB_OPS + int(kern[2].sum()) \
-            * inp["w"] * (CHUNK * WOOP_OPS + 5 * SLAB_OPS + INST_OPS)
-        e_rows.append(row(err, ms, p_ms, tensor_bytes(sub, kern), ops))
+              f"{sub_rays.shape[1]} rays; full wave "
+              f"({inp['rays'].shape[1]} rays, {inp['n_pairs']} pairs) "
+              f"{full_ms:.3f} ms [{t.card}], "
+              f"{full[2].float().mean().item() / CHUNK:.2f} cluster-"
+              f"equivalent visits per warp")
+        # an occlusion wave is counted to its nearest hit in the segment:
+        # an upper estimate, as an exact any-hit march may stop at any hit
+        near = plain if nearest is None else nearest
+        seg = (near[1] >= 0) & (near[0] < sub_rays[7])
+        work = bm.needed_work(
+            sub_rays, torch.where(seg, near[0], sub_rays[7]),
+            torch.where(seg, near[1], -1), inp["boxes"], inp["sub_boxes"],
+            inp["n_pairs"], inp["sub_boxes"].shape[1], instanced=True)
+        march_work(f"{label} subset" + (
+            " (needed: an upper estimate, to the nearest hit)" if any_hit
+            else ""), kern[2], work)
+        return (wave_row(f"E {label}", err, full_ms, p_ms,
+                         tensor_bytes(inp, full), work, sub_rays.shape[1],
+                         inp["rays"].shape[1]), plain)
+
+    e_rows = []
+    nearest = None
+    for any_hit, inp in e_waves(t, inter).items():
+        label = "incoherent " + ("any-hit" if any_hit else "nearest")
+        pick = warp_rays(inp["rays"].shape[1], SUBSET_E).to(dev)
+        e_row, plain = e_case(label, inp, any_hit, pick, nearest)
+        if nearest is None:
+            nearest = plain
+        e_rows.append(e_row)
+    inp = tlas_bounce_wave(t)
+    pick = warp_rays(inp["rays"].shape[1], SUBSET_E).to(dev)
+    e_rows.append(e_case("TLAS frame bounce 1 nearest", inp, False,
+                         pick)[0])
     rows["block_march_instanced"] = dict(e_rows[0], max_abs_err=max(
         r["max_abs_err"] for r in e_rows))
 
@@ -822,7 +959,7 @@ def check_time_kernels(t: SimpleNamespace) -> dict:
     fo, fd = t.o[perm], t.d[perm]
 
     prims = prim_keys(cs)
-    f_rows = []
+    f_rows, f_near = [], None
     for any_hit in (False, True):
         tmax = torch.full((R,), 40.0 if any_hit else 1e16, device=dev)
         before = (K["F"].launches, K["B"].launches)
@@ -858,11 +995,20 @@ def check_time_kernels(t: SimpleNamespace) -> dict:
               f"(W={inp['w']}, {kern_full[2].float().mean().item():.2f} "
               f"cluster visits per block) vs B {b_ms:.3f} ms "
               f"(W={b_inp['w']}, "
-              f"{flat[2].float().mean().item():.2f}) [{t.card}]")
-        n_sup = -(-cs.num_clusters // 8)
-        ops = SUBSET_TIME * n_sup * SLAB_OPS + int(kern[2].sum()) \
-            * inp["w"] * (CHUNK * WOOP_OPS + (inp["n_subs"] + 1) * SLAB_OPS)
-        f_rows.append(row(err, ms, p_ms, tensor_bytes(sub, kern), ops))
+              f"{flat[2].float().mean().item() / CHUNK:.2f} cluster-"
+              f"equivalent visits per warp) [{t.card}]")
+        if f_near is None:
+            f_near = plain
+        near, rays = f_near, sub["rays"]
+        seg = (near[1] >= 0) & (near[0] < rays[7])
+        work = bm.needed_work(
+            rays, torch.where(seg, near[0], rays[7]),
+            torch.where(seg, near[1], -1), inp["boxes"], inp["sub_boxes"],
+            cs.num_clusters, inp["n_subs"], sup_boxes=inp["sup_boxes"])
+        print(f"    {label}: needed on the subset: Woop tests "
+              f"{work['woop']}, slab tests {work['slab']}")
+        f_rows.append(row(err, ms, p_ms, tensor_bytes(sub, kern),
+                          needed_ops(work)))
     rows["block_march_hier"] = dict(f_rows[0], max_abs_err=max(
         r["max_abs_err"] for r in f_rows))
     return rows

@@ -15,37 +15,63 @@
 //   optix_ray_tracer_tpu/ops/pallas/block_march.py:694 _make_probe_kernel
 //   (via probe_first_cluster).
 //
-// What bounds the march on the H100: the Woop tests, about 30 float ops per
-// (ray, triangle) pair, so the count of cluster visits per block is the
-// cost.  The TPU kernel picks the nearest cluster any ray of the block
-// still needs, one visit at a time, with a (C, W) entry matrix in VMEM; a
-// 128-ray block's matrix for the 100k-triangle scene is ~200 KB, too much
-// shared memory to keep beside a cluster's rows.  Design here: one thread
-// per ray, one CTA per block of rays.  The CTA reduces each cluster's entry
-// over its rays once (a warp min, then a shared atomicMin), bitonic-sorts
-// the (block-min entry, cluster id) keys in shared memory, and visits the
-// clusters in that order: the TPU's nearest-first order, frozen at the
-// block's start.  Each visit re-tests the cluster's slab per ray and
-// stages its 12 x 256 Woop rows (12 KB) in shared memory only when some
-// ray of the block has entry < its best t; each 64- or 128-triangle part
-// is gated the same way on its sub box.  The walk stops when no ray's best
-// t exceeds the next key.  All gates and the termination are the TPU
-// kernel's, so the nearest t is exact; equal-t ties go to the first
-// visited (the same rule, another visit order).
+// What bounds the march (B, E) on the H100: FP32 CUDA-core work, ~47
+// operations per (ray, triangle) Woop test and ~26 per (ray, box) slab
+// test, and the work is what the rays need.  The TPU kernel re-picks, per
+// block of W rays, the nearest cluster any ray still needs from a (C, W)
+// entry matrix in VMEM and double-buffers the cluster's DMA.  A CTA-wide
+// copy of that walk (one sorted key per cull row in shared memory, 12 KB
+// of rows staged per visit between barriers) held E at 8 resident warps
+// per SM and made every visit a 128-ray union (E's 1M-ray incoherent wave
+// in a 5,495-pair TLAS: 123.1 ms; 32.6 ms with the design below, 28
+// resident warps per SM; NVIDIA H100 80GB HBM3, 700 W).  Design here: the
+// WARP is the unit of the march.
 //
-// The instanced march (TLAS) is the same walk over pairs (<= 8192, so the
-// sort keys take <= 64 KB of shared memory).  Pair and sub boxes are world
-// boxes, refit per frame, gated on the world rays; a visit stages the
-// pair's LIBRARY cluster (geometry stored once per shape) and each thread
-// moves its ray into the pair's instance space (ort_to_instance) for the
-// Woop test, so only the per-frame affine rows, not the geometry, scale
-// with the instance count.
+// - Each warp marches its own 32 rays; every decision is a warp vote
+//   (__reduce_min_sync / __any_sync) and no barrier spans the CTA, so a
+//   warp whose rays are done leaves while its neighbours go on.  The CTA
+//   is 4 warps; the callers' block width w (a multiple of 128) only pads
+//   the wave.
+// - Cull: every lane slab-tests every cull row; a row some lane enters
+//   before its best t becomes an (ordered warp-min entry << 32 | row) key
+//   in the warp's candidate list (kWarpKeys keys, 4 KB, fixed).  When the
+//   list fills, the warp sorts it, keeps the nearest half and drops every
+//   later key past a cap, so the list always holds exactly the candidates
+//   below the cap.
+// - March: the list is sorted and visited nearest first.  A row is visited
+//   if some lane enters it before its best t; each part (64- or 128-row
+//   sub block) is tested if some lane enters its sub box before its best
+//   t.  The warp stops at the first key whose entry is >= every lane's
+//   best t.  If keys were dropped and a lane could still enter them, the
+//   warp culls again for the keys >= the cap (a lane's own (entry, row)
+//   below the cap was tested in an earlier round) under the shrunken best
+//   t: no row is ever lost, so the nearest t is exact whatever the
+//   capacity; the order decides only equal-t ties (earliest visit, then
+//   lowest row, as before).
+// - Rows reach the warp without a CTA barrier: lane j loads row j of a
+//   32-row slice with 12 coalesced loads and stores it to the warp's 1.5
+//   KB slice in shared memory; every lane then reads each row as three
+//   16-byte broadcasts.  The next slice's loads are issued before the
+//   current slice is tested (the TPU kernel's double buffer, per warp and
+//   in registers).  Handing the rows lane to lane by __shfl_sync instead
+//   (12 shuffles per row against 3 shared loads, 80 registers, 24
+//   resident warps per SM against 28) was 12-19% slower on every wave
+//   measured (E's 1M-ray incoherent wave 37.3 ms against 32.6; NVIDIA
+//   H100 80GB HBM3, 700 W).
+// - E moves each lane's ray into the pair's instance space per visit
+//   (ort_to_instance); the library's rows stay in L1/L2.
+// Shared memory: 5.5 KB per warp whatever the number of cull rows.
+// out_visits counts, per warp, the Woop rows it tested (each one test on
+// each of its 32 lanes).
 //
-// The hierarchical march sorts 8-cluster superclusters instead of
-// clusters (a NaN-aware union box each), so the cull and the sort shrink
-// eightfold; a visited supercluster gates each of its clusters on the
-// cluster's own entry, computed then.  Exact because a supercluster's
-// entry is <= the entry of every cluster inside it (block_march.py:471).
+// The hierarchical march (F) keeps the CTA-wide design: it sorts 8-cluster
+// superclusters instead of clusters (a NaN-aware union box each), so the
+// cull and the sort shrink eightfold; a visited supercluster gates each of
+// its clusters on the cluster's own entry, computed then.  Exact because a
+// supercluster's entry is <= the entry of every cluster inside it
+// (block_march.py:471).  It visits the superclusters in the order of one
+// bitonic sort of their block-min entries, staging 12 x 256 Woop rows in
+// shared memory per visit.
 //
 // The probe is one thread per ray over the cluster boxes, staged in shared
 // memory; it is bound by the C slab tests per ray.
@@ -56,6 +82,44 @@ namespace {
 
 constexpr int kGroup = 8;   // clusters per supercluster (block_march.GROUP)
 
+// The warp march (B, E)
+constexpr int kWarpKeys = 512;   // candidate keys per warp
+constexpr int kSlice = 32;       // Woop rows a warp stages at a time
+constexpr int kCtaWarps = 4;
+constexpr unsigned kFull = 0xffffffffu;
+constexpr unsigned kNone = 0xffffffffu;   // ordered entry: no lane enters
+constexpr unsigned long long kNoKey = ~0ull;
+
+struct WarpScratch {
+  unsigned long long keys[kWarpKeys];   // (ordered entry << 32 | row)
+  float rows[kSlice * 12];              // one staged slice, 12 per row
+};
+
+// One Woop test of one row (w0..w11) against one ray (in the row's space);
+// a hit in (tmin, bt) takes slot = id.
+template <bool ANY_HIT>
+__device__ __forceinline__ void woop_test(
+    float w0, float w1, float w2, float w3, float w4, float w5, float w6,
+    float w7, float w8, float w9, float w10, float w11, int id, float ox,
+    float oy, float oz, float dx, float dy, float dz, float tmin, float& bt,
+    int& slot) {
+  const float opx = ((w0 * ox + w1 * oy) + w2 * oz) - w3;
+  const float opy = ((w4 * ox + w5 * oy) + w6 * oz) - w7;
+  const float opz = ((w8 * ox + w9 * oy) + w10 * oz) - w11;
+  const float dpx = (w0 * dx + w1 * dy) + w2 * dz;
+  const float dpy = (w4 * dx + w5 * dy) + w6 * dz;
+  const float dpz = (w8 * dx + w9 * dy) + w10 * dz;
+  const bool dz_ok = fabsf(dpz) > 1e-12f;
+  const float t = (-opz) / (dz_ok ? dpz : 1e-12f);
+  const float uu = opx + t * dpx;
+  const float vv = opy + t * dpy;
+  if (dz_ok && uu >= 0.0f && vv >= 0.0f && (uu + vv) <= 1.0f && t > tmin &&
+      t < bt) {
+    slot = id;
+    bt = ANY_HIT ? -ORT_INF : t;
+  }
+}
+
 // Woop-test rows [r0, r1) of a staged 12 x ORT_CHUNK block against one ray
 // (in the block's test space); slot = slot_base + row.
 template <bool ANY_HIT>
@@ -65,33 +129,18 @@ __device__ __forceinline__ void woop_rows(
     int& slot) {
   for (int r = r0; r < r1; ++r) {
     const float* w = ws + r;
-    const float w0 = w[0 * ORT_CHUNK], w1 = w[1 * ORT_CHUNK],
-                w2 = w[2 * ORT_CHUNK], w3 = w[3 * ORT_CHUNK];
-    const float w4 = w[4 * ORT_CHUNK], w5 = w[5 * ORT_CHUNK],
-                w6 = w[6 * ORT_CHUNK], w7 = w[7 * ORT_CHUNK];
-    const float w8 = w[8 * ORT_CHUNK], w9 = w[9 * ORT_CHUNK],
-                w10 = w[10 * ORT_CHUNK], w11 = w[11 * ORT_CHUNK];
-    const float opx = ((w0 * ox + w1 * oy) + w2 * oz) - w3;
-    const float opy = ((w4 * ox + w5 * oy) + w6 * oz) - w7;
-    const float opz = ((w8 * ox + w9 * oy) + w10 * oz) - w11;
-    const float dpx = (w0 * dx + w1 * dy) + w2 * dz;
-    const float dpy = (w4 * dx + w5 * dy) + w6 * dz;
-    const float dpz = (w8 * dx + w9 * dy) + w10 * dz;
-    const bool dz_ok = fabsf(dpz) > 1e-12f;
-    const float t = (-opz) / (dz_ok ? dpz : 1e-12f);
-    const float uu = opx + t * dpx;
-    const float vv = opy + t * dpy;
-    if (dz_ok && uu >= 0.0f && vv >= 0.0f && (uu + vv) <= 1.0f &&
-        t > tmin && t < bt) {
-      slot = slot_base + r;
-      bt = ANY_HIT ? -ORT_INF : t;
-    }
+    woop_test<ANY_HIT>(w[0 * ORT_CHUNK], w[1 * ORT_CHUNK], w[2 * ORT_CHUNK],
+                       w[3 * ORT_CHUNK], w[4 * ORT_CHUNK], w[5 * ORT_CHUNK],
+                       w[6 * ORT_CHUNK], w[7 * ORT_CHUNK], w[8 * ORT_CHUNK],
+                       w[9 * ORT_CHUNK], w[10 * ORT_CHUNK],
+                       w[11 * ORT_CHUNK], slot_base + r, ox, oy, oz, dx, dy,
+                       dz, tmin, bt, slot);
   }
 }
 
-// Steps 1-2 of every march: the block-min entry of each of n_boxes boxes
-// over the rays that enter it before their t_max, as (ordered entry << 32
-// | id) keys, sorted ascending in shared memory (n_keys a power of two).
+// F's cull: the block-min entry of each of n_boxes boxes over the rays that
+// enter it before their t_max, as (ordered entry << 32 | id) keys, sorted
+// ascending in shared memory (n_keys a power of two).
 __device__ __forceinline__ void sorted_box_keys(
     unsigned long long* keys, int n_keys, const float* __restrict__ boxes,
     int n_boxes, float ox, float oy, float oz, float ix, float iy, float iz,
@@ -138,14 +187,12 @@ __device__ __forceinline__ void stage_rows(float* ws,
     dst[i] = src[i];
 }
 
-// One visit's parts: each part gated block-wide on its (world) sub box,
-// then Woop-tested in the test space (t*: the ray the rows expect).
+// F's visit: each part gated block-wide on its sub box, then Woop-tested.
 template <bool ANY_HIT>
 __device__ __forceinline__ void test_parts(
     const float* ws, const float* __restrict__ sub_boxes, int c, int n_subs,
-    float ox, float oy, float oz, float ix, float iy, float iz, float tox,
-    float toy, float toz, float tdx, float tdy, float tdz, float tmin,
-    float& bt, int& slot) {
+    float ox, float oy, float oz, float ix, float iy, float iz, float dx,
+    float dy, float dz, float tmin, float& bt, int& slot) {
   const int step = ORT_CHUNK / n_subs;
   for (int part = 0; part < n_subs; ++part) {
     const float se = ort_slab_entry(
@@ -153,25 +200,115 @@ __device__ __forceinline__ void test_parts(
         oz, ix, iy, iz, tmin);
     if (!__syncthreads_or(se < bt)) continue;
     woop_rows<ANY_HIT>(ws, part * step, (part + 1) * step, c * ORT_CHUNK,
-                       tox, toy, toz, tdx, tdy, tdz, tmin, bt, slot);
+                       ox, oy, oz, dx, dy, dz, tmin, bt, slot);
+  }
+}
+
+// Sort the warp's first n keys ascending (n a power of two).
+__device__ __forceinline__ void warp_sort(unsigned long long* keys, int n,
+                                          int lane) {
+  __syncwarp();
+  for (int k = 2; k <= n; k <<= 1) {
+    for (int j = k >> 1; j > 0; j >>= 1) {
+      for (int i = lane; i < n; i += 32) {
+        const int p = i ^ j;
+        if (p > i) {
+          const unsigned long long a = keys[i], b = keys[p];
+          if ((a > b) == ((i & k) == 0)) { keys[i] = b; keys[p] = a; }
+        }
+      }
+      __syncwarp();
+    }
+  }
+}
+
+// One round of a warp's cull: the keys (warp-min entry over the lanes that
+// enter the row before their best t with their own (entry, row) >= lo)
+// of the nearest candidate rows, sorted into ws.keys; returns their count.
+// cap = the smallest key dropped for want of room (kNoKey if none): the
+// list holds every candidate key below cap.
+__device__ __forceinline__ int cull_round(
+    WarpScratch& ws, int lane, const float* __restrict__ boxes, int n_rows,
+    float ox, float oy, float oz, float ix, float iy, float iz, float tmin,
+    float bt, unsigned long long lo, unsigned long long& cap) {
+  int n = 0;
+  cap = kNoKey;
+  for (int c = 0; c < n_rows; ++c) {
+    const float e = ort_row_entry(boxes + 8 * static_cast<size_t>(c), ox, oy,
+                                  oz, ix, iy, iz, tmin);
+    const unsigned oe = ort_ordered(e);
+    const bool mine =
+        e < bt && ((static_cast<unsigned long long>(oe) << 32) |
+                   static_cast<unsigned>(c)) >= lo;
+    const unsigned m = __reduce_min_sync(kFull, mine ? oe : kNone);
+    if (m == kNone) continue;
+    const unsigned long long key =
+        (static_cast<unsigned long long>(m) << 32) | static_cast<unsigned>(c);
+    if (key >= cap) continue;
+    if (lane == 0) ws.keys[n] = key;
+    if (++n == kWarpKeys) {   // full: keep the nearest half
+      warp_sort(ws.keys, kWarpKeys, lane);
+      n = kWarpKeys / 2;
+      cap = ws.keys[n];
+      __syncwarp();           // every lane has read cap before it is reused
+    }
+  }
+  int p = 1;
+  while (p < n) p <<= 1;
+  for (int i = n + lane; i < p; i += 32) ws.keys[i] = kNoKey;
+  warp_sort(ws.keys, p, lane);
+  return n;
+}
+
+// Row r's 12 Woop values (lane r of a slice loads its own row).
+__device__ __forceinline__ void load_row(float (&v)[12],
+                                         const float* __restrict__ w, int r) {
+#pragma unroll
+  for (int k = 0; k < 12; ++k) v[k] = __ldg(w + k * ORT_CHUNK + r);
+}
+
+// Woop-test rows [r0, r0 + n) of one cluster's rows w (n a multiple of
+// kSlice) against every lane's ray, slice by slice.
+template <bool ANY_HIT>
+__device__ __forceinline__ void test_rows(
+    WarpScratch& ws, int lane, const float* __restrict__ w, int r0, int n,
+    int slot_base, float ox, float oy, float oz, float dx, float dy,
+    float dz, float tmin, float& bt, int& slot) {
+  float v[12];
+  load_row(v, w, r0 + lane);
+  for (int s = r0; s < r0 + n; s += kSlice) {
+    __syncwarp();   // every lane is done with the previous slice
+    float4* dst = reinterpret_cast<float4*>(ws.rows + 12 * lane);
+    dst[0] = make_float4(v[0], v[1], v[2], v[3]);
+    dst[1] = make_float4(v[4], v[5], v[6], v[7]);
+    dst[2] = make_float4(v[8], v[9], v[10], v[11]);
+    __syncwarp();
+    if (s + kSlice < r0 + n) load_row(v, w, s + kSlice + lane);
+#pragma unroll 4
+    for (int j = 0; j < kSlice; ++j) {
+      const float4* q = reinterpret_cast<const float4*>(ws.rows + 12 * j);
+      const float4 a = q[0], b = q[1], c = q[2];
+      woop_test<ANY_HIT>(a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w, c.x, c.y,
+                         c.z, c.w, slot_base + s + j, ox, oy, oz, dx, dy, dz,
+                         tmin, bt, slot);
+    }
   }
 }
 
 // INST: rows of boxes / sub_boxes are TLAS pairs; pair c tests library
 // cluster pair_shape[c] with the rays moved by inst_rows[pair_inst[c]].
 template <bool ANY_HIT, bool INST>
-__global__ void block_march_kernel(
+__global__ void __launch_bounds__(32 * kCtaWarps, 6) warp_march_kernel(
     const float* __restrict__ rays, int n_rays,
-    const float* __restrict__ boxes, int n_clusters, int n_keys,
+    const float* __restrict__ boxes, int n_rows,
     const float* __restrict__ sub_boxes, int n_subs,
     const float* __restrict__ woop_t, const int* __restrict__ pair_shape,
     const int* __restrict__ pair_inst, const float* __restrict__ inst_rows,
     float* __restrict__ out_t, int* __restrict__ out_slot,
     int* __restrict__ out_visits) {
   extern __shared__ __align__(16) unsigned char smem[];
-  unsigned long long* keys = reinterpret_cast<unsigned long long*>(smem);
-  float* ws = reinterpret_cast<float*>(keys + n_keys);   // 12 x ORT_CHUNK
-
+  WarpScratch& ws = reinterpret_cast<WarpScratch*>(smem)[threadIdx.x >> 5];
+  const int lane = threadIdx.x & 31;
   const int ray = blockIdx.x * blockDim.x + threadIdx.x;
   const float ox = rays[0 * n_rays + ray], oy = rays[1 * n_rays + ray],
               oz = rays[2 * n_rays + ray];
@@ -181,36 +318,50 @@ __global__ void block_march_kernel(
   float bt = rays[7 * n_rays + ray];
   const float ix = ort_inv_dir(dx), iy = ort_inv_dir(dy), iz = ort_inv_dir(dz);
   int slot = -1;
+  const int step = ORT_CHUNK / n_subs;
+  int tested = 0;
 
-  sorted_box_keys(keys, n_keys, boxes, n_clusters, ox, oy, oz, ix, iy, iz,
-                  tmin, bt);
-
-  int visits = 0;
-  for (int k = 0; k < n_clusters; ++k) {
-    const unsigned long long key = keys[k];
-    // every ray's entry into this and all later clusters is >= key_e
-    if (!__syncthreads_or(key_entry(key) < bt)) break;
-    const int c = static_cast<int>(key & 0xffffffffu);
-    const float e =
-        ort_slab_entry(boxes + 8 * c, ox, oy, oz, ix, iy, iz, tmin);
-    if (!__syncthreads_or(e < bt)) continue;
-    ++visits;
-    float tox = ox, toy = oy, toz = oz, tdx = dx, tdy = dy, tdz = dz;
-    if (INST) {
-      stage_rows(ws, woop_t, pair_shape[c]);
-      ort_to_instance(inst_rows + 128 * static_cast<size_t>(pair_inst[c]),
-                      ox, oy, oz, dx, dy, dz, tox, toy, toz, tdx, tdy, tdz);
-    } else {
-      stage_rows(ws, woop_t, c);
+  unsigned long long lo = 0;   // this round's keys are >= lo
+  // every entry is >= t_min: a lane with best t <= t_min needs nothing
+  bool more = __any_sync(kFull, tmin < bt);
+  while (more) {
+    unsigned long long cap;
+    const int n = cull_round(ws, lane, boxes, n_rows, ox, oy, oz, ix, iy, iz,
+                             tmin, bt, lo, cap);
+    int k = 0;
+    for (; k < n; ++k) {
+      const unsigned long long key = ws.keys[k];
+      // every later key, this round's and the next's, enters no earlier
+      if (!__any_sync(kFull, key_entry(key) < bt)) break;
+      const int c = static_cast<int>(key & 0xffffffffu);
+      const float e = ort_row_entry(boxes + 8 * static_cast<size_t>(c), ox,
+                                    oy, oz, ix, iy, iz, tmin);
+      if (!__any_sync(kFull, e < bt)) continue;
+      float tox = ox, toy = oy, toz = oz, tdx = dx, tdy = dy, tdz = dz;
+      const float* w = woop_t + static_cast<size_t>(INST ? pair_shape[c] : c)
+                                    * ORT_WOOP_ROWS * ORT_CHUNK;
+      if (INST)
+        ort_to_instance(inst_rows + 128 * static_cast<size_t>(pair_inst[c]),
+                        ox, oy, oz, dx, dy, dz, tox, toy, toz, tdx, tdy, tdz);
+      for (int part = 0; part < n_subs; ++part) {
+        const float se = ort_row_entry(
+            sub_boxes + 8 * (static_cast<size_t>(c) * n_subs + part), ox, oy,
+            oz, ix, iy, iz, tmin);
+        if (!__any_sync(kFull, se < bt)) continue;
+        test_rows<ANY_HIT>(ws, lane, w, part * step, step, c * ORT_CHUNK, tox,
+                           toy, toz, tdx, tdy, tdz, tmin, bt, slot);
+        tested += step;
+      }
     }
-    __syncthreads();
-    test_parts<ANY_HIT>(ws, sub_boxes, c, n_subs, ox, oy, oz, ix, iy, iz,
-                        tox, toy, toz, tdx, tdy, tdz, tmin, bt, slot);
-    __syncthreads();   // the next visit overwrites ws
+    // another round only if keys were dropped, the list ran out, and a
+    // lane could still enter a dropped row (every one enters at >= cap)
+    more = k == n && cap != kNoKey && __any_sync(kFull, key_entry(cap) < bt);
+    lo = cap;
+    __syncwarp();   // the next round overwrites ws.keys
   }
   out_t[ray] = bt;
   out_slot[ray] = slot;
-  if (threadIdx.x == 0) out_visits[blockIdx.x] = visits;
+  if (lane == 0) out_visits[ray >> 5] = tested;
 }
 
 template <bool ANY_HIT>
@@ -255,7 +406,7 @@ __global__ void block_march_hier_kernel(
       stage_rows(ws, woop_t, c);
       __syncthreads();
       test_parts<ANY_HIT>(ws, sub_boxes, c, n_subs, ox, oy, oz, ix, iy, iz,
-                          ox, oy, oz, dx, dy, dz, tmin, bt, slot);
+                          dx, dy, dz, tmin, bt, slot);
       __syncthreads();
     }
   }
@@ -301,21 +452,28 @@ int pow2_at_least(int n) {
   return p;
 }
 
+const void* march_fn(bool instanced, bool any_hit) {
+  if (instanced)
+    return any_hit ? reinterpret_cast<const void*>(warp_march_kernel<true, true>)
+                   : reinterpret_cast<const void*>(
+                         warp_march_kernel<false, true>);
+  return any_hit ? reinterpret_cast<const void*>(warp_march_kernel<true, false>)
+                 : reinterpret_cast<const void*>(
+                       warp_march_kernel<false, false>);
+}
+
+// 4-warp CTAs (n_rays % 128 == 0).
 template <bool A, bool I>
-int launch_march(int n_keys, int block_rays, cudaStream_t s,
-                 const float* rays, int n_rays, const float* boxes,
-                 int n_clusters, const float* sub_boxes, int n_subs,
-                 const float* woop_t, const int* pair_shape,
+int launch_march(cudaStream_t s, const float* rays, int n_rays,
+                 const float* boxes, int n_rows, const float* sub_boxes,
+                 int n_subs, const float* woop_t, const int* pair_shape,
                  const int* pair_inst, const float* inst_rows, float* out_t,
                  int* out_slot, int* out_visits) {
-  const size_t smem = n_keys * sizeof(unsigned long long) +
-                      12 * ORT_CHUNK * sizeof(float);
-  int err = set_smem(reinterpret_cast<const void*>(block_march_kernel<A, I>),
-                     smem);
-  if (err) return err;
-  block_march_kernel<A, I><<<n_rays / block_rays, block_rays, smem, s>>>(
-      rays, n_rays, boxes, n_clusters, n_keys, sub_boxes, n_subs, woop_t,
-      pair_shape, pair_inst, inst_rows, out_t, out_slot, out_visits);
+  const int threads = 32 * kCtaWarps;
+  const size_t smem = kCtaWarps * sizeof(WarpScratch);
+  warp_march_kernel<A, I><<<n_rays / threads, threads, smem, s>>>(
+      rays, n_rays, boxes, n_rows, sub_boxes, n_subs, woop_t, pair_shape,
+      pair_inst, inst_rows, out_t, out_slot, out_visits);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -338,48 +496,63 @@ int launch_hier(int n_keys, int block_rays, cudaStream_t s,
 
 }  // namespace
 
-// rays: (8, n_rays) rows [o, d, t_min, t_max], n_rays % block_rays == 0;
-// boxes: (>= n_clusters, 8) rows [min3, max3, 0, 0];
+// rays: (8, n_rays) rows [o, d, t_min, t_max], n_rays % block_rays == 0,
+// block_rays % 128 == 0 (the callers' padding; the kernel marches each
+// warp on its own in 4-warp CTAs); boxes: (>= n_clusters, 8) rows [min3, max3, 0, 0];
 // sub_boxes: (>= n_clusters, n_subs, 8); woop_t: (C, 16, 256).
-// Outputs: out_t, out_slot (n_rays,), out_visits (n_rays / block_rays,).
-// Returns the CUDA error code of the launch (0 = launched).
+// Outputs: out_t, out_slot (n_rays,), out_visits (n_rays / 32,): each
+// warp's Woop-tested rows.  Returns the CUDA error code of the launch (0 =
+// launched).
 extern "C" int ort_block_march(const float* rays, int n_rays,
                                const float* boxes, int n_clusters,
                                const float* sub_boxes, int n_subs,
                                const float* woop_t, int any_hit,
                                int block_rays, float* out_t, int* out_slot,
                                int* out_visits, void* stream) {
-  const int n_keys = pow2_at_least(n_clusters);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   auto launch = any_hit ? &launch_march<true, false>
                         : &launch_march<false, false>;
-  return launch(n_keys, block_rays, s, rays, n_rays, boxes, n_clusters,
-                sub_boxes, n_subs, woop_t, nullptr, nullptr, nullptr, out_t,
-                out_slot, out_visits);
+  return launch(s, rays, n_rays, boxes, n_clusters, sub_boxes, n_subs,
+                woop_t, nullptr, nullptr, nullptr, out_t, out_slot,
+                out_visits);
 }
 
 // The TLAS march: boxes / sub_boxes are (>= n_pairs, 8) / (>= n_pairs,
 // n_subs, 8) WORLD pair boxes; pair_shape, pair_inst: (n_pairs,) library
 // cluster and instance of each pair; inst_rows: (P, 128) rows [A(9), b(3),
 // 0...] of the world->object affine; woop_t: (SC, 16, 256) library rows.
-// Slots are pair * 256 + row.
+// Slots are pair * 256 + row; out_visits as ort_block_march.
 extern "C" int ort_block_march_instanced(
     const float* rays, int n_rays, const float* boxes, int n_pairs,
     const float* sub_boxes, int n_subs, const int* pair_shape,
     const int* pair_inst, const float* inst_rows, const float* woop_t,
     int any_hit, int block_rays, float* out_t, int* out_slot,
     int* out_visits, void* stream) {
-  const int n_keys = pow2_at_least(n_pairs);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   auto launch = any_hit ? &launch_march<true, true>
                         : &launch_march<false, true>;
-  return launch(n_keys, block_rays, s, rays, n_rays, boxes, n_pairs,
-                sub_boxes, n_subs, woop_t, pair_shape, pair_inst, inst_rows,
-                out_t, out_slot, out_visits);
+  return launch(s, rays, n_rays, boxes, n_pairs, sub_boxes, n_subs,
+                woop_t, pair_shape, pair_inst, inst_rows, out_t, out_slot,
+                out_visits);
+}
+
+// Resident warps per SM of the B (instanced = 0) or E (1) kernel at its
+// 4-warp launch, by cudaOccupancyMaxActiveBlocksPerMultiprocessor on the
+// current device.  Returns the CUDA error code.
+extern "C" int ort_march_occupancy(int instanced, int any_hit,
+                                   int* warps_per_sm) {
+  int blocks = 0;
+  const int err = static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &blocks, march_fn(instanced, any_hit), 32 * kCtaWarps,
+      kCtaWarps * sizeof(WarpScratch)));
+  *warps_per_sm = blocks * kCtaWarps;
+  return err;
 }
 
 // The hierarchical march: sup_boxes (>= n_sup, 8) union boxes of clusters
-// [8 s, 8 s + 8); the rest as ort_block_march.
+// [8 s, 8 s + 8); the rest as ort_block_march, but block_rays % 32 == 0
+// is the CTA width and out_visits is (n_rays / block_rays,): the clusters
+// each block visited.
 extern "C" int ort_block_march_hier(
     const float* rays, int n_rays, const float* sup_boxes, int n_sup,
     const float* boxes, int n_clusters, const float* sub_boxes, int n_subs,

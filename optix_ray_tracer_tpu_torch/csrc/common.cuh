@@ -24,25 +24,43 @@ __device__ __forceinline__ float ort_inv_dir(float d) {
 // Padding boxes are NaN: the flag below keeps them from ever firing, which
 // is what NaN-propagating min/max give on the JAX side (fminf/fmaxf would
 // drop the NaN and let the box hit).
-__device__ __forceinline__ float ort_slab_entry(
-    const float* box, float ox, float oy, float oz,
-    float ix, float iy, float iz, float tmin) {
+__device__ __forceinline__ float ort_slab_entry6(
+    float lx, float ly, float lz, float hx, float hy, float hz, float ox,
+    float oy, float oz, float ix, float iy, float iz, float tmin) {
   float ent = -ORT_INF, ext = ORT_INF;
   bool nan = false;
-  float t0 = (box[0] - ox) * ix, t1 = (box[3] - ox) * ix;
+  float t0 = (lx - ox) * ix, t1 = (hx - ox) * ix;
   nan |= isnan(t0) | isnan(t1);
   ent = fmaxf(ent, fminf(t0, t1));
   ext = fminf(ext, fmaxf(t0, t1));
-  t0 = (box[1] - oy) * iy; t1 = (box[4] - oy) * iy;
+  t0 = (ly - oy) * iy; t1 = (hy - oy) * iy;
   nan |= isnan(t0) | isnan(t1);
   ent = fmaxf(ent, fminf(t0, t1));
   ext = fminf(ext, fmaxf(t0, t1));
-  t0 = (box[2] - oz) * iz; t1 = (box[5] - oz) * iz;
+  t0 = (lz - oz) * iz; t1 = (hz - oz) * iz;
   nan |= isnan(t0) | isnan(t1);
   ent = fmaxf(ent, fminf(t0, t1));
   ext = fminf(ext, fmaxf(t0, t1));
   ent = fmaxf(ent, tmin);
   return (!nan && ent <= ext) ? ent : ORT_INF;
+}
+
+__device__ __forceinline__ float ort_slab_entry(
+    const float* box, float ox, float oy, float oz,
+    float ix, float iy, float iz, float tmin) {
+  return ort_slab_entry6(box[0], box[1], box[2], box[3], box[4], box[5],
+                         ox, oy, oz, ix, iy, iz, tmin);
+}
+
+// The same for a 16-byte aligned [min3, max3, pad2] row, in two 16-byte
+// loads (every lane of a warp reads the same row: one broadcast each).
+__device__ __forceinline__ float ort_row_entry(
+    const float* __restrict__ row, float ox, float oy, float oz, float ix,
+    float iy, float iz, float tmin) {
+  const float4 a = __ldg(reinterpret_cast<const float4*>(row));
+  const float4 b = __ldg(reinterpret_cast<const float4*>(row) + 1);
+  return ort_slab_entry6(a.x, a.y, a.z, a.w, b.x, b.y, ox, oy, oz, ix, iy,
+                         iz, tmin);
 }
 
 // World ray -> instance space for the TLAS kernels: o' = A (o - b),

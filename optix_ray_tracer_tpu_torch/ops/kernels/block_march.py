@@ -7,14 +7,19 @@ same over 8-cluster superclusters, for coherent waves of large scenes;
 kernel E (``march_instanced_call``) over the (instance, library cluster)
 pairs of a TLAS; kernel C (``probe_call``) returns each ray's nearest
 entered cluster, the sort key of incoherent waves.  All are CUDA
-(``csrc/block_march.cu``, design notes there).  Each wrapper launches its
-kernel for CUDA tensors, or raises; for CPU tensors it runs the plain
-PyTorch version beside it, a vectorised loop over cull rows that computes
-the same function: the exact nearest t (or hit / miss), with equal-t ties
-free to resolve to another triangle.
+(``csrc/block_march.cu``, design notes there: B and E march per warp of
+32 rays, F per block).  Each wrapper launches its kernel for CUDA
+tensors, or raises; for CPU tensors it runs the plain PyTorch version
+beside it, a vectorised loop over cull rows that computes the same
+function: the exact nearest t (or hit / miss), with equal-t ties free to
+resolve to another triangle.  :func:`needed_work` counts the work a
+wave's answer requires of any exact marcher of this structure, the
+yardstick of the kernels' bounds.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -25,7 +30,9 @@ from optix_ray_tracer_tpu_torch.utils.vecmath import INF, dot
 
 BLOCK_RAYS = 128          # minimum block granularity callers pad to
 CLUSTER_TRIS = CHUNK
-MAX_CLUSTERS = 8192       # the keys of one CTA's sort must fit shared memory
+MAX_CLUSTERS = 8192       # the JAX package's cap (F sorts a key per row in
+                          # shared memory)
+WARP = 32                 # B and E count their work per warp of rays
 N_SUBS = SUBS_PER_CLUSTER
 N_SUBS_INCOHERENT = 2     # incoherent waves pair-merge the sub boxes
 GROUP = 8                 # clusters per supercluster (kernel F)
@@ -213,6 +220,56 @@ def march_hier_plain(rays, sup_boxes, boxes, sub_boxes, woop_t,
     return bt, slot
 
 
+def needed_work(rays, t, slot, boxes, sub_boxes, n_rows: int, n_subs: int,
+                instanced: bool = False, sup_boxes=None) -> dict:
+    """The work a wave's answers require of an exact marcher that culls
+    every cull row (with ``sup_boxes``: every GROUP-cluster supercluster,
+    then the clusters of those it enters) and gates parts on sub boxes,
+    if it knew each ray's final t in advance: the least such a marcher
+    can do.  Plain PyTorch, on the wave's device.
+
+    rays, boxes, sub_boxes, n_rows, n_subs as :func:`march_call`; t,
+    slot: each ray's nearest hit (a plain nearest-hit version's output;
+    for an occlusion wave, its nearest hit within the segment), slot -1 on
+    a miss.  A ray needs a box when it enters it before its t_max on a
+    miss, at or before its t on a hit.
+
+    Returns Python ints: ``slab``, the slab tests (per ray every cull row
+    or supercluster, the clusters of each supercluster it needs, and
+    n_subs sub boxes per cull row it needs); ``inst``, the ray transforms
+    (instanced: one per needed row with a needed part); ``woop``, the
+    (ray, triangle) tests (every row of every needed part)."""
+    o, inv, tmin = rays[0:3].T, inv_dir(rays[3:6].T), rays[6]
+    R = o.shape[0]
+    reach = torch.where(slot >= 0, torch.nextafter(
+        t, torch.full_like(t, float("inf"))), rays[7])
+    work = dict(slab=R * n_rows, inst=0, woop=0)
+    if sup_boxes is not None:
+        n_sup = -(-n_rows // GROUP)
+        members = torch.clamp(
+            n_rows - GROUP * torch.arange(n_sup, device=o.device), max=GROUP)
+        entered = _entries(sup_boxes[:n_sup], o, inv, tmin) < reach[:, None]
+        work["slab"] = R * n_sup + int((entered * members).sum())
+    chunk = max(1, (1 << 22) // max(1, R * n_subs))
+    for c0 in range(0, n_rows, chunk):
+        c1 = min(c0 + chunk, n_rows)
+        need = _entries(boxes[c0:c1], o, inv, tmin) < reach[:, None]
+        parts = (_entries(sub_boxes[c0:c1].reshape(-1, 8), o, inv, tmin)
+                 .reshape(R, c1 - c0, n_subs) < reach[:, None, None]) \
+            & need[..., None]
+        work["slab"] += int(need.sum()) * n_subs
+        work["woop"] += int(parts.sum()) * (CLUSTER_TRIS // n_subs)
+        if instanced:
+            work["inst"] += int(parts.any(-1).sum())
+    return work
+
+
+def _entries(box_rows, o, inv, tmin):
+    """(R, n) slab entries of R rays into n box rows (n, 8)."""
+    return slab_entry(box_rows[None, :, 0:3], box_rows[None, :, 3:6],
+                      o[:, None], inv[:, None], tmin[:, None])
+
+
 def march_call(rays, boxes, sub_boxes, woop_t, n_clusters: int,
                n_subs: int, any_hit: bool = False, w: int = BLOCK_RAYS):
     """Kernel B.  rays: (8, R) rows [o, d, t_min, t_max] with R % w == 0
@@ -220,18 +277,22 @@ def march_call(rays, boxes, sub_boxes, woop_t, n_clusters: int,
     sub_boxes: (C_pad, n_subs, 8); woop_t: (C, 16, CHUNK).
 
     Returns (t, slot, visits): best t (-INF for any-hit hits), slot into
-    the sorted triangles (-1 miss), and on the card the clusters each
-    block visited (None for the plain version)."""
+    the sorted triangles (-1 miss), and on the card, per warp of 32 rays
+    (R // 32,), the Woop rows it tested, each one test on each of its
+    lanes (None for the plain version).  ``w`` (on the card a multiple of
+    BLOCK_RAYS, the 4-warp CTA) only pads the wave: the kernel marches each
+    warp on its own."""
     if not rays.is_cuda:
         t, slot = march_plain(rays, boxes, sub_boxes, woop_t, n_clusters,
                               n_subs, any_hit)
         return t, slot, None
     dev = rays.device
-    R = _check_march(rays, boxes, sub_boxes, n_clusters, n_subs, w)
+    R = _check_march(rays, boxes, sub_boxes, n_clusters, n_subs, w, WARP,
+                     BLOCK_RAYS)
     _lib.check(woop_t, "woop_t", torch.float32, dev, (-1, 16, CLUSTER_TRIS))
     if woop_t.shape[0] < n_clusters:
         raise ValueError(f"woop_t must cover {n_clusters} clusters")
-    t, slot, visits = _march_outputs(R, w, dev)
+    t, slot, visits = _march_outputs(R, WARP, dev)
     if R:
         _lib.BLOCK_MARCH(dev, rays.data_ptr(), R, boxes.data_ptr(),
                          n_clusters, sub_boxes.data_ptr(), n_subs,
@@ -241,16 +302,20 @@ def march_call(rays, boxes, sub_boxes, woop_t, n_clusters: int,
 
 
 def _check_march(rays, boxes, sub_boxes, n_rows: int, n_subs: int,
-                 w: int) -> int:
-    """Validate a march's rays and cull rows for the card; returns R."""
+                 w: int, part_rows: int = 1, w_step: int = 32) -> int:
+    """Validate a march's rays and cull rows for the card (blocks of a
+    multiple of ``w_step`` rays, parts of a multiple of ``part_rows``
+    rows); returns R."""
     dev = rays.device
     R = rays.shape[1]
-    if R % w or w % 32 or not 32 <= w <= 1024:
+    if R % w or w % w_step or not w_step <= w <= 1024:
         raise ValueError(f"{R} rays in blocks of {w}: need R % w == 0 and "
-                         f"w a multiple of 32 in [32, 1024]")
-    if not 0 < n_rows <= MAX_CLUSTERS or CLUSTER_TRIS % n_subs:
+                         f"w a multiple of {w_step} in [{w_step}, 1024]")
+    if (not 0 < n_rows <= MAX_CLUSTERS or CLUSTER_TRIS % n_subs
+            or CLUSTER_TRIS // n_subs % part_rows):
         raise ValueError(f"{n_rows} cull rows / {n_subs} sub boxes "
-                         f"unsupported (max {MAX_CLUSTERS} rows)")
+                         f"unsupported (max {MAX_CLUSTERS} rows, parts of a "
+                         f"multiple of {part_rows} rows)")
     _lib.check(rays, "rays", torch.float32, dev, (8, R))
     _lib.check(boxes, "boxes", torch.float32, dev, (-1, 8))
     _lib.check(sub_boxes, "sub_boxes", torch.float32, dev, (-1, n_subs, 8))
@@ -259,10 +324,24 @@ def _check_march(rays, boxes, sub_boxes, n_rows: int, n_subs: int,
     return R
 
 
-def _march_outputs(R: int, w: int, dev):
+def _march_outputs(R: int, rays_per_count: int, dev):
     return (torch.empty(R, dtype=torch.float32, device=dev),
             torch.empty(R, dtype=torch.int32, device=dev),
-            torch.zeros(R // w, dtype=torch.int32, device=dev))
+            torch.zeros(R // rays_per_count, dtype=torch.int32, device=dev))
+
+
+def march_occupancy(instanced: bool = False, any_hit: bool = False) -> int:
+    """Resident warps per SM of kernel B (E with ``instanced``) on the
+    current CUDA device: the runtime's occupancy number for its 4-warp
+    launch (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
+    fn = _lib.load().ort_march_occupancy
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    warps = ctypes.c_int(0)
+    err = fn(int(instanced), int(any_hit), ctypes.byref(warps))
+    if err:
+        raise RuntimeError(f"occupancy query failed with CUDA error {err}")
+    return warps.value
 
 
 def march_instanced_call(rays, boxes, sub_boxes, pair_shape, pair_inst,
@@ -275,8 +354,8 @@ def march_instanced_call(rays, boxes, sub_boxes, pair_shape, pair_inst,
     inst_rows: (P, 128) rows [A(9), b(3), 0...] of the world->object
     affine o' = A (o - b); woop_t: (SC, 16, CHUNK) library rows.
 
-    Returns (t, slot, visits) as :func:`march_call`, with slot = pair *
-    CHUNK + row."""
+    Returns (t, slot, visits) as :func:`march_call` (visits per warp),
+    with slot = pair * CHUNK + row."""
     if not rays.is_cuda:
         t, slot = march_instanced_plain(rays, boxes, sub_boxes, pair_shape,
                                         pair_inst, inst_rows, woop_t,
@@ -284,7 +363,8 @@ def march_instanced_call(rays, boxes, sub_boxes, pair_shape, pair_inst,
         return t, slot, None
     dev = rays.device
     n_subs = sub_boxes.shape[1]
-    R = _check_march(rays, boxes, sub_boxes, n_pairs, n_subs, w)
+    R = _check_march(rays, boxes, sub_boxes, n_pairs, n_subs, w, WARP,
+                     BLOCK_RAYS)
     _lib.check(woop_t, "woop_t", torch.float32, dev, (-1, 16, CLUSTER_TRIS))
     _lib.check(inst_rows, "inst_rows", torch.float32, dev, (-1, 128))
     _lib.check(pair_shape, "pair_shape", torch.int32, dev)
@@ -292,7 +372,7 @@ def march_instanced_call(rays, boxes, sub_boxes, pair_shape, pair_inst,
     if pair_shape.numel() < n_pairs or pair_inst.numel() < n_pairs:
         raise ValueError(f"pair_shape and pair_inst must cover {n_pairs} "
                          f"pairs")
-    t, slot, visits = _march_outputs(R, w, dev)
+    t, slot, visits = _march_outputs(R, WARP, dev)
     if R:
         _lib.BLOCK_MARCH_INSTANCED(
             dev, rays.data_ptr(), R, boxes.data_ptr(), n_pairs,
@@ -308,7 +388,8 @@ def march_hier_call(rays, sup_boxes, boxes, sub_boxes, woop_t,
                     w: int = BLOCK_RAYS):
     """Kernel F, the hierarchical march.  As :func:`march_call`, plus
     sup_boxes: (>= ceil(n_clusters / GROUP), 8) NaN-aware union boxes of
-    clusters [GROUP s, GROUP s + GROUP)."""
+    clusters [GROUP s, GROUP s + GROUP); visits are per block of ``w``
+    rays: the clusters it visited."""
     if not rays.is_cuda:
         t, slot = march_hier_plain(rays, sup_boxes, boxes, sub_boxes,
                                    woop_t, n_clusters, n_subs, any_hit)

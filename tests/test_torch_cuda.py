@@ -9,7 +9,8 @@ where no CUDA device is present; on a machine with one, run
 the port need not have.)
 
 Tolerance: the hit rule (prim ids equal, or |dt| <= 1e-5 |t| + 1e-6)
-with no exceptions; u and v to 1e-6; G exact.  (The kernels and the
+with no exceptions, and equal hit / miss for occlusion waves; u and v to
+1e-6; G exact.  (The kernels and the
 plain versions round every operation alike, so the expected difference
 is zero.)  Denoisers, card against CPU: the tolerances of
 tests/test_torch_denoise.py."""
@@ -74,22 +75,40 @@ def _check(clusters, kern, plain):
     return int((sk != sp).sum())
 
 
+def _hold(kern, plain, any_hit: bool):
+    """A march's (t, slot) against its plain version's: equal hit / miss
+    for occlusion waves, the hit rule on the slots otherwise."""
+    torch.cuda.synchronize()
+    if any_hit:
+        assert torch.equal(kern[1] >= 0, plain[1] >= 0)
+    else:
+        assert hit_mismatches(kern[1], kern[0], plain[1], plain[0]) == 0
+
+
+def _plain_args(inp):
+    return {k: v for k, v in inp.items() if k != "w"}
+
+
+@pytest.mark.parametrize("w", [128, 256, 512])
 @pytest.mark.parametrize("coherent", [True, False])
 @pytest.mark.parametrize("any_hit", [False, True])
-def test_block_march_kernel(setup, dev, coherent, any_hit):
+def test_block_march_kernel(setup, dev, coherent, any_hit, w):
+    """Kernel B against its plain version at each block width the callers
+    pad to; the visit counts are per warp."""
     scene, inter, _, _, oi, di = setup
     cs = inter.clusters
     n = oi.shape[0]
     tmin = torch.full((n,), 1e-3, device=dev)
     tmax = torch.full((n,), 0.5 if any_hit else 1e16, device=dev)
     perm = torch.argsort(ray_probe_keys(cs, oi, di, tmin, tmax), stable=True)
-    inp = bm.march_inputs(cs, oi[perm], di[perm], tmin, tmax, coherent)
+    inp = bm.march_inputs(cs, oi[perm], di[perm], tmin, tmax, coherent, w)
+    assert inp["w"] == w
     before = _lib.BLOCK_MARCH.launches
     kern = bm.march_call(**inp, any_hit=any_hit)
     assert _lib.BLOCK_MARCH.launches == before + 1
-    assert kern[2].shape == (inp["rays"].shape[1] // inp["w"],)
-    plain = bm.march_plain(**{k: v for k, v in inp.items() if k != "w"},
-                           any_hit=any_hit)
+    assert kern[2].shape == (inp["rays"].shape[1] // 32,)
+    assert int(kern[2].sum()) > 0
+    plain = bm.march_plain(**_plain_args(inp), any_hit=any_hit)
     if any_hit:
         assert torch.equal(kern[1] >= 0, plain[1] >= 0)
     else:
@@ -227,6 +246,7 @@ def test_block_march_instanced_kernel(tlas, dev, any_hit):
     before = _lib.BLOCK_MARCH_INSTANCED.launches
     kern = bm.march_instanced_call(**inp, any_hit=any_hit)
     assert _lib.BLOCK_MARCH_INSTANCED.launches == before + 1
+    assert kern[2].shape == (inp["rays"].shape[1] // 32,)
     plain = bm.march_instanced_plain(
         **{k: v for k, v in inp.items() if k != "w"}, any_hit=any_hit)
     torch.cuda.synchronize()
@@ -236,6 +256,200 @@ def test_block_march_instanced_kernel(tlas, dev, any_hit):
         tk, tp = kern[0], plain[0]
         assert bool((torch.abs(tk - tp) <= 1e-5 * torch.abs(tp) + 1e-6)
                     [plain[1] >= 0].all())
+
+
+def _instanced_inputs(inter, o, d, tmin, tmax):
+    return bm.march_instanced_inputs(
+        inter.pair_min, inter.pair_max, inter.sub_min, inter.sub_max,
+        inter.pair_shape, inter.pair_inst, inter.inst_rows,
+        inter.library.woop_t, o, d, tmin, tmax)
+
+
+def _library(dev, sizes):
+    from optix_ray_tracer_tpu_torch.ops.instanced import (
+        build_instanced_library,
+    )
+    meshes = [sphere_with_n_triangles(s)[0] for s in sizes]
+    counts = np.asarray([m.shape[0] for m in meshes])
+    return build_instanced_library(np.concatenate(meshes), np.concatenate(
+        [[0], np.cumsum(counts)[:-1]]), counts, device=dev)
+
+
+@pytest.fixture(scope="module")
+def lattice(dev):
+    """A TLAS the warp candidate lists overflow: 1,920 particles of the
+    (80, 200, 450)-triangle library (radius 0.4, random poses) on a
+    30 x 8 x 8 unit lattice, 2,647 pairs, and 49 more in a wall past its
+    end, one in each gap; rays run down the gaps, 32 different gaps per
+    warp, crossing the rotated pair boxes of the lattice (~1,500 rows per
+    warp, each needed: nothing is hit before the wall), so every warp
+    culls more rows than its list holds and marches several rounds."""
+    from optix_ray_tracer_tpu_torch.ops.instanced import (
+        make_instanced_intersector,
+    )
+    from optix_ray_tracer_tpu_torch.utils.transforms import (
+        quat_to_rotation_matrix,
+    )
+    n = (30, 8, 8)
+    r = np.random.default_rng(2)
+    grid = np.stack(np.meshgrid(*[np.arange(k) for k in n], indexing="ij"),
+                    -1).reshape(-1, 3)
+    gy, gz = np.meshgrid(np.arange(n[1] - 1) + 0.5,
+                         np.arange(n[2] - 1) + 0.5, indexing="ij")
+    wall = np.stack([np.full(gy.size, n[0] + 0.5), gy.ravel(), gz.ravel()],
+                    -1)
+    pos = np.concatenate([grid, wall]).astype(np.float32)
+    P = pos.shape[0]
+    q = torch.as_tensor(r.normal(size=(P, 4)).astype(np.float32), device=dev)
+    inter = make_instanced_intersector(
+        _library(dev, (80, 200, 450)), r.integers(0, 3, P),
+        quat_to_rotation_matrix(q), torch.as_tensor(pos, device=dev), 0.4,
+        torch.ones(P, dtype=torch.bool, device=dev))
+    R = 2048
+    gaps = (n[1] - 1) * (n[2] - 1)
+    g = (np.arange(R) + np.arange(R) // 32 * 7) % gaps
+    o = np.stack([np.full(R, -2.0), g // (n[2] - 1) + 0.5
+                  + r.normal(0, 0.02, R), g % (n[2] - 1) + 0.5
+                  + r.normal(0, 0.02, R)], -1)
+    d = np.concatenate([np.ones((R, 1)), r.normal(0, 0.002, (R, 2))], -1)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    return inter, torch.as_tensor(o.astype(np.float32), device=dev), \
+        torch.as_tensor(d.astype(np.float32), device=dev)
+
+
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_block_march_instanced_overflow(lattice, dev, any_hit):
+    """Kernel E where every warp's candidates overflow its 512-key list
+    and its needed rows outnumber the 256 it keeps: exact all the same."""
+    inter, o, d = lattice
+    n = o.shape[0]
+    assert inter.pair_min.shape[0] > 2000
+    inp = _instanced_inputs(inter, o, d, torch.full((n,), 1e-3, device=dev),
+                            torch.full((n,), 1e16, device=dev))
+    kern = bm.march_instanced_call(**inp, any_hit=any_hit)
+    plain = bm.march_instanced_plain(**_plain_args(inp), any_hit=any_hit)
+    _hold(kern, plain, any_hit)
+    assert int((plain[1] >= 0).sum()) > n // 2
+    # the precondition: rows some lane of a warp needs, per warp
+    rays = inp["rays"]
+    t, slot = bm.march_instanced_plain(**_plain_args(inp), any_hit=False)
+    ent = bm._entries(inp["boxes"][:inp["n_pairs"]], rays[0:3].T,
+                      bm.inv_dir(rays[3:6].T), rays[6])
+    reach = torch.where(slot >= 0, torch.nextafter(
+        t, torch.full_like(t, float("inf"))), rays[7])
+    need = (ent < reach[:, None]).reshape(-1, 32, ent.shape[1]).any(1)
+    assert int(need.sum(1).min()) > 512
+
+
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_block_march_instanced_large_library(dev, any_hit):
+    """Kernel E over a library of more than 16 clusters (2,000, 1,500 and
+    900-triangle spheres): each warp's rows come from many library
+    clusters."""
+    from optix_ray_tracer_tpu_torch.ops.instanced import (
+        make_instanced_intersector,
+    )
+    from optix_ray_tracer_tpu_torch.utils.transforms import (
+        quat_to_rotation_matrix,
+    )
+    lib = _library(dev, (2000, 1500, 900))
+    assert lib.woop_t.shape[0] > 16
+    r = np.random.default_rng(8)
+    P = 120
+    q = torch.as_tensor(r.normal(size=(P, 4)).astype(np.float32), device=dev)
+    inter = make_instanced_intersector(
+        lib, r.integers(0, 3, P), quat_to_rotation_matrix(q),
+        torch.as_tensor(r.uniform(-6, 6, (P, 3)).astype(np.float32),
+                        device=dev), 0.8, torch.ones(P, dtype=torch.bool,
+                                                     device=dev))
+    n = 4096
+    o = torch.as_tensor(r.uniform(-5, 5, (n, 3)).astype(np.float32),
+                        device=dev)
+    d = torch.as_tensor(r.normal(size=(n, 3)).astype(np.float32), device=dev)
+    d = d / torch.linalg.norm(d, dim=-1, keepdim=True)
+    inp = _instanced_inputs(inter, o, d, torch.full((n,), 1e-3, device=dev),
+                            torch.full((n,), 3.0 if any_hit else 1e16,
+                                       device=dev))
+    kern = bm.march_instanced_call(**inp, any_hit=any_hit)
+    plain = bm.march_instanced_plain(**_plain_args(inp), any_hit=any_hit)
+    _hold(kern, plain, any_hit)
+    hit_libs = inter.pair_shape[(plain[1][plain[1] >= 0] // 256).long()]
+    assert int(torch.unique(hit_libs).numel()) > 16
+
+
+@pytest.mark.parametrize("wave", ["dead_rays_nan_rows", "all_miss"])
+@pytest.mark.parametrize("kernel", ["B", "E"])
+def test_march_edge_waves(setup, tlas, dev, kernel, wave):
+    """B and E against their plain versions on a wave with dead (t_max 0)
+    rays among live ones and NaN cull rows and sub boxes among live rows,
+    and on a wave that misses everything (every slot -1, t = t_max)."""
+    n = 4096
+    r = np.random.default_rng(6)
+    if kernel == "B":
+        cs = setup[1].clusters
+        o = torch.as_tensor(r.uniform(-0.9, 0.9, (n, 3)).astype(np.float32),
+                            device=dev)
+        far = 3.0
+    else:
+        inter = tlas[0]
+        o = torch.as_tensor(r.uniform(-5, 5, (n, 3)).astype(np.float32),
+                            device=dev)
+        far = 40.0
+    d = torch.as_tensor(r.normal(size=(n, 3)).astype(np.float32), device=dev)
+    d = d / torch.linalg.norm(d, dim=-1, keepdim=True)
+    tmax = torch.full((n,), 1e16, device=dev)
+    if wave == "all_miss":      # from outside the scene, facing away
+        d = torch.nn.functional.normalize(o, dim=-1)
+        o = d * far
+    else:
+        tmax[::3] = 0.0
+        tmax[5::7] = 0.0
+    tmin = torch.full((n,), 1e-3, device=dev)
+    if kernel == "B":
+        inp = bm.march_inputs(cs, o, d, tmin, tmax, coherent=False)
+        call, plain_fn = bm.march_call, bm.march_plain
+    else:
+        inp = _instanced_inputs(inter, o, d, tmin, tmax)
+        call, plain_fn = bm.march_instanced_call, bm.march_instanced_plain
+    if wave != "all_miss":
+        boxes, subs = inp["boxes"].clone(), inp["sub_boxes"].clone()
+        boxes[1::5] = float("nan")
+        subs[2::3, 1] = float("nan")
+        inp = dict(inp, boxes=boxes, sub_boxes=subs)
+    for any_hit in (False, True):
+        kern = call(**inp, any_hit=any_hit)
+        plain = plain_fn(**_plain_args(inp), any_hit=any_hit)
+        _hold(kern, plain, any_hit)
+        live = inp["rays"][7] > 0
+        if wave == "all_miss":
+            assert int((kern[1] >= 0).sum()) == 0
+            assert torch.equal(kern[0], inp["rays"][7])
+        else:
+            assert int((kern[1] >= 0).sum()) > 0
+            assert int((kern[1][~live] >= 0).sum()) == 0
+
+
+@pytest.mark.parametrize("kernel", ["B", "E"])
+def test_march_refuses_partial_cta(setup, tlas, dev, kernel):
+    """B and E launch 4-warp CTAs: a block width that is not a multiple of
+    BLOCK_RAYS raises before any launch."""
+    n = 256
+    o = torch.zeros((n, 3), device=dev)
+    d = torch.zeros((n, 3), device=dev)
+    d[:, 2] = 1.0
+    tmin = torch.full((n,), 1e-3, device=dev)
+    tmax = torch.full((n,), 1e16, device=dev)
+    if kernel == "B":
+        inp = bm.march_inputs(setup[1].clusters, o, d, tmin, tmax,
+                              coherent=False)
+        call, counter = bm.march_call, _lib.BLOCK_MARCH
+    else:
+        inp = _instanced_inputs(tlas[0], o, d, tmin, tmax)
+        call, counter = bm.march_instanced_call, _lib.BLOCK_MARCH_INSTANCED
+    before = counter.launches
+    with pytest.raises(ValueError, match="multiple of 128"):
+        call(**dict(inp, w=64))
+    assert counter.launches == before
 
 
 @pytest.mark.parametrize("any_hit", [False, True])
