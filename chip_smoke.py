@@ -12,13 +12,16 @@ CPU or to the plain versions):
 2. check each hit-path kernel against its plain PyTorch version at the
    main path's shapes: A (tile raster) on the bench camera wave (g=4) and
    the flipped point-light shadow wave (g=2); B (block march) and C
-   (cluster probe) on 1M random rays and on the camera wave.  Comparisons
-   run on 65,536 rays where the plain version is slow (A and C: the first
-   64 tiles; B: 2,048 warps spread over the wave), with the hit rule (prim
-   ids equal, or |dt| <= 1e-5 |t| + 1e-6) and no exceptions; B's resident
-   warps per SM (the runtime's occupancy number), Woop-tested rows per
-   warp, and its Woop tests beside the ones the subset needs
-   (:func:`needed_work`);
+   (cluster probe, 388 clusters) on 1M random rays and on the camera
+   wave.  Comparisons run on 65,536 rays where the plain version is slow
+   (A: the first 64 tiles; B and C: 2,048 warps spread over the wave),
+   with the hit rule (prim ids equal, or |dt| <= 1e-5 |t| + 1e-6) and no
+   exceptions, C's ids exactly; B's and C's resident warps per SM (the
+   runtime's occupancy number), B's Woop-tested rows per warp and Woop
+   tests beside the ones the subset needs (:func:`needed_work`), C's box
+   tests beside the ones its answers need (:func:`needed_probe_work`) and
+   the flat scan's, A's Woop tests beside the scheduled ones
+   (:func:`needed_raster_work`);
 3. the bench step of bench.py: a 1024x1024 camera wave plus a point-light
    shadow wave over a 100k-triangle sphere, per-wave calibrated pair
    capacities, both exactness guards, timed with CUDA events (best of 5
@@ -38,15 +41,19 @@ CPU or to the plain versions):
    a depth-2 render of frame 0) and F (hierarchical block march: the
    flatten route's Morton-sorted camera wave through block_march's
    routing, nearest and any-hit, timed beside kernel B) against their
-   plain versions on subsets of 16,384 rays (8,192 for E: 256 warps
-   spread over each wave), with the hit rule and no exceptions;
+   plain versions on subsets of 16,384 rays (D: the first 16 tiles; E:
+   8,192 rays; E and F: warps spread over each wave), with the hit rule
+   and no exceptions; and C on the flatten frame's own first bounce wave
+   (3,368 clusters, captured from a depth-2 render of flatten frame 0),
+   its ids against the plain version's on 65,536 rays spread over it;
 7. the slice's main path: the camera wave's primary hits through both
    routes (counts zeroed, then D and F > 0; the hit rule on all but 1e-4
    of the rays), then frames 0 and 1 (poses refit between them) through
    the TLAS route and frame 0 through the flatten route at 1024x1024, spp
    4, depth 5 (counts zeroed before the TLAS frames, then D and E > 0);
    the TLAS and flatten images agree, both are finite, sky pixels are the
-   background;
+   background; the live share (t_max > t_min) of each bounce wave of
+   the TLAS and flatten frames, as phase 4 prints the Whitted frame's;
 8. the sweep path on the bench scene (388 clusters): kernel G (leaf
    sweep) against its plain version on the first pass's blocks of the 1M
    camera wave and the 1M incoherent wave (65,536-ray subsets, exact
@@ -59,20 +66,22 @@ CPU or to the plain versions):
    denoiser on the CPU copy of the frame, accumulated into a Film and
    written as PNGs.
 
-Every kernel's row in the kernels' JSON object carries its launches on
-the main path, its error against its plain version, its time and the
-plain version's (same inputs), and the bound: the larger of the bytes
-its inputs and outputs take over 3.35 TB/s and its float operations
-(counted from this run's work: for A, D and G the scheduled pairs and
-blocks; for the marchers B, E and F the work their answers need,
-:func:`needed_work`, whatever the kernel did) over 67 TFLOP/s FP32, the
-H100 SXM's published peaks.  B's and E's rows are their 1M-ray
-incoherent waves (a subset would leave most of the card idle): ``ms`` the
-full wave's time, ``bound_ms`` its bytes and the subset's needed work
-scaled by the rays of the wave over the subset's (the subset's warps are
-spread evenly over the wave), ``plain_ms`` the plain version on the
-subset.  The last two lines of standard output are
-the kernels' JSON object and the device JSON object.
+Every kernel's row in the kernels' JSON object is one whole main-path
+wave (a subset would leave most of the card idle): A the bench camera
+wave, B and E their 1M-ray incoherent waves, C the flatten frame's first
+bounce wave, D the TLAS camera wave, F the flatten camera wave, G the
+camera wave's first sweep pass.  It carries the kernel's launches on the
+main path, its error against its plain version, the whole wave's time,
+the plain version's time on the subset compared, and the bound: the
+larger of the bytes the wave's inputs and outputs take over 3.35 TB/s
+and the float operations its answers need over 67 TFLOP/s FP32, the
+H100 SXM's published peaks.  The work is counted from this run's data,
+whatever the kernel did: A and D :func:`needed_raster_work` on the whole
+wave, C :func:`needed_probe_work` on the whole wave, B, E and F
+:func:`needed_work` on the subset scaled by the rays of the wave over the
+subset's (its warps spread evenly over the wave), G every (ray, row)
+test of the pass.  The last two lines of standard output are the
+kernels' JSON object and the device JSON object.
 ``tools/prof_port.py`` profiles the same cells through
 :func:`bench_setup`, :func:`bench_step`, :func:`whitted_setup`,
 :func:`time_setup`, :func:`time_frame` and :func:`tail_setup`.
@@ -80,6 +89,7 @@ the kernels' JSON object and the device JSON object.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -214,6 +224,22 @@ def wave_row(name: str, err: float, full_ms: float, plain_ms: float,
           f"{r['bound_by']} (needed work scaled {n_full / n_sub:.0f}x from "
           f"the subset), {100 * r['bound_ms'] / full_ms:.2f}% of the "
           f"{full_ms:.3f} ms wave")
+    return r
+
+
+def raster_row(name: str, err: float, full_ms: float, plain_ms: float,
+               io_bytes: int, work: dict, scheduled: int) -> dict:
+    """A raster kernel's (A, D) JSON row for a whole wave: its time and
+    the bound of its bytes and of the work its answers need
+    (:func:`needed_raster_work`); ``scheduled`` is the Woop tests of every
+    scheduled pair on every ray of its tile, printed beside."""
+    r = row(err, full_ms, plain_ms, io_bytes, needed_ops(work))
+    print(f"    {name}: needed Woop tests {work['woop']} of {scheduled} "
+          f"scheduled ({100 * work['woop'] / max(scheduled, 1):.1f}%), slab "
+          f"tests {work['slab']}, ray transforms {work['inst']}; full-wave "
+          f"bound {r['bound_ms']:.4f} ms by {r['bound_by']}, "
+          f"{100 * r['bound_ms'] / full_ms:.2f}% of the {full_ms:.3f} ms "
+          f"wave")
     return r
 
 
@@ -406,8 +432,9 @@ def check_kernels(b: SimpleNamespace) -> dict:
         DEFAULT_ANYHIT_GRANULARITY, DEFAULT_GRANULARITY,
     )
 
-    print("[kernels vs plain] hit rule, no exceptions; first "
-          f"{SUBSET} rays where the plain version is slow")
+    print(f"[kernels vs plain] hit rule, no exceptions, C's ids exactly; "
+          f"{SUBSET} rays where the plain version is slow (A: the first "
+          f"tiles; B, C: warps spread over the wave)")
     cs, R = b.cs, b.R
     W = TILE * TILE
     nbs = SUBSET // W
@@ -417,6 +444,11 @@ def check_kernels(b: SimpleNamespace) -> dict:
         inp = raster.schedule_inputs(cs, S, S["nb"], g)
         full_ms = time_ms(lambda: tr.raster_cluster_call(
             **inp, w=W, any_hit=any_hit, common="origin"), REPS)
+        # the bound counts to each ray's nearest hit (within the segment
+        # for the occlusion wave): the kernel's nearest-hit answers on the
+        # whole wave, held to the plain version on a subset below
+        near = tr.raster_cluster_call(**inp, w=W, common="origin")
+        work = tr.needed_raster_work(inp, W, near[0], near[1])
         k = int((inp["pair_tiles"] < nbs).sum())
         sub = dict(inp, pair_tiles=inp["pair_tiles"][:k].contiguous(),
                    pair_clusters=inp["pair_clusters"][:k].contiguous(),
@@ -439,8 +471,9 @@ def check_kernels(b: SimpleNamespace) -> dict:
         print(f"    {label}: kernel {ms:.3f} ms vs plain {p_ms:.1f} ms "
               f"on {nbs * W} rays; kernel on the full wave ({R} rays, "
               f"{int(S['pc_total'])} pairs) {full_ms:.3f} ms")
-        ops = k * W * (CHUNK // g * WOOP_OPS + inp["n_subs"] * SLAB_OPS)
-        return row(err, ms, p_ms, tensor_bytes(sub, kern), ops)
+        return raster_row(f"A {label}", err, full_ms, p_ms,
+                          tensor_bytes(inp, near), work,
+                          int(S["pc_total"]) * W * (CHUNK // g))
 
     G, GS = DEFAULT_GRANULARITY, DEFAULT_ANYHIT_GRANULARITY
     S1 = raster._coarse_stage(b.inter.raster, cs, b.o, b.d, b.tmin0,
@@ -452,7 +485,7 @@ def check_kernels(b: SimpleNamespace) -> dict:
     rows["tile_raster"] = dict(r1, max_abs_err=max(r1["max_abs_err"],
                                                    r2["max_abs_err"]))
 
-    march_rows, probe_rows = [], []
+    march_rows = []
     print(f"  B: {bm.march_occupancy()} resident warps per SM (occupancy)")
     for label, (inp, (wo, wd)) in b_waves(b).items():
         full = bm.march_call(**inp)
@@ -479,24 +512,44 @@ def check_kernels(b: SimpleNamespace) -> dict:
                                    tensor_bytes(inp, full), work,
                                    SUBSET, inp["rays"].shape[1]))
 
-        pin = bm.probe_inputs(cs, wo, wd, b.tmin0, b.tmax_inf)
-        psub = dict(pin, rays=pin["rays"][:, :SUBSET].contiguous())
-        ids_k, ids_p = bm.probe_call(**psub), bm.probe_plain(**psub)
-        bad = int((ids_k != ids_p).sum())
-        print(f"  C {label}: {bad} id mismatches of {SUBSET} rays")
-        if bad:
-            raise AssertionError(f"C {label}: {bad} ids differ")
-        full_ms = time_ms(lambda: bm.probe_call(**pin), REPS)
-        ms = time_ms(lambda: bm.probe_call(**psub), REPS)
-        p_ms = time_ms(lambda: bm.probe_plain(**psub), 1)
-        print(f"    {label}: kernel {ms:.3f} ms vs plain {p_ms:.1f} ms "
-              f"on {SUBSET} rays; full wave ({R} rays) {full_ms:.3f} ms")
-        probe_rows.append(row(0.0, ms, p_ms, tensor_bytes(psub, ids_k),
-                              SUBSET * pin["n_clusters"] * SLAB_OPS))
+        probe_case(f"C {label}", bm.probe_inputs(cs, wo, wd, b.tmin0,
+                                                 b.tmax_inf), b.card)
     rows["block_march"] = dict(march_rows[0], max_abs_err=max(
         r["max_abs_err"] for r in march_rows))
-    rows["probe_first_cluster"] = probe_rows[0]
     return rows
+
+
+def probe_case(label: str, pin: dict, card: str) -> dict:
+    """Kernel C on the wave ``pin`` (``probe_call``'s arguments): its ids
+    against the plain version's on SUBSET rays spread over the wave (0
+    mismatches), the whole wave timed, its live share (t_max > t_min),
+    and the box tests the kernel ran beside the ones the answers need
+    (:func:`needed_probe_work`) and the flat scan's.  Returns the whole
+    wave's JSON row."""
+    from optix_ray_tracer_tpu_torch.ops.kernels import block_march as bm
+    rays = pin["rays"]
+    R, C = rays.shape[1], pin["n_clusters"]
+    pick = warp_rays(R, SUBSET).to(rays.device)
+    psub = dict(pin, rays=rays[:, pick].contiguous())
+    kern = bm.probe_call(**psub)[0]
+    plain, p_ms = time_once(lambda: bm.probe_plain(**psub))
+    bad = int((kern != plain).sum())
+    print(f"  {label}: {bad} id mismatches of {SUBSET} rays spread over the "
+          f"wave ({int((plain < pin['c_pad']).sum())} entered a cluster)")
+    if bad:
+        raise AssertionError(f"{label}: {bad} ids differ")
+    ids, tests = bm.probe_call(**pin)
+    ms = time_ms(lambda: bm.probe_call(**pin), REPS)
+    work = bm.needed_probe_work(rays, ids, pin["boxes"], C)
+    live = int((rays[7] > rays[6]).sum())
+    run = int(tests)
+    print(f"    {label}: full wave {R} rays, live share {live / R:.4f}, {C} "
+          f"clusters: kernel {ms:.3f} ms [{card}], plain {p_ms:.1f} ms "
+          f"on the subset; box tests run {run} vs needed {work['slab']} "
+          f"({run / max(work['slab'], 1):.2f}x) vs the flat scan's "
+          f"{work['flat']}; {bm.probe_occupancy()} resident warps per SM")
+    return row(0.0, ms, p_ms, tensor_bytes(pin, ids),
+               work["slab"] * SLAB_OPS)
 
 
 def bench(b: SimpleNamespace, card: str) -> None:
@@ -589,6 +642,7 @@ def whitted(device, card: str):
 
     from optix_ray_tracer_tpu_torch.io.meshgen import sphere_with_n_triangles
     from optix_ray_tracer_tpu_torch.ops.kernels import _lib
+    from optix_ray_tracer_tpu_torch.ops.kernels import block_march as bm
     from optix_ray_tracer_tpu_torch.render import wavefront
     from optix_ray_tracer_tpu_torch.utils.color import (
         color_to_uint8, write_png,
@@ -615,15 +669,17 @@ def whitted(device, card: str):
         k.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    img, alb, nrm = wavefront.render(scene, mats, cam, WIDTH, HEIGHT,
-                                     spp=SPP, seed=1, max_depth=DEPTH,
-                                     intersector=inter)
+    with calls_of(bm, "probe_call") as live:
+        img, alb, nrm = wavefront.render(scene, mats, cam, WIDTH, HEIGHT,
+                                         spp=SPP, seed=1, max_depth=DEPTH,
+                                         intersector=inter)
     torch.cuda.synchronize()
     s_frame = time.perf_counter() - t0
     launches = {k.name: k.launches for k in (K["A"], K["B"], K["C"])}
     print(f"[whitted] {WIDTH}x{HEIGHT} spp={SPP} depth {DEPTH}: "
           f"{s_frame:.3f} s/frame (first frame) [{card}]; launches "
-          f"{launches}")
+          f"{launches}; live share of bounce waves 1-{DEPTH - 1}: "
+          f"{shares(live)}")
     if not (torch.isfinite(img).all() and torch.isfinite(alb).all()
             and torch.isfinite(nrm).all()):
         raise AssertionError("Whitted frame has non-finite values")
@@ -787,28 +843,59 @@ def time_frame(t: SimpleNamespace, k: int, pc_max: int | None = None):
         n_frames=TIME_FRAMES, pc_max=pc_max)
 
 
-def tlas_bounce_wave(t: SimpleNamespace) -> dict:
-    """The ``march_instanced_call`` arguments (any_hit aside) of the TLAS
-    frame's own first bounce wave: frame 0 (seed 1, as phase 7 renders it)
-    to depth 2, the camera wave through kernel D and bounce 1 through E,
-    whose call is recorded."""
-    from optix_ray_tracer_tpu_torch.ops.kernels import block_march as bm
-    from optix_ray_tracer_tpu_torch.render import wavefront
+@contextlib.contextmanager
+def calls_of(module, name: str):
+    """Within the block, every call of ``module.name`` (called with
+    keyword arguments) appends those arguments to the yielded list."""
     seen = []
-    real = bm.march_instanced_call
+    real = getattr(module, name)
 
     def record(**kw):
         seen.append(kw)
         return real(**kw)
 
-    bm.march_instanced_call = record
+    setattr(module, name, record)
     try:
-        wavefront.render(t.static, t.mats, t.cam, WIDTH, HEIGHT, spp=SPP,
-                         seed=1, max_depth=2,
-                         intersector=time_frame(t, 0, t.pc_max1))
+        yield seen
     finally:
-        bm.march_instanced_call = real
-    return {k: v for k, v in seen[-1].items() if k != "any_hit"}
+        setattr(module, name, real)
+
+
+def shares(calls) -> str:
+    """The live share (t_max > t_min) of each wave of ``calls``, the
+    arguments that :func:`calls_of` recorded."""
+    rays = [kw["rays"] for kw in calls]
+    return ", ".join(f"{int((r[7] > r[6]).sum()) / r.shape[1]:.4f}"
+                     for r in rays)
+
+
+def bounce_wave(scene, mats, cam, inter, module, name: str) -> dict:
+    """The keyword arguments of the first call of ``module.name`` at
+    bounce 1 of a frame (seed 1, as phases 4 and 7 render it) rendered to
+    depth 2: the frame's own first bounce wave."""
+    from optix_ray_tracer_tpu_torch.render import wavefront
+    with calls_of(module, name) as seen:
+        wavefront.render(scene, mats, cam, WIDTH, HEIGHT, spp=SPP, seed=1,
+                         max_depth=2, intersector=inter)
+    return seen[-1]
+
+
+def tlas_bounce_wave(t: SimpleNamespace) -> dict:
+    """The ``march_instanced_call`` arguments (any_hit aside) of the TLAS
+    frame's first bounce wave: the camera wave goes through kernel D,
+    bounce 1 through E."""
+    from optix_ray_tracer_tpu_torch.ops.kernels import block_march as bm
+    kw = bounce_wave(t.static, t.mats, t.cam, time_frame(t, 0, t.pc_max1),
+                     bm, "march_instanced_call")
+    return {k: v for k, v in kw.items() if k != "any_hit"}
+
+
+def flatten_bounce_wave(t: SimpleNamespace) -> dict:
+    """The ``probe_call`` arguments of the flatten frame's first bounce
+    wave (the camera wave goes through kernel F, bounce 1 through C to
+    sort it, then B)."""
+    from optix_ray_tracer_tpu_torch.ops.kernels import block_march as bm
+    return bounce_wave(t.flat, t.mats, t.cam, t.finter, bm, "probe_call")
 
 
 def check_time_kernels(t: SimpleNamespace) -> dict:
@@ -870,6 +957,10 @@ def check_time_kernels(t: SimpleNamespace) -> dict:
         args = dict(w=W, any_hit=any_hit, common="origin")
         full_ms = time_ms(lambda: tr.raster_instanced_call(**inp, **args),
                           REPS)
+        # the bound counts to each ray's nearest hit (in the segment for
+        # the occlusion wave): the kernel's nearest-hit answers
+        near = tr.raster_instanced_call(**inp, w=W, common="origin")
+        work = tr.needed_raster_work(inp, W, near[0], near[1])
         k = int((inp["pair_tiles"] < nbs).sum())
         sub = dict(inp, **{n: inp[n][:k].contiguous() for n in (
             "pair_tiles", "pair_libs", "pair_ids", "pair_insts")},
@@ -888,8 +979,9 @@ def check_time_kernels(t: SimpleNamespace) -> dict:
         print(f"    {label}: kernel {ms:.3f} ms vs plain {p_ms:.1f} ms on "
               f"{nbs * W} rays; full wave ({R} rays, {int(S['pc_total'])} "
               f"pairs) {full_ms:.3f} ms")
-        ops = k * W * (CHUNK * WOOP_OPS + 4 * SLAB_OPS + INST_OPS)
-        d_rows.append(row(err, ms, p_ms, tensor_bytes(sub, kern), ops))
+        d_rows.append(raster_row(f"D {label}", err, full_ms, p_ms,
+                                 tensor_bytes(inp, near), work,
+                                 int(S["pc_total"]) * W * CHUNK))
     rows["tile_raster_instanced"] = dict(d_rows[0], max_abs_err=max(
         r["max_abs_err"] for r in d_rows))
 
@@ -982,7 +1074,8 @@ def check_time_kernels(t: SimpleNamespace) -> dict:
         label = "any-hit" if any_hit else "nearest"
         compare(f"F vs B camera {label} (full wave)", prims, kern_full, flat,
                 any_hit)
-        sub = dict(inp, rays=inp["rays"][:, :SUBSET_TIME].contiguous())
+        pick = warp_rays(R, SUBSET_TIME).to(dev)
+        sub = dict(inp, rays=inp["rays"][:, pick].contiguous())
         kern = bm.march_hier_call(**sub, any_hit=any_hit)
         plain, p_ms = time_once(lambda: bm.march_hier_plain(
             **{k: v for k, v in sub.items() if k != "w"}, any_hit=any_hit))
@@ -1007,10 +1100,15 @@ def check_time_kernels(t: SimpleNamespace) -> dict:
             cs.num_clusters, inp["n_subs"], sup_boxes=inp["sup_boxes"])
         print(f"    {label}: needed on the subset: Woop tests "
               f"{work['woop']}, slab tests {work['slab']}")
-        f_rows.append(row(err, ms, p_ms, tensor_bytes(sub, kern),
-                          needed_ops(work)))
+        f_rows.append(wave_row(f"F camera {label}", err, full_ms, p_ms,
+                               tensor_bytes(inp, kern_full), work,
+                               SUBSET_TIME, R))
     rows["block_march_hier"] = dict(f_rows[0], max_abs_err=max(
         r["max_abs_err"] for r in f_rows))
+
+    # C: the flatten frame's own first bounce wave (3,368 clusters)
+    rows["probe_first_cluster"] = probe_case(
+        "C flatten frame bounce 1", flatten_bounce_wave(t), t.card)
     return rows
 
 
@@ -1025,6 +1123,7 @@ def time_frames(t: SimpleNamespace, card: str) -> dict:
     from optix_ray_tracer_tpu_torch.ops.instanced import refit_instanced
     from optix_ray_tracer_tpu_torch.ops.intersect import hit_mismatches
     from optix_ray_tracer_tpu_torch.ops.kernels import _lib
+    from optix_ray_tracer_tpu_torch.ops.kernels import block_march as bm
     from optix_ray_tracer_tpu_torch.render import wavefront
     from optix_ray_tracer_tpu_torch.utils.color import (
         color_to_uint8, write_png,
@@ -1050,12 +1149,17 @@ def time_frames(t: SimpleNamespace, card: str) -> dict:
     if min(K["D"].launches, K["F"].launches) == 0:
         raise AssertionError("the primary-hit phase missed kernel D or F")
 
-    def render(inter, scene, seed):
+    live = {}
+
+    def render(inter, scene, seed, counted=None):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        out = wavefront.render(scene, t.mats, t.cam, WIDTH, HEIGHT, spp=SPP,
-                               seed=seed, max_depth=DEPTH, intersector=inter)
+        with calls_of(bm, counted or "march_instanced_call") as n:
+            out = wavefront.render(scene, t.mats, t.cam, WIDTH, HEIGHT,
+                                   spp=SPP, seed=seed, max_depth=DEPTH,
+                                   intersector=inter)
         torch.cuda.synchronize()
+        live.setdefault(counted or "tlas", n)
         return out, time.perf_counter() - t0
 
     for k in _lib.KERNELS:
@@ -1088,8 +1192,11 @@ def time_frames(t: SimpleNamespace, card: str) -> dict:
     print(f"[time frame] refit {refit_ms:.3f} ms ({tl.pair_min.shape[0]} "
           f"pairs, CUDA events) [{card}]")
 
-    imgf, sf = render(t.finter, t.flat, 1)
+    imgf, sf = render(t.finter, t.flat, 1, "probe_call")
     print(f"[time frame] flatten route frame 0: {sf:.3f} s [{card}]")
+    print(f"[time frame] live share of bounce waves 1-{DEPTH - 1}: TLAS "
+          f"frame 0 {shares(live['tlas'])}; flatten frame 0 "
+          f"{shares(live['probe_call'])}")
     rgba = []
     for name, out in (("tlas_frame0", img0), ("tlas_frame1", img1),
                       ("flatten_frame0", imgf)):
@@ -1172,6 +1279,7 @@ def sweep_phase(b: SimpleNamespace, f: SimpleNamespace, card: str):
     for label, (o, d) in waves.items():
         args = first_pass_blocks(b.cs, o, d)
         nb = args[1].shape[0]
+        full = ls.window_sweep_call(*args)
         full_ms = time_ms(lambda: ls.window_sweep_call(*args), REPS)
         pick = torch.linspace(0, nb - 1, SUBSET // 128,
                               device=o.device).round().long()
@@ -1190,8 +1298,13 @@ def sweep_phase(b: SimpleNamespace, f: SimpleNamespace, card: str):
         if bad or max(errs) > 0:
             raise AssertionError(f"G {label}: kernel disagrees with its plain "
                                  f"version")
-        g_rows.append(row(max(errs), ms, p_ms, tensor_bytes(sub, kern),
-                          SUBSET * CHUNK * WOOP_OPS))
+        # G tests every (ray, row) of its blocks' windows: the pass needs
+        # all of them
+        g_rows.append(row(max(errs), full_ms, p_ms, tensor_bytes(args, full),
+                          nb * 128 * CHUNK * WOOP_OPS))
+        print(f"    G {label}: full-pass bound {g_rows[-1]['bound_ms']:.4f} "
+              f"ms by {g_rows[-1]['bound_by']}, "
+              f"{100 * g_rows[-1]['bound_ms'] / full_ms:.2f}% of the pass")
 
     si = sw.SweepIntersector(clusters=b.cs, log=[])
     marcher = {
@@ -1329,6 +1442,7 @@ def main() -> None:
     device = torch.device("cuda", 0)
     build_kernels()
     b = bench_setup(device)
+    b.card = card
     rows = check_kernels(b)
     bench(b, card)
     launches, frame = whitted(device, card)

@@ -73,8 +73,40 @@
 // bitonic sort of their block-min entries, staging 12 x 256 Woop rows in
 // shared memory per visit.
 //
-// The probe is one thread per ray over the cluster boxes, staged in shared
-// memory; it is bound by the C slab tests per ray.
+// The probe (C) is bound by FP32 slab tests (~26 operations each).  The
+// TPU kernel tests every (ray, cluster box) from VMEM; a per-thread copy of
+// it (every ray, dead or not, against all C boxes restaged into 6 C floats
+// of shared memory per 128-ray CTA: 80.8 KB and 8 resident warps per SM at
+// 3,368 clusters, an isnan per slab) took 30.7 ms on the flatten frame's
+// 4M-ray first bounce wave (NVIDIA H100 80GB HBM3, 700 W).  Design here:
+//
+// - Live rays only.  A ray with t_max <= t_min, a NaN bound or a NaN in
+//   its origin gets c_pad without a box test (every entry is >= t_min; a
+//   NaN never enters).  Each 256-ray tile packs its live rays onto its
+//   leading warps (ballots and a CTA prefix in shared memory).
+// - Supercluster pre-cull.  The union boxes of 8 consecutive clusters
+//   (F's superclusters) are tested in ascending id order; a supercluster's
+//   members are tested when some lane (warp vote) enters the union below
+//   its best entry and its t_max, and a member takes the answer on a
+//   strictly smaller entry.  Exact, ties included: a union's entry is <=
+//   each member's under monotone rounding, and an earlier answer always
+//   has the lower id.
+// - Fixed shared memory.  Only the superclusters are staged (32 B each,
+//   their member mask in the padding): 32 KB for MAX_CLUSTERS whatever C
+//   is.  Each CTA forms the unions from the member rows as it stages them
+//   (building them per wave on the host cost ~20 small launches a wave).
+//   Member rows are two 16-byte __ldg broadcasts.  Persistent CTAs (one
+//   per resident slot) stage once and walk the tiles.
+// - NaN handled once.  NaN members are masked out when staged and NaN
+//   rays are dead, so the slab tests drop their isnan; a warp holding an
+//   infinite origin or direction (inf - inf, inf x 0) scans every box
+//   with the NaN check instead.
+//
+// The flat scan with the same live packing and fixed budget (every member
+// of every supercluster) was measured and removed: 32.8 ms on that wave
+// and 0.90 ms on the 388-cluster 1M-ray incoherent wave, against 6.70 and
+// 0.71 ms for this design in the same run (6.81 and 0.71 ms once the
+// unions are formed here; NVIDIA H100 80GB HBM3, 700 W).
 
 #include "common.cuh"
 
@@ -89,6 +121,12 @@ constexpr int kCtaWarps = 4;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr unsigned kNone = 0xffffffffu;   // ordered entry: no lane enters
 constexpr unsigned long long kNoKey = ~0ull;
+
+// The probe (C)
+constexpr int kProbeThreads = 256;           // rays per tile: 8 warps
+constexpr int kProbeWarps = kProbeThreads / 32;
+constexpr int kMaxSup = 8192 / kGroup;       // block_march.MAX_CLUSTERS / 8
+constexpr int kSupBatch = 4;                 // superclusters per warp vote
 
 struct WarpScratch {
   unsigned long long keys[kWarpKeys];   // (ordered entry << 32 | row)
@@ -415,28 +453,138 @@ __global__ void block_march_hier_kernel(
   if (threadIdx.x == 0) out_visits[blockIdx.x] = visits;
 }
 
-__global__ void probe_kernel(const float* __restrict__ rays, int n_rays,
-                             const float* __restrict__ boxes, int n_clusters,
-                             int c_pad, int* __restrict__ out) {
-  extern __shared__ __align__(16) float sb[];   // n_clusters x [min3 max3]
-  for (int i = threadIdx.x; i < 6 * n_clusters; i += blockDim.x)
-    sb[i] = boxes[8 * (i / 6) + i % 6];
-  __syncthreads();
-  const int ray = blockIdx.x * blockDim.x + threadIdx.x;
-  if (ray >= n_rays) return;
-  const float ox = rays[0 * n_rays + ray], oy = rays[1 * n_rays + ray],
-              oz = rays[2 * n_rays + ray];
-  const float ix = ort_inv_dir(rays[3 * n_rays + ray]),
-              iy = ort_inv_dir(rays[4 * n_rays + ray]),
-              iz = ort_inv_dir(rays[5 * n_rays + ray]);
-  const float tmin = rays[6 * n_rays + ray], tmax = rays[7 * n_rays + ray];
+// One warp of packed live rays (lane ray < 0: no ray) over the staged
+// superclusters; writes each ray's first cluster and adds the warp's box
+// tests (rows tested x 32 lanes) to out_tests.
+__device__ __forceinline__ void probe_warp(
+    const float* __restrict__ rays, int n_rays,
+    const float* __restrict__ boxes, int n_clusters, const float* sup,
+    int n_sup_pad, int c_pad, int ray, int lane, int* __restrict__ out,
+    unsigned long long* __restrict__ out_tests) {
+  // a lane without a ray probes as a dead ray at the origin: no box test
+  // can bring its entry (>= t_min = 0) below its t_max = 0
+  float ox = 0.0f, oy = 0.0f, oz = 0.0f, dx = 0.0f, dy = 0.0f, dz = 1.0f,
+        tmin = 0.0f, tmax = 0.0f;
+  if (ray >= 0) {
+    ox = rays[0 * n_rays + ray]; oy = rays[1 * n_rays + ray];
+    oz = rays[2 * n_rays + ray]; dx = rays[3 * n_rays + ray];
+    dy = rays[4 * n_rays + ray]; dz = rays[5 * n_rays + ray];
+    tmin = rays[6 * n_rays + ray]; tmax = rays[7 * n_rays + ray];
+  }
+  const float ix = ort_inv_dir(dx), iy = ort_inv_dir(dy), iz = ort_inv_dir(dz);
   float emin = ORT_INF;
   int first = c_pad;
-  for (int c = 0; c < n_clusters; ++c) {
-    const float e = ort_slab_entry(sb + 6 * c, ox, oy, oz, ix, iy, iz, tmin);
-    if (e < tmax && e < emin) { emin = e; first = c; }
+  unsigned rows = 0;
+  const bool finite = isfinite(ox) && isfinite(oy) && isfinite(oz) &&
+                      isfinite(dx) && isfinite(dy) && isfinite(dz);
+  if (__any_sync(kFull, !finite)) {
+    // an infinite origin or direction can make inf - inf or inf * 0 inside
+    // a slab test: this warp tests every box, NaN flag on, no pre-cull
+    for (int c = 0; c < n_clusters; ++c) {
+      const float e = ort_row_entry(boxes + 8 * static_cast<size_t>(c), ox,
+                                    oy, oz, ix, iy, iz, tmin);
+      if (e < tmax && e < emin) { emin = e; first = c; }
+    }
+    rows = n_clusters;
+  } else {
+    for (int s0 = 0; s0 < n_sup_pad; s0 += kSupBatch) {
+      float eu[kSupBatch];
+      unsigned bits[kSupBatch];
+      bool need = false;
+#pragma unroll
+      for (int j = 0; j < kSupBatch; ++j) {
+        const float4* q = reinterpret_cast<const float4*>(sup + 8 * (s0 + j));
+        const float4 a = q[0], b = q[1];
+        bits[j] = __float_as_uint(b.z);
+        eu[j] = ort_slab_entry6<false>(a.x, a.y, a.z, a.w, b.x, b.y, ox, oy,
+                                       oz, ix, iy, iz, tmin);
+        rows += bits[j] != 0u;
+        need |= bits[j] != 0u && eu[j] < emin && eu[j] < tmax;
+      }
+      if (!__any_sync(kFull, need)) continue;
+      for (int j = 0; j < kSupBatch; ++j) {
+        // emin may have fallen since: re-vote on the current one
+        if (!bits[j] || !__any_sync(kFull, eu[j] < emin && eu[j] < tmax))
+          continue;
+        const int c0 = (s0 + j) * kGroup;
+        for (unsigned m = bits[j]; m; m &= m - 1) {
+          const int c = c0 + __ffs(m) - 1;
+          const float e = ort_row_entry<false>(
+              boxes + 8 * static_cast<size_t>(c), ox, oy, oz, ix, iy, iz,
+              tmin);
+          ++rows;
+          if (e < tmax && e < emin) { emin = e; first = c; }
+        }
+      }
+    }
   }
-  out[ray] = first;
+  if (ray >= 0) out[ray] = first;
+  if (lane == 0) atomicAdd(out_tests, 32ull * rows);
+}
+
+// Persistent CTAs of kProbeThreads: stage the superclusters once, then
+// walk 256-ray tiles, packing each tile's live rays onto its leading warps.
+__global__ void __launch_bounds__(kProbeThreads, 4) probe_kernel(
+    const float* __restrict__ rays, int n_rays,
+    const float* __restrict__ boxes, int n_clusters, int c_pad,
+    int* __restrict__ out, unsigned long long* __restrict__ out_tests) {
+  // superclusters, rows [min3, max3, member bits, 0]: the union of the
+  // members whose bit k is set, cluster 8 s + k being real and free of NaN
+  // (a box with a NaN never fires); no bit set: an empty box, never tested
+  __shared__ __align__(16) float sup[kMaxSup * 8];
+  __shared__ int live_rays[kProbeThreads];
+  __shared__ int warp_live[kProbeWarps];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int n_sup = (n_clusters + kGroup - 1) / kGroup;
+  const int n_sup_pad = (n_sup + kSupBatch - 1) / kSupBatch * kSupBatch;
+  for (int s = tid; s < n_sup_pad; s += kProbeThreads) {
+    float lx = INFINITY, ly = INFINITY, lz = INFINITY;
+    float hx = -INFINITY, hy = -INFINITY, hz = -INFINITY;
+    unsigned bits = 0;
+    for (int k = 0; k < kGroup && s * kGroup + k < n_clusters; ++k) {
+      const float4* row = reinterpret_cast<const float4*>(
+          boxes + 8 * static_cast<size_t>(s * kGroup + k));
+      const float4 p = __ldg(row), q = __ldg(row + 1);
+      if (isnan(p.x) || isnan(p.y) || isnan(p.z) || isnan(p.w) ||
+          isnan(q.x) || isnan(q.y))
+        continue;
+      bits |= 1u << k;
+      lx = fminf(lx, p.x); ly = fminf(ly, p.y); lz = fminf(lz, p.z);
+      hx = fmaxf(hx, p.w); hy = fmaxf(hy, q.x); hz = fmaxf(hz, q.y);
+    }
+    float4* dst = reinterpret_cast<float4*>(sup + 8 * s);
+    dst[0] = make_float4(lx, ly, lz, hx);
+    dst[1] = make_float4(hy, hz, __uint_as_float(bits), 0.0f);
+  }
+  __syncthreads();
+  const int n_tiles = (n_rays + kProbeThreads - 1) / kProbeThreads;
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    const int ray = tile * kProbeThreads + tid;
+    bool live = false;
+    if (ray < n_rays) {
+      // every entry is >= t_min: t_max <= t_min (or a NaN bound) enters
+      // nothing, and a NaN in the origin makes every entry NaN
+      const float tmin = rays[6 * n_rays + ray], tmax = rays[7 * n_rays + ray];
+      live = tmin < tmax && !isnan(rays[0 * n_rays + ray]) &&
+             !isnan(rays[1 * n_rays + ray]) && !isnan(rays[2 * n_rays + ray]);
+      if (!live) out[ray] = c_pad;
+    }
+    const unsigned ballot = __ballot_sync(kFull, live);
+    if (lane == 0) warp_live[warp] = __popc(ballot);
+    __syncthreads();
+    int base = 0, n_live = 0;
+    for (int w = 0; w < kProbeWarps; ++w) {
+      const int n = warp_live[w];
+      base += w < warp ? n : 0;
+      n_live += n;
+    }
+    if (live) live_rays[base + __popc(ballot & ((1u << lane) - 1u))] = ray;
+    __syncthreads();
+    if (warp * 32 < n_live)   // warp-uniform: whole warps of live rays
+      probe_warp(rays, n_rays, boxes, n_clusters, sup, n_sup_pad, c_pad,
+                 tid < n_live ? live_rays[tid] : -1, lane, out, out_tests);
+    __syncthreads();   // the next tile overwrites live_rays and warp_live
+  }
 }
 
 int set_smem(const void* fn, size_t bytes) {
@@ -566,17 +714,35 @@ extern "C" int ort_block_march_hier(
                 out_slot, out_visits);
 }
 
-// rays: (8, n_rays); boxes: (>= n_clusters, 8).  out: (n_rays,) the id of
-// the nearest cluster entered before t_max (lowest id on ties), else c_pad.
+// rays: (8, n_rays); boxes: (>= n_clusters, 8) rows [min3, max3, 0, 0]
+// (min <= max, or NaN).  out: (n_rays,) the id of the nearest cluster entered before t_max (lowest id
+// on ties), else c_pad; out_tests (1,) += the box tests run (rows x 32
+// lanes per warp).  Returns the CUDA error code (0 = launched).
 extern "C" int ort_probe_first_cluster(const float* rays, int n_rays,
                                        const float* boxes, int n_clusters,
-                                       int c_pad, int* out, void* stream) {
-  const size_t smem = 6 * static_cast<size_t>(n_clusters) * sizeof(float);
-  int err = set_smem(reinterpret_cast<const void*>(probe_kernel), smem);
+                                       int c_pad, int* out,
+                                       unsigned long long* out_tests,
+                                       void* stream) {
+  int dev = 0, sms = 0, blocks = 0;
+  int err = static_cast<int>(cudaGetDevice(&dev));
+  if (!err) err = static_cast<int>(cudaDeviceGetAttribute(
+      &sms, cudaDevAttrMultiProcessorCount, dev));
+  if (!err) err = static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &blocks, probe_kernel, kProbeThreads, 0));
   if (err) return err;
-  const int block = 128;
-  probe_kernel<<<(n_rays + block - 1) / block, block, smem,
+  const int n_tiles = (n_rays + kProbeThreads - 1) / kProbeThreads;
+  probe_kernel<<<max(1, min(n_tiles, blocks * sms)), kProbeThreads, 0,
                  static_cast<cudaStream_t>(stream)>>>(
-      rays, n_rays, boxes, n_clusters, c_pad, out);
+      rays, n_rays, boxes, n_clusters, c_pad, out, out_tests);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Resident warps per SM of the probe (C), whatever the cluster count (its
+// shared memory is fixed), by cudaOccupancyMaxActiveBlocksPerMultiprocessor.
+extern "C" int ort_probe_occupancy(int* warps_per_sm) {
+  int blocks = 0;
+  const int err = static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &blocks, probe_kernel, kProbeThreads, 0));
+  *warps_per_sm = blocks * kProbeWarps;
+  return err;
 }

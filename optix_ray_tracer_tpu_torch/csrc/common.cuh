@@ -23,22 +23,26 @@ __device__ __forceinline__ float ort_inv_dir(float d) {
 // row layout), or ORT_INF when the ray misses it within [tmin, box exit].
 // Padding boxes are NaN: the flag below keeps them from ever firing, which
 // is what NaN-propagating min/max give on the JAX side (fminf/fmaxf would
-// drop the NaN and let the box hit).
+// drop the NaN and let the box hit).  CHECK_NAN = false drops the flag for
+// callers that know no NaN can arise: a box without NaN and a ray with a
+// finite origin and direction (then 1/d is finite and nonzero, and every
+// product is finite or infinite, never NaN).
+template <bool CHECK_NAN = true>
 __device__ __forceinline__ float ort_slab_entry6(
     float lx, float ly, float lz, float hx, float hy, float hz, float ox,
     float oy, float oz, float ix, float iy, float iz, float tmin) {
   float ent = -ORT_INF, ext = ORT_INF;
   bool nan = false;
   float t0 = (lx - ox) * ix, t1 = (hx - ox) * ix;
-  nan |= isnan(t0) | isnan(t1);
+  if (CHECK_NAN) nan |= isnan(t0) | isnan(t1);
   ent = fmaxf(ent, fminf(t0, t1));
   ext = fminf(ext, fmaxf(t0, t1));
   t0 = (ly - oy) * iy; t1 = (hy - oy) * iy;
-  nan |= isnan(t0) | isnan(t1);
+  if (CHECK_NAN) nan |= isnan(t0) | isnan(t1);
   ent = fmaxf(ent, fminf(t0, t1));
   ext = fminf(ext, fmaxf(t0, t1));
   t0 = (lz - oz) * iz; t1 = (hz - oz) * iz;
-  nan |= isnan(t0) | isnan(t1);
+  if (CHECK_NAN) nan |= isnan(t0) | isnan(t1);
   ent = fmaxf(ent, fminf(t0, t1));
   ext = fminf(ext, fmaxf(t0, t1));
   ent = fmaxf(ent, tmin);
@@ -54,13 +58,14 @@ __device__ __forceinline__ float ort_slab_entry(
 
 // The same for a 16-byte aligned [min3, max3, pad2] row, in two 16-byte
 // loads (every lane of a warp reads the same row: one broadcast each).
+template <bool CHECK_NAN = true>
 __device__ __forceinline__ float ort_row_entry(
     const float* __restrict__ row, float ox, float oy, float oz, float ix,
     float iy, float iz, float tmin) {
   const float4 a = __ldg(reinterpret_cast<const float4*>(row));
   const float4 b = __ldg(reinterpret_cast<const float4*>(row) + 1);
-  return ort_slab_entry6(a.x, a.y, a.z, a.w, b.x, b.y, ox, oy, oz, ix, iy,
-                         iz, tmin);
+  return ort_slab_entry6<CHECK_NAN>(a.x, a.y, a.z, a.w, b.x, b.y, ox, oy, oz,
+                                    ix, iy, iz, tmin);
 }
 
 // World ray -> instance space for the TLAS kernels: o' = A (o - b),

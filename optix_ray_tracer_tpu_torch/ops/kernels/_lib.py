@@ -180,7 +180,7 @@ BLOCK_MARCH = Kernel(
 #: kernel C (cluster probe)
 PROBE = Kernel(
     "probe_first_cluster", "ort_probe_first_cluster",
-    [_P, _I, _P, _I, _I, _P, _P],
+    [_P, _I, _P, _I, _I, _P, _P, _P],
     source="optix_ray_tracer_tpu_torch/csrc/block_march.cu",
     replaces="optix_ray_tracer_tpu/ops/pallas/block_march.py:694")
 

@@ -8,13 +8,15 @@ kernel E (``march_instanced_call``) over the (instance, library cluster)
 pairs of a TLAS; kernel C (``probe_call``) returns each ray's nearest
 entered cluster, the sort key of incoherent waves.  All are CUDA
 (``csrc/block_march.cu``, design notes there: B and E march per warp of
-32 rays, F per block).  Each wrapper launches its kernel for CUDA
-tensors, or raises; for CPU tensors it runs the plain PyTorch version
+32 rays, F per block, C per warp of packed live rays over
+superclusters).  Each wrapper launches its kernel for CUDA tensors, or
+raises; for CPU tensors it runs the plain PyTorch version
 beside it, a vectorised loop over cull rows that computes the same
 function: the exact nearest t (or hit / miss), with equal-t ties free to
 resolve to another triangle.  :func:`needed_work` counts the work a
-wave's answer requires of any exact marcher of this structure, the
-yardstick of the kernels' bounds.
+wave's answer requires of any exact marcher of this structure, and
+:func:`needed_probe_work` what its probe answers require: the yardsticks
+of the kernels' bounds.
 """
 
 from __future__ import annotations
@@ -413,7 +415,8 @@ def march_hier_call(rays, sup_boxes, boxes, sub_boxes, woop_t,
 
 
 def probe_plain(rays, boxes, n_clusters: int, c_pad: int):
-    """Plain version of kernel C (same arguments as :func:`probe_call`)."""
+    """Plain version of kernel C (same arguments as :func:`probe_call`):
+    every cluster box in ascending chunks, the lowest id winning ties."""
     o = rays[0:3].T[:, None, :]
     inv = inv_dir(rays[3:6].T)[:, None, :]
     tmin = rays[6][:, None]
@@ -435,11 +438,16 @@ def probe_plain(rays, boxes, n_clusters: int, c_pad: int):
 
 
 def probe_call(rays, boxes, n_clusters: int, c_pad: int):
-    """Kernel C.  rays: (8, R); boxes: (C_pad, 8).  Returns (R,) int32: the
-    nearest cluster each ray enters before t_max (lowest id on ties), else
-    c_pad."""
+    """Kernel C.  rays: (8, R); boxes: (c_pad, 8) rows [min3, max3, 0, 0]
+    (min <= max per axis, or NaN).  The kernel pre-culls on the unions of
+    GROUP consecutive clusters, which it forms as it stages them.
+
+    Returns (ids, tests): (R,) int32, the nearest cluster each ray enters
+    before t_max (lowest id on ties), else c_pad; and on the card a (1,)
+    int64 count of the box tests the kernel ran (rows tested x 32 lanes
+    per warp; None for the plain version)."""
     if not rays.is_cuda:
-        return probe_plain(rays, boxes, n_clusters, c_pad)
+        return probe_plain(rays, boxes, n_clusters, c_pad), None
     dev = rays.device
     R = rays.shape[1]
     if not 0 < n_clusters <= MAX_CLUSTERS:
@@ -447,11 +455,71 @@ def probe_call(rays, boxes, n_clusters: int, c_pad: int):
                          f"(max {MAX_CLUSTERS})")
     _lib.check(rays, "rays", torch.float32, dev, (8, R))
     _lib.check(boxes, "boxes", torch.float32, dev, (-1, 8))
+    if boxes.shape[0] < n_clusters:
+        raise ValueError(f"boxes must cover {n_clusters} clusters")
     out = torch.empty(R, dtype=torch.int32, device=dev)
+    tests = torch.zeros(1, dtype=torch.int64, device=dev)
     if R:
         _lib.PROBE(dev, rays.data_ptr(), R, boxes.data_ptr(), n_clusters,
-                   c_pad, out.data_ptr())
-    return out
+                   c_pad, out.data_ptr(), tests.data_ptr())
+    return out, tests
+
+
+def probe_occupancy() -> int:
+    """Resident warps per SM of kernel C on the current CUDA device (the
+    runtime's occupancy number; its shared memory does not depend on the
+    cluster count)."""
+    fn = _lib.load().ort_probe_occupancy
+    fn.argtypes = [ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    warps = ctypes.c_int(0)
+    err = fn(ctypes.byref(warps))
+    if err:
+        raise RuntimeError(f"occupancy query failed with CUDA error {err}")
+    return warps.value
+
+
+def probe_live(rays):
+    """(R,) bool: the rays kernel C tests boxes for (t_min < t_max, no NaN
+    in the origin); every other ray gets c_pad, exactly (every entry is >=
+    t_min, and a NaN origin makes every entry NaN)."""
+    return (rays[6] < rays[7]) & ~torch.isnan(rays[0:3]).any(0)
+
+
+def needed_probe_work(rays, first, boxes, n_clusters: int,
+                      chunk: int = 1 << 16) -> dict:
+    """The box tests a wave's probe answers ``first`` (kernel C's output)
+    require of an exact two-level probe over ``boxes`` (c_pad, 8): per live
+    ray (:func:`probe_live`) every supercluster
+    (:func:`supercluster_boxes`), then the real members of each one whose
+    entry is <= the entry of the ray's answer, or < its t_max where it has
+    none (an upper estimate only at exact ties).  Dead rays need nothing.
+    Plain PyTorch on the wave's device, ``chunk`` rays at a time.
+
+    Returns Python ints: ``slab`` (those tests), ``flat`` (every live ray x
+    every cluster, the flat scan's) and ``live`` (the live rays)."""
+    n_sup = -(-n_clusters // GROUP)
+    sup_boxes = supercluster_boxes(boxes)
+    members = torch.clamp(n_clusters - GROUP * torch.arange(
+        n_sup, device=rays.device), max=GROUP)
+    live = probe_live(rays)
+    work = dict(slab=0, flat=0, live=int(live.sum()))
+    work["flat"] = work["live"] * n_clusters
+    for r0 in range(0, rays.shape[1], chunk):
+        sl = slice(r0, r0 + chunk)
+        idx = torch.nonzero(live[sl])[:, 0] + r0
+        if idx.numel() == 0:
+            continue
+        o, inv, tmin = rays[0:3, idx].T, inv_dir(rays[3:6, idx].T), rays[6, idx]
+        f = first[idx].long()
+        hit = f < n_clusters
+        ans = boxes[f.clamp(max=n_clusters - 1)]
+        e_ans = slab_entry(ans[:, 0:3], ans[:, 3:6], o, inv, tmin)
+        reach = torch.where(hit, torch.nextafter(
+            e_ans, torch.full_like(e_ans, float("inf"))), rays[7, idx])
+        opened = _entries(sup_boxes[:n_sup], o, inv, tmin) < reach[:, None]
+        work["slab"] += idx.numel() * n_sup + int((opened * members).sum())
+    return work
 
 
 def pack_rays(o, d, t_min, t_max):
@@ -517,7 +585,19 @@ def probe_inputs(clusters, o, d, t_min, t_max) -> dict:
 def probe_first_cluster(clusters, o, d, t_min, t_max):
     """Per-ray id of the nearest cluster the ray enters (C_pad if none):
     the cull-only pass that coherence-sorts incoherent waves."""
-    return probe_call(**probe_inputs(clusters, o, d, t_min, t_max))
+    return probe_call(**probe_inputs(clusters, o, d, t_min, t_max))[0]
+
+
+def supercluster_boxes(boxes):
+    """(S_pad, 8) superclusters of padded cluster rows ``boxes`` (c_pad, 8),
+    c_pad a multiple of GROUP: each box the NaN-aware union of its GROUP
+    clusters' (a pure-padding supercluster stays NaN and is never
+    entered), padded with NaN rows to a multiple of 8.  Kernel F culls on
+    them; kernel C forms the same unions as it stages them."""
+    S = boxes.shape[0] // GROUP
+    return _pad_boxes(nanmin(boxes[:, 0:3].reshape(S, GROUP, 3), 1),
+                      nanmax(boxes[:, 3:6].reshape(S, GROUP, 3), 1),
+                      ((S + 7) // 8) * 8 - S)
 
 
 def _check_clusters(C: int) -> None:
@@ -545,17 +625,12 @@ def march_inputs(clusters, o, d, t_min, t_max, coherent: bool = True,
 def hier_inputs(clusters, o, d, t_min, t_max,
                 coherent: bool = True) -> dict:
     """The ``march_hier_call`` arguments for a wave: superclusters of
-    GROUP clusters, each box the NaN-aware union of its clusters' (a
-    pure-padding supercluster stays NaN and is never entered)."""
+    GROUP clusters (:func:`supercluster_boxes`)."""
     C = clusters.num_clusters
     _check_clusters(C)
     c_pad = ((C + 7) // 8) * 8
     boxes = _pad_boxes(clusters.cluster_min, clusters.cluster_max, c_pad - C)
-    S = c_pad // GROUP
-    sup_boxes = _pad_boxes(
-        nanmin(boxes[:, 0:3].reshape(S, GROUP, 3), 1),
-        nanmax(boxes[:, 3:6].reshape(S, GROUP, 3), 1),
-        ((S + 7) // 8) * 8 - S)
+    sup_boxes = supercluster_boxes(boxes)
     sub_boxes, n_subs = _wave_sub_boxes(clusters, c_pad, coherent)
     return dict(rays=pack_rays(*pad_rays(o, d, t_min, t_max, BLOCK_RAYS)),
                 sup_boxes=sup_boxes, boxes=boxes, sub_boxes=sub_boxes,

@@ -12,6 +12,9 @@ pair's instance space before the Woop test.  CUDA in
 run the plain PyTorch versions below, which walk the same pairs in the
 same order with the same block-wide gates, so they agree bit for bit.
 
+:func:`needed_raster_work` counts the work a wave's answers require of
+either kernel over its schedule, the yardstick of their bounds.
+
 Dropped TPU-only features: the packed pair encoding and its SMEM
 capacity cap, the slot carried as f32, and the bf16 measurement arm.
 """
@@ -157,6 +160,52 @@ def _raster_plain(tile_start, win_ids, box_ids, inst_ids, inst_rows, rays,
             v[tp] = torch.where(closer, torch.gather(vv, 2, li[..., None])
                                 [..., 0], v[tp])
     return bt, slot, u, v
+
+
+def needed_raster_work(inp: dict, w: int, t, slot,
+                       chunk: int = 1 << 22) -> dict:
+    """The work a raster wave's answers require of kernel A or D over the
+    schedule ``inp`` (the :func:`raster_cluster_call` or
+    :func:`raster_instanced_call` arguments; D when it holds
+    ``pair_insts``) with blocks of ``w`` rays, given each ray's nearest
+    hit ``t``, ``slot`` ((n_blocks, w) or flat; slot -1 on a miss; for an
+    occlusion wave its nearest hit within the segment, an upper
+    estimate).  Per (ray, scheduled pair of its tile): the n_subs sub-box
+    tests; for D one ray transform where some part is needed; and the
+    part's Woop rows for each part the ray enters at or before its final
+    t (before its t_max on a miss).  Plain PyTorch on the wave's device,
+    ``chunk`` (ray, part) entries at a time.
+
+    Returns Python ints ``slab``, ``inst``, ``woop``."""
+    instanced = "pair_insts" in inp
+    sub_boxes = inp["sub_boxes"]
+    n_subs = sub_boxes.shape[1]
+    g = 1 if instanced else inp["granularity"]
+    step = CHUNK // g // n_subs
+    nb = inp["n_blocks"]
+    rays = inp["rays_t_ext"][:, :nb * w]
+    o = rays[0:3].T.reshape(nb, w, 3)
+    inv = inv_dir(rays[3:6].T).reshape(nb, w, 3)
+    tmin = rays[6].reshape(nb, w)
+    t, slot = t.reshape(nb, w), slot.reshape(nb, w)
+    reach = torch.where(slot >= 0, torch.nextafter(
+        t, torch.full_like(t, float("inf"))), rays[7].reshape(nb, w))
+    real = inp["pair_tiles"] < nb
+    tiles = inp["pair_tiles"][real].long()
+    boxes = (inp["pair_ids"] if instanced else inp["pair_clusters"])[real]
+    work = dict(slab=tiles.numel() * w * n_subs, inst=0, woop=0)
+    per = max(1, chunk // (w * n_subs))
+    for p0 in range(0, tiles.numel(), per):
+        tl = tiles[p0:p0 + per]
+        sb = sub_boxes[boxes[p0:p0 + per].long()]        # (P, n_subs, 8)
+        ent = slab_entry(sb[:, None, :, 0:3], sb[:, None, :, 3:6],
+                         o[tl][:, :, None], inv[tl][:, :, None],
+                         tmin[tl][:, :, None])          # (P, w, n_subs)
+        need = ent < reach[tl][:, :, None]
+        work["woop"] += int(need.sum()) * step
+        if instanced:
+            work["inst"] += int(need.any(-1).sum())
+    return work
 
 
 def raster_cluster_call(pair_tiles, pair_clusters, rays_t_ext, sub_boxes,

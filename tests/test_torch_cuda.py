@@ -122,7 +122,101 @@ def test_probe_kernel(setup, dev):
     tmax[::9] = 0.0
     inp = bm.probe_inputs(inter.clusters, oi, di,
                           torch.full((n,), 1e-3, device=dev), tmax)
-    assert torch.equal(bm.probe_call(**inp), bm.probe_plain(**inp))
+    before = _lib.PROBE.launches
+    ids, tests = bm.probe_call(**inp)
+    assert _lib.PROBE.launches == before + 1
+    assert torch.equal(ids, bm.probe_plain(**inp))
+    assert 0 < int(tests) <= n * (inp["n_clusters"]
+                                  + -(-inp["n_clusters"] // 8))
+
+
+def _probe_wave(dev, n_clusters: int, n_rays: int = 8192, seed: int = 0):
+    """probe_call arguments over random boxes (min <= max) in [-1, 1.2]^3
+    with three copies of box 1 in three superclusters (equal entries, the
+    lowest id wins) and box 2 around box 3 (rays inside both enter both at
+    t_min) and box 5 with a NaN; random rays, every fifth dead (t_max 0),
+    a block of them starting inside box 3."""
+    r = np.random.default_rng(seed)
+    c_pad = -(-n_clusters // 8) * 8
+    lo = r.uniform(-1.0, 0.9, (n_clusters, 3))
+    hi = lo + r.uniform(0.02, 0.3, (n_clusters, 3))
+    for c in (9, 17, n_clusters - 1):
+        lo[c], hi[c] = lo[1], hi[1]
+    lo[2], hi[2] = lo[3] - 0.02, hi[3] + 0.02
+    boxes = np.full((c_pad, 8), np.nan, np.float32)
+    boxes[:, 6:] = 0.0
+    boxes[:n_clusters, 0:3], boxes[:n_clusters, 3:6] = lo, hi
+    boxes[5, 4] = np.nan      # a real box with a NaN: never entered
+    o = r.uniform(-1.1, 1.1, (n_rays, 3))
+    o[:256] = (lo[3] + hi[3]) / 2 + r.uniform(-0.005, 0.005, (256, 3))
+    o[256:512] = (lo[1] + hi[1]) / 2
+    d = r.normal(size=(n_rays, 3))
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    tmax = np.full(n_rays, 1e16)
+    tmax[::5] = 0.0
+    # concatenating transposed rows gives a Fortran-ordered array
+    rays = np.ascontiguousarray(np.concatenate(
+        [o.T, d.T, np.full((1, n_rays), 1e-3), tmax[None]]), np.float32)
+    return dict(rays=torch.as_tensor(rays, device=dev),
+                boxes=torch.as_tensor(boxes, device=dev),
+                n_clusters=n_clusters, c_pad=c_pad)
+
+
+@pytest.mark.parametrize("n_clusters", [388, 1003, 8192])
+def test_probe_kernel_cluster_counts(dev, n_clusters):
+    """Kernel C against its plain version at the bench scene's cluster
+    count, at one that is not a multiple of 8 and at MAX_CLUSTERS; the
+    ties go to the lowest copy; its occupancy does not depend on the
+    cluster count (fixed shared memory)."""
+    inp = _probe_wave(dev, n_clusters, seed=n_clusters)
+    ids, tests = bm.probe_call(**inp)
+    plain = bm.probe_plain(**inp)
+    torch.cuda.synchronize()
+    assert torch.equal(ids, plain)
+    assert not bool(torch.isin(ids[:512], torch.tensor(
+        [9, 17, n_clusters - 1], device=dev, dtype=torch.int32)).any())
+    assert int((ids[256:512] == 1).sum()) > 0
+    assert int((ids < n_clusters).sum()) > inp["rays"].shape[1] // 4
+    assert int(tests) > 0
+    assert bm.probe_occupancy() >= 32
+
+
+def test_probe_kernel_all_dead(dev):
+    """A wave of dead rays (t_max <= t_min, or NaN bounds) gets c_pad
+    everywhere without a single box test."""
+    inp = _probe_wave(dev, 388)
+    rays = inp["rays"].clone()
+    rays[7] = rays[6]
+    rays[7, 1::3] = 0.0
+    rays[6, 2::7] = float("nan")
+    rays[7, 3::7] = float("nan")
+    ids, tests = bm.probe_call(**dict(inp, rays=rays))
+    torch.cuda.synchronize()
+    assert bool((ids == inp["c_pad"]).all())
+    assert int(tests) == 0
+
+
+def test_probe_kernel_nan_and_infinite_rays(dev):
+    """NaN in the origin or t_min gives c_pad, as the plain version and
+    the JAX probe give (NaN propagates through their min / max; CUDA's
+    fmaxf would drop a NaN t_min and let the ray enter a box); NaN in the
+    direction and infinite origins or directions (the flagged warps that
+    test every box with the NaN check) match the plain version."""
+    inp = _probe_wave(dev, 1003, seed=4)
+    rays = inp["rays"].clone()
+    rays[7] = 1e16
+    rays[0, 0::11] = float("nan")
+    rays[6, 1::11] = float("nan")
+    rays[3, 2::11] = float("nan")
+    rays[1, 3::97] = float("inf")
+    rays[5, 4::97] = float("-inf")
+    ids, _ = bm.probe_call(**dict(inp, rays=rays))
+    plain = bm.probe_plain(**dict(inp, rays=rays))
+    torch.cuda.synchronize()
+    assert torch.equal(ids, plain)
+    assert bool((ids[0::11] == inp["c_pad"]).all())
+    assert bool((ids[1::11] == inp["c_pad"]).all())
+    assert int((ids[2::11] < inp["n_clusters"]).sum()) > 0
 
 
 @pytest.mark.parametrize("mode,any_hit,g", [("origin", False, 4),

@@ -14,7 +14,9 @@ then ``torch.profiler`` over the same number of iterations.  The device
 time is the sum of the kernel, memcpy and memset events of the exported
 trace (everything runs on one stream, so the events do not overlap);
 idle share = 1 - device time / wall.  Prints, per cell, one summary line,
-the time per group of kernels and the heaviest kernels by name.  Traces
+the time per group of kernels and the heaviest kernels by name; for the
+three frames through the marchers, the live share (t_max > t_min) of
+each bounce wave, counted in one more frame after the profile.  Traces
 go to build/prof_port/.
 """
 
@@ -153,8 +155,16 @@ def main() -> None:
         "neural_tail": chip_smoke.tail_setup(tail, "neural"),
         "tlas_frame": frame(t.static, t.mats, t.cam, tlas),
         "flatten_frame": frame(t.flat, t.mats, t.cam, t.finter)}
+    from optix_ray_tracer_tpu_torch.ops.kernels import block_march as bm
+    counted = {"whitted_frame": "probe_call", "flatten_frame": "probe_call",
+               "tlas_frame": "march_instanced_call"}
     for name, fn in cells.items():
         profile(name, fn, ITERS[name], card)
+        if name in counted:
+            with chip_smoke.calls_of(bm, counted[name]) as live:
+                fn()
+            print(f"  live share of bounce waves 1-{chip_smoke.DEPTH - 1}: "
+                  f"{chip_smoke.shares(live)}")
 
 
 if __name__ == "__main__":
