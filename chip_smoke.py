@@ -10,18 +10,22 @@ CPU or to the plain versions):
 1. build the CUDA kernels from optix_ray_tracer_tpu_torch/csrc into
    build/kernels/;
 2. check each hit-path kernel against its plain PyTorch version at the
-   main path's shapes: A (tile raster) on the bench camera wave (g=4) and
-   the flipped point-light shadow wave (g=2); B (block march) and C
-   (cluster probe, 388 clusters) on 1M random rays and on the camera
-   wave.  Comparisons run on 65,536 rays where the plain version is slow
-   (A: the first 64 tiles; B and C: 2,048 warps spread over the wave),
-   with the hit rule (prim ids equal, or |dt| <= 1e-5 |t| + 1e-6) and no
-   exceptions, C's ids exactly; B's and C's resident warps per SM (the
-   runtime's occupancy number), B's Woop-tested rows per warp and Woop
-   tests beside the ones the subset needs (:func:`needed_work`), C's box
-   tests beside the ones its answers need (:func:`needed_probe_work`) and
-   the flat scan's, A's Woop tests beside the scheduled ones
-   (:func:`needed_raster_work`);
+   main path's shapes: A (tile raster) on the bench camera wave (g=4,
+   gated on 8x4 pixel blocks of its 32x32 tiles) and the flipped
+   point-light shadow wave (g=2, in the camera wave's tile order, so on
+   8x4 blocks too), whole waves,
+   t, slot, u, v and the Woop-tested rows per warp equal
+   (:func:`raster_wave`); B (block march) and C (cluster probe, 388
+   clusters) on 1M random rays and on the camera wave, on 65,536 rays
+   (2,048 warps spread over the wave), with the hit rule (prim ids
+   equal, or |dt| <= 1e-5 |t| + 1e-6) and no exceptions, C's ids
+   exactly; resident warps per SM (the runtime's occupancy number) of
+   A, B and C; B's Woop-tested rows per warp and Woop tests beside the
+   ones the subset needs (:func:`needed_work`), C's box tests beside the
+   ones its answers need (:func:`needed_probe_work`) and the flat
+   scan's; A's Woop tests beside the per-ray gate's and the whole-tile
+   gate's (the plain version gated on 1 and on 1,024 rays), the needed
+   ones (:func:`needed_raster_work`) and the scheduled ones;
 3. the bench step of bench.py: a 1024x1024 camera wave plus a point-light
    shadow wave over a 100k-triangle sphere, per-wave calibrated pair
    capacities, both exactness guards, timed with CUDA events (best of 5
@@ -35,15 +39,17 @@ CPU or to the plain versions):
    library and pairs (<= 8192) and its flatten route (>= 3072 clusters, so
    coherent waves take kernel F);
 6. kernels D (instanced tile raster: the 1024x1024 camera wave and a
-   flipped point-light shadow wave, calibrated capacities, no overflow),
+   flipped point-light shadow wave in its tile order, gated on 8x4
+   blocks, calibrated capacities, no overflow; whole waves, as A in
+   phase 2),
    E (instanced block march: 1M incoherent rays inside the pile, nearest
    and any-hit, and the TLAS frame's own first bounce wave, captured from
    a depth-2 render of frame 0) and F (hierarchical block march: the
    flatten route's Morton-sorted camera wave through block_march's
    routing, nearest and any-hit, timed beside kernel B) against their
-   plain versions on subsets of 16,384 rays (D: the first 16 tiles; E:
-   8,192 rays; E and F: warps spread over each wave), with the hit rule
-   and no exceptions; and C on the flatten frame's own first bounce wave
+   plain versions on subsets (E: 8,192 rays, F: 16,384; warps spread
+   over each wave), with the hit rule and no exceptions; and C on the
+   flatten frame's own first bounce wave
    (3,368 clusters, captured from a depth-2 render of flatten frame 0),
    its ids against the plain version's on 65,536 rays spread over it;
 7. the slice's main path: the camera wave's primary hits through both
@@ -72,12 +78,13 @@ wave, B and E their 1M-ray incoherent waves, C the flatten frame's first
 bounce wave, D the TLAS camera wave, F the flatten camera wave, G the
 camera wave's first sweep pass.  It carries the kernel's launches on the
 main path, its error against its plain version, the whole wave's time,
-the plain version's time on the subset compared, and the bound: the
-larger of the bytes the wave's inputs and outputs take over 3.35 TB/s
-and the float operations its answers need over 67 TFLOP/s FP32, the
-H100 SXM's published peaks.  The work is counted from this run's data,
-whatever the kernel did: A and D :func:`needed_raster_work` on the whole
-wave, C :func:`needed_probe_work` on the whole wave, B, E and F
+the plain version's time on what it compared (A, D: the whole wave), and
+the bound: the larger of the bytes the wave's inputs and outputs take
+over 3.35 TB/s and the float operations its answers need over 67 TFLOP/s
+FP32, the H100 SXM's published peaks.  The work is counted from this
+run's data, whatever the kernel did: A and D :func:`needed_raster_work`
+on the whole wave (a Woop test at WOOP_SHARED_ORIGIN_OPS: the tile shares
+its origin), C :func:`needed_probe_work` on the whole wave, B, E and F
 :func:`needed_work` on the subset scaled by the rays of the wave over the
 subset's (its warps spread evenly over the wave), G every (ray, row)
 test of the pass.  The last two lines of standard output are the
@@ -125,6 +132,9 @@ DENOISE_RTOL = {"atrous": 8e-6, "neural": 2.4e-5}
 # the bound: float operations per unit of work (a compare, abs or negate
 # counts as one) over the H100 SXM's published peaks
 WOOP_OPS = 47     # one (ray, triangle) Woop test: projections, t, u, v, test
+# the same test when the tile shares its origin: the row's three
+# o-projections (18 operations) are the tile's, computed once per row
+WOOP_SHARED_ORIGIN_OPS = WOOP_OPS - 18
 SLAB_OPS = 26     # one (ray, box) slab entry
 INST_OPS = 33     # one ray moved into an instance's space
 FP32_FLOPS = 67e12
@@ -227,26 +237,57 @@ def wave_row(name: str, err: float, full_ms: float, plain_ms: float,
     return r
 
 
-def raster_row(name: str, err: float, full_ms: float, plain_ms: float,
-               io_bytes: int, work: dict, scheduled: int) -> dict:
-    """A raster kernel's (A, D) JSON row for a whole wave: its time and
-    the bound of its bytes and of the work its answers need
-    (:func:`needed_raster_work`); ``scheduled`` is the Woop tests of every
-    scheduled pair on every ray of its tile, printed beside."""
-    r = row(err, full_ms, plain_ms, io_bytes, needed_ops(work))
-    print(f"    {name}: needed Woop tests {work['woop']} of {scheduled} "
-          f"scheduled ({100 * work['woop'] / max(scheduled, 1):.1f}%), slab "
-          f"tests {work['slab']}, ray transforms {work['inst']}; full-wave "
-          f"bound {r['bound_ms']:.4f} ms by {r['bound_by']}, "
-          f"{100 * r['bound_ms'] / full_ms:.2f}% of the {full_ms:.3f} ms "
-          f"wave")
+def raster_wave(name: str, call, plain, inp: dict, W: int, any_hit: bool,
+                keys, card: str) -> dict:
+    """A raster kernel (A or D: ``call``, its plain version ``plain``) on
+    one whole schedule ``inp`` of a common-origin wave in W-ray tiles in
+    ``raster.to_tiles`` order (a warp's 32 rays are an 8x4 pixel block):
+    the kernel against its plain version on the whole wave (0 mismatches,
+    max |dt|, |du|, |dv| 0, the same Woop-tested rows per warp), its
+    time, and its Woop tests beside the per-ray gate's and the whole-tile
+    gate's (the kernels' first, CTA-wide design) from the plain version,
+    the needed ones (:func:`needed_raster_work`) and the scheduled ones.
+    Returns the JSON row: the bound counts the needed work at
+    WOOP_SHARED_ORIGIN_OPS per Woop test."""
+    import torch
+
+    from optix_ray_tracer_tpu_torch.ops.kernels import tile_raster as tr
+    args = dict(w=W, any_hit=any_hit, common="origin")
+    kern = call(**inp, **args, visits=True)
+    ms = time_ms(lambda: call(**inp, **args), REPS)
+    ref, p_ms = time_once(lambda: plain(**inp, **args, visits=True))
+    err = compare(name, keys, kern, ref, any_hit)
+    duv = max(float((kern[i] - ref[i]).abs().max()) for i in (2, 3))
+    run, twin = (int(x[4].sum()) * 32 for x in (kern, ref))
+    rows_equal = bool(torch.equal(kern[4], ref[4]))
+    print(f"    max |du|, |dv| {duv:.3g}; Woop-tested rows per warp equal: "
+          f"{rows_equal}")
+    if err or duv or not rows_equal:
+        raise AssertionError(f"{name}: kernel and plain version differ")
+    per_ray = int(tr._raster_plain(inp, W, any_hit, "origin", 1)[4].sum())
+    tile = int(tr._raster_plain(inp, W, any_hit, "origin", W)[4].sum()) * W
+    # the needed work counts to each ray's nearest hit (in the segment for
+    # an occlusion wave: an upper estimate)
+    near = call(**inp, **dict(args, any_hit=False)) if any_hit else kern
+    work = tr.needed_raster_work(inp, W, near[0], near[1])
+    n_pairs = int((inp["pair_tiles"] < inp["n_blocks"]).sum())
+    g = inp.get("granularity", 1)
+    scheduled = n_pairs * W * (CHUNK // g)
+    r = row(err, ms, p_ms, tensor_bytes(inp, kern),
+            work["slab"] * SLAB_OPS + work["inst"] * INST_OPS
+            + work["woop"] * WOOP_SHARED_ORIGIN_OPS)
+    print(f"    {name}: {inp['n_blocks']} tiles of {W} rays, {n_pairs} "
+          f"pairs, warps of 8x4-pixel blocks; kernel {ms:.3f} ms [{card}], "
+          f"plain {p_ms:.1f} ms; "
+          f"{tr.raster_occupancy('pair_insts' in inp, any_hit)} resident "
+          f"warps per SM")
+    print(f"    {name}: Woop tests run {run} (plain {twin}), per-ray gate "
+          f"{per_ray} ({run / max(per_ray, 1):.3f}x), whole-tile gate "
+          f"{tile} ({tile / max(run, 1):.2f}x run), needed {work['woop']}, "
+          f"scheduled {scheduled}; slab tests {work['slab']}, ray "
+          f"transforms {work['inst']}; bound {r['bound_ms']:.4f} ms by "
+          f"{r['bound_by']}, {100 * r['bound_ms'] / ms:.2f}% of the wave")
     return r
-
-
-def tile_order(x, h: int, w: int):
-    """(h, w, 3) pixel rows -> 32x32 tiles, row-major (a pure reshape)."""
-    return (x.reshape(h // TILE, TILE, w // TILE, TILE, 3).transpose(1, 2)
-            .reshape(-1, 3))
 
 
 def prim_keys(clusters):
@@ -322,8 +363,8 @@ def bench_setup(device) -> SimpleNamespace:
     cs = inter.clusters
     cam = Camera.look_at((3.0, 0.0, 0.0), (0.0, 0.0, 0.0), (0.0, 0.0, 1.0),
                          device=device)
-    o, d = cam.generate_rays(WIDTH, HEIGHT)
-    o, d = tile_order(o, HEIGHT, WIDTH), tile_order(d, HEIGHT, WIDTH)
+    o, d = (raster.to_tiles(x.reshape(-1, 3), 1, HEIGHT, WIDTH, TILE, TILE)
+            for x in cam.generate_rays(WIDTH, HEIGHT))
     R = o.shape[0]
     light = torch.tensor(LIGHT, device=device)
     G, GS = DEFAULT_GRANULARITY, DEFAULT_ANYHIT_GRANULARITY
@@ -368,6 +409,7 @@ def bench_step(b: SimpleNamespace):
     to_light = b.light - point
     dist = torch.linalg.norm(to_light, dim=-1, keepdim=True)
     wl = to_light / torch.clamp(dist, min=1e-6)
+    # the shadow rays keep the camera wave's tile order
     shadowed = b.inter.any_hit_from(
         b.scene, point + wl * 1e-3, wl, mode="target", point=b.light,
         t_max=dist[:, 0], pc_max=b.pc_max2)
@@ -423,8 +465,6 @@ def e_waves(t: SimpleNamespace, inter) -> dict:
 def check_kernels(b: SimpleNamespace) -> dict:
     """Phase 2: each kernel against its plain version at the main path's
     shapes; returns {name: JSON row (see :func:`row`)}."""
-    import torch
-
     from optix_ray_tracer_tpu_torch.ops import raster
     from optix_ray_tracer_tpu_torch.ops.kernels import block_march as bm
     from optix_ray_tracer_tpu_torch.ops.kernels import tile_raster as tr
@@ -433,47 +473,17 @@ def check_kernels(b: SimpleNamespace) -> dict:
     )
 
     print(f"[kernels vs plain] hit rule, no exceptions, C's ids exactly; "
-          f"{SUBSET} rays where the plain version is slow (A: the first "
-          f"tiles; B, C: warps spread over the wave)")
+          f"A on the whole waves; B, C on {SUBSET} rays (warps spread over "
+          f"the wave)")
     cs, R = b.cs, b.R
     W = TILE * TILE
-    nbs = SUBSET // W
     rows = {}
 
     def raster_case(label, S, g, any_hit):
-        inp = raster.schedule_inputs(cs, S, S["nb"], g)
-        full_ms = time_ms(lambda: tr.raster_cluster_call(
-            **inp, w=W, any_hit=any_hit, common="origin"), REPS)
-        # the bound counts to each ray's nearest hit (within the segment
-        # for the occlusion wave): the kernel's nearest-hit answers on the
-        # whole wave, held to the plain version on a subset below
-        near = tr.raster_cluster_call(**inp, w=W, common="origin")
-        work = tr.needed_raster_work(inp, W, near[0], near[1])
-        k = int((inp["pair_tiles"] < nbs).sum())
-        sub = dict(inp, pair_tiles=inp["pair_tiles"][:k].contiguous(),
-                   pair_clusters=inp["pair_clusters"][:k].contiguous(),
-                   rays_t_ext=inp["rays_t_ext"][:, :(nbs + 1) * W
-                                                ].contiguous(),
-                   n_blocks=nbs)
-        args = dict(sub, w=W, any_hit=any_hit, common="origin")
-        kern = tr.raster_cluster_call(**args)
-        plain = tr.raster_cluster_plain(**args)
-        err = compare(f"A {label}", prim_keys(cs), kern, plain, any_hit)
-        if not any_hit:
-            du = float((kern[2] - plain[2]).abs().max())
-            dv = float((kern[3] - plain[3]).abs().max())
-            print(f"    max |du| {du:.3g}, |dv| {dv:.3g}")
-            if max(du, dv) > 1e-5:
-                raise AssertionError(f"A {label}: u/v differ by "
-                                     f"{max(du, dv)}")
-        ms = time_ms(lambda: tr.raster_cluster_call(**args), REPS)
-        p_ms = time_ms(lambda: tr.raster_cluster_plain(**args), 1)
-        print(f"    {label}: kernel {ms:.3f} ms vs plain {p_ms:.1f} ms "
-              f"on {nbs * W} rays; kernel on the full wave ({R} rays, "
-              f"{int(S['pc_total'])} pairs) {full_ms:.3f} ms")
-        return raster_row(f"A {label}", err, full_ms, p_ms,
-                          tensor_bytes(inp, near), work,
-                          int(S["pc_total"]) * W * (CHUNK // g))
+        return raster_wave(f"A {label}", tr.raster_cluster_call,
+                           tr.raster_cluster_plain,
+                           raster.schedule_inputs(cs, S, S["nb"], g), W,
+                           any_hit, prim_keys(cs), b.card)
 
     G, GS = DEFAULT_GRANULARITY, DEFAULT_ANYHIT_GRANULARITY
     S1 = raster._coarse_stage(b.inter.raster, cs, b.o, b.d, b.tmin0,
@@ -819,8 +829,9 @@ def time_setup(device) -> SimpleNamespace:
     if C < bm.HIER_MIN_CLUSTERS:
         raise AssertionError(f"{C} clusters: coherent waves would not take "
                              f"kernel F (>= {bm.HIER_MIN_CLUSTERS})")
-    o, d = t.cam.generate_rays(WIDTH, HEIGHT)
-    t.o, t.d = tile_order(o, HEIGHT, WIDTH), tile_order(d, HEIGHT, WIDTH)
+    t.o, t.d = (raster.to_tiles(x.reshape(-1, 3), 1, HEIGHT, WIDTH, TILE,
+                                TILE) for x in t.cam.generate_rays(WIDTH,
+                                                                   HEIGHT))
     R = t.o.shape[0]
     t.tmin = torch.full((R,), 1e-3, device=device)
     t.tmax = torch.full((R,), 1e16, device=device)
@@ -898,6 +909,26 @@ def flatten_bounce_wave(t: SimpleNamespace) -> dict:
     return bounce_wave(t.flat, t.mats, t.cam, t.finter, bm, "probe_call")
 
 
+def tlas_shadow_wave(t: SimpleNamespace, inter):
+    """(light, (o, d, t_min, t_max)): the point-light shadow wave from the
+    hit points of the Time camera wave through ``inter`` (an
+    InstancedMarchIntersector), flipped to start at the light as
+    intersect_from traces occlusion waves; it keeps the camera wave's
+    tile order."""
+    import torch
+
+    from optix_ray_tracer_tpu_torch.ops import raster
+    light = torch.tensor(TIME_LIGHT, device=t.device)
+    h0, _ = inter.intersect_from(t.o, t.d, point=t.o[0],
+                                 pc_max=raster.round_pc_max(t.pc1))
+    p0 = torch.where(h0.is_hit[:, None], t.o + h0.t[:, None] * t.d, t.o)
+    dist0 = torch.linalg.norm(light - p0, dim=-1)
+    wl0 = (light - p0) / torch.clamp(dist0[:, None], min=1e-6)
+    d0 = ((light - (p0 + wl0 * 1e-3)) * wl0).sum(-1)
+    return light, (light.expand(t.o.shape[0], 3).contiguous(), -wl0,
+                   d0 - dist0, d0 - 1e-3)
+
+
 def check_time_kernels(t: SimpleNamespace) -> dict:
     """Phase 6: kernels D, E and F against their plain versions at the Time
     scene's full-size waves (compared on subsets), with both full-wave
@@ -917,9 +948,9 @@ def check_time_kernels(t: SimpleNamespace) -> dict:
     inter = tlas.tlas
     W = TILE * TILE
     rows = {}
-    print(f"[time kernels vs plain] hit rule, no exceptions [{SUBSET_TIME} "
-          f"rays or {SUBSET_TIME // W} tiles where the plain version is "
-          f"slow]")
+    print(f"[time kernels vs plain] hit rule, no exceptions [D on the "
+          f"whole waves; E, F on {SUBSET_TIME} rays or fewer where the plain "
+          f"version is slow]")
 
     def keys(slot):
         """(instance << 16) + library triangle of TLAS slots."""
@@ -932,18 +963,10 @@ def check_time_kernels(t: SimpleNamespace) -> dict:
 
     # D: the frame's camera wave (nearest) and a point-light shadow wave
     # (any-hit, flipped to the light), each at its calibrated capacity
-    light = torch.tensor(TIME_LIGHT, device=dev)
+    light, shadow = tlas_shadow_wave(t, inter)
     pc1 = t.pc1
-    h0, _ = inter.intersect_from(t.o, t.d, point=t.o[0],
-                                 pc_max=raster.round_pc_max(pc1))
-    p0 = torch.where(h0.is_hit[:, None], t.o + h0.t[:, None] * t.d, t.o)
-    dist0 = torch.linalg.norm(light - p0, dim=-1)
-    wl0 = (light - p0) / torch.clamp(dist0[:, None], min=1e-6)
-    d0 = ((light - (p0 + wl0 * 1e-3)) * wl0).sum(-1)
-    shadow = (light.expand(R, 3).contiguous(), -wl0, d0 - dist0, d0 - 1e-3)
     pc2 = ri.measure_instanced_pair_count(inter, *shadow, "origin", light)
     print(f"[calibrate] TLAS shadow wave: {pc2} pairs")
-    nbs = SUBSET_TIME // W
     d_rows = []
     for label, wave, point, pc, any_hit in (
             ("camera wave", (t.o, t.d, t.tmin, t.tmax), t.o[0], pc1, False),
@@ -953,35 +976,9 @@ def check_time_kernels(t: SimpleNamespace) -> dict:
                                       raster.round_pc_max(pc))
         if int(S["pc_total"]) > raster.round_pc_max(pc):
             raise AssertionError(f"D {label}: the schedule overflowed")
-        inp = ri.instanced_schedule_inputs(inter, S)
-        args = dict(w=W, any_hit=any_hit, common="origin")
-        full_ms = time_ms(lambda: tr.raster_instanced_call(**inp, **args),
-                          REPS)
-        # the bound counts to each ray's nearest hit (in the segment for
-        # the occlusion wave): the kernel's nearest-hit answers
-        near = tr.raster_instanced_call(**inp, w=W, common="origin")
-        work = tr.needed_raster_work(inp, W, near[0], near[1])
-        k = int((inp["pair_tiles"] < nbs).sum())
-        sub = dict(inp, **{n: inp[n][:k].contiguous() for n in (
-            "pair_tiles", "pair_libs", "pair_ids", "pair_insts")},
-            rays_t_ext=inp["rays_t_ext"][:, :(nbs + 1) * W].contiguous(),
-            n_blocks=nbs)
-        kern = tr.raster_instanced_call(**sub, **args)
-        plain, p_ms = time_once(lambda: tr.raster_instanced_plain(**sub,
-                                                                  **args))
-        err = compare(f"D {label}", keys, kern, plain, any_hit)
-        if not any_hit:
-            duv = max(float((kern[i] - plain[i]).abs().max()) for i in (2, 3))
-            print(f"    max |du|, |dv| {duv:.3g}")
-            if duv > 1e-5:
-                raise AssertionError(f"D {label}: u/v differ by {duv}")
-        ms = time_ms(lambda: tr.raster_instanced_call(**sub, **args), REPS)
-        print(f"    {label}: kernel {ms:.3f} ms vs plain {p_ms:.1f} ms on "
-              f"{nbs * W} rays; full wave ({R} rays, {int(S['pc_total'])} "
-              f"pairs) {full_ms:.3f} ms")
-        d_rows.append(raster_row(f"D {label}", err, full_ms, p_ms,
-                                 tensor_bytes(inp, near), work,
-                                 int(S["pc_total"]) * W * CHUNK))
+        d_rows.append(raster_wave(
+            f"D {label}", tr.raster_instanced_call, tr.raster_instanced_plain,
+            ri.instanced_schedule_inputs(inter, S), W, any_hit, keys, t.card))
     rows["tile_raster_instanced"] = dict(d_rows[0], max_abs_err=max(
         r["max_abs_err"] for r in d_rows))
 

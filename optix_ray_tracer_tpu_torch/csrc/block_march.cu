@@ -48,10 +48,11 @@
 //   t: no row is ever lost, so the nearest t is exact whatever the
 //   capacity; the order decides only equal-t ties (earliest visit, then
 //   lowest row, as before).
-// - Rows reach the warp without a CTA barrier: lane j loads row j of a
-//   32-row slice with 12 coalesced loads and stores it to the warp's 1.5
-//   KB slice in shared memory; every lane then reads each row as three
-//   16-byte broadcasts.  The next slice's loads are issued before the
+// - Rows reach the warp without a CTA barrier (ort_warp_rows, common.cuh,
+//   shared with the tile raster): lane j loads row j of a 32-row slice
+//   with 12 coalesced loads and stores it to the warp's 1.5 KB slice in
+//   shared memory; every lane then reads each row as three 16-byte
+//   broadcasts.  The next slice's loads are issued before the
 //   current slice is tested (the TPU kernel's double buffer, per warp and
 //   in registers).  Handing the rows lane to lane by __shfl_sync instead
 //   (12 shuffles per row against 3 shared loads, 80 registers, 24
@@ -116,7 +117,6 @@ constexpr int kGroup = 8;   // clusters per supercluster (block_march.GROUP)
 
 // The warp march (B, E)
 constexpr int kWarpKeys = 512;   // candidate keys per warp
-constexpr int kSlice = 32;       // Woop rows a warp stages at a time
 constexpr int kCtaWarps = 4;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr unsigned kNone = 0xffffffffu;   // ordered entry: no lane enters
@@ -130,33 +130,8 @@ constexpr int kSupBatch = 4;                 // superclusters per warp vote
 
 struct WarpScratch {
   unsigned long long keys[kWarpKeys];   // (ordered entry << 32 | row)
-  float rows[kSlice * 12];              // one staged slice, 12 per row
+  float rows[ORT_SLICE * 12];           // one staged slice, 12 per row
 };
-
-// One Woop test of one row (w0..w11) against one ray (in the row's space);
-// a hit in (tmin, bt) takes slot = id.
-template <bool ANY_HIT>
-__device__ __forceinline__ void woop_test(
-    float w0, float w1, float w2, float w3, float w4, float w5, float w6,
-    float w7, float w8, float w9, float w10, float w11, int id, float ox,
-    float oy, float oz, float dx, float dy, float dz, float tmin, float& bt,
-    int& slot) {
-  const float opx = ((w0 * ox + w1 * oy) + w2 * oz) - w3;
-  const float opy = ((w4 * ox + w5 * oy) + w6 * oz) - w7;
-  const float opz = ((w8 * ox + w9 * oy) + w10 * oz) - w11;
-  const float dpx = (w0 * dx + w1 * dy) + w2 * dz;
-  const float dpy = (w4 * dx + w5 * dy) + w6 * dz;
-  const float dpz = (w8 * dx + w9 * dy) + w10 * dz;
-  const bool dz_ok = fabsf(dpz) > 1e-12f;
-  const float t = (-opz) / (dz_ok ? dpz : 1e-12f);
-  const float uu = opx + t * dpx;
-  const float vv = opy + t * dpy;
-  if (dz_ok && uu >= 0.0f && vv >= 0.0f && (uu + vv) <= 1.0f && t > tmin &&
-      t < bt) {
-    slot = id;
-    bt = ANY_HIT ? -ORT_INF : t;
-  }
-}
 
 // Woop-test rows [r0, r1) of a staged 12 x ORT_CHUNK block against one ray
 // (in the block's test space); slot = slot_base + row.
@@ -167,12 +142,12 @@ __device__ __forceinline__ void woop_rows(
     int& slot) {
   for (int r = r0; r < r1; ++r) {
     const float* w = ws + r;
-    woop_test<ANY_HIT>(w[0 * ORT_CHUNK], w[1 * ORT_CHUNK], w[2 * ORT_CHUNK],
-                       w[3 * ORT_CHUNK], w[4 * ORT_CHUNK], w[5 * ORT_CHUNK],
-                       w[6 * ORT_CHUNK], w[7 * ORT_CHUNK], w[8 * ORT_CHUNK],
-                       w[9 * ORT_CHUNK], w[10 * ORT_CHUNK],
-                       w[11 * ORT_CHUNK], slot_base + r, ox, oy, oz, dx, dy,
-                       dz, tmin, bt, slot);
+    ort_woop_test<ANY_HIT>(
+        w[0 * ORT_CHUNK], w[1 * ORT_CHUNK], w[2 * ORT_CHUNK],
+        w[3 * ORT_CHUNK], w[4 * ORT_CHUNK], w[5 * ORT_CHUNK],
+        w[6 * ORT_CHUNK], w[7 * ORT_CHUNK], w[8 * ORT_CHUNK],
+        w[9 * ORT_CHUNK], w[10 * ORT_CHUNK], w[11 * ORT_CHUNK],
+        slot_base + r, ox, oy, oz, dx, dy, dz, tmin, bt, slot);
   }
 }
 
@@ -298,41 +273,6 @@ __device__ __forceinline__ int cull_round(
   return n;
 }
 
-// Row r's 12 Woop values (lane r of a slice loads its own row).
-__device__ __forceinline__ void load_row(float (&v)[12],
-                                         const float* __restrict__ w, int r) {
-#pragma unroll
-  for (int k = 0; k < 12; ++k) v[k] = __ldg(w + k * ORT_CHUNK + r);
-}
-
-// Woop-test rows [r0, r0 + n) of one cluster's rows w (n a multiple of
-// kSlice) against every lane's ray, slice by slice.
-template <bool ANY_HIT>
-__device__ __forceinline__ void test_rows(
-    WarpScratch& ws, int lane, const float* __restrict__ w, int r0, int n,
-    int slot_base, float ox, float oy, float oz, float dx, float dy,
-    float dz, float tmin, float& bt, int& slot) {
-  float v[12];
-  load_row(v, w, r0 + lane);
-  for (int s = r0; s < r0 + n; s += kSlice) {
-    __syncwarp();   // every lane is done with the previous slice
-    float4* dst = reinterpret_cast<float4*>(ws.rows + 12 * lane);
-    dst[0] = make_float4(v[0], v[1], v[2], v[3]);
-    dst[1] = make_float4(v[4], v[5], v[6], v[7]);
-    dst[2] = make_float4(v[8], v[9], v[10], v[11]);
-    __syncwarp();
-    if (s + kSlice < r0 + n) load_row(v, w, s + kSlice + lane);
-#pragma unroll 4
-    for (int j = 0; j < kSlice; ++j) {
-      const float4* q = reinterpret_cast<const float4*>(ws.rows + 12 * j);
-      const float4 a = q[0], b = q[1], c = q[2];
-      woop_test<ANY_HIT>(a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w, c.x, c.y,
-                         c.z, c.w, slot_base + s + j, ox, oy, oz, dx, dy, dz,
-                         tmin, bt, slot);
-    }
-  }
-}
-
 // INST: rows of boxes / sub_boxes are TLAS pairs; pair c tests library
 // cluster pair_shape[c] with the rays moved by inst_rows[pair_inst[c]].
 template <bool ANY_HIT, bool INST>
@@ -356,6 +296,7 @@ __global__ void __launch_bounds__(32 * kCtaWarps, 6) warp_march_kernel(
   float bt = rays[7 * n_rays + ray];
   const float ix = ort_inv_dir(dx), iy = ort_inv_dir(dy), iz = ort_inv_dir(dz);
   int slot = -1;
+  float no_u, no_v;   // u and v are recomputed from the winning row
   const int step = ORT_CHUNK / n_subs;
   int tested = 0;
 
@@ -386,8 +327,9 @@ __global__ void __launch_bounds__(32 * kCtaWarps, 6) warp_march_kernel(
             sub_boxes + 8 * (static_cast<size_t>(c) * n_subs + part), ox, oy,
             oz, ix, iy, iz, tmin);
         if (!__any_sync(kFull, se < bt)) continue;
-        test_rows<ANY_HIT>(ws, lane, w, part * step, step, c * ORT_CHUNK, tox,
-                           toy, toz, tdx, tdy, tdz, tmin, bt, slot);
+        ort_warp_rows<ANY_HIT, false, false>(
+            ws.rows, lane, w, part * step, step, c * ORT_CHUNK, tox, toy, toz,
+            tdx, tdy, tdz, tmin, bt, slot, no_u, no_v);
         tested += step;
       }
     }

@@ -168,7 +168,8 @@ _I = ctypes.c_int
 #: kernel A (tile raster)
 TILE_RASTER = Kernel(
     "tile_raster", "ort_tile_raster",
-    [_P, _P, _P, _I, _P, _I, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P],
+    [_P, _P, _P, _I, _P, _I, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P,
+     _P],
     source="optix_ray_tracer_tpu_torch/csrc/tile_raster.cu",
     replaces="optix_ray_tracer_tpu/ops/pallas/tile_raster.py:70")
 #: kernel B (flat block march)
@@ -188,7 +189,7 @@ PROBE = Kernel(
 TILE_RASTER_INSTANCED = Kernel(
     "tile_raster_instanced", "ort_tile_raster_instanced",
     [_P, _P, _P, _P, _P, _I, _P, _I, _P, _P, _I, _I, _I, _I, _P, _P, _P,
-     _P],
+     _P, _P, _P],
     source="optix_ray_tracer_tpu_torch/csrc/tile_raster.cu",
     replaces="optix_ray_tracer_tpu/ops/pallas/tile_raster.py:376")
 #: kernel E (instanced block march)

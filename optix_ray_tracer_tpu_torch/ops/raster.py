@@ -363,32 +363,44 @@ def pick_camera_tiles(height: int, width: int):
     return th, tw
 
 
+def to_tiles(a, S: int, H: int, W: int, th: int, tw: int):
+    """A camera wave's rays (S * H * W, ...) in (sample, row, col) order ->
+    (sample, tile, block, in-block) order: th x tw pixel tiles, row-major,
+    each cut into 8-wide, 4-tall pixel blocks, row-major (th a multiple of
+    4, tw of 8).  Every 32 consecutive rays are then one block, the rays
+    that a warp of kernels A and D gates together; a tile's first ray is
+    still its top-left pixel.  A pure reshape; :func:`from_tiles` undoes
+    it."""
+    rest = a.shape[1:]
+    return (a.reshape((S, H // th, th // 4, 4, W // tw, tw // 8, 8) + rest)
+            .permute(0, 1, 4, 2, 5, 3, 6, *range(7, 7 + len(rest)))
+            .reshape((S * H * W,) + rest))
+
+
+def from_tiles(a, S: int, H: int, W: int, th: int, tw: int):
+    """The inverse of :func:`to_tiles`."""
+    rest = a.shape[1:]
+    return (a.reshape((S, H // th, W // tw, th // 4, tw // 8, 4, 8) + rest)
+            .permute(0, 1, 3, 5, 2, 4, 6, *range(7, 7 + len(rest)))
+            .reshape((S * H * W,) + rest))
+
+
 def make_camera_intersect(intersector, point, S: int, H: int, W: int,
                           th: int, tw: int):
     """An ``intersect``-compatible callable that routes a camera wave
     (rays flattened in (sample, row, col) order) through the raster engine
-    in (sample, tile, in-tile) order, and returns the Hit in the caller's
+    in :func:`to_tiles` order, and returns the Hit in the caller's
     order."""
-    nh, nw = H // th, W // tw
-
-    def to_tiles(a):
-        rest = a.shape[1:]
-        return (a.reshape((S, nh, th, nw, tw) + rest).transpose(2, 3)
-                .reshape((S * H * W,) + rest))
-
-    def from_tiles(a):
-        rest = a.shape[1:]
-        return (a.reshape((S, nh, nw, th, tw) + rest).transpose(2, 3)
-                .reshape((S * H * W,) + rest))
+    layout = (S, H, W, th, tw)
 
     def isect(scene, o, d, t_min=1e-3, t_max=INF):
-        t_max_t = (to_tiles(t_max.expand(o.shape[0]))
+        t_max_t = (to_tiles(t_max.expand(o.shape[0]), *layout)
                    if isinstance(t_max, torch.Tensor) and t_max.dim()
                    else t_max)
         hit = intersector.intersect_from(
-            scene, to_tiles(o), to_tiles(d), mode="origin", point=point,
-            t_min=t_min, t_max=t_max_t, block_rays=th * tw)
-        return tree_map(from_tiles, hit)
+            scene, to_tiles(o, *layout), to_tiles(d, *layout), mode="origin",
+            point=point, t_min=t_min, t_max=t_max_t, block_rays=th * tw)
+        return tree_map(lambda a: from_tiles(a, *layout), hit)
 
     return isect
 

@@ -51,8 +51,8 @@ def setup(dev):
     cam = Camera.look_at((3.0, 0.0, 0.0), (0.0, 0.0, 0.0), (0.0, 0.0, 1.0))
     o, d = cam.generate_rays(128, 128)
     # 32x32 tiles, as the camera wave feeds the raster engine
-    o = o.reshape(4, 32, 4, 32, 3).transpose(1, 2).reshape(-1, 3)
-    d = d.reshape(4, 32, 4, 32, 3).transpose(1, 2).reshape(-1, 3)
+    o, d = (raster.to_tiles(x.reshape(-1, 3), 1, 128, 128, 32, 32)
+            for x in (o, d))
     r = np.random.default_rng(3)
     oi = torch.as_tensor(r.uniform(-0.9, 0.9, (8192, 3)).astype(np.float32),
                          device=dev)
@@ -576,6 +576,124 @@ def test_tile_raster_instanced_kernel(tlas, dev, any_hit):
         assert torch.equal(kern[1], plain[1])
         for a, b in zip(kern, plain):
             torch.testing.assert_close(a, b, rtol=0, atol=1e-6)
+
+
+def _raster_kernel_case(kernel, inter, cam, th, tw, any_hit, dev,
+                        size=128):
+    """Kernel A (or D) on a size x size camera wave in th x tw tiles in
+    ``raster.to_tiles`` order (a warp per 8x4 block), against its plain
+    version: t,
+    slot, u, v and the Woop-tested rows per warp equal, one launch.  The
+    wave has dead rays (every 13th, and all of tile 1: a tile with no
+    pairs) and NaN sub boxes (every 7th window's first); an any-hit
+    wave's segments end just before or just past each nearest hit.
+    Returns (schedule inputs, coarse stage, kernel outputs)."""
+    from optix_ray_tracer_tpu_torch.ops import raster_instanced as ri
+    o, d = cam.generate_rays(size, size)
+    o, d = (raster.to_tiles(x.reshape(-1, 3), 1, size, size, th, tw)
+            for x in (o, d))
+    w, n = th * tw, o.shape[0]
+    tmin = torch.full((n,), 1e-3, device=dev)
+    tmax = torch.full((n,), 1e16, device=dev)
+    tmax[::13] = 0.0
+    tmax[w:2 * w] = 0.0
+    if kernel == "A":
+        call, plain_fn = tr.raster_cluster_call, tr.raster_cluster_plain
+        counter = _lib.TILE_RASTER
+    else:
+        call, plain_fn = tr.raster_instanced_call, tr.raster_instanced_plain
+        counter = _lib.TILE_RASTER_INSTANCED
+
+    def inputs(tmax, any_hit):
+        if kernel == "A":
+            g = 2 if any_hit else 4
+            S = raster._coarse_stage(inter.raster, inter.clusters, o, d, tmin,
+                                     tmax, "origin", o[0], w, 1 << 17, g)
+            inp = raster.schedule_inputs(inter.clusters, S, S["nb"], g)
+        else:
+            S = ri.instanced_coarse_stage(inter.pair_min, inter.pair_max, o,
+                                          d, tmin, tmax, "origin", o[0], w,
+                                          1 << 17)
+            inp = ri.instanced_schedule_inputs(inter, S)
+        assert int(S["pc_total"]) <= 1 << 17
+        subs = inp["sub_boxes"].clone()
+        subs[3::7, 0] = float("nan")
+        return dict(inp, sub_boxes=subs), S
+
+    kw = dict(w=w, common="origin", visits=True)
+    inp, S = inputs(tmax, False)
+    if any_hit:
+        t, slot = plain_fn(**inp, **kw)[:2]
+        t, slot = t.reshape(-1), slot.reshape(-1)
+        odd = torch.arange(n, device=dev) % 2 == 1
+        cut = torch.where(odd, t * 1.001, t * 0.999)
+        inp, S = inputs(torch.where((slot >= 0) & (tmax > 0), cut, tmax),
+                        True)
+    before = counter.launches
+    kern = call(**inp, **kw, any_hit=any_hit)
+    assert counter.launches == before + 1
+    plain = plain_fn(**inp, **kw, any_hit=any_hit)
+    torch.cuda.synchronize()
+    assert kern[4].shape == (S["nb"] * w // 32,)
+    for a, b in zip(kern, plain):
+        assert torch.equal(a, b)
+    assert int(kern[4].sum()) > 0
+    return inp, S, kern
+
+
+@pytest.mark.parametrize("tiles", [(32, 32), (16, 32), (32, 16)],
+                         ids=["32x32", "16x32", "32x16"])
+@pytest.mark.parametrize("any_hit", [False, True])
+@pytest.mark.parametrize("kernel", ["A", "D"])
+def test_raster_warp_kernel(setup, tlas, dev, kernel, tiles, any_hit):
+    """A and D walk each tile per warp of an 8x4 pixel block: equal to
+    their plain versions, Woop-tested rows included, on th x tw tiles, a
+    tile with no pairs, dead rays, NaN sub boxes (and for D an invalid
+    instance), nearest and any-hit."""
+    th, tw = tiles
+    if kernel == "A":
+        inter = setup[1]
+        cam = Camera.look_at((3.0, 0.0, 0.0), (0.0, 0.0, 0.0),
+                             (0.0, 0.0, 1.0))
+    else:
+        inter = tlas[0]
+        cam = Camera.look_at((16.0, 2.0, 3.0), (0.0, 0.0, 0.0),
+                             (0.0, 0.0, 1.0))
+    inp, S, kern = _raster_kernel_case(kernel, inter, cam, th, tw, any_hit,
+                                       dev)
+    w = th * tw
+    hits = kern[1].reshape(-1) >= 0
+    assert 0 < int(hits.sum()) < hits.numel()
+    assert int(S["cnt_b"][1]) == 0
+    assert not bool(hits[w:2 * w].any())
+    assert int(kern[4].reshape(-1, w // 32)[1].sum()) == 0
+
+
+@pytest.mark.parametrize("kernel", ["A", "D"])
+def test_raster_warp_kernel_long_tile(setup, lattice, dev, kernel):
+    """A tile with more than 128 scheduled pairs: the whole sphere (A) or
+    a view down the 2,696-pair lattice (D) in the middle one of 3 x 3
+    tiles."""
+    if kernel == "A":
+        inter = setup[1]
+        cam = Camera.look_at((30.0, 0.0, 0.0), (29.0, 0.0, 0.0),
+                             (0.0, 0.0, 1.0))
+    else:
+        inter = lattice[0]
+        cam = Camera.look_at((-10.0, 3.5, 3.5), (0.0, 3.5, 3.5),
+                             (0.0, 0.0, 1.0))
+    _, S, kern = _raster_kernel_case(kernel, inter, cam, 32, 32, False, dev,
+                                     size=96)
+    assert int(S["cnt_b"].max()) > 128
+    assert int((kern[1] >= 0).sum()) > 0
+
+
+def test_raster_occupancy(dev):
+    """A and D keep at least 16 resident warps per SM in every variant."""
+    for instanced in (False, True):
+        for any_hit in (False, True):
+            for common in (None, "origin"):
+                assert tr.raster_occupancy(instanced, any_hit, common) >= 16
 
 
 @pytest.mark.parametrize("coherent", [True, False])

@@ -58,7 +58,7 @@ def group(name: str, cat: str) -> str:
     if "block_march_hier_kernel" in name:
         return "F block_march_hier"
     for kernel, plain, instanced in (
-            ("tile_raster_kernel", "A tile_raster", "D tile_raster_inst"),
+            ("warp_raster_kernel", "A tile_raster", "D tile_raster_inst"),
             ("warp_march_kernel", "B block_march", "E block_march_inst")):
         if kernel in name:
             args = _template_args(name, kernel)
