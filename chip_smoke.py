@@ -48,7 +48,9 @@ CPU or to the plain versions):
    flatten route's Morton-sorted camera wave through block_march's
    routing, nearest and any-hit, timed beside kernel B) against their
    plain versions on subsets (E: 8,192 rays, F: 16,384; warps spread
-   over each wave), with the hit rule and no exceptions; and C on the
+   over each wave), with the hit rule and no exceptions; E's and F's
+   resident warps per SM, Woop-tested rows per warp and Woop tests run
+   beside the ones the subset needs (:func:`needed_work`); and C on the
    flatten frame's own first bounce wave
    (3,368 clusters, captured from a depth-2 render of flatten frame 0),
    its ids against the plain version's on 65,536 rays spread over it;
@@ -63,10 +65,12 @@ CPU or to the plain versions):
 8. the sweep path on the bench scene (388 clusters): kernel G (leaf
    sweep) against its plain version on the first pass's blocks of the 1M
    camera wave and the 1M incoherent wave (65,536-ray subsets, exact
-   equality); SweepIntersector on both full waves against the marcher's
-   hits (the hit rule on all but 1e-5 of the rays, no ray active at the
-   pass cap); then phase 4's frame through SweepIntersector (G's count
-   zeroed before, > 0 after), held to phase 4's marcher frame;
+   equality) and the live share of their lanes (t_min < best t);
+   SweepIntersector on both full waves against the marcher's hits (the
+   hit rule on all but 1e-5 of the rays, no ray active at the pass cap);
+   then phase 4's frame through SweepIntersector (G's count zeroed
+   before, > 0 after; the live share of G's lanes in each pass), held to
+   phase 4's marcher frame;
 9. the frame's tail on phase 4's frame: render_frame with the a-trous and
    the neural denoiser (committed weights), each against the same
    denoiser on the CPU copy of the frame, accumulated into a Film and
@@ -87,11 +91,16 @@ on the whole wave (a Woop test at WOOP_SHARED_ORIGIN_OPS: the tile shares
 its origin), C :func:`needed_probe_work` on the whole wave, B, E and F
 :func:`needed_work` on the subset scaled by the rays of the wave over the
 subset's (its warps spread evenly over the wave), G every (ray, row)
-test of the pass.  The last two lines of standard output are the
-kernels' JSON object and the device JSON object.
+test of the pass's live lanes (t_min < best t: a filler lane of a window
+group or a dead ray accepts no row).  The last two lines of standard
+output are the kernels' JSON object and the device JSON object.
 ``tools/prof_port.py`` profiles the same cells through
 :func:`bench_setup`, :func:`bench_step`, :func:`whitted_setup`,
-:func:`time_setup`, :func:`time_frame` and :func:`tail_setup`.
+:func:`time_setup`, :func:`time_frame` and :func:`tail_setup`;
+``tools/kernel_bench.py`` times the kernels on the same waves through
+:func:`b_waves`, :func:`e_waves`, :func:`coherent_wave`,
+:func:`first_pass_blocks`, :func:`flatten_bounce_wave` and
+:func:`tlas_shadow_wave`.
 """
 
 from __future__ import annotations
@@ -126,6 +135,7 @@ TIME_DURATION = 1.0
 TIME_FRAMES = 2
 SUBSET_TIME = 16_384
 SUBSET_E = 8_192          # the plain E visits every pair: the slowest twin
+F_SEGMENT = 40.0          # t_max of F's occlusion (any-hit) camera wave
 SWEEP_HIT_EXCEPTIONS = 1e-5   # sweep vs marcher: allowed share of rays
 # card vs CPU, relative: tests/test_torch_denoise.py's tolerances
 DENOISE_RTOL = {"atrous": 8e-6, "neural": 2.4e-5}
@@ -855,15 +865,16 @@ def time_frame(t: SimpleNamespace, k: int, pc_max: int | None = None):
 
 
 @contextlib.contextmanager
-def calls_of(module, name: str):
-    """Within the block, every call of ``module.name`` (called with
-    keyword arguments) appends those arguments to the yielded list."""
+def calls_of(module, name: str, keep=None):
+    """Within the block, every call of ``module.name`` appends
+    ``keep(*args, **kw)`` of its arguments (default: its keyword
+    arguments) to the yielded list."""
     seen = []
     real = getattr(module, name)
 
-    def record(**kw):
-        seen.append(kw)
-        return real(**kw)
+    def record(*args, **kw):
+        seen.append(keep(*args, **kw) if keep else kw)
+        return real(*args, **kw)
 
     setattr(module, name, record)
     try:
@@ -909,6 +920,27 @@ def flatten_bounce_wave(t: SimpleNamespace) -> dict:
     return bounce_wave(t.flat, t.mats, t.cam, t.finter, bm, "probe_call")
 
 
+def sorted_wave(inter, o, d):
+    """(o, d) Morton-sorted as MarchIntersector sorts a coherent wave over
+    the scene of ``inter`` (a MarchIntersector)."""
+    import torch
+
+    from optix_ray_tracer_tpu_torch.ops.raysort import ray_sort_keys
+    perm = torch.argsort(ray_sort_keys(o, d, inter.scene_lo, inter.scene_hi),
+                         stable=True)
+    return o[perm], d[perm]
+
+
+def coherent_wave(inter, o, d, t_min, t_max, hier: bool) -> dict:
+    """The ``march_hier_call`` (``hier``) or ``march_call`` arguments of
+    the camera wave (o, d) sorted by :func:`sorted_wave` over the clusters
+    of ``inter``: F's flatten waves and the B/F crossover waves."""
+    from optix_ray_tracer_tpu_torch.ops.kernels import block_march as bm
+    o, d = sorted_wave(inter, o, d)
+    return (bm.hier_inputs if hier else bm.march_inputs)(
+        inter.clusters, o, d, t_min, t_max)
+
+
 def tlas_shadow_wave(t: SimpleNamespace, inter):
     """(light, (o, d, t_min, t_max)): the point-light shadow wave from the
     hit points of the Time camera wave through ``inter`` (an
@@ -940,7 +972,6 @@ def check_time_kernels(t: SimpleNamespace) -> dict:
     from optix_ray_tracer_tpu_torch.ops import raster_instanced as ri
     from optix_ray_tracer_tpu_torch.ops.kernels import block_march as bm
     from optix_ray_tracer_tpu_torch.ops.kernels import tile_raster as tr
-    from optix_ray_tracer_tpu_torch.ops.raysort import ray_sort_keys
 
     dev = t.device
     R = t.o.shape[0]
@@ -1043,14 +1074,13 @@ def check_time_kernels(t: SimpleNamespace) -> dict:
     # F: the flatten route's Morton-sorted camera wave, through
     # block_march's routing, against the plain F and beside flat B
     cs = t.finter.clusters
-    perm = torch.argsort(ray_sort_keys(t.o, t.d, t.finter.scene_lo,
-                                       t.finter.scene_hi), stable=True)
-    fo, fd = t.o[perm], t.d[perm]
-
+    fo, fd = sorted_wave(t.finter, t.o, t.d)
+    print(f"  F: {bm.march_occupancy(hier=True)} resident warps per SM "
+          f"(occupancy; any-hit {bm.march_occupancy(any_hit=True, hier=True)})")
     prims = prim_keys(cs)
     f_rows, f_near = [], None
     for any_hit in (False, True):
-        tmax = torch.full((R,), 40.0 if any_hit else 1e16, device=dev)
+        tmax = torch.full((R,), F_SEGMENT if any_hit else 1e16, device=dev)
         before = (K["F"].launches, K["B"].launches)
         routed = bm.block_march(cs, fo, fd, t.tmin, tmax, any_hit=any_hit)
         torch.cuda.synchronize()
@@ -1058,13 +1088,13 @@ def check_time_kernels(t: SimpleNamespace) -> dict:
                 != (1, 0):
             raise AssertionError("block_march did not route the coherent "
                                  "wave to kernel F")
-        inp = bm.hier_inputs(cs, fo, fd, t.tmin, tmax)
+        inp = coherent_wave(t.finter, t.o, t.d, t.tmin, tmax, hier=True)
         kern_full = bm.march_hier_call(**inp, any_hit=any_hit)
         if not torch.equal(kern_full[1][:R], routed[1]):
             raise AssertionError("F through block_march differs from F")
         full_ms = time_ms(lambda: bm.march_hier_call(**inp, any_hit=any_hit),
                           REPS)
-        b_inp = bm.march_inputs(cs, fo, fd, t.tmin, tmax, True)
+        b_inp = coherent_wave(t.finter, t.o, t.d, t.tmin, tmax, hier=False)
         b_ms = time_ms(lambda: bm.march_call(**b_inp, any_hit=any_hit),
                        REPS)
         flat = bm.march_call(**b_inp, any_hit=any_hit)
@@ -1082,21 +1112,21 @@ def check_time_kernels(t: SimpleNamespace) -> dict:
         print(f"    {label}: kernel {ms:.3f} ms vs plain {p_ms:.1f} ms on "
               f"{SUBSET_TIME} rays; full wave ({R} rays, "
               f"{cs.num_clusters} clusters): F {full_ms:.3f} ms "
-              f"(W={inp['w']}, {kern_full[2].float().mean().item():.2f} "
-              f"cluster visits per block) vs B {b_ms:.3f} ms "
-              f"(W={b_inp['w']}, "
-              f"{flat[2].float().mean().item() / CHUNK:.2f} cluster-"
-              f"equivalent visits per warp) [{t.card}]")
+              f"({kern_full[2].float().mean().item() / CHUNK:.2f} cluster-"
+              f"equivalent visits per warp) vs B {b_ms:.3f} ms "
+              f"({flat[2].float().mean().item() / CHUNK:.2f}) [{t.card}]")
         if f_near is None:
             f_near = plain
+        # an occlusion wave is counted to its nearest hit in the segment
         near, rays = f_near, sub["rays"]
         seg = (near[1] >= 0) & (near[0] < rays[7])
         work = bm.needed_work(
             rays, torch.where(seg, near[0], rays[7]),
             torch.where(seg, near[1], -1), inp["boxes"], inp["sub_boxes"],
             cs.num_clusters, inp["n_subs"], sup_boxes=inp["sup_boxes"])
-        print(f"    {label}: needed on the subset: Woop tests "
-              f"{work['woop']}, slab tests {work['slab']}")
+        march_work(f"{label} subset" + (
+            " (needed: an upper estimate, to the nearest hit)" if any_hit
+            else ""), kern[2], work)
         f_rows.append(wave_row(f"F camera {label}", err, full_ms, p_ms,
                                tensor_bytes(inp, kern_full), work,
                                SUBSET_TIME, R))
@@ -1234,21 +1264,11 @@ def first_pass_blocks(clusters, o, d):
 
     from optix_ray_tracer_tpu_torch.ops import sweep as sw
     from optix_ray_tracer_tpu_torch.ops.kernels import leaf_sweep as ls
-    seen = []
-    real = ls.window_sweep_call
-
-    def record(*args):
-        seen.append(args)
-        return real(*args)
-
-    ls.window_sweep_call = record
-    try:
-        R = o.shape[0]
+    R = o.shape[0]
+    with calls_of(ls, "window_sweep_call", lambda *args: args) as seen:
         state = sw._initial_state(o, torch.full((R,), 1e16, device=o.device))
         sw._sweep_pass(clusters, o, d, torch.full((R,), 1e-3,
                                                   device=o.device), **state)
-    finally:
-        ls.window_sweep_call = real
     return seen[0]
 
 
@@ -1295,12 +1315,14 @@ def sweep_phase(b: SimpleNamespace, f: SimpleNamespace, card: str):
         if bad or max(errs) > 0:
             raise AssertionError(f"G {label}: kernel disagrees with its plain "
                                  f"version")
-        # G tests every (ray, row) of its blocks' windows: the pass needs
-        # all of them
+        # the pass needs every (ray, row) of a live lane (t_min < best t):
+        # the others (each group's filler, dead rays) accept no row
+        live = int((args[4] < args[5][0]).sum())
         g_rows.append(row(max(errs), full_ms, p_ms, tensor_bytes(args, full),
-                          nb * 128 * CHUNK * WOOP_OPS))
-        print(f"    G {label}: full-pass bound {g_rows[-1]['bound_ms']:.4f} "
-              f"ms by {g_rows[-1]['bound_by']}, "
+                          live * CHUNK * WOOP_OPS))
+        print(f"    G {label}: live lanes {live} of {nb * 128} "
+              f"({live / (nb * 128):.4f}); full-pass bound "
+              f"{g_rows[-1]['bound_ms']:.4f} ms by {g_rows[-1]['bound_by']}, "
               f"{100 * g_rows[-1]['bound_ms'] / full_ms:.2f}% of the pass")
 
     si = sw.SweepIntersector(clusters=b.cs, log=[])
@@ -1335,9 +1357,12 @@ def sweep_phase(b: SimpleNamespace, f: SimpleNamespace, card: str):
         k.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    img, alb, nrm = wavefront.render(f.scene, f.mats, f.cam, WIDTH, HEIGHT,
-                                     spp=SPP, seed=f.seed, max_depth=DEPTH,
-                                     intersector=si)
+    # per launch of G: (lanes, live lanes as a device count)
+    with calls_of(ls, "window_sweep_call", lambda woop, starts, o, d, t_min,
+                  best: (t_min.numel(), (t_min < best[0]).sum())) as lanes:
+        img, alb, nrm = wavefront.render(f.scene, f.mats, f.cam, WIDTH,
+                                         HEIGHT, spp=SPP, seed=f.seed,
+                                         max_depth=DEPTH, intersector=si)
     torch.cuda.synchronize()
     s_frame = time.perf_counter() - t0
     launches = {k.name: k.launches for k in _lib.KERNELS}
@@ -1345,6 +1370,13 @@ def sweep_phase(b: SimpleNamespace, f: SimpleNamespace, card: str):
     print(f"[sweep frame] {WIDTH}x{HEIGHT} spp={SPP} depth {DEPTH} through "
           f"SweepIntersector: {s_frame:.3f} s/frame [{card}]; launches "
           f"{launches}; passes per wave {passes}")
+    if len(lanes) != sum(passes):
+        raise AssertionError(f"{len(lanes)} launches of G in {sum(passes)} "
+                             f"sweep passes")
+    share = iter(f"{int(n_live) / n:.4f}" for n, n_live in lanes)
+    print("[sweep frame] live share of G's lanes (t_min < best t) per pass: "
+          + "; ".join(f"wave {i}: " + " ".join(next(share) for _ in range(p))
+                      for i, p in enumerate(passes)))
     if K["G"].launches == 0:
         raise AssertionError("the sweep frame never launched kernel G")
     if any(st.unfinished for st in si.log):

@@ -15,7 +15,7 @@
 //   optix_ray_tracer_tpu/ops/pallas/block_march.py:694 _make_probe_kernel
 //   (via probe_first_cluster).
 //
-// What bounds the march (B, E) on the H100: FP32 CUDA-core work, ~47
+// What bounds the march (B, E, F) on the H100: FP32 CUDA-core work, ~47
 // operations per (ray, triangle) Woop test and ~26 per (ray, box) slab
 // test, and the work is what the rays need.  The TPU kernel re-picks, per
 // block of W rays, the nearest cluster any ray still needs from a (C, W)
@@ -61,18 +61,26 @@
 //   H100 80GB HBM3, 700 W).
 // - E moves each lane's ray into the pair's instance space per visit
 //   (ort_to_instance); the library's rows stay in L1/L2.
+// - F (HIER) is the same march with 8-cluster superclusters (a NaN-aware
+//   union box each) as its cull rows, so the cull and the list shrink
+//   eightfold (421 rows at 3,368 clusters: the list fills only past 511
+//   superclusters, and rounds keep it exact there).  A visited supercluster
+//   merges the keys of its members that some lane enters before its best t
+//   into the sorted list (insert_keys), so the warp visits clusters nearest
+//   first across superclusters (a member that does not fit below the cap
+//   is visited at once).  Exact because a supercluster's entry is <= the
+//   entry of every cluster inside it (block_march.py:471), so the stop
+//   rule holds.
+//   Its first, CTA-wide design (a bitonic sort of every supercluster's
+//   block-min entry per 128-ray CTA, a __syncthreads_or per decision, 12 KB
+//   of rows staged between barriers per visited cluster) took 3.568 ms on
+//   the flatten camera wave (1M rays, 3,368 clusters); this design 2.32
+//   ms, Woop tests 1.92x the needed ones; opening a supercluster's members
+//   at once in id order instead, 2.70 ms and 2.93x (NVIDIA H100 80GB
+//   HBM3, 700 W).
 // Shared memory: 5.5 KB per warp whatever the number of cull rows.
 // out_visits counts, per warp, the Woop rows it tested (each one test on
 // each of its 32 lanes).
-//
-// The hierarchical march (F) keeps the CTA-wide design: it sorts 8-cluster
-// superclusters instead of clusters (a NaN-aware union box each), so the
-// cull and the sort shrink eightfold; a visited supercluster gates each of
-// its clusters on the cluster's own entry, computed then.  Exact because a
-// supercluster's entry is <= the entry of every cluster inside it
-// (block_march.py:471).  It visits the superclusters in the order of one
-// bitonic sort of their block-min entries, staging 12 x 256 Woop rows in
-// shared memory per visit.
 //
 // The probe (C) is bound by FP32 slab tests (~26 operations each).  The
 // TPU kernel tests every (ray, cluster box) from VMEM; a per-thread copy of
@@ -115,12 +123,13 @@ namespace {
 
 constexpr int kGroup = 8;   // clusters per supercluster (block_march.GROUP)
 
-// The warp march (B, E)
+// The warp march (B, E, F)
 constexpr int kWarpKeys = 512;   // candidate keys per warp
 constexpr int kCtaWarps = 4;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr unsigned kNone = 0xffffffffu;   // ordered entry: no lane enters
 constexpr unsigned long long kNoKey = ~0ull;
+constexpr unsigned kMember = 0x80000000u;   // F: a key's row is a cluster
 
 // The probe (C)
 constexpr int kProbeThreads = 256;           // rays per tile: 8 warps
@@ -133,88 +142,8 @@ struct WarpScratch {
   float rows[ORT_SLICE * 12];           // one staged slice, 12 per row
 };
 
-// Woop-test rows [r0, r1) of a staged 12 x ORT_CHUNK block against one ray
-// (in the block's test space); slot = slot_base + row.
-template <bool ANY_HIT>
-__device__ __forceinline__ void woop_rows(
-    const float* ws, int r0, int r1, int slot_base, float ox, float oy,
-    float oz, float dx, float dy, float dz, float tmin, float& bt,
-    int& slot) {
-  for (int r = r0; r < r1; ++r) {
-    const float* w = ws + r;
-    ort_woop_test<ANY_HIT>(
-        w[0 * ORT_CHUNK], w[1 * ORT_CHUNK], w[2 * ORT_CHUNK],
-        w[3 * ORT_CHUNK], w[4 * ORT_CHUNK], w[5 * ORT_CHUNK],
-        w[6 * ORT_CHUNK], w[7 * ORT_CHUNK], w[8 * ORT_CHUNK],
-        w[9 * ORT_CHUNK], w[10 * ORT_CHUNK], w[11 * ORT_CHUNK],
-        slot_base + r, ox, oy, oz, dx, dy, dz, tmin, bt, slot);
-  }
-}
-
-// F's cull: the block-min entry of each of n_boxes boxes over the rays that
-// enter it before their t_max, as (ordered entry << 32 | id) keys, sorted
-// ascending in shared memory (n_keys a power of two).
-__device__ __forceinline__ void sorted_box_keys(
-    unsigned long long* keys, int n_keys, const float* __restrict__ boxes,
-    int n_boxes, float ox, float oy, float oz, float ix, float iy, float iz,
-    float tmin, float bt) {
-  const int W = blockDim.x;
-  const int tid = threadIdx.x;
-  for (int i = tid; i < n_keys; i += W) keys[i] = ~0ull;
-  __syncthreads();
-  const int lane = tid & 31;
-  for (int c = 0; c < n_boxes; ++c) {
-    float e = ort_slab_entry(boxes + 8 * c, ox, oy, oz, ix, iy, iz, tmin);
-    e = e < bt ? e : ORT_INF;
-    unsigned m = __reduce_min_sync(0xffffffffu, ort_ordered(e));
-    if (lane == 0)
-      atomicMin(&keys[c], (static_cast<unsigned long long>(m) << 32) | c);
-  }
-  __syncthreads();
-  for (int k = 2; k <= n_keys; k <<= 1) {
-    for (int j = k >> 1; j > 0; j >>= 1) {
-      for (int i = tid; i < n_keys; i += W) {
-        const int p = i ^ j;
-        if (p > i) {
-          const unsigned long long a = keys[i], b = keys[p];
-          if ((a > b) == ((i & k) == 0)) { keys[i] = b; keys[p] = a; }
-        }
-      }
-      __syncthreads();
-    }
-  }
-}
-
 __device__ __forceinline__ float key_entry(unsigned long long key) {
   return ort_unordered(static_cast<unsigned>(key >> 32));
-}
-
-// Copy one cluster's 12 Woop rows into shared memory (the caller syncs).
-__device__ __forceinline__ void stage_rows(float* ws,
-                                           const float* __restrict__ woop_t,
-                                           int c) {
-  const float4* src = reinterpret_cast<const float4*>(
-      woop_t + static_cast<size_t>(c) * ORT_WOOP_ROWS * ORT_CHUNK);
-  float4* dst = reinterpret_cast<float4*>(ws);
-  for (int i = threadIdx.x; i < 12 * ORT_CHUNK / 4; i += blockDim.x)
-    dst[i] = src[i];
-}
-
-// F's visit: each part gated block-wide on its sub box, then Woop-tested.
-template <bool ANY_HIT>
-__device__ __forceinline__ void test_parts(
-    const float* ws, const float* __restrict__ sub_boxes, int c, int n_subs,
-    float ox, float oy, float oz, float ix, float iy, float iz, float dx,
-    float dy, float dz, float tmin, float& bt, int& slot) {
-  const int step = ORT_CHUNK / n_subs;
-  for (int part = 0; part < n_subs; ++part) {
-    const float se = ort_slab_entry(
-        sub_boxes + 8 * (static_cast<size_t>(c) * n_subs + part), ox, oy,
-        oz, ix, iy, iz, tmin);
-    if (!__syncthreads_or(se < bt)) continue;
-    woop_rows<ANY_HIT>(ws, part * step, (part + 1) * step, c * ORT_CHUNK,
-                       ox, oy, oz, dx, dy, dz, tmin, bt, slot);
-  }
 }
 
 // Sort the warp's first n keys ascending (n a power of two).
@@ -273,12 +202,91 @@ __device__ __forceinline__ int cull_round(
   return n;
 }
 
+// Merge the key mk of each lane that holds one (mk != kNoKey, lanes <
+// kGroup, every key above keys[k]) into the warp's sorted keys (k, n):
+// each old key moves up by the new keys below it, last 32 first, and each
+// new key lands after the old and new keys below it.  Slots [n, n + the
+// new keys) must be free.
+__device__ __forceinline__ void insert_keys(unsigned long long* keys,
+                                            int lane, int k, int n,
+                                            unsigned long long mk) {
+  unsigned long long nk[kGroup];
+#pragma unroll
+  for (int j = 0; j < kGroup; ++j) nk[j] = __shfl_sync(kFull, mk, j);
+  int at = n;
+  if (mk != kNoKey) {
+    int lo = k + 1;
+    while (lo < at) {
+      const int mid = (lo + at) >> 1;
+      if (keys[mid] < mk) lo = mid + 1; else at = mid;
+    }
+#pragma unroll
+    for (int j = 0; j < kGroup; ++j) at += nk[j] < mk;
+  }
+  __syncwarp();
+  for (int b = n - 32; b > k - 32; b -= 32) {
+    const int i = b + lane;
+    unsigned long long v = 0;
+    int up = 0;
+    if (i > k) {
+      v = keys[i];
+#pragma unroll
+      for (int j = 0; j < kGroup; ++j) up += nk[j] < v;
+    }
+    __syncwarp();
+    if (up) keys[i + up] = v;
+    __syncwarp();
+  }
+  if (mk != kNoKey) keys[at] = mk;
+  __syncwarp();
+}
+
+// One visit to cluster (or pair) c: each part gated on a warp vote of its
+// sub box, then Woop-tested; returns the rows tested.
+template <bool ANY_HIT, bool INST>
+__device__ __forceinline__ int visit_row(
+    WarpScratch& ws, int lane, int c, const float* __restrict__ sub_boxes,
+    int n_subs, const float* __restrict__ woop_t,
+    const int* __restrict__ pair_shape, const int* __restrict__ pair_inst,
+    const float* __restrict__ inst_rows, float ox, float oy, float oz,
+    float ix, float iy, float iz, float dx, float dy, float dz, float tmin,
+    float& bt, int& slot) {
+  const int step = ORT_CHUNK / n_subs;
+  float tox = ox, toy = oy, toz = oz, tdx = dx, tdy = dy, tdz = dz;
+  float no_u, no_v;   // u and v are recomputed from the winning row
+  const float* w = woop_t + static_cast<size_t>(INST ? pair_shape[c] : c)
+                                * ORT_WOOP_ROWS * ORT_CHUNK;
+  if (INST)
+    ort_to_instance(inst_rows + 128 * static_cast<size_t>(pair_inst[c]),
+                    ox, oy, oz, dx, dy, dz, tox, toy, toz, tdx, tdy, tdz);
+  int tested = 0;
+  for (int part = 0; part < n_subs; ++part) {
+    const float se = ort_row_entry(
+        sub_boxes + 8 * (static_cast<size_t>(c) * n_subs + part), ox, oy, oz,
+        ix, iy, iz, tmin);
+    if (!__any_sync(kFull, se < bt)) continue;
+    ort_warp_rows<ANY_HIT, false, false>(
+        ws.rows, lane, w, part * step, step, c * ORT_CHUNK, tox, toy, toz,
+        tdx, tdy, tdz, tmin, bt, slot, no_u, no_v);
+    tested += step;
+  }
+  return tested;
+}
+
 // INST: rows of boxes / sub_boxes are TLAS pairs; pair c tests library
 // cluster pair_shape[c] with the rays moved by inst_rows[pair_inst[c]].
-template <bool ANY_HIT, bool INST>
-__global__ void __launch_bounds__(32 * kCtaWarps, 6) warp_march_kernel(
+// HIER: rows of boxes are superclusters, row s the union of clusters
+// [kGroup s, kGroup s + kGroup) < n_clusters, whose own boxes are rows of
+// cl_boxes; sub_boxes and woop_t are per cluster.
+// 7 CTAs (28 warps) per SM, at most 72 registers, no spills: E's
+// nearest-hit instantiation took 76 on its own once F shared this code,
+// which left 24 warps per SM and cost E ~5% on the TLAS frame (NVIDIA
+// H100 80GB HBM3, 700 W).
+template <bool ANY_HIT, bool INST, bool HIER>
+__global__ void __launch_bounds__(32 * kCtaWarps, 7) warp_march_kernel(
     const float* __restrict__ rays, int n_rays,
     const float* __restrict__ boxes, int n_rows,
+    const float* __restrict__ cl_boxes, int n_clusters,
     const float* __restrict__ sub_boxes, int n_subs,
     const float* __restrict__ woop_t, const int* __restrict__ pair_shape,
     const int* __restrict__ pair_inst, const float* __restrict__ inst_rows,
@@ -296,8 +304,6 @@ __global__ void __launch_bounds__(32 * kCtaWarps, 6) warp_march_kernel(
   float bt = rays[7 * n_rays + ray];
   const float ix = ort_inv_dir(dx), iy = ort_inv_dir(dy), iz = ort_inv_dir(dz);
   int slot = -1;
-  float no_u, no_v;   // u and v are recomputed from the winning row
-  const int step = ORT_CHUNK / n_subs;
   int tested = 0;
 
   unsigned long long lo = 0;   // this round's keys are >= lo
@@ -305,32 +311,57 @@ __global__ void __launch_bounds__(32 * kCtaWarps, 6) warp_march_kernel(
   bool more = __any_sync(kFull, tmin < bt);
   while (more) {
     unsigned long long cap;
-    const int n = cull_round(ws, lane, boxes, n_rows, ox, oy, oz, ix, iy, iz,
-                             tmin, bt, lo, cap);
+    int n = cull_round(ws, lane, boxes, n_rows, ox, oy, oz, ix, iy, iz, tmin,
+                       bt, lo, cap);
     int k = 0;
     for (; k < n; ++k) {
       const unsigned long long key = ws.keys[k];
       // every later key, this round's and the next's, enters no earlier
       if (!__any_sync(kFull, key_entry(key) < bt)) break;
-      const int c = static_cast<int>(key & 0xffffffffu);
-      const float e = ort_row_entry(boxes + 8 * static_cast<size_t>(c), ox,
-                                    oy, oz, ix, iy, iz, tmin);
+      const unsigned id = static_cast<unsigned>(key);
+      const bool member = HIER && (id & kMember);
+      const int c = static_cast<int>(id & ~kMember);
+      const float e = ort_row_entry(
+          (member ? cl_boxes : boxes) + 8 * static_cast<size_t>(c), ox, oy,
+          oz, ix, iy, iz, tmin);
       if (!__any_sync(kFull, e < bt)) continue;
-      float tox = ox, toy = oy, toz = oz, tdx = dx, tdy = dy, tdz = dz;
-      const float* w = woop_t + static_cast<size_t>(INST ? pair_shape[c] : c)
-                                    * ORT_WOOP_ROWS * ORT_CHUNK;
-      if (INST)
-        ort_to_instance(inst_rows + 128 * static_cast<size_t>(pair_inst[c]),
-                        ox, oy, oz, dx, dy, dz, tox, toy, toz, tdx, tdy, tdz);
-      for (int part = 0; part < n_subs; ++part) {
-        const float se = ort_row_entry(
-            sub_boxes + 8 * (static_cast<size_t>(c) * n_subs + part), ox, oy,
-            oz, ix, iy, iz, tmin);
-        if (!__any_sync(kFull, se < bt)) continue;
-        ort_warp_rows<ANY_HIT, false, false>(
-            ws.rows, lane, w, part * step, step, c * ORT_CHUNK, tox, toy, toz,
-            tdx, tdy, tdz, tmin, bt, slot, no_u, no_v);
-        tested += step;
+      if (!HIER || member) {
+        tested += visit_row<ANY_HIT, INST>(
+            ws, lane, c, sub_boxes, n_subs, woop_t, pair_shape, pair_inst,
+            inst_rows, ox, oy, oz, ix, iy, iz, dx, dy, dz, tmin, bt, slot);
+        continue;
+      }
+      // a supercluster: lane j takes the key of member kGroup c + j (the
+      // warp-min entry of the lanes that enter it before their best t)
+      const int m0 = c * kGroup;
+      unsigned long long mk = kNoKey;
+      for (int j = 0; j < kGroup && m0 + j < n_clusters; ++j) {
+        const float em = ort_row_entry(
+            cl_boxes + 8 * static_cast<size_t>(m0 + j), ox, oy, oz, ix, iy,
+            iz, tmin);
+        const unsigned m = __reduce_min_sync(kFull,
+                                             em < bt ? ort_ordered(em) : kNone);
+        if (lane == j && m != kNone)
+          mk = (static_cast<unsigned long long>(m) << 32) |
+               (kMember | static_cast<unsigned>(m0 + j));
+      }
+      const unsigned have = __ballot_sync(kFull, mk != kNoKey);
+      // the members join the list in key order (each is above this key: a
+      // member's entry is >= its supercluster's), if they fit below cap
+      if (n + __popc(have) <= kWarpKeys && !__any_sync(kFull, mk != kNoKey &&
+                                                             mk >= cap)) {
+        insert_keys(ws.keys, lane, k, n, mk);
+        n += __popc(have);
+        continue;
+      }
+      for (unsigned b = have; b; b &= b - 1) {   // no room: visit them now
+        const int m = m0 + __ffs(b) - 1;
+        const float em = ort_row_entry(cl_boxes + 8 * static_cast<size_t>(m),
+                                       ox, oy, oz, ix, iy, iz, tmin);
+        if (!__any_sync(kFull, em < bt)) continue;
+        tested += visit_row<ANY_HIT, false>(
+            ws, lane, m, sub_boxes, n_subs, woop_t, nullptr, nullptr,
+            nullptr, ox, oy, oz, ix, iy, iz, dx, dy, dz, tmin, bt, slot);
       }
     }
     // another round only if keys were dropped, the list ran out, and a
@@ -342,57 +373,6 @@ __global__ void __launch_bounds__(32 * kCtaWarps, 6) warp_march_kernel(
   out_t[ray] = bt;
   out_slot[ray] = slot;
   if (lane == 0) out_visits[ray >> 5] = tested;
-}
-
-template <bool ANY_HIT>
-__global__ void block_march_hier_kernel(
-    const float* __restrict__ rays, int n_rays,
-    const float* __restrict__ sup_boxes, int n_sup, int n_keys,
-    const float* __restrict__ boxes, int n_clusters,
-    const float* __restrict__ sub_boxes, int n_subs,
-    const float* __restrict__ woop_t, float* __restrict__ out_t,
-    int* __restrict__ out_slot, int* __restrict__ out_visits) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  unsigned long long* keys = reinterpret_cast<unsigned long long*>(smem);
-  float* ws = reinterpret_cast<float*>(keys + n_keys);
-
-  const int ray = blockIdx.x * blockDim.x + threadIdx.x;
-  const float ox = rays[0 * n_rays + ray], oy = rays[1 * n_rays + ray],
-              oz = rays[2 * n_rays + ray];
-  const float dx = rays[3 * n_rays + ray], dy = rays[4 * n_rays + ray],
-              dz = rays[5 * n_rays + ray];
-  const float tmin = rays[6 * n_rays + ray];
-  float bt = rays[7 * n_rays + ray];
-  const float ix = ort_inv_dir(dx), iy = ort_inv_dir(dy), iz = ort_inv_dir(dz);
-  int slot = -1;
-
-  sorted_box_keys(keys, n_keys, sup_boxes, n_sup, ox, oy, oz, ix, iy, iz,
-                  tmin, bt);
-
-  int visits = 0;
-  for (int k = 0; k < n_sup; ++k) {
-    const unsigned long long key = keys[k];
-    if (!__syncthreads_or(key_entry(key) < bt)) break;
-    const int s = static_cast<int>(key & 0xffffffffu);
-    const float es =
-        ort_slab_entry(sup_boxes + 8 * s, ox, oy, oz, ix, iy, iz, tmin);
-    if (!__syncthreads_or(es < bt)) continue;
-    const int c_end = min(s * kGroup + kGroup, n_clusters);
-    for (int c = s * kGroup; c < c_end; ++c) {
-      const float e =
-          ort_slab_entry(boxes + 8 * c, ox, oy, oz, ix, iy, iz, tmin);
-      if (!__syncthreads_or(e < bt)) continue;
-      ++visits;
-      stage_rows(ws, woop_t, c);
-      __syncthreads();
-      test_parts<ANY_HIT>(ws, sub_boxes, c, n_subs, ox, oy, oz, ix, iy, iz,
-                          dx, dy, dz, tmin, bt, slot);
-      __syncthreads();
-    }
-  }
-  out_t[ray] = bt;
-  out_slot[ray] = slot;
-  if (threadIdx.x == 0) out_visits[blockIdx.x] = visits;
 }
 
 // One warp of packed live rays (lane ray < 0: no ray) over the staged
@@ -529,58 +509,33 @@ __global__ void __launch_bounds__(kProbeThreads, 4) probe_kernel(
   }
 }
 
-int set_smem(const void* fn, size_t bytes) {
-  if (bytes <= 48 * 1024) return 0;
-  return static_cast<int>(cudaFuncSetAttribute(
-      fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(bytes)));
-}
+enum MarchKind { kFlat = 0, kInstanced = 1, kHier = 2 };   // B, E, F
 
-int pow2_at_least(int n) {
-  int p = 1;
-  while (p < n) p <<= 1;
-  return p;
-}
-
-const void* march_fn(bool instanced, bool any_hit) {
-  if (instanced)
-    return any_hit ? reinterpret_cast<const void*>(warp_march_kernel<true, true>)
-                   : reinterpret_cast<const void*>(
-                         warp_march_kernel<false, true>);
-  return any_hit ? reinterpret_cast<const void*>(warp_march_kernel<true, false>)
-                 : reinterpret_cast<const void*>(
-                       warp_march_kernel<false, false>);
+template <bool A>
+const void* march_fn(int kind) {
+  switch (kind) {
+    case kInstanced:
+      return reinterpret_cast<const void*>(warp_march_kernel<A, true, false>);
+    case kHier:
+      return reinterpret_cast<const void*>(warp_march_kernel<A, false, true>);
+    default:
+      return reinterpret_cast<const void*>(warp_march_kernel<A, false, false>);
+  }
 }
 
 // 4-warp CTAs (n_rays % 128 == 0).
-template <bool A, bool I>
+template <bool A, bool I, bool H>
 int launch_march(cudaStream_t s, const float* rays, int n_rays,
-                 const float* boxes, int n_rows, const float* sub_boxes,
-                 int n_subs, const float* woop_t, const int* pair_shape,
+                 const float* boxes, int n_rows, const float* cl_boxes,
+                 int n_clusters, const float* sub_boxes, int n_subs,
+                 const float* woop_t, const int* pair_shape,
                  const int* pair_inst, const float* inst_rows, float* out_t,
                  int* out_slot, int* out_visits) {
   const int threads = 32 * kCtaWarps;
   const size_t smem = kCtaWarps * sizeof(WarpScratch);
-  warp_march_kernel<A, I><<<n_rays / threads, threads, smem, s>>>(
-      rays, n_rays, boxes, n_rows, sub_boxes, n_subs, woop_t, pair_shape,
-      pair_inst, inst_rows, out_t, out_slot, out_visits);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <bool A>
-int launch_hier(int n_keys, int block_rays, cudaStream_t s,
-                const float* rays, int n_rays, const float* sup_boxes,
-                int n_sup, const float* boxes, int n_clusters,
-                const float* sub_boxes, int n_subs, const float* woop_t,
-                float* out_t, int* out_slot, int* out_visits) {
-  const size_t smem = n_keys * sizeof(unsigned long long) +
-                      12 * ORT_CHUNK * sizeof(float);
-  int err = set_smem(
-      reinterpret_cast<const void*>(block_march_hier_kernel<A>), smem);
-  if (err) return err;
-  block_march_hier_kernel<A><<<n_rays / block_rays, block_rays, smem, s>>>(
-      rays, n_rays, sup_boxes, n_sup, n_keys, boxes, n_clusters, sub_boxes,
-      n_subs, woop_t, out_t, out_slot, out_visits);
+  warp_march_kernel<A, I, H><<<n_rays / threads, threads, smem, s>>>(
+      rays, n_rays, boxes, n_rows, cl_boxes, n_clusters, sub_boxes, n_subs,
+      woop_t, pair_shape, pair_inst, inst_rows, out_t, out_slot, out_visits);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -600,10 +555,10 @@ extern "C" int ort_block_march(const float* rays, int n_rays,
                                int block_rays, float* out_t, int* out_slot,
                                int* out_visits, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  auto launch = any_hit ? &launch_march<true, false>
-                        : &launch_march<false, false>;
-  return launch(s, rays, n_rays, boxes, n_clusters, sub_boxes, n_subs,
-                woop_t, nullptr, nullptr, nullptr, out_t, out_slot,
+  auto launch = any_hit ? &launch_march<true, false, false>
+                        : &launch_march<false, false, false>;
+  return launch(s, rays, n_rays, boxes, n_clusters, nullptr, 0, sub_boxes,
+                n_subs, woop_t, nullptr, nullptr, nullptr, out_t, out_slot,
                 out_visits);
 }
 
@@ -619,41 +574,39 @@ extern "C" int ort_block_march_instanced(
     int any_hit, int block_rays, float* out_t, int* out_slot,
     int* out_visits, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  auto launch = any_hit ? &launch_march<true, true>
-                        : &launch_march<false, true>;
-  return launch(s, rays, n_rays, boxes, n_pairs, sub_boxes, n_subs,
-                woop_t, pair_shape, pair_inst, inst_rows, out_t, out_slot,
-                out_visits);
-}
-
-// Resident warps per SM of the B (instanced = 0) or E (1) kernel at its
-// 4-warp launch, by cudaOccupancyMaxActiveBlocksPerMultiprocessor on the
-// current device.  Returns the CUDA error code.
-extern "C" int ort_march_occupancy(int instanced, int any_hit,
-                                   int* warps_per_sm) {
-  int blocks = 0;
-  const int err = static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &blocks, march_fn(instanced, any_hit), 32 * kCtaWarps,
-      kCtaWarps * sizeof(WarpScratch)));
-  *warps_per_sm = blocks * kCtaWarps;
-  return err;
+  auto launch = any_hit ? &launch_march<true, true, false>
+                        : &launch_march<false, true, false>;
+  return launch(s, rays, n_rays, boxes, n_pairs, nullptr, 0, sub_boxes,
+                n_subs, woop_t, pair_shape, pair_inst, inst_rows, out_t,
+                out_slot, out_visits);
 }
 
 // The hierarchical march: sup_boxes (>= n_sup, 8) union boxes of clusters
-// [8 s, 8 s + 8); the rest as ort_block_march, but block_rays % 32 == 0
-// is the CTA width and out_visits is (n_rays / block_rays,): the clusters
-// each block visited.
+// [8 s, 8 s + 8) are the cull rows; the rest as ort_block_march (out_visits
+// per warp).
 extern "C" int ort_block_march_hier(
     const float* rays, int n_rays, const float* sup_boxes, int n_sup,
     const float* boxes, int n_clusters, const float* sub_boxes, int n_subs,
     const float* woop_t, int any_hit, int block_rays, float* out_t,
     int* out_slot, int* out_visits, void* stream) {
-  const int n_keys = pow2_at_least(n_sup);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  auto launch = any_hit ? &launch_hier<true> : &launch_hier<false>;
-  return launch(n_keys, block_rays, s, rays, n_rays, sup_boxes, n_sup,
-                boxes, n_clusters, sub_boxes, n_subs, woop_t, out_t,
+  auto launch = any_hit ? &launch_march<true, false, true>
+                        : &launch_march<false, false, true>;
+  return launch(s, rays, n_rays, sup_boxes, n_sup, boxes, n_clusters,
+                sub_boxes, n_subs, woop_t, nullptr, nullptr, nullptr, out_t,
                 out_slot, out_visits);
+}
+
+// Resident warps per SM of the B (kind 0), E (1) or F (2) kernel at its
+// 4-warp launch, by cudaOccupancyMaxActiveBlocksPerMultiprocessor on the
+// current device.  Returns the CUDA error code.
+extern "C" int ort_march_occupancy(int kind, int any_hit, int* warps_per_sm) {
+  int blocks = 0;
+  const int err = static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &blocks, any_hit ? march_fn<true>(kind) : march_fn<false>(kind),
+      32 * kCtaWarps, kCtaWarps * sizeof(WarpScratch)));
+  *warps_per_sm = blocks * kCtaWarps;
+  return err;
 }
 
 // rays: (8, n_rays); boxes: (>= n_clusters, 8) rows [min3, max3, 0, 0]

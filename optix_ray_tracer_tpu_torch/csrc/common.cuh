@@ -47,21 +47,6 @@ __device__ __forceinline__ void ort_woop_hit(
   }
 }
 
-// The same test of a row (w0..w11) against a ray with its own origin.
-template <bool ANY_HIT>
-__device__ __forceinline__ void ort_woop_test(
-    float w0, float w1, float w2, float w3, float w4, float w5, float w6,
-    float w7, float w8, float w9, float w10, float w11, int id, float ox,
-    float oy, float oz, float dx, float dy, float dz, float tmin, float& bt,
-    int& slot) {
-  float u, v;   // not tracked
-  ort_woop_hit<ANY_HIT, false>(
-      ort_woop_proj(w0, w1, w2, w3, ox, oy, oz),
-      ort_woop_proj(w4, w5, w6, w7, ox, oy, oz),
-      ort_woop_proj(w8, w9, w10, w11, ox, oy, oz), w0, w1, w2, w4, w5, w6,
-      w8, w9, w10, id, dx, dy, dz, tmin, bt, slot, u, v);
-}
-
 // Row r's 12 Woop values of a cluster's rows w (value k at w[k * ORT_CHUNK]).
 __device__ __forceinline__ void ort_load_row(float (&q)[12],
                                              const float* __restrict__ w,
@@ -152,15 +137,9 @@ __device__ __forceinline__ float ort_slab_entry6(
   return (!nan && ent <= ext) ? ent : ORT_INF;
 }
 
-__device__ __forceinline__ float ort_slab_entry(
-    const float* box, float ox, float oy, float oz,
-    float ix, float iy, float iz, float tmin) {
-  return ort_slab_entry6(box[0], box[1], box[2], box[3], box[4], box[5],
-                         ox, oy, oz, ix, iy, iz, tmin);
-}
-
-// The same for a 16-byte aligned [min3, max3, pad2] row, in two 16-byte
-// loads (every lane of a warp reads the same row: one broadcast each).
+// The slab entry of a 16-byte aligned [min3, max3, pad2] row, in two
+// 16-byte loads (every lane of a warp reads the same row: one broadcast
+// each).
 template <bool CHECK_NAN = true>
 __device__ __forceinline__ float ort_row_entry(
     const float* __restrict__ row, float ox, float oy, float oz, float ix,

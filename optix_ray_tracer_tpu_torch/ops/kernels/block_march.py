@@ -7,9 +7,10 @@ same over 8-cluster superclusters, for coherent waves of large scenes;
 kernel E (``march_instanced_call``) over the (instance, library cluster)
 pairs of a TLAS; kernel C (``probe_call``) returns each ray's nearest
 entered cluster, the sort key of incoherent waves.  All are CUDA
-(``csrc/block_march.cu``, design notes there: B and E march per warp of
-32 rays, F per block, C per warp of packed live rays over
-superclusters).  Each wrapper launches its kernel for CUDA tensors, or
+(``csrc/block_march.cu``, design notes there: B, E and F march per warp
+of 32 rays, F with superclusters as its cull rows, C per warp of packed
+live rays over superclusters; the third output of B, E and F counts each
+warp's Woop-tested rows, shape (R / 32,)).  Each wrapper launches its kernel for CUDA tensors, or
 raises; for CPU tensors it runs the plain PyTorch version
 beside it, a vectorised loop over cull rows that computes the same
 function: the exact nearest t (or hit / miss), with equal-t ties free to
@@ -32,9 +33,8 @@ from optix_ray_tracer_tpu_torch.utils.vecmath import INF, dot
 
 BLOCK_RAYS = 128          # minimum block granularity callers pad to
 CLUSTER_TRIS = CHUNK
-MAX_CLUSTERS = 8192       # the JAX package's cap (F sorts a key per row in
-                          # shared memory)
-WARP = 32                 # B and E count their work per warp of rays
+MAX_CLUSTERS = 8192       # the JAX package's cap
+WARP = 32                 # B, E and F count their work per warp of rays
 N_SUBS = SUBS_PER_CLUSTER
 N_SUBS_INCOHERENT = 2     # incoherent waves pair-merge the sub boxes
 GROUP = 8                 # clusters per supercluster (kernel F)
@@ -289,12 +289,11 @@ def march_call(rays, boxes, sub_boxes, woop_t, n_clusters: int,
                               n_subs, any_hit)
         return t, slot, None
     dev = rays.device
-    R = _check_march(rays, boxes, sub_boxes, n_clusters, n_subs, w, WARP,
-                     BLOCK_RAYS)
+    R = _check_march(rays, boxes, sub_boxes, n_clusters, n_subs, w)
     _lib.check(woop_t, "woop_t", torch.float32, dev, (-1, 16, CLUSTER_TRIS))
     if woop_t.shape[0] < n_clusters:
         raise ValueError(f"woop_t must cover {n_clusters} clusters")
-    t, slot, visits = _march_outputs(R, WARP, dev)
+    t, slot, visits = _march_outputs(R, dev)
     if R:
         _lib.BLOCK_MARCH(dev, rays.data_ptr(), R, boxes.data_ptr(),
                          n_clusters, sub_boxes.data_ptr(), n_subs,
@@ -304,20 +303,21 @@ def march_call(rays, boxes, sub_boxes, woop_t, n_clusters: int,
 
 
 def _check_march(rays, boxes, sub_boxes, n_rows: int, n_subs: int,
-                 w: int, part_rows: int = 1, w_step: int = 32) -> int:
+                 w: int) -> int:
     """Validate a march's rays and cull rows for the card (blocks of a
-    multiple of ``w_step`` rays, parts of a multiple of ``part_rows``
-    rows); returns R."""
+    multiple of BLOCK_RAYS rays, the 4-warp CTA; parts of a multiple of
+    WARP rows, the warp's staged slice); returns R."""
     dev = rays.device
     R = rays.shape[1]
-    if R % w or w % w_step or not w_step <= w <= 1024:
+    if R % w or w % BLOCK_RAYS or not BLOCK_RAYS <= w <= 1024:
         raise ValueError(f"{R} rays in blocks of {w}: need R % w == 0 and "
-                         f"w a multiple of {w_step} in [{w_step}, 1024]")
+                         f"w a multiple of {BLOCK_RAYS} in [{BLOCK_RAYS}, "
+                         f"1024]")
     if (not 0 < n_rows <= MAX_CLUSTERS or CLUSTER_TRIS % n_subs
-            or CLUSTER_TRIS // n_subs % part_rows):
+            or CLUSTER_TRIS // n_subs % WARP):
         raise ValueError(f"{n_rows} cull rows / {n_subs} sub boxes "
                          f"unsupported (max {MAX_CLUSTERS} rows, parts of a "
-                         f"multiple of {part_rows} rows)")
+                         f"multiple of {WARP} rows)")
     _lib.check(rays, "rays", torch.float32, dev, (8, R))
     _lib.check(boxes, "boxes", torch.float32, dev, (-1, 8))
     _lib.check(sub_boxes, "sub_boxes", torch.float32, dev, (-1, n_subs, 8))
@@ -326,21 +326,24 @@ def _check_march(rays, boxes, sub_boxes, n_rows: int, n_subs: int,
     return R
 
 
-def _march_outputs(R: int, rays_per_count: int, dev):
+def _march_outputs(R: int, dev):
+    """(t, slot, Woop-tested rows per warp) of a march on the card."""
     return (torch.empty(R, dtype=torch.float32, device=dev),
             torch.empty(R, dtype=torch.int32, device=dev),
-            torch.zeros(R // rays_per_count, dtype=torch.int32, device=dev))
+            torch.zeros(R // WARP, dtype=torch.int32, device=dev))
 
 
-def march_occupancy(instanced: bool = False, any_hit: bool = False) -> int:
-    """Resident warps per SM of kernel B (E with ``instanced``) on the
-    current CUDA device: the runtime's occupancy number for its 4-warp
-    launch (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
+def march_occupancy(instanced: bool = False, any_hit: bool = False,
+                    hier: bool = False) -> int:
+    """Resident warps per SM of kernel B (E with ``instanced``, F with
+    ``hier``) on the current CUDA device: the runtime's occupancy number
+    for its 4-warp launch (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
     fn = _lib.load().ort_march_occupancy
     fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
     fn.restype = ctypes.c_int
     warps = ctypes.c_int(0)
-    err = fn(int(instanced), int(any_hit), ctypes.byref(warps))
+    kind = 2 if hier else int(instanced)     # csrc MarchKind: B 0, E 1, F 2
+    err = fn(kind, int(any_hit), ctypes.byref(warps))
     if err:
         raise RuntimeError(f"occupancy query failed with CUDA error {err}")
     return warps.value
@@ -365,8 +368,7 @@ def march_instanced_call(rays, boxes, sub_boxes, pair_shape, pair_inst,
         return t, slot, None
     dev = rays.device
     n_subs = sub_boxes.shape[1]
-    R = _check_march(rays, boxes, sub_boxes, n_pairs, n_subs, w, WARP,
-                     BLOCK_RAYS)
+    R = _check_march(rays, boxes, sub_boxes, n_pairs, n_subs, w)
     _lib.check(woop_t, "woop_t", torch.float32, dev, (-1, 16, CLUSTER_TRIS))
     _lib.check(inst_rows, "inst_rows", torch.float32, dev, (-1, 128))
     _lib.check(pair_shape, "pair_shape", torch.int32, dev)
@@ -374,7 +376,7 @@ def march_instanced_call(rays, boxes, sub_boxes, pair_shape, pair_inst,
     if pair_shape.numel() < n_pairs or pair_inst.numel() < n_pairs:
         raise ValueError(f"pair_shape and pair_inst must cover {n_pairs} "
                          f"pairs")
-    t, slot, visits = _march_outputs(R, WARP, dev)
+    t, slot, visits = _march_outputs(R, dev)
     if R:
         _lib.BLOCK_MARCH_INSTANCED(
             dev, rays.data_ptr(), R, boxes.data_ptr(), n_pairs,
@@ -388,10 +390,10 @@ def march_instanced_call(rays, boxes, sub_boxes, pair_shape, pair_inst,
 def march_hier_call(rays, sup_boxes, boxes, sub_boxes, woop_t,
                     n_clusters: int, n_subs: int, any_hit: bool = False,
                     w: int = BLOCK_RAYS):
-    """Kernel F, the hierarchical march.  As :func:`march_call`, plus
-    sup_boxes: (>= ceil(n_clusters / GROUP), 8) NaN-aware union boxes of
-    clusters [GROUP s, GROUP s + GROUP); visits are per block of ``w``
-    rays: the clusters it visited."""
+    """Kernel F, the hierarchical march.  As :func:`march_call` (visits
+    per warp of 32 rays: its Woop-tested rows), plus sup_boxes:
+    (>= ceil(n_clusters / GROUP), 8) NaN-aware union boxes of clusters
+    [GROUP s, GROUP s + GROUP), the kernel's cull rows."""
     if not rays.is_cuda:
         t, slot = march_hier_plain(rays, sup_boxes, boxes, sub_boxes,
                                    woop_t, n_clusters, n_subs, any_hit)
@@ -404,7 +406,7 @@ def march_hier_call(rays, sup_boxes, boxes, sub_boxes, woop_t,
     if sup_boxes.shape[0] < n_sup or woop_t.shape[0] < n_clusters:
         raise ValueError(f"sup_boxes must cover {n_sup} superclusters and "
                          f"woop_t {n_clusters} clusters")
-    t, slot, visits = _march_outputs(R, w, dev)
+    t, slot, visits = _march_outputs(R, dev)
     if R:
         _lib.BLOCK_MARCH_HIER(
             dev, rays.data_ptr(), R, sup_boxes.data_ptr(), n_sup,

@@ -10,7 +10,7 @@ the port need not have.)
 
 Tolerance: the hit rule (prim ids equal, or |dt| <= 1e-5 |t| + 1e-6)
 with no exceptions, and equal hit / miss for occlusion waves; u and v to
-1e-6; G exact.  (The kernels and the
+1e-6; G exact, filler and dead lanes included.  (The kernels and the
 plain versions round every operation alike, so the expected difference
 is zero.)  Denoisers, card against CPU: the tolerances of
 tests/test_torch_denoise.py."""
@@ -472,14 +472,15 @@ def test_block_march_instanced_large_library(dev, any_hit):
 
 
 @pytest.mark.parametrize("wave", ["dead_rays_nan_rows", "all_miss"])
-@pytest.mark.parametrize("kernel", ["B", "E"])
+@pytest.mark.parametrize("kernel", ["B", "E", "F"])
 def test_march_edge_waves(setup, tlas, dev, kernel, wave):
-    """B and E against their plain versions on a wave with dead (t_max 0)
-    rays among live ones and NaN cull rows and sub boxes among live rows,
-    and on a wave that misses everything (every slot -1, t = t_max)."""
+    """B, E and F against their plain versions on a wave with dead (t_max
+    0) rays among live ones and NaN cull rows and sub boxes among live rows
+    (for F also a NaN supercluster), and on a wave that misses everything
+    (every slot -1, t = t_max)."""
     n = 4096
     r = np.random.default_rng(6)
-    if kernel == "B":
+    if kernel != "E":
         cs = setup[1].clusters
         o = torch.as_tensor(r.uniform(-0.9, 0.9, (n, 3)).astype(np.float32),
                             device=dev)
@@ -502,6 +503,9 @@ def test_march_edge_waves(setup, tlas, dev, kernel, wave):
     if kernel == "B":
         inp = bm.march_inputs(cs, o, d, tmin, tmax, coherent=False)
         call, plain_fn = bm.march_call, bm.march_plain
+    elif kernel == "F":
+        inp = bm.hier_inputs(cs, o, d, tmin, tmax, coherent=False)
+        call, plain_fn = bm.march_hier_call, bm.march_hier_plain
     else:
         inp = _instanced_inputs(inter, o, d, tmin, tmax)
         call, plain_fn = bm.march_instanced_call, bm.march_instanced_plain
@@ -510,6 +514,9 @@ def test_march_edge_waves(setup, tlas, dev, kernel, wave):
         boxes[1::5] = float("nan")
         subs[2::3, 1] = float("nan")
         inp = dict(inp, boxes=boxes, sub_boxes=subs)
+        if kernel == "F":
+            boxes[bm.GROUP:2 * bm.GROUP] = float("nan")
+            inp["sup_boxes"] = bm.supercluster_boxes(boxes)
     for any_hit in (False, True):
         kern = call(**inp, any_hit=any_hit)
         plain = plain_fn(**_plain_args(inp), any_hit=any_hit)
@@ -523,10 +530,10 @@ def test_march_edge_waves(setup, tlas, dev, kernel, wave):
             assert int((kern[1][~live] >= 0).sum()) == 0
 
 
-@pytest.mark.parametrize("kernel", ["B", "E"])
+@pytest.mark.parametrize("kernel", ["B", "E", "F"])
 def test_march_refuses_partial_cta(setup, tlas, dev, kernel):
-    """B and E launch 4-warp CTAs: a block width that is not a multiple of
-    BLOCK_RAYS raises before any launch."""
+    """B, E and F launch 4-warp CTAs: a block width that is not a multiple
+    of BLOCK_RAYS raises before any launch."""
     n = 256
     o = torch.zeros((n, 3), device=dev)
     d = torch.zeros((n, 3), device=dev)
@@ -537,6 +544,9 @@ def test_march_refuses_partial_cta(setup, tlas, dev, kernel):
         inp = bm.march_inputs(setup[1].clusters, o, d, tmin, tmax,
                               coherent=False)
         call, counter = bm.march_call, _lib.BLOCK_MARCH
+    elif kernel == "F":
+        inp = bm.hier_inputs(setup[1].clusters, o, d, tmin, tmax)
+        call, counter = bm.march_hier_call, _lib.BLOCK_MARCH_HIER
     else:
         inp = _instanced_inputs(tlas[0], o, d, tmin, tmax)
         call, counter = bm.march_instanced_call, _lib.BLOCK_MARCH_INSTANCED
@@ -700,7 +710,10 @@ def test_raster_occupancy(dev):
 @pytest.mark.parametrize("any_hit", [False, True])
 def test_block_march_hier_kernel(setup, dev, coherent, any_hit):
     """Kernel F against its plain version, and against kernel B, on the
-    same sorted wave."""
+    same sorted wave; its visits count each warp's Woop-tested rows, and
+    on a nearest-hit wave they cover the work its answers need (an
+    occlusion march may stop at any hit, so needed_work bounds it from
+    neither side)."""
     scene, inter, o, d, oi, di = setup
     cs = inter.clusters
     wo, wd = (o, d) if coherent else (oi, di)
@@ -712,8 +725,15 @@ def test_block_march_hier_kernel(setup, dev, coherent, any_hit):
     before = _lib.BLOCK_MARCH_HIER.launches
     kern = bm.march_hier_call(**inp, any_hit=any_hit)
     assert _lib.BLOCK_MARCH_HIER.launches == before + 1
+    rays = inp["rays"]
+    assert kern[2].shape == (rays.shape[1] // 32,)
     plain = bm.march_hier_plain(**{k: v for k, v in inp.items() if k != "w"},
                                 any_hit=any_hit)
+    if not any_hit:
+        work = bm.needed_work(rays, *plain, inp["boxes"], inp["sub_boxes"],
+                              inp["n_clusters"], inp["n_subs"],
+                              sup_boxes=inp["sup_boxes"])
+        assert int(kern[2].sum()) * 32 >= work["woop"] > 0
     flat = bm.march_call(**bm.march_inputs(cs, wo[perm], wd[perm], tmin,
                                            tmax, coherent, 128),
                          any_hit=any_hit)
@@ -723,6 +743,67 @@ def test_block_march_hier_kernel(setup, dev, coherent, any_hit):
     else:
         _check(cs, kern, plain)
         _check(cs, kern, flat)
+
+
+@pytest.fixture(scope="module")
+def slivers(dev):
+    """A ClusterSet past F's 512-key list: 1,228,800 thin triangles (0.035
+    wide) stacked along x, 1e-4 apart, each along one of the lines
+    y - z = c (c in -3.5, -2.5, ..., 3.5) across all of y in [-1, 17], so
+    every cluster's and supercluster's box holds [-1, 17] x [4, 12] of the
+    y-z plane, then a wall; 2,048 rays run along +x near the grid points
+    of [4, 12]^2 (32 different points per warp), 0.35 or more from every
+    line, and hit only the wall: 4,801 clusters in 601 superclusters,
+    every one of them needed by every warp."""
+    from optix_ray_tracer_tpu_torch.ops.sweep import build_clusters
+    n = 4800 * 256
+    r = np.random.default_rng(12)
+    x = 1e-4 * np.arange(n)
+    c = np.arange(n) % 8 - 3.5
+    tri = np.stack([np.stack([x, np.full(n, -1.0), -1.0 - c], -1),
+                    np.stack([x, np.full(n, 17.0), 17.0 - c], -1),
+                    np.stack([x, np.full(n, 8.025), 7.975 - c], -1)], 1)
+    xw = 1e-4 * n + 1.0
+    wall = np.array([[[xw, -1, -1], [xw, 17, -1], [xw, -1, 17]],
+                     [[xw, 17, -1], [xw, 17, 17], [xw, -1, 17]]])
+    cs = build_clusters(np.concatenate([tri, wall]), device=dev)
+    R = 2048
+    point = (np.arange(R) + np.arange(R) // 32 * 7) % 81
+    o = np.stack([np.full(R, -1.0), point // 9 + 4.0 + r.normal(0, 0.01, R),
+                  point % 9 + 4.0 + r.normal(0, 0.01, R)], -1)
+    d = np.concatenate([np.ones((R, 1)), r.normal(0, 1e-4, (R, 2))], -1)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    return cs, torch.as_tensor(o.astype(np.float32), device=dev), \
+        torch.as_tensor(d.astype(np.float32), device=dev)
+
+
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_block_march_hier_overflow(slivers, dev, any_hit):
+    """Kernel F where every warp's candidate superclusters overflow its
+    512-key list: held against kernel B on the same wave by the hit rule
+    (hit / miss for occlusion), every ray on the wall."""
+    cs, o, d = slivers
+    n = o.shape[0]
+    assert cs.num_clusters > 4096
+    tmin = torch.full((n,), 1e-3, device=dev)
+    tmax = torch.full((n,), 1e16, device=dev)
+    inp = bm.hier_inputs(cs, o, d, tmin, tmax)
+    kern = bm.march_hier_call(**inp, any_hit=any_hit)
+    flat = bm.march_call(**bm.march_inputs(cs, o, d, tmin, tmax, True, 128),
+                         any_hit=any_hit)
+    _hold(kern, flat, any_hit)
+    assert bool((kern[1][:n] >= 0).all())
+    # the precondition: superclusters some lane of a warp needs, per warp
+    rays = inp["rays"]
+    t, slot, _ = bm.march_call(**bm.march_inputs(cs, o, d, tmin, tmax, True,
+                                                 128))
+    n_sup = -(-cs.num_clusters // bm.GROUP)
+    ent = bm._entries(inp["sup_boxes"][:n_sup], rays[0:3].T,
+                      bm.inv_dir(rays[3:6].T), rays[6])
+    reach = torch.where(slot >= 0, torch.nextafter(
+        t, torch.full_like(t, float("inf"))), rays[7])
+    need = (ent < reach[:, None]).reshape(-1, 32, n_sup).any(1)
+    assert int(need.sum(1).min()) > 512
 
 
 def test_routing_on_card(setup, dev, monkeypatch):
@@ -741,7 +822,12 @@ def test_routing_on_card(setup, dev, monkeypatch):
 @pytest.mark.parametrize("wave", ["camera", "incoherent"])
 def test_leaf_sweep_kernel(setup, dev, wave):
     """Kernel G against its plain version on the first sweep pass's
-    blocks (as chip_smoke.py builds them): t, slot, u and v equal."""
+    blocks (as chip_smoke.py builds them), then on the same blocks with
+    two filler-only blocks appended (as ops/sweep.py pads a window group:
+    o 0, d +z, t_min 1, best t 0), every fifth ray dead (t_min = best t)
+    and the most-hit row copied onto the next one: t, slot, u and v equal;
+    filler and dead lanes keep their inputs, and the copy never wins (the
+    first row wins on equal t)."""
     from chip_smoke import first_pass_blocks
     from optix_ray_tracer_tpu_torch.ops.kernels import leaf_sweep as ls
     _, inter, o, d, oi, di = setup
@@ -755,6 +841,35 @@ def test_leaf_sweep_kernel(setup, dev, wave):
     assert int((kern[1] >= 0).sum()) > 0
     for a, b in zip(kern, plain):
         assert torch.equal(a, b)
+
+    woop, starts, o, d, t_min, best = args
+    nb, B = o.shape[:2]
+
+    def pad(x, value):
+        return torch.cat([x, torch.full((2,) + x.shape[1:], value,
+                                        dtype=x.dtype, device=dev)])
+
+    d = pad(d, 0.0)
+    d[nb:, :, 2] = 1.0
+    best = (pad(best[0], 0.0), pad(best[1], -1), pad(best[2], 0.0),
+            pad(best[3], 0.0))
+    t_min = pad(t_min, 1.0)
+    t_min[:, ::5] = best[0][:, ::5]
+    keep = torch.zeros((nb + 2, B), dtype=torch.bool, device=dev)
+    keep[nb:] = True
+    keep[:, ::5] = True
+    hits = kern[1][(kern[1] >= 0) & (kern[1] % 256 != 255)]
+    r = int(torch.bincount(hits).argmax())
+    woop = woop.clone()
+    woop[r + 1] = woop[r]
+    edge = (woop, pad(starts, 0), pad(o, 0.0), d, t_min, best)
+    kern = ls.window_sweep_call(*edge)
+    plain = ls.window_sweep_plain(*edge)
+    torch.cuda.synchronize()
+    for a, b, x in zip(kern, plain, best):
+        assert torch.equal(a, b)
+        assert torch.equal(a[keep], x[keep])
+    assert bool((kern[1] == r).any()) and not bool((kern[1] == r + 1).any())
 
 
 @pytest.mark.parametrize("wave", ["camera", "incoherent"])

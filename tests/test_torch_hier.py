@@ -2,9 +2,11 @@
 against the JAX ``block_march_hier`` (Pallas interpret mode on the CPU)
 and against the port's flat ``block_march`` over the very same ClusterSet
 (tests/test_march.py's 20000-triangle sphere, 80 clusters in 10
-superclusters), coherent and incoherent waves, nearest and any-hit; and
-``block_march``'s routing with ``HIER_MIN_CLUSTERS`` lowered, as
-tests/test_march.py lowers it.
+superclusters), coherent and incoherent waves, nearest and any-hit; on
+edge waves (dead rays among live ones, a wave that misses everything,
+and, port side only, NaN cluster, supercluster and sub rows among live
+ones); and ``block_march``'s routing with ``HIER_MIN_CLUSTERS`` lowered,
+as tests/test_march.py lowers it.
 
 Hit rule (bench.py): prim ids equal, or |dt| <= 1e-5 |t| + 1e-6 at an
 fp-equal t (flat and hierarchical marchers may pick different triangles
@@ -94,6 +96,86 @@ def test_hier_matches_jax_and_flat(setup, wave, any_hit):
     same = hs == fs
     torch.testing.assert_close(hu[same], fu[same], rtol=0, atol=0)
     torch.testing.assert_close(hv[same], fv[same], rtol=0, atol=0)
+
+
+def _edge_wave(setup, wave):
+    """(o, d, t_min, t_max) of an edge wave over the incoherent rays:
+    "dead_rays" gives every third and every seventh ray t_max 0,
+    "all_miss" starts every ray outside the sphere facing away."""
+    o, d = setup[2]["incoherent"]
+    tmin, tmax = _bounds(o.shape[0], False, None)
+    if wave == "all_miss":
+        d = o / np.linalg.norm(o, axis=-1, keepdims=True)
+        o = 3.0 * d
+    else:
+        tmax[::3] = 0.0
+        tmax[5::7] = 0.0
+    return o, d, tmin, tmax
+
+
+@pytest.mark.parametrize("any_hit", [False, True])
+@pytest.mark.parametrize("wave", ["dead_rays", "all_miss"])
+def test_hier_edge_waves_match_jax_and_flat(setup, wave, any_hit):
+    """Plain F on edge waves against the JAX block_march_hier and plain
+    B: dead rays keep slot -1 and t = t_max, an all-miss wave hits
+    nothing."""
+    jc, tc, _ = setup
+    o, d, tmin, tmax = _edge_wave(setup, wave)
+    jt, js, _, _ = jbm.block_march_hier(
+        jc, *(jnp.asarray(x) for x in (o, d, tmin, tmax)), any_hit=any_hit,
+        coherent=False)
+    args = [_t(x) for x in (o, d, tmin, tmax)]
+    ht, hs, _, _ = tbm.block_march_hier(tc, *args, any_hit=any_hit,
+                                        coherent=False)
+    ft, fs, _, _ = tbm.block_march(tc, *args, any_hit=any_hit,
+                                   coherent=False, block_rays=128)
+    hit = hs.numpy() >= 0
+    np.testing.assert_array_equal(hit, np.asarray(js) >= 0)
+    np.testing.assert_array_equal(hit, fs.numpy() >= 0)
+    if wave == "all_miss":
+        assert not hit.any()
+    else:
+        assert not hit[tmax <= tmin].any() and hit.any()
+    if not any_hit:
+        ph = _t(_prims(tc.prim_index, hs.numpy()))
+        assert hit_mismatches(ph, ht, _t(_prims(jc.prim_index, js)),
+                              _t(jt)) == 0
+        assert hit_mismatches(ph, ht, _t(_prims(tc.prim_index, fs.numpy())),
+                              ft) == 0
+
+
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_hier_nan_rows_match_flat(setup, any_hit):
+    """Plain F with NaN cluster rows (every fifth, and all eight of
+    supercluster 1, whose union is then NaN) and NaN sub rows among live
+    ones, against plain B on the same rows: no hit lies in a NaN cluster
+    or part."""
+    _, tc, waves = setup
+    o, d = (_t(x) for x in waves["incoherent"])
+    n = o.shape[0]
+    inp = tbm.hier_inputs(tc, o, d, torch.full((n,), 1e-3),
+                          torch.full((n,), 1e16), coherent=False)
+    boxes, subs = inp["boxes"].clone(), inp["sub_boxes"].clone()
+    boxes[1::5] = float("nan")
+    boxes[tbm.GROUP:2 * tbm.GROUP] = float("nan")
+    subs[2::3, 1] = float("nan")
+    sup = tbm.supercluster_boxes(boxes)
+    assert torch.isnan(sup[1, :6]).all() and not torch.isnan(sup[0]).any()
+    args = dict(inp, boxes=boxes, sub_boxes=subs, sup_boxes=sup)
+    del args["w"]
+    ht, hs = tbm.march_hier_plain(**args, any_hit=any_hit)
+    del args["sup_boxes"]
+    ft, fs = tbm.march_plain(**args, any_hit=any_hit)
+    hit = hs >= 0
+    assert torch.equal(hit, fs >= 0) and int(hit.sum()) > n // 8
+    if not any_hit:
+        assert hit_mismatches(_t(_prims(tc.prim_index, hs.numpy())), ht,
+                              _t(_prims(tc.prim_index, fs.numpy())), ft) == 0
+    cl = hs[hit].long() // tbm.CLUSTER_TRIS
+    part = hs[hit].long() % tbm.CLUSTER_TRIS // (tbm.CLUSTER_TRIS
+                                                 // inp["n_subs"])
+    assert not torch.isnan(boxes[cl, 0]).any()
+    assert not torch.isnan(subs[cl, part, 0]).any()
 
 
 def test_supercluster_boxes(setup):

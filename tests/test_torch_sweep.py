@@ -4,7 +4,9 @@ against the JAX package on the CPU: the leaf sweep against both
 ``_window_sweep_xla`` and ``window_sweep_pallas`` (Pallas interpret mode),
 the dense per-pass reductions bit for bit, ``SweepIntersector`` against
 the JAX one and the brute-force oracle (coherent and incoherent rays, with
-a sphere), the port's two loops against each other, and a 24x16 Whitted
+a sphere), the leaf sweep on the lanes kernel G skips (window groups'
+filler lanes, rays with t_min >= best t) and on a duplicated row (the
+first row wins on equal t), the port's two loops against each other, and a 24x16 Whitted
 frame rendered through the sweep against the JAX frame
 (tests/test_sweep.py's scene).
 
@@ -92,33 +94,79 @@ def _window_inputs(n_rows):
     return starts, o, d, t_min, best
 
 
-@pytest.mark.parametrize("ref", ["xla", "pallas"])
-def test_window_sweep_plain_matches_jax(clusters, ref):
-    """Slots equal; t to 2e-6 |t|, u/v to 3e-6 + |dt| |r.d| (measured
-    against both: 12 of 52 hit t differ, by 6.4e-7 |t| at most; |du|,
-    |dv| <= 9.5e-7)."""
-    jc, tc = clusters
-    starts, o, d, t_min, best = _window_inputs(jc.woop.shape[0])
+def _hold_to_jax(ref, woop, starts, o, d, t_min, best):
+    """window_sweep_plain against the JAX leaf sweep ``ref`` ("xla" or
+    "pallas") on the same inputs: slots equal; t to 2e-6 |t|, u/v to
+    3e-6 + |dt| |r.d|.  Returns (the JAX results, the port's), numpy."""
     fn = jsweep._window_sweep_xla if ref == "xla" else window_sweep_pallas
     want = [np.asarray(x) for x in fn(
-        jc.woop, jnp.asarray(starts), jnp.asarray(o), jnp.asarray(d),
-        jnp.asarray(t_min), tuple(jnp.asarray(b) for b in best))]
+        jnp.asarray(woop), jnp.asarray(starts), jnp.asarray(o),
+        jnp.asarray(d), jnp.asarray(t_min),
+        tuple(jnp.asarray(b) for b in best))]
     got = [x.numpy() for x in window_sweep_plain(
-        tc.woop, _t(starts), _t(o), _t(d), _t(t_min),
+        _t(woop), _t(starts), _t(o), _t(d), _t(t_min),
         tuple(_t(b) for b in best))]
     assert got[1].dtype == np.int32
     np.testing.assert_array_equal(got[1], want[1])
-    hit = want[1] >= 0
-    assert 40 < hit.sum() < hit.size
     dt = np.abs(got[0] - want[0])
     assert (dt <= 2e-6 * np.abs(want[0])).all()
-    woop = np.asarray(jc.woop)
-    rows = woop[np.maximum(want[1], 0)]
+    rows = np.asarray(woop)[np.maximum(want[1], 0)]
     rd = np.abs(np.einsum("...ij,...j->...i",
                           rows[..., :9].reshape(*rows.shape[:-1], 3, 3), d))
     for k in (2, 3):
         tol = 3e-6 + dt * rd[..., k - 2]
         assert (np.abs(got[k] - want[k]) <= tol).all()
+    return want, got
+
+
+@pytest.mark.parametrize("ref", ["xla", "pallas"])
+def test_window_sweep_plain_matches_jax(clusters, ref):
+    """Slots equal; t to 2e-6 |t|, u/v to 3e-6 + |dt| |r.d| (measured
+    against both: 12 of 52 hit t differ, by 6.4e-7 |t| at most; |du|,
+    |dv| <= 9.5e-7)."""
+    jc, _ = clusters
+    want, _ = _hold_to_jax(ref, jc.woop, *_window_inputs(jc.woop.shape[0]))
+    hit = want[1] >= 0
+    assert 40 < hit.sum() < hit.size
+
+
+@pytest.mark.parametrize("ref", ["xla", "pallas"])
+@pytest.mark.parametrize("case", ["filler", "dead", "duplicate_row"])
+def test_window_sweep_plain_edge_lanes_match_jax(clusters, case, ref):
+    """The lanes kernel G skips, and argmin's tie rule, against both JAX
+    leaf sweeps: "filler" pads half of block 1 and all of block 3 as
+    ops/sweep._sweep_pass pads a window group (o 0, d +z, t_min 1, best
+    t 0); "dead" gives every third ray t_min = best t and every seventh
+    t_min > best t; both keep their inputs.  "duplicate_row" copies the
+    most-hit row r of the table onto row r + 1: every ray that hits r
+    keeps r (the first row wins on equal t) and none takes r + 1."""
+    jc, _ = clusters
+    woop = np.asarray(jc.woop).copy()
+    starts, o, d, t_min, best = _window_inputs(woop.shape[0])
+    bt = best[0].copy()
+    keep = np.zeros(bt.shape, bool)
+    if case == "filler":
+        keep[1, 64:] = keep[3] = True
+        o[keep], d[keep] = 0.0, (0.0, 0.0, 1.0)
+        t_min[keep], bt[keep] = 1.0, 0.0
+    elif case == "dead":
+        keep[:, ::3] = keep[:, 1::7] = True
+        t_min[:, ::3] = bt[:, ::3]
+        t_min[:, 1::7] = bt[:, 1::7] * 1.5
+    else:
+        slot = window_sweep_plain(_t(woop), _t(starts), _t(o), _t(d),
+                                  _t(t_min), tuple(_t(b) for b in best))[1]
+        slots = slot.numpy()
+        slots = slots[(slots >= 0) & (slots % 256 != 255)]
+        r = int(np.bincount(slots).argmax())
+        woop[r + 1] = woop[r]
+    best = (bt,) + best[1:]
+    want, got = _hold_to_jax(ref, woop, starts, o, d, t_min, best)
+    for k in range(4):
+        np.testing.assert_array_equal(got[k][keep], best[k][keep])
+    assert (got[1][~keep] >= 0).sum() > 20
+    if case == "duplicate_row":
+        assert (got[1] == r).sum() > 0 and (got[1] == r + 1).sum() == 0
 
 
 def _pass_state(R, seed):

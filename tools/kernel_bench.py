@@ -81,6 +81,23 @@ def _time_camera(e, layout=lambda x: x):
     return (layout(e.t.o), layout(e.t.d), e.t.tmin, e.t.tmax)
 
 
+def _march(e, inter, wave, hier, any_hit=False):
+    """Kernel F's (``hier``) or B's arguments on a camera wave sorted as
+    the marcher sorts it; occlusion waves end at ``F_SEGMENT``."""
+    import torch
+    o, d, tmin, tmax = wave
+    if any_hit:
+        tmax = torch.full_like(tmax, e.cs.F_SEGMENT)
+    return dict(e.cs.coherent_wave(inter, o, d, tmin, tmax, hier),
+                any_hit=any_hit)
+
+
+def _sweep(e, o, d):
+    """Kernel G's arguments in the first sweep pass of the wave (o, d)."""
+    return dict(zip(("woop", "starts", "o", "d", "t_min", "best"),
+                    e.cs.first_pass_blocks(e.b.cs, o, d)))
+
+
 WAVES = {
     "A bench camera": ("tile_raster", "raster_cluster_call", lambda e: _a_wave(
         e, _bench_camera(e), e.b.o[0], e.b.pc_max1,
@@ -104,6 +121,34 @@ WAVES = {
             e.b.cs, e.b.oi, e.b.di, e.b.tmin0, e.b.tmax_inf)),
     "C flatten frame bounce 1": ("block_march", "probe_call",
                                  lambda e: e.cs.flatten_bounce_wave(e.t)),
+    "B incoherent 1M (bench scene)": (
+        "block_march", "march_call",
+        lambda e: e.cs.b_waves(e.b)["incoherent"][0]),
+    "E incoherent 1M (Time scene)": (
+        "block_march", "march_instanced_call",
+        lambda e: dict(e.cs.e_waves(e.t, e.tlas)[False], any_hit=False)),
+    "E incoherent 1M any-hit (Time scene)": (
+        "block_march", "march_instanced_call",
+        lambda e: dict(e.cs.e_waves(e.t, e.tlas)[True], any_hit=True)),
+    "F flatten camera": ("block_march", "march_hier_call", lambda e: _march(
+        e, e.t.finter, _time_camera(e), True)),
+    "F flatten camera any-hit": (
+        "block_march", "march_hier_call", lambda e: _march(
+            e, e.t.finter, _time_camera(e), True, any_hit=True)),
+    # the B/F crossover: both on the same coherent waves
+    "B flatten camera (3,368 clusters)": (
+        "block_march", "march_call", lambda e: _march(
+            e, e.t.finter, _time_camera(e), False)),
+    "F bench camera (388 clusters)": (
+        "block_march", "march_hier_call", lambda e: _march(
+            e, e.b.inter, _bench_camera(e), True)),
+    "B bench camera (388 clusters)": (
+        "block_march", "march_call", lambda e: _march(
+            e, e.b.inter, _bench_camera(e), False)),
+    "G camera first pass": ("leaf_sweep", "window_sweep_call",
+                            lambda e: _sweep(e, e.b.o, e.b.d)),
+    "G incoherent first pass": ("leaf_sweep", "window_sweep_call",
+                                lambda e: _sweep(e, e.b.oi, e.b.di)),
 }
 
 
@@ -125,7 +170,8 @@ def build_waves(names: list) -> None:
         module, fn, make = WAVES[name]
         kw = make(e)
         rays = kw.get("rays_t_ext", kw.get("rays"))
-        print(f"[wave] {name}: {rays.shape[1]} rays (with padding)")
+        n = rays.shape[1] if rays is not None else kw["t_min"].numel()
+        print(f"[wave] {name}: {n} rays (with padding)")
         waves[name] = (module, fn, kw)
     WAVE_FILE.parent.mkdir(parents=True, exist_ok=True)
     torch.save(waves, WAVE_FILE)

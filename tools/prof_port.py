@@ -55,14 +55,13 @@ def group(name: str, cat: str) -> str:
     """The breakdown's group of one device event."""
     if cat != "kernel":
         return "memcpy/memset"
-    if "block_march_hier_kernel" in name:
-        return "F block_march_hier"
-    for kernel, plain, instanced in (
-            ("warp_raster_kernel", "A tile_raster", "D tile_raster_inst"),
-            ("warp_march_kernel", "B block_march", "E block_march_inst")):
-        if kernel in name:
-            args = _template_args(name, kernel)
-            return instanced if args and args[-1] else plain
+    if "warp_raster_kernel" in name:   # <ANY_HIT, COMMON_ORIGIN, INST>
+        args = _template_args(name, "warp_raster_kernel")
+        return "D tile_raster_inst" if args and args[-1] else "A tile_raster"
+    if "warp_march_kernel" in name:    # <ANY_HIT, INST, HIER>
+        args = _template_args(name, "warp_march_kernel") or [False] * 3
+        return ("F block_march_hier" if args[2] else
+                "E block_march_inst" if args[1] else "B block_march")
     if "probe_kernel" in name:
         return "C probe"
     if "leaf_sweep_kernel" in name:
