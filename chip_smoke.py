@@ -74,25 +74,44 @@ CPU or to the plain versions):
 9. the frame's tail on phase 4's frame: render_frame with the a-trous and
    the neural denoiser (committed weights), each against the same
    denoiser on the CPU copy of the frame, accumulated into a Film and
-   written as PNGs.
+   written as PNGs;
+10. the animation entry point, ``optix_ray_tracer_tpu_torch.__main__.main``
+   on files this phase writes (:func:`animation_phase`): phase 5's pile
+   as a Time series (three STL shapes, 3 pose VTK files, a manifest, a
+   config at the reference's defaults: 1200x800, spp 1, depth 5,
+   whitted, a-trous, temporal on, 4 frames per file) through the default
+   route (flatten, fused: a host build on file 0, a device rebuild per
+   file, a refit per frame), all 12 frames to PNGs, with the seconds of
+   commit, the host build and the rebuilds ("median", and "morton" once
+   beside it), the refit ms, the wall s/frame, the launches per frame
+   of A-F (B, C, F > 0) and B's and F's device ms on each file's first
+   and last frame; the same series through the TLAS route
+   (``ORT_TIME_TLAS=1``, D, E > 0); with ``temporal`` off, flatten frame
+   0 against TLAS frame 0 and the fused loop against the per-frame loop
+   (``set_update_fn``) on frames 0-5, each pair > 2 LSB on < 1% of the
+   channels; the flatten route's peak device bytes per packed triangle
+   beside the TLAS route's; and Mesh mode (the pile as strip cells, 2
+   files x 2 frames) baked through ``"cache": true``, then rendered.
+   Every PNG shows the background on sky pixels.
 
 Every kernel's row in the kernels' JSON object is one whole main-path
 wave (a subset would leave most of the card idle): A the bench camera
 wave, B and E their 1M-ray incoherent waves, C the flatten frame's first
 bounce wave, D the TLAS camera wave, F the flatten camera wave, G the
-camera wave's first sweep pass.  It carries the kernel's launches on the
-main path, its error against its plain version, the whole wave's time,
-the plain version's time on what it compared (A, D: the whole wave), and
-the bound: the larger of the bytes the wave's inputs and outputs take
-over 3.35 TB/s and the float operations its answers need over 67 TFLOP/s
-FP32, the H100 SXM's published peaks.  The work is counted from this
-run's data, whatever the kernel did: A and D :func:`needed_raster_work`
-on the whole wave (a Woop test at WOOP_SHARED_ORIGIN_OPS: the tile shares
-its origin), C :func:`needed_probe_work` on the whole wave, B, E and F
-:func:`needed_work` on the subset scaled by the rays of the wave over the
-subset's (its warps spread evenly over the wave), G every (ray, row)
+camera wave's first sweep pass. It carries the kernel's launches on the
+main paths (phases 4, 7, 8 and 10), its error against its plain version,
+the whole wave's time, the plain version's time on what it compared (A,
+D: the whole wave), and the bound: the larger of the bytes the wave's
+inputs and outputs take over 3.35 TB/s and the float operations its
+answers need over 67 TFLOP/s FP32, the H100 SXM's published peaks. The
+work is counted from this run's data, whatever the kernel did: A and D
+:func:`needed_raster_work` on the whole wave (a Woop test at
+WOOP_SHARED_ORIGIN_OPS: the tile shares its origin), C
+:func:`needed_probe_work` on the whole wave, B, E and F
+:func:`needed_work` on the subset scaled by the rays of the wave over
+the subset's (its warps spread evenly over the wave), G every (ray, row)
 test of the pass's live lanes (t_min < best t: a filler lane of a window
-group or a dead ray accepts no row).  The last two lines of standard
+group or a dead ray accepts no row). The last two lines of standard
 output are the kernels' JSON object and the device JSON object.
 ``tools/prof_port.py`` profiles the same cells through
 :func:`bench_setup`, :func:`bench_step`, :func:`whitted_setup`,
@@ -1456,6 +1475,531 @@ def frame_tail(f: SimpleNamespace, card: str) -> None:
             raise AssertionError(f"{name}: card and CPU disagree by {err}")
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: the animation entry point (python -m optix_ray_tracer_tpu_torch)
+# ---------------------------------------------------------------------------
+
+ANIM_WIDTH, ANIM_HEIGHT = 1200, 800    # the reference's window
+ANIM_TIMES = (0.0, 0.25, 0.5)          # three pose files
+ANIM_FPS = 16                          # 0.25 s x 16 fps x ratio 1 = 4 frames
+ANIM_FRAMES = 12
+ANIM_TLAS_FRAMES = 4
+ANIM_CHECK_FRAMES = 6                  # frames 0-5 cross a file boundary
+MESH_TIMES = (0.0, 0.25)               # Mesh mode: 2 files x 2 frames
+MESH_FPS = 8
+
+
+def quat_matrix(q):
+    """(n, 4) unit quaternions (w, x, y, z) -> (n, 3, 3) rotations."""
+    w, x, y, z = (q[:, i] for i in range(4))
+    return np.stack([
+        np.stack([1 - 2 * (y * y + z * z), 2 * (x * y - w * z),
+                  2 * (x * z + w * y)], -1),
+        np.stack([2 * (x * y + w * z), 1 - 2 * (x * x + z * z),
+                  2 * (y * z - w * x)], -1),
+        np.stack([2 * (x * z - w * y), 2 * (y * z + w * x),
+                  1 - 2 * (x * x + y * y)], -1)], -2)
+
+
+def pile_poses(n: int, times, seed: int = 7) -> list:
+    """Phase 5's pile as a pose series: shape ids, quaternions and
+    positions drawn as :func:`time_setup` draws them; in file f the
+    positions have moved by velocity x times[f] and the quaternions have
+    turned from the first set toward the second by f / (files - 1)."""
+    gen = np.random.default_rng(seed)
+    sid = gen.integers(0, len(TIME_LIBRARY), n)
+    q = gen.normal(size=(n, 4))
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    pos = gen.uniform(-15.0, 15.0, (n, 3))
+    q_next = gen.normal(size=(n, 4))
+    q_next /= np.linalg.norm(q_next, axis=1, keepdims=True)
+    vel = gen.normal(size=(n, 3)) * 0.5
+    out = []
+    for f, t in enumerate(times):
+        a = f / max(len(times) - 1, 1)
+        qf = q * (1.0 - a) + q_next * np.where(
+            (q * q_next).sum(1, keepdims=True) < 0, -a, a)
+        qf /= np.linalg.norm(qf, axis=1, keepdims=True)
+        out.append(dict(pos=pos + vel * t, quat=qf, vel=vel, sid=sid,
+                        ids=np.arange(n)))
+    return out
+
+
+def write_stl(path, vertices) -> None:
+    """A binary STL of (T, 3, 3) triangles (facet normals left zero: the
+    readers recompute them)."""
+    rec = np.zeros(len(vertices), dtype=[("n", "<f4", (3,)),
+                                         ("v", "<f4", (3, 3)),
+                                         ("attr", "<u2")])
+    rec["v"] = vertices
+    with open(path, "wb") as f:
+        f.write(b"\0" * 80 + np.uint32(len(vertices)).tobytes()
+                + rec.tobytes())
+
+
+def write_manifest(path, names, times) -> None:
+    Path(path).write_text(json.dumps({"file-series-version": "1.0", "files": [
+        {"name": n, "time": t} for n, t in zip(names, times)]}))
+
+
+def write_time_series(root, shapes, poses, times, binary: bool = True):
+    """A Time series under ``root``: one STL per library shape
+    (shapes/shapeNN.stl, the lexicographic order is the shape id), one
+    pose VTK per file (points with id, quat, vel, shape_id) and
+    pile.vtk.series.  Returns (series path, STL directory)."""
+    from optix_ray_tracer_tpu_torch.io.vtk import PolyData, write_polydata
+    root = Path(root)
+    (root / "shapes").mkdir(parents=True, exist_ok=True)
+    for i, (v, _) in enumerate(shapes):
+        write_stl(root / "shapes" / f"shape{i:02d}.stl", v)
+    names = []
+    for f, p in enumerate(poses):
+        names.append(f"pose{f}.vtk")
+        write_polydata(root / names[-1], PolyData(
+            points=np.asarray(p["pos"], np.float64), vertices=[], lines=[],
+            polygons=[], triangle_strips=[], cell_data={}, point_data={
+                "id": np.asarray(p["ids"], np.int32),
+                "quat": np.asarray(p["quat"], np.float64),
+                "vel": np.asarray(p["vel"], np.float64),
+                "shape_id": np.asarray(p["sid"], np.int32)}), binary=binary)
+    write_manifest(root / "pile.vtk.series", names, times)
+    return root / "pile.vtk.series", root / "shapes"
+
+
+def sphere_strip(n_target: int):
+    """The UV grid of ``sphere_with_n_triangles(n_target)`` as one
+    triangle strip: (points (P, 3), strip indices).  Each latitude band is
+    a strip; bands join through 4 zero-area triangles."""
+    n_lat = max(2, int(np.sqrt(n_target / 4)))
+    n_lon = max(3, n_target // (2 * n_lat))
+    lat = np.linspace(0.0, np.pi, n_lat + 1)
+    lon = np.linspace(0.0, 2 * np.pi, n_lon + 1)
+    th, ph = np.meshgrid(lat, lon, indexing="ij")
+    pts = np.stack([np.sin(th) * np.cos(ph), np.sin(th) * np.sin(ph),
+                    np.cos(th)], -1).reshape(-1, 3)
+    grid = np.arange(pts.shape[0]).reshape(n_lat + 1, n_lon + 1)
+    strip = []
+    for i in range(n_lat):
+        band = np.stack([grid[i], grid[i + 1]], 1).reshape(-1)
+        if strip:
+            strip += [strip[-1], int(band[0])]
+        strip += band.tolist()
+    return pts, np.asarray(strip, np.int64)
+
+
+def write_mesh_series(root, poses, times) -> Path:
+    """A Mesh series under ``root``: per file, every particle of the pile
+    as one TRIANGLE_STRIPS cell of its world points (its library shape's
+    UV grid, rotated and moved to its pose) with its id and velocity.
+    Returns the series path."""
+    from optix_ray_tracer_tpu_torch.io.vtk import PolyData, write_polydata
+    root = Path(root)
+    root.mkdir(parents=True, exist_ok=True)
+    grids = [sphere_strip(s) for s in TIME_LIBRARY]
+    names = []
+    for f, p in enumerate(poses):
+        rot = quat_matrix(p["quat"])
+        points, strips, base = [], [], 0
+        for i, s in enumerate(p["sid"]):
+            g, strip = grids[s]
+            points.append(g @ rot[i].T + p["pos"][i])
+            strips.append(strip + base)
+            base += g.shape[0]
+        names.append(f"mesh{f}.vtk")
+        write_polydata(root / names[-1], PolyData(
+            points=np.concatenate(points), vertices=[], lines=[],
+            polygons=[], triangle_strips=strips, point_data={}, cell_data={
+                "id": np.asarray(p["ids"], np.int32),
+                "vel": np.asarray(p["vel"], np.float64)}))
+    write_manifest(root / "mesh.vtk.series", names, times)
+    return root / "mesh.vtk.series"
+
+
+def write_anim_config(path, series, stl_dir, cache_dir, width: int,
+                      height: int, fps: int, mesh: bool = False,
+                      **extra) -> Path:
+    """A config JSON at the reference's defaults (whitted, spp 1, depth 5,
+    a-trous, temporal on) over the pile's ground quad (an OBJ beside it)
+    and phase 5's camera; ``extra`` overrides keys."""
+    path = Path(path)
+    obj = path.with_suffix(".ground.obj")
+    obj.write_text("v -40 -40 -16\nv 40 -40 -16\nv 40 40 -16\nv -40 40 -16\n"
+                   "f 1 2 3\nf 1 3 4\n")
+    eye = np.asarray(TIME_EYE, np.float64)
+    target = eye - TIME_FOCAL * eye / np.linalg.norm(eye)
+    cfg = {"mesh": mesh, "series-path": str(Path(series).parent),
+           "series-name": Path(series).name, "stl-path": str(stl_dir),
+           "cache-path": str(cache_dir), "cache": False,
+           "particle-material-preset": "viridis",
+           "roughs": [{"albedo": [0.70, 0.60, 0.50]}], "metals": [],
+           "spheres": [], "meshes": [{"obj": obj.name, "mat-type": "ROUGH",
+                                      "mat-index": 0}],
+           "integrator": "whitted", "spp": 1, "max-depth": DEPTH,
+           "denoise": "atrous", "temporal": True, "seed": 0,
+           "loop-data": {"api": "HEADLESS", "window-width": width,
+                         "window-height": height, "fps": fps,
+                         "render-speed-ratio": 1,
+                         "camera-center": eye.tolist(),
+                         "camera-target": target.tolist(),
+                         "up-direction": [0.0, 0.0, 1.0]}}
+    cfg.update(extra)
+    path.write_text(json.dumps(cfg))
+    return path
+
+
+def read_png(path) -> np.ndarray:
+    """(H, W, 4) uint8 of a PNG written by ``utils.color.write_png`` (8-bit
+    RGBA, one IDAT, filter 0 on every row)."""
+    import struct
+    import zlib
+    data = Path(path).read_bytes()
+    w, h = struct.unpack(">II", data[16:24])
+    n = struct.unpack(">I", data[33:37])[0]
+    raw = np.frombuffer(zlib.decompress(data[41:41 + n]), np.uint8)
+    rows = raw.reshape(h, 1 + 4 * w)
+    if rows[:, 0].any():
+        raise ValueError(f"{path}: a row is not filter 0")
+    return rows[:, 1:].reshape(h, w, 4)
+
+
+def check_pngs(paths, label: str) -> list:
+    """Each PNG decoded; each must show the background on some pixels.
+    Returns the images."""
+    imgs = [read_png(p) for p in paths]
+    for p, img in zip(paths, imgs):
+        if not (img[..., :3] == SKY).all(-1).any():
+            raise AssertionError(f"{label}: no sky pixel in {p}")
+    return imgs
+
+
+def agree(a, b, label: str) -> None:
+    """Phase 7's rule for two 8-bit frames: > 2 LSB on < 1% of channels."""
+    diff = np.abs(a.astype(np.int32) - b.astype(np.int32))
+    over2 = float((diff > 2).mean())
+    print(f"  {label}: max {int(diff.max())} LSB, {over2:.6f} of channels "
+          f"> 2 LSB, mean {float(diff.mean()):.4f} LSB")
+    if over2 >= 0.01:
+        raise AssertionError(f"{label}: the frames disagree")
+
+
+@contextlib.contextmanager
+def timed_calls(module, name: str, log: list, tag=lambda: None):
+    """Within the block, every call of ``module.name`` appends (tag(),
+    start event, end event), CUDA events on the current stream around
+    the call (no synchronisation)."""
+    import torch
+    real = getattr(module, name)
+
+    def timed(*args, **kw):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = real(*args, **kw)
+        b.record()
+        log.append((tag(), a, b))
+        return out
+
+    setattr(module, name, timed)
+    try:
+        yield log
+    finally:
+        setattr(module, name, real)
+
+
+@contextlib.contextmanager
+def host_timed(module, name: str, log: list, sync: bool = True):
+    """Within the block, every call of ``module.name`` appends its seconds
+    on the host clock, the device synchronised before and after unless
+    ``sync`` is False (host work that must not wait for queued frames)."""
+    import torch
+    real = getattr(module, name)
+
+    def timed(*args, **kw):
+        if sync:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real(*args, **kw)
+        if sync:
+            torch.cuda.synchronize()
+        log.append(time.perf_counter() - t0)
+        return out
+
+    setattr(module, name, timed)
+    try:
+        yield log
+    finally:
+        setattr(module, name, real)
+
+
+def zero_counts():
+    from optix_ray_tracer_tpu_torch.ops.kernels import _lib
+    for k in _lib.KERNELS:
+        k.launches = 0
+
+
+def run_cli(argv) -> None:
+    from optix_ray_tracer_tpu_torch import __main__ as cli
+    rc = cli.main([str(a) for a in argv])
+    if rc != 0:
+        raise AssertionError(f"main({argv}) returned {rc}")
+
+
+def animation_phase(card: str) -> dict:
+    """Phase 10: the animation entry point, ``__main__.main(argv)`` on a
+    series this phase writes.  Returns the launches of A-F it made."""
+    import os
+    import tempfile
+
+    import torch
+
+    from optix_ray_tracer_tpu_torch.io.config import load_config
+    from optix_ray_tracer_tpu_torch.io.meshgen import sphere_with_n_triangles
+    from optix_ray_tracer_tpu_torch.models import common, fused
+    from optix_ray_tracer_tpu_torch.models import renderer_mesh as rm
+    from optix_ray_tracer_tpu_torch.models import renderer_time as rt
+    from optix_ray_tracer_tpu_torch.ops import march
+    from optix_ray_tracer_tpu_torch.ops.kernels import block_march as bm
+    from optix_ray_tracer_tpu_torch.render.film import U8Frame
+
+    tmp = tempfile.TemporaryDirectory(prefix="anim_")
+    root = Path(tmp.name)
+    launches = {}
+    try:
+        poses = pile_poses(N_PARTICLES, ANIM_TIMES)
+        series, stl_dir = write_time_series(
+            root / "time", [sphere_with_n_triangles(s) for s in TIME_LIBRARY],
+            poses, ANIM_TIMES)
+        cfg = write_anim_config(root / "time.json", series, stl_dir,
+                                root / "cache", ANIM_WIDTH, ANIM_HEIGHT,
+                                ANIM_FPS)
+        print(f"[anim] wrote a Time series: {len(ANIM_TIMES)} pose files of "
+              f"{N_PARTICLES} particles, library {list(TIME_LIBRARY)}; "
+              f"{ANIM_WIDTH}x{ANIM_HEIGHT}, spp 1, depth {DEPTH}, whitted, "
+              f"a-trous, temporal on, 4 frames per file")
+
+        # 1. the default route: flatten, fused, all frames to PNGs
+        commit_s, build_s, rebuilds, refits, marches = [], [], [], [], []
+        saves = []
+        frame = [-1]
+
+        def tag():
+            return frame[0]
+
+        real_refit = fused.refit_march_intersector
+
+        def counted_refit(*args, **kw):
+            frame[0] += 1
+            return real_refit(*args, **kw)
+
+        zero_counts()
+        fused.refit_march_intersector = counted_refit
+        try:
+            with host_timed(rt, "commit", commit_s), \
+                    host_timed(common, "make_march_intersector", build_s), \
+                    timed_calls(common, "rebuild_march_intersector",
+                                rebuilds), \
+                    timed_calls(fused, "refit_march_intersector", refits,
+                                tag), \
+                    timed_calls(bm, "march_call", marches,
+                                lambda: ("B", frame[0])), \
+                    timed_calls(bm, "march_hier_call", marches,
+                                lambda: ("F", frame[0])), \
+                    host_timed(U8Frame, "save", saves, sync=False):
+                run_cli(["--config", cfg, "--output", root / "out1",
+                         "--frames", ANIM_FRAMES])
+                end = torch.cuda.Event(enable_timing=True)
+                end.record()
+                end.synchronize()
+        finally:
+            fused.refit_march_intersector = real_refit
+        counts = {k: K[k].launches for k in "ABCDEF"}
+        for k in "ABCDEF":
+            launches[K[k].name] = counts[k]
+        pngs = sorted((root / "out1").glob("frame_*.png"))
+        if len(pngs) != ANIM_FRAMES or frame[0] != ANIM_FRAMES - 1:
+            raise AssertionError(f"{len(pngs)} PNGs, {frame[0] + 1} refits")
+        imgs = check_pngs(pngs, "flatten fused")
+        starts = {f: a for f, a, _ in refits}
+        per_frame = starts[2].elapsed_time(end) / (ANIM_FRAMES - 2) / 1e3
+        refit_ms = [a.elapsed_time(b) for _, a, b in refits]
+        print(f"[anim] flatten route, fused, {ANIM_FRAMES} frames "
+              f"[{card}]: commit {commit_s[0]:.3f} s; host SAH build (file "
+              f"0) {build_s[0]:.3f} s; device rebuilds (median, files 1-2) "
+              + ", ".join(f"{a.elapsed_time(b):.1f}" for _, a, b in rebuilds)
+              + f" ms (CUDA events, queued behind the frames); refit + "
+              f"attach_raster per frame {np.median(refit_ms):.3f} ms median "
+              f"({min(refit_ms):.3f}-{max(refit_ms):.3f}); wall "
+              f"{per_frame:.4f} s/frame over frames 2-{ANIM_FRAMES - 1} "
+              f"(CUDA events)")
+        gaps = [starts[f].elapsed_time(starts[f + 1])
+                for f in range(2, ANIM_FRAMES - 1)]
+        print(f"  device timeline from each frame's refit to the next's, "
+              f"frames 2-{ANIM_FRAMES - 2}: "
+              + ", ".join(f"{g:.1f}" for g in gaps)
+              + f" ms; PNG encode + write on the host "
+              f"{1e3 * np.mean(saves):.1f} ms per frame (the CLI writes "
+              f"one chunk's PNGs while the next chunk renders)")
+        print("[anim] launches per frame: " + ", ".join(
+            f"{k} {counts[k] / ANIM_FRAMES:.2f}" for k in "ABCF"))
+        if min(counts["B"], counts["C"], counts["F"]) == 0:
+            raise AssertionError("the flatten loop missed kernel B, C or F")
+        for f in range(len(ANIM_TIMES)):
+            row_ = []
+            for j in (0, 3):
+                fr = 4 * f + j
+                for kk in "BF":
+                    ms = sum(a.elapsed_time(b) for (k2, f2), a, b in marches
+                             if k2 == kk and f2 == fr)
+                    row_.append(f"{kk} {ms:.3f}")
+                row_[-2] = f"frame {j}: " + row_[-2]
+            print(f"  file {f}: device ms " + "; ".join(row_))
+
+        # the device rebuild alone, median and morton, on file 1's frame 0
+        data = rt.commit(load_config(str(cfg)))
+        n1 = common.frame_count_for_file(data.durations[1], ANIM_FPS, 1)
+        s0 = rt.frame_scene(data, 0, 0, n1)
+        s1 = rt.frame_scene(data, 1, 0, n1)
+        base = common.choose_intersector(s0)
+        t_pack = int(data.tri_lib_idx.shape[1])
+        for method in ("median", "morton"):
+            ms = time_ms(lambda: march.rebuild_march_intersector(
+                base, s1, method=method), 3)
+            print(f"  device rebuild {method} of file 1 ({s1.triangle_count}"
+                  f" triangles): {ms:.1f} ms (CUDA events, mean of 3) "
+                  f"[{card}]")
+        del data, base, s0, s1
+
+        # 2. the same series through the TLAS route
+        torch.cuda.synchronize()
+        mem0 = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        os.environ["ORT_TIME_TLAS"] = "1"
+        tlas_frames, tlas_saves = [], []
+        t0 = time.perf_counter()
+        try:
+            with timed_calls(rt, "tlas_frame_intersector", tlas_frames), \
+                    host_timed(U8Frame, "save", tlas_saves, sync=False):
+                run_cli(["--config", cfg, "--output", root / "out2",
+                         "--frames", ANIM_TLAS_FRAMES])
+                end = torch.cuda.Event(enable_timing=True)
+                end.record()
+                end.synchronize()
+        finally:
+            del os.environ["ORT_TIME_TLAS"]
+        tlas_s = time.perf_counter() - t0
+        tlas_peak = torch.cuda.max_memory_allocated() - mem0
+        for k in "DE":
+            launches[K[k].name] += K[k].launches
+        per_frame = (tlas_frames[1][1].elapsed_time(end)
+                     / (ANIM_TLAS_FRAMES - 1) / 1e3)
+        print(f"[anim] TLAS route (ORT_TIME_TLAS=1) [{card}]: "
+              f"{ANIM_TLAS_FRAMES} frames in {tlas_s:.2f} s with commit and "
+              f"library build; wall {per_frame:.4f} s/frame over frames "
+              f"1-{ANIM_TLAS_FRAMES - 1} (CUDA events; PNG encode + write "
+              f"{1e3 * np.mean(tlas_saves):.1f} ms of it); launches per "
+              f"frame: D {K['D'].launches / ANIM_TLAS_FRAMES:.2f}, E "
+              f"{K['E'].launches / ANIM_TLAS_FRAMES:.2f}")
+        if min(K["D"].launches, K["E"].launches) == 0:
+            raise AssertionError("the TLAS loop missed kernel D or E")
+        tlas_imgs = check_pngs(sorted((root / "out2").glob("frame_*.png")),
+                               "TLAS")
+
+        # 3. agreement with temporal off: flatten fused vs TLAS frame 0,
+        # fused vs per-frame on frames 0-5 (a file boundary: a rebuild)
+        cfg_nt = write_anim_config(root / "notemporal.json", series, stl_dir,
+                                   root / "cache", ANIM_WIDTH, ANIM_HEIGHT,
+                                   ANIM_FPS, temporal=False)
+        torch.cuda.synchronize()
+        mem0 = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        run_cli(["--config", cfg_nt, "--output", root / "out3", "--frames",
+                 ANIM_CHECK_FRAMES])
+        torch.cuda.synchronize()
+        flat_peak = torch.cuda.max_memory_allocated() - mem0
+        for k in "ABCF":
+            launches[K[k].name] += K[k].launches
+        fused_imgs = check_pngs(sorted((root / "out3").glob("frame_*.png")),
+                                "flatten fused, temporal off")
+        print("[anim] temporal off:")
+        agree(fused_imgs[0], tlas_imgs[0], "flatten frame 0 vs TLAS frame 0")
+        data = rt.commit(load_config(str(cfg_nt)))
+        rt.set_update_fn(data, lambda spheres, k: None)
+        zero_counts()
+        t0 = time.perf_counter()
+        per = [f.to_uint8() for _, _, f in rt.render_frames(
+            data, max_frames=ANIM_CHECK_FRAMES, quantize=True)]
+        torch.cuda.synchronize()
+        print(f"  per-frame loop (set_update_fn): {ANIM_CHECK_FRAMES} frames "
+              f"in {time.perf_counter() - t0:.2f} s with its host build "
+              f"[{card}]")
+        for k in "ABCF":
+            launches[K[k].name] += K[k].launches
+        for j, (a, b) in enumerate(zip(fused_imgs, per)):
+            agree(a, b, f"fused vs per-frame frame {j}")
+        del data, per
+
+        # 5. the flatten route's device bytes per packed triangle
+        print(f"[anim] peak device memory above the start: flatten "
+              f"{flat_peak / 2**20:.1f} MiB, TLAS {tlas_peak / 2**20:.1f} "
+              f"MiB; flatten - TLAS over {t_pack} packed triangles: "
+              f"{(flat_peak - tlas_peak) / t_pack:.1f} B per triangle "
+              f"(renderer_time._FLATTEN_BYTES_PER_TRI = "
+              f"{rt._FLATTEN_BYTES_PER_TRI}) [{card}]")
+
+        # 4. Mesh mode: bake through the CLI, then render
+        mesh_series = write_mesh_series(root / "mesh", poses[:2], MESH_TIMES)
+        bake = write_anim_config(root / "bake.json", mesh_series, stl_dir,
+                                 root / "mesh_cache", ANIM_WIDTH,
+                                 ANIM_HEIGHT, MESH_FPS, mesh=True,
+                                 cache=True)
+        t0 = time.perf_counter()
+        run_cli(["--config", bake])
+        bake_s = time.perf_counter() - t0
+        mesh_cfg = write_anim_config(root / "mesh.json", mesh_series,
+                                     stl_dir, root / "mesh_cache",
+                                     ANIM_WIDTH, ANIM_HEIGHT, MESH_FPS,
+                                     mesh=True)
+        load_s, mesh_build, mesh_frames = [], [], []
+        zero_counts()
+        t0 = time.perf_counter()
+        with host_timed(rm, "commit", load_s), \
+                host_timed(common, "make_march_intersector", mesh_build), \
+                timed_calls(fused, "refit_march_intersector", mesh_frames):
+            run_cli(["--config", mesh_cfg, "--output", root / "out4"])
+            end = torch.cuda.Event(enable_timing=True)
+            end.record()
+            end.synchronize()
+        mesh_s = time.perf_counter() - t0
+        for k in "ABCF":
+            launches[K[k].name] += K[k].launches
+        mesh_pngs = sorted((root / "out4").glob("frame_*.png"))
+        check_pngs(mesh_pngs, "Mesh")
+        n_mesh = len(mesh_pngs)
+        per_frame = (mesh_frames[1][1].elapsed_time(end) / (n_mesh - 1)
+                     / 1e3)
+        print(f"[anim] Mesh mode, {len(MESH_TIMES)} files x 2 frames "
+              f"[{card}]: bake {bake_s:.2f} s, cache load + commit "
+              f"{load_s[0]:.2f} s, host SAH build of file 0 "
+              f"{mesh_build[0]:.2f} s, {n_mesh} "
+              f"frames in {mesh_s:.2f} s in all; wall {per_frame:.4f} "
+              f"s/frame over frames 1-{n_mesh - 1} (CUDA events, a device "
+              f"rebuild at frame 2); launches B {K['B'].launches}, C "
+              f"{K['C'].launches}, F {K['F'].launches}")
+        if n_mesh != 2 * len(MESH_TIMES):
+            raise AssertionError(f"Mesh mode wrote {n_mesh} frames")
+        OUT_DIR.mkdir(parents=True, exist_ok=True)
+        for name, img in (("anim_flatten_frame11", imgs[-1]),
+                          ("anim_tlas_frame0", tlas_imgs[0])):
+            from optix_ray_tracer_tpu_torch.utils.color import write_png
+            write_png(OUT_DIR / f"{name}.png", img)
+    finally:
+        tmp.cleanup()
+    return launches
+
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -1481,6 +2025,8 @@ def main() -> None:
     launches.update(time_frames(t, card))
     rows["leaf_sweep"], launches["leaf_sweep"] = sweep_phase(b, frame, card)
     frame_tail(frame, card)
+    for name, n in animation_phase(card).items():
+        launches[name] += n
     print(json.dumps({"kernels": [
         {"name": k.name, "route": "cuda", "source": k.source,
          "replaces": k.replaces, "launches": launches[k.name],

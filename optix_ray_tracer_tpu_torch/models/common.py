@@ -1,23 +1,218 @@
-"""The frame step of the frontends (port of the denoiser tail of
-``optix_ray_tracer_tpu/models/common.py``): one frame through the
-configured integrator, then the configured denoiser.
+"""Shared frontend plumbing (port of
+``optix_ray_tracer_tpu/models/common.py``): config -> materials, extra
+geometry and camera; the per-frame intersector choice with its device
+refit and rebuild; and the frame step (integrator, then denoiser).
 
-The config is read by attribute (``integrator``, ``background``,
-``max_depth``, ``sampler``, ``denoise``, ``denoiser``), so any object
-with those fields serves, the JAX package's ``RendererConfig`` included.
-Only the Whitted wavefront integrator is ported: the path tracer and the
-ReSTIR integrators wait for ROADMAP queue 1 items 10-11, and
-``choose_intersector`` with the refit/rebuild loop for item 9.
+The config is read by attribute, so any object with the
+``RendererConfig`` fields serves, the JAX package's included.  Only the
+Whitted wavefront integrator is ported: the path tracer, ReSTIR,
+environment maps and textures wait for ROADMAP queue 1 item 4
+(:func:`render_frame`, :func:`build_envmap` and :func:`build_textures`
+raise for them).  Builders that make tensors take ``device`` (None: the
+card).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import logging
 import os
 import types
 
+import numpy as np
+
+from optix_ray_tracer_tpu_torch.io.config import ConfigError
+from optix_ray_tracer_tpu_torch.ops.march import (
+    MarchIntersector, make_march_intersector, rebuild_march_intersector,
+    refit_march_intersector,
+)
 from optix_ray_tracer_tpu_torch.render import neural_denoise, wavefront
 from optix_ray_tracer_tpu_torch.render.denoise import denoise
+from optix_ray_tracer_tpu_torch.scene.camera import Camera
+from optix_ray_tracer_tpu_torch.scene.geometry import Spheres, Triangles
+from optix_ray_tracer_tpu_torch.scene.materials import MaterialBuilder
+from optix_ray_tracer_tpu_torch.utils import debug
+from optix_ray_tracer_tpu_torch.utils.colorramp import bake_color_ramp
+
+_NOT_PORTED = "is not ported yet (ROADMAP queue 1 item 4)"
+
+
+@dataclasses.dataclass(frozen=True)
+class MaterialBases:
+    """Row bases of each config material list in the packed table."""
+    rough: int
+    metal: int
+    dielectric: int
+    emissive: int
+    material_offset: int      # base of the baked particle ramp
+
+    def resolve(self, mat_type: str, mat_index: int) -> int:
+        base = {"ROUGH": self.rough, "METAL": self.metal,
+                "DIELECTRIC": self.dielectric,
+                "EMISSIVE": self.emissive}[mat_type]
+        return base + mat_index
+
+
+def build_materials(config, particle_count: int, device=None):
+    """Materials = config roughs ++ metals ++ dielectrics ++ emissives ++
+    the baked particle ramp (the reference's global material array,
+    ``RendererMesh.cu:223-233``).  Returns (MaterialTable, MaterialBases)."""
+    mb = MaterialBuilder()
+    for albedo in config.roughs:
+        mb.add_rough(albedo)
+    metal_base = len(config.roughs)
+    for albedo, fuzz in config.metals:
+        mb.add_metal(albedo, fuzz)
+    dielectric_base = len(mb)
+    for ior in config.dielectrics:
+        mb.add_dielectric(ior)
+    emissive_base = len(mb)
+    for emission in config.emissives:
+        mb.add_emissive(emission)
+    material_offset = len(mb)
+    if particle_count > 0:
+        mb.add_ramp(bake_color_ramp(config.particle_material_preset,
+                                    particle_count))
+    return mb.build(device), MaterialBases(
+        rough=0, metal=metal_base, dielectric=dielectric_base,
+        emissive=emissive_base, material_offset=material_offset)
+
+
+def build_extra_spheres(config, bases: MaterialBases,
+                        device=None) -> Spheres:
+    """Config ``spheres`` with their static SRT transforms applied."""
+    rows = []
+    for s in config.spheres:
+        center, radius = s.world_center_radius()
+        rows.append((center, radius, bases.resolve(s.mat_type, s.mat_index)))
+    return Spheres.from_list(rows, device)
+
+
+def build_extra_triangles(config, bases: MaterialBases,
+                          device=None) -> Triangles:
+    """Static extra meshes from config ``meshes`` (OBJ files with an
+    optional SRT and material override)."""
+    from optix_ray_tracer_tpu_torch.io.obj import read_obj
+    from optix_ray_tracer_tpu_torch.utils.transforms import srt_transform
+
+    if not config.meshes:
+        return Triangles.empty(device)
+    vs, ns, ms = [], [], []
+    for m in config.meshes:
+        mesh = read_obj(config.resolve(str(m["obj"])))
+        v = np.asarray(mesh.vertices, np.float32)      # (T, 3, 3)
+        n = np.asarray(mesh.normals, np.float32)
+        t = srt_transform(tuple(m.get("shift", (0, 0, 0))),
+                          tuple(m.get("rotate", (0, 0, 0))),
+                          tuple(m.get("scale", (1, 1, 1)))).cpu().numpy()
+        v = v @ t[:, :3].T + t[:, 3]
+        rot = t[:, :3]
+        # normals: inverse-transpose rotation (uniform scale: rot works)
+        n = n @ np.linalg.inv(rot).astype(np.float32)
+        norm = np.linalg.norm(n, axis=-1, keepdims=True)
+        n = n / np.maximum(norm, 1e-12)
+        mat_type = str(m.get("mat-type", "ROUGH"))
+        if mat_type not in ("ROUGH", "METAL", "DIELECTRIC", "EMISSIVE"):
+            raise ConfigError(f"mesh mat-type '{mat_type}' unknown")
+        mat = bases.resolve(mat_type, int(m.get("mat-index", 0)))
+        vs.append(v)
+        ns.append(n)
+        ms.append(np.full(len(v), mat, np.int32))
+    return Triangles.from_arrays(np.concatenate(vs), np.concatenate(ns),
+                                 np.concatenate(ms), device=device)
+
+
+def build_envmap(config, device=None):
+    """Config ``envmap`` -> None when the config names none; environment
+    maps are not ported yet."""
+    if config.envmap is None:
+        return None
+    raise NotImplementedError(f"the config's envmap {_NOT_PORTED}")
+
+
+def build_textures(config, bases: MaterialBases, num_materials: int,
+                   device=None):
+    """Config ``textures`` -> None when the config names none; textures
+    are not ported yet."""
+    if not config.textures_cfg:
+        return None
+    raise NotImplementedError(f"the config's textures {_NOT_PORTED}")
+
+
+def camera_from_config(config, device=None) -> Camera:
+    ld = config.loop_data
+    return Camera.look_at(ld.camera_center, ld.camera_target,
+                          ld.up_direction, aperture=ld.aperture,
+                          focus_dist=ld.focus_distance, device=device)
+
+
+def frame_count_for_file(duration: float, fps: int,
+                         render_speed_ratio: int) -> int:
+    """Frames per animation segment = duration * fps * renderSpeedRatio
+    (``RendererMesh.cu:370-371``)."""
+    return max(1, int(duration * float(fps * render_speed_ratio)))
+
+
+def pad_stack(arrays: list[np.ndarray], pad_value=0.0) -> np.ndarray:
+    """Stack variable-length leading-dim arrays padded to the max length
+    (one frame shape for every file of a series)."""
+    if not arrays:
+        return np.zeros((0, 0), np.float32)
+    max_len = max(a.shape[0] for a in arrays)
+    out = np.full((len(arrays), max_len) + arrays[0].shape[1:], pad_value,
+                  arrays[0].dtype)
+    for i, a in enumerate(arrays):
+        out[i, :a.shape[0]] = a
+    return out
+
+
+def choose_intersector(scene):
+    """The per-frame intersector of the render loops: a raster-enabled
+    ``MarchIntersector`` built on the host, or None (brute force) for
+    scenes under 1024 triangles on the CPU (the JAX package's rule on
+    its CPU backend) and for scenes without triangles on the card.
+    Debug mode keeps the plain marcher, as in the JAX package."""
+    tv = scene.triangles.vertices
+    threshold = 1024 if tv.device.type == "cpu" else 1
+    if scene.triangle_count < threshold:
+        return None
+    intersector = make_march_intersector(scene, raster=not debug.DEBUG_MODE)
+    debug.maybe_validate_accel(intersector, scene)
+    return intersector
+
+
+def refit_or_choose(prev, scene):
+    """Per-frame intersector: the device refit of ``prev`` when it is a
+    ``MarchIntersector`` of the same triangle count, else a fresh
+    :func:`choose_intersector` (the reference's accel policy: build per
+    file, refit per frame, ``RendererImpl.cu:210-242``)."""
+    if (isinstance(prev, MarchIntersector)
+            and scene.triangle_count == prev.num_tris):
+        intersector = refit_march_intersector(prev, scene)
+        debug.maybe_validate_accel(intersector, scene)
+        return intersector
+    return choose_intersector(scene)
+
+
+def rebuild_or_choose(prev, scene):
+    """Per-file intersector: the device rebuild of ``prev`` (a fresh
+    median-split slot order, no host round trip) when shapes allow, else
+    a fresh :func:`choose_intersector`."""
+    if (isinstance(prev, MarchIntersector)
+            and scene.triangle_count == prev.num_tris):
+        intersector = rebuild_march_intersector(prev, scene)
+        debug.maybe_validate_accel(intersector, scene)
+        return intersector
+    return choose_intersector(scene)
+
+
+def collect_lights(config, scene, materials):
+    """Area lights for the path and ReSTIR integrators: None for
+    ``whitted``, which uses none; the others are not ported yet."""
+    if config.integrator not in ("path", "restir", "restir-gi"):
+        return None
+    raise NotImplementedError(
+        f"integrator {config.integrator!r} {_NOT_PORTED}")
 
 
 def render_frame(config, scene, materials, camera, width: int, height: int,

@@ -4,9 +4,9 @@ Host-side duties around the hit-path kernels: coherence-sort a wave
 (Morton keys for coherent waves, probe keys from kernel C for incoherent
 ones), pad it to blocks, run kernel B, unsort, and merge the analytic
 spheres; route common-point waves through the tile-raster engine
-(kernel A) with an exact whole-wave fallback to the marcher.
-Device refit/rebuild, the bundle engine and the short-first query wait
-for later slices.
+(kernel A) with an exact whole-wave fallback to the marcher; refit or
+rebuild the intersector for new vertex positions on the device.  The
+bundle engine waits for a later slice.
 """
 
 from __future__ import annotations
@@ -28,7 +28,9 @@ from optix_ray_tracer_tpu_torch.ops.raster import (
 from optix_ray_tracer_tpu_torch.ops.raysort import (
     ray_sort_keys, sphere_bruteforce_merge,
 )
-from optix_ray_tracer_tpu_torch.ops.sweep import ClusterSet, build_clusters
+from optix_ray_tracer_tpu_torch.ops.sweep import (
+    ClusterSet, build_clusters, rebuild_clusters, refit_clusters,
+)
 from optix_ray_tracer_tpu_torch.scene.geometry import Scene
 from optix_ray_tracer_tpu_torch.utils.tensors import TensorDataclass
 from optix_ray_tracer_tpu_torch.utils.vecmath import INF, dot
@@ -216,3 +218,40 @@ def attach_raster(inter: MarchIntersector,
     return dataclasses.replace(
         inter, raster=build_raster_set(inter.clusters,
                                        scene.triangles.vertices))
+
+
+def _moved(prev: MarchIntersector, scene: Scene,
+           clusters: ClusterSet) -> MarchIntersector:
+    """``prev`` with new clusters for ``scene``: bounds recomputed, raster
+    tables re-attached when ``prev`` had them."""
+    tv = scene.triangles.vertices
+    out = MarchIntersector(clusters=clusters, scene_lo=tv.amin((0, 1)),
+                           scene_hi=tv.amax((0, 1)), num_tris=prev.num_tris,
+                           sort_mode=prev.sort_mode)
+    return attach_raster(out, scene) if prev.raster is not None else out
+
+
+def _check_count(prev: MarchIntersector, scene: Scene, what: str) -> None:
+    n = scene.triangles.vertices.shape[0]
+    if n != prev.num_tris:
+        raise ValueError(
+            f"{what} requires the build-time triangle count "
+            f"({prev.num_tris}); got {n} -- use make_march_intersector")
+
+
+def rebuild_march_intersector(prev: MarchIntersector, scene: Scene,
+                              method: str = "median") -> MarchIntersector:
+    """A fresh slot order and refit on the device (``rebuild_clusters``),
+    the per-file build.  ``method``: "median" or "morton"."""
+    _check_count(prev, scene, "rebuild")
+    return _moved(prev, scene, rebuild_clusters(
+        prev.clusters, scene.triangles.vertices, method=method))
+
+
+def refit_march_intersector(prev: MarchIntersector,
+                            scene: Scene) -> MarchIntersector:
+    """New vertex positions in ``prev``'s slot order (``refit_clusters``),
+    the per-frame refit."""
+    _check_count(prev, scene, "refit")
+    return _moved(prev, scene, refit_clusters(prev.clusters,
+                                              scene.triangles.vertices))

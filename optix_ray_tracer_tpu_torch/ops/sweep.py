@@ -15,8 +15,9 @@ dense (R, C) reduction), rays are sorted by that cluster, and 128-ray
 blocks sweep the cluster's 256-triangle window densely (kernel G,
 ``ops/kernels/leaf_sweep.py``).  A ray's visited frontier then jumps past
 every cluster the window covered; it stops when no unvisited cluster is
-nearer than its best hit.  The device refit/rebuild waits for the
-animation-loop slice.
+nearer than its best hit.  ``refit_clusters`` and ``rebuild_clusters``
+redo the Woop rows and boxes (and, for a rebuild, the slot order) of new
+vertex positions on the device.
 """
 
 from __future__ import annotations
@@ -68,10 +69,14 @@ def woop_transforms(v0: np.ndarray, e1: np.ndarray, e2: np.ndarray
     return np.concatenate([M.reshape(n, 9), c], axis=1).astype(np.float32)
 
 
-def _transpose_woop(woop: np.ndarray) -> np.ndarray:
-    """(n_pad, 12) Woop rows -> (C, WOOP_T_ROWS, CHUNK) per-cluster blocks."""
+def _transpose_woop(woop):
+    """(n_pad, 12) Woop rows -> (C, WOOP_T_ROWS, CHUNK) per-cluster blocks
+    (a numpy array or a tensor, as given)."""
     C = woop.shape[0] // CHUNK
     wt = woop[:, list(_WOOP_T_PERM)].reshape(C, CHUNK, 12).swapaxes(1, 2)
+    if isinstance(woop, torch.Tensor):
+        pad = woop.new_zeros((C, WOOP_T_ROWS - 12, CHUNK))
+        return torch.cat([wt, pad], 1).contiguous()
     pad = np.zeros((C, WOOP_T_ROWS - 12, CHUNK), woop.dtype)
     return np.ascontiguousarray(np.concatenate([wt, pad], axis=1))
 
@@ -195,6 +200,188 @@ def build_clusters(tri_vertices, method: str = "sah",
         woop=woop, woop_t=_transpose_woop(woop), prim_index=prim_index,
         cluster_min=cmin, cluster_max=cmax, sub_min=smin, sub_max=smax
     ).items()})
+
+
+# ---------------------------------------------------------------------------
+# Device refit and rebuild (plain torch on the clusters' device)
+# ---------------------------------------------------------------------------
+
+#: the float32 value of 1/3: ``jnp.mean`` over three vertices is their sum
+#: times it, bit for bit, where a torch mean or a division by 3 rounds
+#: differently (and a rebuild sorts by these centroids)
+_THIRD = float(np.float32(1.0 / 3.0))
+
+
+def _fms(a, b, c):
+    """a * b - c rounded once to float32, as a fused multiply-add rounds
+    it: the float32 product is exact in float64."""
+    return (a.double() * b.double() - c.double()).float()
+
+
+def _cross(a, b):
+    """``jnp.cross`` of (n, 3) float32 rows as XLA's CPU backend computes
+    it: each component a fused multiply-add, a1 * b2 - (a2 * b1) with
+    only the second product rounded (the reference the refit rows are
+    held to, bit for bit)."""
+    a0, a1, a2 = a.unbind(-1)
+    b0, b1, b2 = b.unbind(-1)
+    return torch.stack([_fms(a1, b2, a2 * b1), _fms(a2, b0, a0 * b2),
+                        _fms(a0, b1, a1 * b0)], -1)
+
+
+def _dot(a, b):
+    """Row dots of (n, 3) rows summed left to right (no library
+    reduction, whose order may differ on the card)."""
+    return a[:, 0] * b[:, 0] + a[:, 1] * b[:, 1] + a[:, 2] * b[:, 2]
+
+
+def centroids(tri_vertices):
+    """(T, 3, 3) -> (T, 3) float32 triangle centroids, as ``jnp.mean``
+    rounds them."""
+    tv = tri_vertices
+    return (tv[:, 0] + tv[:, 1] + tv[:, 2]) * _THIRD
+
+
+def _median_levels(n: int) -> list[np.ndarray]:
+    """Per-level segment-id arrays of the median-split partition
+    (:func:`_median_order_device`).  With leaf-aligned cuts the split
+    positions depend only on segment sizes, so the whole recursion is
+    known from ``n``: level l maps position -> segment id after l
+    in-segment sorts; cuts are CHUNK-aligned above cluster size and
+    SUB_TRIS-aligned inside clusters."""
+    levels: list[np.ndarray] = []
+    segs = [(0, n)]
+    while True:
+        seg_ids = np.zeros(n, np.int32)
+        nxt: list[tuple[int, int]] = []
+        any_split = False
+        for i, (start, m) in enumerate(segs):
+            seg_ids[start:start + m] = i
+            if m <= SUB_TRIS:
+                nxt.append((start, m))
+                continue
+            a = CHUNK if m > CHUNK else SUB_TRIS
+            half = -(-(m // 2) // a) * a
+            if half >= m:
+                half = (m // 2) // a * a
+            if half == 0:
+                nxt.append((start, m))
+                continue
+            any_split = True
+            nxt.append((start, half))
+            nxt.append((start + half, m - half))
+        if not any_split:
+            return levels
+        levels.append(seg_ids)
+        segs = nxt
+
+
+def _median_order_device(cents: torch.Tensor) -> torch.Tensor:
+    """Median-split partition on the centroids' device: each level sorts
+    the elements of every segment by that segment's widest centroid axis
+    (two stable sorts, key then segment id: ``lax.sort(num_keys=2,
+    is_stable=True)``), then the static cuts of :func:`_median_levels`
+    define the children.  Returns slot -> original triangle id (int32)."""
+    dev = cents.device
+    n = cents.shape[0]
+    perm = torch.arange(n, dtype=torch.int32, device=dev)
+    cur = cents
+    for seg_np in _median_levels(n):
+        num_seg = int(seg_np[-1]) + 1
+        seg = torch.as_tensor(seg_np, device=dev).long()
+        idx = seg[:, None].expand(n, 3)
+        lo = torch.full((num_seg, 3), float("inf"), device=dev
+                        ).scatter_reduce(0, idx, cur, "amin",
+                                         include_self=False)
+        hi = torch.full((num_seg, 3), float("-inf"), device=dev
+                        ).scatter_reduce(0, idx, cur, "amax",
+                                         include_self=False)
+        axis = torch.argmax(hi - lo, dim=1)
+        key = torch.gather(cur, 1, axis[seg][:, None])[:, 0]
+        by_key = torch.argsort(key, stable=True)
+        order = by_key[torch.argsort(seg[by_key], stable=True)]
+        perm = perm[order]
+        cur = cur[order]
+    return perm
+
+
+def refit_clusters(clusters: ClusterSet, tri_vertices) -> ClusterSet:
+    """New vertex positions in the clusters' slot order: Woop rows by the
+    float32 adjugate and cluster / sub boxes, all on the device; no
+    re-sort.  Exact for any motion (the boxes are recomputed); only the
+    cull decays as the stale order stops matching the geometry.
+
+    ``tri_vertices`` (T, 3, 3) must have the triangle count the clusters
+    were built with.  Pure-padding groups get NaN boxes; pad slots get
+    zero Woop rows."""
+    tv = tri_vertices.float()
+    n = tv.shape[0]
+    n_pad = clusters.woop.shape[0]
+    order = clusters.prim_index
+    sorted_tris = tv[order.long()]                 # pad slots gather tri 0
+    valid = torch.arange(n_pad, device=tv.device) < n
+
+    v0 = sorted_tris[:, 0]
+    e1 = sorted_tris[:, 1] - v0
+    e2 = sorted_tris[:, 2] - v0
+    nrm = _cross(e1, e2)
+    # adjugate inverse of A = [e1 | e2 | nrm] (columns): row i of inv(A)
+    # is the cross product of the other two columns over det
+    r0 = _cross(e2, nrm)
+    det = _dot(e1, r0)
+    ok = (det.abs() > 1e-18) & valid
+    inv_det = torch.where(ok, 1.0 / torch.where(ok, det, torch.ones_like(
+        det)), torch.zeros_like(det))[:, None]
+    r0 = r0 * inv_det
+    r1 = _cross(nrm, e1) * inv_det
+    r2 = _cross(e1, e2) * inv_det
+    c = torch.stack([_dot(r0, v0), _dot(r1, v0), _dot(r2, v0)], -1)
+    woop = torch.cat([r0, r1, r2, c], -1)
+
+    inf = torch.tensor(INF, device=tv.device)
+    tmin = torch.where(valid[:, None], sorted_tris.amin(1), inf)
+    tmax = torch.where(valid[:, None], sorted_tris.amax(1), -inf)
+
+    def boxes(groups: int):
+        glo = tmin.reshape(groups, -1, 3).amin(1)
+        ghi = tmax.reshape(groups, -1, 3).amax(1)
+        # pure-padding groups get NaN boxes: every slab comparison is
+        # false, so they are never entered
+        empty = (glo[:, 0] > ghi[:, 0])[:, None]
+        nan = torch.tensor(float("nan"), device=tv.device)
+        return torch.where(empty, nan, glo), torch.where(empty, nan, ghi)
+
+    C = n_pad // CHUNK
+    cmin, cmax = boxes(C)
+    smin, smax = boxes(C * SUBS_PER_CLUSTER)
+    return ClusterSet(woop=woop, woop_t=_transpose_woop(woop),
+                      prim_index=order, cluster_min=cmin, cluster_max=cmax,
+                      sub_min=smin, sub_max=smax)
+
+
+def rebuild_clusters(clusters: ClusterSet, tri_vertices,
+                     method: str = "median") -> ClusterSet:
+    """A fresh partition of new vertex positions, then a refit, on the
+    device (the per-file build without a host round trip).
+
+    method: "median" (:func:`_median_order_device`) or "morton" (one
+    stable sort of the centroids' Morton codes, the host "morton"
+    build's order)."""
+    tv = tri_vertices.float()
+    n = tv.shape[0]
+    n_pad = clusters.woop.shape[0]
+    cents = centroids(tv)
+    if method == "median":
+        order = _median_order_device(cents)
+    elif method == "morton":
+        codes = morton_codes(cents, tv.amin((0, 1)), tv.amax((0, 1)))
+        order = torch.argsort(codes, stable=True).to(torch.int32)
+    else:
+        raise ValueError(f"unknown cluster rebuild method: {method!r}")
+    if n_pad > n:
+        order = torch.cat([order, order.new_zeros(n_pad - n)])
+    return refit_clusters(dataclasses.replace(clusters, prim_index=order),
+                          tv)
 
 
 # ---------------------------------------------------------------------------

@@ -67,6 +67,14 @@ class MaterialBuilder:
     def add_emissive(self, emission) -> int:
         return self.add(EMISSIVE, (0.0, 0.0, 0.0), 0.0, emission)
 
+    def add_ramp(self, colors) -> int:
+        """Append a baked color ramp as consecutive ROUGH rows; returns the
+        index of the first (the reference's ``materialOffset``)."""
+        first = len(self._rows)
+        for c in np.asarray(colors, np.float32):
+            self.add_rough(c)
+        return first
+
     def build(self, device=None) -> MaterialTable:
         if not self._rows:
             self.add_rough((0.5, 0.5, 0.5))

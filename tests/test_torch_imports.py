@@ -3,6 +3,7 @@ of the ported slices import neither jax nor the JAX package; on CPU
 tensors no kernel (A-G) launches; chip_smoke.py refuses to run without
 CUDA."""
 
+import ast
 import os
 import subprocess
 import sys
@@ -14,10 +15,21 @@ ROOT = Path(__file__).resolve().parents[1]
 
 MODULES = [
     "optix_ray_tracer_tpu_torch",
+    "optix_ray_tracer_tpu_torch.__main__",
     "optix_ray_tracer_tpu_torch.convert",
+    "optix_ray_tracer_tpu_torch.io.cache",
+    "optix_ray_tracer_tpu_torch.io.config",
     "optix_ray_tracer_tpu_torch.io.meshgen",
+    "optix_ray_tracer_tpu_torch.io.native_io",
+    "optix_ray_tracer_tpu_torch.io.obj",
+    "optix_ray_tracer_tpu_torch.io.series",
+    "optix_ray_tracer_tpu_torch.io.stl",
+    "optix_ray_tracer_tpu_torch.io.vtk",
     "optix_ray_tracer_tpu_torch.models.common",
+    "optix_ray_tracer_tpu_torch.models.fused",
+    "optix_ray_tracer_tpu_torch.models.renderer_mesh",
     "optix_ray_tracer_tpu_torch.models.renderer_time",
+    "optix_ray_tracer_tpu_torch.native.build",
     "optix_ray_tracer_tpu_torch.ops.bvh",
     "optix_ray_tracer_tpu_torch.ops.instanced",
     "optix_ray_tracer_tpu_torch.ops.intersect",
@@ -34,16 +46,27 @@ MODULES = [
     "optix_ray_tracer_tpu_torch.render.denoise",
     "optix_ray_tracer_tpu_torch.render.film",
     "optix_ray_tracer_tpu_torch.render.neural_denoise",
+    "optix_ray_tracer_tpu_torch.render.temporal",
     "optix_ray_tracer_tpu_torch.render.wavefront",
     "optix_ray_tracer_tpu_torch.scene.camera",
     "optix_ray_tracer_tpu_torch.scene.geometry",
     "optix_ray_tracer_tpu_torch.scene.materials",
     "optix_ray_tracer_tpu_torch.utils.color",
+    "optix_ray_tracer_tpu_torch.utils.colorramp",
+    "optix_ray_tracer_tpu_torch.utils.debug",
+    "optix_ray_tracer_tpu_torch.utils.logging",
     "optix_ray_tracer_tpu_torch.utils.rng",
     "optix_ray_tracer_tpu_torch.utils.tensors",
     "optix_ray_tracer_tpu_torch.utils.transforms",
     "optix_ray_tracer_tpu_torch.utils.vecmath",
 ]
+
+#: every source file of the port, and the scripts that drive it on the
+#: card: none may name jax or the JAX package in an import statement
+SOURCES = sorted(
+    str(p.relative_to(ROOT))
+    for p in (ROOT / "optix_ray_tracer_tpu_torch").rglob("*.py")) + [
+    "chip_smoke.py", "tools/kernel_bench.py", "tools/prof_port.py"]
 
 _CHECK = """
 import importlib, sys
@@ -136,6 +159,31 @@ def test_port_imports_no_jax():
     proc = _run(_CHECK.format(modules=MODULES))
     assert proc.returncode == 0, proc.stderr
     assert "BAD []" in proc.stdout, proc.stdout
+
+
+def test_modules_cover_the_package():
+    """MODULES lists every module of the port (and the package)."""
+    found = {"optix_ray_tracer_tpu_torch." + ".".join(
+        Path(p).with_suffix("").parts[1:]) for p in SOURCES
+        if p.startswith("optix_ray_tracer_tpu_torch/")
+        and not p.endswith("__init__.py")}
+    assert found | {"optix_ray_tracer_tpu_torch"} == set(MODULES)
+
+
+@pytest.mark.parametrize("path", SOURCES)
+def test_no_jax_import_statement(path):
+    """No import statement anywhere in the file (lazy ones inside
+    functions included) names jax or optix_ray_tracer_tpu."""
+    tree = ast.parse((ROOT / path).read_text())
+    names = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and not node.level:
+            names.append(node.module)
+    bad = [n for n in names if n.split(".")[0] in ("jax", "jaxlib",
+                                                   "optix_ray_tracer_tpu")]
+    assert not bad, bad
 
 
 def test_cpu_path_launches_no_kernel():
