@@ -92,21 +92,51 @@ CPU or to the plain versions):
    channels; the flatten route's peak device bytes per packed triangle
    beside the TLAS route's; and Mesh mode (the pile as strip cells, 2
    files x 2 frames) baked through ``"cache": true``, then rendered.
-   Every PNG shows the background on sky pixels.
+   Every PNG shows the background on sky pixels;
+11. the path tracer (:func:`path_phase`): (a) BASELINE config 5
+   (``models/benchmarks.config5_sponza_class``: 110k triangles, 1920x1088,
+   spp 4, depth 6, a checker floor, a sky with a sun and environment NEE)
+   through ``benchmarks.run``, s/frame, spp/s, Mpaths/s and the launches
+   of A, B and C per frame, held to the same frame without raster tables
+   (B and C only; > 2 LSB on < 1% of channels); (b) config 4 (the
+   Cornell box, NEE+MIS, 1024x1024, depth 8) at CORNELL_SPP of its 1024
+   spp, spp/s; (c) phase 10's series with ``"integrator": "path"`` and an
+   emissive panel over the pile (an EMISSIVE OBJ extra) through
+   ``__main__.main``: the flatten route (camera waves to F, bounces C
+   then B, the area-light NEE segments on bundle schedules through A),
+   s/frame, the bundle pair counts against their capacity and the
+   launches per frame; the same with a larger panel, whose NEE waves
+   overflow the heuristic capacity and take the marcher; the TLAS route
+   (D, E); flatten frame 0 against TLAS frame 0 with ``temporal`` off;
+   (d) A's and D's ``common="dir"``
+   variant on sun waves (config 5's sun) from the camera-wave hit points
+   of phases 2 and 6, through ``intersect_from(mode="ortho")`` (counts
+   zeroed, held to the marcher) and against their plain twins on the
+   whole waves; (e) A on the first bundle NEE wave of (c) (captured
+   through ``raster.BUNDLE_OBSERVERS``) against its plain twin on
+   BUNDLE_BLOCKS blocks spread over it.  ``tools/kernel_bench.py
+   --routes`` times the bundle route against the marcher on such waves.
 
 Every kernel's row in the kernels' JSON object is one whole main-path
 wave (a subset would leave most of the card idle): A the bench camera
 wave, B and E their 1M-ray incoherent waves, C the flatten frame's first
 bounce wave, D the TLAS camera wave, F the flatten camera wave, G the
-camera wave's first sweep pass. It carries the kernel's launches on the
-main paths (phases 4, 7, 8 and 10), its error against its plain version,
+camera wave's first sweep pass; three more rows hold A's and D's "dir"
+variant (phase 11's sun waves; launches: the variant's in its
+``intersect_from(mode="ortho")`` runs, ``Kernel.variants``) and A on the
+bundle NEE wave (launches: A's full-width launches in phase 11's path
+animation). It carries the kernel's launches on the
+main paths (phases 4, 7, 8, 10 and 11), its error against its plain version,
 the whole wave's time, the plain version's time on what it compared (A,
 D: the whole wave), and the bound: the larger of the bytes the wave's
 inputs and outputs take over 3.35 TB/s and the float operations its
 answers need over 67 TFLOP/s FP32, the H100 SXM's published peaks. The
 work is counted from this run's data, whatever the kernel did: A and D
-:func:`needed_raster_work` on the whole wave (a Woop test at
-WOOP_SHARED_ORIGIN_OPS: the tile shares its origin), C
+:func:`needed_raster_work` on the whole wave (live rays only, each to its
+nearest hit, an occlusion ray to its first hit in the kernel's visit
+order; a Woop test at
+WOOP_SHARED_ORIGIN_OPS: the tile shares its origin; WOOP_SHARED_DIR_OPS
+for "dir", its direction; WOOP_OPS on the bundle wave), C
 :func:`needed_probe_work` on the whole wave, B, E and F
 :func:`needed_work` on the subset scaled by the rays of the wave over
 the subset's (its warps spread evenly over the wave), G every (ray, row)
@@ -164,6 +194,8 @@ WOOP_OPS = 47     # one (ray, triangle) Woop test: projections, t, u, v, test
 # the same test when the tile shares its origin: the row's three
 # o-projections (18 operations) are the tile's, computed once per row
 WOOP_SHARED_ORIGIN_OPS = WOOP_OPS - 18
+# ... or its direction: the row's three d-projections (15 operations)
+WOOP_SHARED_DIR_OPS = WOOP_OPS - 15
 SLAB_OPS = 26     # one (ray, box) slab entry
 INST_OPS = 33     # one ray moved into an instance's space
 FP32_FLOPS = 67e12
@@ -267,21 +299,24 @@ def wave_row(name: str, err: float, full_ms: float, plain_ms: float,
 
 
 def raster_wave(name: str, call, plain, inp: dict, W: int, any_hit: bool,
-                keys, card: str) -> dict:
-    """A raster kernel (A or D: ``call``, its plain version ``plain``) on
-    one whole schedule ``inp`` of a common-origin wave in W-ray tiles in
-    ``raster.to_tiles`` order (a warp's 32 rays are an 8x4 pixel block):
+                keys, card: str, common: str | None = "origin",
+                woop_ops: int = None) -> dict:
+    """A raster kernel (A or D: ``call``, its plain version ``plain``) in
+    its ``common`` variant on one whole schedule ``inp`` of a wave in W-ray
+    tiles in ``raster.to_tiles`` order (a warp's 32 rays are an 8x4 pixel
+    block):
     the kernel against its plain version on the whole wave (0 mismatches,
     max |dt|, |du|, |dv| 0, the same Woop-tested rows per warp), its
     time, and its Woop tests beside the per-ray gate's and the whole-tile
     gate's (the kernels' first, CTA-wide design) from the plain version,
     the needed ones (:func:`needed_raster_work`) and the scheduled ones.
-    Returns the JSON row: the bound counts the needed work at
-    WOOP_SHARED_ORIGIN_OPS per Woop test."""
+    Returns the JSON row: the bound counts the needed work at ``woop_ops``
+    per Woop test (default: WOOP_SHARED_ORIGIN_OPS)."""
     import torch
 
     from optix_ray_tracer_tpu_torch.ops.kernels import tile_raster as tr
-    args = dict(w=W, any_hit=any_hit, common="origin")
+    woop_ops = woop_ops or WOOP_SHARED_ORIGIN_OPS
+    args = dict(w=W, any_hit=any_hit, common=common)
     kern = call(**inp, **args, visits=True)
     ms = time_ms(lambda: call(**inp, **args), REPS)
     ref, p_ms = time_once(lambda: plain(**inp, **args, visits=True))
@@ -293,23 +328,22 @@ def raster_wave(name: str, call, plain, inp: dict, W: int, any_hit: bool,
           f"{rows_equal}")
     if err or duv or not rows_equal:
         raise AssertionError(f"{name}: kernel and plain version differ")
-    per_ray = int(tr._raster_plain(inp, W, any_hit, "origin", 1)[4].sum())
-    tile = int(tr._raster_plain(inp, W, any_hit, "origin", W)[4].sum()) * W
-    # the needed work counts to each ray's nearest hit (in the segment for
-    # an occlusion wave: an upper estimate)
-    near = call(**inp, **dict(args, any_hit=False)) if any_hit else kern
-    work = tr.needed_raster_work(inp, W, near[0], near[1])
+    per_ray = int(tr._raster_plain(inp, W, any_hit, common, 1)[4].sum())
+    tile = int(tr._raster_plain(inp, W, any_hit, common, W)[4].sum()) * W
+    # the needed work: live rays, each to its nearest hit (an occlusion
+    # ray to its first hit in the kernel's visit order)
+    work = tr.needed_raster_work(inp, W, kern[0], kern[1], any_hit=any_hit)
     n_pairs = int((inp["pair_tiles"] < inp["n_blocks"]).sum())
     g = inp.get("granularity", 1)
     scheduled = n_pairs * W * (CHUNK // g)
     r = row(err, ms, p_ms, tensor_bytes(inp, kern),
             work["slab"] * SLAB_OPS + work["inst"] * INST_OPS
-            + work["woop"] * WOOP_SHARED_ORIGIN_OPS)
+            + work["woop"] * woop_ops)
     print(f"    {name}: {inp['n_blocks']} tiles of {W} rays, {n_pairs} "
           f"pairs, warps of 8x4-pixel blocks; kernel {ms:.3f} ms [{card}], "
           f"plain {p_ms:.1f} ms; "
-          f"{tr.raster_occupancy('pair_insts' in inp, any_hit)} resident "
-          f"warps per SM")
+          f"{tr.raster_occupancy('pair_insts' in inp, any_hit, common)} "
+          f"resident warps per SM")
     print(f"    {name}: Woop tests run {run} (plain {twin}), per-ray gate "
           f"{per_ray} ({run / max(per_ray, 1):.3f}x), whole-tile gate "
           f"{tile} ({tile / max(run, 1):.2f}x run), needed {work['woop']}, "
@@ -1647,6 +1681,16 @@ def write_anim_config(path, series, stl_dir, cache_dir, width: int,
     return path
 
 
+def write_light_obj(path, z: float, half: float) -> Path:
+    """An area light for the path-traced animation: a 2 half x 2 half
+    square at height z, facing down, as an OBJ (an EMISSIVE mesh extra)."""
+    path = Path(path)
+    path.write_text(f"v {-half} {-half} {z}\nv {-half} {half} {z}\n"
+                    f"v {half} {half} {z}\nv {half} {-half} {z}\n"
+                    "f 1 2 3\nf 1 3 4\n")
+    return path
+
+
 def read_png(path) -> np.ndarray:
     """(H, W, 4) uint8 of a PNG written by ``utils.color.write_png`` (8-bit
     RGBA, one IDAT, filter 0 on every row)."""
@@ -1734,7 +1778,7 @@ def host_timed(module, name: str, log: list, sync: bool = True):
 def zero_counts():
     from optix_ray_tracer_tpu_torch.ops.kernels import _lib
     for k in _lib.KERNELS:
-        k.launches = 0
+        k.reset()
 
 
 def run_cli(argv) -> None:
@@ -2000,6 +2044,532 @@ def animation_phase(card: str) -> dict:
 
 
 
+# ---- phase 11: the path tracer --------------------------------------------
+
+SUN = (0.4, 0.25, 0.88)           # config 5's sun direction (normalised)
+CORNELL_SPP = 16                  # config 4's 1024 spp, cut to fit the limit
+ANIM_PATH_FRAMES = 8              # two files of the pile series
+# the panel's height, half size, radiance: small enough that every
+# frame's bounce-0 NEE wave fits the heuristic bundle capacity, so A runs
+ANIM_LIGHT = (30.0, 2.0, 100.0)
+ANIM_LARGE_LIGHT = 12.0           # half size of a panel whose waves overflow
+ANIM_LARGE_FRAMES = 4
+BUNDLE_BLOCKS = 64                # A's bundle wave: blocks the plain twin runs
+
+
+def sponza_cell(card: str) -> dict:
+    """Phase 11 (a): config 5 as ``models/benchmarks.config5_sponza_class``
+    builds it, through ``benchmarks.run``: twice with raster tables (the
+    first frame's launches counted, the second timed), then with none (B
+    and C only), and the two images held to each other.  Returns the
+    launches of A, B and C of one frame."""
+    import dataclasses
+
+    import torch
+
+    from optix_ray_tracer_tpu_torch.models import benchmarks
+    from optix_ray_tracer_tpu_torch.models.common import choose_intersector
+    from optix_ray_tracer_tpu_torch.utils.color import (
+        color_to_uint8, write_png,
+    )
+
+    cfg = benchmarks.config5_sponza_class(device=torch.device("cuda", 0))
+    t0 = time.perf_counter()
+    inter = choose_intersector(cfg["scene"])
+    torch.cuda.synchronize()
+    print(f"[path sponza] config 5: {cfg['scene'].triangle_count} triangles "
+          f"in {inter.clusters.num_clusters} clusters (host SAH build "
+          f"{time.perf_counter() - t0:.2f} s), {cfg['width']}x"
+          f"{cfg['height']}, spp {cfg['spp']}, depth {cfg['max_depth']}, "
+          f"checker floor, sky with sun, environment NEE")
+    zero_counts()
+    (img, alb, nrm), st = benchmarks.run(cfg, intersector=inter)
+    counts = {k: K[k].launches for k in "ABC"}
+    _, st2 = benchmarks.run(cfg, seed=1, intersector=inter)
+    print(f"[path sponza] {st2['render_s']:.3f} s/frame, "
+          f"{st2['spp_per_sec']:.3f} spp/s, {st2['mpaths_per_sec']:.2f} "
+          f"Mpaths/s (second frame; first {st['render_s']:.3f} s) [{card}]; "
+          f"launches per frame: " + ", ".join(f"{k} {n}" for k, n in
+                                                counts.items()))
+    if min(counts.values()) == 0:
+        raise AssertionError(f"config 5 missed a kernel: {counts}")
+    if not all(bool(torch.isfinite(x).all()) for x in (img, alb, nrm)):
+        raise AssertionError("config 5's frame has non-finite values")
+    plain = dataclasses.replace(inter, raster=None)
+    zero_counts()
+    (ref, _, _), st3 = benchmarks.run(cfg, intersector=plain)
+    print(f"[path sponza] without raster tables (camera waves on B): "
+          f"{st3['render_s']:.3f} s/frame; launches A {K['A'].launches}, B "
+          f"{K['B'].launches}, C {K['C'].launches}")
+    if K["A"].launches:
+        raise AssertionError("the frame without raster tables launched A")
+    a, b = (color_to_uint8(x).cpu().numpy() for x in (img, ref))
+    agree(a, b, "config 5 with raster tables vs without")
+    OUT_DIR.mkdir(parents=True, exist_ok=True)
+    write_png(OUT_DIR / "path_sponza.png", a)
+    return counts
+
+
+def cornell_cell(card: str) -> dict:
+    """Phase 11 (b): config 4 (Cornell box, NEE+MIS) at 1024x1024, depth
+    8, its 1024 spp cut to CORNELL_SPP.  Returns the launches of A and
+    B."""
+    import torch
+
+    from optix_ray_tracer_tpu_torch.models import benchmarks
+    from optix_ray_tracer_tpu_torch.utils.color import (
+        color_to_uint8, write_png,
+    )
+
+    cfg = benchmarks.config4_cornell(device=torch.device("cuda", 0))
+    benchmarks.run(cfg, spp=1)              # the intersector's first use
+    zero_counts()
+    (img, _, _), st = benchmarks.run(cfg, spp=CORNELL_SPP)
+    counts = {k: K[k].launches for k in "AB"}
+    print(f"[path cornell] config 4, {cfg['width']}x{cfg['height']}, spp "
+          f"{CORNELL_SPP} (of {cfg['spp']}), depth {cfg['max_depth']}, "
+          f"{st['triangles']} triangles, {cfg['lights'].count} light "
+          f"triangles: {st['render_s']:.3f} s, {st['spp_per_sec']:.3f} "
+          f"spp/s, {st['mpaths_per_sec']:.2f} Mpaths/s [{card}]; launches "
+          + ", ".join(f"{k} {n}" for k, n in counts.items()))
+    if not bool(torch.isfinite(img).all()) or float(img.mean()) <= 0.0:
+        raise AssertionError("the Cornell frame is not finite and lit")
+    if min(counts.values()) == 0:
+        raise AssertionError(f"config 4 missed a kernel: {counts}")
+    OUT_DIR.mkdir(parents=True, exist_ok=True)
+    write_png(OUT_DIR / "path_cornell.png", color_to_uint8(img))
+    return counts
+
+
+@contextlib.contextmanager
+def bundle_log(log: list, waves: list | None = None, keep: int = 0):
+    """Within the block, log (pair count, capacity) of every bundle wave
+    (``raster.BUNDLE_OBSERVERS``), and keep the ``bundle_stage``
+    arguments (args, kw) of the first ``keep`` waves in ``waves``."""
+    from optix_ray_tracer_tpu_torch.ops import raster
+
+    def observe(args, kw, S):
+        if waves is not None and len(waves) < keep:
+            waves.append((args, kw))
+        # the query reads the count on the host anyway
+        log.append((int(S["pc_total"]), args[6]))
+
+    raster.BUNDLE_OBSERVERS.append(observe)
+    try:
+        yield
+    finally:
+        raster.BUNDLE_OBSERVERS.remove(observe)
+
+
+def bundle_counts(log: list) -> str:
+    """The pair counts of a run's bundle waves (DEPTH per frame, in
+    bounce order) against their capacity."""
+    pcs = np.asarray([pc for pc, _ in log])
+    fits = np.asarray([pc <= cap for pc, cap in log])
+    by_bounce = [int(fits[b::DEPTH].sum()) for b in range(DEPTH)]
+    return (f"{len(log)} NEE bundle waves, pair counts {int(pcs.min())}-"
+            f"{int(pcs.max())} (median {int(np.median(pcs))}) against "
+            f"pc_max {log[0][1]} (the heuristic): {int(fits.sum())} fit "
+            f"(by bounce 0-{DEPTH - 1}: {by_bounce}), "
+            f"{len(log) - int(fits.sum())} overflowed to the marcher")
+
+
+def path_pile_configs(root: Path):
+    """Phase 10's pile series written under ``root``, and a function
+    ``config(name, half, **extra)`` that writes phase 10's config with
+    ``"integrator": "path"`` and an emissive 2*half x 2*half panel
+    ANIM_LIGHT[0] above the pile (an EMISSIVE OBJ extra) and returns its
+    path."""
+    from optix_ray_tracer_tpu_torch.io.meshgen import sphere_with_n_triangles
+    poses = pile_poses(N_PARTICLES, ANIM_TIMES)
+    series, stl_dir = write_time_series(
+        root / "time", [sphere_with_n_triangles(s) for s in TIME_LIBRARY],
+        poses, ANIM_TIMES)
+    z, _, radiance = ANIM_LIGHT
+
+    def config(name, half, **extra):
+        light = write_light_obj(root / f"light_{half:g}.obj", z, half)
+        return write_anim_config(
+            root / name, series, stl_dir, root / "cache", ANIM_WIDTH,
+            ANIM_HEIGHT, ANIM_FPS, integrator="path",
+            emissives=[{"emission": [radiance] * 3}],
+            meshes=[{"obj": f"{Path(name).stem}.ground.obj",
+                     "mat-type": "ROUGH", "mat-index": 0},
+                    {"obj": str(light), "mat-type": "EMISSIVE",
+                     "mat-index": 0}], **extra)
+    return config
+
+
+def path_animation(card: str):
+    """Phase 11 (c): phase 10's pile series and config with
+    ``"integrator": "path"`` and an emissive panel above the pile (an
+    EMISSIVE OBJ extra), through ``__main__.main``: the flatten route
+    (fused, temporal on) for ANIM_PATH_FRAMES frames; the same with the
+    ANIM_LARGE_LIGHT panel for ANIM_LARGE_FRAMES (its NEE waves overflow
+    the bundle capacity and take the marcher); the TLAS route
+    (``ORT_TIME_TLAS=1``) for ANIM_TLAS_FRAMES; and with ``temporal`` off
+    flatten frame 0 against TLAS frame 0.  Returns (launches of A-F by
+    name, A's bundle launches, frame 0's NEE waves as ``bundle_stage``
+    arguments)."""
+    import os
+    import tempfile
+
+    import torch
+
+    from optix_ray_tracer_tpu_torch.models import fused
+    from optix_ray_tracer_tpu_torch.models import renderer_time as rt
+
+    tmp = tempfile.TemporaryDirectory(prefix="anim_path_")
+    root = Path(tmp.name)
+    launches = {K[k].name: 0 for k in "ABCDEF"}
+    try:
+        config = path_pile_configs(root)
+        z, half, radiance = ANIM_LIGHT
+        cfg = config("path.json", half)
+        print(f"[path anim] phase 10's series with \"integrator\": \"path\" "
+              f"and a {2 * half:g} x {2 * half:g} emissive panel at z = {z:g} "
+              f"(radiance {radiance:g}); {ANIM_WIDTH}x{ANIM_HEIGHT}, spp 1, "
+              f"depth {DEPTH}, a-trous, temporal on")
+
+        def flatten_run(cfg, out, frames, waves=None):
+            """The fused flatten route for ``frames`` frames: (launches
+            of A-F, A's launches on bundle schedules, the bundle log,
+            wall s/frame over frames 2..)."""
+            refits, log = [], []
+            zero_counts()
+            with bundle_log(log, waves, DEPTH), \
+                    timed_calls(fused, "refit_march_intersector", refits):
+                run_cli(["--config", cfg, "--output", root / out,
+                         "--frames", frames])
+                end = torch.cuda.Event(enable_timing=True)
+                end.record()
+                end.synchronize()
+            counts = {k: K[k].launches for k in "ABCDEF"}
+            for k in "ABCDEF":
+                launches[K[k].name] += counts[k]
+            check_pngs(sorted((root / out).glob("frame_*.png")), out)
+            wall = refits[2][1].elapsed_time(end) / (frames - 2) / 1e3
+            return counts, K["A"].variants.get("None", 0), log, wall
+
+        # 1. the flatten route, fused: NEE segments on the bundle engine
+        waves = []
+        counts, bundle_launches, log, per_frame = flatten_run(
+            cfg, "out1", ANIM_PATH_FRAMES, waves)
+        print(f"[path anim] flatten route, fused, {ANIM_PATH_FRAMES} frames "
+              f"[{card}]: wall {per_frame:.4f} s/frame over frames 2-"
+              f"{ANIM_PATH_FRAMES - 1} (CUDA events, PNGs included); "
+              f"launches per frame: " + ", ".join(
+                  f"{k} {counts[k] / ANIM_PATH_FRAMES:.2f}" for k in "ABCF")
+              + f" (A on bundle schedules {bundle_launches})")
+        print(f"[path anim] {bundle_counts(log)}")
+        if min(counts["B"], counts["C"], counts["F"]) == 0 or not log:
+            raise AssertionError("the path loop missed B, C, F or the "
+                                 "bundle engine")
+        if bundle_launches == 0:
+            raise AssertionError("no NEE wave ran kernel A on a bundle "
+                                 "schedule")
+
+        # 1b. a larger panel: the heuristic capacity overflows
+        big = ANIM_LARGE_LIGHT
+        counts, big_launches, log, per_frame = flatten_run(
+            config("path_large.json", big), "out_large", ANIM_LARGE_FRAMES)
+        print(f"[path anim] flatten route with a {2 * big:g} x {2 * big:g} "
+              f"panel, {ANIM_LARGE_FRAMES} frames [{card}]: wall "
+              f"{per_frame:.4f} s/frame over frames 2-"
+              f"{ANIM_LARGE_FRAMES - 1}; launches per frame: " + ", ".join(
+                  f"{k} {counts[k] / ANIM_LARGE_FRAMES:.2f}" for k in "ABCF")
+              + f" (A on bundle schedules {big_launches}); "
+              + bundle_counts(log))
+        bundle_launches += big_launches
+
+        # 2. the TLAS route
+        zero_counts()
+        os.environ["ORT_TIME_TLAS"] = "1"
+        tlas_frames = []
+        try:
+            with timed_calls(rt, "tlas_frame_intersector", tlas_frames):
+                run_cli(["--config", cfg, "--output", root / "out2",
+                         "--frames", ANIM_TLAS_FRAMES])
+                end = torch.cuda.Event(enable_timing=True)
+                end.record()
+                end.synchronize()
+        finally:
+            del os.environ["ORT_TIME_TLAS"]
+        for k in "DE":
+            launches[K[k].name] += K[k].launches
+        per_frame = (tlas_frames[1][1].elapsed_time(end)
+                     / (ANIM_TLAS_FRAMES - 1) / 1e3)
+        print(f"[path anim] TLAS route [{card}]: wall {per_frame:.4f} "
+              f"s/frame over frames 1-{ANIM_TLAS_FRAMES - 1}; launches per "
+              f"frame D {K['D'].launches / ANIM_TLAS_FRAMES:.2f}, E "
+              f"{K['E'].launches / ANIM_TLAS_FRAMES:.2f} (its NEE waves "
+              f"take E: the TLAS intersector has no bundle engine)")
+        if min(K["D"].launches, K["E"].launches) == 0:
+            raise AssertionError("the TLAS path loop missed kernel D or E")
+        tlas_imgs = check_pngs(sorted((root / "out2").glob("frame_*.png")),
+                               "path TLAS")
+
+        # 3. temporal off: flatten frame 0 against TLAS frame 0
+        zero_counts()
+        log = []
+        with bundle_log(log):
+            run_cli(["--config", config("path_nt.json", half,
+                                         temporal=False),
+                     "--output", root / "out3", "--frames", 1])
+        for k in "ABCF":
+            launches[K[k].name] += K[k].launches
+        nt_launches = K["A"].variants.get("None", 0)
+        bundle_launches += nt_launches
+        flat = check_pngs(sorted((root / "out3").glob("frame_*.png")),
+                          "path flatten, temporal off")
+        print(f"[path anim] temporal off: A on bundle schedules "
+              f"{nt_launches}; {bundle_counts(log)}")
+        agree(flat[0], tlas_imgs[0], "path flatten frame 0 vs TLAS frame 0")
+        from optix_ray_tracer_tpu_torch.utils.color import write_png
+        write_png(OUT_DIR / "path_anim_flatten_frame0.png", flat[0])
+    finally:
+        tmp.cleanup()
+    return launches, bundle_launches, waves
+
+
+def sun_wave(o, d, hit):
+    """An ortho wave: from the hit points of the camera wave (o, d) along
+    config 5's sun direction; dead where the camera ray missed.  Returns
+    (o, d, t_min, t_max)."""
+    import torch
+    sun = torch.tensor(SUN, device=o.device)
+    sun = sun / torch.linalg.norm(sun)
+    p = torch.where(hit.is_hit[:, None], o + hit.t[:, None] * d, o)
+    n = o.shape[0]
+    return (p + sun * 1e-3, sun.expand(n, 3).contiguous(),
+            torch.full((n,), 1e-4, device=o.device),
+            torch.where(hit.is_hit, 1e16, 0.0))
+
+
+def ortho_rows(b: SimpleNamespace, t: SimpleNamespace, card: str):
+    """Phase 11 (d): A's and D's ``common="dir"`` variant on sun waves
+    from phase 2's bench camera wave and phase 6's TLAS camera wave (any-hit
+    and nearest): each driven through ``intersect_from(mode="ortho")`` with
+    the counts zeroed (held to the marcher under the hit rule), then each
+    schedule's kernel against its plain twin on the whole wave.  Returns
+    ({row name: JSON row}, {row name: launches of the variant})."""
+    import torch
+
+    from optix_ray_tracer_tpu_torch.ops import raster
+    from optix_ray_tracer_tpu_torch.ops import raster_instanced as ri
+    from optix_ray_tracer_tpu_torch.ops.intersect import hit_mismatches
+    from optix_ray_tracer_tpu_torch.ops.kernels import tile_raster as tr
+    from optix_ray_tracer_tpu_torch.ops.march import (
+        DEFAULT_ANYHIT_GRANULARITY, DEFAULT_GRANULARITY,
+    )
+
+    W = TILE * TILE
+    rows, launches = {}, {}
+    print(f"[ortho] sun waves along {SUN} (normalised) from camera-wave hit "
+          f"points, A and D common=\"dir\"")
+    # A: the bench sphere
+    hit0 = b.inter.intersect_from(b.scene, b.o, b.d, mode="origin",
+                                  point=b.o[0], pc_max=b.pc_max1)
+    wave = sun_wave(b.o, b.d, hit0)
+    a_rows, a_launch = [], 0
+    for any_hit in (False, True):
+        g = DEFAULT_ANYHIT_GRANULARITY if any_hit else DEFAULT_GRANULARITY
+        pc = raster.round_pc_max(raster.measure_pair_count(
+            b.inter.raster, b.cs, *wave, "ortho", granularity=g))
+        zero_counts()
+        got = b.inter.intersect_from(b.scene, wave[0], wave[1], mode="ortho",
+                                     t_min=wave[2], t_max=wave[3],
+                                     any_hit=any_hit, pc_max=pc)
+        torch.cuda.synchronize()
+        a_launch += K["A"].variants.get("dir", 0)
+        ref = b.inter.for_incoherent().intersect(b.scene, *wave)
+        bad = (int((got.is_hit != ref.is_hit).sum()) if any_hit else
+               hit_mismatches(got.prim_id, got.t, ref.prim_id, ref.t))
+        label = "any-hit" if any_hit else "nearest"
+        print(f"  A dir {label} via intersect_from(mode=\"ortho\"): "
+              f"{K['A'].variants} launches; vs the marcher {bad} "
+              f"mismatches, {int(got.is_hit.sum())} hits of "
+              f"{int((wave[3] > 0).sum())} live rays")
+        if bad or K["A"].variants.get("dir", 0) != 1:
+            raise AssertionError("A's ortho wave disagrees or missed \"dir\"")
+        S = raster._coarse_stage(b.inter.raster, b.cs, *wave, "ortho", None,
+                                 W, pc, g)
+        a_rows.append(raster_wave(
+            f"A dir sun wave {label}", tr.raster_cluster_call,
+            tr.raster_cluster_plain, raster.schedule_inputs(b.cs, S, S["nb"],
+                                                            g),
+            W, any_hit, prim_keys(b.cs), card, "dir", WOOP_SHARED_DIR_OPS))
+    rows["tile_raster_dir"] = dict(a_rows[0], max_abs_err=max(
+        r["max_abs_err"] for r in a_rows))
+    launches["tile_raster_dir"] = a_launch
+
+    # D: the Time pile's TLAS
+    tlas = time_frame(t, 0).tlas
+    h0, _ = tlas.intersect_from(t.o, t.d, point=t.o[0],
+                                pc_max=raster.round_pc_max(t.pc1))
+    wave = sun_wave(t.o, t.d, h0)
+
+    def keys(slot):
+        pos = slot.clamp(min=0).long()
+        pair = pos // 256
+        lib_slot = tlas.pair_shape.long()[pair] * 256 + pos % 256
+        key = (tlas.pair_inst.long()[pair] << 16) \
+            + tlas.library.prim_index.long()[lib_slot]
+        return torch.where(slot < 0, -1, key)
+
+    d_rows, d_launch = [], 0
+    pc = raster.round_pc_max(ri.measure_instanced_pair_count(
+        tlas, *wave, "ortho", None))
+    for any_hit in (False, True):
+        zero_counts()
+        got, gi = tlas.intersect_from(wave[0], wave[1], mode="ortho",
+                                      t_min=wave[2], t_max=wave[3],
+                                      any_hit=any_hit, pc_max=pc)
+        torch.cuda.synchronize()
+        d_launch += K["D"].variants.get("dir", 0)
+        ref, ri_ = tlas.intersect(*wave, any_hit)
+        label = "any-hit" if any_hit else "nearest"
+        if any_hit:
+            bad = int((got.is_hit != ref.is_hit).sum())
+        else:
+            kg = torch.where(got.is_hit, (gi.long() << 20) + got.prim_id, -1)
+            kr = torch.where(ref.is_hit, (ri_.long() << 20) + ref.prim_id,
+                             -1)
+            bad = hit_mismatches(kg, got.t, kr, ref.t)
+        print(f"  D dir {label} via intersect_from(mode=\"ortho\"): "
+              f"{K['D'].variants} launches; vs the marcher {bad} "
+              f"mismatches, {int(got.is_hit.sum())} hits of "
+              f"{int((wave[3] > 0).sum())} live rays")
+        if bad or K["D"].variants.get("dir", 0) != 1:
+            raise AssertionError("D's ortho wave disagrees or missed \"dir\"")
+        S = ri.instanced_coarse_stage(tlas.pair_min, tlas.pair_max, *wave,
+                                      "ortho", None, W, pc)
+        d_rows.append(raster_wave(
+            f"D dir sun wave {label}", tr.raster_instanced_call,
+            tr.raster_instanced_plain, ri.instanced_schedule_inputs(tlas, S),
+            W, any_hit, keys, card, "dir", WOOP_SHARED_DIR_OPS))
+    rows["tile_raster_instanced_dir"] = dict(d_rows[0], max_abs_err=max(
+        r["max_abs_err"] for r in d_rows))
+    launches["tile_raster_instanced_dir"] = d_launch
+    return rows, launches
+
+
+def block_subset(inp: dict, W: int, blocks) -> dict:
+    """The raster schedule ``inp`` cut to the tiles ``blocks`` (ascending),
+    renumbered 0.., with the trailing dead block: the same pairs in the
+    same order for those tiles."""
+    import torch
+    nb = inp["n_blocks"]
+    dev = inp["pair_tiles"].device
+    blocks = torch.as_tensor(blocks, device=dev)
+    new = torch.full((nb + 1,), len(blocks), dtype=torch.int32, device=dev)
+    new[blocks] = torch.arange(len(blocks), dtype=torch.int32, device=dev)
+    keep = torch.isin(inp["pair_tiles"], blocks.to(torch.int32))
+    cols = torch.cat([(blocks[:, None] * W + torch.arange(W, device=dev)
+                       ).reshape(-1), torch.arange(nb * W, (nb + 1) * W,
+                                                   device=dev)])
+    return dict(inp, pair_tiles=new[inp["pair_tiles"][keep].long()],
+                pair_clusters=inp["pair_clusters"][keep],
+                rays_t_ext=inp["rays_t_ext"][:, cols].contiguous(),
+                n_blocks=len(blocks))
+
+
+def full_schedule(args, kw):
+    """(bundle_stage's schedule at the capacity its pair count needs, that
+    capacity) for a wave's ``bundle_stage`` arguments."""
+    from optix_ray_tracer_tpu_torch.ops import raster
+    S = raster.bundle_stage(*args, **kw)
+    pc = raster.round_pc_max(int(S["pc_total"]))
+    if pc > args[6]:
+        S = raster.bundle_stage(*args[:6], pc, **kw)
+    return S, pc
+
+
+def bundle_row(waves, card: str) -> dict:
+    """Phase 11 (e): kernel A (common=None) on the first NEE bundle wave of
+    the path animation's flatten run, the whole wave timed, against its
+    plain twin on BUNDLE_BLOCKS blocks spread over the wave (t, slot, u,
+    v and the Woop-tested rows equal).  The bound counts the work its
+    live rays need up to their first hit in the kernel's visit order
+    (:func:`needed_raster_work`) at WOOP_OPS per Woop test."""
+    import torch
+
+    from optix_ray_tracer_tpu_torch.ops import raster
+    from optix_ray_tracer_tpu_torch.ops.kernels import tile_raster as tr
+
+    args, kw = waves[0]
+    clusters, W = args[0], args[5]
+    # the whole schedule, whatever capacity the wave ran at
+    S, _ = full_schedule(args, kw)
+    nb = S["nb"]
+    inp = raster.schedule_inputs(clusters, S, nb)
+    call = dict(w=W, any_hit=True, common=None)
+    kern = tr.raster_cluster_call(**inp, **call, visits=True)
+    ms = time_ms(lambda: tr.raster_cluster_call(**inp, **call), REPS)
+    blocks = torch.linspace(0, nb - 1, min(BUNDLE_BLOCKS, nb)).round().long()
+    blocks = torch.unique(blocks)
+    sub = block_subset(inp, W, blocks)
+    ks = tr.raster_cluster_call(**sub, **call, visits=True)
+    ref, p_ms = time_once(lambda: tr.raster_cluster_plain(**sub, **call,
+                                                          visits=True))
+    err = compare("A bundle NEE wave (block subset)", prim_keys(clusters),
+                  ks, ref, True)
+    same = all(bool(torch.equal(a, b)) for a, b in zip(ks, ref))
+    if not same:
+        raise AssertionError("A on the bundle schedule differs from its "
+                             "plain twin")
+    work = tr.needed_raster_work(inp, W, kern[0], kern[1], any_hit=True)
+    n_pairs = int((inp["pair_tiles"] < nb).sum())
+    run = int(kern[4].sum()) * 32
+    live = int((S["tmax_p"] > S["tmin_p"]).sum())
+    r = row(err, ms, p_ms, tensor_bytes(inp, kern),
+            work["slab"] * SLAB_OPS + work["woop"] * WOOP_OPS)
+    print(f"  A bundle NEE wave: {nb} blocks of {W} rays ({live} live), "
+          f"{n_pairs} pairs ({int(S['pc_total'])}); kernel {ms:.3f} ms "
+          f"[{card}], plain {p_ms:.1f} ms on {len(blocks)} blocks (equal, "
+          f"Woop-tested rows included); Woop tests run {run}, needed "
+          f"{work['woop']} ({run / max(work['woop'], 1):.2f}x), slab tests "
+          f"needed {work['slab']}; bound {r['bound_ms']:.4f} ms by "
+          f"{r['bound_by']}, {100 * r['bound_ms'] / ms:.2f}% of the wave; "
+          f"{tr.raster_occupancy(False, True, None)} resident warps per SM")
+    return r
+
+
+def path_phase(b: SimpleNamespace, t: SimpleNamespace, card: str):
+    """Phase 11, the path tracer: (a) config 5, (b) config 4, (c) the
+    path-traced animation, (d) the ortho kernels, (e) A on a bundle NEE
+    wave.  Returns ({row name: JSON row}, {row name: launches})."""
+    launches = {}
+
+    def add(counts):
+        for k, n in counts.items():
+            name = K[k].name
+            launches[name] = launches.get(name, 0) + n
+
+    add(sponza_cell(card))
+    add(cornell_cell(card))
+    anim, bundle_launches, nee = path_animation(card)
+    for name, n in anim.items():
+        launches[name] = launches.get(name, 0) + n
+    rows, variant = ortho_rows(b, t, card)
+    launches.update(variant)
+    rows["tile_raster_bundle"] = bundle_row(nee, card)
+    launches["tile_raster_bundle"] = bundle_launches
+    return rows, launches
+
+
+#: the variant rows of the kernels' JSON line: name -> (kernel letter,
+#: the TPU kernel's file:line)
+VARIANT_ROWS = {
+    "tile_raster_dir": ("A", "optix_ray_tracer_tpu/ops/pallas/"
+                        "tile_raster.py:219"),
+    "tile_raster_instanced_dir": ("D", "optix_ray_tracer_tpu/ops/pallas/"
+                                  "tile_raster.py:219"),
+    "tile_raster_bundle": ("A", "optix_ray_tracer_tpu/ops/pallas/"
+                           "tile_raster.py:70"),
+}
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -2027,10 +2597,17 @@ def main() -> None:
     frame_tail(frame, card)
     for name, n in animation_phase(card).items():
         launches[name] += n
-    print(json.dumps({"kernels": [
-        {"name": k.name, "route": "cuda", "source": k.source,
-         "replaces": k.replaces, "launches": launches[k.name],
-         **rows[k.name]} for k in _lib.KERNELS]}))
+    path_rows, path_launches = path_phase(b, t, card)
+    rows.update(path_rows)
+    for name, n in path_launches.items():
+        launches[name] = launches.get(name, 0) + n
+    kernels = [{"name": k.name, "route": "cuda", "source": k.source,
+                "replaces": k.replaces, "launches": launches[k.name],
+                **rows[k.name]} for k in _lib.KERNELS]
+    kernels += [{"name": name, "route": "cuda", "source": K[k].source,
+                 "replaces": replaces, "launches": launches[name],
+                 **rows[name]} for name, (k, replaces) in VARIANT_ROWS.items()]
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -6,7 +6,8 @@ into a dict of numpy arrays keyed by field name, nested dataclasses into
 nested dicts; it touches no JAX API.  The other functions build the
 port's counterparts from such dicts, so tests can give both packages the
 very same acceleration structure (flat or two-level, with one frame's
-refit state), scene, materials and camera.  Each builds on ``device``
+refit state), scene, materials, camera, area lights, environment map and
+textures.  Each builds on ``device``
 (None: the card, see ``utils.tensors.resolve_device``).
 """
 
@@ -26,13 +27,16 @@ from optix_ray_tracer_tpu_torch.ops.march import (
 )
 from optix_ray_tracer_tpu_torch.ops.sweep import ClusterSet, SweepIntersector
 from optix_ray_tracer_tpu_torch.ops.tlas import TLASSceneIntersector
+from optix_ray_tracer_tpu_torch.render.envmap import EnvMap
 from optix_ray_tracer_tpu_torch.render.film import Film
 from optix_ray_tracer_tpu_torch.render.neural_denoise import KPCN
 from optix_ray_tracer_tpu_torch.scene.camera import Camera
 from optix_ray_tracer_tpu_torch.scene.geometry import (
     Scene, Spheres, Triangles,
 )
+from optix_ray_tracer_tpu_torch.scene.lights import AreaLights
 from optix_ray_tracer_tpu_torch.scene.materials import MaterialTable
+from optix_ray_tracer_tpu_torch.scene.textures import TextureSet
 from optix_ray_tracer_tpu_torch.utils.tensors import resolve_device
 
 #: the seven arrays of a ClusterSet
@@ -146,6 +150,27 @@ def _tensors(arrays: dict, cls, dev: torch.device, **nested):
 
 def _keep(val, dev):
     return val
+
+
+def area_lights(arrays: dict, device=None):
+    """AreaLights from a JAX ``AreaLights``'s arrays (tri_id and
+    tri_light_idx int32, the rest float32)."""
+    return _tensors(arrays, AreaLights, resolve_device(device))
+
+
+def envmap(arrays: dict, device=None):
+    """EnvMap from a JAX ``EnvMap``'s arrays (its sampling tables None
+    where the map has none)."""
+    dev = resolve_device(device)
+    return EnvMap(**{k: None if arrays.get(k) is None
+                     else _t(arrays[k], dev).float()
+                     for k in ("image", "block_cdf", "cond_cdf",
+                               "pdf_tex")})
+
+
+def texture_set(arrays: dict, device=None):
+    """TextureSet from a JAX ``TextureSet``'s arrays."""
+    return _tensors(arrays, TextureSet, resolve_device(device))
 
 
 def instanced_library(arrays: dict, device=None) -> InstancedLibrary:

@@ -265,7 +265,7 @@ __device__ __forceinline__ int visit_row(
         sub_boxes + 8 * (static_cast<size_t>(c) * n_subs + part), ox, oy, oz,
         ix, iy, iz, tmin);
     if (!__any_sync(kFull, se < bt)) continue;
-    ort_warp_rows<ANY_HIT, false, false>(
+    ort_warp_rows<ANY_HIT, ORT_COMMON_NONE, false>(
         ws.rows, lane, w, part * step, step, c * ORT_CHUNK, tox, toy, toz,
         tdx, tdy, tdz, tmin, bt, slot, no_u, no_v);
     tested += step;

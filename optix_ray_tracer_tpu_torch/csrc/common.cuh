@@ -22,19 +22,20 @@ __device__ __forceinline__ float ort_woop_proj(float w0, float w1, float w2,
   return ((w0 * ox + w1 * oy) + w2 * oz) - w3;
 }
 
-// One Woop test of a row against a ray, given the row's o-projections of
-// the ray's origin and its direction rows (w0..w2, w4..w6, w8..w10): a hit
-// in (tmin, bt) takes slot = id and, with UV, its barycentrics; any-hit
-// pins bt to -ORT_INF.
+// Which side of the Woop dots a tile-raster wave shares across a tile
+// (tile_raster.cu): none, the origin (camera and flipped shadow waves) or
+// the direction (ortho waves).
+#define ORT_COMMON_NONE 0
+#define ORT_COMMON_ORIGIN 1
+#define ORT_COMMON_DIR 2
+
+// One Woop test of a row against a ray, given the row's o-projections and
+// d-projections of the ray: a hit in (tmin, bt) takes slot = id and, with
+// UV, its barycentrics; any-hit pins bt to -ORT_INF.
 template <bool ANY_HIT, bool UV>
-__device__ __forceinline__ void ort_woop_hit(
-    float opx, float opy, float opz, float w0, float w1, float w2, float w4,
-    float w5, float w6, float w8, float w9, float w10, int id, float dx,
-    float dy, float dz, float tmin, float& bt, int& slot, float& u,
-    float& v) {
-  const float dpx = (w0 * dx + w1 * dy) + w2 * dz;
-  const float dpy = (w4 * dx + w5 * dy) + w6 * dz;
-  const float dpz = (w8 * dx + w9 * dy) + w10 * dz;
+__device__ __forceinline__ void ort_woop_accept(
+    float opx, float opy, float opz, float dpx, float dpy, float dpz, int id,
+    float tmin, float& bt, int& slot, float& u, float& v) {
   const bool dz_ok = fabsf(dpz) > 1e-12f;
   const float t = (-opz) / (dz_ok ? dpz : 1e-12f);
   const float uu = opx + t * dpx;
@@ -47,6 +48,26 @@ __device__ __forceinline__ void ort_woop_hit(
   }
 }
 
+// One row's d-projection of a direction: (w0 dx + w1 dy) + w2 dz.
+__device__ __forceinline__ float ort_woop_dir(float w0, float w1, float w2,
+                                              float dx, float dy, float dz) {
+  return (w0 * dx + w1 * dy) + w2 * dz;
+}
+
+// ort_woop_accept with the d-projections computed from the direction rows
+// (w0..w2, w4..w6, w8..w10) and the ray's direction.
+template <bool ANY_HIT, bool UV>
+__device__ __forceinline__ void ort_woop_hit(
+    float opx, float opy, float opz, float w0, float w1, float w2, float w4,
+    float w5, float w6, float w8, float w9, float w10, int id, float dx,
+    float dy, float dz, float tmin, float& bt, int& slot, float& u,
+    float& v) {
+  ort_woop_accept<ANY_HIT, UV>(opx, opy, opz, ort_woop_dir(w0, w1, w2, dx, dy, dz),
+                               ort_woop_dir(w4, w5, w6, dx, dy, dz),
+                               ort_woop_dir(w8, w9, w10, dx, dy, dz), id, tmin,
+                               bt, slot, u, v);
+}
+
 // Row r's 12 Woop values of a cluster's rows w (value k at w[k * ORT_CHUNK]).
 __device__ __forceinline__ void ort_load_row(float (&q)[12],
                                              const float* __restrict__ w,
@@ -55,46 +76,70 @@ __device__ __forceinline__ void ort_load_row(float (&q)[12],
   for (int k = 0; k < 12; ++k) q[k] = __ldg(w + k * ORT_CHUNK + r);
 }
 
+// Floats a warp stages per Woop row in ort_warp_rows: the 12 values, and
+// with a common direction the row's three d-projections of it.
+template <int COMMON>
+__host__ __device__ constexpr int ort_stage_row() {
+  return COMMON == ORT_COMMON_DIR ? 16 : 12;
+}
+
 // Woop-test rows [r0, r0 + n) of a cluster's rows w (n a multiple of
 // ORT_SLICE) against every lane's ray, slice by slice, with no barrier
 // beyond the warp: lane j loads row j of a slice with 12 coalesced loads
-// and stores it to the warp's own 12 x ORT_SLICE floats of shared memory
-// (stage, 16-byte aligned); every lane then reads each row back as three
-// 16-byte broadcasts.  The next slice's loads are in flight while the
-// current slice is tested.  With COMMON_ORIGIN the origin (ox, oy, oz) is
-// the same on every lane (a tile's shared origin): the loading lane
-// computes its row's three o-projections once and stages them in place of
-// w3, w7 and w11.  slot = slot_base + row; u, v are tracked with UV.
-template <bool ANY_HIT, bool COMMON_ORIGIN, bool UV>
+// and stores it to the warp's own ort_stage_row<COMMON>() x ORT_SLICE
+// floats of shared memory (stage, 16-byte aligned); every lane then reads
+// each row back as 16-byte broadcasts.  The next slice's loads are in
+// flight while the current slice is tested.  With ORT_COMMON_ORIGIN the
+// origin (ox, oy, oz) is the same on every lane (a tile's shared origin):
+// the loading lane computes its row's three o-projections once and stages
+// them in place of w3, w7 and w11.  With ORT_COMMON_DIR the direction
+// (dx, dy, dz) is the same on every lane (an ortho wave's): the loading
+// lane stages its row's three d-projections as a fourth float4.
+// slot = slot_base + row; u, v are tracked with UV.
+template <bool ANY_HIT, int COMMON, bool UV>
 __device__ __forceinline__ void ort_warp_rows(
     float* stage, int lane, const float* __restrict__ w, int r0, int n,
     int slot_base, float ox, float oy, float oz, float dx, float dy,
     float dz, float tmin, float& bt, int& slot, float& u, float& v) {
+  constexpr int kRow = ort_stage_row<COMMON>();
   float q[12];
   ort_load_row(q, w, r0 + lane);
   for (int s = r0; s < r0 + n; s += ORT_SLICE) {
-    if (COMMON_ORIGIN) {
+    float4 dp = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    if (COMMON == ORT_COMMON_ORIGIN) {
       q[3] = ort_woop_proj(q[0], q[1], q[2], q[3], ox, oy, oz);
       q[7] = ort_woop_proj(q[4], q[5], q[6], q[7], ox, oy, oz);
       q[11] = ort_woop_proj(q[8], q[9], q[10], q[11], ox, oy, oz);
+    } else if (COMMON == ORT_COMMON_DIR) {
+      dp = make_float4(ort_woop_dir(q[0], q[1], q[2], dx, dy, dz),
+                       ort_woop_dir(q[4], q[5], q[6], dx, dy, dz),
+                       ort_woop_dir(q[8], q[9], q[10], dx, dy, dz), 0.0f);
     }
     __syncwarp();   // every lane is done with the previous slice
-    float4* dst = reinterpret_cast<float4*>(stage + 12 * lane);
+    float4* dst = reinterpret_cast<float4*>(stage + kRow * lane);
     dst[0] = make_float4(q[0], q[1], q[2], q[3]);
     dst[1] = make_float4(q[4], q[5], q[6], q[7]);
     dst[2] = make_float4(q[8], q[9], q[10], q[11]);
+    if (COMMON == ORT_COMMON_DIR) dst[3] = dp;
     __syncwarp();
     if (s + ORT_SLICE < r0 + n) ort_load_row(q, w, s + ORT_SLICE + lane);
 #pragma unroll 4
     for (int j = 0; j < ORT_SLICE; ++j) {
-      const float4* p = reinterpret_cast<const float4*>(stage + 12 * j);
+      const float4* p = reinterpret_cast<const float4*>(stage + kRow * j);
       const float4 a = p[0], b = p[1], c = p[2];
-      const float opx =
-          COMMON_ORIGIN ? a.w : ort_woop_proj(a.x, a.y, a.z, a.w, ox, oy, oz);
-      const float opy =
-          COMMON_ORIGIN ? b.w : ort_woop_proj(b.x, b.y, b.z, b.w, ox, oy, oz);
-      const float opz =
-          COMMON_ORIGIN ? c.w : ort_woop_proj(c.x, c.y, c.z, c.w, ox, oy, oz);
+      if (COMMON == ORT_COMMON_DIR) {
+        const float4 e = p[3];
+        ort_woop_accept<ANY_HIT, UV>(
+            ort_woop_proj(a.x, a.y, a.z, a.w, ox, oy, oz),
+            ort_woop_proj(b.x, b.y, b.z, b.w, ox, oy, oz),
+            ort_woop_proj(c.x, c.y, c.z, c.w, ox, oy, oz), e.x, e.y, e.z,
+            slot_base + s + j, tmin, bt, slot, u, v);
+        continue;
+      }
+      const bool co = COMMON == ORT_COMMON_ORIGIN;
+      const float opx = co ? a.w : ort_woop_proj(a.x, a.y, a.z, a.w, ox, oy, oz);
+      const float opy = co ? b.w : ort_woop_proj(b.x, b.y, b.z, b.w, ox, oy, oz);
+      const float opz = co ? c.w : ort_woop_proj(c.x, c.y, c.z, c.w, ox, oy, oz);
       ort_woop_hit<ANY_HIT, UV>(opx, opy, opz, a.x, a.y, a.z, b.x, b.y, b.z,
                                 c.x, c.y, c.z, slot_base + s + j, dx, dy, dz,
                                 tmin, bt, slot, u, v);

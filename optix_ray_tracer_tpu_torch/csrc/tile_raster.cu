@@ -1,10 +1,13 @@
 // Tile-raster kernels: Woop tests over a binned (ray tile, cluster window)
 // pair schedule, for waves whose rays share one point (camera waves,
-// point-light shadow waves).
+// point-light shadow waves) or one direction (ortho, sun shadow waves), and
+// for the 3-D bundle schedules of arbitrary waves (area-light shadow
+// segments; ops/raster.bundle_query).
 //
 // ort_tile_raster (kernel A) replaces the Pallas kernel
 //   optix_ray_tracer_tpu/ops/pallas/tile_raster.py:70 _make_cluster_kernel
-//   (instanced=False; via raster_cluster_call, tile_raster.py:303).
+//   (instanced=False; via raster_cluster_call, tile_raster.py:303), all
+//   three of its `common` variants: None, "origin" and "dir".
 // ort_tile_raster_instanced (kernel D) replaces the same kernel with
 //   instanced=True (tile_raster.py:91-98, 150-178; via
 //   raster_instanced_call, tile_raster.py:376): the schedule's entries are
@@ -48,12 +51,19 @@
 //   back as 16-byte broadcasts, the next slice's loads in flight.  With a
 //   common origin the loading lane stages each row's o-projections of the
 //   tile's first ray (moved into the pair's instance space for D), as the
-//   plain version computes them.
+//   plain version computes them.  With a common direction (COMMON =
+//   ORT_COMMON_DIR, the JAX kernel's common="dir" for ortho waves,
+//   tile_raster.py:148-149, :219-223) it stages each row's three
+//   d-projections of the tile's first ray's direction (instance space for
+//   D) in 0.5 KB more per warp; each lane then spends 15 operations fewer
+//   per test.  The tile's first ray is always a real ray: a block's first
+//   index is below the wave's length (ops/raster._pad_wave).
 // - D moves each lane's ray into the pair's instance space once per live
 //   pair (ort_to_instance); t is the same parameter in both spaces, so
 //   best t carries across entries of different instances.
-// Shared memory: 1.5 KB per warp, fixed.  out_visits counts, per warp, the
-// Woop rows it tested (each one test on each of its 32 lanes).
+// Shared memory: 1.5 KB per warp, fixed (2 KB with a common direction).
+// out_visits counts, per warp, the Woop rows it tested (each one test on
+// each of its 32 lanes).
 //
 // The walk is bound by issued instructions (~48 per Woop test and lane
 // under -fmad=false, the IEEE divide included), not by the gate's loads:
@@ -74,7 +84,10 @@ constexpr unsigned kFull = 0xffffffffu;
 // pair_ids[p] (world sub boxes, slot = pair * 256 + row) and an instance
 // inst_ids[p] (the affine row the tile's rays are moved by before the Woop
 // test).  Otherwise entry p is the window pair_ids[p] = cluster * g + sub.
-template <bool ANY_HIT, bool COMMON_ORIGIN, bool INST>
+// COMMON: ORT_COMMON_NONE, _ORIGIN (every ray of a tile starts at the
+// tile's first ray's origin) or _DIR (every ray of a tile runs along the
+// tile's first ray's direction).
+template <bool ANY_HIT, int COMMON, bool INST>
 __global__ void __launch_bounds__(32 * kRasterWarps, 6) warp_raster_kernel(
     const int* __restrict__ lib_ids, const int* __restrict__ pair_ids,
     const int* __restrict__ inst_ids, const int* __restrict__ tile_start,
@@ -85,7 +98,10 @@ __global__ void __launch_bounds__(32 * kRasterWarps, 6) warp_raster_kernel(
     float* __restrict__ out_t, int* __restrict__ out_slot,
     float* __restrict__ out_u, float* __restrict__ out_v,
     int* __restrict__ out_visits) {
-  __shared__ __align__(16) float stage[kRasterWarps][12 * ORT_SLICE];
+  constexpr bool kOrigin = COMMON == ORT_COMMON_ORIGIN;
+  constexpr bool kDir = COMMON == ORT_COMMON_DIR;
+  __shared__ __align__(16)
+      float stage[kRasterWarps][ort_stage_row<COMMON>() * ORT_SLICE];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int gw = blockIdx.x * kRasterWarps + warp;
@@ -102,13 +118,14 @@ __global__ void __launch_bounds__(32 * kRasterWarps, 6) warp_raster_kernel(
   const float ix = ort_inv_dir(dx), iy = ort_inv_dir(dy), iz = ort_inv_dir(dz);
   int slot = -1;
   float u = 0.0f, v = 0.0f;
-  // a common origin is the tile's first ray's (padding lanes and dead rays
-  // included, as the plain version takes it)
+  // a common origin or direction is the tile's first ray's (padding lanes
+  // and dead rays included, as the plain version takes it)
   float c0x = 0.0f, c0y = 0.0f, c0z = 0.0f;
-  if (COMMON_ORIGIN) {
-    c0x = rays[0 * ray_stride + first];
-    c0y = rays[1 * ray_stride + first];
-    c0z = rays[2 * ray_stride + first];
+  if (kOrigin || kDir) {
+    const int k = kOrigin ? 0 : 3;
+    c0x = rays[(k + 0) * ray_stride + first];
+    c0y = rays[(k + 1) * ray_stride + first];
+    c0z = rays[(k + 2) * ray_stride + first];
   }
   const int ct = ORT_CHUNK / granularity;   // triangles per window
   const int step = ct / n_subs;             // triangles per part
@@ -133,27 +150,31 @@ __global__ void __launch_bounds__(32 * kRasterWarps, 6) warp_raster_kernel(
     const float* src = woop_t
         + static_cast<size_t>(win / granularity) * ORT_WOOP_ROWS * ORT_CHUNK
         + (win % granularity) * ct;
-    // the test-space ray and origin: world, or moved into the entry's
-    // instance space
+    // the test-space ray (its origin or direction the tile's shared one):
+    // world, or moved into the entry's instance space
     float tox = ox, toy = oy, toz = oz, tdx = dx, tdy = dy, tdz = dz;
     if (INST) {
       const float* m = inst_rows + 128 * static_cast<size_t>(inst_ids[p]);
       ort_to_instance(m, ox, oy, oz, dx, dy, dz, tox, toy, toz, tdx, tdy,
                       tdz);
-      if (COMMON_ORIGIN) {
-        float e0, e1, e2;
+      float e0, e1, e2;
+      if (kOrigin)
         ort_to_instance(m, c0x, c0y, c0z, 0.0f, 0.0f, 0.0f, tox, toy, toz,
                         e0, e1, e2);
-      }
-    } else if (COMMON_ORIGIN) {
+      if (kDir)
+        ort_to_instance(m, 0.0f, 0.0f, 0.0f, c0x, c0y, c0z, e0, e1, e2, tdx,
+                        tdy, tdz);
+    } else if (kOrigin) {
       tox = c0x; toy = c0y; toz = c0z;
+    } else if (kDir) {
+      tdx = c0x; tdy = c0y; tdz = c0z;
     }
     for (int part = 0; part < n_subs; ++part) {
       float e = se[0];
 #pragma unroll
       for (int k = 1; k < kMaxSubs; ++k) e = part == k ? se[k] : e;
       if (!__any_sync(kFull, e < bt)) continue;
-      ort_warp_rows<ANY_HIT, COMMON_ORIGIN, true>(
+      ort_warp_rows<ANY_HIT, COMMON, true>(
           stage[warp], lane, src, part * step, step, pid * ct, tox, toy, toz,
           tdx, tdy, tdz, tmin, bt, slot, u, v);
       tested += step;
@@ -166,39 +187,56 @@ __global__ void __launch_bounds__(32 * kRasterWarps, 6) warp_raster_kernel(
   if (out_visits && lane == 0) out_visits[gw] = tested;
 }
 
-const void* raster_fn(bool instanced, bool any_hit, bool origin) {
-#define ORT_FN(A, O, I) reinterpret_cast<const void*>(warp_raster_kernel<A, O, I>)
-  if (instanced) {
-    if (any_hit) return origin ? ORT_FN(true, true, true)
-                               : ORT_FN(true, false, true);
-    return origin ? ORT_FN(false, true, true) : ORT_FN(false, false, true);
+template <bool ANY_HIT, bool INST>
+const void* raster_fn_common(int common) {
+  switch (common) {
+    case ORT_COMMON_ORIGIN:
+      return reinterpret_cast<const void*>(
+          warp_raster_kernel<ANY_HIT, ORT_COMMON_ORIGIN, INST>);
+    case ORT_COMMON_DIR:
+      return reinterpret_cast<const void*>(
+          warp_raster_kernel<ANY_HIT, ORT_COMMON_DIR, INST>);
+    default:
+      return reinterpret_cast<const void*>(
+          warp_raster_kernel<ANY_HIT, ORT_COMMON_NONE, INST>);
   }
-  if (any_hit) return origin ? ORT_FN(true, true, false)
-                             : ORT_FN(true, false, false);
-  return origin ? ORT_FN(false, true, false) : ORT_FN(false, false, false);
-#undef ORT_FN
+}
+
+const void* raster_fn(bool instanced, bool any_hit, int common) {
+  if (instanced) return any_hit ? raster_fn_common<true, true>(common)
+                                : raster_fn_common<false, true>(common);
+  return any_hit ? raster_fn_common<true, false>(common)
+                 : raster_fn_common<false, false>(common);
 }
 
 template <bool INST>
-int launch(int n_blocks, int w, cudaStream_t s, int any_hit,
-           int common_origin, const int* lib_ids, const int* pair_ids,
-           const int* inst_ids, const int* tile_start, const float* rays,
-           int ray_stride, const float* sub_boxes, int n_subs,
-           const float* inst_rows, const float* woop_t, int granularity,
-           float* out_t, int* out_slot, float* out_u, float* out_v,
-           int* out_visits) {
+int launch(int n_blocks, int w, cudaStream_t s, int any_hit, int common,
+           const int* lib_ids, const int* pair_ids, const int* inst_ids,
+           const int* tile_start, const float* rays, int ray_stride,
+           const float* sub_boxes, int n_subs, const float* inst_rows,
+           const float* woop_t, int granularity, float* out_t, int* out_slot,
+           float* out_u, float* out_v, int* out_visits) {
+  if (common < ORT_COMMON_NONE || common > ORT_COMMON_DIR)
+    return static_cast<int>(cudaErrorInvalidValue);
   const int n_warps = n_blocks * (w / 32);
   const int grid = (n_warps + kRasterWarps - 1) / kRasterWarps;
-#define ORT_LAUNCH(A, O)                                                     \
-  warp_raster_kernel<A, O, INST><<<grid, 32 * kRasterWarps, 0, s>>>(        \
+#define ORT_LAUNCH(A, C)                                                     \
+  warp_raster_kernel<A, C, INST><<<grid, 32 * kRasterWarps, 0, s>>>(        \
       lib_ids, pair_ids, inst_ids, tile_start, rays, ray_stride, sub_boxes, \
       n_subs, inst_rows, woop_t, granularity, w, n_warps, out_t, out_slot,  \
       out_u, out_v, out_visits)
-  if (any_hit) {
-    if (common_origin) ORT_LAUNCH(true, true); else ORT_LAUNCH(true, false);
-  } else {
-    if (common_origin) ORT_LAUNCH(false, true); else ORT_LAUNCH(false, false);
+#define ORT_LAUNCH_COMMON(A)                                                 \
+  switch (common) {                                                         \
+    case ORT_COMMON_ORIGIN: ORT_LAUNCH(A, ORT_COMMON_ORIGIN); break;        \
+    case ORT_COMMON_DIR: ORT_LAUNCH(A, ORT_COMMON_DIR); break;              \
+    default: ORT_LAUNCH(A, ORT_COMMON_NONE); break;                         \
   }
+  if (any_hit) {
+    ORT_LAUNCH_COMMON(true);
+  } else {
+    ORT_LAUNCH_COMMON(false);
+  }
+#undef ORT_LAUNCH_COMMON
 #undef ORT_LAUNCH
   return static_cast<int>(cudaGetLastError());
 }
@@ -215,17 +253,18 @@ int launch(int n_blocks, int w, cudaStream_t s, int any_hit,
 //   (C, 16, 256).
 // Outputs (n_blocks * w,): best t, slot (-1 miss), u, v; out_visits (NULL,
 // or (n_blocks * w / 32,)): each warp's Woop-tested rows.
+// common: 0 none, 1 origin, 2 direction (ORT_COMMON_*).
 // Returns the CUDA error code of the launch (0 = launched).
 extern "C" int ort_tile_raster(const int* pair_ids, const int* tile_start,
                                const float* rays, int ray_stride,
                                const float* sub_boxes, int n_subs,
                                const float* woop_t, int granularity,
                                int n_blocks, int w, int any_hit,
-                               int common_origin, float* out_t,
+                               int common, float* out_t,
                                int* out_slot, float* out_u, float* out_v,
                                int* out_visits, void* stream) {
   return launch<false>(n_blocks, w, static_cast<cudaStream_t>(stream),
-                       any_hit, common_origin, nullptr, pair_ids, nullptr,
+                       any_hit, common, nullptr, pair_ids, nullptr,
                        tile_start, rays, ray_stride, sub_boxes, n_subs,
                        nullptr, woop_t, granularity, out_t, out_slot, out_u,
                        out_v, out_visits);
@@ -241,10 +280,10 @@ extern "C" int ort_tile_raster_instanced(
     const int* tile_start, const float* rays, int ray_stride,
     const float* sub_boxes, int n_subs, const float* inst_rows,
     const float* woop_t, int n_blocks, int w, int any_hit,
-    int common_origin, float* out_t, int* out_slot, float* out_u,
+    int common, float* out_t, int* out_slot, float* out_u,
     float* out_v, int* out_visits, void* stream) {
   return launch<true>(n_blocks, w, static_cast<cudaStream_t>(stream),
-                      any_hit, common_origin, lib_ids, pair_ids, inst_ids,
+                      any_hit, common, lib_ids, pair_ids, inst_ids,
                       tile_start, rays, ray_stride, sub_boxes, n_subs,
                       inst_rows, woop_t, 1, out_t, out_slot, out_u, out_v,
                       out_visits);
@@ -254,11 +293,11 @@ extern "C" int ort_tile_raster_instanced(
 // variant, by cudaOccupancyMaxActiveBlocksPerMultiprocessor on the current
 // device.  Returns the CUDA error code.
 extern "C" int ort_tile_raster_occupancy(int instanced, int any_hit,
-                                         int common_origin,
+                                         int common,
                                          int* warps_per_sm) {
   int blocks = 0;
   const int err = static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &blocks, raster_fn(instanced, any_hit, common_origin),
+      &blocks, raster_fn(instanced, any_hit, common),
       32 * kRasterWarps, 0));
   *warps_per_sm = blocks * kRasterWarps;
   return err;

@@ -67,3 +67,20 @@ def quad(p0, p1, p2, p3):
     normals = np.repeat(n[:, None, :], 3, axis=1)
     return v, normals.astype(np.float32)
 
+
+def box(lo, hi):
+    """12 triangles for an axis-aligned box (outward normals)."""
+    lo = np.asarray(lo, np.float32)
+    hi = np.asarray(hi, np.float32)
+    x0, y0, z0 = lo
+    x1, y1, z1 = hi
+    faces = [
+        ([x0, y0, z0], [x0, y1, z0], [x1, y1, z0], [x1, y0, z0]),   # -z
+        ([x0, y0, z1], [x1, y0, z1], [x1, y1, z1], [x0, y1, z1]),   # +z
+        ([x0, y0, z0], [x1, y0, z0], [x1, y0, z1], [x0, y0, z1]),   # -y
+        ([x0, y1, z0], [x0, y1, z1], [x1, y1, z1], [x1, y1, z0]),   # +y
+        ([x0, y0, z0], [x0, y0, z1], [x0, y1, z1], [x0, y1, z0]),   # -x
+        ([x1, y0, z0], [x1, y1, z0], [x1, y1, z1], [x1, y0, z1]),   # +x
+    ]
+    vs, ns = zip(*(quad(*f) for f in faces))
+    return np.concatenate(vs, 0), np.concatenate(ns, 0)

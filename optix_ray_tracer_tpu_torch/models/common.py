@@ -4,12 +4,12 @@ geometry and camera; the per-frame intersector choice with its device
 refit and rebuild; and the frame step (integrator, then denoiser).
 
 The config is read by attribute, so any object with the
-``RendererConfig`` fields serves, the JAX package's included.  Only the
-Whitted wavefront integrator is ported: the path tracer, ReSTIR,
-environment maps and textures wait for ROADMAP queue 1 item 4
-(:func:`render_frame`, :func:`build_envmap` and :func:`build_textures`
-raise for them).  Builders that make tensors take ``device`` (None: the
-card).
+``RendererConfig`` fields serves, the JAX package's included.  The
+Whitted and path integrators are ported, with environment maps, textures
+and area lights; ReSTIR, the Sobol sampler and ``sample_offset``
+(progressive batches) wait for ROADMAP queue 1 item 5, and
+:func:`render_frame` raises for them.  Builders that make tensors take
+``device`` (None: the card).
 """
 
 from __future__ import annotations
@@ -26,7 +26,9 @@ from optix_ray_tracer_tpu_torch.ops.march import (
     MarchIntersector, make_march_intersector, rebuild_march_intersector,
     refit_march_intersector,
 )
-from optix_ray_tracer_tpu_torch.render import neural_denoise, wavefront
+from optix_ray_tracer_tpu_torch.render import (
+    neural_denoise, pathtracer, wavefront,
+)
 from optix_ray_tracer_tpu_torch.render.denoise import denoise
 from optix_ray_tracer_tpu_torch.scene.camera import Camera
 from optix_ray_tracer_tpu_torch.scene.geometry import Spheres, Triangles
@@ -34,7 +36,7 @@ from optix_ray_tracer_tpu_torch.scene.materials import MaterialBuilder
 from optix_ray_tracer_tpu_torch.utils import debug
 from optix_ray_tracer_tpu_torch.utils.colorramp import bake_color_ramp
 
-_NOT_PORTED = "is not ported yet (ROADMAP queue 1 item 4)"
+_NOT_PORTED = "is not ported yet (ROADMAP queue 1 item 5)"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -123,20 +125,54 @@ def build_extra_triangles(config, bases: MaterialBases,
 
 
 def build_envmap(config, device=None):
-    """Config ``envmap`` -> None when the config names none; environment
-    maps are not ported yet."""
+    """Config ``envmap`` -> EnvMap on ``device`` (None: the card), or None:
+    a Radiance .hdr ``file``, a ``constant`` color, or the procedural sky
+    (``sun-direction``, ``sun-cos``, ``zenith``, ``horizon``)."""
     if config.envmap is None:
         return None
-    raise NotImplementedError(f"the config's envmap {_NOT_PORTED}")
+    from optix_ray_tracer_tpu_torch.render import envmap as env_mod
+
+    spec = config.envmap
+    if "file" in spec:
+        return env_mod.read_hdr(config.resolve(str(spec["file"])), device)
+    if spec.get("type") == "constant":
+        return env_mod.constant_env(
+            tuple(spec.get("color", (0.7, 0.8, 0.9))), device)
+    kwargs = {}
+    if "sun-direction" in spec:
+        kwargs["sun_dir"] = tuple(spec["sun-direction"])
+    if "sun-cos" in spec:
+        kwargs["sun_cos"] = float(spec["sun-cos"])
+    if "zenith" in spec:
+        kwargs["zenith"] = tuple(spec["zenith"])
+    if "horizon" in spec:
+        kwargs["horizon"] = tuple(spec["horizon"])
+    return env_mod.gradient_sky(device=device, **kwargs)
 
 
 def build_textures(config, bases: MaterialBases, num_materials: int,
                    device=None):
-    """Config ``textures`` -> None when the config names none; textures
-    are not ported yet."""
+    """Config ``textures`` -> TextureSet on ``device`` (None: the card), or
+    None: each entry binds an image file or a procedural checker to one
+    material row."""
     if not config.textures_cfg:
         return None
-    raise NotImplementedError(f"the config's textures {_NOT_PORTED}")
+    from optix_ray_tracer_tpu_torch.scene.textures import (
+        build_texture_set, checker_texture, load_texture,
+    )
+
+    images = []
+    mat_tex = [-1] * num_materials
+    for i, t in enumerate(config.textures_cfg):
+        if t.get("checker"):
+            images.append(checker_texture(int(t.get("size", 256)),
+                                          tiles=int(t.get("tiles", 8))))
+        else:
+            images.append(load_texture(config.resolve(str(t["file"]))))
+        mat = bases.resolve(str(t.get("mat-type", "ROUGH")),
+                            int(t.get("mat-index", 0)))
+        mat_tex[mat] = i
+    return build_texture_set(images, mat_tex, device=device)
 
 
 def camera_from_config(config, device=None) -> Camera:
@@ -207,12 +243,12 @@ def rebuild_or_choose(prev, scene):
 
 
 def collect_lights(config, scene, materials):
-    """Area lights for the path and ReSTIR integrators: None for
-    ``whitted``, which uses none; the others are not ported yet."""
+    """Area lights of the path and ReSTIR integrators, collected from the
+    scene's EMISSIVE triangles (None for ``whitted``, which uses none)."""
     if config.integrator not in ("path", "restir", "restir-gi"):
         return None
-    raise NotImplementedError(
-        f"integrator {config.integrator!r} {_NOT_PORTED}")
+    from optix_ray_tracer_tpu_torch.scene.lights import collect_area_lights
+    return collect_area_lights(scene, materials)
 
 
 def render_frame(config, scene, materials, camera, width: int, height: int,
@@ -223,20 +259,25 @@ def render_frame(config, scene, materials, camera, width: int, height: int,
     """One frame through the configured integrator and denoiser.  Returns
     (img, albedo, normal), ``img`` denoised when enabled
     (``denoise_override`` None follows the config)."""
-    if config.integrator in ("path", "restir", "restir-gi"):
+    if config.integrator in ("restir", "restir-gi"):
         raise NotImplementedError(
-            f"integrator {config.integrator!r} is not ported yet (ROADMAP "
-            "queue 1 items 10-11)")
+            f"integrator {config.integrator!r} {_NOT_PORTED}")
     sampler = getattr(config, "sampler", "pcg")
-    if (env is not None or textures is not None or sampler != "pcg"
-            or sample_offset):
+    if sampler != "pcg" or sample_offset:
         raise NotImplementedError(
-            "environment maps, textures, the Sobol sampler and "
-            "sample_offset are not ported yet (ROADMAP queue 1 items 10-11)")
-    img, alb, nrm = wavefront.render(
-        scene, materials, camera, width, height, spp=spp, seed=seed,
-        background=config.background, max_depth=config.max_depth,
-        intersector=intersector)
+            f"the Sobol sampler and sample_offset (progressive batches) "
+            f"{_NOT_PORTED}")
+    if config.integrator == "path":
+        img, alb, nrm = pathtracer.render_path(
+            scene, materials, lights, camera, width, height, spp=spp,
+            seed=seed, background=config.background,
+            max_depth=config.max_depth, intersector=intersector, env=env,
+            textures=textures)
+    else:
+        img, alb, nrm = wavefront.render(
+            scene, materials, camera, width, height, spp=spp, seed=seed,
+            background=config.background, max_depth=config.max_depth,
+            intersector=intersector, env=env)
     img = apply_denoiser(img, alb, nrm, config, denoise_override,
                          denoiser_override)
     return img, alb, nrm

@@ -29,7 +29,9 @@ from optix_ray_tracer_tpu_torch.models import common
 from optix_ray_tracer_tpu_torch.ops.march import (
     MarchIntersector, refit_march_intersector,
 )
-from optix_ray_tracer_tpu_torch.render import neural_denoise, wavefront
+from optix_ray_tracer_tpu_torch.render import (
+    neural_denoise, pathtracer, wavefront,
+)
 from optix_ray_tracer_tpu_torch.render import temporal as tmod
 from optix_ray_tracer_tpu_torch.render.denoise import (
     denoise, filter_irradiance,
@@ -115,14 +117,10 @@ def fused_chunk(fd, ks, seeds, base_inter, materials, camera,
         raise NotImplementedError(
             "the sharded fused chunk is not ported yet (ROADMAP queue 1 "
             "item 6)")
-    if integrator != "whitted":
+    if integrator not in ("whitted", "path") or sampler != "pcg":
         raise NotImplementedError(
-            f"integrator {integrator!r} is not ported yet (ROADMAP queue 1 "
-            "item 4)")
-    if env is not None or textures is not None or sampler != "pcg":
-        raise NotImplementedError(
-            "environment maps, textures and the Sobol sampler are not "
-            "ported yet (ROADMAP queue 1 items 4-5)")
+            f"integrator {integrator!r} / sampler {sampler!r} is not ported "
+            "yet (ROADMAP queue 1 item 5)")
     carry = tstate
     if temporal and carry is None:
         carry = tmod.empty_state(width, height, camera.center.device)
@@ -137,10 +135,17 @@ def fused_chunk(fd, ks, seeds, base_inter, materials, camera,
         # the per-frame refit, always from the file's rebuild
         inter = (refit_march_intersector(base_inter, scene) if use_march
                  else None)
-        out = wavefront.render(
-            scene, materials, camera, width, height, spp=spp, seed=int(seed),
-            background=background, max_depth=max_depth, intersector=inter,
-            want_aux=temporal)
+        if integrator == "path":
+            out = pathtracer.render_path(
+                scene, materials, lights, camera, width, height, spp=spp,
+                seed=int(seed), background=background, max_depth=max_depth,
+                intersector=inter, env=env, textures=textures,
+                want_aux=temporal)
+        else:
+            out = wavefront.render(
+                scene, materials, camera, width, height, spp=spp,
+                seed=int(seed), background=background, max_depth=max_depth,
+                intersector=inter, env=env, want_aux=temporal)
         img, alb, nrm = out[:3]
         if temporal:
             img, carry = _temporal_tail(fd, k, out[3], img, alb, nrm, carry,

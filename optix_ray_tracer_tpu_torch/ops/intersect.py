@@ -212,6 +212,20 @@ def shading_frame(scene: Scene, o, d, hit: Hit):
     return point, normal, front_face, material_id
 
 
+def interpolate_uv(scene: Scene, hit: Hit):
+    """Barycentric-interpolated texture coordinates at triangle hits:
+    (R, 2), zeros for sphere hits, misses and scenes without uvs."""
+    tris = scene.triangles
+    if tris.uvs is None or scene.triangle_count == 0:
+        return torch.zeros(hit.t.shape + (2,), device=hit.t.device)
+    tri_id = torch.clamp(hit.prim_id, 0, scene.triangle_count - 1).long()
+    uv3 = tris.uvs[tri_id]                                   # (R, 3, 2)
+    w = (1.0 - hit.u - hit.v)[..., None]
+    uv = (w * uv3[..., 0, :] + hit.u[..., None] * uv3[..., 1, :]
+          + hit.v[..., None] * uv3[..., 2, :])
+    return torch.where((hit.prim_type == PRIM_TRIANGLE)[..., None], uv, 0.0)
+
+
 def hit_mismatches(prim_a, t_a, prim_b, t_b) -> int:
     """Rays on which two hit records disagree under the bench rule: the
     prim ids differ AND the distances differ by more than

@@ -138,7 +138,9 @@ class Kernel:
 
     ``launches`` goes up by one each time the wrapper launches the kernel
     on the card, and nowhere else: a run that resets it and reads it
-    afterwards sees whether its path went through the kernel."""
+    afterwards sees whether its path went through the kernel.
+    ``variants`` counts the same launches by the template variant the
+    wrapper names (A's and D's ``common``); :meth:`reset` zeroes both."""
 
     def __init__(self, name: str, symbol: str, argtypes: list,
                  source: str, replaces: str):
@@ -148,10 +150,17 @@ class Kernel:
         self.source = source
         self.replaces = replaces
         self.launches = 0
+        self.variants: dict[str, int] = {}
 
-    def __call__(self, device: torch.device, *args) -> None:
+    def reset(self) -> None:
+        self.launches = 0
+        self.variants = {}
+
+    def __call__(self, device: torch.device, *args,
+                 variant: str | None = None) -> None:
         """Launch on ``device``'s current stream; ``args`` are the C
-        function's arguments before the stream."""
+        function's arguments before the stream, ``variant`` the name the
+        launch counts under in ``variants``."""
         fn = getattr(load(), self.symbol)
         with torch.cuda.device(device):
             stream = torch.cuda.current_stream(device).cuda_stream
@@ -160,6 +169,8 @@ class Kernel:
             raise RuntimeError(f"{self.name}: CUDA launch failed with error "
                                f"{err}")
         self.launches += 1
+        if variant is not None:
+            self.variants[variant] = self.variants.get(variant, 0) + 1
 
 
 _P = ctypes.c_void_p

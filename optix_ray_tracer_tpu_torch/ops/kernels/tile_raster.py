@@ -2,7 +2,8 @@
 ``optix_ray_tracer_tpu/ops/pallas/tile_raster.py``).
 
 Kernel A (``raster_cluster_call``) runs a binned (ray tile, cluster
-window) pair schedule from ``ops/raster.py``: each tile tests its pairs in
+window) pair schedule from ``ops/raster.py`` (a camera, point-light or
+ortho wave's 2-D binning, or an arbitrary wave's 3-D bundle binning): each tile tests its pairs in
 schedule order (near to far), gating every window part on its sub box,
 and keeps best t / slot / u / v per ray.  Kernel D
 (``raster_instanced_call``) runs a (ray tile, TLAS pair) schedule from
@@ -43,6 +44,18 @@ from optix_ray_tracer_tpu_torch.utils.vecmath import INF
 GROUP_TRIS = 8    # binning granularity of the schedule's rects
 WARP = 32         # rays per gate group of the kernels
 MAX_SUBS = 4      # sub boxes per window the kernels take
+
+#: the ``common`` variants, in the order of the kernels' COMMON code
+#: (csrc/common.cuh ORT_COMMON_*): full-width dots, a tile's shared origin,
+#: a tile's shared direction (ortho waves)
+COMMONS = (None, "origin", "dir")
+
+
+def common_code(common: str | None) -> int:
+    """The kernels' code of a ``common`` variant (raises for others)."""
+    if common not in COMMONS:
+        raise ValueError(f"common={common!r}: one of {COMMONS}")
+    return COMMONS.index(common)
 
 
 def _tile_schedule(pair_tiles, pair_clusters, n_blocks: int):
@@ -119,7 +132,7 @@ def _raster_plain(inp: dict, w: int, any_hit: bool, common: str | None,
                                              inp["pair_clusters"], n_blocks)
         box_ids, inst_ids, inst_rows = win_ids, None, None
         n_subs, granularity = inp["n_subs"], inp["granularity"]
-    common_origin = common == "origin"
+    common_code(common)
     dev = rays.device
     nw = n_blocks * w
     per = w // group                   # groups per tile
@@ -134,8 +147,10 @@ def _raster_plain(inp: dict, w: int, any_hit: bool, common: str | None,
     inv = inv_dir(d)
     tmin = grouped(rays[6, :nw])
     bt = grouped(rays[7, :nw]).clone()
-    # a common origin's o-projections come from the tile's first ray
+    # a common origin's o-projections (a common direction's d-projections)
+    # come from the tile's first ray
     o_first = rays[0:3, 0:nw:w].T.repeat_interleave(per, 0)[:, None]
+    d_first = rays[3:6, 0:nw:w].T.repeat_interleave(per, 0)[:, None]
     slot = torch.full((ng, group), -1, dtype=torch.int32, device=dev)
     u = torch.zeros((ng, group), device=dev)
     v = torch.zeros((ng, group), device=dev)
@@ -177,8 +192,8 @@ def _raster_plain(inp: dict, w: int, any_hit: bool, common: str | None,
             rows[tp] += step
             col = (col0[gate] + part * step)[:, None] + cols   # (T', step)
             wp = woop_t[c[gate][:, None, None], k12, col[:, None, :]]
-            o_t = o_first[tp] if common_origin else o[tp]
-            d_t = d[tp]
+            o_t = o_first[tp] if common == "origin" else o[tp]
+            d_t = d_first[tp] if common == "dir" else d[tp]
             if rows_i is not None:
                 o_t = instance_points(rows_i[gate], o_t)
                 d_t = instance_dirs(rows_i[gate], d_t)
@@ -212,18 +227,22 @@ def _raster_plain(inp: dict, w: int, any_hit: bool, common: str | None,
             rows.to(torch.int32))
 
 
-def needed_raster_work(inp: dict, w: int, t, slot,
+def needed_raster_work(inp: dict, w: int, t, slot, any_hit: bool = False,
                        chunk: int = 1 << 22) -> dict:
     """The work a raster wave's answers require of kernel A or D over the
     schedule ``inp`` (the :func:`raster_cluster_call` or
     :func:`raster_instanced_call` arguments; D when it holds
-    ``pair_insts``) with blocks of ``w`` rays, given each ray's nearest
-    hit ``t``, ``slot`` ((n_blocks, w) or flat; slot -1 on a miss; for an
-    occlusion wave its nearest hit within the segment, an upper
-    estimate).  Per (ray, scheduled pair of its tile): the n_subs sub-box
-    tests; for D one ray transform where some part is needed; and the
-    part's Woop rows for each part the ray enters at or before its final
-    t (before its t_max on a miss).  Plain PyTorch on the wave's device,
+    ``pair_insts``) with blocks of ``w`` rays, given each ray's answer
+    ``t``, ``slot`` ((n_blocks, w) or flat; slot -1 on a miss): for a
+    nearest wave its nearest hit, for an occlusion wave (``any_hit``) the
+    kernel's, the first hit in the schedule's visit order.  Only live rays
+    (t_max > t_min) need work.  A live ray needs, per scheduled pair of
+    its tile up to the end of its search: the n_subs sub-box tests; for D
+    one ray transform where some part is needed; and the part's Woop rows
+    for each part the ray enters before its search ends.  A nearest search
+    ends at its final t (its t_max on a miss); an occlusion search at the
+    part that holds its first hit (its t_max on a miss), later pairs and
+    parts of its tile not needed.  Plain PyTorch on the wave's device,
     ``chunk`` (ray, part) entries at a time.
 
     Returns Python ints ``slab``, ``inst``, ``woop``."""
@@ -231,27 +250,61 @@ def needed_raster_work(inp: dict, w: int, t, slot,
     sub_boxes = inp["sub_boxes"]
     n_subs = sub_boxes.shape[1]
     g = 1 if instanced else inp["granularity"]
-    step = CHUNK // g // n_subs
+    ct = CHUNK // g
+    step = ct // n_subs
     nb = inp["n_blocks"]
     rays = inp["rays_t_ext"][:, :nb * w]
     o = rays[0:3].T.reshape(nb, w, 3)
     inv = inv_dir(rays[3:6].T).reshape(nb, w, 3)
     tmin = rays[6].reshape(nb, w)
+    tmax = rays[7].reshape(nb, w)
+    live = tmax > tmin
     t, slot = t.reshape(nb, w), slot.reshape(nb, w)
-    reach = torch.where(slot >= 0, torch.nextafter(
-        t, torch.full_like(t, float("inf"))), rays[7].reshape(nb, w))
     real = inp["pair_tiles"] < nb
     tiles = inp["pair_tiles"][real].long()
     boxes = (inp["pair_ids"] if instanced else inp["pair_clusters"])[real]
-    work = dict(slab=tiles.numel() * w * n_subs, inst=0, woop=0)
+    dev = tiles.device
+    n_real = tiles.numel()
+    work = dict(slab=0, inst=0, woop=0)
+    if n_real == 0:
+        return work
+    hit = slot >= 0
+    if any_hit:
+        reach = tmax
+        # (position in the schedule, part) of the pair and part that hold
+        # each ray's first hit; past the last pair on a miss
+        n_ids = int(boxes.max()) + 1
+        key = tiles * n_ids + boxes.long()
+        order = torch.argsort(key)
+        want = (torch.arange(nb, device=dev)[:, None] * n_ids
+                + (slot // ct).long())
+        at = torch.searchsorted(key[order], want).clamp(max=n_real - 1)
+        if bool((hit & (key[order][at] != want)).any()):
+            raise ValueError("a hit slot lies in no scheduled pair of its "
+                             "tile")
+        end_pos = torch.where(hit, order[at], n_real)
+        end_part = torch.where(hit, (slot % ct) // step, n_subs)
+    else:
+        reach = torch.where(hit, torch.nextafter(
+            t, torch.full_like(t, float("inf"))), tmax)
     per = max(1, chunk // (w * n_subs))
-    for p0 in range(0, tiles.numel(), per):
+    parts = torch.arange(n_subs, device=dev)
+    for p0 in range(0, n_real, per):
         tl = tiles[p0:p0 + per]
         sb = sub_boxes[boxes[p0:p0 + per].long()]        # (P, n_subs, 8)
         ent = slab_entry(sb[:, None, :, 0:3], sb[:, None, :, 3:6],
                          o[tl][:, :, None], inv[tl][:, :, None],
                          tmin[tl][:, :, None])          # (P, w, n_subs)
-        need = ent < reach[tl][:, :, None]
+        active = live[tl]                               # (P, w)
+        need = (ent < reach[tl][:, :, None]) & active[:, :, None]
+        if any_hit:
+            pos = torch.arange(p0, p0 + tl.numel(), device=dev)[:, None]
+            e_pos, e_part = end_pos[tl], end_part[tl]
+            active = active & (pos <= e_pos)
+            need &= ((pos < e_pos)[:, :, None]
+                     | ((pos == e_pos)[:, :, None]
+                        & (parts <= e_part[:, :, None])))
+        work["slab"] += int(active.sum()) * n_subs
         work["woop"] += int(need.sum()) * step
         if instanced:
             work["inst"] += int(need.any(-1).sum())
@@ -274,15 +327,17 @@ def raster_cluster_call(pair_tiles, pair_clusters, rays_t_ext, sub_boxes,
     woop_t: (C, 16, CHUNK), the marcher's array: window ``sub`` of a
         cluster is its columns [sub * CHUNK/g, (sub + 1) * CHUNK/g).
     ``common="origin"``: every ray of a tile starts at the tile's first
-        ray's origin, whose Woop o-projections are computed once.
+        ray's origin, whose Woop o-projections are computed once;
+        ``common="dir"``: every ray of a tile runs along the tile's first
+        ray's direction (an ortho wave), whose d-projections are computed
+        once; None: each ray's own (bundle and "target" schedules).
 
     Returns (t, slot, u, v), each (n_blocks, w): best t (t_max where
     nothing hit; -INF for any-hit hits), slot into the sorted triangles
     (-1 miss), barycentrics of the winner; with ``visits`` also the
     Woop-tested rows of each warp of 32 rays, (n_blocks * w // 32,)
     int32."""
-    if common not in (None, "origin"):
-        raise ValueError(f"common={common!r}: only None and 'origin'")
+    code = common_code(common)
     dev = rays_t_ext.device
     if CHUNK % granularity or (CHUNK // granularity) % n_subs:
         raise ValueError(f"granularity {granularity} / n_subs {n_subs} "
@@ -303,10 +358,9 @@ def raster_cluster_call(pair_tiles, pair_clusters, rays_t_ext, sub_boxes,
         _lib.TILE_RASTER(
             dev, pair_ids.data_ptr(), tile_start.data_ptr(),
             rays_t_ext.data_ptr(), stride, sub_boxes.data_ptr(), n_subs,
-            woop_t.data_ptr(), granularity, n_blocks, w, int(any_hit),
-            int(common == "origin"),
+            woop_t.data_ptr(), granularity, n_blocks, w, int(any_hit), code,
             *(x.data_ptr() for x in out[:4]),
-            out[4].data_ptr() if visits else None)
+            out[4].data_ptr() if visits else None, variant=str(common))
     return out
 
 
@@ -351,7 +405,7 @@ def raster_occupancy(instanced: bool = False, any_hit: bool = False,
                    ctypes.POINTER(ctypes.c_int)]
     fn.restype = ctypes.c_int
     warps = ctypes.c_int(0)
-    err = fn(int(instanced), int(any_hit), int(common == "origin"),
+    err = fn(int(instanced), int(any_hit), common_code(common),
              ctypes.byref(warps))
     if err:
         raise RuntimeError(f"occupancy query failed with CUDA error {err}")
@@ -376,10 +430,12 @@ def raster_instanced_call(pair_tiles, pair_libs, pair_ids, pair_insts,
     inst_rows: (P, 128) rows [A(9), b(3), 0...] of o' = A (o - b);
     woop_t: (SC, 16, CHUNK) object-space library rows.
 
+    ``common`` as :func:`raster_cluster_call`: a world origin or direction
+    shared by a tile stays shared after each instance's affine map.
+
     Returns (t, slot, u, v), each (n_blocks, w), and with ``visits`` the
     Woop-tested rows per warp, as :func:`raster_cluster_call`."""
-    if common not in (None, "origin"):
-        raise ValueError(f"common={common!r}: only None and 'origin'")
+    code = common_code(common)
     dev = rays_t_ext.device
     if not rays_t_ext.is_cuda:
         return raster_instanced_plain(pair_tiles, pair_libs, pair_ids,
@@ -402,7 +458,7 @@ def raster_instanced_call(pair_tiles, pair_libs, pair_ids, pair_insts,
             dev, libs.data_ptr(), ids.data_ptr(), insts.data_ptr(),
             tile_start.data_ptr(), rays_t_ext.data_ptr(), stride,
             sub_boxes.data_ptr(), n_subs, inst_rows.data_ptr(),
-            woop_t.data_ptr(), n_blocks, w, int(any_hit),
-            int(common == "origin"), *(x.data_ptr() for x in out[:4]),
-            out[4].data_ptr() if visits else None)
+            woop_t.data_ptr(), n_blocks, w, int(any_hit), code,
+            *(x.data_ptr() for x in out[:4]),
+            out[4].data_ptr() if visits else None, variant=str(common))
     return out

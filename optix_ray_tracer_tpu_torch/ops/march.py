@@ -3,10 +3,11 @@
 Host-side duties around the hit-path kernels: coherence-sort a wave
 (Morton keys for coherent waves, probe keys from kernel C for incoherent
 ones), pad it to blocks, run kernel B, unsort, and merge the analytic
-spheres; route common-point waves through the tile-raster engine
-(kernel A) with an exact whole-wave fallback to the marcher; refit or
-rebuild the intersector for new vertex positions on the device.  The
-bundle engine waits for a later slice.
+spheres; route common-point and common-direction waves through the
+tile-raster engine (kernel A) and secondary waves in a tile layout
+through the bundle engine (3-D binning, kernel A), each with an exact
+whole-wave fallback to the marcher; refit or rebuild the intersector for
+new vertex positions on the device.
 """
 
 from __future__ import annotations
@@ -23,7 +24,7 @@ from optix_ray_tracer_tpu_torch.ops.kernels.block_march import (
     block_march, probe_first_cluster,
 )
 from optix_ray_tracer_tpu_torch.ops.raster import (
-    RasterSet, build_raster_set, raster_query,
+    RasterSet, build_raster_set, bundle_query, raster_query,
 )
 from optix_ray_tracer_tpu_torch.ops.raysort import (
     ray_sort_keys, sphere_bruteforce_merge,
@@ -88,8 +89,9 @@ class MarchIntersector(TensorDataclass):
                        any_hit: bool = False, block_rays: int = 1024,
                        pc_max: int | None = None,
                        granularity: int | None = None) -> Hit:
-        """Common-point wave query through the tile-raster engine; rays in
-        a screen-coherent layout (camera tile order).  Exact at any pair
+        """Common-point ("origin", "target") or common-direction ("ortho")
+        wave query through the tile-raster engine; rays in a
+        screen-coherent layout (camera tile order).  Exact at any pair
         count: when the schedule overflows, the whole wave goes to the
         marcher.
 
@@ -125,6 +127,38 @@ class MarchIntersector(TensorDataclass):
             t, slot, u, v = block_march(self.clusters, o2, d2, t_min_a,
                                         t_max_a, any_hit=any_hit,
                                         coherent=True)
+        hit = _hit_from_slots(self.clusters, t, slot, u, v)
+        if scene.sphere_count > 0:
+            hit = sphere_bruteforce_merge(scene, o2, d2, t_min_a, t_max_a,
+                                          hit)
+        return hit.reshape(shape)
+
+    def intersect_bundled(self, scene: Scene, o, d, t_min=DEFAULT_T_MIN,
+                          t_max=INF, any_hit: bool = False,
+                          block_rays: int = 1024, pc_max: int | None = None,
+                          granularity: int | None = None) -> Hit:
+        """Arbitrary-wave query through the bundle engine
+        (``ops/raster.bundle_query``): rays in a spatially coherent layout
+        (screen-tile order), dead lanes (t_max <= t_min) drop out of the
+        block bounds.  Exact at any pair count: when the schedule
+        overflows, the whole wave goes to the incoherent marcher (decided
+        on the host; the JAX package selects on the device)."""
+        shape = o.shape[:-1]
+        o2 = o.reshape(-1, 3)
+        d2 = d.reshape(-1, 3)
+        n = o2.shape[0]
+        t_min_a = ray_bound(t_min, n, o2.device)
+        t_max_a = ray_bound(t_max, n, o2.device)
+        # bundles keep whole-cluster windows (the JAX package's measured
+        # choice: finer windows pair secondary blocks with more windows)
+        t, slot, u, v, ok = bundle_query(
+            self.clusters, o2, d2, t_min_a, t_max_a, any_hit=any_hit,
+            block_rays=block_rays, pc_max=pc_max,
+            granularity=granularity or 1)
+        if not ok:
+            t, slot, u, v = block_march(self.clusters, o2, d2, t_min_a,
+                                        t_max_a, any_hit=any_hit,
+                                        coherent=False)
         hit = _hit_from_slots(self.clusters, t, slot, u, v)
         if scene.sphere_count > 0:
             hit = sphere_bruteforce_merge(scene, o2, d2, t_min_a, t_max_a,

@@ -1,21 +1,25 @@
-"""Perspective binning for common-point waves: the scheduler side of the
-tile-raster engine (port of the common-point subset of
+"""Binning for the tile-raster engine (port of
 ``optix_ray_tracer_tpu/ops/raster.py``; kernel in
 ``ops/kernels/tile_raster.py``).
 
-A wave qualifies when every ray passes through one point: camera waves
-share their origin, shadow waves toward a point light their target.  Such
-rays map to points on a projection plane, so (ray tile, cluster window)
-candidate pairs follow from 2-D rectangle and depth-interval overlap.
-The binning is conservative (margined rects; vertices behind the plane
-make their window full-plane; dead rays drop out), so it only decides
-WHICH pairs the kernel tests, never the result.
+Projective binning (:func:`raster_query`): a wave qualifies when every ray
+passes through one point (camera waves share their origin, shadow waves
+toward a point light their target) or shares one direction (ortho / sun
+waves).  Such rays map to points on a projection plane, so (ray tile,
+cluster window) candidate pairs follow from 2-D rectangle and
+depth-interval overlap.  Bundle binning (:func:`bundle_query`): an
+arbitrary wave in a spatially coherent layout (area-light shadow segments
+from a tile's hit points) gets per-block origin and direction intervals,
+split by direction octant, and interval arithmetic admits the (block,
+cluster) pairs some ray could reach.  Both are conservative (margined
+rects and boxes; vertices behind the plane make their window full-plane;
+dead rays drop out), so they only decide WHICH pairs the kernel tests,
+never the result.
 
 Pair counts depend on the data.  The schedule has a fixed capacity
-``pc_max``; when the wave needs more, ``raster_query`` reports ok=False
-and ``MarchIntersector.intersect_from`` traces the whole wave with the
-exact marcher instead.  The bundle (3-D) binning and ortho mode wait for a
-later slice.
+``pc_max``; when the wave needs more, the query reports ok=False and
+``MarchIntersector.intersect_from`` / ``intersect_bundled`` trace the
+whole wave with the exact marcher instead.
 """
 
 from __future__ import annotations
@@ -37,8 +41,14 @@ from optix_ray_tracer_tpu_torch.utils.vecmath import INF, cross, dot
 
 GROUPS_PER_CLUSTER = CHUNK // GROUP_TRIS
 
-#: projection modes: the rays share their origin / their target point
-MODES = ("origin", "target")
+#: projection modes: the rays share their origin / their target point /
+#: their direction (orthographic)
+MODES = ("origin", "target", "ortho")
+
+#: callables ``fn(args, kw, S)`` that :func:`bundle_query` calls with each
+#: wave's :func:`bundle_stage` arguments and its schedule, before kernel A
+#: runs it: instrumentation, empty unless a caller appends one
+BUNDLE_OBSERVERS: list = []
 
 
 @dataclasses.dataclass(frozen=True)
@@ -75,12 +85,15 @@ def _basis_from(wvec):
     return u, cross(w, u), w
 
 
-def _proj(q, basis):
-    """Perspective projection of rows of q: (x, y, w, good).  NaN rows stay
-    NaN and read good=False; rows on or behind the plane (w <= 0) read
-    good=False with finite garbage coordinates."""
+def _proj(q, basis, persp: bool = True):
+    """Projection of rows of q: (x, y, w, good).  NaN rows stay NaN and
+    read good=False.  Perspective: rows on or behind the plane (w <= 0)
+    read good=False with finite garbage coordinates; orthographic
+    (``persp`` False): the raw coordinates, w the depth."""
     u, v, w = basis
     qu, qv, qw = dot(q, u), dot(q, v), dot(q, w)
+    if not persp:
+        return qu, qv, qw, ~torch.isnan(qu)
     good = qw > 0.0
     den = torch.where(good, qw, torch.ones_like(qw))
     return qu / den, qv / den, qw, good
@@ -112,9 +125,10 @@ def _rank_lookup(cum_rows, flat_dim: int, row_idx, rank):
 def _enumerate_sorted_pairs(ov, entry_depth, nb: int, C: int, pc_max: int):
     """Enumerate the True cells of the (nb, C) overlap matrix into flat
     (block, cluster) lists capped at ``pc_max`` (fixed shapes, no host
-    read), stable-sorted by (block, entry_depth[cluster]) so each tile sees
-    its windows near to far.  Returns (b_i, c_i, validc, pc_total, cnt_b).
-    """
+    read), stable-sorted by (block, entry depth) so each tile sees its
+    windows near to far.  ``entry_depth`` is per cluster (C,) or per
+    (block, cluster) (nb, C).  Returns (b_i, c_i, validc, pc_total,
+    cnt_b)."""
     dev = ov.device
     ovi = ov.to(torch.int64)
     cnt_b = ovi.sum(1)
@@ -126,8 +140,9 @@ def _enumerate_sorted_pairs(ov, entry_depth, nb: int, C: int, pc_max: int):
     j = i - (cum_b[b_i] - cnt_b[b_i])
     c_i = _rank_lookup(torch.cumsum(ovi, 1), C, b_i, j)
     key_tile = torch.where(validc, b_i, torch.full_like(b_i, nb))
-    key_depth = torch.where(validc, entry_depth[c_i],
-                            torch.full_like(entry_depth[c_i], INF))
+    ent = (entry_depth.reshape(-1)[b_i * C + c_i] if entry_depth.dim() == 2
+           else entry_depth[c_i])
+    key_depth = torch.where(validc, ent, torch.full_like(ent, INF))
     # lexicographic stable sort: by depth, then (stably) by tile
     o1 = torch.argsort(key_depth, stable=True)
     perm = o1[torch.argsort(key_tile[o1], stable=True)]
@@ -155,8 +170,13 @@ def _block_rects(o_p, d_p, tmin_p, tmax_p, nb: int, W: int, basis,
                  mode: str, point):
     """Per-block ray rects and depth ranges on the projection plane.
     Returns (bx0, bx1, by0, by1, bz0, bz1, live_any)."""
-    q_rays = (d_p if mode == "origin" else o_p - point)[:nb * W]
-    rx, ry, rqw, rgood = _proj(q_rays, basis)
+    if mode == "origin":
+        q_rays = d_p[:nb * W]
+    elif mode == "ortho":
+        q_rays = o_p[:nb * W]
+    else:
+        q_rays = (o_p - point)[:nb * W]
+    rx, ry, rqw, rgood = _proj(q_rays, basis, mode != "ortho")
     tmin_r = tmin_p[:nb * W]
     tmax_r = tmax_p[:nb * W]
     live = tmax_r > tmin_r
@@ -198,21 +218,28 @@ def _coarse_stage(rset: RasterSet, clusters: ClusterSet, o, d, t_min,
     nb = -(-n // W)
     o_p, d_p, tmin_p, tmax_p = _pad_wave(o, d, t_min, t_max, n, nb, W)
 
-    p = torch.as_tensor(point, dtype=torch.float32, device=dev)
-    q_verts = rset.verts.reshape(-1, 3) - p
-    # projection axis from the vertex centroid seen from the shared point
-    # (not from the wave's rays, so any band of the wave bins alike)
-    vmask = torch.isnan(q_verts[:, 0])
-    vsum = torch.where(vmask[:, None], torch.zeros_like(q_verts),
-                       q_verts).sum(0)
-    vcnt = torch.clamp((~vmask).sum(), min=1).to(torch.float32)
-    wvec = vsum / vcnt
-    wvec = torch.where(torch.linalg.norm(wvec) > 1e-12, wvec,
-                       torch.tensor([0.0, 0.0, 1.0], device=dev))
+    persp = mode != "ortho"
+    if persp:
+        p = torch.as_tensor(point, dtype=torch.float32, device=dev)
+        q_verts = rset.verts.reshape(-1, 3) - p
+        # projection axis from the vertex centroid seen from the shared
+        # point (not from the wave's rays, so any band of the wave bins
+        # alike)
+        vmask = torch.isnan(q_verts[:, 0])
+        vsum = torch.where(vmask[:, None], torch.zeros_like(q_verts),
+                           q_verts).sum(0)
+        vcnt = torch.clamp((~vmask).sum(), min=1).to(torch.float32)
+        wvec = vsum / vcnt
+        wvec = torch.where(torch.linalg.norm(wvec) > 1e-12, wvec,
+                           torch.tensor([0.0, 0.0, 1.0], device=dev))
+    else:
+        p = None
+        q_verts = rset.verts.reshape(-1, 3)
+        wvec = d[0]    # the ortho contract: every ray shares d
     basis = _basis_from(wvec)
 
     # ---- window rects (plane + depth), via 8-triangle groups ----
-    vx, vy, vw, vgood = _proj(q_verts, basis)
+    vx, vy, vw, vgood = _proj(q_verts, basis, persp)
     behind = ~vgood & ~torch.isnan(vx)
     nan = torch.full_like(vx, float("nan"))
     vxm = torch.where(vgood, vx, nan).reshape(n_g, 3 * GROUP_TRIS)
@@ -253,9 +280,11 @@ def raster_query(rset: RasterSet, clusters: ClusterSet, o, d, t_min, t_max,
                  mode: str = "origin", point=None, any_hit: bool = False,
                  block_rays: int = 1024, pc_max: int | None = None,
                  granularity: int = 1):
-    """Nearest-hit (or occlusion) query for a common-point wave, rays in
-    caller order (blocks are consecutive runs of ``block_rays``; camera
-    tile order makes them coherent).
+    """Nearest-hit (or occlusion) query for a common-point or
+    common-direction wave, rays in caller order (blocks are consecutive
+    runs of ``block_rays``; camera tile order makes them coherent).
+    ``point`` is the shared point of the "origin" and "target" modes;
+    "ortho" takes the shared direction from ``d[0]``.
 
     Returns (t, slot, u, v, ok): slot indexes the sorted triangles (-1
     miss); ``ok`` (a Python bool) is False when the schedule overflowed
@@ -268,9 +297,10 @@ def raster_query(rset: RasterSet, clusters: ClusterSet, o, d, t_min, t_max,
     S = _coarse_stage(rset, clusters, o, d, t_min, t_max, mode, point, W,
                       pc_max, granularity)
     # "origin" rays all start at ``point``: their o-projections are shared
-    # per tile.  "target" waves keep full width (occlusion callers flip
-    # them to "origin" upstream, ops/march.py intersect_from).
-    common = "origin" if mode == "origin" else None
+    # per tile; "ortho" rays share d, and so their d-projections.  "target"
+    # waves keep full width (occlusion callers flip them to "origin"
+    # upstream, ops/march.py intersect_from).
+    common = {"origin": "origin", "ortho": "dir", "target": None}[mode]
     return _run_pair_schedule(clusters, S, W, n, nb, any_hit, common,
                               pc_max, granularity)
 
@@ -311,7 +341,8 @@ def _run_pair_schedule(clusters: ClusterSet, S: dict, W: int, n: int,
 def schedule_inputs(clusters: ClusterSet, S: dict, nb: int,
                     granularity: int = 1) -> dict:
     """The ``raster_cluster_call`` arguments (all but ``w``, ``any_hit``
-    and ``common``) for a schedule ``S`` from :func:`_coarse_stage`."""
+    and ``common``) for a schedule ``S`` from :func:`_coarse_stage` or
+    :func:`bundle_stage`."""
     C = clusters.num_clusters
     g = granularity
     n_subs = SUBS_PER_CLUSTER // g
@@ -333,13 +364,18 @@ def schedule_inputs(clusters: ClusterSet, S: dict, nb: int,
         woop_t=clusters.woop_t, n_blocks=nb, n_subs=n_subs, granularity=g)
 
 
-def measure_pair_count(rset: RasterSet, clusters: ClusterSet, o, d, t_min,
-                       t_max, mode: str = "origin", point=None,
+def measure_pair_count(rset: RasterSet | None, clusters: ClusterSet, o, d,
+                       t_min, t_max, mode: str = "origin", point=None,
                        block_rays: int = 1024, granularity: int = 1) -> int:
     """The exact pair count the binning enumerates for this wave (for
-    calibrating ``pc_max`` once per scene and wave kind)."""
-    S = _coarse_stage(rset, clusters, o, d, t_min, t_max, mode, point,
-                      block_rays, 8, granularity)
+    calibrating ``pc_max`` once per scene and wave kind); ``rset=None``
+    measures the 3-D bundle binning instead of the projective one."""
+    if rset is None:
+        S = bundle_stage(clusters, o, d, t_min, t_max, block_rays, 8,
+                         granularity=granularity)
+    else:
+        S = _coarse_stage(rset, clusters, o, d, t_min, t_max, mode, point,
+                          block_rays, 8, granularity)
     return int(S["pc_total"])
 
 
@@ -347,6 +383,131 @@ def round_pc_max(count: int, margin: float = 1.15) -> int:
     """Capacity from a measured pair count: a margin, rounded up to 1024."""
     pc = int(count * margin) + 256
     return max(1024, ((pc + 1023) // 1024) * 1024)
+
+
+def default_bundle_pc_max(n_blocks: int, n_clusters: int,
+                          granularity: int = 1) -> int:
+    """Bundle-pair capacity heuristic: secondary blocks overlap more
+    clusters than common-point blocks, so ~an order more pairs per block.
+    An overflow falls back to the marcher: a cost bound, not a correctness
+    bound."""
+    pc = 96 * n_blocks + 2 * n_clusters * granularity + 1024
+    pc = pc * (1 + granularity) // 2
+    return ((pc + 1023) // 1024) * 1024
+
+
+def bundle_stage(clusters: ClusterSet, o, d, t_min, t_max, W: int,
+                 pc_max: int, dir_octants: bool = True,
+                 granularity: int = 1) -> dict:
+    """Conservative 3-D binning for an arbitrary wave in a spatially
+    coherent layout (screen tiles: a tile's secondary origins are its
+    primary-hit surface patch).
+
+    Each W-ray block gets componentwise origin and direction interval
+    bounds over its live rays (dead lanes, t_max <= t_min, drop out).  A
+    (block, window) pair survives when interval arithmetic admits some
+    t >= 0 with [olo + t dlo, ohi + t dhi] overlapping the window's
+    margined AABB on every axis, inside the block's [t_min, t_max].  With
+    ``dir_octants`` the test runs once per direction-sign octant of the
+    block's lanes and the results are OR'd (one pair however many octants
+    admit it, keyed by the smallest admitted entry t for the depth sort).
+    Margins: absolute on the boxes, relative on the division results;
+    |d| <= 1e-12 counts as always satisfiable."""
+    C = clusters.num_clusters * granularity
+    n = o.shape[0]
+    nb = -(-n // W)
+    o_p, d_p, tmin_p, tmax_p = _pad_wave(o, d, t_min, t_max, n, nb, W)
+    live_all = (tmax_p > tmin_p)[:nb * W].reshape(nb, W)
+    ob = o_p[:nb * W].reshape(nb, W, 3)
+    db = d_p[:nb * W].reshape(nb, W, 3)
+    tmin_b = tmin_p[:nb * W].reshape(nb, W)
+    tmax_b = tmax_p[:nb * W].reshape(nb, W)
+    live_any = live_all.any(1)
+
+    # margined window AABBs from the sub boxes (whole clusters at g=1)
+    n_subs = SUBS_PER_CLUSTER // granularity
+    clo = nanmin(clusters.sub_min.reshape(C, n_subs, 3), 1)
+    chi = nanmax(clusters.sub_max.reshape(C, n_subs, 3), 1)
+    m = 1e-5 * (torch.abs(clo) + torch.abs(chi)) + 1e-6
+    clo = clo - m
+    chi = chi + m
+
+    def _overlap(live):
+        """(ov (nb, C) bool, entry t (nb, C)) for the lanes ``live``."""
+        lv = live[..., None]
+        olo = torch.where(lv, ob, INF).amin(1)                # (nb, 3)
+        ohi = torch.where(lv, ob, -INF).amax(1)
+        dlo = torch.where(lv, db, INF).amin(1)
+        dhi = torch.where(lv, db, -INF).amax(1)
+        t_lo_b = torch.where(live, tmin_b, INF).amin(1)
+        t_hi_b = torch.where(live, tmax_b, -INF).amax(1)
+        eps = 1e-12
+        lo_t = torch.zeros((nb, C), device=o.device)
+        hi_t = torch.full((nb, C), INF, device=o.device)
+        for ax in range(3):
+            u = chi[None, :, ax] - olo[:, None, ax]   # want t dlo <= u
+            v = clo[None, :, ax] - ohi[:, None, ax]   # want t dhi >= v
+            dl = dlo[:, None, ax]
+            dh = dhi[:, None, ax]
+            hi1 = torch.where(dl > eps, u / torch.where(dl > eps, dl, 1.0),
+                              INF)
+            lo1 = torch.where(dl < -eps, u / torch.where(dl < -eps, dl, 1.0),
+                              0.0)
+            hi2 = torch.where(dh < -eps, v / torch.where(dh < -eps, dh, 1.0),
+                              INF)
+            lo2 = torch.where(dh > eps, v / torch.where(dh > eps, dh, 1.0),
+                              0.0)
+            lo_t = torch.maximum(lo_t, torch.maximum(lo1, lo2))
+            hi_t = torch.minimum(hi_t, torch.minimum(hi1, hi2))
+        # relative margins swallow the divisions' rounding
+        lo_t = lo_t - (torch.abs(lo_t) * 1e-6 + 1e-8)
+        hi_t = hi_t + (torch.abs(hi_t) * 1e-6 + 1e-8)
+        lo_eff = torch.maximum(lo_t, t_lo_b[:, None])
+        hi_eff = torch.minimum(hi_t, t_hi_b[:, None])
+        # NaN anywhere (padded windows) compares False
+        return lo_eff <= hi_eff, lo_eff
+
+    if dir_octants:
+        oct_id = ((db[..., 0] > 0).to(torch.int64)
+                  + 2 * (db[..., 1] > 0).to(torch.int64)
+                  + 4 * (db[..., 2] > 0).to(torch.int64))
+        ov = torch.zeros((nb, C), dtype=torch.bool, device=o.device)
+        lo_key = torch.full((nb, C), INF, device=o.device)
+        for q in range(8):
+            ov_q, lo_q = _overlap(live_all & (oct_id == q))
+            ov = ov | ov_q
+            lo_key = torch.minimum(lo_key, torch.where(ov_q, lo_q, INF))
+    else:
+        ov, lo_key = _overlap(live_all)
+    ov = ov & live_any[:, None]
+    b_s, c_s, v_s, pc_total, cnt_b = _enumerate_sorted_pairs(
+        ov, lo_key, nb, C, pc_max)
+    return dict(n=n, nb=nb, o_p=o_p, d_p=d_p, tmin_p=tmin_p, tmax_p=tmax_p,
+                b_i=b_s, c_i=c_s, validc=v_s, pc_total=pc_total,
+                cnt_b=cnt_b)
+
+
+def bundle_query(clusters: ClusterSet, o, d, t_min, t_max,
+                 any_hit: bool = False, block_rays: int = 1024,
+                 pc_max: int | None = None, dir_octants: bool = True,
+                 granularity: int = 1):
+    """Nearest-hit (or occlusion) query for an arbitrary wave in a
+    spatially coherent layout, through :func:`bundle_stage` and kernel A
+    with full-width dots (no shared point or direction).  The contract of
+    :func:`raster_query`: rays in caller order, blocks of ``block_rays``;
+    returns (t, slot, u, v, ok), ok False on a schedule overflow."""
+    W = block_rays
+    n = o.shape[0]
+    nb = -(-n // W)
+    pc_max = pc_max or default_bundle_pc_max(nb, clusters.num_clusters,
+                                             granularity)
+    args = (clusters, o, d, t_min, t_max, W, pc_max)
+    kw = dict(dir_octants=dir_octants, granularity=granularity)
+    S = bundle_stage(*args, **kw)
+    for observe in BUNDLE_OBSERVERS:
+        observe(args, kw, S)
+    return _run_pair_schedule(clusters, S, W, n, nb, any_hit, None, pc_max,
+                              granularity)
 
 
 def pick_camera_tiles(height: int, width: int):
@@ -402,6 +563,39 @@ def make_camera_intersect(intersector, point, S: int, H: int, W: int,
             point=point, t_min=t_min, t_max=t_max_t, block_rays=th * tw)
         return tree_map(lambda a: from_tiles(a, *layout), hit)
 
+    return isect
+
+
+def make_tiled_bundle_intersect(intersector, S: int, H: int, W: int,
+                                th: int, tw: int,
+                                block_rays: int | None = None,
+                                pc_max: int | None = None):
+    """An ``intersect``-compatible callable routing a secondary wave (NEE
+    shadow segments) through the bundle engine
+    (``intersector.intersect_bundled``), with an ``any_hit`` attribute.
+    Rays arrive in (sample, row, col) order and are re-viewed in
+    :func:`to_tiles` order, so a block is a camera tile and its origins
+    the tile's hit points; the Hit comes back in the caller's order."""
+    layout = (S, H, W, th, tw)
+    br = block_rays or th * tw
+
+    def tiled(x, n):
+        return (to_tiles(x.expand(n), *layout)
+                if isinstance(x, torch.Tensor) and x.dim() else x)
+
+    def isect(scene, o, d, t_min=1e-3, t_max=INF, any_hit=False):
+        n = o.shape[0]
+        hit = intersector.intersect_bundled(
+            scene, to_tiles(o, *layout), to_tiles(d, *layout),
+            t_min=tiled(t_min, n), t_max=tiled(t_max, n), any_hit=any_hit,
+            block_rays=br, pc_max=pc_max)
+        return tree_map(lambda a: from_tiles(a, *layout), hit)
+
+    def any_hit_fn(scene, o, d, t_min=1e-3, t_max=INF):
+        return isect(scene, o, d, t_min=t_min, t_max=t_max,
+                     any_hit=True).is_hit
+
+    isect.any_hit = any_hit_fn
     return isect
 
 

@@ -1,8 +1,9 @@
 """TLAS-pair raster binning: the tile-raster engine at INSTANCE granularity
 (port of ``optix_ray_tracer_tpu/ops/raster_instanced.py``).
 
-Common-point TLAS waves (camera primaries, point-light shadows) are
-binned as ``ops/raster.py`` bins clusters, but over TLAS pairs:
+Common-point TLAS waves (camera primaries, point-light shadows) and
+common-direction ones (ortho / sun shadows) are binned as
+``ops/raster.py`` bins clusters, but over TLAS pairs:
 
 * each pair's WORLD box (refit per frame by
   ``ops/instanced.refit_instanced``) projects to a rect and a depth
@@ -45,15 +46,18 @@ def default_instanced_pc_max(n_blocks: int, n_pairs: int) -> int:
 
 def _pair_rects(pair_min, pair_max, basis, point):
     """Project each pair's world box (8 corners) onto the plane seen from
-    ``point``.  Returns margined (cx0, cx1, cy0, cy1, cz0, cz1, cfull); NaN
-    boxes give NaN rects that never overlap."""
+    ``point`` (orthographically when ``point`` is None).  Returns margined
+    (cx0, cx1, cy0, cy1, cz0, cz1, cfull); NaN boxes give NaN rects that
+    never overlap."""
     Cp = pair_min.shape[0]
     dev = pair_min.device
     sel = torch.tensor([[(k >> a) & 1 for a in range(3)] for k in range(8)],
                        dtype=torch.float32, device=dev)[None]     # (1, 8, 3)
     corners = pair_min[:, None, :] * (1.0 - sel) + pair_max[:, None, :] * sel
-    q = corners.reshape(-1, 3) - point
-    vx, vy, vw, vgood = _proj(q, basis)
+    q = corners.reshape(-1, 3)
+    if point is not None:
+        q = q - point
+    vx, vy, vw, vgood = _proj(q, basis, point is not None)
     behind = ~vgood & ~torch.isnan(vx)
     nan = torch.full_like(vx, float("nan"))
     vxm = torch.where(vgood, vx, nan).reshape(Cp, 8)
@@ -85,16 +89,20 @@ def instanced_coarse_stage(pair_min, pair_max, o, d, t_min, t_max,
     nb = -(-n // W)
     o_p, d_p, tmin_p, tmax_p = _pad_wave(o, d, t_min, t_max, n, nb, W)
 
-    p = torch.as_tensor(point, dtype=torch.float32, device=dev)
-    # projection axis from the finite pair centers' centroid seen from the
-    # shared point (geometry, not the wave, decides it)
-    c = (pair_min + pair_max) * 0.5 - p
-    cmask = torch.isnan(c[:, 0])
-    csum = torch.where(cmask[:, None], torch.zeros_like(c), c).sum(0)
-    ccnt = torch.clamp((~cmask).sum(), min=1).to(torch.float32)
-    wvec = csum / ccnt
-    wvec = torch.where(torch.linalg.norm(wvec) > 1e-12, wvec,
-                       torch.tensor([0.0, 0.0, 1.0], device=dev))
+    if mode != "ortho":
+        p = torch.as_tensor(point, dtype=torch.float32, device=dev)
+        # projection axis from the finite pair centers' centroid seen from
+        # the shared point (geometry, not the wave, decides it)
+        c = (pair_min + pair_max) * 0.5 - p
+        cmask = torch.isnan(c[:, 0])
+        csum = torch.where(cmask[:, None], torch.zeros_like(c), c).sum(0)
+        ccnt = torch.clamp((~cmask).sum(), min=1).to(torch.float32)
+        wvec = csum / ccnt
+        wvec = torch.where(torch.linalg.norm(wvec) > 1e-12, wvec,
+                           torch.tensor([0.0, 0.0, 1.0], device=dev))
+    else:
+        p = None
+        wvec = d[0]    # the ortho contract: every ray shares d
     basis = _basis_from(wvec)
 
     cx0, cx1, cy0, cy1, cz0, cz1, cfull = _pair_rects(pair_min, pair_max,
@@ -141,8 +149,8 @@ def instanced_raster_query(intersector, o, d, t_min, t_max,
                            mode: str = "origin", point=None,
                            any_hit: bool = False, block_rays: int = 1024,
                            pc_max: int | None = None):
-    """Nearest-hit (or occlusion) TLAS query for a common-point wave via
-    pair binning and kernel D.
+    """Nearest-hit (or occlusion) TLAS query for a common-point or
+    common-direction wave via pair binning and kernel D.
 
     ``intersector`` is an ``ops/instanced.InstancedMarchIntersector`` (its
     refit pair state is the binning input).  Rays in caller order; blocks
@@ -165,9 +173,10 @@ def instanced_raster_query(intersector, o, d, t_min, t_max,
                 torch.full((n,), -1, dtype=torch.int32, device=dev),
                 zero, zero, False)
     # "origin" rays all start at ``point``: their o-projections are shared
-    # per tile ("target" waves keep full width; occlusion callers flip
-    # them to "origin" upstream, InstancedMarchIntersector.intersect_from)
-    common = "origin" if mode == "origin" else None
+    # per tile; "ortho" rays share d, and so their d-projections ("target"
+    # waves keep full width; occlusion callers flip them to "origin"
+    # upstream, InstancedMarchIntersector.intersect_from)
+    common = {"origin": "origin", "ortho": "dir", "target": None}[mode]
     t, slot, u, v = (x.reshape(-1)[:n] for x in raster_instanced_call(
         **instanced_schedule_inputs(intersector, S), w=W, any_hit=any_hit,
         common=common))

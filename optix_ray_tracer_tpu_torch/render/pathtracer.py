@@ -1,0 +1,377 @@
+"""Path tracer with next-event estimation and multiple importance
+sampling (port of ``optix_ray_tracer_tpu/render/pathtracer.py``; the
+integrator of BASELINE configs 4 and 5).
+
+The wavefront of ``render/wavefront.py`` (a Python loop over bounces, SoA
+state, masked shading), with per bounce:
+
+* emitted radiance at BSDF hits, weighted by the balance heuristic
+  w_bsdf = p_bsdf / (p_bsdf + p_nee) (full weight on camera rays and after
+  delta lobes);
+* NEE: one area-light sample per diffuse vertex, w_nee = p_nee / (p_nee +
+  p_bsdf), its shadow segment through the bundle engine (kernel A on a 3-D
+  bundle schedule) when the intersector can, else the incoherent marcher;
+* environment NEE when the map carries sampling tables, MIS'd against the
+  cosine lobe, with the matching weight on escaping BSDF rays;
+* cosine-sampled diffuse bounces, METAL and DIELECTRIC delta lobes (no
+  NEE, no MIS at their vertices), Russian roulette from ``rr_start`` and
+  an optional clamp on indirect contributions.
+
+Camera waves go through the raster engine (kernel A, "origin") when the
+intersector carries raster tables; bounce and environment-occlusion waves
+through the intersector's incoherent variant (kernels C then B).  Only
+the PCG sampler is ported; ReSTIR's hooks (``restir_direct``,
+``first_hit``) and the Sobol sampler wait for ROADMAP queue 1 item 5.
+"""
+
+from __future__ import annotations
+
+import os
+
+import torch
+
+from optix_ray_tracer_tpu_torch.ops import intersect as isect
+from optix_ray_tracer_tpu_torch.ops.raster import (
+    camera_tile_layout, make_camera_intersect, make_tiled_bundle_intersect,
+)
+from optix_ray_tracer_tpu_torch.scene.geometry import Scene
+from optix_ray_tracer_tpu_torch.scene.lights import (
+    AreaLights, light_pdf_solid_angle, sample_lights,
+)
+from optix_ray_tracer_tpu_torch.scene.materials import (
+    DIELECTRIC, EMISSIVE, METAL, ROUGH, MaterialTable,
+)
+from optix_ray_tracer_tpu_torch.utils import rng
+from optix_ray_tracer_tpu_torch.utils.vecmath import (
+    INF, PI, dot, normalize, reflect, refract, schlick_fresnel,
+)
+
+# decorrelation constants folded into the RNG seed per random purpose
+_DIM_BSDF = 0x3C6EF372
+_DIM_LIGHT = 0x27220A95
+_DIM_LOBE = 0x165667B1
+_DIM_RR = 0x2545F491
+_DIM_LENS = 0x68E31DA4
+_DIM_ENV = 0x4F6CDD1D
+
+#: the bundle engine takes area-light shadow segments from this many
+#: clusters on (below it the marcher is already cheap)
+BUNDLE_MIN_CLUSTERS = 16
+
+_ITEM_5 = "is not ported yet (ROADMAP queue 1 item 5)"
+
+
+def _check_sampler(sampler: str) -> None:
+    if sampler != "pcg":
+        raise NotImplementedError(f"sampler {sampler!r} {_ITEM_5}")
+
+
+def _onb(n):
+    """Orthonormal basis (t, b) about the unit normal n (branchless
+    Frisvad / Duff et al.)."""
+    s = torch.where(n[..., 2] >= 0.0, 1.0, -1.0)
+    a = -1.0 / (s + n[..., 2])
+    b = n[..., 0] * n[..., 1] * a
+    t = torch.stack([1.0 + s * n[..., 0] * n[..., 0] * a, s * b,
+                     -s * n[..., 0]], dim=-1)
+    bt = torch.stack([b, s + n[..., 1] * n[..., 1] * a, -n[..., 1]], dim=-1)
+    return t, bt
+
+
+def _cosine_sample(n, pixel_id, sample, bounce, seed):
+    """A cosine-weighted direction about n and its pdf."""
+    local = rng.random_cosine_direction(pixel_id, sample, bounce, seed)
+    t, bt = _onb(n)
+    d = local[..., 0:1] * t + local[..., 1:2] * bt + local[..., 2:3] * n
+    pdf = torch.clamp(local[..., 2], min=1e-6) / PI
+    return normalize(d), pdf
+
+
+def _nee_shadow_fn(intersector, incoh, cam_point, cam_tiles):
+    """The any-hit query of area-light shadow segments: the bundle engine
+    when the caller has a camera tile layout, the intersector has
+    ``intersect_bundled``, the scene has at least BUNDLE_MIN_CLUSTERS
+    clusters and ``ORT_BUNDLE_NEE`` is not "0"; else the incoherent
+    marcher.  Bounce extension rays and environment occlusion never take
+    bundles: their t_max is unbounded and their directions hemispherical,
+    so the binning pairs a block with most of the scene."""
+    if (cam_point is None or cam_tiles is None
+            or not hasattr(intersector, "intersect_bundled")):
+        return incoh.any_hit
+    clusters = getattr(intersector, "clusters", None)
+    enough = getattr(clusters, "num_clusters", 0) >= BUNDLE_MIN_CLUSTERS
+    if os.environ.get("ORT_BUNDLE_NEE", "1") != "0" and enough:
+        return make_tiled_bundle_intersect(intersector, *cam_tiles).any_hit
+    return incoh.any_hit
+
+
+def trace_path(scene: Scene, materials: MaterialTable,
+               lights: AreaLights | None, origins, directions, pixel_id,
+               sample, seed: int, background, max_depth: int = 8,
+               intersector=None, env=None, textures=None, rr_start: int = 3,
+               clamp: float = 0.0, want_aux: bool = False,
+               sampler: str = "pcg", restir_direct: bool = False,
+               first_hit=None, cam_point=None, cam_tiles=None):
+    """Trace a wave with NEE + MIS.  Returns (radiance, albedo_g,
+    normal_g), each (R, 3); with ``want_aux`` also (t (R,), prim_id (R,))
+    of the primary hit (INF / -1 on a miss or a sphere hit).
+
+    ``lights`` may be None (BSDF sampling only).  ``rr_start``: the bounce
+    where Russian roulette begins (>= max_depth: off).  ``clamp`` > 0 caps
+    each indirect (bounce >= 1) contribution per channel.  ``cam_point``
+    / ``cam_tiles`` ((S, H, W, th, tw)): the camera wave's shared origin
+    and tile layout, which route bounce 0 through the raster engine and
+    the area-light shadow segments through the bundle engine."""
+    _check_sampler(sampler)
+    if restir_direct or first_hit is not None:
+        raise NotImplementedError(f"ReSTIR's direct-light partition {_ITEM_5}")
+    if intersector is None:
+        intersector = isect.BruteForceIntersector()
+    incoh = getattr(intersector, "for_incoherent", lambda: intersector)()
+    shadow_any_hit = _nee_shadow_fn(intersector, incoh, cam_point, cam_tiles)
+    first_fn = intersector.intersect
+    if cam_point is not None and cam_tiles is not None:
+        first_fn = make_camera_intersect(intersector, cam_point, *cam_tiles)
+    shade_fn = isect.shading_frame_fn(intersector)
+    dev = origins.device
+    nrays = origins.shape[0]
+    background = torch.as_tensor(background, dtype=torch.float32, device=dev)
+    have_lights = lights is not None and lights.count > 0
+    have_env_nee = env is not None and env.can_sample
+
+    o, d = origins, directions
+    throughput = torch.ones((nrays, 3), device=dev)
+    radiance = torch.zeros((nrays, 3), device=dev)
+    alive = torch.ones(nrays, dtype=torch.bool, device=dev)
+    # pdf of the BSDF sample that made the current ray (<= 0: a delta lobe
+    # or the camera ray, whose emitter hits take full weight)
+    prev_pdf = torch.zeros(nrays, device=dev)
+    albedo_g = torch.zeros((nrays, 3), device=dev)
+    normal_g = torch.zeros((nrays, 3), device=dev)
+    t_g = torch.full((nrays,), INF, device=dev)
+    prim_g = torch.full((nrays,), -1, dtype=torch.int32, device=dev)
+    zero = torch.zeros(nrays, device=dev)
+    inf = torch.full((nrays,), INF, device=dev)
+
+    for b in range(max_depth):
+        cap = b >= 1 and clamp > 0.0
+
+        def _cap(contrib):
+            """The firefly clamp, on indirect bounces only."""
+            return torch.clamp(contrib, max=clamp) if cap else contrib
+
+        # dead lanes trace with t_max=0: free in the marchers and absent
+        # from the bundle engine's block bounds
+        fn = first_fn if b == 0 else incoh.intersect
+        hit = fn(scene, o, d, t_max=torch.where(alive, inf, zero))
+        missed = alive & ~hit.is_hit
+        hit_alive = alive & hit.is_hit
+
+        miss_radiance = env.sample(d) if env is not None else background
+        if have_env_nee:
+            # the MIS counterpart of the environment NEE below
+            env_pdf_here = env.pdf_solid_angle(d)
+            w_miss = torch.where(
+                prev_pdf > 0.0,
+                prev_pdf / torch.clamp(prev_pdf + env_pdf_here, min=1e-12),
+                1.0)[..., None]
+        else:
+            w_miss = 1.0
+        radiance = radiance + _cap(torch.where(
+            missed[..., None], throughput * miss_radiance * w_miss, 0.0))
+
+        point, normal, front_face, material_id = shade_fn(scene, o, d, hit)
+        n_unit = normalize(normal)
+        mtype, albedo, param, emission = materials.gather(material_id)
+        if textures is not None:
+            albedo = albedo * textures.sample(
+                material_id, isect.interpolate_uv(scene, hit))
+
+        # ---- emitted light at BSDF hits, MIS-weighted ----------------
+        is_emitter = hit_alive & (mtype == EMISSIVE)
+        if have_lights:
+            nee_pdf_here = light_pdf_solid_angle(
+                lights, hit.prim_id, hit.prim_type == isect.PRIM_TRIANGLE,
+                d, hit.t)
+            w_bsdf = torch.where(
+                prev_pdf > 0.0,
+                prev_pdf / torch.clamp(prev_pdf + nee_pdf_here, min=1e-12),
+                1.0)
+        else:
+            w_bsdf = torch.ones(nrays, device=dev)
+        radiance = radiance + _cap(torch.where(
+            is_emitter[..., None], throughput * emission * w_bsdf[..., None],
+            0.0))
+
+        # guide buffers
+        if b == 0:
+            albedo_g = torch.where(
+                hit_alive[..., None],
+                torch.where((mtype == EMISSIVE)[..., None], emission, albedo),
+                albedo_g)
+            normal_g = torch.where(hit_alive[..., None], n_unit, normal_g)
+            if want_aux:
+                t_g = torch.where(hit_alive, hit.t, t_g)
+                prim_g = torch.where(
+                    hit_alive & (hit.prim_type == isect.PRIM_TRIANGLE),
+                    hit.prim_id, prim_g)
+
+        is_diffuse = mtype == ROUGH
+        shading_alive = hit_alive & ~is_emitter
+
+        # ---- NEE: one light sample at diffuse vertices ---------------
+        if have_lights:
+            wl, dist, pdf_l, emitted, _ = sample_lights(
+                lights, point, pixel_id, sample, b, seed ^ _DIM_LIGHT)
+            cos_s = dot(wl, n_unit)
+            valid = shading_alive & is_diffuse & (cos_s > 0.0) & (pdf_l > 0.0)
+            # the shadow segment: offset along the normal, ending before
+            # the light
+            occluded = shadow_any_hit(
+                scene, point + n_unit * 1e-3, wl, t_min=1e-4,
+                t_max=torch.where(valid, dist - 2e-3, zero))
+            visible = valid & ~occluded
+            cos_c = torch.clamp(cos_s, min=0.0)
+            w_nee = pdf_l / torch.clamp(pdf_l + cos_c / PI, min=1e-12)
+            contrib = (throughput * (albedo / PI) * emitted
+                       * (cos_c / torch.clamp(pdf_l, min=1e-12)
+                          * w_nee)[..., None])
+            radiance = radiance + _cap(
+                torch.where(visible[..., None], contrib, 0.0))
+
+        # ---- NEE: one environment sample at diffuse vertices ---------
+        if have_env_nee:
+            # dims 0/1 pick the texel, dims 2/3 jitter inside it
+            ub, ut, uj, vj = rng.uniform4(pixel_id, sample, b,
+                                          seed ^ _DIM_ENV)
+            we, pdf_e = env.sample_direction(ub, ut, uj, vj)
+            cos_e = dot(we, n_unit)
+            valid_e = (shading_alive & is_diffuse & (cos_e > 0.0)
+                       & (pdf_e > 0.0))
+            # occlusion to infinity: the marcher, not bundles
+            occ_e = incoh.any_hit(scene, point + n_unit * 1e-3, we,
+                                  t_min=1e-4,
+                                  t_max=torch.where(valid_e, inf, zero))
+            vis_e = valid_e & ~occ_e
+            le = env.sample(we)
+            cos_ec = torch.clamp(cos_e, min=0.0)
+            w_env = pdf_e / torch.clamp(pdf_e + cos_ec / PI, min=1e-12)
+            contrib_e = (throughput * (albedo / PI) * le
+                         * (cos_ec / torch.clamp(pdf_e, min=1e-12)
+                            * w_env)[..., None])
+            radiance = radiance + _cap(
+                torch.where(vis_e[..., None], contrib_e, 0.0))
+
+        # ---- BSDF sampling -------------------------------------------
+        d_diff, pdf_diff = _cosine_sample(n_unit, pixel_id, sample, b,
+                                          seed ^ _DIM_BSDF)
+        fuzz_vec = rng.random_unit_vector(pixel_id, sample, b,
+                                          seed ^ _DIM_LOBE)
+        d_metal = normalize(normalize(reflect(d, n_unit))
+                            + param[..., None] * fuzz_vec)
+        ior = torch.where(param > 0.0, param, 1.5)
+        eta = torch.where(front_face, 1.0 / ior, ior)
+        cos_theta = torch.clamp(-dot(d, n_unit), max=1.0)
+        sin_theta = torch.sqrt(torch.clamp(1.0 - cos_theta * cos_theta,
+                                           min=0.0))
+        cannot = eta * sin_theta > 1.0
+        u_fr = rng.uniform4(pixel_id, sample, b, seed ^ _DIM_LOBE)[1]
+        do_reflect = cannot | (schlick_fresnel(cos_theta, ior) > u_fr)
+        d_diel = torch.where(do_reflect[..., None],
+                             normalize(reflect(d, n_unit)),
+                             refract(d, n_unit, eta[..., None]))
+        is_metal = (mtype == METAL)[..., None]
+        is_diel = (mtype == DIELECTRIC)[..., None]
+        new_dir = normalize(torch.where(
+            is_diel, d_diel, torch.where(is_metal, d_metal, d_diff)))
+
+        # diffuse: albedo * cos / pdf = albedo; metal: albedo; glass: 1
+        atten = torch.where(is_diel, 1.0, albedo)
+        prev_pdf = torch.where(is_diffuse, pdf_diff, 0.0)
+        throughput = torch.where(shading_alive[..., None],
+                                 throughput * atten, throughput)
+
+        # ---- Russian roulette ----------------------------------------
+        if rr_start < max_depth:
+            u_rr = rng.uniform4(pixel_id, sample, b, seed ^ _DIM_RR)[0]
+            p_cont = torch.clamp(throughput.amax(-1), 0.05, 1.0)
+            do_rr = shading_alive & (b >= rr_start)
+            survive = ~do_rr | (u_rr < p_cont)
+            throughput = torch.where(do_rr[..., None],
+                                     throughput / p_cont[..., None],
+                                     throughput)
+            shading_alive = shading_alive & survive
+
+        offset = torch.where(is_diel[..., 0] & ~do_reflect, -1e-3, 1e-3)
+        o = torch.where(shading_alive[..., None],
+                        point + n_unit * offset[..., None], o)
+        d = torch.where(shading_alive[..., None], new_dir, d)
+        alive = shading_alive
+
+    if want_aux:
+        return radiance, albedo_g, normal_g, (t_g, prim_g)
+    return radiance, albedo_g, normal_g
+
+
+def render_path(scene: Scene, materials: MaterialTable, lights, camera,
+                width: int, height: int, spp: int = 16, seed: int = 0,
+                background=(0.0, 0.0, 0.0), max_depth: int = 8,
+                intersector=None, env=None, textures=None,
+                jitter: bool = True, rr_start: int = 3, clamp: float = 0.0,
+                samples_per_wave: int | None = None, want_aux: bool = False,
+                sampler: str = "pcg", sample_offset: int = 0):
+    """A path-traced frame on the device of the camera's tensors, with
+    ``wavefront.render``'s conventions: (image, albedo, normal), each (H,
+    W, 3), and with ``want_aux`` the (t, prim) primary-hit buffers of the
+    first sample.  ``samples_per_wave`` (default 1) merges samples of a
+    pixel into one wave; the RNG streams are keyed by (pixel, sample,
+    bounce), so merging changes no result.  ``sample_offset`` continues
+    the global sample counter (progressive batches)."""
+    _check_sampler(sampler)
+    dev = camera.center.device
+    npix = width * height
+    S = samples_per_wave or 1
+    if spp % S:
+        raise ValueError(f"samples_per_wave={S} must divide spp={spp}")
+    pix_rep = torch.arange(npix, dtype=torch.int64, device=dev).repeat(S)
+    cam_tiles = camera_tile_layout(intersector, camera, S, height, width)
+
+    rad = torch.zeros((npix, 3), device=dev)
+    alb = torch.zeros((npix, 3), device=dev)
+    nrm = torch.zeros((npix, 3), device=dev)
+    t_aux = torch.full((npix,), INF, device=dev)
+    prim_aux = torch.full((npix,), -1, dtype=torch.int32, device=dev)
+    for s0 in range(0, spp, S):
+        first = sample_offset + s0
+        samp = torch.arange(first, first + S, dtype=torch.int64,
+                            device=dev).repeat_interleave(npix)
+        if jitter:
+            u1, u2 = rng.stratified_jitter(pix_rep, samp, seed)
+            jit_uv = torch.stack([u1, u2], -1).reshape(S, height, width, 2)
+        else:
+            jit_uv = torch.full((S, height, width, 2), 0.5, device=dev)
+        lens = None
+        if camera.aperture > 0.0:
+            lens = rng.random_in_unit_disk(
+                pix_rep, samp, -2, seed ^ _DIM_LENS
+            ).reshape(S, height, width, 2)
+        o, d = camera.generate_rays(width, height, jit_uv, lens_uv=lens)
+        out = trace_path(
+            scene, materials, lights, o.reshape(-1, 3), d.reshape(-1, 3),
+            pix_rep, samp, seed, background, max_depth, intersector, env,
+            textures, rr_start, clamp, want_aux=want_aux,
+            cam_point=camera.center if cam_tiles else None,
+            cam_tiles=cam_tiles)
+        rad = rad + out[0].reshape(S, npix, 3).sum(0)
+        alb = alb + out[1].reshape(S, npix, 3).sum(0)
+        nrm = nrm + out[2].reshape(S, npix, 3).sum(0)
+        if want_aux and s0 == 0:
+            t_aux, prim_aux = out[3][0][:npix], out[3][1][:npix]
+    inv = 1.0 / spp
+    outs = (rad.reshape(height, width, 3) * inv,
+            alb.reshape(height, width, 3) * inv,
+            nrm.reshape(height, width, 3) * inv)
+    if want_aux:
+        return outs + ((t_aux.reshape(height, width),
+                        prim_aux.reshape(height, width)),)
+    return outs

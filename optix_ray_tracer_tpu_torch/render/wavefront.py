@@ -7,8 +7,9 @@ over bounce depth carries SoA ray state for the whole wave, and the
 unwind multiply becomes a running throughput product.  Bounce index b in
 [0, max_depth) is the reference's payload depth b + 1; a hit on the last
 bounce contributes nothing.  Extensions kept from the JAX package:
-DIELECTRIC and EMISSIVE materials and first-bounce albedo/normal guides.
-Only the PCG sampler is ported (Sobol waits).
+DIELECTRIC and EMISSIVE materials, first-bounce albedo/normal guides and
+an environment map in place of the background on a miss.  Only the PCG
+sampler is ported (Sobol waits).
 """
 
 from __future__ import annotations
@@ -96,11 +97,12 @@ def scatter(materials: MaterialTable, material_id, d_in, normal, front_face,
 
 def trace(scene: Scene, materials: MaterialTable, origins, directions,
           pixel_id, sample, seed: int, background,
-          max_depth: int = DEFAULT_MAX_DEPTH, intersector=None,
+          max_depth: int = DEFAULT_MAX_DEPTH, intersector=None, env=None,
           want_aux: bool = False, cam_point=None, cam_tiles=None):
     """Trace a wave of rays to completion.
 
-    origins/directions (R, 3); pixel_id, sample (R,) int; background (3,).
+    origins/directions (R, 3); pixel_id, sample (R,) int; background (3,),
+    or ``env`` (``render/envmap.EnvMap``) looked up on a miss.
     With ``cam_point``/``cam_tiles`` ((S, H, W, th, tw)) and an intersector
     carrying raster tables, bounce 0 runs through the tile-raster engine;
     bounces >= 1 take the intersector's incoherent (probe-sorted) variant.
@@ -138,8 +140,9 @@ def trace(scene: Scene, materials: MaterialTable, origins, directions,
             torch.zeros(nrays, device=dev)))
         missed = alive & ~hit.is_hit
         hit_alive = alive & hit.is_hit
+        miss_radiance = env.sample(d) if env is not None else background
         radiance = radiance + torch.where(missed[..., None],
-                                          throughput * background, 0.0)
+                                          throughput * miss_radiance, 0.0)
 
         point, normal, front_face, material_id = shade_fn(scene, o, d, hit)
         new_dir, attenuation, emission, emissive_hit = scatter(
@@ -181,7 +184,7 @@ def _default_samples_per_wave(spp: int) -> int:
 def render(scene: Scene, materials: MaterialTable, camera, width: int,
            height: int, spp: int = 1, seed: int = 0,
            background=DEFAULT_BACKGROUND, max_depth: int = DEFAULT_MAX_DEPTH,
-           intersector=None, jitter: bool = True,
+           intersector=None, env=None, jitter: bool = True,
            samples_per_wave: int | None = None, want_aux: bool = False):
     """Render a frame: spp jittered samples per pixel, accumulated in
     linear space, on the device of the camera's tensors.
@@ -220,7 +223,7 @@ def render(scene: Scene, materials: MaterialTable, camera, width: int,
         o, d = camera.generate_rays(width, height, jit_uv, lens_uv=lens)
         out = trace(scene, materials, o.reshape(-1, 3), d.reshape(-1, 3),
                     pix_rep, samp, seed, background, max_depth, intersector,
-                    want_aux=want_aux,
+                    env=env, want_aux=want_aux,
                     cam_point=camera.center if cam_tiles else None,
                     cam_tiles=cam_tiles)
         rad = rad + out[0].reshape(S, npix, 3).sum(0)

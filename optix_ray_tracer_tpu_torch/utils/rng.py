@@ -90,6 +90,16 @@ def random_unit_vector(pixel_id, sample, bounce, seed):
     return torch.stack([r * c, r * s, z], dim=-1)
 
 
+def random_cosine_direction(pixel_id, sample, bounce, seed):
+    """Cosine-weighted hemisphere sample about +z (the path tracer's
+    diffuse lobe).  Returns (..., 3)."""
+    u1, u2, _, _ = uniform4(pixel_id, sample, bounce, seed)
+    c, s = _cos_sin((2.0 * PI) * u1)
+    sq = torch.sqrt(u2)
+    return torch.stack([c * sq, s * sq,
+                        torch.sqrt(torch.clamp(1.0 - u2, min=0.0))], dim=-1)
+
+
 def random_in_unit_disk(pixel_id, sample, bounce, seed):
     """Uniform point in the unit disk (polar method).  Returns (..., 2)."""
     u1, u2, _, _ = uniform4(pixel_id, sample, bounce, seed)

@@ -702,8 +702,117 @@ def test_raster_occupancy(dev):
     """A and D keep at least 16 resident warps per SM in every variant."""
     for instanced in (False, True):
         for any_hit in (False, True):
-            for common in (None, "origin"):
+            for common in tr.COMMONS:
                 assert tr.raster_occupancy(instanced, any_hit, common) >= 16
+
+
+def _ortho_wave(center, target, extent, dev, size=128):
+    """A size x size grid of parallel rays (an ortho wave) over extent x
+    extent units of the plane through ``center`` facing ``target``, in
+    32 x 32 tiles of ``raster.to_tiles`` order; every 13th ray dead."""
+    c = torch.tensor(center, device=dev)
+    d = torch.tensor(target, device=dev) - c
+    d = d / torch.linalg.norm(d)
+    u = torch.linalg.cross(d, torch.tensor([0.0, 0.0, 1.0], device=dev))
+    u = u / torch.linalg.norm(u)
+    v = torch.linalg.cross(u, d)
+    g = ((torch.arange(size, device=dev) + 0.5) / size - 0.5) * extent
+    gy, gx = torch.meshgrid(g, g, indexing="ij")
+    o = c + gx.reshape(-1, 1) * u + gy.reshape(-1, 1) * v
+    o = raster.to_tiles(o, 1, size, size, 32, 32)
+    n = o.shape[0]
+    tmax = torch.full((n,), 1e16, device=dev)
+    tmax[::13] = 0.0
+    return o, d.expand(n, 3).contiguous(), torch.full((n,), 1e-3,
+                                                      device=dev), tmax
+
+
+@pytest.mark.parametrize("any_hit", [False, True])
+@pytest.mark.parametrize("kernel", ["A", "D"])
+def test_raster_dir_kernel(setup, tlas, dev, kernel, any_hit):
+    """A's and D's common="dir" variant (ortho waves) against its plain
+    twin: t, slot, u, v and the Woop-tested rows per warp equal, one
+    launch; and against the marcher under the hit rule."""
+    from optix_ray_tracer_tpu_torch.ops import raster_instanced as ri
+    if kernel == "A":
+        inter = setup[1]
+        o, d, tmin, tmax = _ortho_wave((3.0, 0.3, 0.8), (0.0, 0.0, 0.0),
+                                       2.4, dev)
+        S = raster._coarse_stage(inter.raster, inter.clusters, o, d, tmin,
+                                 tmax, "ortho", None, 1024, 1 << 17, 2)
+        inp = raster.schedule_inputs(inter.clusters, S, S["nb"], 2)
+        call, plain_fn = tr.raster_cluster_call, tr.raster_cluster_plain
+        counter = _lib.TILE_RASTER
+    else:
+        inter = tlas[0]
+        o, d, tmin, tmax = _ortho_wave((16.0, 2.0, 3.0), (0.0, 0.0, 0.0),
+                                       16.0, dev)
+        S = ri.instanced_coarse_stage(inter.pair_min, inter.pair_max, o, d,
+                                      tmin, tmax, "ortho", None, 1024,
+                                      1 << 17)
+        inp = ri.instanced_schedule_inputs(inter, S)
+        call, plain_fn = tr.raster_instanced_call, tr.raster_instanced_plain
+        counter = _lib.TILE_RASTER_INSTANCED
+    assert int(S["pc_total"]) <= 1 << 17
+    kw = dict(w=1024, any_hit=any_hit, common="dir", visits=True)
+    before = counter.launches
+    kern = call(**inp, **kw)
+    assert counter.launches == before + 1
+    plain = plain_fn(**inp, **kw)
+    torch.cuda.synchronize()
+    for a, b in zip(kern, plain):
+        assert torch.equal(a, b)
+    hits = kern[1].reshape(-1)[:o.shape[0]] >= 0
+    assert 0 < int(hits.sum()) < hits.numel()
+    if kernel == "A":
+        ref = inter.intersect(setup[0], o, d, tmin, tmax)
+        got = inter.intersect_from(setup[0], o, d, mode="ortho", t_min=tmin,
+                                   t_max=tmax, any_hit=any_hit)
+    else:
+        ref, _ = inter.intersect(o, d, tmin, tmax)
+        got, _ = inter.intersect_from(o, d, mode="ortho", t_min=tmin,
+                                      t_max=tmax, any_hit=any_hit)
+    assert torch.equal(got.is_hit, ref.is_hit)
+    if not any_hit:
+        assert hit_mismatches(got.prim_id, got.t, ref.prim_id, ref.t) == 0
+
+
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_bundle_kernel(setup, dev, any_hit):
+    """Kernel A on a 3-D bundle schedule (common=None): the camera wave's
+    hit points toward random points of an area light, against its plain
+    twin (equal, Woop-tested rows included) and the marcher."""
+    scene, inter, o, d, _, _ = setup
+    h = inter.intersect(scene, o, d)
+    p = torch.where(h.is_hit[:, None], o + h.t[:, None] * d, o)
+    n = o.shape[0]
+    r = np.random.default_rng(9)
+    lp = torch.as_tensor(np.stack([np.full(n, 3.0), r.uniform(-1, 1, n),
+                                   r.uniform(1, 3, n)], -1).astype(
+                                       np.float32), device=dev)
+    wl = lp - p
+    dist = torch.linalg.norm(wl, dim=-1)
+    wl = wl / dist[:, None]
+    so = p + wl * 1e-3
+    tmin = torch.full((n,), 1e-4, device=dev)
+    tmax = torch.where(h.is_hit, dist - 2e-3, 0.0)
+    S = raster.bundle_stage(inter.clusters, so, wl, tmin, tmax, 1024,
+                            1 << 17)
+    assert 0 < int(S["pc_total"]) <= 1 << 17
+    inp = raster.schedule_inputs(inter.clusters, S, S["nb"])
+    kw = dict(w=1024, any_hit=any_hit, common=None, visits=True)
+    before = _lib.TILE_RASTER.launches
+    kern = tr.raster_cluster_call(**inp, **kw)
+    assert _lib.TILE_RASTER.launches == before + 1
+    plain = tr.raster_cluster_plain(**inp, **kw)
+    torch.cuda.synchronize()
+    for a, b in zip(kern, plain):
+        assert torch.equal(a, b)
+    got = inter.intersect_bundled(scene, so, wl, t_min=tmin, t_max=tmax,
+                                  any_hit=any_hit)
+    ref = inter.intersect(scene, so, wl, tmin, tmax)
+    assert torch.equal(got.is_hit, ref.is_hit)
+    assert 0 < int(got.is_hit.sum()) < int(h.is_hit.sum())
 
 
 @pytest.mark.parametrize("coherent", [True, False])

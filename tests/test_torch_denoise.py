@@ -204,6 +204,6 @@ def test_resolve_denoiser(monkeypatch):
     monkeypatch.setattr(tneural, "WEIGHTS_FILE", "/nonexistent/w.npz")
     assert tcommon.resolve_denoiser(cfg) == "atrous"
     assert tneural.default_params("cpu") is None
-    with pytest.raises(NotImplementedError, match="queue 1 items 10-11"):
-        tcommon.render_frame(dataclasses.replace(cfg, integrator="path"),
+    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
+        tcommon.render_frame(dataclasses.replace(cfg, integrator="restir"),
                              None, None, None, 8, 8, 1, 0, None)

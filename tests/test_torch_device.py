@@ -11,15 +11,21 @@ import torch
 
 from optix_ray_tracer_tpu_torch import convert
 from optix_ray_tracer_tpu_torch.io.meshgen import sphere_with_n_triangles
+from optix_ray_tracer_tpu_torch.models import benchmarks
 from optix_ray_tracer_tpu_torch.ops.instanced import build_instanced_library
 from optix_ray_tracer_tpu_torch.ops.sweep import build_clusters
 from optix_ray_tracer_tpu_torch.render import neural_denoise
+from optix_ray_tracer_tpu_torch.render.envmap import constant_env, gradient_sky
 from optix_ray_tracer_tpu_torch.render.film import Film
 from optix_ray_tracer_tpu_torch.scene.camera import Camera
+from optix_ray_tracer_tpu_torch.scene.cornell import build_cornell_box
 from optix_ray_tracer_tpu_torch.scene.geometry import (
     ShapeLibrary, Spheres, Triangles,
 )
 from optix_ray_tracer_tpu_torch.scene.materials import MaterialBuilder
+from optix_ray_tracer_tpu_torch.scene.textures import (
+    build_texture_set, checker_texture,
+)
 from optix_ray_tracer_tpu_torch.utils.tensors import resolve_device
 
 torch.set_num_threads(1)
@@ -58,6 +64,17 @@ CONSTRUCTORS = {
         up=np.ones(3), target=np.ones(3)), **kw).w,
     "convert.kpcn": lambda **kw: convert.kpcn(
         neural_denoise.init_params(0), **kw).head.weight,
+    "gradient_sky": lambda **kw: gradient_sky(
+        sun_dir=(0.3, 0.2, 0.9), height=8, width=16, **kw).pdf_tex,
+    "constant_env": lambda **kw: constant_env((0.7, 0.8, 0.9), **kw).image,
+    "build_texture_set": lambda **kw: build_texture_set(
+        [checker_texture(8, 2)], [0], resolution=8, **kw).atlas,
+    "build_cornell_box": lambda **kw: build_cornell_box(
+        **kw)[0].triangles.vertices,
+    "config4_cornell": lambda **kw: benchmarks.config4_cornell(
+        **kw)["lights"].cdf,
+    "convert.envmap": lambda **kw: convert.envmap(dict(
+        image=np.ones((2, 4, 3), np.float32)), **kw).image,
 }
 
 

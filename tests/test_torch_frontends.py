@@ -413,15 +413,19 @@ def test_card_is_the_default(series, tmp_path, monkeypatch):
 
 
 def test_unported_config_features(series):
-    """Environment maps, textures and the path integrators raise (ROADMAP
-    queue 1 item 4) instead of rendering something else."""
+    """The ReSTIR integrators and the Sobol sampler raise (ROADMAP queue 1
+    item 5) instead of rendering something else; environment maps,
+    textures and the path integrator (ported) render."""
     root, cfgs = series
-    for extra in ({"envmap": {"type": "constant"}},
-                  {"textures": [{"checker": True}]}):
-        _, tc = _configs(cfgs["time"], root, **extra)
-        with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-            ttime.commit(tc, device="cpu")
-    _, tc = _configs(cfgs["mesh"], root, integrator="path")
-    data = tmesh.commit(tc, device="cpu")
-    with pytest.raises(NotImplementedError):
-        list(tmesh.render_frames(data, max_frames=1))
+    for extra in ({"integrator": "restir"}, {"sampler": "sobol"}):
+        _, tc = _configs(cfgs["mesh"], root, **extra)
+        data = tmesh.commit(tc, device="cpu")
+        with pytest.raises(NotImplementedError, match="queue 1 item 5"):
+            list(tmesh.render_frames(data, max_frames=1))
+    _, tc = _configs(cfgs["time"], root, integrator="path",
+                     envmap={"type": "constant"},
+                     textures=[{"checker": True}])
+    data = ttime.commit(tc, device="cpu")
+    assert data.env is not None and data.textures is not None
+    frames = list(ttime.render_frames(data, max_frames=1))
+    assert np.isfinite(np.asarray(frames[0][2].mean())).all()

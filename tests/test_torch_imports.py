@@ -25,6 +25,7 @@ MODULES = [
     "optix_ray_tracer_tpu_torch.io.series",
     "optix_ray_tracer_tpu_torch.io.stl",
     "optix_ray_tracer_tpu_torch.io.vtk",
+    "optix_ray_tracer_tpu_torch.models.benchmarks",
     "optix_ray_tracer_tpu_torch.models.common",
     "optix_ray_tracer_tpu_torch.models.fused",
     "optix_ray_tracer_tpu_torch.models.renderer_mesh",
@@ -44,13 +45,18 @@ MODULES = [
     "optix_ray_tracer_tpu_torch.ops.sweep",
     "optix_ray_tracer_tpu_torch.ops.tlas",
     "optix_ray_tracer_tpu_torch.render.denoise",
+    "optix_ray_tracer_tpu_torch.render.envmap",
     "optix_ray_tracer_tpu_torch.render.film",
     "optix_ray_tracer_tpu_torch.render.neural_denoise",
+    "optix_ray_tracer_tpu_torch.render.pathtracer",
     "optix_ray_tracer_tpu_torch.render.temporal",
     "optix_ray_tracer_tpu_torch.render.wavefront",
     "optix_ray_tracer_tpu_torch.scene.camera",
+    "optix_ray_tracer_tpu_torch.scene.cornell",
     "optix_ray_tracer_tpu_torch.scene.geometry",
+    "optix_ray_tracer_tpu_torch.scene.lights",
     "optix_ray_tracer_tpu_torch.scene.materials",
+    "optix_ray_tracer_tpu_torch.scene.textures",
     "optix_ray_tracer_tpu_torch.utils.color",
     "optix_ray_tracer_tpu_torch.utils.colorramp",
     "optix_ray_tracer_tpu_torch.utils.debug",
@@ -145,6 +151,29 @@ for name in ("neural", "atrous"):
                        scene, mb.build(**cpu), cam, 32, 32, 1, 0, sweep)
     film = film.add(*out)
 assert np.isfinite(film.mean().numpy()).all() and film.spp == 2
+# a path-traced frame: camera wave on A, NEE segments on the bundle engine
+# (A), bounces and sky NEE on C then B; then an ortho wave (A, "dir")
+from optix_ray_tracer_tpu_torch.io.meshgen import quad
+from optix_ray_tracer_tpu_torch.render.envmap import gradient_sky
+from optix_ray_tracer_tpu_torch.scene.lights import collect_area_lights
+lamp = mb.add_emissive((5.0, 5.0, 5.0))
+v4, n4 = sphere_with_n_triangles(4000)
+lv, ln = quad([-1, -1, 2], [-1, 1, 2], [1, 1, 2], [1, -1, 2])
+pscene = Scene(Spheres.empty(**cpu), Triangles.from_arrays(
+    np.concatenate([v4, lv]), np.concatenate([n4, ln]),
+    np.r_[np.full(len(v4), metal), [lamp, lamp]].astype(np.int32), **cpu))
+pinter = make_march_intersector(pscene, raster=True)
+assert pinter.clusters.num_clusters >= 16
+pcfg = SimpleNamespace(integrator="path", background=(0.0, 0.0, 0.0),
+                       max_depth=2, sampler="pcg", denoise=False)
+pm = mb.build(**cpu)
+img, _, _ = render_frame(pcfg, pscene, pm, cam, 32, 32, 1, 0, pinter,
+                         env=gradient_sky(sun_dir=(0.3, 0.2, 0.9), **cpu),
+                         lights=collect_area_lights(pscene, pm))
+assert torch.isfinite(img).all()
+sun = torch.tensor([[0.3, 0.2, 0.9]]).expand(256, 3)
+assert pinter.any_hit_from(pscene, o.reshape(-1, 3) * 0 + sun * -3, sun,
+                           mode="ortho", block_rays=128).any()
 print("LAUNCHES", [k.launches for k in _lib.KERNELS], _lib._lib is None)
 """
 
@@ -188,9 +217,9 @@ def test_no_jax_import_statement(path):
 
 def test_cpu_path_launches_no_kernel():
     """Renders on CPU tensors (a raster + march frame, a TLAS frame, a
-    sweep frame through render_frame with both denoisers, into a Film)
-    and a query routed to the hierarchical marcher take the plain
-    versions: every launch count (A-G) stays 0 and the library is never
+    sweep frame through render_frame with both denoisers, into a Film, a
+    path-traced frame with bundle NEE and a sky, an ortho wave) and a
+    query routed to the hierarchical marcher take the plain versions: every launch count (A-G) stays 0 and the library is never
     built."""
     proc = _run(_LAUNCHES)
     assert proc.returncode == 0, proc.stderr

@@ -248,16 +248,20 @@ def test_needed_probe_work_matches_brute_force(n_clusters):
     assert 0 < work["slab"] <= work["flat"]
 
 
-def _brute_raster_work(inp, w, t, slot):
+def _brute_raster_work(inp, w, t, slot, any_hit=False):
     """needed_raster_work's counts by a loop over the scheduled pairs and
-    their parts (the rule written out, over the tile's rays)."""
+    their parts (the rule written out, over the tile's rays): live rays
+    only; an occlusion ray's search ends with the part whose slot range
+    holds its first hit."""
     inst = "pair_insts" in inp
     sub = inp["sub_boxes"]
     n_subs = sub.shape[1]
-    step = 256 // (1 if inst else inp["granularity"]) // n_subs
+    ct = 256 // (1 if inst else inp["granularity"])
+    step = ct // n_subs
     nb = inp["n_blocks"]
     rays = inp["rays_t_ext"]
     t, slot = t.reshape(-1), slot.reshape(-1)
+    done = torch.zeros(slot.shape, dtype=torch.bool)
     ids = inp["pair_ids"] if inst else inp["pair_clusters"]
     work = dict(slab=0, inst=0, woop=0)
     for p in range(inp["pair_tiles"].shape[0]):
@@ -266,13 +270,20 @@ def _brute_raster_work(inp, w, t, slot):
             continue
         r = slice(b * w, (b + 1) * w)
         o, inv, tmin = rays[0:3, r].T, bm.inv_dir(rays[3:6, r].T), rays[6, r]
+        tmax = rays[7, r]
         hit = slot[r] >= 0
+        live = tmax > tmin
+        work["slab"] += int((live & ~done[r]).sum()) * n_subs
         parts = torch.zeros(w, dtype=torch.int64)
         for k in range(n_subs):
             box = sub[int(ids[p]), k]
             e = bm.slab_entry(box[0:3], box[3:6], o, inv, tmin)
-            parts += torch.where(hit, e <= t[r], e < rays[7, r])
-        work["slab"] += w * n_subs
+            if any_hit:
+                parts += live & ~done[r] & (e < tmax)
+                lo = int(ids[p]) * ct + k * step
+                done[r] |= (slot[r] >= lo) & (slot[r] < lo + step)
+            else:
+                parts += live & torch.where(hit, e <= t[r], e < tmax)
         work["woop"] += int(parts.sum()) * step
         work["inst"] += int((parts > 0).sum()) if inst else 0
     return work
@@ -283,10 +294,11 @@ def _tile_order(x, h, w, tile):
             .reshape(-1, 3))
 
 
-@pytest.mark.parametrize("case", ["A-nearest", "A-any-hit", "D"])
+@pytest.mark.parametrize("case", ["A-nearest", "A-any-hit", "D",
+                                  "D-any-hit", "A-bundle-any-hit"])
 def test_needed_raster_work_matches_brute_force(case):
     W = 64
-    if case == "D":
+    if case.startswith("D"):
         inter = _setup(12, 1.0, 3, invalid=(5,))["tinter"]
         o, d = (torch.as_tensor(np.array(x)) for x in _waves(
             dict(rng=np.random.default_rng(0)), n_cam=(16, 16), n_inc=0))
@@ -300,23 +312,54 @@ def test_needed_raster_work_matches_brute_force(case):
         o, d = cam.generate_rays(16, 16)
     o, d = _tile_order(o, 16, 16, 8), _tile_order(d, 16, 16, 8)
     R = o.shape[0]
-    any_hit = case == "A-any-hit"
+    any_hit = case.endswith("any-hit")
     tmin = torch.full((R,), 1e-3)
-    tmax = torch.full((R,), 2.5 if any_hit else 1e16)
+    # occlusion segments end inside the sphere's reach; the TLAS wave's
+    # run to infinity (its scene is farther)
+    tmax = torch.full((R,), 2.5 if case == "A-any-hit" else 1e16)
     tmax[::7] = 0.0                          # dead rays
-    if case == "D":
+    if case.startswith("D"):
         S = ri.instanced_coarse_stage(inter.pair_min, inter.pair_max, o, d,
                                       tmin, tmax, "origin", o[0], W, 1 << 14)
         inp = ri.instanced_schedule_inputs(inter, S)
-        t, slot, _, _ = tr.raster_instanced_plain(**inp, w=W,
-                                                  common="origin")
+        t, slot, _, _ = tr.raster_instanced_plain(
+            **inp, w=W, any_hit=any_hit, common="origin")
+    elif case == "A-bundle-any-hit":
+        # segments from the camera wave's hits toward a point light, each
+        # ray's own origin and direction (a bundle schedule)
+        far = torch.full((R,), 1e16)
+        S0 = raster._coarse_stage(inter.raster, inter.clusters, o, d, tmin,
+                                  far, "origin", o[0], W, 1 << 14, 2)
+        t0, s0, _, _ = tr.raster_cluster_plain(**raster.schedule_inputs(
+            inter.clusters, S0, S0["nb"], 2), w=W, common="origin")
+        t0 = t0.reshape(-1)
+        hit = s0.reshape(-1) >= 0
+        p = o + torch.where(hit, t0, 0.0)[:, None] * d
+        light = torch.tensor([2.0, 1.5, 2.5])
+        dist = torch.linalg.norm(light - p, dim=-1)
+        o, d = p, (light - p) / dist[:, None]
+        tmax = torch.where(hit, dist - 1e-3, 0.0)
+        S = raster.bundle_stage(inter.clusters, o, d, tmin, tmax, W, 1 << 14)
+        inp = raster.schedule_inputs(inter.clusters, S, S["nb"])
+        t, slot, _, _ = tr.raster_cluster_plain(**inp, w=W, any_hit=True)
     else:
         S = raster._coarse_stage(inter.raster, inter.clusters, o, d, tmin,
                                  tmax, "origin", o[0], W, 1 << 14, 2)
         inp = raster.schedule_inputs(inter.clusters, S, S["nb"], 2)
-        # an occlusion wave is counted to its nearest hit in the segment
-        t, slot, _, _ = tr.raster_cluster_plain(**inp, w=W, common="origin")
+        t, slot, _, _ = tr.raster_cluster_plain(**inp, w=W, any_hit=any_hit,
+                                                common="origin")
     assert int(S["pc_total"]) <= 1 << 14
-    got = tr.needed_raster_work(inp, W, t, slot, chunk=W * 4 * 3)
-    assert got == _brute_raster_work(inp, W, t, slot)
-    assert got["woop"] > 0 and (got["inst"] > 0) == (case == "D")
+    got = tr.needed_raster_work(inp, W, t, slot, any_hit=any_hit,
+                                chunk=W * 4 * 3)
+    assert got == _brute_raster_work(inp, W, t, slot, any_hit)
+    live = int(((inp["rays_t_ext"][7] > inp["rays_t_ext"][6])[
+        :inp["n_blocks"] * W]).sum())
+    assert 0 < live < inp["n_blocks"] * W
+    assert got["woop"] > 0 and (got["inst"] > 0) == case.startswith("D")
+    if any_hit:
+        # an occlusion search stops at its first hit: never more work
+        # than the nearest search over the same segments
+        near = tr._raster_plain(inp, W, False, None, tr.WARP)
+        full = tr.needed_raster_work(inp, W, near[0], near[1])
+        assert 0 < int((slot >= 0).sum())
+        assert got["slab"] <= full["slab"]

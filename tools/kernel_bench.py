@@ -24,6 +24,15 @@ run).
 A wave is an entry of ``WAVES``: its name, the wrapper (module under
 ``optix_ray_tracer_tpu_torch/ops/kernels``, function) and a function of
 this checkout's setups that returns the wrapper's keyword arguments.
+
+``--routes [TEXT ...]`` instead compares, with this checkout only, the
+two exact routes of NEE shadow segments on the waves of ``ROUTES``: the
+bundle engine (``raster.bundle_stage``'s binning, then kernel A on its
+schedule) against the probe-sorted marcher (C, then B).  Per wave it
+prints the pairs against the heuristic capacity, the live rays, and the
+mean ms of ``REPS`` calls of the binning, of A on the whole schedule, of
+the bundle query at the capacity the pairs need and of the marcher, and
+checks that both routes find the same occlusion.
 """
 
 from __future__ import annotations
@@ -92,6 +101,63 @@ def _march(e, inter, wave, hier, any_hit=False):
                 any_hit=any_hit)
 
 
+def _bench_nee(e):
+    """NEE shadow segments on the bench scene, built as
+    ``tools/bundle_bench.py`` builds its NEE wave (the JAX package's
+    measured case for the bundle route): from the camera wave's hits
+    (offset 1e-3 along the geometric normal, facing the camera) toward
+    points jittered about (2, 2, 2.5) by 0.2 N(0, 1) (seed 3, after that
+    tool's two bounce draws), ending 2e-3 short; dead where the camera ray
+    missed.  Returns (o, d, t_min, t_max) in the camera wave's tile
+    order."""
+    import numpy as np
+    import torch
+    b = e.b
+    hit = b.inter.intersect_from(b.scene, b.o, b.d, mode="origin",
+                                 point=b.o[0], pc_max=b.pc_max1)
+    live = hit.is_hit
+    p = b.o + torch.where(live, hit.t, 0.0)[:, None] * b.d
+    tri = b.scene.triangles.vertices[hit.prim_id.clamp(min=0).long()]
+    nrm = torch.linalg.cross(tri[:, 1] - tri[:, 0], tri[:, 2] - tri[:, 0])
+    nrm = nrm / torch.clamp(torch.linalg.norm(nrm, dim=-1, keepdim=True),
+                            min=1e-12)
+    nrm = torch.where(((nrm * b.d).sum(-1) < 0)[:, None], nrm, -nrm)
+    gen = np.random.default_rng(3)
+    gen.random(b.R), gen.random(b.R)
+    lp = torch.as_tensor(np.float32([2.0, 2.0, 2.5]) + 0.2 * gen
+                         .standard_normal((b.R, 3)).astype(np.float32),
+                         device=p.device)
+    wl = lp - p
+    dist = torch.linalg.norm(wl, dim=-1)
+    wl = wl / torch.clamp(dist, min=1e-6)[:, None]
+    up = torch.tensor([0.0, 0.0, 1.0], device=p.device)
+    o = torch.where(live[:, None], p + 1e-3 * nrm, 0.0)
+    d = torch.where(live[:, None], wl, up)
+    return (o, d, torch.full_like(dist, 1e-3),
+            torch.where(live, dist - 2e-3, 0.0))
+
+
+def _bundle_schedule(clusters, wave, W):
+    """(bundle_stage's schedule of ``wave`` in W-ray blocks at the
+    capacity its pairs need, the heuristic capacity)."""
+    from optix_ray_tracer_tpu_torch.ops import raster
+    nb = -(-wave[0].shape[0] // W)
+    cap = raster.default_bundle_pc_max(nb, clusters.num_clusters)
+    S = raster.bundle_stage(clusters, *wave, W, cap)
+    if int(S["pc_total"]) > cap:
+        S = raster.bundle_stage(clusters, *wave, W,
+                                raster.round_pc_max(int(S["pc_total"])))
+    return S, cap
+
+
+def _a_bundle(e, wave, W=1024):
+    """Kernel A's bundle schedule (any-hit, full-width dots) of a wave."""
+    from optix_ray_tracer_tpu_torch.ops import raster
+    S, _ = _bundle_schedule(e.b.cs, wave, W)
+    return dict(raster.schedule_inputs(e.b.cs, S, S["nb"]), w=W,
+                any_hit=True, common=None)
+
+
 def _sweep(e, o, d):
     """Kernel G's arguments in the first sweep pass of the wave (o, d)."""
     return dict(zip(("woop", "starts", "o", "d", "t_min", "best"),
@@ -145,11 +211,105 @@ WAVES = {
     "B bench camera (388 clusters)": (
         "block_march", "march_call", lambda e: _march(
             e, e.b.inter, _bench_camera(e), False)),
+    "A bench NEE bundle": ("tile_raster", "raster_cluster_call",
+                           lambda e: _a_bundle(e, _bench_nee(e))),
     "G camera first pass": ("leaf_sweep", "window_sweep_call",
                             lambda e: _sweep(e, e.b.o, e.b.d)),
     "G incoherent first pass": ("leaf_sweep", "window_sweep_call",
                                 lambda e: _sweep(e, e.b.oi, e.b.di)),
 }
+
+
+def _pile_nee(e):
+    """The NEE waves of frame 0 of chip_smoke.py phase 11 (c) (the path
+    pile, 4x4 panel; bounces 0 to DEPTH - 1), captured through
+    ``raster.BUNDLE_OBSERVERS`` from one frame of the CLI, with a
+    probe-sorted marcher over the same clusters.  Returns [(label,
+    clusters, marcher, scene, wave, W)]."""
+    import tempfile
+
+    import torch
+
+    from optix_ray_tracer_tpu_torch.ops.march import MarchIntersector
+    from optix_ray_tracer_tpu_torch.scene.geometry import (
+        Scene, Spheres, Triangles,
+    )
+    cs = e.cs
+    waves, log = [], []
+    with tempfile.TemporaryDirectory(prefix="routes_") as tmp:
+        config = cs.path_pile_configs(Path(tmp))
+        with cs.bundle_log(log, waves, cs.DEPTH):
+            cs.run_cli(["--config", config("path.json", cs.ANIM_LIGHT[1]),
+                        "--output", Path(tmp) / "out", "--frames", 1])
+    out = []
+    for bounce, (args, _) in enumerate(waves):
+        clusters = args[0]
+        dev = clusters.woop_t.device
+        # the probe sort reads no scene bounds; the scene holds no spheres
+        inc = MarchIntersector(
+            clusters=clusters, scene_lo=torch.zeros(3, device=dev),
+            scene_hi=torch.ones(3, device=dev),
+            num_tris=int((clusters.prim_index >= 0).sum()),
+            sort_mode="probe")
+        scene = Scene(Spheres.empty(dev), Triangles.empty(dev))
+        out.append((f"path pile NEE, bounce {bounce}", clusters, inc,
+                    scene, args[1:5], args[5]))
+    return out
+
+
+def _bench_routes(e):
+    """The bench scene's NEE wave, its own intersector."""
+    return [("bench NEE (tools/bundle_bench.py's wave)", e.b.cs,
+             e.b.inter.for_incoherent(), e.b.scene, _bench_nee(e), 1024)]
+
+
+#: route comparisons: name -> function of the setups returning [(label,
+#: clusters, incoherent intersector, scene, (o, d, t_min, t_max), W)]
+ROUTES = {"bench NEE": _bench_routes, "path pile NEE": _pile_nee}
+
+
+def run_routes(names: list) -> None:
+    """The bundle route against the marcher on each wave of ``ROUTES``
+    whose name holds one of ``names`` (all if empty)."""
+    import torch
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke as cs
+    from optix_ray_tracer_tpu_torch.ops import raster
+    from optix_ray_tracer_tpu_torch.ops.kernels import tile_raster as tr
+    device = torch.device("cuda", 0)
+    cs.build_kernels()
+    card = cs.card_line()
+    e = SimpleNamespace(cs=cs, b=cs.bench_setup(device))
+    for name, make in ROUTES.items():
+        if names and not any(x in name for x in names):
+            continue
+        for label, clusters, inc, scene, wave, W in make(e):
+            o, d, t_min, t_max = wave
+            S, cap = _bundle_schedule(clusters, wave, W)
+            pc = int(S["pc_total"])
+            run_pc = max(cap, raster.round_pc_max(pc))
+            inp = raster.schedule_inputs(clusters, S, S["nb"])
+            a_ms = cs.time_ms(lambda: tr.raster_cluster_call(
+                **inp, w=W, any_hit=True, common=None), REPS)
+            stage_ms = cs.time_ms(lambda: raster.bundle_stage(
+                clusters, *wave, W, run_pc), REPS)
+            query_ms = cs.time_ms(lambda: raster.bundle_query(
+                clusters, *wave, any_hit=True, block_rays=W,
+                pc_max=run_pc), REPS)
+            march_ms = cs.time_ms(lambda: inc.any_hit(scene, *wave), REPS)
+            _, slot, _, _, ok = raster.bundle_query(
+                clusters, *wave, any_hit=True, block_rays=W, pc_max=run_pc)
+            occ = inc.any_hit(scene, *wave)
+            if not ok or not torch.equal(slot >= 0, occ):
+                raise AssertionError(f"{label}: the bundle route and the "
+                                     f"marcher disagree")
+            print(f"[route] {label}: {int((t_max > t_min).sum())} live of "
+                  f"{o.shape[0]} rays, {pc} pairs in {S['nb']} blocks of "
+                  f"{W} (heuristic capacity {cap}: "
+                  f"{'fits' if pc <= cap else 'overflows'}); binning "
+                  f"{stage_ms:.3f} ms, A {a_ms:.3f} ms, bundle query "
+                  f"{query_ms:.3f} ms, marcher {march_ms:.3f} ms; the "
+                  f"same occlusion [{card}]", flush=True)
 
 
 def build_waves(names: list) -> None:
@@ -209,6 +369,7 @@ def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--tree", action="append")
     ap.add_argument("--waves", nargs="+")
+    ap.add_argument("--routes", nargs="*")
     ap.add_argument("--time-tree", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.time_tree:
@@ -217,6 +378,9 @@ def main() -> None:
     import torch
     if not torch.cuda.is_available():
         raise SystemExit("kernel_bench: no CUDA device")
+    if args.routes is not None:
+        run_routes(args.routes)
+        return
     names = [n for n in WAVES
              if not args.waves or any(x in n for x in args.waves)]
     build_waves(names)

@@ -4,7 +4,11 @@ incoherent 1M-ray wave, the 1024x1024 spp-4 depth-5 Whitted frame
 through the marcher and through the sweep intersector (kernel G), the
 frame's denoiser tail (a-trous and neural, 1024x1024), and frame 0 of the
 4,096-particle Time scene through the TLAS route and through the flatten
-route (same size), set up exactly as chip_smoke.py sets them up.
+route (same size), set up exactly as chip_smoke.py sets them up; and the
+path tracer's cells of chip_smoke.py's phase 11: a config-5 frame
+(1920x1088, spp 4, depth 6), a config-4 Cornell frame at spp 1 (1024x1024,
+depth 8) and frame 0 of the pile flattened under phase 11's area light
+at 1200x800, spp 1, depth 5 (the NEE segments on the bundle engine).
 
 Usage: python3 tools/prof_port.py  (from the repository root; needs CUDA).
 
@@ -37,17 +41,21 @@ import chip_smoke  # noqa: E402
 OUT = Path("build") / "prof_port"
 ITERS = {"bench_step": 10, "incoherent_wave": 5, "whitted_frame": 2,
          "sweep_frame": 1, "atrous_tail": 5, "neural_tail": 5,
-         "tlas_frame": 2, "flatten_frame": 2}
+         "tlas_frame": 2, "flatten_frame": 2, "sponza_frame": 2,
+         "cornell_frame": 2, "path_pile_frame": 2}
 
 
-def _template_args(name: str, kernel: str) -> list[bool]:
-    """The bool template arguments of ``kernel`` in a demangled
-    (``kernel<true, false>``) or mangled (``kernelILb1ELb0E``) name."""
+def _template_args(name: str, kernel: str) -> list[int]:
+    """The bool and int template arguments of ``kernel`` in a demangled
+    (``kernel<true, 2, false>``) or mangled (``kernelILb1ELi2ELb0E``)
+    name, as ints."""
     if f"{kernel}<" in name:
-        args = name.split(f"{kernel}<", 1)[1].split(">", 1)[0]
-        return [a.strip() == "true" for a in args.split(",")]
-    m = re.search(kernel + r"I((?:Lb[01]E)+)", name)
-    return [b == "1" for b in re.findall(r"Lb([01])E", m.group(1))] \
+        args = name.split(f"{kernel}<", 1)[1].split(">", 1)[0].split(",")
+        words = {"true": 1, "false": 0}
+        return [words[a.strip()] if a.strip() in words
+                else int(a.strip().rstrip("u")) for a in args]
+    m = re.search(kernel + r"I((?:L[bi]\d+E)+)", name)
+    return [int(x) for x in re.findall(r"L[bi](\d+)E", m.group(1))] \
         if m else []
 
 
@@ -55,7 +63,7 @@ def group(name: str, cat: str) -> str:
     """The breakdown's group of one device event."""
     if cat != "kernel":
         return "memcpy/memset"
-    if "warp_raster_kernel" in name:   # <ANY_HIT, COMMON_ORIGIN, INST>
+    if "warp_raster_kernel" in name:   # <ANY_HIT, COMMON, INST>
         args = _template_args(name, "warp_raster_kernel")
         return "D tile_raster_inst" if args and args[-1] else "A tile_raster"
     if "warp_march_kernel" in name:    # <ANY_HIT, INST, HIER>
@@ -116,6 +124,50 @@ def profile(name: str, fn, iters: int, card: str) -> None:
         print(f"    {ms:9.3f} ms  x {count / iters:6.1f}  {kname[:90]}")
 
 
+def path_cells(t, device):
+    """Callables of the path tracer's cells: config 5 and config 4 (spp 1)
+    through ``benchmarks.run``, and frame 0 of the Time scene's flatten
+    route with phase 11's area light over the pile (``render_path``,
+    1200x800, spp 1, depth 5)."""
+    import numpy as np
+
+    from optix_ray_tracer_tpu_torch.io.meshgen import quad
+    from optix_ray_tracer_tpu_torch.models import benchmarks
+    from optix_ray_tracer_tpu_torch.models.common import choose_intersector
+    from optix_ray_tracer_tpu_torch.render import pathtracer
+    from optix_ray_tracer_tpu_torch.scene.geometry import Scene, Triangles
+    from optix_ray_tracer_tpu_torch.scene.lights import collect_area_lights
+    from optix_ray_tracer_tpu_torch.scene.materials import (
+        EMISSIVE, MaterialTable,
+    )
+
+    c5 = benchmarks.config5_sponza_class(device=device)
+    i5 = choose_intersector(c5["scene"])
+    c4 = benchmarks.config4_cornell(device=device)
+    i4 = choose_intersector(c4["scene"])
+    z, half, radiance = chip_smoke.ANIM_LIGHT
+    lv, ln = quad((-half, -half, z), (-half, half, z), (half, half, z),
+                  (half, -half, z))
+    m = t.mats
+    mats = MaterialTable(
+        mtype=torch.cat([m.mtype, torch.tensor([EMISSIVE], device=device,
+                                               dtype=torch.int32)]),
+        albedo=torch.cat([m.albedo, torch.zeros((1, 3), device=device)]),
+        param=torch.cat([m.param, torch.zeros(1, device=device)]),
+        emission=torch.cat([m.emission, torch.full((1, 3), radiance,
+                                                   device=device)]))
+    lamp = Triangles.from_arrays(lv, ln, np.int32(m.count), device=device)
+    scene = Scene(t.flat.spheres, t.flat.triangles.concat(lamp))
+    inter = choose_intersector(scene)
+    lights = collect_area_lights(scene, mats)
+    w, h = chip_smoke.ANIM_WIDTH, chip_smoke.ANIM_HEIGHT
+    return (lambda: benchmarks.run(c5, intersector=i5),
+            lambda: benchmarks.run(c4, spp=1, intersector=i4),
+            lambda: pathtracer.render_path(
+                scene, mats, lights, t.cam, w, h, spp=1, seed=1,
+                max_depth=chip_smoke.DEPTH, intersector=inter))
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("prof_port: no CUDA device")
@@ -135,6 +187,7 @@ def main() -> None:
     scene, mats, cam, inter = chip_smoke.whitted_setup(v, n, device)
     t = chip_smoke.time_setup(device)
     tlas = chip_smoke.time_frame(t, 0, t.pc_max1)
+    sponza, cornell, pile = path_cells(t, device)
 
     def frame(scene_, mats_, cam_, inter_):
         return lambda: wavefront.render(
@@ -153,7 +206,9 @@ def main() -> None:
         "atrous_tail": chip_smoke.tail_setup(tail, "atrous"),
         "neural_tail": chip_smoke.tail_setup(tail, "neural"),
         "tlas_frame": frame(t.static, t.mats, t.cam, tlas),
-        "flatten_frame": frame(t.flat, t.mats, t.cam, t.finter)}
+        "flatten_frame": frame(t.flat, t.mats, t.cam, t.finter),
+        "sponza_frame": sponza, "cornell_frame": cornell,
+        "path_pile_frame": pile}
     from optix_ray_tracer_tpu_torch.ops.kernels import block_march as bm
     counted = {"whitted_frame": "probe_call", "flatten_frame": "probe_call",
                "tlas_frame": "march_instanced_call"}
