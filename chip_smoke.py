@@ -115,7 +115,24 @@ CPU or to the plain versions):
    whole waves; (e) A on the first bundle NEE wave of (c) (captured
    through ``raster.BUNDLE_OBSERVERS``) against its plain twin on
    BUNDLE_BLOCKS blocks spread over it.  ``tools/kernel_bench.py
-   --routes`` times the bundle route against the marcher on such waves.
+   --routes`` times the bundle route against the marcher on such waves;
+12. the product extras (:func:`extras_phase`): (a) phase 11c's series and
+   panel through ``__main__.main`` with ``"integrator": "restir"`` and
+   ``"restir-gi"``, RESTIR_FLAT_FRAMES frames flattened (the per-frame
+   loop) and RESTIR_TLAS_FRAMES through the TLAS route, s per
+   ``render_frame`` and the launches per frame (B, C, F; E), flatten frame
+   0 against TLAS frame 0 (> 2 LSB on < 1%); (b) config 4 through
+   ``restir.render_restir_gi_progressive`` at CORNELL_SPP, spp/s beside
+   the path tracer at pixel centers, the image means within 2%; (c)
+   ``--progressive PROGRESSIVE_SPP`` on the pile's frame 0 (path, path
+   ``--adaptive``, restir), straight and resumed from half, the PNGs and
+   checkpoints bit-equal, s per batch; (d) phase 10's series fused with
+   ``"sampler": "pcg"`` and ``"sobol"``, s/frame; (e) ``python -m
+   optix_ray_tracer_tpu_torch --viewer`` in a subprocess at each of
+   VIEWER_SIZES: fps over VIEWER_WINDOW seconds of /stream with /key,
+   /look and /wheel sent during it, the encoder, /quit and exit code 0
+   (its launches read from its log).  The in-process runs share each
+   distinct scene's host SAH build (:func:`shared_builds`).
 
 Every kernel's row in the kernels' JSON object is one whole main-path
 wave (a subset would leave most of the card idle): A the bench camera
@@ -126,7 +143,8 @@ variant (phase 11's sun waves; launches: the variant's in its
 ``intersect_from(mode="ortho")`` runs, ``Kernel.variants``) and A on the
 bundle NEE wave (launches: A's full-width launches in phase 11's path
 animation). It carries the kernel's launches on the
-main paths (phases 4, 7, 8, 10 and 11), its error against its plain version,
+main paths (phases 4, 7, 8, 10, 11 and 12), its error against its plain
+version,
 the whole wave's time, the plain version's time on what it compared (A,
 D: the whole wave), and the bound: the larger of the bytes the wave's
 inputs and outputs take over 3.35 TB/s and the float operations its
@@ -2176,10 +2194,10 @@ def bundle_counts(log: list) -> str:
 
 def path_pile_configs(root: Path):
     """Phase 10's pile series written under ``root``, and a function
-    ``config(name, half, **extra)`` that writes phase 10's config with
-    ``"integrator": "path"`` and an emissive 2*half x 2*half panel
-    ANIM_LIGHT[0] above the pile (an EMISSIVE OBJ extra) and returns its
-    path."""
+    ``config(name, half, integrator="path", **extra)`` that writes phase
+    10's config with that integrator and an emissive 2*half x 2*half panel
+    ANIM_LIGHT[0] above the pile (an EMISSIVE OBJ extra), or with no
+    panel for ``half`` None, and returns its path."""
     from optix_ray_tracer_tpu_torch.io.meshgen import sphere_with_n_triangles
     poses = pile_poses(N_PARTICLES, ANIM_TIMES)
     series, stl_dir = write_time_series(
@@ -2187,11 +2205,15 @@ def path_pile_configs(root: Path):
         poses, ANIM_TIMES)
     z, _, radiance = ANIM_LIGHT
 
-    def config(name, half, **extra):
+    def config(name, half, integrator="path", **extra):
+        if half is None:
+            return write_anim_config(
+                root / name, series, stl_dir, root / "cache", ANIM_WIDTH,
+                ANIM_HEIGHT, ANIM_FPS, integrator=integrator, **extra)
         light = write_light_obj(root / f"light_{half:g}.obj", z, half)
         return write_anim_config(
             root / name, series, stl_dir, root / "cache", ANIM_WIDTH,
-            ANIM_HEIGHT, ANIM_FPS, integrator="path",
+            ANIM_HEIGHT, ANIM_FPS, integrator=integrator,
             emissives=[{"emission": [radiance] * 3}],
             meshes=[{"obj": f"{Path(name).stem}.ground.obj",
                      "mat-type": "ROUGH", "mat-index": 0},
@@ -2558,6 +2580,373 @@ def path_phase(b: SimpleNamespace, t: SimpleNamespace, card: str):
     return rows, launches
 
 
+# ---- phase 12: the product extras ------------------------------------------
+
+RESTIR_FLAT_FRAMES = 4            # ReSTIR on the path pile, per-frame loop
+RESTIR_TLAS_FRAMES = 2
+PROGRESSIVE_SPP = 32              # --progressive; the split run stops at half
+SOBOL_FRAMES = 4
+VIEWER_SIZES = ((320, 240), (640, 480))
+VIEWER_WINDOW = 4.0               # seconds of /stream read at each size
+VIEWER_LIMIT = 240                # the viewer subprocess's time limit, s
+
+
+@contextlib.contextmanager
+def shared_builds():
+    """Within the block, ``models/common.choose_intersector`` builds each
+    distinct scene (triangle count and vertex and material checksums)
+    once: phase 12 renders the pile's frame 0 in a dozen CLI runs, and the
+    host SAH build of its 862k triangles (~10 s) is the same every time.
+    Yields the cache (scene key -> intersector)."""
+    from optix_ray_tracer_tpu_torch.models import common
+    real = common.choose_intersector
+    cache = {}
+
+    def cached(scene):
+        v = scene.triangles.vertices.double()
+        key = (scene.triangle_count, float(v.sum()), float((v * v).sum()),
+               float(scene.triangles.material_id.double().sum()))
+        if key not in cache:
+            cache[key] = real(scene)
+        return cache[key]
+
+    common.choose_intersector = cached
+    try:
+        yield cache
+    finally:
+        common.choose_intersector = real
+
+
+def launch_counts(keys: str = "ABCDEF") -> dict:
+    return {k: K[k].launches for k in keys}
+
+
+def counts_text(counts: dict, per: int = 1) -> str:
+    return ", ".join(f"{k} {n / per:g}" for k, n in counts.items())
+
+
+def restir_pile(card: str, config, root: Path, add) -> None:
+    """Phase 12 (a): the path pile (phase 11c's series and 4x4 panel)
+    through the CLI with ``"integrator": "restir"`` and ``"restir-gi"``:
+    RESTIR_FLAT_FRAMES frames flattened (the per-frame loop: ReSTIR keeps
+    no fused chunk) and RESTIR_TLAS_FRAMES through the TLAS route, temporal
+    off; flatten frame 0 against TLAS frame 0."""
+    import os
+
+    from optix_ray_tracer_tpu_torch.models import common
+
+    for integ in ("restir", "restir-gi"):
+        cfg = config(f"{integ}.json", ANIM_LIGHT[1], integrator=integ,
+                     temporal=False)
+        imgs = {}
+        for route, frames in (("flatten", RESTIR_FLAT_FRAMES),
+                              ("TLAS", RESTIR_TLAS_FRAMES)):
+            out = root / f"{integ}_{route}"
+            times = []
+            zero_counts()
+            if route == "TLAS":
+                os.environ["ORT_TIME_TLAS"] = "1"
+            try:
+                with host_timed(common, "render_frame", times):
+                    run_cli(["--config", cfg, "--output", out, "--frames",
+                             frames])
+            finally:
+                os.environ.pop("ORT_TIME_TLAS", None)
+            counts = launch_counts()
+            add(counts)
+            imgs[route] = check_pngs(sorted(out.glob("frame_*.png")),
+                                     f"{integ} {route}")
+            print(f"[extras restir] {integ}, {route} route, {frames} frames "
+                  f"[{card}]: render_frame {times[-1]:.4f} s/frame (last; "
+                  f"all {', '.join(f'{x:.3f}' for x in times)}); launches "
+                  f"per frame: {counts_text(counts, frames)}")
+            # ReSTIR's camera wave is a plain coherent query, as in the
+            # JAX package (F flattened, E through the TLAS), not the
+            # raster engine's
+            need = "E" if route == "TLAS" else "BCF"
+            if min(counts[k] for k in need) == 0:
+                raise AssertionError(f"{integ} {route} missed one of {need}")
+        agree(imgs["flatten"][0], imgs["TLAS"][0],
+              f"{integ} flatten frame 0 vs TLAS frame 0")
+        from optix_ray_tracer_tpu_torch.utils.color import write_png
+        write_png(OUT_DIR / f"{integ}_pile_frame0.png", imgs["flatten"][0])
+
+
+def restir_gi_cornell(card: str, add) -> None:
+    """Phase 12 (b): config 4 (the Cornell box) at 1024x1024, depth 8,
+    CORNELL_SPP samples through ``render_restir_gi_progressive`` (the
+    ``"restir-gi"`` entry: reservoirs carried across the samples, 16
+    candidates, 2 spatial taps) beside the path tracer at pixel centers
+    (ReSTIR renders pixel centers) with the same spp: the image means
+    within 2% (the JAX package's bound, tests/test_restir.py:330)."""
+    import torch
+
+    from optix_ray_tracer_tpu_torch.models import benchmarks
+    from optix_ray_tracer_tpu_torch.models.common import choose_intersector
+    from optix_ray_tracer_tpu_torch.render import pathtracer, restir
+    from optix_ray_tracer_tpu_torch.utils.color import (
+        color_to_uint8, write_png,
+    )
+
+    cfg = benchmarks.config4_cornell(device=torch.device("cuda", 0))
+    inter = choose_intersector(cfg["scene"])
+    w, h, depth = cfg["width"], cfg["height"], cfg["max_depth"]
+    args = (cfg["scene"], cfg["materials"], cfg["lights"], cfg["camera"],
+            w, h)
+    kw = dict(seed=0, max_depth=depth, intersector=inter,
+              background=cfg["background"])
+    restir.render_restir_gi_progressive(*args, spp=1, **kw)   # warm-up
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    (path, _, _), path_s = timed(lambda: pathtracer.render_path(
+        *args, spp=CORNELL_SPP, jitter=False, **kw))
+    zero_counts()
+    (gi, _, _), gi_s = timed(lambda: restir.render_restir_gi_progressive(
+        *args, spp=CORNELL_SPP, **kw))
+    counts = launch_counts("ABC")
+    add(counts)
+    pm, gm = float(path.mean()), float(gi.mean())
+    print(f"[extras restir-gi] config 4, {w}x{h}, spp {CORNELL_SPP}, depth "
+          f"{depth} [{card}]: restir-gi {gi_s:.3f} s, "
+          f"{CORNELL_SPP / gi_s:.3f} spp/s; path tracer (pixel centers) "
+          f"{path_s:.3f} s, {CORNELL_SPP / path_s:.3f} spp/s; image means "
+          f"{gm:.5f} vs {pm:.5f} ({(gm / pm - 1) * 100:+.2f}%); launches "
+          f"{counts_text(counts)}")
+    if not bool(torch.isfinite(gi).all()):
+        raise AssertionError("the restir-gi frame is not finite")
+    if abs(gm - pm) > 0.02 * pm:
+        raise AssertionError("restir-gi's mean is not within 2% of the "
+                             "path tracer's")
+    write_png(OUT_DIR / "restir_gi_cornell.png", color_to_uint8(gi))
+
+
+def progressive_runs(card: str, config, root: Path, add) -> None:
+    """Phase 12 (c): ``--progressive PROGRESSIVE_SPP`` on the path pile's
+    frame 0 at 1200x800, straight and as half of it resumed from its
+    checkpoint: the PNGs and checkpoints bit-equal; uniform (path), with
+    ``--adaptive`` (path) and with ``"integrator": "restir"`` (whose
+    batches after the first fold sample_offset into the seed, wrapped to
+    int32)."""
+    import numpy as np
+
+    from optix_ray_tracer_tpu_torch.models import common
+    from optix_ray_tracer_tpu_torch.render import adaptive
+
+    for integ, flags in (("path", []), ("path", ["--adaptive"]),
+                         ("restir", [])):
+        cfg = config(f"prog_{integ}.json", ANIM_LIGHT[1], integrator=integ)
+        label = integ + (" --adaptive" if flags else "")
+        module, fn = ((adaptive, "adaptive_batch") if flags
+                      else (common, "render_frame"))
+        results, times = [], []
+        zero_counts()
+        for name, steps in (("straight", [PROGRESSIVE_SPP]),
+                            ("resumed", [PROGRESSIVE_SPP // 2,
+                                         PROGRESSIVE_SPP])):
+            out = root / f"prog_{integ}{'_adaptive' if flags else ''}_{name}"
+            for spp in steps:
+                with host_timed(module, fn, times):
+                    run_cli(["--config", cfg, "--output", out,
+                             "--progressive", spp, "--checkpoint",
+                             out / "ckpt.npz", *flags])
+            with np.load(out / "ckpt.npz") as z:
+                arrays = {k: z[k] for k in z.files}
+            results.append(((out / "progressive.png").read_bytes(), arrays))
+        counts = launch_counts()
+        add(counts)
+        (pa, ca), (pb, cb) = results
+        same = pa == pb and ca.keys() == cb.keys() and all(
+            np.array_equal(ca[k], cb[k]) for k in ca)
+        print(f"[extras progressive] {label}, {PROGRESSIVE_SPP} spp at "
+              f"{ANIM_WIDTH}x{ANIM_HEIGHT} [{card}]: {len(times)} batches in "
+              f"the two runs, {np.mean(times):.4f} s per batch (median "
+              f"{np.median(times):.4f}); straight vs resumed at "
+              f"{PROGRESSIVE_SPP // 2}: PNG and checkpoint "
+              f"{'bit-equal' if same else 'DIFFER'}; launches "
+              f"{counts_text(counts)}")
+        if not same:
+            raise AssertionError(f"{label}: the resumed run differs")
+        (OUT_DIR / f"progressive_{label.replace(' --', '_')}.png"
+         ).write_bytes(pa)
+
+
+def sobol_series(card: str, config, root: Path, add) -> None:
+    """Phase 12 (d): phase 10's series and config (whitted, a-trous,
+    temporal on) through the fused loop for SOBOL_FRAMES frames with
+    ``"sampler": "pcg"`` and then ``"sobol"``: wall s/frame over frames
+    2.. by CUDA events, as phase 11c."""
+    import torch
+
+    from optix_ray_tracer_tpu_torch.models import fused
+
+    for sampler in ("pcg", "sobol"):
+        cfg = config(f"sampler_{sampler}.json", None, integrator="whitted",
+                     sampler=sampler)
+        refits = []
+        zero_counts()
+        with timed_calls(fused, "refit_march_intersector", refits):
+            run_cli(["--config", cfg, "--output", root / f"s_{sampler}",
+                     "--frames", SOBOL_FRAMES])
+            end = torch.cuda.Event(enable_timing=True)
+            end.record()
+            end.synchronize()
+        counts = launch_counts()
+        add(counts)
+        check_pngs(sorted((root / f"s_{sampler}").glob("frame_*.png")),
+                   f"sampler {sampler}")
+        wall = refits[2][1].elapsed_time(end) / (SOBOL_FRAMES - 2) / 1e3
+        print(f"[extras sobol] phase 10's series, sampler {sampler}, fused, "
+              f"{SOBOL_FRAMES} frames [{card}]: wall {wall:.4f} s/frame over "
+              f"frames 2-{SOBOL_FRAMES - 1}; launches per frame: "
+              f"{counts_text(counts, SOBOL_FRAMES)}")
+        if min(counts[k] for k in "BCF") == 0:
+            raise AssertionError(f"sampler {sampler} missed B, C or F")
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def stream_parts(resp, seconds: float, during=None) -> list:
+    """The payloads of the multipart parts read from ``resp`` for
+    ``seconds``; ``during(fraction)`` is called as the window passes."""
+    buf, t0, done = b"", time.perf_counter(), 0.0
+    while (elapsed := time.perf_counter() - t0) < seconds:
+        buf += resp.read1(1 << 16)
+        if during is not None and elapsed / seconds >= done + 0.25:
+            done += 0.25
+            during(done)
+    parts = []
+    for chunk in buf.split(b"--frame\r\n")[1:]:
+        head, sep, body = chunk.partition(b"\r\n\r\n")
+        if sep and body.endswith(b"\r\n"):
+            parts.append(body[:-2])
+    return parts
+
+
+def viewer_cell(card: str, config, root: Path, add) -> None:
+    """Phase 12 (e): ``python -m optix_ray_tracer_tpu_torch --viewer --port
+    P`` on phase 10's pile (whitted: the fused chunk path) in a subprocess
+    at each of VIEWER_SIZES: after its first frame, /stream is read for
+    VIEWER_WINDOW seconds while /key, /look and /wheel arrive; fps =
+    distinct frames over the window; then /quit, and the process must
+    exit 0 within VIEWER_LIMIT.  Its kernel launches come from its log."""
+    import os
+    import re
+    import threading
+    import urllib.request
+
+    cfg = config("viewer.json", None, integrator="whitted")
+    repo = Path(__file__).resolve().parent
+    for w, h in VIEWER_SIZES:
+        port = free_port()
+        base = f"http://127.0.0.1:{port}"
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "optix_ray_tracer_tpu_torch", "--config",
+             str(cfg), "--viewer", "--port", str(port), "--width", str(w),
+             "--height", str(h)], cwd=repo,
+            env=dict(os.environ, PYTHONPATH=str(repo)),
+            stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
+        lines = []
+        reader = threading.Thread(target=lambda: lines.extend(proc.stderr),
+                                  daemon=True)
+        reader.start()
+
+        def get(path, timeout=5.0):
+            with urllib.request.urlopen(base + path, timeout=timeout) as r:
+                return r.read()
+
+        def steer(fraction):
+            get({0.25: "/key?k=w", 0.5: "/look?dx=12&dy=-4",
+                 0.75: "/wheel?d=1"}.get(fraction, "/key?k=d"))
+
+        t_start = time.perf_counter()
+        try:
+            while True:
+                if proc.poll() is not None:
+                    raise AssertionError("the viewer exited early:\n"
+                                         + "".join(lines[-20:]))
+                try:
+                    get("/", timeout=2.0)
+                    break
+                except OSError:
+                    if time.perf_counter() - t_start > VIEWER_LIMIT:
+                        raise AssertionError("the viewer never served")
+                    time.sleep(0.2)
+            with urllib.request.urlopen(base + "/stream",
+                                        timeout=VIEWER_LIMIT) as r:
+                r.read1(1 << 16)     # blocks until the first frame is out
+                startup = time.perf_counter() - t_start
+                parts = stream_parts(r, VIEWER_WINDOW, steer)
+        finally:
+            try:
+                get("/quit")
+            except OSError:
+                pass
+            try:
+                rc = proc.wait(timeout=VIEWER_LIMIT)
+            finally:
+                proc.kill()
+                reader.join(timeout=10)
+        log = "".join(lines)
+        distinct = sum(1 for a, b in zip(parts, parts[1:]) if a != b)
+        enc = re.search(r"(jpeg|png) stream parts", log)
+        launched = dict(re.findall(r"(\w+)=(\d+)", log.rsplit(
+            "kernel launches:", 1)[-1])) if "kernel launches:" in log else {}
+        counts = {k: int(launched.get(K[k].name, 0)) for k in "ABCDEF"}
+        add(counts)
+        fps = distinct / VIEWER_WINDOW
+        print(f"[extras viewer] {w}x{h} [{card}]: {fps:.2f} fps "
+              f"({distinct} distinct frames of {len(parts)} stream parts"
+              f" in {VIEWER_WINDOW:g} s, /key /look /wheel during it); "
+              f"first frame {startup:.1f} s after start; encoder "
+              f"{enc.group(1) if enc else '?'}; exit {rc}; launches "
+              f"{counts_text(counts)}")
+        if rc != 0 or distinct == 0 or not enc:
+            raise AssertionError(f"the viewer at {w}x{h} failed:\n"
+                                 + "".join(lines[-20:]))
+
+
+def extras_phase(card: str) -> dict:
+    """Phase 12, the product extras: (a) ReSTIR on the path pile, (b)
+    restir-gi on config 4, (c) progressive and adaptive with resume, (d)
+    Sobol, (e) the viewer.  Returns their launches of A-F by name."""
+    import tempfile
+
+    tmp = tempfile.TemporaryDirectory(prefix="extras_")
+    root = Path(tmp.name)
+    launches = {}
+
+    def add(counts):
+        for k, n in counts.items():
+            launches[K[k].name] = launches.get(K[k].name, 0) + n
+
+    OUT_DIR.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    try:
+        config = path_pile_configs(root)
+        with shared_builds() as builds:
+            restir_pile(card, config, root, add)
+            restir_gi_cornell(card, add)
+            progressive_runs(card, config, root, add)
+            sobol_series(card, config, root, add)
+        viewer_cell(card, config, root, add)
+    finally:
+        tmp.cleanup()
+    print(f"[extras] phase 12 in {time.perf_counter() - t0:.1f} s "
+          f"({len(builds)} host builds shared by its in-process runs)")
+    return launches
+
+
 #: the variant rows of the kernels' JSON line: name -> (kernel letter,
 #: the TPU kernel's file:line)
 VARIANT_ROWS = {
@@ -2582,6 +2971,7 @@ def main() -> None:
              F=_lib.BLOCK_MARCH_HIER, G=_lib.LEAF_SWEEP)
     card = card_line()
     print(card)      # name and power limit, as nvidia-smi reports them
+    t_start = time.perf_counter()
     device = torch.device("cuda", 0)
     build_kernels()
     b = bench_setup(device)
@@ -2601,12 +2991,16 @@ def main() -> None:
     rows.update(path_rows)
     for name, n in path_launches.items():
         launches[name] = launches.get(name, 0) + n
+    for name, n in extras_phase(card).items():
+        launches[name] = launches.get(name, 0) + n
     kernels = [{"name": k.name, "route": "cuda", "source": k.source,
                 "replaces": k.replaces, "launches": launches[k.name],
                 **rows[k.name]} for k in _lib.KERNELS]
     kernels += [{"name": name, "route": "cuda", "source": K[k].source,
                  "replaces": replaces, "launches": launches[name],
                  **rows[name]} for name, (k, replaces) in VARIANT_ROWS.items()]
+    print(f"[smoke] phases 1-12 in {time.perf_counter() - t_start:.1f} s "
+          f"[{card}]")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

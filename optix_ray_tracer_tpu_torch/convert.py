@@ -6,8 +6,8 @@ into a dict of numpy arrays keyed by field name, nested dataclasses into
 nested dicts; it touches no JAX API.  The other functions build the
 port's counterparts from such dicts, so tests can give both packages the
 very same acceleration structure (flat or two-level, with one frame's
-refit state), scene, materials, camera, area lights, environment map and
-textures.  Each builds on ``device``
+refit state), scene, materials, camera, area lights, environment map,
+textures, ReSTIR reservoirs and adaptive films.  Each builds on ``device``
 (None: the card, see ``utils.tensors.resolve_device``).
 """
 
@@ -27,6 +27,7 @@ from optix_ray_tracer_tpu_torch.ops.march import (
 )
 from optix_ray_tracer_tpu_torch.ops.sweep import ClusterSet, SweepIntersector
 from optix_ray_tracer_tpu_torch.ops.tlas import TLASSceneIntersector
+from optix_ray_tracer_tpu_torch.render.adaptive import AdaptiveFilm
 from optix_ray_tracer_tpu_torch.render.envmap import EnvMap
 from optix_ray_tracer_tpu_torch.render.film import Film
 from optix_ray_tracer_tpu_torch.render.neural_denoise import KPCN
@@ -124,6 +125,21 @@ def film(arrays: dict, device=None) -> Film:
     return Film(**{k: _t(arrays[k], dev).float()
                    for k in ("accum", "albedo_accum", "normal_accum")},
                 spp=int(arrays["spp"]))
+
+
+def reservoir_state(arrays: dict, device=None) -> dict:
+    """A ReSTIR reservoir state dict (``render/restir``) from the JAX
+    package's arrays: ``li`` int32, the rest float32."""
+    dev = resolve_device(device)
+    return {k: _t(v, dev).to(torch.int32 if k == "li" else torch.float32)
+            for k, v in arrays.items()}
+
+
+def adaptive_film(arrays: dict, device=None) -> AdaptiveFilm:
+    """AdaptiveFilm from a JAX ``AdaptiveFilm``'s arrays (``count``
+    int32, the size as ints)."""
+    return _tensors(arrays, AdaptiveFilm, resolve_device(device),
+                    width=lambda v, _: int(v), height=lambda v, _: int(v))
 
 
 def kpcn(params: dict, device=None) -> KPCN:

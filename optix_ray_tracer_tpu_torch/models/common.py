@@ -4,12 +4,11 @@ geometry and camera; the per-frame intersector choice with its device
 refit and rebuild; and the frame step (integrator, then denoiser).
 
 The config is read by attribute, so any object with the
-``RendererConfig`` fields serves, the JAX package's included.  The
-Whitted and path integrators are ported, with environment maps, textures
-and area lights; ReSTIR, the Sobol sampler and ``sample_offset``
-(progressive batches) wait for ROADMAP queue 1 item 5, and
-:func:`render_frame` raises for them.  Builders that make tensors take
-``device`` (None: the card).
+``RendererConfig`` fields serves, the JAX package's included.  Every
+integrator of the JAX package (Whitted, path, ReSTIR DI and ReSTIR GI)
+renders, with environment maps, textures, area lights, either sampler
+and ``sample_offset`` (progressive batches).  Builders that make tensors
+take ``device`` (None: the card).
 """
 
 from __future__ import annotations
@@ -27,7 +26,7 @@ from optix_ray_tracer_tpu_torch.ops.march import (
     refit_march_intersector,
 )
 from optix_ray_tracer_tpu_torch.render import (
-    neural_denoise, pathtracer, wavefront,
+    neural_denoise, pathtracer, restir, wavefront,
 )
 from optix_ray_tracer_tpu_torch.render.denoise import denoise
 from optix_ray_tracer_tpu_torch.scene.camera import Camera
@@ -35,8 +34,6 @@ from optix_ray_tracer_tpu_torch.scene.geometry import Spheres, Triangles
 from optix_ray_tracer_tpu_torch.scene.materials import MaterialBuilder
 from optix_ray_tracer_tpu_torch.utils import debug
 from optix_ray_tracer_tpu_torch.utils.colorramp import bake_color_ramp
-
-_NOT_PORTED = "is not ported yet (ROADMAP queue 1 item 5)"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -251,6 +248,16 @@ def collect_lights(config, scene, materials):
     return collect_area_lights(scene, materials)
 
 
+def restir_seed(seed: int, sample_offset: int) -> int:
+    """The ReSTIR seed of a progressive batch: ``seed ^ (sample_offset *
+    0x9E3779B9)`` wrapped to its low 32 bits as a two's-complement int32,
+    so that each batch draws fresh candidate streams.  (The JAX package
+    passes the unwrapped Python int, which overflows its int32 seed from
+    the second batch on; the wrapped value is the one it means.)"""
+    s = (int(seed) ^ (int(sample_offset) * 0x9E3779B9)) & 0xFFFFFFFF
+    return s - (1 << 32) if s >= 1 << 31 else s
+
+
 def render_frame(config, scene, materials, camera, width: int, height: int,
                  spp: int, seed: int, intersector, env=None, textures=None,
                  lights=None, denoise_override: bool | None = None,
@@ -258,26 +265,40 @@ def render_frame(config, scene, materials, camera, width: int, height: int,
                  sample_offset: int = 0):
     """One frame through the configured integrator and denoiser.  Returns
     (img, albedo, normal), ``img`` denoised when enabled
-    (``denoise_override`` None follows the config)."""
-    if config.integrator in ("restir", "restir-gi"):
-        raise NotImplementedError(
-            f"integrator {config.integrator!r} {_NOT_PORTED}")
+    (``denoise_override`` None follows the config).  ``sample_offset``
+    continues the global sample counter (progressive batches); ReSTIR
+    folds it into its seed (:func:`restir_seed`)."""
     sampler = getattr(config, "sampler", "pcg")
-    if sampler != "pcg" or sample_offset:
-        raise NotImplementedError(
-            f"the Sobol sampler and sample_offset (progressive batches) "
-            f"{_NOT_PORTED}")
     if config.integrator == "path":
         img, alb, nrm = pathtracer.render_path(
             scene, materials, lights, camera, width, height, spp=spp,
             seed=seed, background=config.background,
             max_depth=config.max_depth, intersector=intersector, env=env,
-            textures=textures)
+            textures=textures, sampler=sampler, sample_offset=sample_offset)
+    elif config.integrator in ("restir", "restir-gi"):
+        # one shadow ray per pixel per sample, the reservoirs carried
+        # across the spp samples; "restir-gi" adds the path-traced rest
+        if lights is None or lights.count == 0:
+            raise ValueError(
+                f"integrator '{config.integrator}' needs emissive "
+                "materials in the scene (it resamples area-light "
+                "candidates)")
+        kw = dict(spp=spp, seed=restir_seed(seed, sample_offset),
+                  background=config.background, intersector=intersector,
+                  env=env, textures=textures, sampler=sampler)
+        if config.integrator == "restir-gi":
+            img, alb, nrm = restir.render_restir_gi_progressive(
+                scene, materials, lights, camera, width, height,
+                max_depth=config.max_depth, **kw)
+        else:
+            img, alb, nrm = restir.render_restir_progressive(
+                scene, materials, lights, camera, width, height, **kw)
     else:
         img, alb, nrm = wavefront.render(
             scene, materials, camera, width, height, spp=spp, seed=seed,
             background=config.background, max_depth=config.max_depth,
-            intersector=intersector, env=env)
+            intersector=intersector, env=env, sampler=sampler,
+            sample_offset=sample_offset)
     img = apply_denoiser(img, alb, nrm, config, denoise_override,
                          denoiser_override)
     return img, alb, nrm
@@ -285,7 +306,8 @@ def render_frame(config, scene, materials, camera, width: int, height: int,
 
 def apply_denoiser(img, alb, nrm, config, denoise_override=None,
                    denoiser_override=None):
-    """The denoiser tail of :func:`render_frame`."""
+    """The denoiser tail of :func:`render_frame`, for callers that drive
+    an integrator directly (the viewer's ReSTIR path)."""
     do_denoise = (config.denoise if denoise_override is None
                   else denoise_override)
     if denoiser_override is not None:

@@ -117,10 +117,10 @@ def fused_chunk(fd, ks, seeds, base_inter, materials, camera,
         raise NotImplementedError(
             "the sharded fused chunk is not ported yet (ROADMAP queue 1 "
             "item 6)")
-    if integrator not in ("whitted", "path") or sampler != "pcg":
-        raise NotImplementedError(
-            f"integrator {integrator!r} / sampler {sampler!r} is not ported "
-            "yet (ROADMAP queue 1 item 5)")
+    if integrator not in ("whitted", "path"):
+        # ReSTIR renders per frame (the frontends route it there)
+        raise ValueError("fused_chunk supports integrator 'whitted' or "
+                         f"'path', got integrator={integrator!r}")
     carry = tstate
     if temporal and carry is None:
         carry = tmod.empty_state(width, height, camera.center.device)
@@ -140,12 +140,13 @@ def fused_chunk(fd, ks, seeds, base_inter, materials, camera,
                 scene, materials, lights, camera, width, height, spp=spp,
                 seed=int(seed), background=background, max_depth=max_depth,
                 intersector=inter, env=env, textures=textures,
-                want_aux=temporal)
+                want_aux=temporal, sampler=sampler)
         else:
             out = wavefront.render(
                 scene, materials, camera, width, height, spp=spp,
                 seed=int(seed), background=background, max_depth=max_depth,
-                intersector=inter, env=env, want_aux=temporal)
+                intersector=inter, env=env, want_aux=temporal,
+                sampler=sampler)
         img, alb, nrm = out[:3]
         if temporal:
             img, carry = _temporal_tail(fd, k, out[3], img, alb, nrm, carry,

@@ -19,9 +19,10 @@ state, masked shading), with per bounce:
 
 Camera waves go through the raster engine (kernel A, "origin") when the
 intersector carries raster tables; bounce and environment-occlusion waves
-through the intersector's incoherent variant (kernels C then B).  Only
-the PCG sampler is ported; ReSTIR's hooks (``restir_direct``,
-``first_hit``) and the Sobol sampler wait for ROADMAP queue 1 item 5.
+through the intersector's incoherent variant (kernels C then B).
+``sampler`` selects PCG4D or Owen-scrambled Sobol; ``restir_direct``
+hands the primary vertex's area-light direct lighting to ReSTIR
+(``render/restir.render_restir_gi``).
 """
 
 from __future__ import annotations
@@ -58,13 +59,6 @@ _DIM_ENV = 0x4F6CDD1D
 #: clusters on (below it the marcher is already cheap)
 BUNDLE_MIN_CLUSTERS = 16
 
-_ITEM_5 = "is not ported yet (ROADMAP queue 1 item 5)"
-
-
-def _check_sampler(sampler: str) -> None:
-    if sampler != "pcg":
-        raise NotImplementedError(f"sampler {sampler!r} {_ITEM_5}")
-
 
 def _onb(n):
     """Orthonormal basis (t, b) about the unit normal n (branchless
@@ -78,9 +72,10 @@ def _onb(n):
     return t, bt
 
 
-def _cosine_sample(n, pixel_id, sample, bounce, seed):
+def _cosine_sample(n, pixel_id, sample, bounce, seed, mode: str = "pcg"):
     """A cosine-weighted direction about n and its pdf."""
-    local = rng.random_cosine_direction(pixel_id, sample, bounce, seed)
+    local = rng.random_cosine_direction(pixel_id, sample, bounce, seed,
+                                        mode)
     t, bt = _onb(n)
     d = local[..., 0:1] * t + local[..., 1:2] * bt + local[..., 2:3] * n
     pdf = torch.clamp(local[..., 2], min=1e-6) / PI
@@ -121,10 +116,18 @@ def trace_path(scene: Scene, materials: MaterialTable,
     each indirect (bounce >= 1) contribution per channel.  ``cam_point``
     / ``cam_tiles`` ((S, H, W, th, tw)): the camera wave's shared origin
     and tile layout, which route bounce 0 through the raster engine and
-    the area-light shadow segments through the bundle engine."""
-    _check_sampler(sampler)
-    if restir_direct or first_hit is not None:
-        raise NotImplementedError(f"ReSTIR's direct-light partition {_ITEM_5}")
+    the area-light shadow segments through the bundle engine.
+
+    ``restir_direct``: a ReSTIR reservoir pass estimates the primary
+    vertex's area-light direct lighting (``render/restir.
+    render_restir_gi``), so this trace adds only the rest: it drops the
+    bounce-0 miss and emitter radiance (ReSTIR's base image), the bounce-0
+    area-light NEE, and the bounce-1 emitter hits of paths whose primary
+    vertex is diffuse (those BSDF samples estimate the same direct
+    integral).  Delta primaries keep their bounce-1 emitter hits and the
+    bounce-0 environment NEE stays, so ReSTIR direct plus this trace is
+    unbiased.  ``first_hit``: the bounce-0 Hit, already traced by the
+    caller."""
     if intersector is None:
         intersector = isect.BruteForceIntersector()
     incoh = getattr(intersector, "for_incoherent", lambda: intersector)()
@@ -152,6 +155,8 @@ def trace_path(scene: Scene, materials: MaterialTable,
     prim_g = torch.full((nrays,), -1, dtype=torch.int32, device=dev)
     zero = torch.zeros(nrays, device=dev)
     inf = torch.full((nrays,), INF, device=dev)
+    # restir_direct: was this lane's primary vertex diffuse?
+    prim_diff = torch.zeros(nrays, dtype=torch.bool, device=dev)
 
     for b in range(max_depth):
         cap = b >= 1 and clamp > 0.0
@@ -162,9 +167,14 @@ def trace_path(scene: Scene, materials: MaterialTable,
 
         # dead lanes trace with t_max=0: free in the marchers and absent
         # from the bundle engine's block bounds
-        fn = first_fn if b == 0 else incoh.intersect
-        hit = fn(scene, o, d, t_max=torch.where(alive, inf, zero))
+        if b == 0 and first_hit is not None:
+            hit = first_hit
+        else:
+            fn = first_fn if b == 0 else incoh.intersect
+            hit = fn(scene, o, d, t_max=torch.where(alive, inf, zero))
         missed = alive & ~hit.is_hit
+        if restir_direct and b == 0:
+            missed = torch.zeros_like(missed)   # in ReSTIR's base image
         hit_alive = alive & hit.is_hit
 
         miss_radiance = env.sample(d) if env is not None else background
@@ -199,8 +209,13 @@ def trace_path(scene: Scene, materials: MaterialTable,
                 1.0)
         else:
             w_bsdf = torch.ones(nrays, device=dev)
+        emit_vis = is_emitter
+        if restir_direct and b == 0:
+            emit_vis = torch.zeros_like(is_emitter)
+        elif restir_direct and b == 1:
+            emit_vis = is_emitter & ~prim_diff
         radiance = radiance + _cap(torch.where(
-            is_emitter[..., None], throughput * emission * w_bsdf[..., None],
+            emit_vis[..., None], throughput * emission * w_bsdf[..., None],
             0.0))
 
         # guide buffers
@@ -218,11 +233,15 @@ def trace_path(scene: Scene, materials: MaterialTable,
 
         is_diffuse = mtype == ROUGH
         shading_alive = hit_alive & ~is_emitter
+        if b == 0:
+            prim_diff = hit_alive & is_diffuse
 
         # ---- NEE: one light sample at diffuse vertices ---------------
-        if have_lights:
+        # (with restir_direct the reservoir pass owns bounce 0's)
+        if have_lights and not (restir_direct and b == 0):
             wl, dist, pdf_l, emitted, _ = sample_lights(
-                lights, point, pixel_id, sample, b, seed ^ _DIM_LIGHT)
+                lights, point, pixel_id, sample, b, seed ^ _DIM_LIGHT,
+                sampler)
             cos_s = dot(wl, n_unit)
             valid = shading_alive & is_diffuse & (cos_s > 0.0) & (pdf_l > 0.0)
             # the shadow segment: offset along the normal, ending before
@@ -243,7 +262,7 @@ def trace_path(scene: Scene, materials: MaterialTable,
         if have_env_nee:
             # dims 0/1 pick the texel, dims 2/3 jitter inside it
             ub, ut, uj, vj = rng.uniform4(pixel_id, sample, b,
-                                          seed ^ _DIM_ENV)
+                                          seed ^ _DIM_ENV, sampler)
             we, pdf_e = env.sample_direction(ub, ut, uj, vj)
             cos_e = dot(we, n_unit)
             valid_e = (shading_alive & is_diffuse & (cos_e > 0.0)
@@ -264,9 +283,9 @@ def trace_path(scene: Scene, materials: MaterialTable,
 
         # ---- BSDF sampling -------------------------------------------
         d_diff, pdf_diff = _cosine_sample(n_unit, pixel_id, sample, b,
-                                          seed ^ _DIM_BSDF)
+                                          seed ^ _DIM_BSDF, sampler)
         fuzz_vec = rng.random_unit_vector(pixel_id, sample, b,
-                                          seed ^ _DIM_LOBE)
+                                          seed ^ _DIM_LOBE, sampler)
         d_metal = normalize(normalize(reflect(d, n_unit))
                             + param[..., None] * fuzz_vec)
         ior = torch.where(param > 0.0, param, 1.5)
@@ -275,7 +294,8 @@ def trace_path(scene: Scene, materials: MaterialTable,
         sin_theta = torch.sqrt(torch.clamp(1.0 - cos_theta * cos_theta,
                                            min=0.0))
         cannot = eta * sin_theta > 1.0
-        u_fr = rng.uniform4(pixel_id, sample, b, seed ^ _DIM_LOBE)[1]
+        u_fr = rng.uniform4(pixel_id, sample, b, seed ^ _DIM_LOBE,
+                            sampler)[1]
         do_reflect = cannot | (schlick_fresnel(cos_theta, ior) > u_fr)
         d_diel = torch.where(do_reflect[..., None],
                              normalize(reflect(d, n_unit)),
@@ -293,7 +313,8 @@ def trace_path(scene: Scene, materials: MaterialTable,
 
         # ---- Russian roulette ----------------------------------------
         if rr_start < max_depth:
-            u_rr = rng.uniform4(pixel_id, sample, b, seed ^ _DIM_RR)[0]
+            u_rr = rng.uniform4(pixel_id, sample, b, seed ^ _DIM_RR,
+                                sampler)[0]
             p_cont = torch.clamp(throughput.amax(-1), 0.05, 1.0)
             do_rr = shading_alive & (b >= rr_start)
             survive = ~do_rr | (u_rr < p_cont)
@@ -326,8 +347,8 @@ def render_path(scene: Scene, materials: MaterialTable, lights, camera,
     first sample.  ``samples_per_wave`` (default 1) merges samples of a
     pixel into one wave; the RNG streams are keyed by (pixel, sample,
     bounce), so merging changes no result.  ``sample_offset`` continues
-    the global sample counter (progressive batches)."""
-    _check_sampler(sampler)
+    the global sample counter (progressive batches); the aux taps are
+    those of global sample 0."""
     dev = camera.center.device
     npix = width * height
     S = samples_per_wave or 1
@@ -346,26 +367,26 @@ def render_path(scene: Scene, materials: MaterialTable, lights, camera,
         samp = torch.arange(first, first + S, dtype=torch.int64,
                             device=dev).repeat_interleave(npix)
         if jitter:
-            u1, u2 = rng.stratified_jitter(pix_rep, samp, seed)
+            u1, u2 = rng.stratified_jitter(pix_rep, samp, seed, sampler)
             jit_uv = torch.stack([u1, u2], -1).reshape(S, height, width, 2)
         else:
             jit_uv = torch.full((S, height, width, 2), 0.5, device=dev)
         lens = None
         if camera.aperture > 0.0:
             lens = rng.random_in_unit_disk(
-                pix_rep, samp, -2, seed ^ _DIM_LENS
+                pix_rep, samp, -2, seed ^ _DIM_LENS, sampler
             ).reshape(S, height, width, 2)
         o, d = camera.generate_rays(width, height, jit_uv, lens_uv=lens)
         out = trace_path(
             scene, materials, lights, o.reshape(-1, 3), d.reshape(-1, 3),
             pix_rep, samp, seed, background, max_depth, intersector, env,
-            textures, rr_start, clamp, want_aux=want_aux,
+            textures, rr_start, clamp, want_aux=want_aux, sampler=sampler,
             cam_point=camera.center if cam_tiles else None,
             cam_tiles=cam_tiles)
         rad = rad + out[0].reshape(S, npix, 3).sum(0)
         alb = alb + out[1].reshape(S, npix, 3).sum(0)
         nrm = nrm + out[2].reshape(S, npix, 3).sum(0)
-        if want_aux and s0 == 0:
+        if want_aux and first == 0:
             t_aux, prim_aux = out[3][0][:npix], out[3][1][:npix]
     inv = 1.0 / spp
     outs = (rad.reshape(height, width, 3) * inv,

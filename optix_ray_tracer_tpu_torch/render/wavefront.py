@@ -8,8 +8,8 @@ unwind multiply becomes a running throughput product.  Bounce index b in
 [0, max_depth) is the reference's payload depth b + 1; a hit on the last
 bounce contributes nothing.  Extensions kept from the JAX package:
 DIELECTRIC and EMISSIVE materials, first-bounce albedo/normal guides and
-an environment map in place of the background on a miss.  Only the PCG
-sampler is ported (Sobol waits).
+an environment map in place of the background on a miss.  ``sampler``
+selects the PCG4D stream or Owen-scrambled Sobol (``utils/qmc.py``).
 """
 
 from __future__ import annotations
@@ -41,7 +41,7 @@ DEFAULT_BACKGROUND = (0.7, 0.8, 0.9)
 
 
 def scatter(materials: MaterialTable, material_id, d_in, normal, front_face,
-            pixel_id, sample, bounce: int, seed: int):
+            pixel_id, sample, bounce: int, seed: int, sampler: str = "pcg"):
     """Scattered direction and attenuation for a batch of hits; every BSDF
     branch is evaluated and blended by masks.
 
@@ -52,7 +52,7 @@ def scatter(materials: MaterialTable, material_id, d_in, normal, front_face,
 
     # ROUGH: normal + unit-sphere sample, guarded against cancellation
     rand_unit = rng.random_unit_vector(pixel_id, sample, bounce,
-                                       seed ^ _DIM_SCATTER)
+                                       seed ^ _DIM_SCATTER, sampler)
     d_rough = n + rand_unit
     degenerate = length_squared(d_rough) < EPS
     d_rough = torch.where(degenerate[..., None], n, d_rough)
@@ -60,7 +60,7 @@ def scatter(materials: MaterialTable, material_id, d_in, normal, front_face,
     # METAL: mirror + fuzz * unit-sphere sample
     d_metal = normalize(reflect(d_in, n))
     fuzz_vec = rng.random_unit_vector(pixel_id, sample, bounce,
-                                      seed ^ _DIM_FUZZ)
+                                      seed ^ _DIM_FUZZ, sampler)
     d_metal = d_metal + param[..., None] * fuzz_vec
 
     # DIELECTRIC: refract unless total internal reflection / Schlick
@@ -70,7 +70,7 @@ def scatter(materials: MaterialTable, material_id, d_in, normal, front_face,
     sin_theta = torch.sqrt(torch.clamp(1.0 - cos_theta * cos_theta, min=0.0))
     cannot_refract = eta * sin_theta > 1.0
     u_fresnel = rng.uniform4(pixel_id, sample, bounce,
-                             seed ^ _DIM_FRESNEL)[0]
+                             seed ^ _DIM_FRESNEL, sampler)[0]
     do_reflect = cannot_refract | (schlick_fresnel(cos_theta, ior)
                                    > u_fresnel)
     d_refr = refract(d_in, n, eta[..., None])
@@ -98,7 +98,8 @@ def scatter(materials: MaterialTable, material_id, d_in, normal, front_face,
 def trace(scene: Scene, materials: MaterialTable, origins, directions,
           pixel_id, sample, seed: int, background,
           max_depth: int = DEFAULT_MAX_DEPTH, intersector=None, env=None,
-          want_aux: bool = False, cam_point=None, cam_tiles=None):
+          want_aux: bool = False, sampler: str = "pcg", cam_point=None,
+          cam_tiles=None):
     """Trace a wave of rays to completion.
 
     origins/directions (R, 3); pixel_id, sample (R,) int; background (3,),
@@ -147,7 +148,7 @@ def trace(scene: Scene, materials: MaterialTable, origins, directions,
         point, normal, front_face, material_id = shade_fn(scene, o, d, hit)
         new_dir, attenuation, emission, emissive_hit = scatter(
             materials, material_id, d, normal, front_face, pixel_id, sample,
-            b, seed)
+            b, seed, sampler)
         radiance = radiance + torch.where(
             (hit_alive & emissive_hit)[..., None], throughput * emission,
             0.0)
@@ -185,13 +186,17 @@ def render(scene: Scene, materials: MaterialTable, camera, width: int,
            height: int, spp: int = 1, seed: int = 0,
            background=DEFAULT_BACKGROUND, max_depth: int = DEFAULT_MAX_DEPTH,
            intersector=None, env=None, jitter: bool = True,
-           samples_per_wave: int | None = None, want_aux: bool = False):
+           samples_per_wave: int | None = None, want_aux: bool = False,
+           sampler: str = "pcg", sample_offset: int = 0):
     """Render a frame: spp jittered samples per pixel, accumulated in
     linear space, on the device of the camera's tensors.
 
     ``samples_per_wave`` merges S samples of every pixel into one wave
-    (must divide spp).  Returns (image, albedo, normal), each (H, W, 3);
-    with ``want_aux`` also (t, prim_id) of sample 0's primary hits."""
+    (must divide spp).  ``sample_offset`` continues the global sample
+    counter (progressive batches: jitter strata and Sobol sequences go on
+    as one stream).  Returns (image, albedo, normal), each (H, W, 3); with
+    ``want_aux`` also (t, prim_id) of the primary hits of global sample 0
+    (INF / -1 when this call does not draw it)."""
     if intersector is None:
         intersector = isect.BruteForceIntersector()
     dev = camera.center.device
@@ -207,23 +212,23 @@ def render(scene: Scene, materials: MaterialTable, camera, width: int,
     nrm = torch.zeros((npix, 3), device=dev)
     t_aux = torch.full((npix,), INF, device=dev)
     prim_aux = torch.full((npix,), -1, dtype=torch.int32, device=dev)
-    for s0 in range(0, spp, S):
+    for s0 in range(sample_offset, sample_offset + spp, S):
         samp = torch.arange(s0, s0 + S, dtype=torch.int64,
                             device=dev).repeat_interleave(npix)
         if jitter:
-            u1, u2 = rng.stratified_jitter(pix_rep, samp, seed)
+            u1, u2 = rng.stratified_jitter(pix_rep, samp, seed, sampler)
             jit_uv = torch.stack([u1, u2], -1).reshape(S, height, width, 2)
         else:
             jit_uv = torch.full((S, height, width, 2), 0.5, device=dev)
         lens = None
         if camera.aperture > 0.0:
             lens = rng.random_in_unit_disk(
-                pix_rep, samp, -2, seed ^ _DIM_LENS
+                pix_rep, samp, -2, seed ^ _DIM_LENS, sampler
             ).reshape(S, height, width, 2)
         o, d = camera.generate_rays(width, height, jit_uv, lens_uv=lens)
         out = trace(scene, materials, o.reshape(-1, 3), d.reshape(-1, 3),
                     pix_rep, samp, seed, background, max_depth, intersector,
-                    env=env, want_aux=want_aux,
+                    env=env, want_aux=want_aux, sampler=sampler,
                     cam_point=camera.center if cam_tiles else None,
                     cam_tiles=cam_tiles)
         rad = rad + out[0].reshape(S, npix, 3).sum(0)

@@ -97,13 +97,18 @@ def collect_area_lights(scene: Scene, materials: MaterialTable,
 
 
 def sample_lights(lights: AreaLights, shading_point, pixel_id, sample,
-                  bounce, seed):
-    """One point on the light set per shading point.
+                  bounce, seed, mode: str = "pcg"):
+    """One point on the light set per shading point (``mode``: the
+    sampler, ``utils/rng.uniform4``).
 
     Returns (direction (R, 3) unit, distance (R,), pdf_solid_angle (R,),
     emitted (R, 3), cosine at the light (R,)); the pdf is 0 where the
     light is seen edge-on.  Emitters are two-sided."""
-    u1, u2, u3, _ = rng.uniform4(pixel_id, sample, bounce, seed)
+    u1, u2, u3, _ = rng.uniform4(pixel_id, sample, bounce, seed, mode)
+    if mode == "sobol":
+        # the barycentric pair takes the strict (0, 2)-sequence dimensions
+        # (components 0, 1); the discrete CDF pick rides dimension 2
+        u1, u2, u3 = u3, u1, u2
     # searchsorted's left side, as jnp.searchsorted's default
     li = torch.clamp(torch.searchsorted(lights.cdf, u1), 0,
                      lights.count - 1)

@@ -21,6 +21,19 @@ def luminance(rgb):
     return rgb @ LUMA_709
 
 
+def luminance_fma(rgb):
+    """Rec.709 luminance of a (..., 3) tensor as a chain of fused
+    multiply-adds, fma(b, L2, fma(g, L1, r * L0)), each step rounded once
+    to float32: the rounding of the JAX package's ``rgb @ LUMA_709`` on
+    XLA's CPU backend.  The reservoir weights and adaptive priorities use
+    it, where a 1-ulp change can flip a pick."""
+    lum = torch.as_tensor(LUMA_709, device=rgb.device).double()
+    c = rgb.double()
+    acc = (c[..., 0] * lum[0]).float().double()
+    acc = (c[..., 1] * lum[1] + acc).float().double()
+    return (c[..., 2] * lum[2] + acc).float()
+
+
 def linear_to_srgb(c):
     """Per-channel linear -> sRGB; clips to [0, 1]."""
     c = torch.clamp(c, 0.0, 1.0)

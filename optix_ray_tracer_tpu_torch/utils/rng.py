@@ -1,11 +1,13 @@
 """Stateless counter-based RNG (port of ``optix_ray_tracer_tpu/utils/rng.py``).
 
 Every random number is a pure function of (pixel, sample, bounce, seed):
-PCG4D (Jarzynski & Olano, JCGT 2020).  The port reproduces the JAX
-package's uint32 streams bit for bit.  PyTorch's uint32 arithmetic is
-incomplete, so the lanes live in int64 and wrap with ``& 0xFFFFFFFF``;
-products of two 32-bit lanes are split into 16-bit halves so that no
-intermediate leaves int64.  No ``torch.Generator`` is involved.
+PCG4D (Jarzynski & Olano, JCGT 2020), or with ``mode="sobol"`` an
+Owen-scrambled Sobol pad over the sample index (``utils/qmc.py``).  The
+port reproduces the JAX package's uint32 streams bit for bit.  PyTorch's
+uint32 arithmetic is incomplete, so the lanes live in int64 and wrap with
+``& 0xFFFFFFFF``; products of two 32-bit lanes are split into 16-bit
+halves so that no intermediate leaves int64.  No ``torch.Generator`` is
+involved.
 """
 
 from __future__ import annotations
@@ -66,8 +68,12 @@ def _to_unit_float(u):
     return (u >> 8).to(torch.float32) * _INV_2_24
 
 
-def uniform4(pixel_id, sample, bounce, seed):
-    """Four U[0,1) float32 tensors per (pixel, sample, bounce, seed)."""
+def uniform4(pixel_id, sample, bounce, seed, mode: str = "pcg"):
+    """Four U[0,1) float32 tensors per (pixel, sample, bounce, seed).
+    ``mode``: "pcg" (PCG4D, the default) or "sobol" (``utils/qmc``)."""
+    if mode == "sobol":
+        from optix_ray_tracer_tpu_torch.utils.qmc import sobol_owen4
+        return sobol_owen4(pixel_id, sample, bounce, seed)
     return tuple(_to_unit_float(v) for v in pcg4d(pixel_id, sample, bounce,
                                                   seed))
 
@@ -81,36 +87,44 @@ def _cos_sin(phi):
     return torch.cos(p).to(torch.float32), torch.sin(p).to(torch.float32)
 
 
-def random_unit_vector(pixel_id, sample, bounce, seed):
+def random_unit_vector(pixel_id, sample, bounce, seed,
+                       mode: str = "pcg"):
     """Uniform direction on the unit sphere (z/phi parameterization)."""
-    u1, u2, _, _ = uniform4(pixel_id, sample, bounce, seed)
+    u1, u2, _, _ = uniform4(pixel_id, sample, bounce, seed, mode)
     z = 1.0 - 2.0 * u1
     r = torch.sqrt(torch.clamp(1.0 - z * z, min=0.0))
     c, s = _cos_sin((2.0 * PI) * u2)
     return torch.stack([r * c, r * s, z], dim=-1)
 
 
-def random_cosine_direction(pixel_id, sample, bounce, seed):
+def random_cosine_direction(pixel_id, sample, bounce, seed,
+                            mode: str = "pcg"):
     """Cosine-weighted hemisphere sample about +z (the path tracer's
     diffuse lobe).  Returns (..., 3)."""
-    u1, u2, _, _ = uniform4(pixel_id, sample, bounce, seed)
+    u1, u2, _, _ = uniform4(pixel_id, sample, bounce, seed, mode)
     c, s = _cos_sin((2.0 * PI) * u1)
     sq = torch.sqrt(u2)
     return torch.stack([c * sq, s * sq,
                         torch.sqrt(torch.clamp(1.0 - u2, min=0.0))], dim=-1)
 
 
-def random_in_unit_disk(pixel_id, sample, bounce, seed):
+def random_in_unit_disk(pixel_id, sample, bounce, seed,
+                        mode: str = "pcg"):
     """Uniform point in the unit disk (polar method).  Returns (..., 2)."""
-    u1, u2, _, _ = uniform4(pixel_id, sample, bounce, seed)
+    u1, u2, _, _ = uniform4(pixel_id, sample, bounce, seed, mode)
     r = torch.sqrt(u1)
     c, s = _cos_sin((2.0 * PI) * u2)
     return torch.stack([r * c, r * s], dim=-1)
 
 
-def stratified_jitter(pixel_id, sample, seed):
+def stratified_jitter(pixel_id, sample, seed, mode: str = "pcg"):
     """Pixel-filter jitter stratified over a 4x4 subpixel grid cycled by
-    the global sample index (bounce slot -1 of the stream)."""
+    the global sample index (bounce slot -1 of the stream).  Sobol's joint
+    2-D (0, 1) property is itself that stratification at every power-of-two
+    prefix, so ``mode="sobol"`` draws the pad of bounce -1 with no grid."""
+    if mode == "sobol":
+        u1, u2, _, _ = uniform4(pixel_id, sample, -1, seed, mode)
+        return u1, u2
     u1, u2, _, _ = uniform4(pixel_id, sample, -1, seed)
     cell = sample % 16
     cx = (cell % 4).to(torch.float32)

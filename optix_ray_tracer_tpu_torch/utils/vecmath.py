@@ -51,6 +51,15 @@ def refract(uv, n, eta_ratio):
     return r_perp + r_par
 
 
+def rotate_about_axis(v, axis, radians: float):
+    """Rodrigues rotation of ``v`` about ``axis`` by ``radians`` (a host
+    float, its cosine and sine taken in float32)."""
+    axis = normalize(axis)
+    r = torch.tensor(radians, dtype=torch.float32)
+    c, s = float(torch.cos(r)), float(torch.sin(r))
+    return v * c + cross(axis, v) * s + axis * dot(axis, v, True) * (1.0 - c)
+
+
 def degrees_to_radians(deg):
     return deg * (PI / 180.0)
 

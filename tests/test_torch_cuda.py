@@ -1110,3 +1110,119 @@ def test_frontend_on_card_matches_cpu(dev, tmp_path):
         diff = (a - b).abs()
         assert float(diff.mean()) <= 1e-5
         assert float((diff.amax(-1) <= 1e-4).float().mean()) >= 0.999
+
+
+def test_sobol_streams_card_equal_cpu(dev):
+    """utils/qmc on the card: the same uint32 streams and uniforms as on
+    the CPU, bit for bit (negative ids and bounces, samples past 2^16)."""
+    from optix_ray_tracer_tpu_torch.utils import qmc, rng
+
+    r = np.random.default_rng(5)
+    pix = torch.as_tensor(r.integers(-(1 << 20), 1 << 22, 1 << 16))
+    samp = torch.as_tensor(r.integers(0, 1 << 20, 1 << 16))
+    words = torch.as_tensor(r.integers(0, 1 << 32, 1 << 16))
+    assert torch.equal(qmc.owen_scramble(words.to(dev), 0x9E3779B9).cpu(),
+                       qmc.owen_scramble(words, 0x9E3779B9))
+    for d in range(6):
+        assert torch.equal(qmc.sobol_u32(words.to(dev), d).cpu(),
+                           qmc.sobol_u32(words, d))
+    for b in (-2, -1, 0, 5):
+        card = rng.uniform4(pix.to(dev), samp.to(dev), b, 7 ^ 0x5851F42D,
+                            "sobol")
+        cpu = rng.uniform4(pix, samp, b, 7 ^ 0x5851F42D, "sobol")
+        for a, c in zip(card, cpu):
+            assert torch.equal(a.cpu(), c)
+        a = rng.stratified_jitter(pix.to(dev), samp.to(dev), 3, "sobol")
+        c = rng.stratified_jitter(pix, samp, 3, "sobol")
+        assert all(torch.equal(x.cpu(), y) for x, y in zip(a, c))
+
+
+def _lit_scene(device):
+    """A 4,000-triangle metal sphere and a ROUGH floor under a 2x2 lamp
+    (>= 16 clusters, a raster-enabled marcher's scene)."""
+    from optix_ray_tracer_tpu_torch.io.meshgen import quad
+    from optix_ray_tracer_tpu_torch.scene.lights import collect_area_lights
+    from optix_ray_tracer_tpu_torch.scene.materials import MaterialBuilder
+
+    mb = MaterialBuilder()
+    floor = mb.add_rough((0.8, 0.8, 0.8))
+    body = mb.add_rough((0.7, 0.4, 0.3))
+    lamp = mb.add_emissive((6.0, 6.0, 6.0))
+    v, n = sphere_with_n_triangles(4000, (0, 0, 0.5), 0.5)
+    fv, fn = quad([-3, -3, 0], [3, -3, 0], [3, 3, 0], [-3, 3, 0])
+    lv, ln = quad([-1, -1, 2], [-1, 1, 2], [1, 1, 2], [1, -1, 2])
+    mats = np.r_[np.full(2, floor), np.full(len(v), body),
+                 np.full(2, lamp)].astype(np.int32)
+    scene = Scene(Spheres.empty(device), Triangles.from_arrays(
+        np.concatenate([fv, v, lv]), np.concatenate([fn, n, ln]), mats,
+        device=device))
+    m = mb.build(device)
+    cam = Camera.look_at((3.0, 0.5, 1.5), (0.0, 0.0, 0.4), (0.0, 0.0, 1.0),
+                         device=device)
+    return scene, m, cam, collect_area_lights(scene, m)
+
+
+@pytest.mark.parametrize("integrator", ["restir", "restir-gi"])
+def test_restir_frame_card_vs_cpu(dev, integrator):
+    """A ReSTIR frame (2 samples, the reservoirs carried, Sobol) through
+    render_frame with a raster-enabled marcher on the card and on the
+    CPU: >= 99% of pixels within 1e-4 (a 1-ulp weight may flip a
+    reservoir pick, tests/test_torch_restir.py) and the means within 1%;
+    the card's run launched B and C (ReSTIR's camera wave is a plain
+    coherent query, as in the JAX package, not the raster engine's)."""
+    from types import SimpleNamespace
+
+    from optix_ray_tracer_tpu_torch.models.common import render_frame
+
+    cfg = SimpleNamespace(integrator=integrator, background=(0.1, 0.1, 0.2),
+                          max_depth=3, sampler="sobol", denoise=False)
+    imgs = []
+    for device in (dev, "cpu"):
+        scene, m, cam, lights = _lit_scene(device)
+        inter = make_march_intersector(scene, raster=True)
+        for k in _lib.KERNELS:
+            k.launches = 0
+        img = render_frame(cfg, scene, m, cam, 64, 48, 2, 3, inter,
+                           lights=lights, sample_offset=16)[0]
+        if device == dev:
+            launched = [_lib.BLOCK_MARCH.launches, _lib.PROBE.launches]
+        imgs.append(img.cpu())
+    assert min(launched) > 0, launched
+    a, b = imgs
+    assert torch.isfinite(a).all() and float(a.mean()) > 0
+    within = float(((a - b).abs().amax(-1) <= 1e-4).float().mean())
+    assert within >= 0.99, within
+    assert abs(float(a.mean()) - float(b.mean())) <= 0.01 * float(b.mean())
+
+
+def test_adaptive_ids_card_equal_cpu(dev):
+    """The error map of the same film is bit-equal on the card and the
+    CPU, and a sequence of Whitted adaptive batches selects the same
+    pixels and counts on both."""
+    from optix_ray_tracer_tpu_torch.render import adaptive
+
+    r = np.random.default_rng(2)
+    n = 40 * 30
+    cnt = torch.as_tensor(r.integers(0, 9, n), dtype=torch.int32)
+    acc = torch.as_tensor(r.random((n, 3)), dtype=torch.float32) * cnt[:, None]
+    ss = torch.as_tensor(r.random(n), dtype=torch.float32) * cnt * 1.3
+    film = adaptive.AdaptiveFilm(acc, ss, cnt, acc, acc, 40, 30)
+    for rel in (False, True):
+        assert torch.equal(adaptive.error_map(film.to(dev), rel).cpu(),
+                           adaptive.error_map(film, rel))
+    runs = []
+    for device in (dev, "cpu"):
+        scene, m, cam, lights = _lit_scene(device)
+        inter = make_march_intersector(scene, raster=True)
+        f = adaptive.AdaptiveFilm.create(40, 30, device)
+        ids = []
+        for k in (n, n, 300, 300, 123):
+            ids.append(adaptive.select_pixels(f, k).cpu())
+            f = adaptive.adaptive_batch(scene, m, lights, cam, f, k=k,
+                                        intersector=inter, max_depth=3,
+                                        integrator="whitted", seed=4)
+        runs.append((ids, f.count.cpu()))
+    (ids_a, cnt_a), (ids_b, cnt_b) = runs
+    for a, b in zip(ids_a, ids_b):
+        assert torch.equal(a, b)
+    assert torch.equal(cnt_a, cnt_b)

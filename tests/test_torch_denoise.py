@@ -24,6 +24,7 @@ is about 3x the worst case measured in either:
 
 import dataclasses
 import filecmp
+from types import SimpleNamespace
 
 import jax.numpy as jnp
 import numpy as np
@@ -198,12 +199,16 @@ def test_render_frame_matches_jax(frame_scene, denoiser):
 
 def test_resolve_denoiser(monkeypatch):
     """"neural" with the committed weights; "atrous" (one warning) when
-    they are missing; unported integrators raise."""
+    they are missing; the ReSTIR integrators raise the JAX package's
+    ValueError without an area light (none, or an empty table)."""
     cfg = dataclasses.replace(parse_config_dict({}), denoiser="neural")
     assert tcommon.resolve_denoiser(cfg) == "neural"
     monkeypatch.setattr(tneural, "WEIGHTS_FILE", "/nonexistent/w.npz")
     assert tcommon.resolve_denoiser(cfg) == "atrous"
     assert tneural.default_params("cpu") is None
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-        tcommon.render_frame(dataclasses.replace(cfg, integrator="restir"),
-                             None, None, None, 8, 8, 1, 0, None)
+    for integ in ("restir", "restir-gi"):
+        for lights in (None, SimpleNamespace(count=0)):
+            with pytest.raises(ValueError, match="needs emissive"):
+                tcommon.render_frame(
+                    dataclasses.replace(cfg, integrator=integ), None, None,
+                    None, 8, 8, 1, 0, None, lights=lights)

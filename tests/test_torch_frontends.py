@@ -21,6 +21,7 @@ import json
 import os
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import jax.numpy as jnp
@@ -95,6 +96,17 @@ def _time_config(root: Path, n: int, library, scale: float) -> dict:
                       "mat-type": "ROUGH", "mat-index": 0, "scale":
                       [0.1, 0.1, 0.1]}]
     return cfg
+
+
+def _lit(cfg: dict, root: Path) -> dict:
+    """``cfg`` with a 1 x 1 emissive panel 1.5 above the small pile (an
+    EMISSIVE OBJ extra, radiance 10): a scene the ReSTIR integrators can
+    light."""
+    light = cs.write_light_obj(root / "panel.obj", 1.5, 0.5)
+    return {**cfg, "emissives": [{"emission": [10.0, 10.0, 10.0]}],
+            "meshes": cfg["meshes"] + [{"obj": str(light),
+                                        "mat-type": "EMISSIVE",
+                                        "mat-index": 0}]}
 
 
 def _configs(cfg: dict, base: Path, **extra):
@@ -382,8 +394,7 @@ def test_python_m_entry_point(series, tmp_path):
     assert len(list((tmp_path / "out").glob("frame_*.png"))) == 2
 
 
-@pytest.mark.parametrize("flag", [["--viewer"], ["--progressive", "8"],
-                                  ["--adaptive"], ["--shard"]])
+@pytest.mark.parametrize("flag", [["--shard"]])
 def test_cli_refuses_unported_flags(series, tmp_path, flag, caplog):
     root, cfgs = series
     cfg = _write_cfg(tmp_path, cfgs["time"], "c.json")
@@ -413,15 +424,26 @@ def test_card_is_the_default(series, tmp_path, monkeypatch):
 
 
 def test_unported_config_features(series):
-    """The ReSTIR integrators and the Sobol sampler raise (ROADMAP queue 1
-    item 5) instead of rendering something else; environment maps,
-    textures and the path integrator (ported) render."""
+    """The ReSTIR integrators and the Sobol sampler render through both
+    frontends and match the JAX package's frames (the per-frame loop;
+    ReSTIR with the Time scene's area light, the Mesh scene, which has
+    none, raising the JAX package's ValueError); environment maps,
+    textures and the path integrator render too."""
     root, cfgs = series
-    for extra in ({"integrator": "restir"}, {"sampler": "sobol"}):
-        _, tc = _configs(cfgs["mesh"], root, **extra)
-        data = tmesh.commit(tc, device="cpu")
-        with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-            list(tmesh.render_frames(data, max_frames=1))
+    lit = _lit(cfgs["time"], root)
+    for extra in ({"integrator": "restir"}, {"integrator": "restir-gi"},
+                  {"sampler": "sobol"},
+                  {"integrator": "path", "sampler": "sobol"}):
+        jc, tc = _configs(lit, root, **extra, temporal=False)
+        ref = _films(jtime, jtime.commit(jc), 2)
+        got = _films(ttime, ttime.commit(tc, device="cpu"), 2)
+        assert len(got) == len(ref) == 2
+        for g, r in zip(got, ref):
+            _close_to_jax(g[2], r[2])
+    _, tc = _configs(cfgs["mesh"], root, integrator="restir")
+    data = tmesh.commit(tc, device="cpu")
+    with pytest.raises(ValueError, match="emissive"):
+        list(tmesh.render_frames(data, max_frames=1))
     _, tc = _configs(cfgs["time"], root, integrator="path",
                      envmap={"type": "constant"},
                      textures=[{"checker": True}])
@@ -429,3 +451,148 @@ def test_unported_config_features(series):
     assert data.env is not None and data.textures is not None
     frames = list(ttime.render_frames(data, max_frames=1))
     assert np.isfinite(np.asarray(frames[0][2].mean())).all()
+
+
+def _png_and_ckpt(out: Path):
+    with np.load(out / "ckpt.npz") as z:
+        arrays = {k: z[k] for k in z.files}
+    return (out / "progressive.png").read_bytes(), arrays
+
+
+@pytest.mark.parametrize("integrator", ["whitted", "path", "restir"])
+def test_cli_progressive_resume(series, tmp_path, integrator):
+    """--progressive 18 straight (batches of 16 and 2) against 16, then
+    resumed from its checkpoint to 18: the same PNG and checkpoint bit
+    for bit (one global sample counter; ReSTIR's second batch folds
+    sample_offset 16 into its seed, wrapped to int32)."""
+    root, cfgs = series
+    cfg = _write_cfg(tmp_path, _lit(cfgs["time"], root), "c.json",
+                     integrator=integrator)
+    common = ["--cpu", "--config", str(cfg), "--width", "16", "--height",
+              "12"]
+    outs = {}
+    for name, steps in (("straight", [18]), ("resumed", [16, 18])):
+        out = tmp_path / name
+        for spp in steps:
+            assert tmain.main([*common, "--output", str(out),
+                               "--progressive", str(spp), "--checkpoint",
+                               str(out / "ckpt.npz")]) == 0
+        outs[name] = _png_and_ckpt(out)
+    (pa, ca), (pb, cb) = outs["straight"], outs["resumed"]
+    assert pa == pb
+    assert ca.keys() == cb.keys() == {"accum", "albedo", "normal", "spp"}
+    for k in ca:
+        np.testing.assert_array_equal(ca[k], cb[k], err_msg=k)
+    assert int(ca["spp"]) == 18
+    assert np.isfinite(ca["accum"]).all() and ca["accum"].mean() > 0
+
+
+def test_cli_adaptive_resume(series, tmp_path, caplog):
+    """--progressive 6 --adaptive straight against 3 then resumed to 6
+    (the warm-up and every batch alike): bit-equal; a uniform checkpoint
+    cannot be resumed adaptively (exit 2)."""
+    root, cfgs = series
+    cfg = _write_cfg(tmp_path, _lit(cfgs["time"], root), "c.json",
+                     integrator="path", sampler="sobol")
+    common = ["--cpu", "--config", str(cfg), "--width", "16", "--height",
+              "12", "--adaptive"]
+    outs = {}
+    for name, steps in (("straight", [6]), ("resumed", [3, 6])):
+        out = tmp_path / name
+        for spp in steps:
+            assert tmain.main([*common, "--output", str(out),
+                               "--progressive", str(spp), "--checkpoint",
+                               str(out / "ckpt.npz")]) == 0
+        outs[name] = _png_and_ckpt(out)
+    (pa, ca), (pb, cb) = outs["straight"], outs["resumed"]
+    assert pa == pb
+    for k in ca:
+        np.testing.assert_array_equal(ca[k], cb[k], err_msg=k)
+    assert int(ca["count"].sum()) == 6 * 16 * 12
+    assert ca["count"].min() >= 4 and ca["count"].max() > 6   # adaptive
+    meta = json.loads((tmp_path / "straight" / "ckpt.npz.json").read_text())
+    assert meta["adaptive"] is True
+    # a uniform film's checkpoint
+    uni = tmp_path / "uniform"
+    assert tmain.main([*common[:-1], "--output", str(uni), "--progressive",
+                       "2", "--checkpoint", str(uni / "ckpt.npz")]) == 0
+    assert tmain.main([*common, "--output", str(uni), "--progressive", "4",
+                       "--checkpoint", str(uni / "ckpt.npz")]) == 2
+    assert "uniform-progressive film" in caplog.text
+
+
+def test_cli_adaptive_refuses_restir(series, tmp_path):
+    root, cfgs = series
+    cfg = _write_cfg(tmp_path, _lit(cfgs["time"], root), "c.json",
+                     integrator="restir")
+    with pytest.raises(SystemExit, match="--adaptive supports integrator"):
+        tmain.main(["--cpu", "--config", str(cfg), "--output",
+                    str(tmp_path / "o"), "--progressive", "4", "--adaptive"])
+
+
+@pytest.mark.parametrize("integrator", ["whitted", "restir"])
+def test_cli_viewer_subprocess(series, tmp_path, integrator):
+    """``python -m optix_ray_tracer_tpu_torch --cpu --viewer --port 0`` in a
+    process of its own: it serves the page and a stream of frames, takes
+    /key and /look, and exits 0 after /quit, within 60 s.  Whitted takes
+    the fused chunk path, ReSTIR the per-frame path with persistent
+    reservoirs."""
+    import re
+    import threading
+    import urllib.request
+
+    root, cfgs = series
+    cfg = _write_cfg(tmp_path, _lit(cfgs["time"], root), "c.json",
+                     integrator=integrator)
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "optix_ray_tracer_tpu_torch", "--cpu",
+         "--config", str(cfg), "--viewer", "--port", "0", "--width", "16",
+         "--height", "12"], cwd=ROOT, env=env, stderr=subprocess.PIPE,
+        text=True)
+    lines = []
+    reader = threading.Thread(target=lambda: lines.extend(proc.stderr),
+                              daemon=True)
+    reader.start()
+
+    def get(path):
+        with urllib.request.urlopen(base + path, timeout=5.0) as r:
+            return r.read()
+
+    base = None
+    try:
+        t0 = time.time()
+        while base is None and time.time() - t0 < 50:
+            m = re.search(r"viewer at (http://[\d.]+:\d+)/", "".join(lines))
+            base = m.group(1) if m else None
+            time.sleep(0.05)
+        assert base, "".join(lines)
+        assert b"/stream" in get("/")
+        buf = b""
+        while buf.count(b"--frame") < 2 and time.time() - t0 < 50:
+            # each request times out after 5 s: reconnect until the first
+            # frames are out (the first chunk renders after the commit)
+            try:
+                with urllib.request.urlopen(base + "/stream",
+                                            timeout=5.0) as r:
+                    while buf.count(b"--frame") < 2:
+                        buf += r.read1(4096)
+                        if buf.count(b"--frame") == 1:
+                            get("/key?k=w")
+                            get("/look?dx=4&dy=1")
+            except TimeoutError:
+                pass
+        assert b"Content-Type: image/" in buf
+    finally:
+        if base:
+            try:
+                get("/quit")
+            except OSError:
+                pass
+        try:
+            rc = proc.wait(timeout=60)
+        finally:
+            proc.kill()
+        reader.join(timeout=5)
+    assert rc == 0, "".join(lines)
+    assert "viewer stopped after" in "".join(lines)

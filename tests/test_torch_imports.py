@@ -44,12 +44,15 @@ MODULES = [
     "optix_ray_tracer_tpu_torch.ops.raysort",
     "optix_ray_tracer_tpu_torch.ops.sweep",
     "optix_ray_tracer_tpu_torch.ops.tlas",
+    "optix_ray_tracer_tpu_torch.render.adaptive",
     "optix_ray_tracer_tpu_torch.render.denoise",
     "optix_ray_tracer_tpu_torch.render.envmap",
     "optix_ray_tracer_tpu_torch.render.film",
     "optix_ray_tracer_tpu_torch.render.neural_denoise",
     "optix_ray_tracer_tpu_torch.render.pathtracer",
+    "optix_ray_tracer_tpu_torch.render.restir",
     "optix_ray_tracer_tpu_torch.render.temporal",
+    "optix_ray_tracer_tpu_torch.render.viewer",
     "optix_ray_tracer_tpu_torch.render.wavefront",
     "optix_ray_tracer_tpu_torch.scene.camera",
     "optix_ray_tracer_tpu_torch.scene.cornell",
@@ -61,6 +64,8 @@ MODULES = [
     "optix_ray_tracer_tpu_torch.utils.colorramp",
     "optix_ray_tracer_tpu_torch.utils.debug",
     "optix_ray_tracer_tpu_torch.utils.logging",
+    "optix_ray_tracer_tpu_torch.utils.profiling",
+    "optix_ray_tracer_tpu_torch.utils.qmc",
     "optix_ray_tracer_tpu_torch.utils.rng",
     "optix_ray_tracer_tpu_torch.utils.tensors",
     "optix_ray_tracer_tpu_torch.utils.transforms",
@@ -174,6 +179,20 @@ assert torch.isfinite(img).all()
 sun = torch.tensor([[0.3, 0.2, 0.9]]).expand(256, 3)
 assert pinter.any_hit_from(pscene, o.reshape(-1, 3) * 0 + sun * -3, sun,
                            mode="ortho", block_rays=128).any()
+# the product extras: ReSTIR DI and GI frames with Sobol, an adaptive
+# batch, on the same march intersector
+from optix_ray_tracer_tpu_torch.render.adaptive import (
+    AdaptiveFilm, adaptive_batch)
+pl = collect_area_lights(pscene, pm)
+for integ in ("restir", "restir-gi"):
+    img, _, _ = render_frame(
+        SimpleNamespace(**dict(vars(pcfg), integrator=integ,
+                               sampler="sobol")),
+        pscene, pm, cam, 32, 32, 1, 0, pinter, lights=pl, sample_offset=3)
+    assert torch.isfinite(img).all()
+af = adaptive_batch(pscene, pm, pl, cam, AdaptiveFilm.create(32, 32, **cpu),
+                    k=1024, intersector=pinter, max_depth=2)
+assert af.total_samples == 1024
 print("LAUNCHES", [k.launches for k in _lib.KERNELS], _lib._lib is None)
 """
 
@@ -218,9 +237,10 @@ def test_no_jax_import_statement(path):
 def test_cpu_path_launches_no_kernel():
     """Renders on CPU tensors (a raster + march frame, a TLAS frame, a
     sweep frame through render_frame with both denoisers, into a Film, a
-    path-traced frame with bundle NEE and a sky, an ortho wave) and a
-    query routed to the hierarchical marcher take the plain versions: every launch count (A-G) stays 0 and the library is never
-    built."""
+    path-traced frame with bundle NEE and a sky, an ortho wave, ReSTIR DI
+    and GI frames with Sobol, an adaptive batch) and a query routed to the
+    hierarchical marcher take the plain versions: every launch count (A-G)
+    stays 0 and the library is never built."""
     proc = _run(_LAUNCHES)
     assert proc.returncode == 0, proc.stderr
     assert "LAUNCHES [0, 0, 0, 0, 0, 0, 0] True" in proc.stdout, \

@@ -60,6 +60,7 @@ from optix_ray_tracer_tpu_torch.scene import textures as ttex
 from optix_ray_tracer_tpu_torch.scene.cornell import (
     build_cornell_box as tcornell,
 )
+from optix_ray_tracer_tpu_torch.scene.materials import EMISSIVE
 from optix_ray_tracer_tpu_torch.utils import rng as trng
 from test_torch_bundle import log_bundle_waves
 
@@ -364,13 +365,48 @@ def test_cornell_rr_on_matches_jax_in_the_mean(cornell):
 
 
 def test_trace_path_refuses_restir_and_sobol(cornell):
-    *_, ts, tm, tc, tl = cornell
-    o = torch.zeros((4, 3))
-    d = torch.tensor([[0.0, 0.0, -1.0]] * 4)
-    pid = torch.arange(4)
-    for kw in ({"restir_direct": True}, {"sampler": "sobol"}):
-        with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-            tpt.trace_path(ts, tm, tl, o, d, pid, pid, 0, (0, 0, 0), **kw)
+    """trace_path's ReSTIR partition (restir_direct) and the Sobol sampler,
+    once refused, against the JAX package; Russian roulette off.  Every
+    call takes the camera wave's hits precomputed by the JAX package, as
+    render_restir_gi hands them over (with a scalar sample): pixel-center
+    rays meet the box's corners, where the packages' nearest triangle may
+    differ at fp-equal t.  The partition drops exactly the bounce-0 miss
+    and emitter radiance and NEE, and the bounce-1 emitter hits of diffuse
+    primaries."""
+    js, jm, jc, jl, ts, tm, tc, tl = cornell
+    jo, jd = jc.generate_rays(16, 16)
+    jo, jd = jo.reshape(-1, 3), jd.reshape(-1, 3)
+    to, td = tc.generate_rays(16, 16)
+    to, td = to.reshape(-1, 3), td.reshape(-1, 3)
+    jpid = jnp.arange(256, dtype=jnp.int32)
+    tpid = torch.arange(256)
+    jhit = jisect.intersect_scene_bruteforce(js, jo, jd)
+    thit = convert.hit(convert.state_arrays(jhit), CPU)
+    for kw in ({"restir_direct": True}, {"sampler": "sobol"},
+               {"restir_direct": True, "sampler": "sobol"}):
+        kw = dict(kw, max_depth=4, rr_start=8)
+        ref = jpt.trace_path(js, jm, jl, jo, jd, jpid, jnp.int32(2),
+                             jnp.int32(5), jnp.zeros(3), first_hit=jhit,
+                             **kw)
+        got = tpt.trace_path(ts, tm, tl, to, td, tpid, 2, 5, (0, 0, 0),
+                             first_hit=thit, **kw)
+        for g, r in zip(got, ref):
+            _image_close(g.numpy().reshape(16, 16, 3),
+                         np.asarray(r).reshape(16, 16, 3),
+                         within_share=0.99)
+    # the partition: the full trace minus the restir_direct one is the
+    # direct part only (bounce-0 emission and NEE, bounce-1 emitter hits
+    # of diffuse primaries): no radiance where the camera sees the light
+    full = tpt.trace_path(ts, tm, tl, to, td, tpid, 2, 5, (0, 0, 0),
+                          max_depth=4, rr_start=8, first_hit=thit)[0]
+    part = tpt.trace_path(ts, tm, tl, to, td, tpid, 2, 5, (0, 0, 0),
+                          max_depth=4, rr_start=8, restir_direct=True,
+                          first_hit=thit)[0]
+    mat = ts.triangles.material_id[thit.prim_id.long().clamp(min=0)]
+    sees_light = thit.is_hit & (tm.gather(mat)[0] == EMISSIVE)
+    assert sees_light.any() and (part[sees_light] == 0).all()
+    assert (full[sees_light] > 0).all()
+    assert float(part.mean()) < float(full.mean())
 
 
 @pytest.fixture(scope="module")
@@ -481,10 +517,24 @@ def test_render_frame_path_matches_jax(textured):
                                textures=t["textures"], lights=t["lights"])
     for g, r in zip(got, ref):
         _image_close(g.numpy(), r)
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-        tcommon.render_frame(dataclasses.replace(tc, integrator="restir-gi"),
-                             *(t[k] for k in ("scene", "materials",
-                                              "camera")), 8, 8, 1, 0, None)
+    # "restir-gi" (once refused) on the same scene: the raster and march
+    # intersector, the environment and textures, against the JAX package
+    # (tests/test_torch_restir.py's per-pixel rule and means)
+    gi = dict(d, integrator="restir-gi")
+    ref = jcommon.render_frame(jparse(gi), j["scene"], j["materials"],
+                               j["camera"], 32, 32, 1, 7, j["intersector"],
+                               env=j["env"], textures=j["textures"],
+                               lights=j["lights"])
+    got = tcommon.render_frame(parse_config_dict(gi), t["scene"],
+                               t["materials"], t["camera"], 32, 32, 1, 7,
+                               t["intersector"], env=t["env"],
+                               textures=t["textures"], lights=t["lights"])
+    for g, r in zip(got, ref):
+        diff = np.abs(g.numpy() - np.asarray(r)).max(-1)
+        assert (diff <= 2e-5 * np.abs(np.asarray(r)).max(-1) + 1e-5).mean() \
+            >= 0.97
+        assert abs(float(g.mean()) - float(np.asarray(r).mean())) <= \
+            0.01 * abs(float(np.asarray(r).mean())) + 1e-6
 
 
 def test_config_builds_env_and_textures(tmp_path):

@@ -8,7 +8,10 @@ route (same size), set up exactly as chip_smoke.py sets them up; and the
 path tracer's cells of chip_smoke.py's phase 11: a config-5 frame
 (1920x1088, spp 4, depth 6), a config-4 Cornell frame at spp 1 (1024x1024,
 depth 8) and frame 0 of the pile flattened under phase 11's area light
-at 1200x800, spp 1, depth 5 (the NEE segments on the bundle engine).
+at 1200x800, spp 1, depth 5 (the NEE segments on the bundle engine);
+and the same pile frame through ReSTIR DI (``"integrator": "restir"``:
+``render_restir_progressive`` at spp 1, 16 candidates, 2 spatial taps,
+one primary and one shadow wave).
 
 Usage: python3 tools/prof_port.py  (from the repository root; needs CUDA).
 
@@ -42,7 +45,7 @@ OUT = Path("build") / "prof_port"
 ITERS = {"bench_step": 10, "incoherent_wave": 5, "whitted_frame": 2,
          "sweep_frame": 1, "atrous_tail": 5, "neural_tail": 5,
          "tlas_frame": 2, "flatten_frame": 2, "sponza_frame": 2,
-         "cornell_frame": 2, "path_pile_frame": 2}
+         "cornell_frame": 2, "path_pile_frame": 2, "restir_pile_frame": 2}
 
 
 def _template_args(name: str, kernel: str) -> list[int]:
@@ -128,13 +131,13 @@ def path_cells(t, device):
     """Callables of the path tracer's cells: config 5 and config 4 (spp 1)
     through ``benchmarks.run``, and frame 0 of the Time scene's flatten
     route with phase 11's area light over the pile (``render_path``,
-    1200x800, spp 1, depth 5)."""
+    1200x800, spp 1, depth 5), and the same frame through ReSTIR DI."""
     import numpy as np
 
     from optix_ray_tracer_tpu_torch.io.meshgen import quad
     from optix_ray_tracer_tpu_torch.models import benchmarks
     from optix_ray_tracer_tpu_torch.models.common import choose_intersector
-    from optix_ray_tracer_tpu_torch.render import pathtracer
+    from optix_ray_tracer_tpu_torch.render import pathtracer, restir
     from optix_ray_tracer_tpu_torch.scene.geometry import Scene, Triangles
     from optix_ray_tracer_tpu_torch.scene.lights import collect_area_lights
     from optix_ray_tracer_tpu_torch.scene.materials import (
@@ -165,7 +168,10 @@ def path_cells(t, device):
             lambda: benchmarks.run(c4, spp=1, intersector=i4),
             lambda: pathtracer.render_path(
                 scene, mats, lights, t.cam, w, h, spp=1, seed=1,
-                max_depth=chip_smoke.DEPTH, intersector=inter))
+                max_depth=chip_smoke.DEPTH, intersector=inter),
+            lambda: restir.render_restir_progressive(
+                scene, mats, lights, t.cam, w, h, spp=1, seed=1,
+                intersector=inter))
 
 
 def main() -> None:
@@ -187,7 +193,7 @@ def main() -> None:
     scene, mats, cam, inter = chip_smoke.whitted_setup(v, n, device)
     t = chip_smoke.time_setup(device)
     tlas = chip_smoke.time_frame(t, 0, t.pc_max1)
-    sponza, cornell, pile = path_cells(t, device)
+    sponza, cornell, pile, restir_pile = path_cells(t, device)
 
     def frame(scene_, mats_, cam_, inter_):
         return lambda: wavefront.render(
@@ -208,7 +214,7 @@ def main() -> None:
         "tlas_frame": frame(t.static, t.mats, t.cam, tlas),
         "flatten_frame": frame(t.flat, t.mats, t.cam, t.finter),
         "sponza_frame": sponza, "cornell_frame": cornell,
-        "path_pile_frame": pile}
+        "path_pile_frame": pile, "restir_pile_frame": restir_pile}
     from optix_ray_tracer_tpu_torch.ops.kernels import block_march as bm
     counted = {"whitted_frame": "probe_call", "flatten_frame": "probe_call",
                "tlas_frame": "march_instanced_call"}
