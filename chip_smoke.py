@@ -133,6 +133,21 @@ CPU or to the plain versions):
    /look and /wheel sent during it, the encoder, /quit and exit code 0
    (its launches read from its log).  The in-process runs share each
    distinct scene's host SAH build (:func:`shared_builds`).
+13. the parallel layer, the trainer and the LBVH (:func:`parallel_phase`):
+   (a) phase 4's frame through ``parallel/sharding.render_sharded`` on
+   meshes SHARD_MESHES of ``cuda:0`` repeated, s/frame and launches of A,
+   B, C per mesh, each held to phase 4's image (> 2 LSB on < 1% of
+   channels); (b) phase 10's series (SHARD_FRAMES frames, 1200x800)
+   through ``__main__.main`` with and without ``--shard`` (the fused
+   sharded route, 1x1) and through ``render_frames_sharded`` on a 4x1
+   mesh of cuda:0, each held to the unsharded PNGs by the same rule; (c)
+   ``render/train_denoiser``: the JAX package's synthetic test (three
+   96x96 images, TRAIN_STEPS steps, batch 8, crop 48; neural > raw + 5
+   dB), ms/step at batch 16, crop 64, and a reduced ``build_dataset``
+   (96x96, 1 view, 2 procedural scenes, clean spp 64) trained
+   DATASET_STEPS steps with its PSNR rows; (d) ``graft.entry``'s LBVH
+   flagship step, ms and its camera wave's hits against brute force
+   (hit rule, no exception).
 
 Every kernel's row in the kernels' JSON object is one whole main-path
 wave (a subset would leave most of the card idle): A the bench camera
@@ -143,7 +158,7 @@ variant (phase 11's sun waves; launches: the variant's in its
 ``intersect_from(mode="ortho")`` runs, ``Kernel.variants``) and A on the
 bundle NEE wave (launches: A's full-width launches in phase 11's path
 animation). It carries the kernel's launches on the
-main paths (phases 4, 7, 8, 10, 11 and 12), its error against its plain
+main paths (phases 4, 7, 8, 10, 11, 12 and 13), its error against its plain
 version,
 the whole wave's time, the plain version's time on what it compared (A,
 D: the whole wave), and the bound: the larger of the bytes the wave's
@@ -2947,6 +2962,269 @@ def extras_phase(card: str) -> dict:
     return launches
 
 
+# ---- phase 13: the parallel layer, the trainer, the LBVH ------------------
+
+SHARD_MESHES = ((1, 1), (4, 1), (2, 2), (1, 4))   # (tile, sample) on cuda:0
+SHARD_FRAMES = 4                  # phase 10's series, one file
+TRAIN_STEPS = 60                  # the JAX package's synthetic training test
+TIMED_STEPS = 20                  # s/step at batch 16, crop 64
+DATASET_STEPS = 100               # training on the reduced rendered set
+
+
+def lsb_share(a, b) -> tuple:
+    """(max |diff|, share of channels > 2 LSB) of two frames' sRGB."""
+    from optix_ray_tracer_tpu_torch.utils.color import color_to_uint8
+    qa = color_to_uint8(a)[..., :3].int()
+    qb = color_to_uint8(b)[..., :3].int()
+    return (float((a - b).abs().max()),
+            float(((qa - qb).abs() > 2).float().mean()))
+
+
+def sharded_frames(frame, card: str) -> dict:
+    """Phase 13 (a): phase 4's frame through ``render_sharded`` on meshes
+    of ``cuda:0`` repeated, each held to phase 4's image."""
+    import torch
+
+    from optix_ray_tracer_tpu_torch.parallel.sharding import (
+        make_mesh, render_sharded,
+    )
+
+    launches = {}
+    dev = torch.device("cuda", 0)
+    for tile, sample in SHARD_MESHES:
+        mesh = make_mesh(tile, sample, [dev] * (tile * sample))
+        zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        img = render_sharded(frame.scene, frame.mats, frame.cam, WIDTH,
+                             HEIGHT, SPP, mesh, seed=frame.seed,
+                             max_depth=DEPTH, intersector=frame.inter)
+        torch.cuda.synchronize()
+        s = time.perf_counter() - t0
+        counts = launch_counts("ABC")
+        for k, n in counts.items():
+            launches[K[k].name] = launches.get(K[k].name, 0) + n
+        err, over2 = lsb_share(img, frame.img)
+        print(f"[shard] {tile}x{sample} mesh on cuda:0: {s:.3f} s/frame "
+              f"[{card}]; launches {counts_text(counts)}; vs phase 4's "
+              f"frame max |diff| {err:.3g}, {over2:.6f} of channels > 2 LSB")
+        if not torch.isfinite(img).all() or over2 >= 0.01:
+            raise AssertionError(f"the {tile}x{sample} sharded frame "
+                                 "disagrees with the single-device frame")
+        if min(counts["B"], counts["C"]) == 0:
+            raise AssertionError(f"a kernel of the sharded path never "
+                                 f"launched: {counts}")
+    return launches
+
+
+def sharded_cli(card: str) -> dict:
+    """Phase 13 (b): phase 10's series at 1200x800 through the CLI with
+    ``--shard`` (the fused sharded route, 1x1 on one card) and through
+    ``render_frames_sharded`` on a 4x1 mesh of cuda:0, each held to the
+    unsharded CLI's PNGs; one shared host SAH build."""
+    import tempfile
+
+    import torch
+
+    from optix_ray_tracer_tpu_torch.io.config import load_config
+    from optix_ray_tracer_tpu_torch.io.meshgen import sphere_with_n_triangles
+    from optix_ray_tracer_tpu_torch.models import renderer_time as rt
+    from optix_ray_tracer_tpu_torch.parallel.animation import (
+        render_frames_sharded,
+    )
+    from optix_ray_tracer_tpu_torch.parallel.sharding import make_mesh
+
+    tmp = tempfile.TemporaryDirectory(prefix="shard_")
+    root = Path(tmp.name)
+    launches = {}
+
+    def add(counts):
+        for k, n in counts.items():
+            launches[K[k].name] = launches.get(K[k].name, 0) + n
+
+    try:
+        series, stl_dir = write_time_series(
+            root / "time", [sphere_with_n_triangles(s) for s in TIME_LIBRARY],
+            pile_poses(N_PARTICLES, ANIM_TIMES), ANIM_TIMES)
+        cfg = write_anim_config(root / "time.json", series, stl_dir,
+                                root / "cache", ANIM_WIDTH, ANIM_HEIGHT,
+                                ANIM_FPS)
+        with shared_builds():
+            runs = {}
+            for tag, extra in (("plain", []), ("shard", ["--shard"])):
+                zero_counts()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                run_cli(["--config", cfg, "--output", root / tag,
+                         "--frames", SHARD_FRAMES, *extra])
+                torch.cuda.synchronize()
+                s = time.perf_counter() - t0
+                counts = launch_counts()
+                add(counts)
+                runs[tag] = check_pngs(
+                    sorted((root / tag).glob("frame_*.png")), tag)
+                print(f"[shard cli] {tag}: {SHARD_FRAMES} frames at "
+                      f"{ANIM_WIDTH}x{ANIM_HEIGHT} in {s:.2f} s with commit "
+                      f"[{card}]; launches {counts_text(counts)}")
+                if len(runs[tag]) != SHARD_FRAMES:
+                    raise AssertionError(f"{tag}: {len(runs[tag])} PNGs")
+            if min(counts["B"], counts["C"], counts["F"]) == 0:
+                raise AssertionError("--shard missed kernel B, C or F")
+            dev = torch.device("cuda", 0)
+            data = rt.commit(load_config(str(cfg)))
+            zero_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            frames4 = [f.to_uint8() for _, _, f in render_frames_sharded(
+                data, "time", ANIM_WIDTH, ANIM_HEIGHT, 1,
+                make_mesh(4, 1, [dev] * 4), max_frames=SHARD_FRAMES,
+                quantize=True)]
+            torch.cuda.synchronize()
+            s = time.perf_counter() - t0
+            counts = launch_counts()
+            add(counts)
+            print(f"[shard cli] render_frames_sharded, 4x1 mesh on cuda:0: "
+                  f"{SHARD_FRAMES} frames in {s:.2f} s with the device "
+                  f"rebuild [{card}]; launches {counts_text(counts)}")
+            del data
+        for j in range(SHARD_FRAMES):
+            agree(runs["shard"][j], runs["plain"][j],
+                  f"--shard vs unsharded frame {j}")
+            agree(frames4[j], runs["plain"][j],
+                  f"4x1 mesh vs unsharded frame {j}")
+    finally:
+        tmp.cleanup()
+    return launches
+
+
+def synthetic_imgs(n=3, H=96, W=96, noise=0.25, seed=0):
+    """tests/test_denoiser_training.py's synthetic noisy / clean pairs."""
+    rng = np.random.default_rng(seed)
+    imgs = []
+    for i in range(n):
+        yy, xx = np.mgrid[0:H, 0:W] / H
+        alb = np.stack([0.3 + 0.6 * (xx > 0.5), 0.5 * np.ones_like(xx),
+                        0.4 + 0.4 * (yy > 0.4)], -1).astype(np.float32)
+        irr = (0.5 + 0.4 * np.sin(6 * xx + i) * np.cos(5 * yy)
+               )[..., None].astype(np.float32) * np.ones(3, np.float32)
+        clean = alb * irr
+        noisy = np.maximum(
+            clean + rng.normal(0, noise, clean.shape).astype(np.float32),
+            0.0)
+        nrm = np.stack([np.zeros_like(xx), np.zeros_like(xx),
+                        np.ones_like(xx)], -1).astype(np.float32)
+        imgs.append((noisy, alb, nrm, clean))
+    return imgs
+
+
+def trainer(card: str) -> None:
+    """Phase 13 (c): the denoiser trainer on the card: the JAX package's
+    synthetic test (neural > raw + 5 dB), s/step at batch 16, crop 64, and
+    a reduced ``build_dataset`` trained and scored."""
+    import torch
+
+    from optix_ray_tracer_tpu_torch.render import train_denoiser as td
+
+    dev = torch.device("cuda", 0)
+    imgs = synthetic_imgs()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = td.train(imgs, steps=TRAIN_STEPS, batch=8, crop=48,
+                     verbose=False, device=dev)
+    torch.cuda.synchronize()
+    s = time.perf_counter() - t0
+    raw, atrous, neural = td.evaluate(model, imgs, verbose=False)
+    print(f"[train] synthetic set (3 x 96x96), {TRAIN_STEPS} steps, batch 8, "
+          f"crop 48: {s:.2f} s [{card}]; PSNR raw {raw:.2f} dB, a-trous "
+          f"{atrous:.2f}, neural {neural:.2f} ({neural - raw:+.2f} dB over "
+          f"raw)")
+    if not (np.isfinite(neural) and neural > raw + 5.0):
+        raise AssertionError("the trained denoiser does not beat the raw "
+                             "input by 5 dB")
+    td.train(imgs, steps=2, batch=16, crop=64, verbose=False, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    td.train(imgs, steps=TIMED_STEPS, batch=16, crop=64, verbose=False,
+             device=dev)
+    torch.cuda.synchronize()
+    per = (time.perf_counter() - t0) / TIMED_STEPS
+    print(f"[train] {per * 1e3:.2f} ms/step at batch 16, crop 64, with the "
+          f"crop set's upload (host clock over {TIMED_STEPS} steps) [{card}]")
+
+    # the reduced rendered set: 96x96, one view, two procedural training
+    # scenes, clean spp 64 (256 for path scenes, the trainer's floor)
+    t0 = time.perf_counter()
+    train_imgs, heldout = td.build_dataset(size=96, views=1, clean_spp=64,
+                                           procedural=2, verbose=False,
+                                           device=dev)
+    torch.cuda.synchronize()
+    print(f"[train] build_dataset(size=96, views=1, clean_spp=64, "
+          f"procedural=2): {len(train_imgs)} training and {len(heldout)} "
+          f"held-out images in {time.perf_counter() - t0:.1f} s [{card}] "
+          f"(cut from size 192, 4 views, 10 procedural scenes, clean spp "
+          f"256; no reference series)")
+    t0 = time.perf_counter()
+    model = td.train(train_imgs, steps=DATASET_STEPS, batch=16, crop=64,
+                     verbose=False, device=dev)
+    torch.cuda.synchronize()
+    print(f"[train] {DATASET_STEPS} steps on it in "
+          f"{time.perf_counter() - t0:.2f} s [{card}] (cut from 3000)")
+    for label, subset in (("train[0:4]", train_imgs[:4]),
+                          ("held-out", heldout)):
+        raw, atrous, neural = td.evaluate(model, subset, verbose=False)
+        print(f"  {label}: raw {raw:.2f} dB | a-trous {atrous:.2f} dB | "
+              f"neural {neural:.2f} dB")
+        if not np.isfinite([raw, atrous, neural]).all():
+            raise AssertionError(f"non-finite PSNR on {label}")
+
+
+def lbvh_step(card: str) -> None:
+    """Phase 13 (d): ``graft.entry``'s flagship step (64x64, spp 1, depth
+    5, LBVH traversal) on the card: ms, and the camera wave's hits against
+    brute force under the hit rule."""
+    import torch
+
+    from optix_ray_tracer_tpu_torch.graft import entry
+    from optix_ray_tracer_tpu_torch.ops.intersect import (
+        hit_mismatches, intersect_scene_bruteforce,
+    )
+
+    dev = torch.device("cuda", 0)
+    t0 = time.perf_counter()
+    fn, args = entry(device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    scene, _, cam, inter, seed = args
+    ms = time_ms(lambda: fn(*args), 3)
+    img = fn(*args)
+    o, d = (x.reshape(-1, 3) for x in cam.generate_rays(64, 64))
+    hit = inter.intersect(scene, o, d)
+    ref = intersect_scene_bruteforce(scene, o, d)
+    bad = hit_mismatches(hit.prim_id, hit.t, ref.prim_id, ref.t)
+    occ = int((inter.any_hit(scene, o, d) != ref.is_hit).sum())
+    print(f"[lbvh] flagship step 64x64 spp 1 depth 5 through the LBVH "
+          f"({scene.sphere_count + scene.triangle_count} primitives, build "
+          f"{build_s:.3f} s): {ms:.1f} ms (CUDA events, mean of 3) [{card}];"
+          f" camera wave vs brute force: {bad} hit-rule exceptions, {occ} "
+          f"occlusion mismatches of {o.shape[0]} rays")
+    if bad or occ or not torch.isfinite(img).all():
+        raise AssertionError("the LBVH disagrees with brute force")
+
+
+def parallel_phase(frame, card: str) -> dict:
+    """Phase 13: (a) sharded Whitted frames, (b) the CLI with --shard, (c)
+    the trainer, (d) the LBVH step.  Returns the launches of A-F of (a)
+    and (b) by name."""
+    t0 = time.perf_counter()
+    launches = sharded_frames(frame, card)
+    for name, n in sharded_cli(card).items():
+        launches[name] = launches.get(name, 0) + n
+    trainer(card)
+    lbvh_step(card)
+    print(f"[parallel] phase 13 in {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 #: the variant rows of the kernels' JSON line: name -> (kernel letter,
 #: the TPU kernel's file:line)
 VARIANT_ROWS = {
@@ -2993,13 +3271,15 @@ def main() -> None:
         launches[name] = launches.get(name, 0) + n
     for name, n in extras_phase(card).items():
         launches[name] = launches.get(name, 0) + n
+    for name, n in parallel_phase(frame, card).items():
+        launches[name] = launches.get(name, 0) + n
     kernels = [{"name": k.name, "route": "cuda", "source": k.source,
                 "replaces": k.replaces, "launches": launches[k.name],
                 **rows[k.name]} for k in _lib.KERNELS]
     kernels += [{"name": name, "route": "cuda", "source": K[k].source,
                  "replaces": replaces, "launches": launches[name],
                  **rows[name]} for name, (k, replaces) in VARIANT_ROWS.items()]
-    print(f"[smoke] phases 1-12 in {time.perf_counter() - t_start:.1f} s "
+    print(f"[smoke] phases 1-13 in {time.perf_counter() - t_start:.1f} s "
           f"[{card}]")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

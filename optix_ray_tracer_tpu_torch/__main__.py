@@ -5,7 +5,7 @@
 Usage:
     python -m optix_ray_tracer_tpu_torch --config path/to/config.json \
         [--frames N] [--output DIR] [--spp N] [--width W --height H] \
-        [--loop] [--aov] [--no-denoise] [--verbose] [--cpu] \
+        [--loop] [--aov] [--no-denoise] [--verbose] [--cpu] [--shard] \
         [--viewer [--port P]] [--progressive SPP [--checkpoint PATH]
         [--adaptive]]
 
@@ -14,9 +14,10 @@ exits; otherwise commit the Mesh or Time scene to the card (``--cpu``:
 the CPU) and either run the render loop, writing one PNG per frame;
 serve the interactive viewer (``--viewer``, an MJPEG stream on
 ``--port``); or accumulate SPP samples on frame 0 with checkpoint and
-resume (``--progressive``, variance-guided with ``--adaptive``).  The
-JAX package's ``--shard`` is not ported yet: it exits with code 2 and
-names the ROADMAP item.
+resume (``--progressive``, variance-guided with ``--adaptive``).
+``--shard`` splits every frame's rows over all visible CUDA devices
+(``parallel/animation.py``; with ``--cpu``, one CPU shard); ``--aov`` is
+ignored with it.
 """
 
 from __future__ import annotations
@@ -25,13 +26,6 @@ import argparse
 import os
 import sys
 import time
-
-#: flags of the JAX package's CLI that wait for a later slice, with the
-#: ROADMAP item that will port each
-_NOT_PORTED = {
-    "shard": "queue 1 item 6 (parallel/animation.py)",
-}
-
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="optix_ray_tracer_tpu_torch")
@@ -60,7 +54,10 @@ def main(argv=None) -> int:
                          "allocation (each batch traces only the "
                          "highest-error quarter of the pixels after a "
                          "uniform warmup)")
-    ap.add_argument("--shard", action="store_true", help="not ported yet")
+    ap.add_argument("--shard", action="store_true",
+                    help="split every animation frame's rows over all "
+                         "visible CUDA devices (the multi-device render "
+                         "loop)")
     ap.add_argument("--cpu", action="store_true",
                     help="render on the CPU (default: the CUDA device)")
     ap.add_argument("--aov", action="store_true",
@@ -76,10 +73,6 @@ def main(argv=None) -> int:
     from optix_ray_tracer_tpu_torch.utils.logging import LOG, configure
 
     configure(verbose=args.verbose)
-    for flag, item in _NOT_PORTED.items():
-        if getattr(args, flag):
-            LOG.error("--%s is not ported yet (ROADMAP %s)", flag, item)
-            return 2
     try:
         config = load_config(args.config)
     except ConfigError as e:
@@ -105,8 +98,8 @@ def main(argv=None) -> int:
     else:
         from optix_ray_tracer_tpu_torch.models import renderer_time as frontend
 
+    import torch
     if not args.cpu:
-        import torch
         if not torch.cuda.is_available():
             raise RuntimeError("no CUDA device: pass --cpu to render on the "
                                "CPU")
@@ -123,16 +116,36 @@ def main(argv=None) -> int:
     # reference's float4 -> uchar4 conversion, RendererImpl.cu:672-678);
     # --aov needs the guide channels on the host, so it takes float
     # Films with the guides fetched instead
-    frames = frontend.render_frames(
-        data, width=args.width, height=args.height, spp=args.spp,
-        max_frames=args.frames, loop=args.loop, quantize=not args.aov,
-        fetch_guides=args.aov)
+    aov = args.aov
+    if args.shard and aov:
+        LOG.warning("--aov is not supported with --shard; ignoring")
+        aov = False
+    if args.shard:
+        from optix_ray_tracer_tpu_torch.parallel.animation import (
+            render_frames_sharded,
+        )
+        from optix_ray_tracer_tpu_torch.parallel.sharding import make_mesh
+
+        mesh = make_mesh(tile=1, devices=[data.camera.center.device]) \
+            if args.cpu else make_mesh(tile=torch.cuda.device_count())
+        LOG.info("sharding frames over %d device(s)", mesh.shape["tile"])
+        ld = config.loop_data
+        frames = render_frames_sharded(
+            data, "mesh" if config.mesh else "time",
+            args.width or ld.window_width, args.height or ld.window_height,
+            args.spp or config.spp, mesh, max_frames=args.frames,
+            loop=args.loop, quantize=True)
+    else:
+        frames = frontend.render_frames(
+            data, width=args.width, height=args.height, spp=args.spp,
+            max_frames=args.frames, loop=args.loop, quantize=not aov,
+            fetch_guides=aov)
     n = 0
     for fi, k, film in frames:
         stem = f"frame_{n:06d}"
         path = os.path.join(out_dir, stem + ".png")
         film.save(path)
-        if args.aov:
+        if aov:
             film.save_aovs(os.path.join(out_dir, stem))
         LOG.info("file %d frame %d -> %s (spp=%d)", fi, k, path,
                  int(film.spp))

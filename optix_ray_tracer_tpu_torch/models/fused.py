@@ -16,8 +16,11 @@ pipelined: a chunk's outputs go to pinned host buffers by a
 ``non_blocking`` copy queued right behind it, and the next chunk is
 queued before the host waits for that copy.
 
-The JAX package's ``mesh=`` sharded chunk waits with ``parallel/``
-(ROADMAP queue 1 item 6): ``fused_chunk`` refuses a mesh.
+With a ``mesh`` (``parallel/sharding.make_mesh``) each frame traces in
+row bands, one per shard, each on its device (the JAX package's
+``shard_map`` around the scan); the bands gather into full frames on the
+mesh's first device, where the refit before and the temporal, denoise
+and quantise tail after run once per frame.
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ from optix_ray_tracer_tpu_torch.models import common
 from optix_ray_tracer_tpu_torch.ops.march import (
     MarchIntersector, refit_march_intersector,
 )
+from optix_ray_tracer_tpu_torch.parallel import sharding
 from optix_ray_tracer_tpu_torch.render import (
     neural_denoise, pathtracer, wavefront,
 )
@@ -112,11 +116,10 @@ def fused_chunk(fd, ks, seeds, base_inter, materials, camera,
     followed when ``want_guides`` by the albedo and normal stacks.  With
     ``temporal`` (the camera constant over the chunk) the return is
     ``(outs, final_tstate)``: ``tstate`` (``render/temporal.empty_state``)
-    carries the history in and out."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "the sharded fused chunk is not ported yet (ROADMAP queue 1 "
-            "item 6)")
+    carries the history in and out.  ``mesh``: trace every frame in row
+    bands over the mesh's shards (``parallel/sharding.render_sharded`` or
+    ``render_path_sharded``); ``height`` must divide by its tile count and
+    ``spp`` by its sample count."""
     if integrator not in ("whitted", "path"):
         # ReSTIR renders per frame (the frontends route it there)
         raise ValueError("fused_chunk supports integrator 'whitted' or "
@@ -135,7 +138,19 @@ def fused_chunk(fd, ks, seeds, base_inter, materials, camera,
         # the per-frame refit, always from the file's rebuild
         inter = (refit_march_intersector(base_inter, scene) if use_march
                  else None)
-        if integrator == "path":
+        if mesh is not None:
+            # each band's camera wave on the raster engine when the band
+            # tiles cleanly (sharding._band_route), else on the marcher
+            kw = dict(seed=int(seed), background=background,
+                      max_depth=max_depth, intersector=inter, env=env,
+                      want_guides=True, want_aux=temporal, sampler=sampler)
+            out = (sharding.render_path_sharded(
+                       scene, materials, lights, camera, width, height, spp,
+                       mesh, textures=textures, **kw)
+                   if integrator == "path" else sharding.render_sharded(
+                       scene, materials, camera, width, height, spp, mesh,
+                       **kw))
+        elif integrator == "path":
             out = pathtracer.render_path(
                 scene, materials, lights, camera, width, height, spp=spp,
                 seed=int(seed), background=background, max_depth=max_depth,
@@ -232,15 +247,13 @@ def render_frames_fused(data, mode: str, file_data_fn, width: int,
     n_frames)`` supplies a file's tensors.  Per file: the frame-0 scene,
     the intersector (a host build on the first file, then a device
     rebuild per file), then chunks of :func:`fused_chunk`.  Without
-    ``fetch_guides`` the Films carry zero guide channels."""
+    ``fetch_guides`` the Films carry zero guide channels.  ``mesh``: every
+    chunk traces in row bands over it; the render height pads up to a
+    multiple of its tile count and the frames crop on output."""
     from optix_ray_tracer_tpu_torch.models import (
         renderer_mesh, renderer_time,
     )
 
-    if mesh is not None:
-        raise NotImplementedError(
-            "the sharded fused loop is not ported yet (ROADMAP queue 1 "
-            "item 6)")
     if quantize and fetch_guides:
         raise ValueError("quantize yields U8Frames, which carry no guide "
                          "channels: use fetch_guides with quantize=False")
@@ -248,9 +261,11 @@ def render_frames_fused(data, mode: str, file_data_fn, width: int,
     ld = cfg.loop_data
     dev = data.camera.center.device
     frontend = renderer_mesh if mode == "mesh" else renderer_time
+    n_tile = mesh.shape["tile"] if mesh is not None else 1
+    hp = -(-height // n_tile) * n_tile          # the padded render height
     use_temporal = bool(getattr(cfg, "temporal", True))
     state = {"lights": None, "base": None,
-             "tstate": (tmod.empty_state(width, height, dev)
+             "tstate": (tmod.empty_state(width, hp, dev)
                         if use_temporal else None)}
 
     def dispatch_chunks():
@@ -269,7 +284,7 @@ def render_frames_fused(data, mode: str, file_data_fn, width: int,
                 use_march = isinstance(state["base"], MarchIntersector)
                 fd = file_data_fn(data, fi, n_frames)
                 bpp = (4 if quantize else 12) + (24 if fetch_guides else 0)
-                chunk = chunk_size(width, height, n_frames, bpp)
+                chunk = chunk_size(width, hp, n_frames, bpp)
                 for k0 in range(0, n_frames, chunk):
                     out = fused_chunk(
                         fd, range(k0, k0 + chunk),
@@ -278,7 +293,7 @@ def render_frames_fused(data, mode: str, file_data_fn, width: int,
                         data.extra_spheres, data.extra_triangles, data.env,
                         data.textures, state["lights"], cfg.background,
                         state["tstate"], mode=mode, width=width,
-                        height=height, spp=spp, integrator=cfg.integrator,
+                        height=hp, spp=spp, integrator=cfg.integrator,
                         do_denoise=cfg.denoise,
                         denoiser=common.resolve_denoiser(cfg),
                         sampler=getattr(cfg, "sampler", "pcg"),
@@ -287,7 +302,7 @@ def render_frames_fused(data, mode: str, file_data_fn, width: int,
                         euler_path=getattr(data, "reference_euler_path",
                                            False),
                         quantize=quantize, want_guides=fetch_guides,
-                        temporal=use_temporal)
+                        temporal=use_temporal, mesh=mesh)
                     if use_temporal:
                         out, state["tstate"] = out
                     host = [_to_host(x) for x in out]
@@ -311,12 +326,13 @@ def render_frames_fused(data, mode: str, file_data_fn, width: int,
         nrms = host[2][0] if fetch_guides else None
         for j in range(chunk):
             if quantize:
-                frame = U8Frame(imgs[j].numpy(), spp)
+                frame = U8Frame(imgs[j][:height].numpy(), spp)
             else:
                 z = torch.zeros((height, width, 3))
                 frame = Film.create(width, height, "cpu").add(
-                    imgs[j], albs[j] if albs is not None else z,
-                    nrms[j] if nrms is not None else z, spp)
+                    imgs[j][:height],
+                    albs[j][:height] if albs is not None else z,
+                    nrms[j][:height] if nrms is not None else z, spp)
             yield fi, k0 + j, frame
             produced += 1
             if max_frames is not None and produced >= max_frames:

@@ -153,19 +153,16 @@ def intersect_any_bruteforce(scene: Scene, o, d, t_min=DEFAULT_T_MIN,
                                       chunk=chunk).is_hit
 
 
-class BruteForceIntersector:
-    """The oracle as an intersector (the JAX package keeps this class in
-    ``ops/traverse.py`` beside the LBVH, which is not ported yet)."""
-
-    def intersect(self, scene: Scene, o, d, t_min=DEFAULT_T_MIN,
-                  t_max=INF) -> Hit:
-        return intersect_scene_bruteforce(scene, o, d, t_min, t_max)
-
-    def __call__(self, scene: Scene, o, d, t_min=DEFAULT_T_MIN, t_max=INF):
-        return self.intersect(scene, o, d, t_min, t_max)
-
-    def any_hit(self, scene: Scene, o, d, t_min=DEFAULT_T_MIN, t_max=INF):
-        return intersect_any_bruteforce(scene, o, d, t_min, t_max)
+def __getattr__(name):
+    """``BruteForceIntersector`` lives in ``ops/traverse.py`` beside the
+    LBVH, as in the JAX package; this module re-exports it lazily (the
+    traversal module imports this one)."""
+    if name == "BruteForceIntersector":
+        from optix_ray_tracer_tpu_torch.ops.traverse import (
+            BruteForceIntersector,
+        )
+        return BruteForceIntersector
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
 def shading_frame_fn(intersector):

@@ -15,8 +15,8 @@ a byte-identical copy of its committed file, HWIO arrays that
 :meth:`KPCN.from_arrays` turns into the module's OIHW state.  Public
 functions keep the JAX package's NHWC ``(H, W, 3)`` layout and permute
 inside.  The convolutions are cuDNN's on the card (TF32 off, see the
-package ``__init__``), oneDNN's on the CPU.  Training
-(``render/train_denoiser.py``) waits for a later slice.
+package ``__init__``), oneDNN's on the CPU.  ``render/train_denoiser.py``
+trains the module under ``torch.autograd`` and writes the same format.
 """
 
 from __future__ import annotations

@@ -1,7 +1,8 @@
 """Scene geometry as SoA tensors (port of
-``optix_ray_tracer_tpu/scene/geometry.py``: flat scenes and the
-``ShapeLibrary`` of the Time frontend; ``Instances`` and baked
-instancing wait for the frontends slice).
+``optix_ray_tracer_tpu/scene/geometry.py``): flat scenes, ``Instances``
+(object-to-world affines over a shape library) and the ``ShapeLibrary``
+of the Time frontend, which ``flatten_instances`` bakes into world
+triangles.
 
 Triangle vertices and normals are packed (T, 3, 3) float32.  Constructors
 build their tensors on ``device`` (None: the card, see
@@ -17,6 +18,10 @@ import torch
 
 from optix_ray_tracer_tpu_torch.utils.tensors import (
     TensorDataclass, resolve_device,
+)
+from optix_ray_tracer_tpu_torch.utils.transforms import (
+    apply_transform_point, apply_transform_vector, invert_transform,
+    srt_transform,
 )
 
 
@@ -97,6 +102,14 @@ class Triangles(TensorDataclass):
                                   device=vertices.device).reshape(-1, 3, 2)
         return Triangles(vertices, normals, mid, uvs)
 
+    def transformed(self, transform) -> "Triangles":
+        """The triangles under a (3, 4) affine (flatten instancing); the
+        normals by the inverse transpose of its linear part."""
+        v = apply_transform_point(transform, self.vertices)
+        inv_t = torch.linalg.inv(transform[..., :, :3]).T
+        n = torch.einsum('ij,...j->...i', inv_t, self.normals)
+        return Triangles(v, n, self.material_id, self.uvs)
+
     def concat(self, other: "Triangles") -> "Triangles":
         if self.uvs is None and other.uvs is None:
             uvs = None
@@ -133,6 +146,42 @@ class Scene(TensorDataclass):
     @property
     def triangle_count(self) -> int:
         return self.triangles.count
+
+
+@dataclasses.dataclass(frozen=True)
+class Instances(TensorDataclass):
+    """Two-level instancing (the reference's IAS,
+    ``RendererImpl.cu:174-242``): transforms and inv_transforms (I, 3, 4)
+    object-to-world and world-to-object affines, shape_id (I,) int32 rows
+    of a shape library, material_id (I,) int32."""
+    transforms: torch.Tensor
+    inv_transforms: torch.Tensor
+    shape_id: torch.Tensor
+    material_id: torch.Tensor
+
+    @property
+    def count(self) -> int:
+        return self.shape_id.shape[0]
+
+    @staticmethod
+    def from_srt(shift, rotate_deg, scale, shape_id, material_id,
+                 device=None) -> "Instances":
+        """Instances from (I, 3) shifts, Euler angles in degrees and
+        scales; a tensor ``shift`` given with no ``device`` keeps its
+        own."""
+        if device is None and isinstance(shift, torch.Tensor):
+            device = shift.device
+        dev = resolve_device(device)
+
+        def f32(x):
+            return torch.as_tensor(x, dtype=torch.float32, device=dev)
+
+        t = srt_transform(f32(shift), f32(rotate_deg), f32(scale))
+        return Instances(t, invert_transform(t),
+                         torch.as_tensor(shape_id, dtype=torch.int32,
+                                         device=dev),
+                         torch.as_tensor(material_id, dtype=torch.int32,
+                                         device=dev))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -175,3 +224,29 @@ class ShapeLibrary(TensorDataclass):
         return Triangles(self.vertices[lo:hi], self.normals[lo:hi],
                          torch.zeros((hi - lo,), dtype=torch.int32,
                                      device=self.vertices.device))
+
+    def flatten_instances(self, instances: Instances,
+                          max_triangles: int | None = None) -> Triangles:
+        """Bake instances into world triangles: every instance takes a
+        budget of ``max_triangles`` rows (default: the largest shape's
+        count); rows past its shape's count become zero-area triangles
+        that never hit."""
+        dev = self.vertices.device
+        if self.num_shapes == 0 or instances.count == 0:
+            return Triangles.empty(dev)
+        budget = int(max_triangles if max_triangles is not None
+                     else self.counts.max())
+        offsets = torch.as_tensor(self.offsets, dtype=torch.int64,
+                                  device=dev)
+        counts = torch.as_tensor(self.counts, dtype=torch.int64, device=dev)
+        sid = instances.shape_id.long()
+        slot = torch.arange(budget, dtype=torch.int64, device=dev)[None, :]
+        valid = slot < counts[sid][:, None]
+        tri_idx = torch.where(valid, offsets[sid][:, None] + slot, 0)
+        t = instances.transforms[:, None, None]               # (I, 1, 1, 3, 4)
+        v = apply_transform_point(t, self.vertices[tri_idx])  # (I, B, 3, 3)
+        n = apply_transform_vector(t, self.normals[tri_idx])
+        v = torch.where(valid[..., None, None], v, 0.0)
+        mid = instances.material_id[:, None].expand(valid.shape)
+        return Triangles(v.reshape(-1, 3, 3), n.reshape(-1, 3, 3),
+                         mid.reshape(-1).to(torch.int32).contiguous())

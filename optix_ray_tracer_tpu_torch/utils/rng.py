@@ -78,6 +78,11 @@ def uniform4(pixel_id, sample, bounce, seed, mode: str = "pcg"):
                                                   seed))
 
 
+def uniform_in_range(u, lo, hi):
+    """Map U[0, 1) to [lo, hi)."""
+    return lo + (hi - lo) * u
+
+
 def _cos_sin(phi):
     """cos and sin of float32 angles, evaluated in float64 and rounded:
     the same bits on every device.  (float32 libm cos/sin differ between

@@ -14,6 +14,16 @@ INF = 1e16      # the miss sentinel: a finite float, not float inf
 PI = 3.1415926  # the reference's truncated constant
 
 
+def vec3(x, y, z, dtype=torch.float32):
+    """Stack three scalars or tensors, broadcast together, into a (..., 3)
+    vector on the device of the first tensor among them."""
+    dev = next((a.device for a in (x, y, z)
+                if isinstance(a, torch.Tensor)), None)
+    return torch.stack(torch.broadcast_tensors(
+        *(torch.as_tensor(a, dtype=dtype, device=dev) for a in (x, y, z))),
+        dim=-1)
+
+
 def dot(a, b, keepdims: bool = False):
     r = a[..., 0] * b[..., 0] + a[..., 1] * b[..., 1] + a[..., 2] * b[..., 2]
     return r.unsqueeze(-1) if keepdims else r
@@ -58,6 +68,11 @@ def rotate_about_axis(v, axis, radians: float):
     r = torch.tensor(radians, dtype=torch.float32)
     c, s = float(torch.cos(r)), float(torch.sin(r))
     return v * c + cross(axis, v) * s + axis * dot(axis, v, True) * (1.0 - c)
+
+
+def is_finite(v):
+    """True where every component of the (..., 3) vector is finite."""
+    return torch.all(torch.isfinite(v), dim=-1)
 
 
 def degrees_to_radians(deg):

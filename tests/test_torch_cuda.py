@@ -1226,3 +1226,71 @@ def test_adaptive_ids_card_equal_cpu(dev):
     for a, b in zip(ids_a, ids_b):
         assert torch.equal(a, b)
     assert torch.equal(cnt_a, cnt_b)
+
+
+@pytest.mark.parametrize("tile,sample", [(4, 1), (2, 2)])
+def test_sharded_render_on_card(setup, dev, tile, sample):
+    """``render_sharded`` on a mesh of cuda:0 repeated against
+    ``wavefront.render`` on the card: > 2 LSB on < 1% of the channels
+    (phase 7's rule; 32- and 64-row bands take the raster engine as the
+    full frame does), and the bands launched A, B and C."""
+    from optix_ray_tracer_tpu_torch.parallel.sharding import (
+        make_mesh, render_sharded,
+    )
+    from optix_ray_tracer_tpu_torch.render import wavefront
+    from optix_ray_tracer_tpu_torch.scene.materials import MaterialBuilder
+    from optix_ray_tracer_tpu_torch.utils.color import color_to_uint8
+
+    scene, inter = setup[:2]
+    mb = MaterialBuilder()
+    mb.add_metal((0.8, 0.85, 0.88), 0.05)
+    mats = mb.build(dev)
+    cam = Camera.look_at((3.0, 0.0, 0.5), (0.0, 0.0, 0.0), (0.0, 0.0, 1.0))
+    ref = wavefront.render(scene, mats, cam, 128, 128, spp=4, seed=2,
+                           max_depth=3, intersector=inter)[0]
+    for k in _lib.KERNELS:
+        k.launches = 0
+    img = render_sharded(scene, mats, cam, 128, 128, 4,
+                         make_mesh(tile, sample, [dev] * (tile * sample)),
+                         seed=2, max_depth=3, intersector=inter)
+    launched = [_lib.TILE_RASTER.launches, _lib.BLOCK_MARCH.launches,
+                _lib.PROBE.launches]
+    assert min(launched) > 0, launched
+    assert img.device == ref.device and torch.isfinite(img).all()
+    qa, qb = (color_to_uint8(x)[..., :3].int() for x in (img, ref))
+    assert float(((qa - qb).abs() > 2).float().mean()) < 0.01
+
+
+def test_training_step_on_card(dev):
+    """One Adam step of ``render/train_denoiser`` on the card against the
+    same step on the CPU, from the same parameters on the same batch: the
+    loss to relative 1e-4, the gradients to relative 1e-3 (cuDNN's and
+    oneDNN's convolutions sum in their own orders), and the updated
+    parameters to 1e-6 where |g| >= 1e-5.  The first Adam step is
+    lr * g / (|g| + 1e-8): where |g| is near eps a relative 1e-3 in g
+    moves the step by up to ~1e-5 of its 2e-3, so those entries are held
+    by their gradients alone."""
+    from optix_ray_tracer_tpu_torch.render import neural_denoise as nd
+    from optix_ray_tracer_tpu_torch.render import train_denoiser as td
+
+    r = np.random.default_rng(0)
+    batch = [r.random((4, 32, 32, 3)).astype(np.float32) for _ in range(4)]
+    out = []
+    for device in (dev, torch.device("cpu")):
+        model = nd.KPCN.from_arrays(nd.init_params(0), device).train()
+        opt = td.make_optimizer(model, 2e-3)
+        loss = td.loss_fn(model, *(torch.as_tensor(a, device=device)
+                                   for a in batch))
+        loss.backward()
+        grads = {wk: conv.weight.grad.detach().permute(2, 3, 1, 0).cpu()
+                 .numpy() for wk, _, conv in model._convs()}
+        opt.step()
+        out.append((float(loss.detach()), grads, model.arrays()))
+    (la, ga, pa), (lb, gb, pb) = out
+    assert abs(la - lb) <= 1e-4 * abs(lb)
+    for k in gb:
+        np.testing.assert_allclose(ga[k], gb[k], rtol=1e-3, atol=1e-7,
+                                   err_msg=k)
+        sure = np.abs(gb[k]) >= 1e-5
+        np.testing.assert_allclose(pa[k][sure], pb[k][sure], atol=1e-6,
+                                   err_msg=k)

@@ -17,6 +17,7 @@ MODULES = [
     "optix_ray_tracer_tpu_torch",
     "optix_ray_tracer_tpu_torch.__main__",
     "optix_ray_tracer_tpu_torch.convert",
+    "optix_ray_tracer_tpu_torch.graft",
     "optix_ray_tracer_tpu_torch.io.cache",
     "optix_ray_tracer_tpu_torch.io.config",
     "optix_ray_tracer_tpu_torch.io.meshgen",
@@ -44,6 +45,9 @@ MODULES = [
     "optix_ray_tracer_tpu_torch.ops.raysort",
     "optix_ray_tracer_tpu_torch.ops.sweep",
     "optix_ray_tracer_tpu_torch.ops.tlas",
+    "optix_ray_tracer_tpu_torch.ops.traverse",
+    "optix_ray_tracer_tpu_torch.parallel.animation",
+    "optix_ray_tracer_tpu_torch.parallel.sharding",
     "optix_ray_tracer_tpu_torch.render.adaptive",
     "optix_ray_tracer_tpu_torch.render.denoise",
     "optix_ray_tracer_tpu_torch.render.envmap",
@@ -52,6 +56,7 @@ MODULES = [
     "optix_ray_tracer_tpu_torch.render.pathtracer",
     "optix_ray_tracer_tpu_torch.render.restir",
     "optix_ray_tracer_tpu_torch.render.temporal",
+    "optix_ray_tracer_tpu_torch.render.train_denoiser",
     "optix_ray_tracer_tpu_torch.render.viewer",
     "optix_ray_tracer_tpu_torch.render.wavefront",
     "optix_ray_tracer_tpu_torch.scene.camera",
@@ -193,6 +198,17 @@ for integ in ("restir", "restir-gi"):
 af = adaptive_batch(pscene, pm, pl, cam, AdaptiveFilm.create(32, 32, **cpu),
                     k=1024, intersector=pinter, max_depth=2)
 assert af.total_samples == 1024
+# a sharded frame (4 bands of repeated CPU devices) and an LBVH frame
+from optix_ray_tracer_tpu_torch.ops.traverse import make_intersector
+from optix_ray_tracer_tpu_torch.parallel.sharding import (
+    make_mesh, render_sharded)
+img = render_sharded(scene, mb.build(**cpu), cam, 32, 32, 2,
+                     make_mesh(4, 2, [torch.device("cpu")] * 8),
+                     intersector=inter, max_depth=2)
+img, _, _ = wavefront.render(scene, mb.build(**cpu), cam, 16, 16, spp=1,
+                             intersector=make_intersector(scene),
+                             max_depth=2)
+assert torch.isfinite(img).all()
 print("LAUNCHES", [k.launches for k in _lib.KERNELS], _lib._lib is None)
 """
 
@@ -238,8 +254,9 @@ def test_cpu_path_launches_no_kernel():
     """Renders on CPU tensors (a raster + march frame, a TLAS frame, a
     sweep frame through render_frame with both denoisers, into a Film, a
     path-traced frame with bundle NEE and a sky, an ortho wave, ReSTIR DI
-    and GI frames with Sobol, an adaptive batch) and a query routed to the
-    hierarchical marcher take the plain versions: every launch count (A-G)
+    and GI frames with Sobol, an adaptive batch, a sharded frame, an LBVH
+    frame) and a query routed to the hierarchical marcher take the plain
+    versions: every launch count (A-G)
     stays 0 and the library is never built."""
     proc = _run(_LAUNCHES)
     assert proc.returncode == 0, proc.stderr
