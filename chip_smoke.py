@@ -32,8 +32,8 @@ CPU or to the plain versions):
    runs, each the mean of 5 back-to-back steps), and the incoherent
    1M-ray metric;
 4. a 1024x1024, spp=4, depth-5 Whitted frame through wavefront.render with
-   a raster-enabled MarchIntersector; the launch counts of A, B and C are
-   zeroed just before and read just after it, and each must be > 0;
+   a raster-enabled MarchIntersector; the launch counts of A, B, C, H and
+   J are zeroed just before and read just after it, and each must be > 0;
 5. the Time scene (models/renderer_time.py): a 4,096-particle DEM pile of
    three sphere shapes as instances over a static ground quad, its TLAS
    library and pairs (<= 8192) and its flatten route (>= 3072 clusters, so
@@ -147,7 +147,18 @@ CPU or to the plain versions):
    (96x96, 1 view, 2 procedural scenes, clean spp 64) trained
    DATASET_STEPS steps with its PSNR rows; (d) ``graft.entry``'s LBVH
    flagship step, ms and its camera wave's hits against brute force
-   (hit rule, no exception).
+   (hit rule, no exception);
+14. the bounce loop's kernels (:func:`bounce_phase`): (a) H (PCG4D:
+   ``rng.uniform4``, and its integer lanes, ``rng.pcg4d``) and I (Sobol-
+   Owen: ``qmc.sobol_owen4``) on a 4M-id draw of phase 4's ids against
+   their plain versions on the same CUDA tensors, exact; (b) J (the
+   Whitted scatter) on phase 4's bounce-1 wave (4M rays, captured from a
+   depth-2 render) under PCG and under Sobol against
+   ``wavefront.scatter_plain``, exact, mismatches named by material and
+   their largest ulp; (c) phase 4's frame, PCG then Sobol, by the kernels
+   (counts zeroed, H and J, and I under Sobol, > 0) and by the plain
+   versions called explicitly (:func:`twin_route`: no H, I or J launch),
+   s/frame of each and the 2-LSB rule (< 1% of channels).
 
 Every kernel's row in the kernels' JSON object is one whole main-path
 wave (a subset would leave most of the card idle): A the bench camera
@@ -157,7 +168,14 @@ camera wave's first sweep pass; three more rows hold A's and D's "dir"
 variant (phase 11's sun waves; launches: the variant's in its
 ``intersect_from(mode="ortho")`` runs, ``Kernel.variants``) and A on the
 bundle NEE wave (launches: A's full-width launches in phase 11's path
-animation). It carries the kernel's launches on the
+animation); H and I are phase 14's 4M-id draw (H's uniforms), J phase
+14's PCG bounce-1 wave (its error the larger of the PCG and Sobol
+waves'), their launches those of phases 4, 12, 13 (b) and 14 (c), their work
+the RNG's integer operations (:func:`sobol_bits`: a Sobol index's set
+bits) and J's float operations per branch (:func:`scatter_ops`), at
+the FP32 rate, their time the kernel's device time per launch in a
+profiler trace (:func:`device_ms`: a wrapper call's host work outlasts
+them). It carries the kernel's launches on the
 main paths (phases 4, 7, 8, 10, 11, 12 and 13), its error against its plain
 version,
 the whole wave's time, the plain version's time on what it compared (A,
@@ -781,7 +799,8 @@ def whitted(device, card: str):
                                          intersector=inter)
     torch.cuda.synchronize()
     s_frame = time.perf_counter() - t0
-    launches = {k.name: k.launches for k in (K["A"], K["B"], K["C"])}
+    launches = {k.name: k.launches
+                for k in (K["A"], K["B"], K["C"], K["H"], K["J"])}
     print(f"[whitted] {WIDTH}x{HEIGHT} spp={SPP} depth {DEPTH}: "
           f"{s_frame:.3f} s/frame (first frame) [{card}]; launches "
           f"{launches}; live share of bounce waves 1-{DEPTH - 1}: "
@@ -2632,7 +2651,7 @@ def shared_builds():
         common.choose_intersector = real
 
 
-def launch_counts(keys: str = "ABCDEF") -> dict:
+def launch_counts(keys: str = "ABCDEFHIJ") -> dict:
     return {k: K[k].launches for k in keys}
 
 
@@ -2820,8 +2839,10 @@ def sobol_series(card: str, config, root: Path, add) -> None:
               f"{SOBOL_FRAMES} frames [{card}]: wall {wall:.4f} s/frame over "
               f"frames 2-{SOBOL_FRAMES - 1}; launches per frame: "
               f"{counts_text(counts, SOBOL_FRAMES)}")
-        if min(counts[k] for k in "BCF") == 0:
-            raise AssertionError(f"sampler {sampler} missed B, C or F")
+        rng_kernel = "I" if sampler == "sobol" else "H"
+        if min(counts[k] for k in "BCFJ" + rng_kernel) == 0:
+            raise AssertionError(f"sampler {sampler} missed a kernel: "
+                                 f"{counts}")
 
 
 def free_port() -> int:
@@ -3225,6 +3246,321 @@ def parallel_phase(frame, card: str) -> dict:
     return launches
 
 
+# ---- phase 14: the bounce loop's kernels H, I and J ----------------------
+
+# integer operations of the RNG (csrc/rng.cuh; a shift, logic operation,
+# product or sum counts as one): PCG4D's 32, one Owen scramble's 11, a
+# uniform's 3, per set bit of a Sobol index 4 (find, load, xor, clear)
+PCG_OPS = 32
+OWEN_OPS = 11
+UNIT_OPS = 3
+SOBOL_BIT_OPS = 4
+# float operations of J's branches per ray (csrc/scatter.cu; a compare,
+# select, clamp or a double cos / sin counts as one): what every ray does
+# (the gather, normalising the normal, two fallback tests, the last
+# normalise), then the ROUGH, METAL and DIELECTRIC branch's own
+SCATTER_COMMON_OPS = 44
+SCATTER_BRANCH_OPS = {"rough": 20, "metal": 41, "dielectric": 55}
+
+
+@contextlib.contextmanager
+def swapped(*pairs):
+    """Within the block, each (module, name, value) of ``pairs`` replaces
+    ``module.name``."""
+    real = [(m, n, getattr(m, n)) for m, n, _ in pairs]
+    for m, n, v in pairs:
+        setattr(m, n, v)
+    try:
+        yield
+    finally:
+        for m, n, v in real:
+            setattr(m, n, v)
+
+
+def twin_route():
+    """The bounce loop on the plain versions, called explicitly on CUDA
+    tensors: the scatter and the uniforms (jitter included) of
+    ``wavefront.render`` go to ``scatter_plain``, ``uniform4_plain`` and
+    ``sobol_owen4_plain``."""
+    from optix_ray_tracer_tpu_torch.render import wavefront
+    from optix_ray_tracer_tpu_torch.utils import qmc, rng
+    return swapped((wavefront, "scatter", wavefront.scatter_plain),
+                   (rng, "uniform4", rng.uniform4_plain),
+                   (qmc, "sobol_owen4", qmc.sobol_owen4_plain))
+
+
+def sobol_bits(pix, samp, bounce: int, seed: int):
+    """Per element, the set bits of the Owen-shuffled Sobol index that I
+    (and J under Sobol) loop over: the data's own work."""
+    import torch
+
+    from optix_ray_tracer_tpu_torch.utils import qmc, rng
+    s_shuf = rng.pcg4d_plain(pix, bounce, seed, 0x9E3779B9)[0]
+    idx = qmc.owen_scramble(samp, s_shuf)
+    bits = torch.zeros_like(idx)
+    for j in range(32):
+        bits += (idx >> j) & 1
+    return bits
+
+
+def sobol_ops(bits, dims: int):
+    """Integer operations of ``dims`` Sobol-Owen uniforms per element,
+    given each element's set index bits."""
+    n = bits.numel()
+    return (n * (PCG_OPS + OWEN_OPS + dims * (OWEN_OPS + UNIT_OPS) + 1)
+            + dims * SOBOL_BIT_OPS * int(bits.sum()))
+
+
+def device_ms(fn, kernel: str, reps: int) -> float:
+    """Mean device ms of the kernel named ``kernel`` (a substring of its
+    CUDA name) per call of ``fn``, over ``reps`` calls after a warm-up,
+    from a ``torch.profiler`` trace (build/chip_smoke/trace_*.json): the
+    kernel's own time, without its wrapper's host work, which takes
+    longer than H, I or J themselves."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    OUT_DIR.mkdir(parents=True, exist_ok=True)
+    trace = OUT_DIR / f"trace_{kernel}.json"
+    prof.export_chrome_trace(str(trace))
+    durs = [e["dur"] for e in json.loads(trace.read_text())["traceEvents"]
+            if e.get("ph") == "X" and e.get("cat") == "kernel"
+            and kernel in e.get("name", "")]
+    if len(durs) != reps:
+        raise AssertionError(f"{len(durs)} {kernel} events in the trace of "
+                             f"{reps} calls")
+    return sum(durs) / reps / 1e3
+
+
+def held(name: str, kern, plain) -> tuple:
+    """(mismatched elements, max |diff|) of two tuples of tensors, NaN
+    equal to NaN."""
+    import torch
+    bad, err = 0, 0.0
+    for a, b in zip(kern, plain):
+        same = (a == b) | (torch.isnan(a) & torch.isnan(b)
+                           if a.is_floating_point() else False)
+        bad += int((~same).sum())
+        diff = (a.double() - b.double()).abs()
+        err = max(err, float(torch.nan_to_num(diff, nan=0.0).max()))
+    print(f"    {name}: {bad} mismatched elements, max |diff| {err:.3g}")
+    return bad, err
+
+
+def rng_rows(frame, card: str) -> dict:
+    """Phase 14 (a): H and I on a 4M-id draw of phase 4's frame (its
+    pixel and sample ids, bounce 1, the scatter's seed), each against its
+    plain version on the same CUDA tensors; H's integer lanes too."""
+    import torch
+
+    from optix_ray_tracer_tpu_torch.render import wavefront
+    from optix_ray_tracer_tpu_torch.utils import qmc, rng
+
+    dev = frame.img.device
+    npix = WIDTH * HEIGHT
+    pix = torch.arange(npix, dtype=torch.int64, device=dev).repeat(SPP)
+    samp = torch.arange(SPP, dtype=torch.int64,
+                        device=dev).repeat_interleave(npix)
+    seed = frame.seed ^ wavefront._DIM_SCATTER
+    n = pix.numel()
+    rows = {}
+    cases = (
+        ("pcg4d", "H", lambda: rng.uniform4(pix, samp, 1, seed),
+         lambda: rng.uniform4_plain(pix, samp, 1, seed),
+         n * (PCG_OPS + 4 * UNIT_OPS), "pcg4d_kernel"),
+        ("sobol_owen4", "I", lambda: qmc.sobol_owen4(pix, samp, 1, seed),
+         lambda: qmc.sobol_owen4_plain(pix, samp, 1, seed),
+         sobol_ops(sobol_bits(pix, samp, 1, seed), 4), "sobol_owen4_kernel"),
+    )
+    for name, letter, kern_fn, plain_fn, ops, cuda_name in cases:
+        before = K[letter].launches
+        kern = kern_fn()
+        if K[letter].launches != before + 1:
+            raise AssertionError(f"{letter} did not launch")
+        plain = plain_fn()
+        torch.cuda.synchronize()
+        bad, err = held(f"{letter} {name}, {n} ids", kern, plain)
+        if name == "pcg4d":
+            lanes = held("H integer lanes", rng.pcg4d(pix, samp, 1, seed),
+                         rng.pcg4d_plain(pix, samp, 1, seed))
+            bad += lanes[0]
+        if bad:
+            raise AssertionError(f"{letter} disagrees with its plain "
+                                 f"version on {bad} elements")
+        ms = device_ms(kern_fn, cuda_name, REPS)
+        call_ms = time_ms(kern_fn, REPS)
+        plain_ms = time_ms(plain_fn, 1)
+        r = row(err, ms, plain_ms, tensor_bytes(pix, samp, kern), ops)
+        print(f"[bounce] {letter} {name}: device {ms:.4f} ms for {n} ids "
+              f"({call_ms:.4f} ms per wrapper call; plain {plain_ms:.3f} "
+              f"ms) [{card}]; bound {r['bound_ms']:.4f} ms by "
+              f"{r['bound_by']} ({100 * r['bound_ms'] / ms:.1f}%)")
+        rows[name] = r
+    return rows
+
+
+def scatter_wave(frame, sampler: str) -> tuple:
+    """The positional arguments of ``wavefront.scatter`` on phase 4's
+    frame's bounce-1 wave (seed 1, rendered to depth 2)."""
+    from optix_ray_tracer_tpu_torch.render import wavefront
+    with calls_of(wavefront, "scatter", keep=lambda *a, **k: a) as seen:
+        wavefront.render(frame.scene, frame.mats, frame.cam, WIDTH, HEIGHT,
+                         spp=SPP, seed=frame.seed, max_depth=2,
+                         intersector=frame.inter, sampler=sampler)
+    return seen[-1]
+
+
+def scatter_ops(args, sampler: str) -> int:
+    """The operations J does on one wave: per ray its branch's float
+    operations and its one draw's integer operations (Sobol: this wave's
+    own index bits)."""
+    import torch
+
+    from optix_ray_tracer_tpu_torch.render import wavefront
+    from optix_ray_tracer_tpu_torch.scene.materials import DIELECTRIC, METAL
+    mats, mid, pix, samp, b, seed = (args[0], args[1], args[5], args[6],
+                                     args[7], args[8])
+    mtype = mats.gather(mid)[0]
+    metal, diel = mtype == METAL, mtype == DIELECTRIC
+    sel = (("rough", ~(metal | diel), wavefront._DIM_SCATTER, 2),
+           ("metal", metal, wavefront._DIM_FUZZ, 2),
+           ("dielectric", diel, wavefront._DIM_FRESNEL, 1))
+    ops = mid.numel() * SCATTER_COMMON_OPS
+    for name, mask, salt, dims in sel:
+        k = int(mask.sum())
+        ops += k * SCATTER_BRANCH_OPS[name]
+        if sampler == "sobol":
+            ops += sobol_ops(sobol_bits(pix[mask], samp[mask], b,
+                                        seed ^ salt), dims)
+        else:
+            ops += k * (PCG_OPS + dims * UNIT_OPS)
+    return ops
+
+
+def scatter_row(frame, card: str) -> dict:
+    """Phase 14 (b): J on phase 4's bounce-1 wave (4M rays) under PCG and
+    under Sobol against ``scatter_plain`` on the same CUDA tensors; the
+    row is the PCG wave's, its error the larger of the two."""
+    import torch
+
+    from optix_ray_tracer_tpu_torch.render import wavefront
+    from optix_ray_tracer_tpu_torch.scene.materials import (
+        DIELECTRIC, EMISSIVE, METAL, ROUGH,
+    )
+    out, errs = None, []
+    for sampler in ("pcg", "sobol"):
+        args = scatter_wave(frame, sampler)
+        before = K["J"].launches
+        kern = wavefront.scatter(*args)
+        if K["J"].launches != before + 1:
+            raise AssertionError("J did not launch")
+        plain = wavefront.scatter_plain(*args)
+        torch.cuda.synchronize()
+        R = args[1].numel()
+        bad, err = held(f"J whitted_scatter, {sampler}, {R} rays", kern,
+                        plain)
+        if bad:
+            mtype = args[0].gather(args[1])[0]
+            diff = (kern[0] != plain[0]).any(-1)
+            ulp = (kern[0].view(torch.int32).long()
+                   - plain[0].view(torch.int32).long()).abs().max()
+            print(f"    mismatched rays by material: " + ", ".join(
+                f"{name} {int((diff & (mtype == m)).sum())}" for name, m in
+                (("ROUGH", ROUGH), ("METAL", METAL),
+                 ("DIELECTRIC", DIELECTRIC), ("EMISSIVE", EMISSIVE)))
+                + f"; largest new_dir difference {int(ulp)} ulp")
+            raise AssertionError(f"J disagrees with scatter_plain on "
+                                 f"{bad} elements ({sampler})")
+        errs.append(err)
+        ms = device_ms(lambda: wavefront.scatter(*args),
+                       "whitted_scatter_kernel", REPS)
+        call_ms = time_ms(lambda: wavefront.scatter(*args), REPS)
+        plain_ms = time_ms(lambda: wavefront.scatter_plain(*args), 1)
+        r = row(err, ms, plain_ms, tensor_bytes(args[1:7], kern),
+                scatter_ops(args, sampler))
+        print(f"[bounce] J whitted_scatter, {sampler}: device {ms:.4f} ms "
+              f"for {R} rays ({call_ms:.4f} ms per wrapper call; plain "
+              f"{plain_ms:.3f} ms) [{card}]; bound {r['bound_ms']:.4f} ms "
+              f"by {r['bound_by']} ({100 * r['bound_ms'] / ms:.1f}%)")
+        out = out or r
+    out["max_abs_err"] = max(errs)
+    return out
+
+
+def route_frames(frame, card: str) -> dict:
+    """Phase 14 (c): phase 4's frame (PCG, then Sobol) by the kernels,
+    with the counts zeroed just before and read just after (H and J
+    launched, I under Sobol; no plain version called), and by the plain
+    versions called explicitly
+    (no launch of H, I or J), the two held to each other by the 2-LSB
+    rule (< 1% of channels).  Returns the kernel routes' launches."""
+    import torch
+
+    from optix_ray_tracer_tpu_torch.render import wavefront
+    launches = {}
+
+    def render(sampler):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        img = wavefront.render(frame.scene, frame.mats, frame.cam, WIDTH,
+                               HEIGHT, spp=SPP, seed=frame.seed,
+                               max_depth=DEPTH, intersector=frame.inter,
+                               sampler=sampler)[0]
+        torch.cuda.synchronize()
+        return img, time.perf_counter() - t0
+
+    from optix_ray_tracer_tpu_torch.utils import qmc, rng
+    twins = ((rng, "uniform4_plain"), (rng, "pcg4d_plain"),
+             (qmc, "sobol_owen4_plain"), (wavefront, "scatter_plain"))
+    for sampler, need in (("pcg", "HJ"), ("sobol", "IJ")):
+        zero_counts()
+        with contextlib.ExitStack() as stack:
+            plain_calls = [stack.enter_context(calls_of(m, n))
+                           for m, n in twins]
+            img, s_kern = render(sampler)
+        if any(plain_calls):
+            raise AssertionError(f"the {sampler} frame by the kernels called "
+                                 f"a plain version")
+        counts = launch_counts("HIJ")
+        for k, n in counts.items():
+            launches[K[k].name] = launches.get(K[k].name, 0) + n
+        zero_counts()
+        with twin_route():
+            twin, s_twin = render(sampler)
+        twin_counts = launch_counts("HIJ")
+        err, over2 = lsb_share(img, twin)
+        print(f"[bounce] phase 4's frame, {sampler}: kernels {s_kern:.3f} "
+              f"s/frame (launches {counts_text(counts)}), plain versions "
+              f"{s_twin:.3f} s/frame [{card}]; max |diff| {err:.3g}, "
+              f"{over2:.6f} of channels > 2 LSB")
+        if min(counts[k] for k in need) == 0:
+            raise AssertionError(f"the {sampler} frame missed a kernel of "
+                                 f"{need}: {counts}")
+        if any(twin_counts.values()):
+            raise AssertionError(f"the plain route launched {twin_counts}")
+        if not torch.isfinite(img).all() or over2 >= 0.01:
+            raise AssertionError(f"the {sampler} frame by the kernels "
+                                 f"differs from the plain route's")
+    return launches
+
+
+def bounce_phase(frame, card: str) -> tuple:
+    """Phase 14: the bounce loop's kernels H, I and J.  Returns (their
+    JSON rows, the launches of (c))."""
+    t0 = time.perf_counter()
+    rows = rng_rows(frame, card)
+    rows["whitted_scatter"] = scatter_row(frame, card)
+    launches = route_frames(frame, card)
+    print(f"[bounce] phase 14 in {time.perf_counter() - t0:.1f} s")
+    return rows, launches
+
+
 #: the variant rows of the kernels' JSON line: name -> (kernel letter,
 #: the TPU kernel's file:line)
 VARIANT_ROWS = {
@@ -3246,7 +3582,8 @@ def main() -> None:
     from optix_ray_tracer_tpu_torch.ops.kernels import _lib
     K.update(A=_lib.TILE_RASTER, B=_lib.BLOCK_MARCH, C=_lib.PROBE,
              D=_lib.TILE_RASTER_INSTANCED, E=_lib.BLOCK_MARCH_INSTANCED,
-             F=_lib.BLOCK_MARCH_HIER, G=_lib.LEAF_SWEEP)
+             F=_lib.BLOCK_MARCH_HIER, G=_lib.LEAF_SWEEP, H=_lib.PCG4D,
+             I=_lib.SOBOL_OWEN4, J=_lib.WHITTED_SCATTER)
     card = card_line()
     print(card)      # name and power limit, as nvidia-smi reports them
     t_start = time.perf_counter()
@@ -3273,13 +3610,17 @@ def main() -> None:
         launches[name] = launches.get(name, 0) + n
     for name, n in parallel_phase(frame, card).items():
         launches[name] = launches.get(name, 0) + n
+    bounce_rows, bounce_launches = bounce_phase(frame, card)
+    rows.update(bounce_rows)
+    for name, n in bounce_launches.items():
+        launches[name] = launches.get(name, 0) + n
     kernels = [{"name": k.name, "route": "cuda", "source": k.source,
                 "replaces": k.replaces, "launches": launches[k.name],
                 **rows[k.name]} for k in _lib.KERNELS]
     kernels += [{"name": name, "route": "cuda", "source": K[k].source,
                  "replaces": replaces, "launches": launches[name],
                  **rows[name]} for name, (k, replaces) in VARIANT_ROWS.items()]
-    print(f"[smoke] phases 1-13 in {time.perf_counter() - t_start:.1f} s "
+    print(f"[smoke] phases 1-14 in {time.perf_counter() - t_start:.1f} s "
           f"[{card}]")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

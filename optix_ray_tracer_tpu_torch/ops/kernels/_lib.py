@@ -1,4 +1,5 @@
-"""Build, load and launch the hand-written CUDA kernels of ``csrc/``.
+"""Build, load and launch the hand-written CUDA kernels of ``csrc/``:
+A-G on the hit path, H-J in the bounce loop.
 
 All kernels compile into one shared library with a plain C interface,
 built on first use into ``build/kernels/`` beside the package and loaded
@@ -223,5 +224,31 @@ LEAF_SWEEP = Kernel(
     source="optix_ray_tracer_tpu_torch/csrc/leaf_sweep.cu",
     replaces="optix_ray_tracer_tpu/ops/pallas/leaf_sweep.py:30")
 
+_U = ctypes.c_uint
+_L = ctypes.c_longlong
+#: one RNG argument: pointer, kind, value (csrc/rng.cuh OrtLane)
+_LANE = [_P, _I, _U]
+
+# H, I and J have no Pallas counterpart: ``replaces`` names the JAX
+# function that XLA fuses
+#: kernel H (PCG4D)
+PCG4D = Kernel(
+    "pcg4d", "ort_pcg4d", _LANE * 4 + [_L, _I, _P],
+    source="optix_ray_tracer_tpu_torch/csrc/rng.cu",
+    replaces="optix_ray_tracer_tpu/utils/rng.py:32")
+#: kernel I (Owen-scrambled Sobol)
+SOBOL_OWEN4 = Kernel(
+    "sobol_owen4", "ort_sobol_owen4", _LANE * 4 + [_L, _P, _P],
+    source="optix_ray_tracer_tpu_torch/csrc/rng.cu",
+    replaces="optix_ray_tracer_tpu/utils/qmc.py:112")
+#: kernel J (Whitted scatter)
+WHITTED_SCATTER = Kernel(
+    "whitted_scatter", "ort_whitted_scatter",
+    [_P, _I, _P, _P, _P] + _LANE * 4 + [_L, _I, _P, _P, _P, _P, _P, _I, _P,
+                                        _P, _P, _P],
+    source="optix_ray_tracer_tpu_torch/csrc/scatter.cu",
+    replaces="optix_ray_tracer_tpu/render/wavefront.py:59")
+
 KERNELS = (TILE_RASTER, BLOCK_MARCH, PROBE, TILE_RASTER_INSTANCED,
-           BLOCK_MARCH_INSTANCED, BLOCK_MARCH_HIER, LEAF_SWEEP)
+           BLOCK_MARCH_INSTANCED, BLOCK_MARCH_HIER, LEAF_SWEEP, PCG4D,
+           SOBOL_OWEN4, WHITTED_SCATTER)

@@ -17,6 +17,7 @@ from __future__ import annotations
 import torch
 
 from optix_ray_tracer_tpu_torch.ops import intersect as isect
+from optix_ray_tracer_tpu_torch.ops.kernels import bounce as bounce_kernels
 from optix_ray_tracer_tpu_torch.ops.raster import (
     camera_tile_layout, make_camera_intersect,
 )
@@ -42,25 +43,42 @@ DEFAULT_BACKGROUND = (0.7, 0.8, 0.9)
 
 def scatter(materials: MaterialTable, material_id, d_in, normal, front_face,
             pixel_id, sample, bounce: int, seed: int, sampler: str = "pcg"):
-    """Scattered direction and attenuation for a batch of hits; every BSDF
-    branch is evaluated and blended by masks.
+    """Scattered direction and attenuation for a batch of hits.
 
     Returns (new_dir (R, 3) unit, attenuation (R, 3), emitted (R, 3),
-    terminate (R,): True for EMISSIVE hits, which end the path)."""
+    terminate (R,): True for EMISSIVE hits, which end the path).  CUDA
+    tensors launch kernel J (``ops/kernels/bounce.scatter_call``); others
+    take :func:`scatter_plain`, which computes the same bits."""
+    if d_in.is_cuda:
+        return bounce_kernels.scatter_call(
+            materials, material_id, d_in, normal, front_face, pixel_id,
+            sample, bounce, seed, sampler)
+    return scatter_plain(materials, material_id, d_in, normal, front_face,
+                         pixel_id, sample, bounce, seed, sampler)
+
+
+def scatter_plain(materials: MaterialTable, material_id, d_in, normal,
+                  front_face, pixel_id, sample, bounce: int, seed: int,
+                  sampler: str = "pcg"):
+    """Plain version of :func:`scatter` on any device (kernel J's twin):
+    every BSDF branch is evaluated and blended by masks, its draws from
+    ``rng.uniform4_plain``."""
     mtype, albedo, param, emission = materials.gather(material_id)
     n = normalize(normal)
 
+    def draw(salt):
+        return rng.uniform4_plain(pixel_id, sample, bounce, seed ^ salt,
+                                  sampler)
+
     # ROUGH: normal + unit-sphere sample, guarded against cancellation
-    rand_unit = rng.random_unit_vector(pixel_id, sample, bounce,
-                                       seed ^ _DIM_SCATTER, sampler)
+    rand_unit = rng.unit_vector_from(*draw(_DIM_SCATTER)[:2])
     d_rough = n + rand_unit
     degenerate = length_squared(d_rough) < EPS
     d_rough = torch.where(degenerate[..., None], n, d_rough)
 
     # METAL: mirror + fuzz * unit-sphere sample
     d_metal = normalize(reflect(d_in, n))
-    fuzz_vec = rng.random_unit_vector(pixel_id, sample, bounce,
-                                      seed ^ _DIM_FUZZ, sampler)
+    fuzz_vec = rng.unit_vector_from(*draw(_DIM_FUZZ)[:2])
     d_metal = d_metal + param[..., None] * fuzz_vec
 
     # DIELECTRIC: refract unless total internal reflection / Schlick
@@ -69,8 +87,7 @@ def scatter(materials: MaterialTable, material_id, d_in, normal, front_face,
     cos_theta = torch.clamp(-dot(d_in, n), max=1.0)
     sin_theta = torch.sqrt(torch.clamp(1.0 - cos_theta * cos_theta, min=0.0))
     cannot_refract = eta * sin_theta > 1.0
-    u_fresnel = rng.uniform4(pixel_id, sample, bounce,
-                             seed ^ _DIM_FRESNEL, sampler)[0]
+    u_fresnel = draw(_DIM_FRESNEL)[0]
     do_reflect = cannot_refract | (schlick_fresnel(cos_theta, ior)
                                    > u_fresnel)
     d_refr = refract(d_in, n, eta[..., None])

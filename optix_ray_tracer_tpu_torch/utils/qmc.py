@@ -8,7 +8,9 @@ the scramble keeps that while decorrelating pixels and pads; everything
 is a pure function of (pixel_id, sample, bounce, seed), like the PCG4D
 stream of ``utils/rng.py``.  The uint32 lanes live in int64 tensors
 masked to 32 bits, as in ``utils/rng.py``; the streams are the JAX
-package's bit for bit.
+package's bit for bit.  On CUDA tensors :func:`sobol_owen4` launches
+kernel I (``ops/kernels/bounce.sobol_owen4_call``), which computes the
+same bits on native uint32.
 
 Integrators opt in with ``sampler="sobol"`` (config key ``sampler``).
 """
@@ -18,8 +20,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from optix_ray_tracer_tpu_torch.ops.kernels import bounce as bounce_kernels
 from optix_ray_tracer_tpu_torch.utils.rng import (
-    _MASK, _mul32, _to_unit_float, _u32, pcg4d,
+    _MASK, _mul32, _to_unit_float, _u32, on_cuda, pcg4d_plain,
 )
 
 
@@ -103,8 +106,18 @@ def sobol_owen4(pixel_id, sample, bounce, seed):
     """Four U[0, 1) float32 tensors: two Owen-scrambled 2-D Sobol pads
     over the SAMPLE index, decorrelated per (pixel, bounce, seed).
     Components (0, 1) form one (0, 1)-sequence pad, (2, 3) a second.
-    ``utils/rng.uniform4``'s signature and purity contract."""
-    s_shuf, s0, s1, s2 = pcg4d(pixel_id, bounce, seed, 0x9E3779B9)
+    ``utils/rng.uniform4``'s signature and purity contract.  CUDA tensors
+    launch kernel I; others take :func:`sobol_owen4_plain`."""
+    if on_cuda(pixel_id, sample, bounce, seed):
+        return bounce_kernels.sobol_owen4_call(pixel_id, sample, bounce,
+                                               seed)
+    return sobol_owen4_plain(pixel_id, sample, bounce, seed)
+
+
+def sobol_owen4_plain(pixel_id, sample, bounce, seed):
+    """Plain version of :func:`sobol_owen4` on any device (kernel I's
+    twin)."""
+    s_shuf, s0, s1, s2 = pcg4d_plain(pixel_id, bounce, seed, 0x9E3779B9)
     # one index shuffle for every dimension of the pad set (a per-dim
     # shuffle would break the joint 2-D stratification), then an
     # independent scramble per dimension

@@ -8,12 +8,18 @@ uint32 arithmetic is incomplete, so the lanes live in int64 and wrap with
 ``& 0xFFFFFFFF``; products of two 32-bit lanes are split into 16-bit
 halves so that no intermediate leaves int64.  No ``torch.Generator`` is
 involved.
+
+:func:`pcg4d` and :func:`uniform4` send CUDA tensors to kernel H
+(``ops/kernels/bounce.pcg4d_call``, native uint32, the same bits) and
+everything else to their plain versions :func:`pcg4d_plain` and
+:func:`uniform4_plain`.
 """
 
 from __future__ import annotations
 
 import torch
 
+from optix_ray_tracer_tpu_torch.ops.kernels import bounce as bounce_kernels
 from optix_ray_tracer_tpu_torch.utils.vecmath import PI
 
 _MASK = 0xFFFFFFFF
@@ -33,9 +39,24 @@ def _u32(v, like):
     return v.to(torch.int64) & _MASK
 
 
+def on_cuda(*args) -> bool:
+    """True when the first tensor among ``args`` lies on a CUDA device:
+    the dispatch rule of the RNG's public names."""
+    t = next((a for a in args if isinstance(a, torch.Tensor)), None)
+    return t is not None and t.is_cuda
+
+
 def pcg4d(a, b, c, d):
     """PCG4D hash of four broadcastable int tensors (or Python ints, wrapped
-    mod 2**32).  Returns four int64 tensors holding uint32 values."""
+    mod 2**32).  Returns four int64 tensors holding uint32 values.  CUDA
+    tensors launch kernel H; others take :func:`pcg4d_plain`."""
+    if on_cuda(a, b, c, d):
+        return bounce_kernels.pcg4d_call(a, b, c, d, as_int=True)
+    return pcg4d_plain(a, b, c, d)
+
+
+def pcg4d_plain(a, b, c, d):
+    """Plain version of :func:`pcg4d` (kernel H's twin)."""
     device = next((v.device for v in (a, b, c, d)
                    if isinstance(v, torch.Tensor)), torch.device("cpu"))
     x, y, z, w = (_u32(v, device) for v in (a, b, c, d))
@@ -70,12 +91,25 @@ def _to_unit_float(u):
 
 def uniform4(pixel_id, sample, bounce, seed, mode: str = "pcg"):
     """Four U[0,1) float32 tensors per (pixel, sample, bounce, seed).
-    ``mode``: "pcg" (PCG4D, the default) or "sobol" (``utils/qmc``)."""
+    ``mode``: "pcg" (PCG4D, the default) or "sobol" (``utils/qmc``).
+    CUDA tensors launch kernel H (I for "sobol"); others take
+    :func:`uniform4_plain`."""
     if mode == "sobol":
         from optix_ray_tracer_tpu_torch.utils.qmc import sobol_owen4
         return sobol_owen4(pixel_id, sample, bounce, seed)
-    return tuple(_to_unit_float(v) for v in pcg4d(pixel_id, sample, bounce,
-                                                  seed))
+    if on_cuda(pixel_id, sample, bounce, seed):
+        return bounce_kernels.pcg4d_call(pixel_id, sample, bounce, seed)
+    return uniform4_plain(pixel_id, sample, bounce, seed)
+
+
+def uniform4_plain(pixel_id, sample, bounce, seed, mode: str = "pcg"):
+    """Plain version of :func:`uniform4` on any device (kernel H's twin;
+    with "sobol", ``qmc.sobol_owen4_plain``, kernel I's)."""
+    if mode == "sobol":
+        from optix_ray_tracer_tpu_torch.utils.qmc import sobol_owen4_plain
+        return sobol_owen4_plain(pixel_id, sample, bounce, seed)
+    return tuple(_to_unit_float(v) for v in pcg4d_plain(pixel_id, sample,
+                                                        bounce, seed))
 
 
 def uniform_in_range(u, lo, hi):
@@ -96,6 +130,12 @@ def random_unit_vector(pixel_id, sample, bounce, seed,
                        mode: str = "pcg"):
     """Uniform direction on the unit sphere (z/phi parameterization)."""
     u1, u2, _, _ = uniform4(pixel_id, sample, bounce, seed, mode)
+    return unit_vector_from(u1, u2)
+
+
+def unit_vector_from(u1, u2):
+    """The unit-sphere point of two uniforms: z = 1 - 2 u1, phi = 2 pi u2.
+    Returns (..., 3)."""
     z = 1.0 - 2.0 * u1
     r = torch.sqrt(torch.clamp(1.0 - z * z, min=0.0))
     c, s = _cos_sin((2.0 * PI) * u2)

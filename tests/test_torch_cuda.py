@@ -1294,3 +1294,164 @@ def test_training_step_on_card(dev):
         sure = np.abs(gb[k]) >= 1e-5
         np.testing.assert_allclose(pa[k][sure], pb[k][sure], atol=1e-6,
                                    err_msg=k)
+
+
+# ---- the bounce loop's kernels: H (PCG4D), I (Sobol-Owen), J (scatter) ---
+
+def _equal(kern, plain):
+    """Element-wise equality of two tuples of tensors, NaN equal to NaN:
+    the mismatched elements."""
+    bad = 0
+    for a, b in zip(kern, plain):
+        same = a == b
+        if a.is_floating_point():
+            same |= torch.isnan(a) & torch.isnan(b)
+        bad += int((~same).sum())
+    return bad
+
+
+@pytest.mark.parametrize("bounce", [-2, -1, 0, 64])
+def test_rng_kernels_equal_plain(dev, bounce):
+    """H (uniforms and integer lanes) and I against their plain versions
+    on the card on 1M ids, bit for bit: seeds 0, 2^31 - 1 and 0xFFFFFFFF,
+    a tensor sample and a scalar one, int64 and int32 pixel ids (negative
+    ones among them); each call launches its kernel once."""
+    from optix_ray_tracer_tpu_torch.utils import qmc, rng
+
+    r = np.random.default_rng(11)
+    pix = torch.as_tensor(r.integers(-(1 << 20), 1 << 24, 1 << 20),
+                          device=dev)
+    samp = torch.as_tensor(r.integers(0, 1 << 20, 1 << 20), device=dev)
+    for seed in (0, 2 ** 31 - 1, 0xFFFFFFFF):
+        for s in (samp, 12345):
+            for p in (pix, pix.to(torch.int32)):
+                before = (_lib.PCG4D.launches, _lib.SOBOL_OWEN4.launches)
+                u = rng.uniform4(p, s, bounce, seed)
+                lanes = rng.pcg4d(p, s, bounce, seed)
+                so = rng.uniform4(p, s, bounce, seed, "sobol")
+                assert (_lib.PCG4D.launches, _lib.SOBOL_OWEN4.launches) == (
+                    before[0] + 2, before[1] + 1)
+                assert _equal(u, rng.uniform4_plain(p, s, bounce, seed)) == 0
+                assert _equal(lanes, rng.pcg4d_plain(p, s, bounce, seed)) == 0
+                assert _equal(so, qmc.sobol_owen4_plain(p, s, bounce,
+                                                        seed)) == 0
+                assert u[0].shape == p.shape and so[3].dtype == torch.float32
+
+
+def _scatter_wave(dev, n, seed):
+    """A wave of n hits over every material type (ids past both ends
+    clamp), unnormalised normals facing the ray, random front flags, some
+    rays with a NaN direction and a zero normal (the +z fallback)."""
+    from optix_ray_tracer_tpu_torch.scene.materials import (
+        DIELECTRIC, EMISSIVE, METAL, ROUGH, MaterialBuilder,
+    )
+    mb = MaterialBuilder()
+    mb.add(ROUGH, (0.7, 0.6, 0.5))
+    mb.add(METAL, (0.8, 0.85, 0.88), 0.3)
+    mb.add(METAL, (0.9, 0.9, 0.9), 0.0)
+    mb.add(DIELECTRIC, (1, 1, 1), 1.5)
+    mb.add(DIELECTRIC, (1, 1, 1), 0.0)
+    mb.add(EMISSIVE, (0, 0, 0), 0.0, (4.0, 3.0, 2.0))
+    r = np.random.default_rng(seed)
+    mid = r.integers(-1, 7, n).astype(np.int32)
+    d = r.normal(size=(n, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    nrm = r.normal(size=(n, 3)).astype(np.float32)
+    flip = (d * nrm).sum(-1) > 0
+    nrm[flip] = -nrm[flip]
+    d[:64] = np.nan
+    nrm[:128:2] = 0.0
+    t = lambda x: torch.as_tensor(x, device=dev)   # noqa: E731
+    return (mb.build(dev), t(mid), t(d), t(nrm), t(r.random(n) < 0.5),
+            t(r.integers(0, 1 << 22, n)), t(r.integers(0, 64, n)))
+
+
+@pytest.mark.parametrize("sampler", ["pcg", "sobol"])
+def test_scatter_kernel_equal_plain(dev, sampler):
+    """J against ``scatter_plain`` on the card on a 1M-ray wave with every
+    material type, both faces, NaN directions and zero normals: every
+    output bit for bit; J launches once."""
+    from optix_ray_tracer_tpu_torch.render import wavefront
+
+    args = _scatter_wave(dev, 1 << 20, 3)
+    before = _lib.WHITTED_SCATTER.launches
+    kern = wavefront.scatter(*args, 1, 0xFFFFFFF0, sampler)
+    assert _lib.WHITTED_SCATTER.launches == before + 1
+    plain = wavefront.scatter_plain(*args, 1, 0xFFFFFFF0, sampler)
+    torch.cuda.synchronize()
+    assert kern[3].dtype == torch.bool and kern[0].shape == (1 << 20, 3)
+    assert torch.isfinite(kern[0]).all()
+    assert _equal(kern, plain) == 0
+
+
+@pytest.mark.parametrize("sampler", ["pcg", "sobol"])
+def test_whitted_frame_kernels_vs_cpu(dev, sampler):
+    """A small Whitted frame (METAL, ROUGH, DIELECTRIC and EMISSIVE) on
+    the card, bounce loop on H (I under Sobol) and J, against its CPU
+    render: > 2 LSB on < 1% of channels."""
+    from optix_ray_tracer_tpu_torch.io.meshgen import quad
+    from optix_ray_tracer_tpu_torch.render import wavefront
+    from optix_ray_tracer_tpu_torch.scene.materials import MaterialBuilder
+    from optix_ray_tracer_tpu_torch.utils.color import color_to_uint8
+
+    mb = MaterialBuilder()
+    metal = mb.add_metal((0.8, 0.85, 0.88), 0.05)
+    ground = mb.add_rough((0.7, 0.6, 0.5))
+    glass = mb.add_dielectric(1.5)
+    lamp = mb.add_emissive((3.0, 3.0, 3.0))
+    v, n = sphere_with_n_triangles(2500)
+    qv, qn = quad((-4, -4, -1), (4, -4, -1), (4, 4, -1), (-4, 4, -1))
+    tris = Triangles.from_arrays(v, n, metal).concat(
+        Triangles.from_arrays(qv, qn, ground))
+    imgs = []
+    for device in (dev, torch.device("cpu")):
+        scene = Scene(Spheres.from_list(
+            [((0.2, 1.5, -0.6), 0.4, glass), ((0.5, -1.4, -0.5), 0.3, lamp)],
+            device), tris.to(device))
+        inter = make_march_intersector(scene, raster=True)
+        cam = Camera.look_at((3.0, 0.0, 0.5), (0.0, 0.0, 0.0),
+                             (0.0, 0.0, 1.0), device=device)
+        for k in _lib.KERNELS:
+            k.reset()
+        imgs.append(wavefront.render(scene, mb.build(device), cam, 64, 64,
+                                     spp=4, seed=7, intersector=inter,
+                                     sampler=sampler)[0].cpu())
+        if device == dev:
+            launched = (_lib.PCG4D.launches, _lib.SOBOL_OWEN4.launches,
+                        _lib.WHITTED_SCATTER.launches)
+    assert launched[2] == 5 and (launched[1] if sampler == "sobol"
+                                 else launched[0]) > 0, launched
+    qa, qb = (color_to_uint8(x)[..., :3].int() for x in imgs)
+    assert float(((qa - qb).abs() > 2).float().mean()) < 0.01
+
+
+def test_bounce_kernels_raise_when_the_build_fails(dev, monkeypatch,
+                                                  tmp_path):
+    """With no library and a build that fails, the public names raise on
+    CUDA tensors and never run a plain version."""
+    from optix_ray_tracer_tpu_torch.render import wavefront
+    from optix_ray_tracer_tpu_torch.utils import qmc, rng
+
+    def no_nvcc():
+        raise RuntimeError("nvcc not found (forced)")
+
+    def never(*a, **k):
+        raise AssertionError("a plain version ran")
+
+    monkeypatch.setattr(_lib, "_lib", None)
+    monkeypatch.setattr(_lib, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(_lib, "_nvcc", no_nvcc)
+    for module, name in ((rng, "uniform4_plain"), (rng, "pcg4d_plain"),
+                         (qmc, "sobol_owen4_plain"),
+                         (wavefront, "scatter_plain")):
+        monkeypatch.setattr(module, name, never)
+    pix = torch.arange(1024, device=dev)
+    with pytest.raises(RuntimeError, match="forced"):
+        rng.uniform4(pix, pix, 0, 0)
+    with pytest.raises(RuntimeError, match="forced"):
+        rng.pcg4d(pix, pix, 0, 0)
+    with pytest.raises(RuntimeError, match="forced"):
+        qmc.sobol_owen4(pix, 3, 0, 0)
+    args = _scatter_wave(dev, 1024, 1)
+    with pytest.raises(RuntimeError, match="forced"):
+        wavefront.scatter(*args, 0, 0)

@@ -1,6 +1,6 @@
 """Import hygiene of the port: optix_ray_tracer_tpu_torch and every module
 of the ported slices import neither jax nor the JAX package; on CPU
-tensors no kernel (A-G) launches; chip_smoke.py refuses to run without
+tensors no kernel (A-J) launches; chip_smoke.py refuses to run without
 CUDA."""
 
 import ast
@@ -36,6 +36,7 @@ MODULES = [
     "optix_ray_tracer_tpu_torch.ops.instanced",
     "optix_ray_tracer_tpu_torch.ops.intersect",
     "optix_ray_tracer_tpu_torch.ops.kernels._lib",
+    "optix_ray_tracer_tpu_torch.ops.kernels.bounce",
     "optix_ray_tracer_tpu_torch.ops.kernels.block_march",
     "optix_ray_tracer_tpu_torch.ops.kernels.leaf_sweep",
     "optix_ray_tracer_tpu_torch.ops.kernels.tile_raster",
@@ -256,11 +257,11 @@ def test_cpu_path_launches_no_kernel():
     path-traced frame with bundle NEE and a sky, an ortho wave, ReSTIR DI
     and GI frames with Sobol, an adaptive batch, a sharded frame, an LBVH
     frame) and a query routed to the hierarchical marcher take the plain
-    versions: every launch count (A-G)
+    versions: every launch count (A-G, and the bounce loop's H-J)
     stays 0 and the library is never built."""
     proc = _run(_LAUNCHES)
     assert proc.returncode == 0, proc.stderr
-    assert "LAUNCHES [0, 0, 0, 0, 0, 0, 0] True" in proc.stdout, \
+    assert "LAUNCHES [0, 0, 0, 0, 0, 0, 0, 0, 0, 0] True" in proc.stdout, \
         proc.stdout
 
 

@@ -21,7 +21,9 @@ then ``torch.profiler`` over the same number of iterations.  The device
 time is the sum of the kernel, memcpy and memset events of the exported
 trace (everything runs on one stream, so the events do not overlap);
 idle share = 1 - device time / wall.  Prints, per cell, one summary line,
-the time per group of kernels and the heaviest kernels by name; for the
+the time per group of kernels (A-J, cuDNN, the torch kernels by kind),
+the heaviest int64 elementwise kernels by their functors and the
+heaviest kernels by name; for the
 three frames through the marchers, the live share (t_max > t_min) of
 each bounce wave, counted in one more frame after the profile.  Traces
 go to build/prof_port/.
@@ -77,6 +79,12 @@ def group(name: str, cat: str) -> str:
         return "C probe"
     if "leaf_sweep_kernel" in name:
         return "G leaf_sweep"
+    if "pcg4d_kernel" in name:
+        return "H pcg4d"
+    if "sobol_owen4_kernel" in name:
+        return "I sobol_owen4"
+    if "whitted_scatter_kernel" in name:
+        return "J whitted_scatter"
     if any(k in name.lower() for k in ("conv", "xmma", "implicit", "gemm",
                                         "winograd", "cudnn")):
         return "convolution (cuDNN)"
@@ -121,6 +129,15 @@ def profile(name: str, fn, iters: int, card: str) -> None:
           f"[{card}]")
     for label, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
         print(f"  {ms:9.3f} ms  {100 * ms / busy:5.1f}%  {label}")
+    int64 = sorted(((ms, name) for name, (ms, _) in kernels.items()
+                    if group(name, "kernel") == "int64 elementwise"),
+                   reverse=True)[:4]
+    if int64:
+        print("  heaviest int64 elementwise kernels (their functors):")
+        for ms, kname in int64:
+            ops = dict.fromkeys(re.findall(r"\w*(?:Functor|_kernel_cuda)\w*",
+                                           kname))
+            print(f"    {ms:9.3f} ms  {', '.join(ops) or kname[:90]}")
     print("  heaviest kernels:")
     for kname, (ms, count) in sorted(kernels.items(),
                                      key=lambda kv: -kv[1][0])[:8]:
