@@ -157,8 +157,18 @@ CPU or to the plain versions):
    ``wavefront.scatter_plain``, exact, mismatches named by material and
    their largest ulp; (c) phase 4's frame, PCG then Sobol, by the kernels
    (counts zeroed, H and J, and I under Sobol, > 0) and by the plain
-   versions called explicitly (:func:`twin_route`: no H, I or J launch),
-   s/frame of each and the 2-LSB rule (< 1% of channels).
+   versions called explicitly (:func:`twin_route`: no H-K launch),
+   s/frame of each and the 2-LSB rule (< 1% of channels); (d) K (the
+   path tracer's BSDF step) against ``pathtracer.bsdf_step_plain`` on
+   the waves of a path frame of phase 4's scene with a DIELECTRIC and an
+   EMISSIVE sphere added (ROUGH, METAL, DIELECTRIC and EMISSIVE hits and
+   dead lanes; bounces 1 and 2, Russian roulette from 2) under PCG and
+   under Sobol, and on config 5's bounce-1 wave, exact, mismatches named
+   by material; (e) a config-4 frame (spp 4) under Sobol and a config-5
+   frame by the kernels (counts zeroed, K and H or I > 0, no plain
+   version called) and by the plain versions (no H-K launch), 0 channels
+   > 2 LSB.  Phase 11's config-5, config-4 and path-pile frames must
+   launch K too.
 
 Every kernel's row in the kernels' JSON object is one whole main-path
 wave (a subset would leave most of the card idle): A the bench camera
@@ -170,13 +180,14 @@ variant (phase 11's sun waves; launches: the variant's in its
 bundle NEE wave (launches: A's full-width launches in phase 11's path
 animation); H and I are phase 14's 4M-id draw (H's uniforms), J phase
 14's PCG bounce-1 wave (its error the larger of the PCG and Sobol
-waves'), their launches those of phases 4, 12, 13 (b) and 14 (c), their work
-the RNG's integer operations (:func:`sobol_bits`: a Sobol index's set
-bits) and J's float operations per branch (:func:`scatter_ops`), at
-the FP32 rate, their time the kernel's device time per launch in a
-profiler trace (:func:`device_ms`: a wrapper call's host work outlasts
-them). It carries the kernel's launches on the
-main paths (phases 4, 7, 8, 10, 11, 12 and 13), its error against its plain
+waves'), their launches those of phases 4, 12, 13 (b) and 14 (c) and
+(e), K config 5's bounce-1 wave (its error the largest of (d)'s waves),
+its launches those of phases 11, 12, 13 (b) and 14 (e); their work the RNG's integer operations
+(:func:`sobol_ops`: the per-byte table lookups) and J's and K's float
+operations per lobe (:func:`scatter_ops`, :func:`bsdf_ops`), at the FP32
+rate, their time the kernel's device time per launch in a profiler trace
+(:func:`device_ms`: a wrapper call's host work outlasts them). It
+carries the kernel's launches on the main paths (phases 4, 7, 8, 10, 11, 12 and 13), its error against its plain
 version,
 the whole wave's time, the plain version's time on what it compared (A,
 D: the whole wave), and the bound: the larger of the bytes the wave's
@@ -2136,7 +2147,7 @@ def sponza_cell(card: str) -> dict:
           f"checker floor, sky with sun, environment NEE")
     zero_counts()
     (img, alb, nrm), st = benchmarks.run(cfg, intersector=inter)
-    counts = {k: K[k].launches for k in "ABC"}
+    counts = {k: K[k].launches for k in "ABCK"}
     _, st2 = benchmarks.run(cfg, seed=1, intersector=inter)
     print(f"[path sponza] {st2['render_s']:.3f} s/frame, "
           f"{st2['spp_per_sec']:.3f} spp/s, {st2['mpaths_per_sec']:.2f} "
@@ -2177,7 +2188,7 @@ def cornell_cell(card: str) -> dict:
     benchmarks.run(cfg, spp=1)              # the intersector's first use
     zero_counts()
     (img, _, _), st = benchmarks.run(cfg, spp=CORNELL_SPP)
-    counts = {k: K[k].launches for k in "AB"}
+    counts = {k: K[k].launches for k in "ABK"}
     print(f"[path cornell] config 4, {cfg['width']}x{cfg['height']}, spp "
           f"{CORNELL_SPP} (of {cfg['spp']}), depth {cfg['max_depth']}, "
           f"{st['triangles']} triangles, {cfg['lights'].count} light "
@@ -2277,7 +2288,7 @@ def path_animation(card: str):
 
     tmp = tempfile.TemporaryDirectory(prefix="anim_path_")
     root = Path(tmp.name)
-    launches = {K[k].name: 0 for k in "ABCDEF"}
+    launches = {K[k].name: 0 for k in "ABCDEFK"}
     try:
         config = path_pile_configs(root)
         z, half, radiance = ANIM_LIGHT
@@ -2300,8 +2311,8 @@ def path_animation(card: str):
                 end = torch.cuda.Event(enable_timing=True)
                 end.record()
                 end.synchronize()
-            counts = {k: K[k].launches for k in "ABCDEF"}
-            for k in "ABCDEF":
+            counts = {k: K[k].launches for k in "ABCDEFK"}
+            for k in "ABCDEFK":
                 launches[K[k].name] += counts[k]
             check_pngs(sorted((root / out).glob("frame_*.png")), out)
             wall = refits[2][1].elapsed_time(end) / (frames - 2) / 1e3
@@ -2315,11 +2326,11 @@ def path_animation(card: str):
               f"[{card}]: wall {per_frame:.4f} s/frame over frames 2-"
               f"{ANIM_PATH_FRAMES - 1} (CUDA events, PNGs included); "
               f"launches per frame: " + ", ".join(
-                  f"{k} {counts[k] / ANIM_PATH_FRAMES:.2f}" for k in "ABCF")
+                  f"{k} {counts[k] / ANIM_PATH_FRAMES:.2f}" for k in "ABCFK")
               + f" (A on bundle schedules {bundle_launches})")
         print(f"[path anim] {bundle_counts(log)}")
-        if min(counts["B"], counts["C"], counts["F"]) == 0 or not log:
-            raise AssertionError("the path loop missed B, C, F or the "
+        if min(counts[k] for k in "BCFK") == 0 or not log:
+            raise AssertionError("the path loop missed B, C, F, K or the "
                                  "bundle engine")
         if bundle_launches == 0:
             raise AssertionError("no NEE wave ran kernel A on a bundle "
@@ -2333,7 +2344,7 @@ def path_animation(card: str):
               f"panel, {ANIM_LARGE_FRAMES} frames [{card}]: wall "
               f"{per_frame:.4f} s/frame over frames 2-"
               f"{ANIM_LARGE_FRAMES - 1}; launches per frame: " + ", ".join(
-                  f"{k} {counts[k] / ANIM_LARGE_FRAMES:.2f}" for k in "ABCF")
+                  f"{k} {counts[k] / ANIM_LARGE_FRAMES:.2f}" for k in "ABCFK")
               + f" (A on bundle schedules {big_launches}); "
               + bundle_counts(log))
         bundle_launches += big_launches
@@ -2351,7 +2362,7 @@ def path_animation(card: str):
                 end.synchronize()
         finally:
             del os.environ["ORT_TIME_TLAS"]
-        for k in "DE":
+        for k in "DEK":
             launches[K[k].name] += K[k].launches
         per_frame = (tlas_frames[1][1].elapsed_time(end)
                      / (ANIM_TLAS_FRAMES - 1) / 1e3)
@@ -2360,8 +2371,9 @@ def path_animation(card: str):
               f"frame D {K['D'].launches / ANIM_TLAS_FRAMES:.2f}, E "
               f"{K['E'].launches / ANIM_TLAS_FRAMES:.2f} (its NEE waves "
               f"take E: the TLAS intersector has no bundle engine)")
-        if min(K["D"].launches, K["E"].launches) == 0:
-            raise AssertionError("the TLAS path loop missed kernel D or E")
+        if min(K[k].launches for k in "DEK") == 0:
+            raise AssertionError("the TLAS path loop missed kernel D, E "
+                                 "or K")
         tlas_imgs = check_pngs(sorted((root / "out2").glob("frame_*.png")),
                                "path TLAS")
 
@@ -2372,7 +2384,7 @@ def path_animation(card: str):
             run_cli(["--config", config("path_nt.json", half,
                                          temporal=False),
                      "--output", root / "out3", "--frames", 1])
-        for k in "ABCF":
+        for k in "ABCFK":
             launches[K[k].name] += K[k].launches
         nt_launches = K["A"].variants.get("None", 0)
         bundle_launches += nt_launches
@@ -2651,7 +2663,7 @@ def shared_builds():
         common.choose_intersector = real
 
 
-def launch_counts(keys: str = "ABCDEFHIJ") -> dict:
+def launch_counts(keys: str = "ABCDEFHIJK") -> dict:
     return {k: K[k].launches for k in keys}
 
 
@@ -2743,7 +2755,7 @@ def restir_gi_cornell(card: str, add) -> None:
     zero_counts()
     (gi, _, _), gi_s = timed(lambda: restir.render_restir_gi_progressive(
         *args, spp=CORNELL_SPP, **kw))
-    counts = launch_counts("ABC")
+    counts = launch_counts("ABCK")
     add(counts)
     pm, gm = float(path.mean()), float(gi.mean())
     print(f"[extras restir-gi] config 4, {w}x{h}, spp {CORNELL_SPP}, depth "
@@ -3249,18 +3261,29 @@ def parallel_phase(frame, card: str) -> dict:
 # ---- phase 14: the bounce loop's kernels H, I and J ----------------------
 
 # integer operations of the RNG (csrc/rng.cuh; a shift, logic operation,
-# product or sum counts as one): PCG4D's 32, one Owen scramble's 11, a
-# uniform's 3, per set bit of a Sobol index 4 (find, load, xor, clear)
+# product, sum or shared-memory load counts as one): PCG4D's 32, one Owen
+# scramble's 11, a uniform's 3, a Sobol point's four table lookups 7 each
+# (the byte, its row, the 16-byte load, four XORs)
 PCG_OPS = 32
 OWEN_OPS = 11
 UNIT_OPS = 3
-SOBOL_BIT_OPS = 4
+SOBOL_LOOKUP_OPS = 4 * 7
 # float operations of J's branches per ray (csrc/scatter.cu; a compare,
 # select, clamp or a double cos / sin counts as one): what every ray does
 # (the gather, normalising the normal, two fallback tests, the last
 # normalise), then the ROUGH, METAL and DIELECTRIC branch's own
 SCATTER_COMMON_OPS = 44
 SCATTER_BRANCH_OPS = {"rough": 20, "metal": 41, "dielectric": 55}
+# float operations of K's lobes per ray (csrc/path_scatter.cu, counted as
+# J's): what every ray does (the throughput product, the offset origin,
+# the outputs' selects), then the cosine lobe's (ROUGH and EMISSIVE rows:
+# Frisvad's basis, two normalisations, the pdf), METAL's and
+# DIELECTRIC's, and the roulette's where it applies
+BSDF_COMMON_OPS = 20
+BSDF_LOBE_OPS = {"cosine": 66, "metal": 64, "dielectric": 71}
+BSDF_RR_OPS = 11
+#: the phase-14 path waves' roulette start (bounce 1 before, 2 from it)
+BSDF_RR_START = 2
 
 
 @contextlib.contextmanager
@@ -3279,36 +3302,41 @@ def swapped(*pairs):
 
 def twin_route():
     """The bounce loop on the plain versions, called explicitly on CUDA
-    tensors: the scatter and the uniforms (jitter included) of
-    ``wavefront.render`` go to ``scatter_plain``, ``uniform4_plain`` and
-    ``sobol_owen4_plain``."""
-    from optix_ray_tracer_tpu_torch.render import wavefront
+    tensors: the scatter, the path tracer's BSDF step and the uniforms
+    (jitter and light samples included) of ``wavefront.render`` and
+    ``pathtracer.render_path`` go to ``scatter_plain``,
+    ``bsdf_step_plain``, ``uniform4_plain`` and ``sobol_owen4_plain``."""
+    from optix_ray_tracer_tpu_torch.render import pathtracer, wavefront
     from optix_ray_tracer_tpu_torch.utils import qmc, rng
     return swapped((wavefront, "scatter", wavefront.scatter_plain),
+                   (pathtracer, "bsdf_step", pathtracer.bsdf_step_plain),
                    (rng, "uniform4", rng.uniform4_plain),
                    (qmc, "sobol_owen4", qmc.sobol_owen4_plain))
 
 
-def sobol_bits(pix, samp, bounce: int, seed: int):
-    """Per element, the set bits of the Owen-shuffled Sobol index that I
-    (and J under Sobol) loop over: the data's own work."""
-    import torch
-
+@contextlib.contextmanager
+def no_twin_calls(label: str):
+    """Within the block, a call of any plain version of H-K fails the
+    run."""
+    from optix_ray_tracer_tpu_torch.render import pathtracer, wavefront
     from optix_ray_tracer_tpu_torch.utils import qmc, rng
-    s_shuf = rng.pcg4d_plain(pix, bounce, seed, 0x9E3779B9)[0]
-    idx = qmc.owen_scramble(samp, s_shuf)
-    bits = torch.zeros_like(idx)
-    for j in range(32):
-        bits += (idx >> j) & 1
-    return bits
+    twins = ((rng, "uniform4_plain"), (rng, "pcg4d_plain"),
+             (qmc, "sobol_owen4_plain"), (wavefront, "scatter_plain"),
+             (pathtracer, "bsdf_step_plain"))
+    with contextlib.ExitStack() as stack:
+        calls = [stack.enter_context(calls_of(m, n)) for m, n in twins]
+        yield
+    if any(calls):
+        raise AssertionError(f"{label} by the kernels called a plain "
+                             f"version")
 
 
-def sobol_ops(bits, dims: int):
-    """Integer operations of ``dims`` Sobol-Owen uniforms per element,
-    given each element's set index bits."""
-    n = bits.numel()
-    return (n * (PCG_OPS + OWEN_OPS + dims * (OWEN_OPS + UNIT_OPS) + 1)
-            + dims * SOBOL_BIT_OPS * int(bits.sum()))
+def sobol_ops(n: int, dims: int) -> int:
+    """Integer operations of ``dims`` Sobol-Owen uniforms for each of n
+    elements: the PCG4D seeds, the index shuffle, the table lookups, and
+    per dimension a scramble and a uniform."""
+    return n * (PCG_OPS + OWEN_OPS + SOBOL_LOOKUP_OPS
+                + dims * (OWEN_OPS + UNIT_OPS) + 1)
 
 
 def device_ms(fn, kernel: str, reps: int) -> float:
@@ -3376,7 +3404,7 @@ def rng_rows(frame, card: str) -> dict:
          n * (PCG_OPS + 4 * UNIT_OPS), "pcg4d_kernel"),
         ("sobol_owen4", "I", lambda: qmc.sobol_owen4(pix, samp, 1, seed),
          lambda: qmc.sobol_owen4_plain(pix, samp, 1, seed),
-         sobol_ops(sobol_bits(pix, samp, 1, seed), 4), "sobol_owen4_kernel"),
+         sobol_ops(n, 4), "sobol_owen4_kernel"),
     )
     for name, letter, kern_fn, plain_fn, ops, cuda_name in cases:
         before = K[letter].launches
@@ -3418,26 +3446,19 @@ def scatter_wave(frame, sampler: str) -> tuple:
 
 def scatter_ops(args, sampler: str) -> int:
     """The operations J does on one wave: per ray its branch's float
-    operations and its one draw's integer operations (Sobol: this wave's
-    own index bits)."""
-    import torch
-
-    from optix_ray_tracer_tpu_torch.render import wavefront
+    operations and its one draw's integer operations."""
     from optix_ray_tracer_tpu_torch.scene.materials import DIELECTRIC, METAL
-    mats, mid, pix, samp, b, seed = (args[0], args[1], args[5], args[6],
-                                     args[7], args[8])
+    mats, mid = args[0], args[1]
     mtype = mats.gather(mid)[0]
     metal, diel = mtype == METAL, mtype == DIELECTRIC
-    sel = (("rough", ~(metal | diel), wavefront._DIM_SCATTER, 2),
-           ("metal", metal, wavefront._DIM_FUZZ, 2),
-           ("dielectric", diel, wavefront._DIM_FRESNEL, 1))
+    sel = (("rough", ~(metal | diel), 2), ("metal", metal, 2),
+           ("dielectric", diel, 1))
     ops = mid.numel() * SCATTER_COMMON_OPS
-    for name, mask, salt, dims in sel:
+    for name, mask, dims in sel:
         k = int(mask.sum())
         ops += k * SCATTER_BRANCH_OPS[name]
         if sampler == "sobol":
-            ops += sobol_ops(sobol_bits(pix[mask], samp[mask], b,
-                                        seed ^ salt), dims)
+            ops += sobol_ops(k, dims)
         else:
             ops += k * (PCG_OPS + dims * UNIT_OPS)
     return ops
@@ -3515,18 +3536,10 @@ def route_frames(frame, card: str) -> dict:
         torch.cuda.synchronize()
         return img, time.perf_counter() - t0
 
-    from optix_ray_tracer_tpu_torch.utils import qmc, rng
-    twins = ((rng, "uniform4_plain"), (rng, "pcg4d_plain"),
-             (qmc, "sobol_owen4_plain"), (wavefront, "scatter_plain"))
     for sampler, need in (("pcg", "HJ"), ("sobol", "IJ")):
         zero_counts()
-        with contextlib.ExitStack() as stack:
-            plain_calls = [stack.enter_context(calls_of(m, n))
-                           for m, n in twins]
+        with no_twin_calls(f"the {sampler} frame"):
             img, s_kern = render(sampler)
-        if any(plain_calls):
-            raise AssertionError(f"the {sampler} frame by the kernels called "
-                                 f"a plain version")
         counts = launch_counts("HIJ")
         for k, n in counts.items():
             launches[K[k].name] = launches.get(K[k].name, 0) + n
@@ -3550,13 +3563,240 @@ def route_frames(frame, card: str) -> dict:
     return launches
 
 
+def path_setup(frame) -> SimpleNamespace:
+    """Phase 14's path scenes: config 5 and config 4 with their
+    intersectors, and phase 4's scene (the METAL sphere over the ROUGH
+    quad) with a DIELECTRIC and an EMISSIVE sphere beside the mesh."""
+    from optix_ray_tracer_tpu_torch.models import benchmarks
+    from optix_ray_tracer_tpu_torch.models.common import choose_intersector
+    from optix_ray_tracer_tpu_torch.ops.march import make_march_intersector
+    from optix_ray_tracer_tpu_torch.scene.geometry import Scene, Spheres
+    from optix_ray_tracer_tpu_torch.scene.materials import MaterialBuilder
+
+    dev = frame.img.device
+    c5 = benchmarks.config5_sponza_class(device=dev)
+    c4 = benchmarks.config4_cornell(device=dev)
+    mb = MaterialBuilder()
+    mb.add_metal((0.8, 0.85, 0.88), 0.05)      # phase 4's rows 0 and 1
+    mb.add_rough((0.70, 0.60, 0.50))
+    glass = mb.add_dielectric(1.5)
+    lamp = mb.add_emissive((4.0, 4.0, 4.0))
+    mixed = Scene(Spheres.from_list([((0.2, 1.5, -0.6), 0.4, glass),
+                                     ((0.5, -1.4, -0.5), 0.3, lamp)], dev),
+                  frame.scene.triangles)
+    return SimpleNamespace(
+        c5=c5, i5=choose_intersector(c5["scene"]), c4=c4,
+        i4=choose_intersector(c4["scene"]), mixed=mixed,
+        mixed_mats=mb.build(dev), mixed_inter=make_march_intersector(
+            mixed, raster=True), cam=frame.cam)
+
+
+def path_frame(cfg, inter, sampler: str = "pcg", spp: int | None = None,
+               max_depth: int | None = None):
+    """``pathtracer.render_path`` of a benchmark config (seed 1): the
+    frame ``benchmarks.run`` renders, with the sampler named."""
+    from optix_ray_tracer_tpu_torch.render import pathtracer
+    return pathtracer.render_path(
+        cfg["scene"], cfg["materials"], cfg.get("lights"), cfg["camera"],
+        cfg["width"], cfg["height"], spp=spp or cfg["spp"], seed=1,
+        max_depth=max_depth or cfg["max_depth"],
+        background=cfg["background"], env=cfg.get("env"),
+        textures=cfg.get("textures"), intersector=inter, sampler=sampler)[0]
+
+
+def bsdf_waves(render, bounces) -> list:
+    """The positional arguments of ``pathtracer.bsdf_step`` at each of
+    ``bounces`` in the frame ``render()`` draws."""
+    from optix_ray_tracer_tpu_torch.render import pathtracer
+    with calls_of(pathtracer, "bsdf_step", keep=lambda *a, **k: a) as seen:
+        render()
+    return [seen[b] for b in bounces]
+
+
+def bsdf_ops(args) -> int:
+    """The operations K does on one wave: per ray its lobe's float
+    operations and its draw's integer operations, and the roulette's
+    where it applies."""
+    from optix_ray_tracer_tpu_torch.scene.materials import DIELECTRIC, METAL
+    mtype, alive, b, sampler, rr_start = (args[4], args[8], args[12],
+                                          args[14], args[15])
+    n = mtype.numel()
+    draw = (lambda dims: sobol_ops(1, dims)) if sampler == "sobol" else (
+        lambda dims: PCG_OPS + dims * UNIT_OPS)
+    metal = int((mtype == METAL).sum())
+    diel = int((mtype == DIELECTRIC).sum())
+    ops = (n * (BSDF_COMMON_OPS + draw(2))
+           + (n - metal - diel) * BSDF_LOBE_OPS["cosine"]
+           + metal * BSDF_LOBE_OPS["metal"]
+           + diel * BSDF_LOBE_OPS["dielectric"])
+    if b >= rr_start:
+        ops += int(alive.sum()) * (BSDF_RR_OPS + draw(1))
+    return ops
+
+
+def bsdf_bytes(args, kern) -> int:
+    """The bytes K must move on one wave, counted row by row from the
+    wave's masks: on every row mtype, shading_alive, throughput and the
+    five outputs; the RNG ids where a draw is needed (ROUGH rows, whose
+    prev_pdf takes the lobe's draw, rows that go on, and live rows under
+    roulette); n_unit and point on rows that go on, o on the others; d
+    on rows that stop and on METAL and DIELECTRIC rows that go on; param
+    on those too, front_face on the DIELECTRIC ones; albedo on live rows
+    that are not DIELECTRIC.  No row's bytes are rounded up to sectors."""
+    import torch
+
+    from optix_ray_tracer_tpu_torch.scene.materials import (
+        DIELECTRIC, METAL, ROUGH,
+    )
+    (d, n_unit, point, front, mtype, albedo, param, thr, alive, o, pix,
+     samp) = args[:12]
+    b, rr_start = args[12], args[15]
+    n = mtype.numel()
+    go = kern[4]
+    diel = mtype == DIELECTRIC
+    lobe = (mtype == METAL) | diel
+
+    def moved(mask, *ts) -> int:
+        rows = int(mask.sum())
+        total = 0
+        for t in ts:
+            if not hasattr(t, "numel"):
+                continue                    # a value passed by value
+            per_row = t.element_size() * (t.numel() // n)
+            total += rows * per_row if t.numel() >= n else (
+                t.numel() * t.element_size())
+        return total
+
+    every = torch.ones_like(alive)
+    draws = (mtype == ROUGH) | go | (alive & (b >= rr_start))
+    return (moved(every, mtype, alive, thr, *kern)
+            + moved(draws, pix, samp)
+            + moved(go, n_unit, point) + moved(~go, o)
+            + moved(~go | (go & lobe), d) + moved(go & lobe, param)
+            + moved(go & diel, front) + moved(alive & ~diel, albedo))
+
+
+def bsdf_rows(p: SimpleNamespace, card: str) -> dict:
+    """Phase 14 (d): K against ``bsdf_step_plain`` on the same CUDA
+    tensors, exact, on the mixed scene's waves (1024x1024, spp 1, depth 3,
+    roulette from bounce BSDF_RR_START: bounces 1 and 2, under PCG and
+    under Sobol), then on config 5's bounce-1 wave (2.09M rays), whose
+    row is K's; mismatches named by material."""
+    import torch
+
+    from optix_ray_tracer_tpu_torch.render import pathtracer
+    from optix_ray_tracer_tpu_torch.scene.materials import (
+        DIELECTRIC, EMISSIVE, METAL, ROUGH,
+    )
+    kinds = (("ROUGH", ROUGH), ("METAL", METAL), ("DIELECTRIC", DIELECTRIC),
+             ("EMISSIVE", EMISSIVE))
+    waves = []
+    for sampler in ("pcg", "sobol"):
+        waves += [(f"mixed scene, {sampler}, bounce {k + 1}", a) for k, a in
+                  enumerate(bsdf_waves(lambda: pathtracer.render_path(
+                      p.mixed, p.mixed_mats, None, p.cam, WIDTH, HEIGHT,
+                      spp=1, seed=1, max_depth=3, rr_start=BSDF_RR_START,
+                      intersector=p.mixed_inter, sampler=sampler), (1, 2)))]
+    waves += [("config 5, pcg, bounce 1", bsdf_waves(
+        lambda: path_frame(p.c5, p.i5, max_depth=2), (1,))[0])]
+    errs = []
+    for label, args in waves:
+        mtype, alive = args[4], args[8]
+        mix = ", ".join(f"{name} {int((mtype == m).sum())}"
+                        for name, m in kinds)
+        before = K["K"].launches
+        kern = pathtracer.bsdf_step(*args)
+        if K["K"].launches != before + 1:
+            raise AssertionError("K did not launch")
+        plain = pathtracer.bsdf_step_plain(*args)
+        torch.cuda.synchronize()
+        bad, err = held(f"K path_bsdf, {label}, {mtype.numel()} rays ({mix};"
+                        f" {int((~alive).sum())} dead, "
+                        f"{int((alive & ~kern[4]).sum())} ended by the "
+                        f"roulette)", kern, plain)
+        if bad:
+            diff = ((kern[1] != plain[1]).any(-1) | (kern[0] != plain[0])
+                    .any(-1) | (kern[2] != plain[2]).any(-1)
+                    | (kern[3] != plain[3]) | (kern[4] != plain[4]))
+            print("    mismatched rays by material: " + ", ".join(
+                f"{name} {int((diff & (mtype == m)).sum())}"
+                for name, m in kinds))
+            raise AssertionError(f"K disagrees with bsdf_step_plain on "
+                                 f"{bad} elements ({label})")
+        errs.append(err)
+        if label.startswith("mixed") and not all(
+                int((mtype == m).sum()) for _, m in kinds):
+            raise AssertionError(f"the {label} wave lacks a material")
+    ms = device_ms(lambda: pathtracer.bsdf_step(*args), "path_bsdf_kernel",
+                   REPS)
+    call_ms = time_ms(lambda: pathtracer.bsdf_step(*args), REPS)
+    plain_ms = time_ms(lambda: pathtracer.bsdf_step_plain(*args), 1)
+    r = row(max(errs), ms, plain_ms, bsdf_bytes(args, kern), bsdf_ops(args))
+    print(f"[bounce] K path_bsdf, config 5's bounce-1 wave: device {ms:.4f} "
+          f"ms for {args[4].numel()} rays ({call_ms:.4f} ms per wrapper "
+          f"call; plain {plain_ms:.3f} ms) [{card}]; bound "
+          f"{r['bound_ms']:.4f} ms by {r['bound_by']} "
+          f"({100 * r['bound_ms'] / ms:.1f}%)")
+    return r
+
+
+def path_route_frames(p: SimpleNamespace, card: str) -> dict:
+    """Phase 14 (e): a config-4 frame (spp 4) under the Sobol sampler and
+    a config-5 frame by the kernels (counts zeroed just before and read
+    just after: K launched, and H or I; no plain version called) and by
+    the plain versions called explicitly (:func:`twin_route`: no launch
+    of H-K); the two frames equal to 2 LSB on every channel.  Returns the
+    kernel routes' launches."""
+    import torch
+    launches = {}
+
+    def render(cfg, inter, sampler, spp):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        img = path_frame(cfg, inter, sampler, spp)
+        torch.cuda.synchronize()
+        return img, time.perf_counter() - t0
+
+    for label, cfg, inter, sampler, spp, need in (
+            ("config 4", p.c4, p.i4, "sobol", 4, "IK"),
+            ("config 5", p.c5, p.i5, "pcg", None, "HK")):
+        zero_counts()
+        with no_twin_calls(f"the {label} frame"):
+            img, s_kern = render(cfg, inter, sampler, spp)
+        counts = launch_counts("HIJK")
+        for k, n in counts.items():
+            launches[K[k].name] = launches.get(K[k].name, 0) + n
+        zero_counts()
+        with twin_route():
+            twin, s_twin = render(cfg, inter, sampler, spp)
+        twin_counts = launch_counts("HIJK")
+        err, over2 = lsb_share(img, twin)
+        print(f"[bounce] {label}'s path frame, {sampler}: kernels "
+              f"{s_kern:.3f} s/frame (launches {counts_text(counts)}), plain "
+              f"versions {s_twin:.3f} s/frame [{card}]; max |diff| "
+              f"{err:.3g}, {over2:.6f} of channels > 2 LSB")
+        if min(counts[k] for k in need) == 0:
+            raise AssertionError(f"the {label} frame missed a kernel of "
+                                 f"{need}: {counts}")
+        if any(twin_counts.values()):
+            raise AssertionError(f"the plain route launched {twin_counts}")
+        if not torch.isfinite(img).all() or over2 > 0:
+            raise AssertionError(f"the {label} frame by the kernels differs "
+                                 f"from the plain route's")
+    return launches
+
+
 def bounce_phase(frame, card: str) -> tuple:
-    """Phase 14: the bounce loop's kernels H, I and J.  Returns (their
-    JSON rows, the launches of (c))."""
+    """Phase 14: the bounce loop's kernels H-K.  Returns (their JSON
+    rows, the launches of (c) and (e))."""
     t0 = time.perf_counter()
     rows = rng_rows(frame, card)
     rows["whitted_scatter"] = scatter_row(frame, card)
     launches = route_frames(frame, card)
+    p = path_setup(frame)
+    rows["path_bsdf"] = bsdf_rows(p, card)
+    for name, n in path_route_frames(p, card).items():
+        launches[name] = launches.get(name, 0) + n
     print(f"[bounce] phase 14 in {time.perf_counter() - t0:.1f} s")
     return rows, launches
 
@@ -3583,7 +3823,7 @@ def main() -> None:
     K.update(A=_lib.TILE_RASTER, B=_lib.BLOCK_MARCH, C=_lib.PROBE,
              D=_lib.TILE_RASTER_INSTANCED, E=_lib.BLOCK_MARCH_INSTANCED,
              F=_lib.BLOCK_MARCH_HIER, G=_lib.LEAF_SWEEP, H=_lib.PCG4D,
-             I=_lib.SOBOL_OWEN4, J=_lib.WHITTED_SCATTER)
+             I=_lib.SOBOL_OWEN4, J=_lib.WHITTED_SCATTER, K=_lib.PATH_BSDF)
     card = card_line()
     print(card)      # name and power limit, as nvidia-smi reports them
     t_start = time.perf_counter()

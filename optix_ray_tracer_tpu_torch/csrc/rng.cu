@@ -13,12 +13,15 @@
 // What bounds them on the H100: bytes.  An element reads its tensor
 // arguments (two int64 ids on the main path: 16 bytes) and writes four
 // 4-byte uniforms (or four int64 lanes); its integer work, ~50 operations
-// for H and a few hundred for I, is far below the bytes' time.  So the
-// design is the plain one: one element per thread, coalesced loads of
-// each tensor argument, the scalars (bounce, seed) passed by value, the
-// four outputs as four contiguous rows (the plain version's four
-// tensors), and I's 512-byte direction table read through the read-only
-// cache.
+// for H and ~120 for I, is below the bytes' time.  So the design is the
+// plain one: one element per thread, coalesced loads of each tensor
+// argument, the scalars (bounce, seed) passed by value, the four outputs
+// as four contiguous rows (the plain version's four tensors).  I's Sobol
+// points come from the per-byte tables (rng.cuh), which each block of a
+// resident grid stages once in shared memory: four 16-byte lookups per
+// element, where a walk over the index's set bits would wait, per
+// dimension, on one dependent load per bit of its warp's longest index
+// (PERF.md).
 #include "rng.cuh"
 
 namespace {
@@ -61,15 +64,17 @@ __global__ void __launch_bounds__(kThreads)
 __global__ void __launch_bounds__(kThreads)
     sobol_owen4_kernel(OrtLane pix, OrtLane sample, OrtLane bounce,
                        OrtLane seed, long long n,
-                       const unsigned* __restrict__ dirs,
+                       const uint4* __restrict__ tables,
                        float* __restrict__ out) {
+  __shared__ uint4 tab[ORT_SOBOL_ROWS];
+  ort_stage_sobol(tables, tab);
   const long long stride = static_cast<long long>(gridDim.x) * kThreads;
   for (long long i = static_cast<long long>(blockIdx.x) * kThreads +
                      threadIdx.x;
        i < n; i += stride) {
     float u[4];
     ort_sobol_owen<4>(ort_lane(pix, i), ort_lane(sample, i),
-                      ort_lane(bounce, i), ort_lane(seed, i), dirs, u);
+                      ort_lane(bounce, i), ort_lane(seed, i), tab, u);
     out[i] = u[0];
     out[n + i] = u[1];
     out[2 * n + i] = u[2];
@@ -97,15 +102,21 @@ extern "C" int ort_pcg4d(const void* ap, int ak, unsigned av, const void* bp,
   return static_cast<int>(cudaGetLastError());
 }
 
+// tables: the (1024, 4) per-byte Sobol tables (rng.cuh).
 extern "C" int ort_sobol_owen4(const void* ap, int ak, unsigned av,
                                const void* bp, int bk, unsigned bv,
                                const void* cp, int ck, unsigned cv,
                                const void* dp, int dk, unsigned dv,
-                               long long n, const unsigned* dirs, float* out,
+                               long long n, const uint4* tables, float* out,
                                void* stream) {
-  sobol_owen4_kernel<<<grid_for(n), kThreads, 0,
+  static std::atomic<int> fit[ORT_MAX_DEVICES];
+  int grid = 0;
+  const cudaError_t e =
+      ort_resident_grid(sobol_owen4_kernel, n, kThreads, 0, fit, &grid);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  sobol_owen4_kernel<<<grid, kThreads, 0,
                        static_cast<cudaStream_t>(stream)>>>(
       ort_make_lane(ap, ak, av), ort_make_lane(bp, bk, bv),
-      ort_make_lane(cp, ck, cv), ort_make_lane(dp, dk, dv), n, dirs, out);
+      ort_make_lane(cp, ck, cv), ort_make_lane(dp, dk, dv), n, tables, out);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,7 +1,7 @@
 // Shared device code of the bounce loop's kernels (rng.cu: H and I;
-// scatter.cu: J): the counter RNG of utils/rng.py (PCG4D) and the
-// Owen-scrambled Sobol pads of utils/qmc.py, on native uint32, so that
-// the three kernels draw one stream from one source.
+// scatter.cu: J; path_scatter.cu: K): the counter RNG of utils/rng.py
+// (PCG4D) and the Owen-scrambled Sobol pads of utils/qmc.py, on native
+// uint32, so that the kernels draw one stream from one source.
 //
 // The plain versions hold the uint32 lanes in int64 tensors masked to 32
 // bits; here they are unsigned ints, whose arithmetic wraps mod 2^32 by
@@ -9,6 +9,8 @@
 #pragma once
 
 #include <cuda_runtime.h>
+
+#include <atomic>
 
 // One argument of the RNG: an int32 or int64 tensor of the output's
 // shape (element i, low 32 bits taken) or a value passed by value
@@ -83,19 +85,32 @@ __device__ __forceinline__ unsigned ort_owen(unsigned x, unsigned seed) {
   return __brev(ort_laine_karras(__brev(x), seed));
 }
 
-// Raw Sobol point of idx in dimension dim from the (32, 4) direction
-// table dirs (row j, column dim: utils/qmc._DIRECTIONS[:, :4]): the XOR
-// of the rows of idx's set bits, the same XOR as the plain version's
-// 32-step loop in any order.
-__device__ __forceinline__ unsigned ort_sobol(unsigned idx, int dim,
-                                              const unsigned* __restrict__ dirs) {
-  unsigned acc = 0u;
-  while (idx) {
-    const int j = __ffs(static_cast<int>(idx)) - 1;
-    acc ^= __ldg(dirs + 4 * j + dim);
-    idx &= idx - 1u;
-  }
-  return acc;
+// The per-byte Sobol tables (utils/qmc.sobol_byte_tables): row 256 k + v
+// holds, for dimensions 0-3, the XOR of the direction rows 8 k + j of the
+// set bits j of v, so the raw Sobol point of an index is the XOR of the
+// four rows its bytes select: the plain version's 32-step XOR, in another
+// order, which XOR does not see.  A kernel that draws from the Sobol
+// sampler stages them in shared memory (16 KB) with ort_stage_sobol and
+// passes the staged copy to the draws: four 16-byte lookups per index,
+// where a loop over the index's set bits waited for its warp's longest
+// (~22 bits, four loops of dependent loads; PERF.md).
+#define ORT_SOBOL_ROWS 1024
+#define ORT_SOBOL_BYTES (ORT_SOBOL_ROWS * 16)
+
+// Every thread of the block calls it, before any draw.
+__device__ __forceinline__ void ort_stage_sobol(const uint4* __restrict__ g,
+                                                uint4* s) {
+  for (int k = threadIdx.x; k < ORT_SOBOL_ROWS; k += blockDim.x)
+    s[k] = __ldg(g + k);
+  __syncthreads();
+}
+
+// The raw Sobol points of idx in dimensions 0-3 from the staged tables.
+__device__ __forceinline__ uint4 ort_sobol(unsigned idx, const uint4* tab) {
+  const uint4 a = tab[idx & 255u], b = tab[256 + ((idx >> 8) & 255u)],
+              c = tab[512 + ((idx >> 16) & 255u)], d = tab[768 + (idx >> 24)];
+  return make_uint4(a.x ^ b.x ^ c.x ^ d.x, a.y ^ b.y ^ c.y ^ d.y,
+                    a.z ^ b.z ^ c.z ^ d.z, a.w ^ b.w ^ c.w ^ d.w);
 }
 
 // The first NDIMS of utils/qmc.sobol_owen4_plain's four uniforms: PCG4D
@@ -103,16 +118,17 @@ __device__ __forceinline__ unsigned ort_sobol(unsigned idx, int dim,
 // the sample, then per dimension a Sobol point and its own scramble
 // (seeds s0, s1, s2, s0 ^ s1).
 template <int NDIMS>
-__device__ __forceinline__ void ort_sobol_owen(
-    unsigned pix, unsigned sample, unsigned bounce, unsigned seed,
-    const unsigned* __restrict__ dirs, float* out) {
+__device__ __forceinline__ void ort_sobol_owen(unsigned pix, unsigned sample,
+                                               unsigned bounce, unsigned seed,
+                                               const uint4* tab, float* out) {
   unsigned s_shuf = pix, s0 = bounce, s1 = seed, s2 = 0x9E3779B9u;
   ort_pcg4d_hash(s_shuf, s0, s1, s2);
-  const unsigned idx = ort_owen(sample, s_shuf);
+  const uint4 p = ort_sobol(ort_owen(sample, s_shuf), tab);
+  const unsigned raw[4] = {p.x, p.y, p.z, p.w};
   const unsigned seeds[4] = {s0, s1, s2, s0 ^ s1};
 #pragma unroll
   for (int i = 0; i < NDIMS; ++i)
-    out[i] = ort_unit_float(ort_owen(ort_sobol(idx, i, dirs), seeds[i]));
+    out[i] = ort_unit_float(ort_owen(raw[i], seeds[i]));
 }
 
 // The first NDIMS of utils/rng.uniform4's four uniforms by sampler:
@@ -120,14 +136,14 @@ __device__ __forceinline__ void ort_sobol_owen(
 #define ORT_SAMPLER_PCG 0
 #define ORT_SAMPLER_SOBOL 1
 
+// tab: the staged Sobol tables (read with sampler 1 only).
 template <int NDIMS>
 __device__ __forceinline__ void ort_uniform(int sampler, unsigned pix,
                                             unsigned sample, unsigned bounce,
-                                            unsigned seed,
-                                            const unsigned* __restrict__ dirs,
+                                            unsigned seed, const uint4* tab,
                                             float* out) {
   if (sampler == ORT_SAMPLER_SOBOL) {
-    ort_sobol_owen<NDIMS>(pix, sample, bounce, seed, dirs, out);
+    ort_sobol_owen<NDIMS>(pix, sample, bounce, seed, tab, out);
     return;
   }
   unsigned x = pix, y = sample, z = bounce, w = seed;
@@ -135,4 +151,41 @@ __device__ __forceinline__ void ort_uniform(int sampler, unsigned pix,
   const unsigned u[4] = {x, y, z, w};
 #pragma unroll
   for (int i = 0; i < NDIMS; ++i) out[i] = ort_unit_float(u[i]);
+}
+
+// The grid of a grid-stride kernel that stages the Sobol tables: one
+// block per `threads` elements, at most the blocks the device holds at
+// once, so that each resident block stages them once.  `fit` is the
+// caller's cache of that number of blocks per device (0 until the first
+// launch there), so the occupancy query runs once per kernel and device.
+// Returns the error of a failed query, with the runtime's last error
+// cleared.
+#define ORT_MAX_DEVICES 64
+
+template <typename Kernel>
+__host__ cudaError_t ort_resident_grid(Kernel kernel, long long n,
+                                       int threads, size_t dynamic_smem,
+                                       std::atomic<int>* fit, int* grid) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  int most = e == cudaSuccess && dev < ORT_MAX_DEVICES
+                 ? fit[dev].load(std::memory_order_relaxed)
+                 : 0;
+  if (e == cudaSuccess && most == 0) {
+    int sms = 0, per_sm = 0;
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        threads, dynamic_smem);
+    most = sms * (per_sm > 0 ? per_sm : 1);
+    if (e == cudaSuccess && dev < ORT_MAX_DEVICES)
+      fit[dev].store(most, std::memory_order_relaxed);
+  }
+  if (e != cudaSuccess) {
+    cudaGetLastError();
+    return e;
+  }
+  const long long need = (n + threads - 1) / threads;
+  *grid = static_cast<int>(need < most ? need : most);
+  return cudaSuccess;
 }

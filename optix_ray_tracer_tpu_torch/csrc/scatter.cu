@@ -28,6 +28,7 @@
 #include <math.h>
 
 #include "rng.cuh"
+#include "shading.cuh"
 
 namespace {
 
@@ -36,79 +37,9 @@ constexpr unsigned kDimScatter = 0x1E3779B9u;   // wavefront._DIM_SCATTER
 constexpr unsigned kDimFuzz = 0x05EBCA6Bu;      // wavefront._DIM_FUZZ
 constexpr unsigned kDimFresnel = 0x42B2AE35u;   // wavefront._DIM_FRESNEL
 constexpr float kEps = 1e-6f;                   // vecmath.EPS
-// (2 * vecmath.PI) as the plain version's float32 multiply rounds it
-constexpr float kTwoPi = static_cast<float>(2.0 * 3.1415926);
 constexpr int kMetal = 1, kDielectric = 2, kEmissive = 3;
 
-struct V3 {
-  float x, y, z;
-};
-
-__device__ __forceinline__ V3 load3(const float* __restrict__ p,
-                                    long long i) {
-  return {__ldg(p + 3 * i), __ldg(p + 3 * i + 1), __ldg(p + 3 * i + 2)};
-}
-
-__device__ __forceinline__ void store3(float* __restrict__ p, long long i,
-                                       V3 v) {
-  p[3 * i] = v.x;
-  p[3 * i + 1] = v.y;
-  p[3 * i + 2] = v.z;
-}
-
-// torch.clamp(x, min=lo) / (x, max=hi): NaN passes through
-__device__ __forceinline__ float clamp_min(float x, float lo) {
-  return isnan(x) ? x : fmaxf(x, lo);
-}
-
-__device__ __forceinline__ float clamp_max(float x, float hi) {
-  return isnan(x) ? x : fminf(x, hi);
-}
-
-// vecmath.dot: a0 b0 + a1 b1, then + a2 b2
-__device__ __forceinline__ float dot3(V3 a, V3 b) {
-  return (a.x * b.x + a.y * b.y) + a.z * b.z;
-}
-
-// vecmath.normalize (eps 0): zero vectors map to zero
-__device__ __forceinline__ V3 normalize3(V3 v) {
-  const float n2 = dot3(v, v);
-  const float inv = n2 > 0.0f ? 1.0f / sqrtf(clamp_min(n2, 1e-30f)) : 0.0f;
-  return {v.x * inv, v.y * inv, v.z * inv};
-}
-
-// vecmath.reflect: v - (2 dot(v, n)) n
-__device__ __forceinline__ V3 reflect3(V3 v, V3 n) {
-  const float k = 2.0f * dot3(v, n);
-  return {v.x - k * n.x, v.y - k * n.y, v.z - k * n.z};
-}
-
-// vecmath.refract
-__device__ __forceinline__ V3 refract3(V3 uv, V3 n, float eta) {
-  const float ct = clamp_max(-dot3(uv, n), 1.0f);
-  const V3 rp = {eta * (uv.x + ct * n.x), eta * (uv.y + ct * n.y),
-                 eta * (uv.z + ct * n.z)};
-  const float s = -sqrtf(fabsf(1.0f - dot3(rp, rp)));
-  return {rp.x + s * n.x, rp.y + s * n.y, rp.z + s * n.z};
-}
-
-// vecmath.schlick_fresnel: ** 2 is a square, ** 5 torch's powf
-__device__ __forceinline__ float schlick(float c, float ior) {
-  const float q = (1.0f - ior) / (1.0f + ior);
-  const float r0 = q * q;
-  return r0 + (1.0f - r0) * powf(1.0f - c, 5.0f);
-}
-
-// rng.unit_vector_from: the z / phi sphere point of (u1, u2), cos and sin
-// in double rounded to float as rng._cos_sin takes them
-__device__ __forceinline__ V3 unit_vector(float u1, float u2) {
-  const float z = 1.0f - 2.0f * u1;
-  const float r = sqrtf(clamp_min(1.0f - z * z, 0.0f));
-  const double phi = static_cast<double>(kTwoPi * u2);
-  const float c = static_cast<float>(cos(phi));
-  const float s = static_cast<float>(sin(phi));
-  return {r * c, r * s, z};
-}
+using namespace ort;
 
 // the fallback test: a non-finite component or length^2 <= EPS
 __device__ __forceinline__ bool bad_dir(V3 v) {
@@ -121,11 +52,13 @@ __global__ void __launch_bounds__(kThreads) whitted_scatter_kernel(
     const void* __restrict__ mid, int mid_kind, const float* __restrict__ d_in,
     const float* __restrict__ normal, const bool* __restrict__ front_face,
     OrtLane pix, OrtLane sample, OrtLane bounce, OrtLane seed, long long n,
-    const unsigned* __restrict__ dirs, const int* __restrict__ mtypes,
+    const uint4* __restrict__ tables, const int* __restrict__ mtypes,
     const float* __restrict__ albedos, const float* __restrict__ params,
     const float* __restrict__ emissions, int n_mat,
     float* __restrict__ new_dir, float* __restrict__ attenuation,
     float* __restrict__ emission, bool* __restrict__ terminate) {
+  extern __shared__ uint4 tab[];   // the Sobol tables (Sobol only)
+  if (SAMPLER == ORT_SAMPLER_SOBOL) ort_stage_sobol(tables, tab);
   const long long stride = static_cast<long long>(gridDim.x) * kThreads;
   for (long long i = static_cast<long long>(blockIdx.x) * kThreads +
                      threadIdx.x;
@@ -147,18 +80,18 @@ __global__ void __launch_bounds__(kThreads) whitted_scatter_kernel(
       const float ct = clamp_max(-dot3(din, nn), 1.0f);
       const float st = sqrtf(clamp_min(1.0f - ct * ct, 0.0f));
       float u;
-      ort_uniform<1>(SAMPLER, p, s, b, sd ^ kDimFresnel, dirs, &u);
+      ort_uniform<1>(SAMPLER, p, s, b, sd ^ kDimFresnel, tab, &u);
       const bool reflects = (eta * st > 1.0f) || (schlick(ct, ior) > u);
       nd = reflects ? normalize3(reflect3(din, nn)) : refract3(din, nn, eta);
     } else if (mtype == kMetal) {
       float u[2];
-      ort_uniform<2>(SAMPLER, p, s, b, sd ^ kDimFuzz, dirs, u);
+      ort_uniform<2>(SAMPLER, p, s, b, sd ^ kDimFuzz, tab, u);
       const V3 fz = unit_vector(u[0], u[1]);
       const V3 mr = normalize3(reflect3(din, nn));
       nd = {mr.x + param * fz.x, mr.y + param * fz.y, mr.z + param * fz.z};
     } else {   // ROUGH, and EMISSIVE (its direction is never followed)
       float u[2];
-      ort_uniform<2>(SAMPLER, p, s, b, sd ^ kDimScatter, dirs, u);
+      ort_uniform<2>(SAMPLER, p, s, b, sd ^ kDimScatter, tab, u);
       const V3 ru = unit_vector(u[0], u[1]);
       nd = {nn.x + ru.x, nn.y + ru.y, nn.z + ru.z};
       if (dot3(nd, nd) < kEps) nd = nn;
@@ -177,7 +110,8 @@ __global__ void __launch_bounds__(kThreads) whitted_scatter_kernel(
 
 // J.  mid: int32 (mid_kind ORT_LANE_I32) or int64 material ids; d_in,
 // normal (n, 3) float32; front_face (n,) bool; the four RNG lanes as in
-// rng.cu; dirs the (32, 4) Sobol table (read with sampler 1 only); the
+// rng.cu; tables the (1024, 4) per-byte Sobol tables (read with sampler 1
+// only, staged per block of a resident grid); the
 // material table's mtype (M,) int32, albedo (M, 3), param (M,), emission
 // (M, 3).  Outputs new_dir, attenuation, emission (n, 3), terminate (n,).
 extern "C" int ort_whitted_scatter(
@@ -185,7 +119,7 @@ extern "C" int ort_whitted_scatter(
     const bool* front_face, const void* ap, int ak, unsigned av,
     const void* bp, int bk, unsigned bv, const void* cp, int ck, unsigned cv,
     const void* dp, int dk, unsigned dv, long long n, int sampler,
-    const unsigned* dirs, const int* mtypes, const float* albedos,
+    const uint4* tables, const int* mtypes, const float* albedos,
     const float* params, const float* emissions, int n_mat, float* new_dir,
     float* attenuation, float* emission, bool* terminate, void* stream) {
   const long long blocks = (n + kThreads - 1) / kThreads;
@@ -194,15 +128,22 @@ extern "C" int ort_whitted_scatter(
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const OrtLane a = ort_make_lane(ap, ak, av), b = ort_make_lane(bp, bk, bv),
                 c = ort_make_lane(cp, ck, cv), d = ort_make_lane(dp, dk, dv);
-  if (sampler == ORT_SAMPLER_SOBOL)
-    whitted_scatter_kernel<ORT_SAMPLER_SOBOL><<<grid, kThreads, 0, st>>>(
-        mid, mid_kind, d_in, normal, front_face, a, b, c, d, n, dirs, mtypes,
-        albedos, params, emissions, n_mat, new_dir, attenuation, emission,
-        terminate);
-  else
+  if (sampler == ORT_SAMPLER_SOBOL) {
+    auto kernel = whitted_scatter_kernel<ORT_SAMPLER_SOBOL>;
+    static std::atomic<int> fit[ORT_MAX_DEVICES];
+    int sgrid = 0;
+    const cudaError_t e =
+        ort_resident_grid(kernel, n, kThreads, ORT_SOBOL_BYTES, fit, &sgrid);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    kernel<<<sgrid, kThreads, ORT_SOBOL_BYTES, st>>>(
+        mid, mid_kind, d_in, normal, front_face, a, b, c, d, n, tables,
+        mtypes, albedos, params, emissions, n_mat, new_dir, attenuation,
+        emission, terminate);
+  } else {
     whitted_scatter_kernel<ORT_SAMPLER_PCG><<<grid, kThreads, 0, st>>>(
-        mid, mid_kind, d_in, normal, front_face, a, b, c, d, n, dirs, mtypes,
-        albedos, params, emissions, n_mat, new_dir, attenuation, emission,
-        terminate);
+        mid, mid_kind, d_in, normal, front_face, a, b, c, d, n, tables,
+        mtypes, albedos, params, emissions, n_mat, new_dir, attenuation,
+        emission, terminate);
+  }
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,5 +1,5 @@
 """Build, load and launch the hand-written CUDA kernels of ``csrc/``:
-A-G on the hit path, H-J in the bounce loop.
+A-G on the hit path, H-K in the bounce loop.
 
 All kernels compile into one shared library with a plain C interface,
 built on first use into ``build/kernels/`` beside the package and loaded
@@ -229,8 +229,8 @@ _L = ctypes.c_longlong
 #: one RNG argument: pointer, kind, value (csrc/rng.cuh OrtLane)
 _LANE = [_P, _I, _U]
 
-# H, I and J have no Pallas counterpart: ``replaces`` names the JAX
-# function that XLA fuses
+# H-K have no Pallas counterpart: ``replaces`` names the JAX code that
+# XLA fuses
 #: kernel H (PCG4D)
 PCG4D = Kernel(
     "pcg4d", "ort_pcg4d", _LANE * 4 + [_L, _I, _P],
@@ -249,6 +249,13 @@ WHITTED_SCATTER = Kernel(
     source="optix_ray_tracer_tpu_torch/csrc/scatter.cu",
     replaces="optix_ray_tracer_tpu/render/wavefront.py:59")
 
+#: kernel K (the path tracer's BSDF step)
+PATH_BSDF = Kernel(
+    "path_bsdf", "ort_path_bsdf",
+    [_P] * 10 + _LANE * 4 + [_L, _I, _I, _P, _P, _P, _P, _P, _P],
+    source="optix_ray_tracer_tpu_torch/csrc/path_scatter.cu",
+    replaces="optix_ray_tracer_tpu/render/pathtracer.py:326")
+
 KERNELS = (TILE_RASTER, BLOCK_MARCH, PROBE, TILE_RASTER_INSTANCED,
            BLOCK_MARCH_INSTANCED, BLOCK_MARCH_HIER, LEAF_SWEEP, PCG4D,
-           SOBOL_OWEN4, WHITTED_SCATTER)
+           SOBOL_OWEN4, WHITTED_SCATTER, PATH_BSDF)

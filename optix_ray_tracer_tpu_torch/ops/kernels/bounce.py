@@ -1,17 +1,21 @@
-"""The bounce loop's counter RNG and Whitted scatter on the card.
+"""The bounce loop's counter RNG, Whitted scatter and path-tracer BSDF
+step on the card.
 
 Kernel H (:func:`pcg4d_call`) is PCG4D, kernel I
 (:func:`sobol_owen4_call`) the Owen-scrambled Sobol pads, kernel J
-(:func:`scatter_call`) the Whitted scatter of one bounce wave.  They are
-CUDA (``csrc/rng.cu``, ``csrc/scatter.cu``, sharing the device RNG of
-``csrc/rng.cuh``; design notes there) and have no Pallas counterpart:
-the JAX package leaves this work to XLA, which fuses it into the bounce
-step.  ``utils/rng.pcg4d`` and ``uniform4``, ``utils/qmc.sobol_owen4``
-and ``render/wavefront.scatter`` send CUDA tensors here and CPU tensors
+(:func:`scatter_call`) the Whitted scatter of one bounce wave, kernel K
+(:func:`bsdf_step_call`) the path tracer's BSDF step (lobe, throughput,
+Russian roulette, next ray) of one bounce wave.  They are CUDA
+(``csrc/rng.cu``, ``csrc/scatter.cu``, ``csrc/path_scatter.cu``, sharing
+the device RNG of ``csrc/rng.cuh``; design notes there) and have no
+Pallas counterpart: the JAX package leaves this work to XLA, which fuses
+it into the bounce step.  ``utils/rng.pcg4d`` and ``uniform4``,
+``utils/qmc.sobol_owen4``, ``render/wavefront.scatter`` and
+``render/pathtracer.bsdf_step`` send CUDA tensors here and CPU tensors
 to their plain versions (``pcg4d_plain``, ``uniform4_plain``,
-``sobol_owen4_plain``, ``scatter_plain``), which compute the same bits.
-The wrappers here take CUDA tensors only: anything else raises, and so
-does a library that fails to build.
+``sobol_owen4_plain``, ``scatter_plain``, ``bsdf_step_plain``), which
+compute the same bits.  The wrappers here take CUDA tensors only:
+anything else raises, and so does a library that fails to build.
 
 The four RNG arguments (pixel_id, sample, bounce, seed) are int tensors
 or Python ints, broadcast together; :func:`lane_args` normalises them.
@@ -87,18 +91,19 @@ def _c_lanes(lanes) -> list:
     return out
 
 
-_DIRS: dict = {}
+_TABLES: dict = {}
 
 
-def sobol_directions(device) -> torch.Tensor:
-    """The (32, 4) Sobol direction table of ``utils/qmc._DIRECTIONS``'s
-    first four dimensions on ``device`` (uint32 bits in int32), cached."""
+def sobol_tables(device) -> torch.Tensor:
+    """The (1024, 4) per-byte Sobol tables of ``utils/qmc.
+    sobol_byte_tables`` (uint32 bits in int32) on ``device``, cached: the
+    rows that I, J and K stage in shared memory for the Sobol sampler."""
     key = str(device)
-    if key not in _DIRS:
-        from optix_ray_tracer_tpu_torch.utils.qmc import _DIRECTIONS
-        table = np.ascontiguousarray(_DIRECTIONS[:, :4]).view(np.int32)
-        _DIRS[key] = torch.as_tensor(table, device=device)
-    return _DIRS[key]
+    if key not in _TABLES:
+        from optix_ray_tracer_tpu_torch.utils.qmc import sobol_byte_tables
+        _TABLES[key] = torch.as_tensor(sobol_byte_tables().view(np.int32),
+                                       device=device)
+    return _TABLES[key]
 
 
 def pcg4d_call(a, b, c, d, as_int: bool = False):
@@ -124,17 +129,17 @@ def sobol_owen4_call(pixel_id, sample, bounce, seed):
     out = torch.empty((4, n), dtype=torch.float32, device=dev)
     if n:
         _lib.SOBOL_OWEN4(dev, *_c_lanes(lanes), n,
-                         sobol_directions(dev).data_ptr(), out.data_ptr())
+                         sobol_tables(dev).data_ptr(), out.data_ptr())
     return tuple(out[k].reshape(shape) for k in range(4))
 
 
-def _float_rows(x, name: str, dev, n: int) -> torch.Tensor:
-    if x.dtype != torch.float32 or x.device != dev:
-        raise ValueError(f"{name} is {x.dtype} on {x.device}, expected "
-                         f"float32 on {dev}")
-    if x.numel() != 3 * n:
-        raise ValueError(f"{name} has shape {tuple(x.shape)}, expected "
-                         f"({n}, 3)")
+def _rows(x, name: str, dtype, dev, n: int, width: int = 1) -> torch.Tensor:
+    """``x`` contiguous, after checking that it holds n rows of ``width``
+    elements of ``dtype`` on ``dev``."""
+    if x.dtype != dtype or x.device != dev or x.numel() != width * n:
+        want = f"({n},)" if width == 1 else f"({n}, {width})"
+        raise ValueError(f"{name} is {x.dtype} {tuple(x.shape)} on "
+                         f"{x.device}, expected {dtype} {want} on {dev}")
     return x.contiguous()
 
 
@@ -157,8 +162,8 @@ def scatter_call(materials, material_id, d_in, normal, front_face,
                          f"{material_id.device}, expected int32 or int64 "
                          f"on {dev}")
     mid = material_id.contiguous()
-    d_in = _float_rows(d_in, "d_in", dev, n)
-    normal = _float_rows(normal, "normal", dev, n)
+    d_in = _rows(d_in, "d_in", torch.float32, dev, n, 3)
+    normal = _rows(normal, "normal", torch.float32, dev, n, 3)
     front = front_face.to(dev, torch.bool).expand(shape).contiguous()
     _, lanes = lane_args(pixel_id, sample, bounce, seed, shape=shape)
     if any(ln.tensor is not None and ln.tensor.device != dev
@@ -179,8 +184,52 @@ def scatter_call(materials, material_id, d_in, normal, front_face,
             LANE_I32 if mid.dtype == torch.int32 else LANE_I64,
             d_in.data_ptr(), normal.data_ptr(), front.data_ptr(),
             *_c_lanes(lanes), n, SAMPLERS[sampler],
-            sobol_directions(dev).data_ptr(), mtype.data_ptr(),
+            sobol_tables(dev).data_ptr(), mtype.data_ptr(),
             albedo.data_ptr(), param.data_ptr(), emis.data_ptr(), m,
             new_dir.data_ptr(), att.data_ptr(), emission.data_ptr(),
             terminate.data_ptr())
     return new_dir, att, emission, terminate
+
+
+def bsdf_step_call(d, n_unit, point, front_face, mtype, albedo, param,
+                   throughput, shading_alive, o, pixel_id, sample,
+                   bounce: int, seed: int, sampler: str = "pcg",
+                   rr_start: int = 3):
+    """Kernel K: ``render/pathtracer.bsdf_step`` for a wave of R hits.
+    ``d``, ``n_unit``, ``point``, ``albedo``, ``throughput``, ``o``
+    float32 (R, 3); ``front_face``, ``shading_alive`` bool (R,);
+    ``mtype`` int32 (R,); ``param`` float32 (R,); ``pixel_id`` and
+    ``sample`` broadcast to (R,), ``bounce`` and ``seed`` ints.  Returns
+    (o, d, throughput (R, 3), prev_pdf (R,), alive (R,))."""
+    if sampler not in SAMPLERS:
+        raise ValueError(f"unknown sampler {sampler!r}")
+    dev = d.device
+    if dev.type != "cuda":
+        raise ValueError(f"d is on {dev}: kernel K takes CUDA tensors")
+    n = mtype.numel()
+    shape = mtype.shape
+    mtype = _rows(mtype, "mtype", torch.int32, dev, n)
+    param = _rows(param, "param", torch.float32, dev, n)
+    front = _rows(front_face, "front_face", torch.bool, dev, n)
+    alive = _rows(shading_alive, "shading_alive", torch.bool, dev, n)
+    vecs = [_rows(x, name, torch.float32, dev, n, 3) for x, name in (
+        (d, "d"), (n_unit, "n_unit"), (point, "point"), (albedo, "albedo"),
+        (throughput, "throughput"), (o, "o"))]
+    _, lanes = lane_args(pixel_id, sample, bounce, seed, shape=shape)
+    if any(ln.tensor is not None and ln.tensor.device != dev
+           for ln in lanes):
+        raise ValueError(f"RNG arguments must lie on {dev}")
+    o_out, d_out, thr_out = (torch.empty(shape + (3,), device=dev)
+                             for _ in range(3))
+    prev_pdf = torch.empty(shape, device=dev)
+    alive_out = torch.empty(shape, dtype=torch.bool, device=dev)
+    if n:
+        d, n_unit, point, albedo, thr, o = (x.data_ptr() for x in vecs)
+        _lib.PATH_BSDF(
+            dev, d, n_unit, point, front.data_ptr(), mtype.data_ptr(),
+            albedo, param.data_ptr(), thr, alive.data_ptr(), o,
+            *_c_lanes(lanes), n, SAMPLERS[sampler], int(bounce >= rr_start),
+            sobol_tables(dev).data_ptr(), o_out.data_ptr(),
+            d_out.data_ptr(), thr_out.data_ptr(), prev_pdf.data_ptr(),
+            alive_out.data_ptr())
+    return o_out, d_out, thr_out, prev_pdf, alive_out

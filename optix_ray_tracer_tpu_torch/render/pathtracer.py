@@ -19,7 +19,11 @@ state, masked shading), with per bounce:
 
 Camera waves go through the raster engine (kernel A, "origin") when the
 intersector carries raster tables; bounce and environment-occlusion waves
-through the intersector's incoherent variant (kernels C then B).
+through the intersector's incoherent variant (kernels C then B).  The
+BSDF step of each bounce (:func:`bsdf_step`: lobe, throughput, roulette,
+next ray) runs on kernel K for CUDA tensors.  Each section of a bounce is
+a ``torch.profiler.record_function`` range (``path.*``), which
+``tools/prof_port.py`` reads.
 ``sampler`` selects PCG4D or Owen-scrambled Sobol; ``restir_direct``
 hands the primary vertex's area-light direct lighting to ReSTIR
 (``render/restir.render_restir_gi``).
@@ -30,8 +34,10 @@ from __future__ import annotations
 import os
 
 import torch
+from torch.profiler import record_function
 
 from optix_ray_tracer_tpu_torch.ops import intersect as isect
+from optix_ray_tracer_tpu_torch.ops.kernels import bounce as bounce_kernels
 from optix_ray_tracer_tpu_torch.ops.raster import (
     camera_tile_layout, make_camera_intersect, make_tiled_bundle_intersect,
 )
@@ -72,14 +78,91 @@ def _onb(n):
     return t, bt
 
 
-def _cosine_sample(n, pixel_id, sample, bounce, seed, mode: str = "pcg"):
-    """A cosine-weighted direction about n and its pdf."""
-    local = rng.random_cosine_direction(pixel_id, sample, bounce, seed,
-                                        mode)
+def _cosine_sample(n, u1, u2):
+    """A cosine-weighted direction about the unit normal n from two
+    uniforms, and its pdf."""
+    local = rng.cosine_direction_from(u1, u2)
     t, bt = _onb(n)
     d = local[..., 0:1] * t + local[..., 1:2] * bt + local[..., 2:3] * n
     pdf = torch.clamp(local[..., 2], min=1e-6) / PI
     return normalize(d), pdf
+
+
+def bsdf_step(d, n_unit, point, front_face, mtype, albedo, param,
+              throughput, shading_alive, o, pixel_id, sample, b: int,
+              seed: int, sampler: str = "pcg", rr_start: int = 3):
+    """The BSDF step of one bounce of :func:`trace_path` for a wave of R
+    hits: the next direction by material (the cosine lobe about
+    ``n_unit`` for ROUGH and EMISSIVE rows, mirror plus fuzz for METAL,
+    reflection or refraction by Schlick's term for DIELECTRIC), the
+    throughput of the ``shading_alive`` lanes times their attenuation,
+    Russian roulette from bounce ``rr_start`` on, and the origins and
+    directions of the lanes that go on.  ``d``, ``n_unit`` (unit),
+    ``point``, ``albedo`` (textured), ``throughput``, ``o``: (R, 3)
+    float32; ``front_face``, ``shading_alive`` (R,) bool; ``mtype`` (R,)
+    int32; ``param`` (R,) float32.  Returns (o, d, throughput, prev_pdf
+    (the cosine pdf on ROUGH rows, else 0), alive).  CUDA tensors launch
+    kernel K (``ops/kernels/bounce.bsdf_step_call``); others take
+    :func:`bsdf_step_plain`, which computes the same bits."""
+    if d.is_cuda:
+        return bounce_kernels.bsdf_step_call(
+            d, n_unit, point, front_face, mtype, albedo, param, throughput,
+            shading_alive, o, pixel_id, sample, b, seed, sampler, rr_start)
+    return bsdf_step_plain(d, n_unit, point, front_face, mtype, albedo,
+                           param, throughput, shading_alive, o, pixel_id,
+                           sample, b, seed, sampler, rr_start)
+
+
+def bsdf_step_plain(d, n_unit, point, front_face, mtype, albedo, param,
+                    throughput, shading_alive, o, pixel_id, sample, b: int,
+                    seed: int, sampler: str = "pcg", rr_start: int = 3):
+    """Plain version of :func:`bsdf_step` on any device (kernel K's twin):
+    every lobe is evaluated for every ray and blended by masks, its draws
+    from ``rng.uniform4_plain``."""
+    def draw(salt):
+        return rng.uniform4_plain(pixel_id, sample, b, seed ^ salt, sampler)
+
+    u1, u2, _, _ = draw(_DIM_BSDF)
+    d_diff, pdf_diff = _cosine_sample(n_unit, u1, u2)
+    # the metal fuzz and the dielectric's Fresnel choice share one draw
+    u1, u_fr, _, _ = draw(_DIM_LOBE)
+    fuzz_vec = rng.unit_vector_from(u1, u_fr)
+    d_metal = normalize(normalize(reflect(d, n_unit))
+                        + param[..., None] * fuzz_vec)
+    ior = torch.where(param > 0.0, param, 1.5)
+    eta = torch.where(front_face, 1.0 / ior, ior)
+    cos_theta = torch.clamp(-dot(d, n_unit), max=1.0)
+    sin_theta = torch.sqrt(torch.clamp(1.0 - cos_theta * cos_theta,
+                                       min=0.0))
+    cannot = eta * sin_theta > 1.0
+    do_reflect = cannot | (schlick_fresnel(cos_theta, ior) > u_fr)
+    d_diel = torch.where(do_reflect[..., None],
+                         normalize(reflect(d, n_unit)),
+                         refract(d, n_unit, eta[..., None]))
+    is_metal = (mtype == METAL)[..., None]
+    is_diel = (mtype == DIELECTRIC)[..., None]
+    new_dir = normalize(torch.where(
+        is_diel, d_diel, torch.where(is_metal, d_metal, d_diff)))
+
+    # diffuse: albedo * cos / pdf = albedo; metal: albedo; glass: 1
+    atten = torch.where(is_diel, 1.0, albedo)
+    prev_pdf = torch.where(mtype == ROUGH, pdf_diff, 0.0)
+    throughput = torch.where(shading_alive[..., None],
+                             throughput * atten, throughput)
+
+    # Russian roulette: continue with the largest channel, floored
+    if b >= rr_start:
+        u_rr = draw(_DIM_RR)[0]
+        p_cont = torch.clamp(throughput.amax(-1), 0.05, 1.0)
+        throughput = torch.where(shading_alive[..., None],
+                                 throughput / p_cont[..., None], throughput)
+        shading_alive = shading_alive & (u_rr < p_cont)
+
+    offset = torch.where(is_diel[..., 0] & ~do_reflect, -1e-3, 1e-3)
+    o = torch.where(shading_alive[..., None],
+                    point + n_unit * offset[..., None], o)
+    d = torch.where(shading_alive[..., None], new_dir, d)
+    return o, d, throughput, prev_pdf, shading_alive
 
 
 def _nee_shadow_fn(intersector, incoh, cam_point, cam_tiles):
@@ -165,169 +248,136 @@ def trace_path(scene: Scene, materials: MaterialTable,
             """The firefly clamp, on indirect bounces only."""
             return torch.clamp(contrib, max=clamp) if cap else contrib
 
-        # dead lanes trace with t_max=0: free in the marchers and absent
-        # from the bundle engine's block bounds
-        if b == 0 and first_hit is not None:
-            hit = first_hit
-        else:
-            fn = first_fn if b == 0 else incoh.intersect
-            hit = fn(scene, o, d, t_max=torch.where(alive, inf, zero))
-        missed = alive & ~hit.is_hit
-        if restir_direct and b == 0:
-            missed = torch.zeros_like(missed)   # in ReSTIR's base image
-        hit_alive = alive & hit.is_hit
+        with record_function("path.intersect"):
+            # dead lanes trace with t_max=0: free in the marchers and absent
+            # from the bundle engine's block bounds
+            if b == 0 and first_hit is not None:
+                hit = first_hit
+            else:
+                fn = first_fn if b == 0 else incoh.intersect
+                hit = fn(scene, o, d, t_max=torch.where(alive, inf, zero))
+            missed = alive & ~hit.is_hit
+            if restir_direct and b == 0:
+                missed = torch.zeros_like(missed)   # in ReSTIR's base image
+            hit_alive = alive & hit.is_hit
 
-        miss_radiance = env.sample(d) if env is not None else background
-        if have_env_nee:
-            # the MIS counterpart of the environment NEE below
-            env_pdf_here = env.pdf_solid_angle(d)
-            w_miss = torch.where(
-                prev_pdf > 0.0,
-                prev_pdf / torch.clamp(prev_pdf + env_pdf_here, min=1e-12),
-                1.0)[..., None]
-        else:
-            w_miss = 1.0
-        radiance = radiance + _cap(torch.where(
-            missed[..., None], throughput * miss_radiance * w_miss, 0.0))
+        with record_function("path.miss"):
+            miss_radiance = env.sample(d) if env is not None else background
+            if have_env_nee:
+                # the MIS counterpart of the environment NEE below
+                env_pdf_here = env.pdf_solid_angle(d)
+                w_miss = torch.where(
+                    prev_pdf > 0.0,
+                    prev_pdf / torch.clamp(prev_pdf + env_pdf_here, min=1e-12),
+                    1.0)[..., None]
+            else:
+                w_miss = 1.0
+            radiance = radiance + _cap(torch.where(
+                missed[..., None], throughput * miss_radiance * w_miss, 0.0))
 
-        point, normal, front_face, material_id = shade_fn(scene, o, d, hit)
-        n_unit = normalize(normal)
-        mtype, albedo, param, emission = materials.gather(material_id)
-        if textures is not None:
-            albedo = albedo * textures.sample(
-                material_id, isect.interpolate_uv(scene, hit))
+        with record_function("path.shade"):
+            point, normal, front_face, material_id = shade_fn(scene, o, d, hit)
+            n_unit = normalize(normal)
+            mtype, albedo, param, emission = materials.gather(material_id)
+            if textures is not None:
+                albedo = albedo * textures.sample(
+                    material_id, isect.interpolate_uv(scene, hit))
 
-        # ---- emitted light at BSDF hits, MIS-weighted ----------------
-        is_emitter = hit_alive & (mtype == EMISSIVE)
-        if have_lights:
-            nee_pdf_here = light_pdf_solid_angle(
-                lights, hit.prim_id, hit.prim_type == isect.PRIM_TRIANGLE,
-                d, hit.t)
-            w_bsdf = torch.where(
-                prev_pdf > 0.0,
-                prev_pdf / torch.clamp(prev_pdf + nee_pdf_here, min=1e-12),
-                1.0)
-        else:
-            w_bsdf = torch.ones(nrays, device=dev)
-        emit_vis = is_emitter
-        if restir_direct and b == 0:
-            emit_vis = torch.zeros_like(is_emitter)
-        elif restir_direct and b == 1:
-            emit_vis = is_emitter & ~prim_diff
-        radiance = radiance + _cap(torch.where(
-            emit_vis[..., None], throughput * emission * w_bsdf[..., None],
-            0.0))
+        with record_function("path.emitted_mis"):
+            # ---- emitted light at BSDF hits, MIS-weighted ----------------
+            is_emitter = hit_alive & (mtype == EMISSIVE)
+            if have_lights:
+                nee_pdf_here = light_pdf_solid_angle(
+                    lights, hit.prim_id, hit.prim_type == isect.PRIM_TRIANGLE,
+                    d, hit.t)
+                w_bsdf = torch.where(
+                    prev_pdf > 0.0,
+                    prev_pdf / torch.clamp(prev_pdf + nee_pdf_here, min=1e-12),
+                    1.0)
+            else:
+                w_bsdf = torch.ones(nrays, device=dev)
+            emit_vis = is_emitter
+            if restir_direct and b == 0:
+                emit_vis = torch.zeros_like(is_emitter)
+            elif restir_direct and b == 1:
+                emit_vis = is_emitter & ~prim_diff
+            radiance = radiance + _cap(torch.where(
+                emit_vis[..., None], throughput * emission * w_bsdf[..., None],
+                0.0))
 
-        # guide buffers
-        if b == 0:
-            albedo_g = torch.where(
-                hit_alive[..., None],
-                torch.where((mtype == EMISSIVE)[..., None], emission, albedo),
-                albedo_g)
-            normal_g = torch.where(hit_alive[..., None], n_unit, normal_g)
-            if want_aux:
-                t_g = torch.where(hit_alive, hit.t, t_g)
-                prim_g = torch.where(
-                    hit_alive & (hit.prim_type == isect.PRIM_TRIANGLE),
-                    hit.prim_id, prim_g)
+        with record_function("path.shade"):
+            # guide buffers
+            if b == 0:
+                albedo_g = torch.where(
+                    hit_alive[..., None],
+                    torch.where((mtype == EMISSIVE)[..., None], emission,
+                                albedo),
+                    albedo_g)
+                normal_g = torch.where(hit_alive[..., None], n_unit, normal_g)
+                if want_aux:
+                    t_g = torch.where(hit_alive, hit.t, t_g)
+                    prim_g = torch.where(
+                        hit_alive & (hit.prim_type == isect.PRIM_TRIANGLE),
+                        hit.prim_id, prim_g)
 
-        is_diffuse = mtype == ROUGH
-        shading_alive = hit_alive & ~is_emitter
-        if b == 0:
-            prim_diff = hit_alive & is_diffuse
+            is_diffuse = mtype == ROUGH
+            shading_alive = hit_alive & ~is_emitter
+            if b == 0:
+                prim_diff = hit_alive & is_diffuse
 
-        # ---- NEE: one light sample at diffuse vertices ---------------
-        # (with restir_direct the reservoir pass owns bounce 0's)
-        if have_lights and not (restir_direct and b == 0):
-            wl, dist, pdf_l, emitted, _ = sample_lights(
-                lights, point, pixel_id, sample, b, seed ^ _DIM_LIGHT,
-                sampler)
-            cos_s = dot(wl, n_unit)
-            valid = shading_alive & is_diffuse & (cos_s > 0.0) & (pdf_l > 0.0)
-            # the shadow segment: offset along the normal, ending before
-            # the light
-            occluded = shadow_any_hit(
-                scene, point + n_unit * 1e-3, wl, t_min=1e-4,
-                t_max=torch.where(valid, dist - 2e-3, zero))
-            visible = valid & ~occluded
-            cos_c = torch.clamp(cos_s, min=0.0)
-            w_nee = pdf_l / torch.clamp(pdf_l + cos_c / PI, min=1e-12)
-            contrib = (throughput * (albedo / PI) * emitted
-                       * (cos_c / torch.clamp(pdf_l, min=1e-12)
-                          * w_nee)[..., None])
-            radiance = radiance + _cap(
-                torch.where(visible[..., None], contrib, 0.0))
+        with record_function("path.area_nee"):
+            # ---- NEE: one light sample at diffuse vertices ---------------
+            # (with restir_direct the reservoir pass owns bounce 0's)
+            if have_lights and not (restir_direct and b == 0):
+                wl, dist, pdf_l, emitted, _ = sample_lights(
+                    lights, point, pixel_id, sample, b, seed ^ _DIM_LIGHT,
+                    sampler)
+                cos_s = dot(wl, n_unit)
+                valid = (shading_alive & is_diffuse & (cos_s > 0.0)
+                         & (pdf_l > 0.0))
+                # the shadow segment: offset along the normal, ending before
+                # the light
+                occluded = shadow_any_hit(
+                    scene, point + n_unit * 1e-3, wl, t_min=1e-4,
+                    t_max=torch.where(valid, dist - 2e-3, zero))
+                visible = valid & ~occluded
+                cos_c = torch.clamp(cos_s, min=0.0)
+                w_nee = pdf_l / torch.clamp(pdf_l + cos_c / PI, min=1e-12)
+                contrib = (throughput * (albedo / PI) * emitted
+                           * (cos_c / torch.clamp(pdf_l, min=1e-12)
+                              * w_nee)[..., None])
+                radiance = radiance + _cap(
+                    torch.where(visible[..., None], contrib, 0.0))
 
-        # ---- NEE: one environment sample at diffuse vertices ---------
-        if have_env_nee:
-            # dims 0/1 pick the texel, dims 2/3 jitter inside it
-            ub, ut, uj, vj = rng.uniform4(pixel_id, sample, b,
-                                          seed ^ _DIM_ENV, sampler)
-            we, pdf_e = env.sample_direction(ub, ut, uj, vj)
-            cos_e = dot(we, n_unit)
-            valid_e = (shading_alive & is_diffuse & (cos_e > 0.0)
-                       & (pdf_e > 0.0))
-            # occlusion to infinity: the marcher, not bundles
-            occ_e = incoh.any_hit(scene, point + n_unit * 1e-3, we,
-                                  t_min=1e-4,
-                                  t_max=torch.where(valid_e, inf, zero))
-            vis_e = valid_e & ~occ_e
-            le = env.sample(we)
-            cos_ec = torch.clamp(cos_e, min=0.0)
-            w_env = pdf_e / torch.clamp(pdf_e + cos_ec / PI, min=1e-12)
-            contrib_e = (throughput * (albedo / PI) * le
-                         * (cos_ec / torch.clamp(pdf_e, min=1e-12)
-                            * w_env)[..., None])
-            radiance = radiance + _cap(
-                torch.where(vis_e[..., None], contrib_e, 0.0))
+        with record_function("path.env_nee"):
+            # ---- NEE: one environment sample at diffuse vertices ---------
+            if have_env_nee:
+                # dims 0/1 pick the texel, dims 2/3 jitter inside it
+                ub, ut, uj, vj = rng.uniform4(pixel_id, sample, b,
+                                              seed ^ _DIM_ENV, sampler)
+                we, pdf_e = env.sample_direction(ub, ut, uj, vj)
+                cos_e = dot(we, n_unit)
+                valid_e = (shading_alive & is_diffuse & (cos_e > 0.0)
+                           & (pdf_e > 0.0))
+                # occlusion to infinity: the marcher, not bundles
+                occ_e = incoh.any_hit(scene, point + n_unit * 1e-3, we,
+                                      t_min=1e-4,
+                                      t_max=torch.where(valid_e, inf, zero))
+                vis_e = valid_e & ~occ_e
+                le = env.sample(we)
+                cos_ec = torch.clamp(cos_e, min=0.0)
+                w_env = pdf_e / torch.clamp(pdf_e + cos_ec / PI, min=1e-12)
+                contrib_e = (throughput * (albedo / PI) * le
+                             * (cos_ec / torch.clamp(pdf_e, min=1e-12)
+                                * w_env)[..., None])
+                radiance = radiance + _cap(
+                    torch.where(vis_e[..., None], contrib_e, 0.0))
 
-        # ---- BSDF sampling -------------------------------------------
-        d_diff, pdf_diff = _cosine_sample(n_unit, pixel_id, sample, b,
-                                          seed ^ _DIM_BSDF, sampler)
-        fuzz_vec = rng.random_unit_vector(pixel_id, sample, b,
-                                          seed ^ _DIM_LOBE, sampler)
-        d_metal = normalize(normalize(reflect(d, n_unit))
-                            + param[..., None] * fuzz_vec)
-        ior = torch.where(param > 0.0, param, 1.5)
-        eta = torch.where(front_face, 1.0 / ior, ior)
-        cos_theta = torch.clamp(-dot(d, n_unit), max=1.0)
-        sin_theta = torch.sqrt(torch.clamp(1.0 - cos_theta * cos_theta,
-                                           min=0.0))
-        cannot = eta * sin_theta > 1.0
-        u_fr = rng.uniform4(pixel_id, sample, b, seed ^ _DIM_LOBE,
-                            sampler)[1]
-        do_reflect = cannot | (schlick_fresnel(cos_theta, ior) > u_fr)
-        d_diel = torch.where(do_reflect[..., None],
-                             normalize(reflect(d, n_unit)),
-                             refract(d, n_unit, eta[..., None]))
-        is_metal = (mtype == METAL)[..., None]
-        is_diel = (mtype == DIELECTRIC)[..., None]
-        new_dir = normalize(torch.where(
-            is_diel, d_diel, torch.where(is_metal, d_metal, d_diff)))
-
-        # diffuse: albedo * cos / pdf = albedo; metal: albedo; glass: 1
-        atten = torch.where(is_diel, 1.0, albedo)
-        prev_pdf = torch.where(is_diffuse, pdf_diff, 0.0)
-        throughput = torch.where(shading_alive[..., None],
-                                 throughput * atten, throughput)
-
-        # ---- Russian roulette ----------------------------------------
-        if rr_start < max_depth:
-            u_rr = rng.uniform4(pixel_id, sample, b, seed ^ _DIM_RR,
-                                sampler)[0]
-            p_cont = torch.clamp(throughput.amax(-1), 0.05, 1.0)
-            do_rr = shading_alive & (b >= rr_start)
-            survive = ~do_rr | (u_rr < p_cont)
-            throughput = torch.where(do_rr[..., None],
-                                     throughput / p_cont[..., None],
-                                     throughput)
-            shading_alive = shading_alive & survive
-
-        offset = torch.where(is_diel[..., 0] & ~do_reflect, -1e-3, 1e-3)
-        o = torch.where(shading_alive[..., None],
-                        point + n_unit * offset[..., None], o)
-        d = torch.where(shading_alive[..., None], new_dir, d)
-        alive = shading_alive
+        with record_function("path.bsdf"):
+            o, d, throughput, prev_pdf, alive = bsdf_step(
+                d, n_unit, point, front_face, mtype, albedo, param,
+                throughput, shading_alive, o, pixel_id, sample, b, seed,
+                sampler, rr_start)
 
     if want_aux:
         return radiance, albedo_g, normal_g, (t_g, prim_g)

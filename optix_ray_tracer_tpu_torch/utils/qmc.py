@@ -55,6 +55,19 @@ def _joe_kuo_directions() -> np.ndarray:
 _DIRECTIONS = _joe_kuo_directions()                    # (32, 6)
 
 
+def sobol_byte_tables(dims: int = 4) -> np.ndarray:
+    """Per-byte Sobol tables (1024, ``dims``) uint32: row 256 k + v is the
+    XOR of the direction rows 8 k + j of the set bits j of v, so the raw
+    Sobol point of an index is the XOR of the rows its four bytes select
+    (kernel I's lookups, ``csrc/rng.cuh``)."""
+    values = np.arange(256)
+    out = np.zeros((4, 256, dims), np.uint32)
+    for k in range(4):
+        for j in range(8):
+            out[k, (values >> j) & 1 == 1] ^= _DIRECTIONS[8 * k + j, :dims]
+    return out.reshape(1024, dims)
+
+
 def reverse_bits32(x):
     """Bit-reverse each uint32 lane (an int64 tensor or a Python int)."""
     x = _u32(x, "cpu") if isinstance(x, int) else x.to(torch.int64) & _MASK

@@ -147,6 +147,12 @@ def random_cosine_direction(pixel_id, sample, bounce, seed,
     """Cosine-weighted hemisphere sample about +z (the path tracer's
     diffuse lobe).  Returns (..., 3)."""
     u1, u2, _, _ = uniform4(pixel_id, sample, bounce, seed, mode)
+    return cosine_direction_from(u1, u2)
+
+
+def cosine_direction_from(u1, u2):
+    """The cosine-weighted hemisphere point about +z of two uniforms: phi
+    = 2 pi u1, radius sqrt(u2).  Returns (..., 3)."""
     c, s = _cos_sin((2.0 * PI) * u1)
     sq = torch.sqrt(u2)
     return torch.stack([c * sq, s * sq,

@@ -1,10 +1,13 @@
-"""The bounce loop's kernels H (PCG4D), I (Sobol-Owen) and J (the
-Whitted scatter) on the CPU: the argument normalisation their wrappers
-apply (``ops/kernels/bounce.lane_args``) against the broadcast of the
-plain versions, the plain scatter (``wavefront.scatter_plain``, J's twin)
-against the JAX ``wavefront.scatter`` under both samplers, and the
-dispatch: CPU tensors reach the plain versions and never the library,
-and the kernels' wrappers refuse CPU tensors.  The kernels themselves
+"""The bounce loop's kernels H (PCG4D), I (Sobol-Owen), J (the Whitted
+scatter) and K (the path tracer's BSDF step) on the CPU: the argument
+normalisation their wrappers apply (``ops/kernels/bounce.lane_args``)
+against the broadcast of the plain versions, the plain scatter
+(``wavefront.scatter_plain``, J's twin) against the JAX
+``wavefront.scatter`` under both samplers, and the
+dispatch: CPU tensors reach the plain versions (K's,
+``pathtracer.bsdf_step_plain``, is held to JAX in
+tests/test_torch_path_scatter.py) and never the library, and the
+kernels' wrappers refuse CPU tensors.  The kernels themselves
 run on the card only (tests/test_torch_cuda.py).
 
 Tolerances, each with its reason:
@@ -36,6 +39,7 @@ from optix_ray_tracer_tpu.scene.materials import (
 )
 from optix_ray_tracer_tpu_torch.ops.kernels import _lib
 from optix_ray_tracer_tpu_torch.ops.kernels import bounce
+from optix_ray_tracer_tpu_torch.render import pathtracer as tpt
 from optix_ray_tracer_tpu_torch.render import wavefront as twf
 from optix_ray_tracer_tpu_torch.scene.materials import (
     DIELECTRIC, EMISSIVE, METAL, ROUGH, MaterialBuilder,
@@ -135,12 +139,18 @@ def test_lane_args_shape_and_dtypes():
 
 
 def test_sobol_directions_table():
-    """The kernels' direction table: qmc._DIRECTIONS' first four
-    dimensions, bit for bit."""
-    table = bounce.sobol_directions(torch.device("cpu"))
-    assert table.shape == (32, 4) and table.dtype == torch.int32
+    """The kernels' Sobol table: ``qmc.sobol_byte_tables`` bit for bit,
+    whose four rows per index (one per byte) XOR to the Sobol points of
+    ``qmc._DIRECTIONS``' first four dimensions (single-bit indices: the
+    direction rows themselves)."""
+    table = bounce.sobol_tables(torch.device("cpu"))
+    assert table.shape == (1024, 4) and table.dtype == torch.int32
     np.testing.assert_array_equal(table.numpy().view(np.uint32),
-                                  qmc._DIRECTIONS[:, :4])
+                                  qmc.sobol_byte_tables())
+    rows = table.numpy().view(np.uint32).reshape(4, 256, 4)
+    for j in range(32):
+        np.testing.assert_array_equal(rows[j // 8, 1 << (j % 8)],
+                                      qmc._DIRECTIONS[j, :4])
 
 
 # ---- the plain scatter against the JAX scatter ---------------------------
@@ -231,6 +241,20 @@ def test_scatter_plain_matches_jax(sampler, rng_seed):
 
 # ---- dispatch ----------------------------------------------------------
 
+def _bsdf_args(n: int) -> tuple:
+    """The hit arguments of ``pathtracer.bsdf_step`` for n rays over every
+    material type, before the RNG's."""
+    r = np.random.default_rng(n)
+    d = normalize(torch.as_tensor(r.normal(size=(n, 3)),
+                                  dtype=torch.float32))
+    return (d, -d, torch.as_tensor(r.normal(size=(n, 3)),
+                                   dtype=torch.float32),
+            torch.as_tensor(r.random(n) < 0.5),
+            torch.as_tensor(r.integers(0, 4, n), dtype=torch.int32),
+            torch.full((n, 3), 0.5), torch.full((n,), 1.5), torch.ones(n, 3),
+            torch.as_tensor(r.random(n) < 0.9), torch.zeros(n, 3))
+
+
 def _spy(monkeypatch, module, name):
     calls = []
     real = getattr(module, name)
@@ -243,9 +267,9 @@ def _spy(monkeypatch, module, name):
 
 
 def test_cpu_calls_reach_the_plain_versions(monkeypatch):
-    """uniform4 (both samplers), pcg4d, sobol_owen4 and scatter on CPU
-    tensors run their plain versions and return their results; no kernel
-    launches and the library is never loaded."""
+    """uniform4 (both samplers), pcg4d, sobol_owen4, scatter and
+    bsdf_step on CPU tensors run their plain versions and return their
+    results; no kernel launches and the library is never loaded."""
     before = [k.launches for k in _lib.KERNELS]
     pix, samp = _ids(3, 256), _ids(4, 256, 0, 64)
     calls = {n: _spy(monkeypatch, m, n) for m, n in (
@@ -272,13 +296,19 @@ def test_cpu_calls_reach_the_plain_versions(monkeypatch):
     assert calls["scatter_plain"] == ["scatter_plain"]
     assert all(torch.equal(a, b) for a, b in zip(got,
                                                    twf.scatter_plain(*args)))
+    bsdf = _spy(monkeypatch, tpt, "bsdf_step_plain")
+    step = _bsdf_args(256) + (pix, samp, 3, 9, "sobol", 2)
+    got = tpt.bsdf_step(*step)
+    assert bsdf == ["bsdf_step_plain"]
+    assert all(torch.equal(a, b) for a, b in zip(
+        got, tpt.bsdf_step_plain(*step)))
     assert [k.launches for k in _lib.KERNELS] == before
     assert _lib._lib is None
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
-    """The wrappers of H, I and J never run a plain version: CPU tensors
-    raise before any build or launch."""
+    """The wrappers of H, I, J and K never run a plain version: CPU
+    tensors raise before any build or launch."""
     pix = _ids(1, 64)
     with pytest.raises(ValueError, match="CUDA"):
         bounce.pcg4d_call(pix, pix, 0, 0)
@@ -290,4 +320,6 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         bounce.scatter_call(tmats, torch.as_tensor(mid), torch.as_tensor(d),
                             torch.as_tensor(nrm), torch.as_tensor(front),
                             pix, pix, 0, 0)
+    with pytest.raises(ValueError, match="CUDA"):
+        bounce.bsdf_step_call(*_bsdf_args(64), pix, pix, 0, 0)
     assert _lib._lib is None

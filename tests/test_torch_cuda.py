@@ -1430,6 +1430,7 @@ def test_bounce_kernels_raise_when_the_build_fails(dev, monkeypatch,
     """With no library and a build that fails, the public names raise on
     CUDA tensors and never run a plain version."""
     from optix_ray_tracer_tpu_torch.render import wavefront
+    from optix_ray_tracer_tpu_torch.render import pathtracer
     from optix_ray_tracer_tpu_torch.utils import qmc, rng
 
     def no_nvcc():
@@ -1443,7 +1444,8 @@ def test_bounce_kernels_raise_when_the_build_fails(dev, monkeypatch,
     monkeypatch.setattr(_lib, "_nvcc", no_nvcc)
     for module, name in ((rng, "uniform4_plain"), (rng, "pcg4d_plain"),
                          (qmc, "sobol_owen4_plain"),
-                         (wavefront, "scatter_plain")):
+                         (wavefront, "scatter_plain"),
+                         (pathtracer, "bsdf_step_plain")):
         monkeypatch.setattr(module, name, never)
     pix = torch.arange(1024, device=dev)
     with pytest.raises(RuntimeError, match="forced"):
@@ -1455,3 +1457,99 @@ def test_bounce_kernels_raise_when_the_build_fails(dev, monkeypatch,
     args = _scatter_wave(dev, 1024, 1)
     with pytest.raises(RuntimeError, match="forced"):
         wavefront.scatter(*args, 0, 0)
+    with pytest.raises(RuntimeError, match="forced"):
+        pathtracer.bsdf_step(*_bsdf_wave(dev, 1024, 1), 3, 0, "sobol", 2)
+
+
+# ---- kernel K: the path tracer's BSDF step --------------------------------
+
+def _bsdf_wave(dev, n, seed):
+    """The arguments of ``pathtracer.bsdf_step`` before (bounce, seed, ...)
+    for a wave of n hits over every material type: unit normals facing
+    the ray, random front flags (total internal reflection among them),
+    metal fuzz 0 and > 0, ior 1.5 and 0 (the default), throughputs above 1
+    (the roulette's clamp), dead lanes, some rays with a NaN direction and
+    some with a zero normal."""
+    r = np.random.default_rng(seed)
+    d = r.normal(size=(n, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    nrm = r.normal(size=(n, 3)).astype(np.float32)
+    nrm /= np.linalg.norm(nrm, axis=-1, keepdims=True)
+    flip = (d * nrm).sum(-1) > 0
+    nrm[flip] = -nrm[flip]
+    d[:64] = np.nan
+    nrm[64:128] = 0.0
+    mtype = r.integers(0, 4, n).astype(np.int32)
+    param = np.where(mtype == 1, r.choice([0.0, 0.05, 0.3], n),
+                     r.choice([1.5, 0.0], n)).astype(np.float32)
+    t = lambda x: torch.as_tensor(x, device=dev)   # noqa: E731
+    return (t(d), t(nrm), t(r.uniform(-5, 5, (n, 3)).astype(np.float32)),
+            t(r.random(n) < 0.5), t(mtype),
+            t(r.uniform(0, 1, (n, 3)).astype(np.float32)), t(param),
+            t(r.uniform(0, 2.5, (n, 3)).astype(np.float32)),
+            t(r.random(n) < 0.85),
+            t(r.uniform(-5, 5, (n, 3)).astype(np.float32)),
+            t(r.integers(0, 1 << 22, n)), t(r.integers(0, 64, n)))
+
+
+@pytest.mark.parametrize("bounce", [1, 3])
+@pytest.mark.parametrize("sampler", ["pcg", "sobol"])
+def test_path_bsdf_kernel_equal_plain(dev, sampler, bounce):
+    """K against ``bsdf_step_plain`` on the card on a 1M-ray wave with
+    every material type, dead lanes, NaN directions and zero normals, at a
+    bounce on each side of rr_start 2: every output bit for bit; K
+    launches once."""
+    from optix_ray_tracer_tpu_torch.render import pathtracer
+
+    args = _bsdf_wave(dev, 1 << 20, 5)
+    before = _lib.PATH_BSDF.launches
+    kern = pathtracer.bsdf_step(*args, bounce, 0xFFFFFFF0, sampler, 2)
+    assert _lib.PATH_BSDF.launches == before + 1
+    plain = pathtracer.bsdf_step_plain(*args, bounce, 0xFFFFFFF0, sampler, 2)
+    torch.cuda.synchronize()
+    assert kern[4].dtype == torch.bool and kern[1].shape == (1 << 20, 3)
+    assert _equal(kern, plain) == 0
+    died = int((args[8] & ~kern[4]).sum())
+    assert (died > 0) == (bounce >= 2)
+
+
+@pytest.mark.parametrize("sampler", ["pcg", "sobol"])
+def test_path_frame_kernels_vs_cpu(dev, sampler):
+    """A small path-traced frame (METAL, ROUGH, DIELECTRIC and an area
+    light; Russian roulette from bounce 3) on the card, its BSDF steps on
+    K, against its CPU render: > 2 LSB on < 1% of channels."""
+    from optix_ray_tracer_tpu_torch.io.meshgen import quad
+    from optix_ray_tracer_tpu_torch.render import pathtracer
+    from optix_ray_tracer_tpu_torch.scene.lights import collect_area_lights
+    from optix_ray_tracer_tpu_torch.scene.materials import MaterialBuilder
+    from optix_ray_tracer_tpu_torch.utils.color import color_to_uint8
+
+    mb = MaterialBuilder()
+    metal = mb.add_metal((0.8, 0.85, 0.88), 0.05)
+    ground = mb.add_rough((0.7, 0.6, 0.5))
+    glass = mb.add_dielectric(1.5)
+    lamp = mb.add_emissive((6.0, 6.0, 6.0))
+    v, n = sphere_with_n_triangles(2500)
+    qv, qn = quad((-4, -4, -1), (4, -4, -1), (4, 4, -1), (-4, 4, -1))
+    lv, ln = quad((-1, -1, 2), (-1, 1, 2), (1, 1, 2), (1, -1, 2))
+    tris = Triangles.from_arrays(v, n, metal).concat(
+        Triangles.from_arrays(qv, qn, ground)).concat(
+        Triangles.from_arrays(lv, ln, lamp))
+    imgs = []
+    for device in (dev, torch.device("cpu")):
+        scene = Scene(Spheres.from_list([((0.2, 1.5, -0.6), 0.4, glass)],
+                                        device), tris.to(device))
+        mats = mb.build(device)
+        cam = Camera.look_at((3.0, 0.0, 0.5), (0.0, 0.0, 0.0),
+                             (0.0, 0.0, 1.0), device=device)
+        for k in _lib.KERNELS:
+            k.reset()
+        imgs.append(pathtracer.render_path(
+            scene, mats, collect_area_lights(scene, mats), cam, 64, 64,
+            spp=4, seed=7, max_depth=5, sampler=sampler,
+            intersector=make_march_intersector(scene, raster=True))[0].cpu())
+        if device == dev:
+            launched = _lib.PATH_BSDF.launches
+    assert launched == 4 * 5, launched
+    qa, qb = (color_to_uint8(x)[..., :3].int() for x in imgs)
+    assert float(((qa - qb).abs() > 2).float().mean()) < 0.01

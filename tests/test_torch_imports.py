@@ -1,6 +1,6 @@
 """Import hygiene of the port: optix_ray_tracer_tpu_torch and every module
 of the ported slices import neither jax nor the JAX package; on CPU
-tensors no kernel (A-J) launches; chip_smoke.py refuses to run without
+tensors no kernel (A-K) launches; chip_smoke.py refuses to run without
 CUDA."""
 
 import ast
@@ -257,12 +257,12 @@ def test_cpu_path_launches_no_kernel():
     path-traced frame with bundle NEE and a sky, an ortho wave, ReSTIR DI
     and GI frames with Sobol, an adaptive batch, a sharded frame, an LBVH
     frame) and a query routed to the hierarchical marcher take the plain
-    versions: every launch count (A-G, and the bounce loop's H-J)
+    versions: every launch count (A-G, and the bounce loop's H-K)
     stays 0 and the library is never built."""
     proc = _run(_LAUNCHES)
     assert proc.returncode == 0, proc.stderr
-    assert "LAUNCHES [0, 0, 0, 0, 0, 0, 0, 0, 0, 0] True" in proc.stdout, \
-        proc.stdout
+    assert "LAUNCHES [0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0] True" in \
+        proc.stdout, proc.stdout
 
 
 @pytest.mark.parametrize("where", ["repo", "alone"])

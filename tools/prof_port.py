@@ -13,7 +13,8 @@ and the same pile frame through ReSTIR DI (``"integrator": "restir"``:
 ``render_restir_progressive`` at spp 1, 16 candidates, 2 spatial taps,
 one primary and one shadow wave).
 
-Usage: python3 tools/prof_port.py  (from the repository root; needs CUDA).
+Usage: python3 tools/prof_port.py [CELL ...]  (from the repository root;
+needs CUDA; the named cells only, default all).
 
 For each cell, in this one process: the wall per iteration by CUDA
 events with the profiler off (mean of the iterations after a warm-up),
@@ -21,9 +22,11 @@ then ``torch.profiler`` over the same number of iterations.  The device
 time is the sum of the kernel, memcpy and memset events of the exported
 trace (everything runs on one stream, so the events do not overlap);
 idle share = 1 - device time / wall.  Prints, per cell, one summary line,
-the time per group of kernels (A-J, cuDNN, the torch kernels by kind),
+the time per group of kernels (A-K, cuDNN, the torch kernels by kind),
 the heaviest int64 elementwise kernels by their functors and the
-heaviest kernels by name; for the
+heaviest kernels by name; for the path tracer's cells, the device ms,
+ops and heaviest groups of each ``path.*`` range of ``trace_path``
+(:func:`range_split`); for the
 three frames through the marchers, the live share (t_max > t_min) of
 each bounce wave, counted in one more frame after the profile.  Traces
 go to build/prof_port/.
@@ -85,6 +88,8 @@ def group(name: str, cat: str) -> str:
         return "I sobol_owen4"
     if "whitted_scatter_kernel" in name:
         return "J whitted_scatter"
+    if "path_bsdf_kernel" in name:
+        return "K path_bsdf"
     if any(k in name.lower() for k in ("conv", "xmma", "implicit", "gemm",
                                         "winograd", "cudnn")):
         return "convolution (cuDNN)"
@@ -112,8 +117,8 @@ def profile(name: str, fn, iters: int, card: str) -> None:
     OUT.mkdir(parents=True, exist_ok=True)
     trace = OUT / f"trace_{name}.json"
     prof.export_chrome_trace(str(trace))
-    events = [e for e in json.loads(trace.read_text())["traceEvents"]
-              if e.get("ph") == "X"
+    trace_events = json.loads(trace.read_text())["traceEvents"]
+    events = [e for e in trace_events if e.get("ph") == "X"
               and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
     groups: dict[str, float] = defaultdict(float)
     kernels: dict[str, list] = defaultdict(lambda: [0.0, 0])
@@ -142,6 +147,53 @@ def profile(name: str, fn, iters: int, card: str) -> None:
     for kname, (ms, count) in sorted(kernels.items(),
                                      key=lambda kv: -kv[1][0])[:8]:
         print(f"    {ms:9.3f} ms  x {count / iters:6.1f}  {kname[:90]}")
+    ranges = range_split(trace_events, events, iters)
+    if ranges:
+        print("  trace_path ranges (device ms, ops per iter; the heaviest "
+              "groups):")
+        for label, (ms, ops, by_group) in sorted(ranges.items(),
+                                                 key=lambda kv: -kv[1][0]):
+            top = sorted(by_group.items(), key=lambda kv: -kv[1])[:3]
+            print(f"    {ms:9.3f} ms  {ops:8.0f} ops  {label}: " + "; ".join(
+                f"{g} {g_ms:.3f}" for g, g_ms in top))
+
+
+def range_split(trace_events: list, device_events: list, iters: int):
+    """Device ms, device ops and ms per group of each ``record_function``
+    range named ``path.*`` (``render/pathtracer.trace_path``'s sections),
+    per iteration: a device event belongs to the innermost range around
+    the host call that launched it (matched by CUPTI correlation id), or
+    to "(outside the ranges)"."""
+    import bisect
+    ranges: dict[int, list] = defaultdict(list)
+    for e in trace_events:
+        if (e.get("ph") == "X" and e.get("cat") == "user_annotation"
+                and e.get("name", "").startswith("path.")):
+            ranges[e["tid"]].append((e["ts"], e["ts"] + e["dur"],
+                                     e["name"]))
+    if not ranges:
+        return {}
+    for rs in ranges.values():
+        rs.sort()
+    launch = {e["args"]["correlation"]: e for e in trace_events
+              if e.get("ph") == "X"
+              and e.get("cat") in ("cuda_runtime", "cuda_driver")
+              and "correlation" in e.get("args", {})}
+    out: dict[str, list] = {}
+    for e in device_events:
+        host = launch.get(e.get("args", {}).get("correlation"))
+        label = "(outside the ranges)"
+        if host is not None:
+            rs = ranges.get(host["tid"], [])
+            k = bisect.bisect_right(rs, (host["ts"], float("inf"), "")) - 1
+            if k >= 0 and rs[k][0] <= host["ts"] <= rs[k][1]:
+                label = rs[k][2]
+        ms = e["dur"] / 1e3 / iters
+        cell = out.setdefault(label, [0.0, 0.0, defaultdict(float)])
+        cell[0] += ms
+        cell[1] += 1 / iters
+        cell[2][group(e["name"], e["cat"])] += ms
+    return {k: tuple(v) for k, v in out.items()}
 
 
 def path_cells(t, device):
@@ -235,7 +287,14 @@ def main() -> None:
     from optix_ray_tracer_tpu_torch.ops.kernels import block_march as bm
     counted = {"whitted_frame": "probe_call", "flatten_frame": "probe_call",
                "tlas_frame": "march_instanced_call"}
+    only = sys.argv[1:]
+    unknown = set(only) - set(cells)
+    if unknown:
+        raise SystemExit(f"prof_port: unknown cells {sorted(unknown)}; "
+                         f"cells: {', '.join(cells)}")
     for name, fn in cells.items():
+        if only and name not in only:
+            continue
         profile(name, fn, ITERS[name], card)
         if name in counted:
             with chip_smoke.calls_of(bm, counted[name]) as live:
