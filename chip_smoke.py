@@ -165,10 +165,16 @@ CPU or to the plain versions):
    dead lanes; bounces 1 and 2, Russian roulette from 2) under PCG and
    under Sobol, and on config 5's bounce-1 wave, exact, mismatches named
    by material; (e) a config-4 frame (spp 4) under Sobol and a config-5
-   frame by the kernels (counts zeroed, K and H or I > 0, no plain
-   version called) and by the plain versions (no H-K launch), 0 channels
-   > 2 LSB.  Phase 11's config-5, config-4 and path-pile frames must
-   launch K too.
+   frame by the kernels (counts zeroed, K-N and H or I > 0, no plain
+   version called) and by the plain versions (no H-N launch), 0 channels
+   > 2 LSB; (f) L, M and N (the path tracer's NEE samples, their
+   shadowed contributions, the miss and emitter terms) against
+   ``pathtracer.nee_sample_plain``, ``nee_add_plain`` and
+   ``hit_radiance_plain`` on config 5's bounce-1 wave, config 4's under
+   PCG and Sobol, the mixed scene of (d) with config 4's light table and
+   config 5's sky (clamp NEE_CLAMP) and a ``restir_direct`` wave at
+   bounces 0 and 1, exact.  Phase 11's config-5, config-4 and path-pile
+   frames must launch K-N too.
 
 Every kernel's row in the kernels' JSON object is one whole main-path
 wave (a subset would leave most of the card idle): A the bench camera
@@ -182,11 +188,15 @@ animation); H and I are phase 14's 4M-id draw (H's uniforms), J phase
 14's PCG bounce-1 wave (its error the larger of the PCG and Sobol
 waves'), their launches those of phases 4, 12, 13 (b) and 14 (c) and
 (e), K config 5's bounce-1 wave (its error the largest of (d)'s waves),
-its launches those of phases 11, 12, 13 (b) and 14 (e); their work the RNG's integer operations
-(:func:`sobol_ops`: the per-byte table lookups) and J's and K's float
-operations per lobe (:func:`scatter_ops`, :func:`bsdf_ops`), at the FP32
-rate, their time the kernel's device time per launch in a profiler trace
-(:func:`device_ms`: a wrapper call's host work outlasts them). It
+L, M and N config 5's bounce-1 wave (their errors the largest of (f)'s
+waves), the launches of K-N those of phases 11, 12, 13 (b) and 14 (e);
+their work the RNG's integer operations (:func:`sobol_ops`: the per-byte
+table lookups) and J's to N's float operations per lobe or part
+(:func:`scatter_ops`, :func:`bsdf_ops`, :func:`nee_work`,
+:func:`add_work`, :func:`hit_work`), at the FP32 rate, their bytes those
+each row needs (:func:`bsdf_bytes`, :func:`row_bytes`), their time the
+kernel's device time per launch in a profiler trace (:func:`device_ms`:
+a wrapper call's host work outlasts them). It
 carries the kernel's launches on the main paths (phases 4, 7, 8, 10, 11, 12 and 13), its error against its plain
 version,
 the whole wave's time, the plain version's time on what it compared (A,
@@ -2147,7 +2157,7 @@ def sponza_cell(card: str) -> dict:
           f"checker floor, sky with sun, environment NEE")
     zero_counts()
     (img, alb, nrm), st = benchmarks.run(cfg, intersector=inter)
-    counts = {k: K[k].launches for k in "ABCK"}
+    counts = {k: K[k].launches for k in "ABCKLMN"}
     _, st2 = benchmarks.run(cfg, seed=1, intersector=inter)
     print(f"[path sponza] {st2['render_s']:.3f} s/frame, "
           f"{st2['spp_per_sec']:.3f} spp/s, {st2['mpaths_per_sec']:.2f} "
@@ -2188,7 +2198,7 @@ def cornell_cell(card: str) -> dict:
     benchmarks.run(cfg, spp=1)              # the intersector's first use
     zero_counts()
     (img, _, _), st = benchmarks.run(cfg, spp=CORNELL_SPP)
-    counts = {k: K[k].launches for k in "ABK"}
+    counts = {k: K[k].launches for k in "ABKLMN"}
     print(f"[path cornell] config 4, {cfg['width']}x{cfg['height']}, spp "
           f"{CORNELL_SPP} (of {cfg['spp']}), depth {cfg['max_depth']}, "
           f"{st['triangles']} triangles, {cfg['lights'].count} light "
@@ -2288,7 +2298,7 @@ def path_animation(card: str):
 
     tmp = tempfile.TemporaryDirectory(prefix="anim_path_")
     root = Path(tmp.name)
-    launches = {K[k].name: 0 for k in "ABCDEFK"}
+    launches = {K[k].name: 0 for k in "ABCDEFKLMN"}
     try:
         config = path_pile_configs(root)
         z, half, radiance = ANIM_LIGHT
@@ -2311,8 +2321,8 @@ def path_animation(card: str):
                 end = torch.cuda.Event(enable_timing=True)
                 end.record()
                 end.synchronize()
-            counts = {k: K[k].launches for k in "ABCDEFK"}
-            for k in "ABCDEFK":
+            counts = {k: K[k].launches for k in "ABCDEFKLMN"}
+            for k in "ABCDEFKLMN":
                 launches[K[k].name] += counts[k]
             check_pngs(sorted((root / out).glob("frame_*.png")), out)
             wall = refits[2][1].elapsed_time(end) / (frames - 2) / 1e3
@@ -2329,8 +2339,8 @@ def path_animation(card: str):
                   f"{k} {counts[k] / ANIM_PATH_FRAMES:.2f}" for k in "ABCFK")
               + f" (A on bundle schedules {bundle_launches})")
         print(f"[path anim] {bundle_counts(log)}")
-        if min(counts[k] for k in "BCFK") == 0 or not log:
-            raise AssertionError("the path loop missed B, C, F, K or the "
+        if min(counts[k] for k in "BCFKLMN") == 0 or not log:
+            raise AssertionError("the path loop missed B, C, F, K-N or the "
                                  "bundle engine")
         if bundle_launches == 0:
             raise AssertionError("no NEE wave ran kernel A on a bundle "
@@ -2362,7 +2372,7 @@ def path_animation(card: str):
                 end.synchronize()
         finally:
             del os.environ["ORT_TIME_TLAS"]
-        for k in "DEK":
+        for k in "DEKLMN":
             launches[K[k].name] += K[k].launches
         per_frame = (tlas_frames[1][1].elapsed_time(end)
                      / (ANIM_TLAS_FRAMES - 1) / 1e3)
@@ -2371,9 +2381,9 @@ def path_animation(card: str):
               f"frame D {K['D'].launches / ANIM_TLAS_FRAMES:.2f}, E "
               f"{K['E'].launches / ANIM_TLAS_FRAMES:.2f} (its NEE waves "
               f"take E: the TLAS intersector has no bundle engine)")
-        if min(K[k].launches for k in "DEK") == 0:
+        if min(K[k].launches for k in "DEKLMN") == 0:
             raise AssertionError("the TLAS path loop missed kernel D, E "
-                                 "or K")
+                                 "or K-N")
         tlas_imgs = check_pngs(sorted((root / "out2").glob("frame_*.png")),
                                "path TLAS")
 
@@ -2384,7 +2394,7 @@ def path_animation(card: str):
             run_cli(["--config", config("path_nt.json", half,
                                          temporal=False),
                      "--output", root / "out3", "--frames", 1])
-        for k in "ABCFK":
+        for k in "ABCFKLMN":
             launches[K[k].name] += K[k].launches
         nt_launches = K["A"].variants.get("None", 0)
         bundle_launches += nt_launches
@@ -2663,7 +2673,7 @@ def shared_builds():
         common.choose_intersector = real
 
 
-def launch_counts(keys: str = "ABCDEFHIJK") -> dict:
+def launch_counts(keys: str = "ABCDEFHIJKLMN") -> dict:
     return {k: K[k].launches for k in keys}
 
 
@@ -2755,7 +2765,7 @@ def restir_gi_cornell(card: str, add) -> None:
     zero_counts()
     (gi, _, _), gi_s = timed(lambda: restir.render_restir_gi_progressive(
         *args, spp=CORNELL_SPP, **kw))
-    counts = launch_counts("ABCK")
+    counts = launch_counts("ABCKLMN")
     add(counts)
     pm, gm = float(path.mean()), float(gi.mean())
     print(f"[extras restir-gi] config 4, {w}x{h}, spp {CORNELL_SPP}, depth "
@@ -3258,7 +3268,7 @@ def parallel_phase(frame, card: str) -> dict:
     return launches
 
 
-# ---- phase 14: the bounce loop's kernels H, I and J ----------------------
+# ---- phase 14: the bounce loop's kernels H-N ------------------------------
 
 # integer operations of the RNG (csrc/rng.cuh; a shift, logic operation,
 # product, sum or shared-memory load counts as one): PCG4D's 32, one Owen
@@ -3284,6 +3294,9 @@ BSDF_LOBE_OPS = {"cosine": 66, "metal": 64, "dielectric": 71}
 BSDF_RR_OPS = 11
 #: the phase-14 path waves' roulette start (bounce 1 before, 2 from it)
 BSDF_RR_START = 2
+#: the path tracer's steps with a kernel (K-N), each beside its ``_plain``
+#: twin in ``render/pathtracer``
+PATH_STEPS = ("bsdf_step", "nee_sample", "nee_add", "hit_radiance")
 
 
 @contextlib.contextmanager
@@ -3302,27 +3315,31 @@ def swapped(*pairs):
 
 def twin_route():
     """The bounce loop on the plain versions, called explicitly on CUDA
-    tensors: the scatter, the path tracer's BSDF step and the uniforms
-    (jitter and light samples included) of ``wavefront.render`` and
-    ``pathtracer.render_path`` go to ``scatter_plain``,
-    ``bsdf_step_plain``, ``uniform4_plain`` and ``sobol_owen4_plain``."""
+    tensors: the scatter, the path tracer's BSDF step, NEE samples and
+    additions and hit radiance, and the uniforms (jitter and light samples
+    included) of ``wavefront.render`` and ``pathtracer.render_path`` go
+    to ``scatter_plain``, ``bsdf_step_plain``, ``nee_sample_plain``,
+    ``nee_add_plain``, ``hit_radiance_plain``, ``uniform4_plain`` and
+    ``sobol_owen4_plain``."""
     from optix_ray_tracer_tpu_torch.render import pathtracer, wavefront
     from optix_ray_tracer_tpu_torch.utils import qmc, rng
-    return swapped((wavefront, "scatter", wavefront.scatter_plain),
-                   (pathtracer, "bsdf_step", pathtracer.bsdf_step_plain),
-                   (rng, "uniform4", rng.uniform4_plain),
-                   (qmc, "sobol_owen4", qmc.sobol_owen4_plain))
+    return swapped(
+        (wavefront, "scatter", wavefront.scatter_plain),
+        *((pathtracer, name, getattr(pathtracer, f"{name}_plain"))
+          for name in PATH_STEPS),
+        (rng, "uniform4", rng.uniform4_plain),
+        (qmc, "sobol_owen4", qmc.sobol_owen4_plain))
 
 
 @contextlib.contextmanager
 def no_twin_calls(label: str):
-    """Within the block, a call of any plain version of H-K fails the
+    """Within the block, a call of any plain version of H-N fails the
     run."""
     from optix_ray_tracer_tpu_torch.render import pathtracer, wavefront
     from optix_ray_tracer_tpu_torch.utils import qmc, rng
     twins = ((rng, "uniform4_plain"), (rng, "pcg4d_plain"),
              (qmc, "sobol_owen4_plain"), (wavefront, "scatter_plain"),
-             (pathtracer, "bsdf_step_plain"))
+             *((pathtracer, f"{name}_plain") for name in PATH_STEPS))
     with contextlib.ExitStack() as stack:
         calls = [stack.enter_context(calls_of(m, n)) for m, n in twins]
         yield
@@ -3634,6 +3651,21 @@ def bsdf_ops(args) -> int:
     return ops
 
 
+def row_bytes(mask, n: int, *ts) -> int:
+    """The bytes of the rows of ``ts`` (tensors of n rows, or smaller
+    tables counted whole) that ``mask`` selects; None and values passed by
+    value count nothing."""
+    rows = int(mask.sum())
+    total = 0
+    for t in ts:
+        if not hasattr(t, "numel"):
+            continue
+        per_row = t.element_size() * (t.numel() // n)
+        total += rows * per_row if t.numel() >= n else (
+            t.numel() * t.element_size())
+    return total
+
+
 def bsdf_bytes(args, kern) -> int:
     """The bytes K must move on one wave, counted row by row from the
     wave's masks: on every row mtype, shading_alive, throughput and the
@@ -3656,24 +3688,15 @@ def bsdf_bytes(args, kern) -> int:
     diel = mtype == DIELECTRIC
     lobe = (mtype == METAL) | diel
 
-    def moved(mask, *ts) -> int:
-        rows = int(mask.sum())
-        total = 0
-        for t in ts:
-            if not hasattr(t, "numel"):
-                continue                    # a value passed by value
-            per_row = t.element_size() * (t.numel() // n)
-            total += rows * per_row if t.numel() >= n else (
-                t.numel() * t.element_size())
-        return total
-
     every = torch.ones_like(alive)
     draws = (mtype == ROUGH) | go | (alive & (b >= rr_start))
-    return (moved(every, mtype, alive, thr, *kern)
-            + moved(draws, pix, samp)
-            + moved(go, n_unit, point) + moved(~go, o)
-            + moved(~go | (go & lobe), d) + moved(go & lobe, param)
-            + moved(go & diel, front) + moved(alive & ~diel, albedo))
+    return (row_bytes(every, n, mtype, alive, thr, *kern)
+            + row_bytes(draws, n, pix, samp)
+            + row_bytes(go, n, n_unit, point) + row_bytes(~go, n, o)
+            + row_bytes(~go | (go & lobe), n, d)
+            + row_bytes(go & lobe, n, param)
+            + row_bytes(go & diel, n, front)
+            + row_bytes(alive & ~diel, n, albedo))
 
 
 def bsdf_rows(p: SimpleNamespace, card: str) -> dict:
@@ -3740,12 +3763,265 @@ def bsdf_rows(p: SimpleNamespace, card: str) -> dict:
     return r
 
 
+# operations of L, M and N per row (csrc/path_nee.cu, counted as J's and
+# K's: a compare, select, clamp, libm call or table load counts as one):
+# L's shared origin, then per part its sample on every row (the draw's
+# integer operations apart; the binary searches at two per step) and its
+# contribution where it is valid; the environment's bilinear lookup and
+# pdf; the light pdf of an emitter hit; a contribution's add
+NEE_ORIGIN_OPS = 6
+NEE_AREA_OPS = 52
+NEE_ENV_OPS = 48
+NEE_CONTRIB_OPS = 22
+ENV_LOOKUP_OPS = 40
+ENV_PDF_OPS = 12
+LIGHT_PDF_OPS = 22
+ADD_OPS = 3
+#: the firefly clamp of phase 14's mixed waves
+NEE_CLAMP = 0.5
+
+
+def search_ops(n: int) -> int:
+    """A binary search's operations over n entries: two per step."""
+    return 2 * max(int(n), 1).bit_length()
+
+
+def nee_work(args, kern) -> tuple:
+    """(bytes, operations) L must move and do on one wave, counted row by
+    row from its masks: on every row shading_alive, point, n_unit, the
+    RNG ids, the origin and each part's direction, t_max and validity,
+    and the part's sample; mtype on shading_alive rows; throughput and
+    albedo where a part is valid, and each part's contribution there
+    (written as 0 elsewhere: counted on every row); the light and map
+    tables once."""
+    import torch
+    point, n_unit, alive, mtype, thr, alb, pix, samp = args[:8]
+    sampler, lights, env = args[10], args[11], args[12]
+    origin, area, sky = kern
+    n = mtype.numel()
+    every = torch.ones_like(alive)
+    valid = torch.zeros_like(alive)
+    total = row_bytes(every, n, alive, point, n_unit, pix, samp, origin) \
+        + row_bytes(alive, n, mtype)
+    draw = (lambda dims: sobol_ops(1, dims)) if sampler == "sobol" else (
+        lambda dims: PCG_OPS + dims * UNIT_OPS)
+    ops = n * NEE_ORIGIN_OPS
+    for part, dims, sample_ops, tables in (
+            (area, 3, lambda: NEE_AREA_OPS + search_ops(lights.count),
+             lambda: (lights.v0, lights.e1, lights.e2, lights.normal,
+                      lights.emission, lights.cdf, lights.pdf_scale)),
+            (sky, 4, lambda: NEE_ENV_OPS + search_ops(env.block_cdf.numel())
+             + 14, lambda: (env.image, env.block_cdf, env.cond_cdf,
+                            env.pdf_tex))):
+        if part is None:
+            continue
+        ok = part[3]
+        valid |= ok
+        total += row_bytes(every, n, *part) + tensor_bytes(tables())
+        ops += n * (draw(dims) + sample_ops()) + int(ok.sum()) * (
+            NEE_CONTRIB_OPS + (ENV_LOOKUP_OPS if dims == 4 else 0))
+    return total + row_bytes(valid, n, thr, alb), ops
+
+
+def add_work(args) -> tuple:
+    """(bytes, operations) of M on one wave: radiance in and out and each
+    part's validity and occlusion masks on every row, its contribution
+    where the sample is valid and its segment not occluded."""
+    import torch
+    radiance = args[0]
+    n = radiance.shape[0]
+    every = torch.ones(n, dtype=torch.bool, device=radiance.device)
+    total = row_bytes(every, n, radiance, radiance)
+    ops = 0
+    for c, valid, occ in (args[1:4], args[4:7]):
+        if c is not None:
+            total += row_bytes(every, n, valid, occ) + row_bytes(
+                valid & ~occ, n, c)
+            ops += n * ADD_OPS
+    return total, ops
+
+
+def hit_work(args) -> tuple:
+    """(bytes, operations) of N on one wave: radiance in and out, missed
+    and hit_alive on every row, mtype on live hits; d, throughput and
+    (with the environment's MIS) prev_pdf on missed rows, with its lookup
+    and pdf; throughput and emission on the emitter hits that count, with
+    (given a light table) d, prev_pdf, t, prim_id, prim_type and the light
+    pdf, and prim_diff where ReSTIR's bounce-1 rule reads it; the map and
+    light tables once."""
+    import torch
+    (radiance, d, prev_pdf, thr, missed, hit_alive, hit, mtype, emission,
+     prim_diff, b, background, lights, env, cap, restir) = args
+    n = radiance.shape[0]
+    every = torch.ones_like(missed)
+    total = row_bytes(every, n, radiance, radiance, missed, hit_alive) \
+        + row_bytes(hit_alive, n, mtype)
+    ops = n * 2 * ADD_OPS
+    weigh = env is not None and env.can_sample
+    total += row_bytes(missed, n, d, thr, prev_pdf if weigh else None)
+    n_missed = int(missed.sum())
+    if env is not None:
+        total += tensor_bytes(env.image, env.pdf_tex if weigh else None)
+        ops += n_missed * (ENV_LOOKUP_OPS + (ENV_PDF_OPS if weigh else 0))
+    else:
+        total += tensor_bytes(background)
+    ops += n_missed * 4
+    vis = hit_alive & (mtype == 3)                  # EMISSIVE
+    if restir and b == 1:
+        total += row_bytes(vis, n, prim_diff)
+        vis = vis & ~prim_diff
+    elif restir and b == 0:
+        vis = torch.zeros_like(vis)
+    total += row_bytes(vis, n, thr, emission)
+    ops += int(vis.sum()) * (4 + (LIGHT_PDF_OPS if lights is not None
+                                  else 0))
+    if lights is not None:
+        total += row_bytes(vis, n, d, prev_pdf, hit.t, hit.prim_id,
+                           hit.prim_type) + tensor_bytes(
+            lights.tri_light_idx, lights.normal, lights.pdf_scale)
+    return total, ops
+
+
+def nee_calls(render) -> tuple:
+    """The positional arguments of every ``nee_sample``, ``nee_add`` and
+    ``hit_radiance`` call of ``render()``, in order: each NEE sample is
+    followed by its addition in the same bounce."""
+    from optix_ray_tracer_tpu_torch.render import pathtracer
+    keep = lambda *a, **k: a                               # noqa: E731
+    with calls_of(pathtracer, "nee_sample", keep=keep) as ls, \
+            calls_of(pathtracer, "nee_add", keep=keep) as ms, \
+            calls_of(pathtracer, "hit_radiance", keep=keep) as ns:
+        render()
+    return ls, ms, ns
+
+
+def nee_flat(out) -> list:
+    """L's outputs as one list: the origin, then each part that is on."""
+    return [out[0]] + [x for part in out[1:] if part for x in part]
+
+
+def hold_step(letter: str, name: str, args, label: str) -> tuple:
+    """One of L, M, N (``pathtracer.<name>``) against its twin on the same
+    CUDA tensors: the kernel launches once, every output is equal.
+    Returns (kernel's outputs, max |diff|)."""
+    import torch
+
+    from optix_ray_tracer_tpu_torch.render import pathtracer
+    before = K[letter].launches
+    kern = getattr(pathtracer, name)(*args)
+    if K[letter].launches != before + 1:
+        raise AssertionError(f"{letter} did not launch")
+    plain = getattr(pathtracer, f"{name}_plain")(*args)
+    torch.cuda.synchronize()
+    flat = nee_flat if letter == "L" else (lambda x: [x])
+    ks, ps = flat(kern), flat(plain)
+    if len(ks) != len(ps):
+        raise AssertionError(f"{letter} returned {len(ks)} outputs, its "
+                             f"twin {len(ps)}")
+    bad, err = held(f"{letter} {K[letter].name}, {label}", ks, ps)
+    if bad:
+        for k, (a, b) in enumerate(zip(ks, ps)):
+            same = (a == b) | (torch.isnan(a) & torch.isnan(b))
+            ulp = (a.view(torch.int32).long()
+                   - b.view(torch.int32).long()).abs()[~same]
+            print(f"    output {k}: {int((~same).sum())} mismatched, "
+                  f"largest {int(ulp.max()) if ulp.numel() else 0} ulp")
+        raise AssertionError(f"{letter} disagrees with {name}_plain on {bad} "
+                             f"elements ({label})")
+    return kern, err
+
+
+def nee_rows(p: SimpleNamespace, card: str) -> dict:
+    """Phase 14 (f): L, M and N against ``nee_sample_plain``,
+    ``nee_add_plain`` and ``hit_radiance_plain`` on the same CUDA
+    tensors, exact, on config 5's bounce-1 wave (env only; the rows of
+    L, M and N), config 4's bounce-1 wave under PCG and under Sobol (area
+    only), the mixed scene of (d) with config 4's light table and config
+    5's sky, clamp NEE_CLAMP (bounces 1 and 2 under PCG, 1 under Sobol),
+    and config 4's camera wave with config 5's sky under
+    ``restir_direct`` (bounces 0 and 1)."""
+    import torch
+
+    from optix_ray_tracer_tpu_torch.render import pathtracer
+
+    def restir_wave():
+        cam, w, h = p.c4["camera"], p.c4["width"], p.c4["height"]
+        o, d = cam.generate_rays(w, h)
+        ids = torch.arange(w * h, device=o.device)
+        return pathtracer.trace_path(
+            p.c4["scene"], p.c4["materials"], p.c4["lights"],
+            o.reshape(-1, 3), d.reshape(-1, 3), ids, torch.zeros_like(ids),
+            1, p.c4["background"], max_depth=2, intersector=p.i4,
+            env=p.c5["env"], restir_direct=True)
+
+    def mixed(sampler):
+        return lambda: pathtracer.render_path(
+            p.mixed, p.mixed_mats, p.c4["lights"], p.cam, WIDTH, HEIGHT,
+            spp=1, seed=1, max_depth=3, clamp=NEE_CLAMP, env=p.c5["env"],
+            intersector=p.mixed_inter, sampler=sampler)
+
+    cases = [("config 5, pcg", lambda: path_frame(p.c5, p.i5, spp=1,
+                                                   max_depth=2), (1,))]
+    cases += [(f"config 4, {s}", lambda s=s: path_frame(
+        p.c4, p.i4, s, spp=1, max_depth=2), (1,)) for s in ("pcg", "sobol")]
+    cases += [("mixed scene, pcg", mixed("pcg"), (1, 2)),
+              ("mixed scene, sobol", mixed("sobol"), (1,)),
+              ("config 4, restir_direct", restir_wave, (0, 1))]
+    errs, first = {"L": [], "M": [], "N": []}, {}
+    for label, render, bounces in cases:
+        ls, ms, ns = nee_calls(render)
+        for b in bounces:
+            waves = (("L", "nee_sample", [a for a in ls if a[8] == b]),
+                     ("M", "nee_add", [m for a, m in zip(ls, ms)
+                                       if a[8] == b]),
+                     ("N", "hit_radiance", [a for a in ns if a[10] == b]))
+            if not waves[2][1]:
+                raise AssertionError(f"{label}: no hit-radiance wave at "
+                                     f"bounce {b}")
+            for letter, name, calls in waves:
+                if not calls:
+                    continue
+                args = calls[0]
+                R = (args[3] if letter == "L" else args[0]).shape[0]
+                parts = ""
+                if letter == "L":
+                    parts = ": " + ", ".join(
+                        part for part, on in (("area", args[11]),
+                                              ("sky", args[12]))
+                        if on is not None)
+                kern, err = hold_step(letter, name, args,
+                                      f"{label}, bounce {b}, {R} rays{parts}")
+                errs[letter].append(err)
+                first.setdefault(letter, (name, args, kern))
+    rows = {}
+    for letter, cuda_name in (("L", "path_nee_sample_kernel"),
+                              ("M", "path_nee_add_kernel"),
+                              ("N", "path_hit_radiance_kernel")):
+        name, args, kern = first[letter]
+        step = getattr(pathtracer, name)
+        twin = getattr(pathtracer, f"{name}_plain")
+        io_bytes, ops = (nee_work(args, kern) if letter == "L" else
+                         add_work(args) if letter == "M" else hit_work(args))
+        ms = device_ms(lambda: step(*args), cuda_name, REPS)
+        call_ms = time_ms(lambda: step(*args), REPS)
+        plain_ms = time_ms(lambda: twin(*args), 1)
+        r = row(max(errs[letter]), ms, plain_ms, io_bytes, ops)
+        R = (args[3] if letter == "L" else args[0]).shape[0]
+        print(f"[bounce] {letter} {K[letter].name}, config 5's bounce-1 "
+              f"wave: device {ms:.4f} ms for {R} rays ({call_ms:.4f} ms per "
+              f"wrapper call; plain {plain_ms:.3f} ms) [{card}]; bound "
+              f"{r['bound_ms']:.4f} ms by {r['bound_by']}, "
+              f"{io_bytes / R:.1f} B a ray ({100 * r['bound_ms'] / ms:.1f}%)")
+        rows[K[letter].name] = r
+    return rows
+
+
 def path_route_frames(p: SimpleNamespace, card: str) -> dict:
     """Phase 14 (e): a config-4 frame (spp 4) under the Sobol sampler and
     a config-5 frame by the kernels (counts zeroed just before and read
-    just after: K launched, and H or I; no plain version called) and by
-    the plain versions called explicitly (:func:`twin_route`: no launch
-    of H-K); the two frames equal to 2 LSB on every channel.  Returns the
+    just after: K-N launched, and H or I; no plain version called) and
+    by the plain versions called explicitly (:func:`twin_route`: no launch
+    of H-N); the two frames equal to 2 LSB on every channel.  Returns the
     kernel routes' launches."""
     import torch
     launches = {}
@@ -3758,18 +4034,18 @@ def path_route_frames(p: SimpleNamespace, card: str) -> dict:
         return img, time.perf_counter() - t0
 
     for label, cfg, inter, sampler, spp, need in (
-            ("config 4", p.c4, p.i4, "sobol", 4, "IK"),
-            ("config 5", p.c5, p.i5, "pcg", None, "HK")):
+            ("config 4", p.c4, p.i4, "sobol", 4, "IKLMN"),
+            ("config 5", p.c5, p.i5, "pcg", None, "HKLMN")):
         zero_counts()
         with no_twin_calls(f"the {label} frame"):
             img, s_kern = render(cfg, inter, sampler, spp)
-        counts = launch_counts("HIJK")
+        counts = launch_counts("HIJKLMN")
         for k, n in counts.items():
             launches[K[k].name] = launches.get(K[k].name, 0) + n
         zero_counts()
         with twin_route():
             twin, s_twin = render(cfg, inter, sampler, spp)
-        twin_counts = launch_counts("HIJK")
+        twin_counts = launch_counts("HIJKLMN")
         err, over2 = lsb_share(img, twin)
         print(f"[bounce] {label}'s path frame, {sampler}: kernels "
               f"{s_kern:.3f} s/frame (launches {counts_text(counts)}), plain "
@@ -3787,7 +4063,7 @@ def path_route_frames(p: SimpleNamespace, card: str) -> dict:
 
 
 def bounce_phase(frame, card: str) -> tuple:
-    """Phase 14: the bounce loop's kernels H-K.  Returns (their JSON
+    """Phase 14: the bounce loop's kernels H-N.  Returns (their JSON
     rows, the launches of (c) and (e))."""
     t0 = time.perf_counter()
     rows = rng_rows(frame, card)
@@ -3795,6 +4071,7 @@ def bounce_phase(frame, card: str) -> tuple:
     launches = route_frames(frame, card)
     p = path_setup(frame)
     rows["path_bsdf"] = bsdf_rows(p, card)
+    rows.update(nee_rows(p, card))
     for name, n in path_route_frames(p, card).items():
         launches[name] = launches.get(name, 0) + n
     print(f"[bounce] phase 14 in {time.perf_counter() - t0:.1f} s")
@@ -3823,7 +4100,9 @@ def main() -> None:
     K.update(A=_lib.TILE_RASTER, B=_lib.BLOCK_MARCH, C=_lib.PROBE,
              D=_lib.TILE_RASTER_INSTANCED, E=_lib.BLOCK_MARCH_INSTANCED,
              F=_lib.BLOCK_MARCH_HIER, G=_lib.LEAF_SWEEP, H=_lib.PCG4D,
-             I=_lib.SOBOL_OWEN4, J=_lib.WHITTED_SCATTER, K=_lib.PATH_BSDF)
+             I=_lib.SOBOL_OWEN4, J=_lib.WHITTED_SCATTER, K=_lib.PATH_BSDF,
+             L=_lib.PATH_NEE_SAMPLE, M=_lib.PATH_NEE_ADD,
+             N=_lib.PATH_HIT_RADIANCE)
     card = card_line()
     print(card)      # name and power limit, as nvidia-smi reports them
     t_start = time.perf_counter()

@@ -45,8 +45,6 @@ constexpr int kThreads = 256;
 constexpr unsigned kDimBsdf = 0x3C6EF372u;   // pathtracer._DIM_BSDF
 constexpr unsigned kDimLobe = 0x165667B1u;   // pathtracer._DIM_LOBE
 constexpr unsigned kDimRR = 0x2545F491u;     // pathtracer._DIM_RR
-// torch's CUDA x / PI: x times 1 / PI, both in float32
-constexpr float kInvPi = 1.0f / 3.1415926f;
 constexpr int kRough = 0, kMetal = 1, kDielectric = 2;
 
 using namespace ort;

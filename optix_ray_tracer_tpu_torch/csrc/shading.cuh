@@ -1,5 +1,5 @@
 // Shared float helpers of the bounce loop's shading kernels (scatter.cu:
-// J; path_scatter.cu: K): utils/vecmath and the sphere / hemisphere
+// J; path_scatter.cu: K; path_nee.cu: L, N): utils/vecmath and the sphere / hemisphere
 // samples of utils/rng, each in the plain version's order of operations.
 // Built with -fmad=false, so nothing is contracted; with torch's own
 // CUDA rounding: clamps pass NaN through, 1 / x is an IEEE divide, ** 5
@@ -12,8 +12,11 @@
 
 namespace ort {
 
-// (2 * vecmath.PI) as the plain version's float32 multiply rounds it
+// vecmath.PI (3.1415926); (2 * vecmath.PI) as the plain version's float32
+// multiply rounds it; torch's CUDA x / PI, x times the float reciprocal
+constexpr float kPi = static_cast<float>(3.1415926);
 constexpr float kTwoPi = static_cast<float>(2.0 * 3.1415926);
+constexpr float kInvPi = 1.0f / static_cast<float>(3.1415926);
 
 struct V3 {
   float x, y, z;

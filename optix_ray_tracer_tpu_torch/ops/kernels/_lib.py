@@ -1,5 +1,5 @@
 """Build, load and launch the hand-written CUDA kernels of ``csrc/``:
-A-G on the hit path, H-K in the bounce loop.
+A-G on the hit path, H-N in the bounce loop.
 
 All kernels compile into one shared library with a plain C interface,
 built on first use into ``build/kernels/`` beside the package and loaded
@@ -256,6 +256,27 @@ PATH_BSDF = Kernel(
     source="optix_ray_tracer_tpu_torch/csrc/path_scatter.cu",
     replaces="optix_ray_tracer_tpu/render/pathtracer.py:326")
 
+_F = ctypes.c_float
+#: kernel L (the path tracer's light and environment samples)
+PATH_NEE_SAMPLE = Kernel(
+    "path_nee_sample", "ort_path_nee_sample",
+    [_P] * 6 + _LANE * 4 + [_L, _I, _I, _F, _P] + [_P] * 7 + [_I]
+    + [_P] * 4 + [_I] * 3 + [_P] * 9,
+    source="optix_ray_tracer_tpu_torch/csrc/path_nee.cu",
+    replaces="optix_ray_tracer_tpu/render/pathtracer.py:274")
+#: kernel M (their shadowed contributions)
+PATH_NEE_ADD = Kernel(
+    "path_nee_add", "ort_path_nee_add", [_P] * 7 + [_L, _P],
+    source="optix_ray_tracer_tpu_torch/csrc/path_nee.cu",
+    replaces="optix_ray_tracer_tpu/render/pathtracer.py:299")
+#: kernel N (the miss and emitter terms)
+PATH_HIT_RADIANCE = Kernel(
+    "path_hit_radiance", "ort_path_hit_radiance",
+    [_P] * 12 + [_L, _I] + [_P] * 3 + [_I, _I, _P, _I, _P, _P, _I, _F, _P],
+    source="optix_ray_tracer_tpu_torch/csrc/path_nee.cu",
+    replaces="optix_ray_tracer_tpu/render/pathtracer.py:201")
+
 KERNELS = (TILE_RASTER, BLOCK_MARCH, PROBE, TILE_RASTER_INSTANCED,
            BLOCK_MARCH_INSTANCED, BLOCK_MARCH_HIER, LEAF_SWEEP, PCG4D,
-           SOBOL_OWEN4, WHITTED_SCATTER, PATH_BSDF)
+           SOBOL_OWEN4, WHITTED_SCATTER, PATH_BSDF, PATH_NEE_SAMPLE,
+           PATH_NEE_ADD, PATH_HIT_RADIANCE)

@@ -19,10 +19,13 @@ state, masked shading), with per bounce:
 
 Camera waves go through the raster engine (kernel A, "origin") when the
 intersector carries raster tables; bounce and environment-occlusion waves
-through the intersector's incoherent variant (kernels C then B).  The
-BSDF step of each bounce (:func:`bsdf_step`: lobe, throughput, roulette,
-next ray) runs on kernel K for CUDA tensors.  Each section of a bounce is
-a ``torch.profiler.record_function`` range (``path.*``), which
+through the intersector's incoherent variant (kernels C then B).  For
+CUDA tensors the BSDF step of each bounce (:func:`bsdf_step`: lobe,
+throughput, roulette, next ray) runs on kernel K, its NEE samples
+(:func:`nee_sample`) on L, their shadowed contributions
+(:func:`nee_add`) on M, and the miss and emitter terms
+(:func:`hit_radiance`) on N.  Each section of a bounce is a
+``torch.profiler.record_function`` range (``path.*``), which
 ``tools/prof_port.py`` reads.
 ``sampler`` selects PCG4D or Owen-scrambled Sobol; ``restir_direct``
 hands the primary vertex's area-light direct lighting to ReSTIR
@@ -165,6 +168,179 @@ def bsdf_step_plain(d, n_unit, point, front_face, mtype, albedo, param,
     return o, d, throughput, prev_pdf, shading_alive
 
 
+def _capped(contrib, cap: float):
+    """The firefly clamp: ``contrib`` capped per channel at ``cap`` (0:
+    off)."""
+    return torch.clamp(contrib, max=cap) if cap > 0.0 else contrib
+
+
+def nee_sample(point, n_unit, shading_alive, mtype, throughput, albedo,
+               pixel_id, sample, b: int, seed: int, sampler: str = "pcg",
+               lights: AreaLights | None = None, env=None, cap: float = 0.0):
+    """The pre-query half of :func:`trace_path`'s next-event estimation at
+    bounce ``b`` for a wave of R hits: one area-light sample (``lights``;
+    None: off) and one environment sample (``env``, a map with sampling
+    tables; None: off) at the ROUGH ``shading_alive`` vertices, each with
+    its shadow segment and its balance-heuristic contribution.  ``point``,
+    ``n_unit`` (unit), ``throughput``, ``albedo`` (textured): (R, 3)
+    float32; ``shading_alive`` (R,) bool; ``mtype`` (R,) int32; ``cap``
+    the firefly clamp (0: off).
+
+    Returns (origin, area, sky): the segments' shared origin ``point +
+    n_unit * 1e-3`` (R, 3); for each part that is on, (direction (R, 3),
+    t_max (R,), contribution (R, 3), valid (R,) bool), else None.  A
+    sample is not valid at a lane that is not a live ROUGH vertex, below
+    the surface or where its pdf is 0; there t_max and the contribution
+    are 0, and the contribution is capped where it is valid; every output
+    is defined on every lane.  CUDA tensors launch kernel L
+    (``ops/kernels/bounce.nee_sample_call``); others take
+    :func:`nee_sample_plain`, which computes the same bits."""
+    if point.is_cuda:
+        return bounce_kernels.nee_sample_call(
+            point, n_unit, shading_alive, mtype, throughput, albedo,
+            pixel_id, sample, b, seed, sampler, lights, env, cap)
+    return nee_sample_plain(point, n_unit, shading_alive, mtype, throughput,
+                            albedo, pixel_id, sample, b, seed, sampler,
+                            lights, env, cap)
+
+
+def nee_sample_plain(point, n_unit, shading_alive, mtype, throughput, albedo,
+                     pixel_id, sample, b: int, seed: int,
+                     sampler: str = "pcg", lights: AreaLights | None = None,
+                     env=None, cap: float = 0.0):
+    """Plain version of :func:`nee_sample` on any device (kernel L's
+    twin): ``sample_lights`` and ``EnvMap.sample_direction`` / ``sample``
+    on every lane, the weights masked after."""
+    is_diffuse = mtype == ROUGH
+    origin = point + n_unit * 1e-3
+    area = sky = None
+    if lights is not None:
+        wl, dist, pdf_l, emitted, _ = sample_lights(
+            lights, point, pixel_id, sample, b, seed ^ _DIM_LIGHT, sampler)
+        cos_s = dot(wl, n_unit)
+        valid = (shading_alive & is_diffuse & (cos_s > 0.0)
+                 & (pdf_l > 0.0))
+        cos_c = torch.clamp(cos_s, min=0.0)
+        w_nee = pdf_l / torch.clamp(pdf_l + cos_c / PI, min=1e-12)
+        contrib = (throughput * (albedo / PI) * emitted
+                   * (cos_c / torch.clamp(pdf_l, min=1e-12)
+                      * w_nee)[..., None])
+        # ending before the light
+        area = (wl, torch.where(valid, dist - 2e-3, 0.0),
+                torch.where(valid[..., None], _capped(contrib, cap), 0.0),
+                valid)
+    if env is not None:
+        # dims 0/1 pick the texel, dims 2/3 jitter inside it
+        ub, ut, uj, vj = rng.uniform4(pixel_id, sample, b, seed ^ _DIM_ENV,
+                                      sampler)
+        we, pdf_e = env.sample_direction(ub, ut, uj, vj)
+        cos_e = dot(we, n_unit)
+        valid_e = (shading_alive & is_diffuse & (cos_e > 0.0)
+                   & (pdf_e > 0.0))
+        le = env.sample(we)
+        cos_ec = torch.clamp(cos_e, min=0.0)
+        w_env = pdf_e / torch.clamp(pdf_e + cos_ec / PI, min=1e-12)
+        contrib_e = (throughput * (albedo / PI) * le
+                     * (cos_ec / torch.clamp(pdf_e, min=1e-12)
+                        * w_env)[..., None])
+        sky = (we, torch.where(valid_e, INF, 0.0),
+               torch.where(valid_e[..., None], _capped(contrib_e, cap), 0.0),
+               valid_e)
+    return origin, area, sky
+
+
+def nee_add(radiance, c_l, valid_l, occ_l, c_e, valid_e, occ_e):
+    """The post-query half of :func:`trace_path`'s next-event estimation:
+    ``radiance`` (R, 3) plus the area contribution ``c_l`` where its
+    sample is valid (``valid_l`` (R,) bool) and its segment not occluded
+    (``occ_l`` (R,) bool), then plus the environment's (``c_e``,
+    ``valid_e``, ``occ_e``); a part whose contribution is None is off.
+    CUDA tensors launch kernel M (``ops/kernels/bounce.nee_add_call``),
+    which reads a contribution only where it is added; others take
+    :func:`nee_add_plain`, which computes the same bits."""
+    if radiance.is_cuda:
+        return bounce_kernels.nee_add_call(radiance, c_l, valid_l, occ_l,
+                                           c_e, valid_e, occ_e)
+    return nee_add_plain(radiance, c_l, valid_l, occ_l, c_e, valid_e, occ_e)
+
+
+def nee_add_plain(radiance, c_l, valid_l, occ_l, c_e, valid_e, occ_e):
+    """Plain version of :func:`nee_add` (kernel M's twin)."""
+    for contrib, valid, occluded in ((c_l, valid_l, occ_l),
+                                     (c_e, valid_e, occ_e)):
+        if contrib is not None:
+            radiance = radiance + torch.where(
+                (valid & ~occluded)[..., None], contrib, 0.0)
+    return radiance
+
+
+def hit_radiance(radiance, d, prev_pdf, throughput, missed, hit_alive, hit,
+                 mtype, emission, prim_diff, b: int, background,
+                 lights: AreaLights | None = None, env=None, cap: float = 0.0,
+                 restir_direct: bool = False):
+    """The radiance :func:`trace_path` adds where bounce ``b``'s rays end:
+    the ``missed`` lanes' miss radiance (``env``'s bilinear lookup, else
+    ``background`` (3,)), MIS-weighted against the environment sample when
+    ``env`` has sampling tables, then the emitted radiance of EMISSIVE
+    ``hit_alive`` lanes, MIS-weighted against the area-light sample when
+    ``lights`` (None: none) holds the hit triangle; each capped at ``cap``
+    (0: off).  With ``restir_direct`` bounce 0 adds no emitted radiance
+    and bounce 1 none where ``prim_diff`` (the primary vertex was
+    diffuse).  ``d``, ``throughput``, ``emission``, ``radiance``: (R, 3)
+    float32; ``prev_pdf`` (R,) float32; ``missed``, ``hit_alive``,
+    ``prim_diff`` (R,) bool; ``mtype`` (R,) int32; ``hit`` the wave's
+    Hit.  Returns the new radiance.  CUDA tensors launch kernel N
+    (``ops/kernels/bounce.hit_radiance_call``); others take
+    :func:`hit_radiance_plain`, which computes the same bits."""
+    if radiance.is_cuda:
+        return bounce_kernels.hit_radiance_call(
+            radiance, d, prev_pdf, throughput, missed, hit_alive, hit, mtype,
+            emission, prim_diff, b, background, lights, env, cap,
+            restir_direct)
+    return hit_radiance_plain(radiance, d, prev_pdf, throughput, missed,
+                              hit_alive, hit, mtype, emission, prim_diff, b,
+                              background, lights, env, cap, restir_direct)
+
+
+def hit_radiance_plain(radiance, d, prev_pdf, throughput, missed, hit_alive,
+                       hit, mtype, emission, prim_diff, b: int, background,
+                       lights: AreaLights | None = None, env=None,
+                       cap: float = 0.0, restir_direct: bool = False):
+    """Plain version of :func:`hit_radiance` (kernel N's twin): the lookup
+    and both pdfs on every lane, masked after."""
+    miss_radiance = env.sample(d) if env is not None else background
+    if env is not None and env.can_sample:
+        # the MIS counterpart of the environment NEE
+        env_pdf_here = env.pdf_solid_angle(d)
+        w_miss = torch.where(
+            prev_pdf > 0.0,
+            prev_pdf / torch.clamp(prev_pdf + env_pdf_here, min=1e-12),
+            1.0)[..., None]
+    else:
+        w_miss = 1.0
+    radiance = radiance + _capped(torch.where(
+        missed[..., None], throughput * miss_radiance * w_miss, 0.0), cap)
+
+    is_emitter = hit_alive & (mtype == EMISSIVE)
+    if lights is not None:
+        nee_pdf_here = light_pdf_solid_angle(
+            lights, hit.prim_id, hit.prim_type == isect.PRIM_TRIANGLE, d,
+            hit.t)
+        w_bsdf = torch.where(
+            prev_pdf > 0.0,
+            prev_pdf / torch.clamp(prev_pdf + nee_pdf_here, min=1e-12), 1.0)
+    else:
+        w_bsdf = torch.ones_like(prev_pdf)
+    emit_vis = is_emitter
+    if restir_direct and b == 0:
+        emit_vis = torch.zeros_like(is_emitter)
+    elif restir_direct and b == 1:
+        emit_vis = is_emitter & ~prim_diff
+    return radiance + _capped(torch.where(
+        emit_vis[..., None], throughput * emission * w_bsdf[..., None], 0.0),
+        cap)
+
+
 def _nee_shadow_fn(intersector, incoh, cam_point, cam_tiles):
     """The any-hit query of area-light shadow segments: the bundle engine
     when the caller has a camera tile layout, the intersector has
@@ -242,11 +418,8 @@ def trace_path(scene: Scene, materials: MaterialTable,
     prim_diff = torch.zeros(nrays, dtype=torch.bool, device=dev)
 
     for b in range(max_depth):
-        cap = b >= 1 and clamp > 0.0
-
-        def _cap(contrib):
-            """The firefly clamp, on indirect bounces only."""
-            return torch.clamp(contrib, max=clamp) if cap else contrib
+        # the firefly clamp, on indirect bounces only (0: off)
+        cap = clamp if b >= 1 and clamp > 0.0 else 0.0
 
         with record_function("path.intersect"):
             # dead lanes trace with t_max=0: free in the marchers and absent
@@ -261,20 +434,6 @@ def trace_path(scene: Scene, materials: MaterialTable,
                 missed = torch.zeros_like(missed)   # in ReSTIR's base image
             hit_alive = alive & hit.is_hit
 
-        with record_function("path.miss"):
-            miss_radiance = env.sample(d) if env is not None else background
-            if have_env_nee:
-                # the MIS counterpart of the environment NEE below
-                env_pdf_here = env.pdf_solid_angle(d)
-                w_miss = torch.where(
-                    prev_pdf > 0.0,
-                    prev_pdf / torch.clamp(prev_pdf + env_pdf_here, min=1e-12),
-                    1.0)[..., None]
-            else:
-                w_miss = 1.0
-            radiance = radiance + _cap(torch.where(
-                missed[..., None], throughput * miss_radiance * w_miss, 0.0))
-
         with record_function("path.shade"):
             point, normal, front_face, material_id = shade_fn(scene, o, d, hit)
             n_unit = normalize(normal)
@@ -283,29 +442,15 @@ def trace_path(scene: Scene, materials: MaterialTable,
                 albedo = albedo * textures.sample(
                     material_id, isect.interpolate_uv(scene, hit))
 
-        with record_function("path.emitted_mis"):
-            # ---- emitted light at BSDF hits, MIS-weighted ----------------
-            is_emitter = hit_alive & (mtype == EMISSIVE)
-            if have_lights:
-                nee_pdf_here = light_pdf_solid_angle(
-                    lights, hit.prim_id, hit.prim_type == isect.PRIM_TRIANGLE,
-                    d, hit.t)
-                w_bsdf = torch.where(
-                    prev_pdf > 0.0,
-                    prev_pdf / torch.clamp(prev_pdf + nee_pdf_here, min=1e-12),
-                    1.0)
-            else:
-                w_bsdf = torch.ones(nrays, device=dev)
-            emit_vis = is_emitter
-            if restir_direct and b == 0:
-                emit_vis = torch.zeros_like(is_emitter)
-            elif restir_direct and b == 1:
-                emit_vis = is_emitter & ~prim_diff
-            radiance = radiance + _cap(torch.where(
-                emit_vis[..., None], throughput * emission * w_bsdf[..., None],
-                0.0))
+        with record_function("path.hit_radiance"):
+            # the miss term, then emitted light at BSDF hits, MIS-weighted
+            radiance = hit_radiance(
+                radiance, d, prev_pdf, throughput, missed, hit_alive, hit,
+                mtype, emission, prim_diff, b, background,
+                lights if have_lights else None, env, cap, restir_direct)
 
         with record_function("path.shade"):
+            is_emitter = hit_alive & (mtype == EMISSIVE)
             # guide buffers
             if b == 0:
                 albedo_g = torch.where(
@@ -320,58 +465,36 @@ def trace_path(scene: Scene, materials: MaterialTable,
                         hit_alive & (hit.prim_type == isect.PRIM_TRIANGLE),
                         hit.prim_id, prim_g)
 
-            is_diffuse = mtype == ROUGH
             shading_alive = hit_alive & ~is_emitter
             if b == 0:
-                prim_diff = hit_alive & is_diffuse
+                prim_diff = hit_alive & (mtype == ROUGH)
 
-        with record_function("path.area_nee"):
-            # ---- NEE: one light sample at diffuse vertices ---------------
-            # (with restir_direct the reservoir pass owns bounce 0's)
-            if have_lights and not (restir_direct and b == 0):
-                wl, dist, pdf_l, emitted, _ = sample_lights(
-                    lights, point, pixel_id, sample, b, seed ^ _DIM_LIGHT,
-                    sampler)
-                cos_s = dot(wl, n_unit)
-                valid = (shading_alive & is_diffuse & (cos_s > 0.0)
-                         & (pdf_l > 0.0))
-                # the shadow segment: offset along the normal, ending before
-                # the light
-                occluded = shadow_any_hit(
-                    scene, point + n_unit * 1e-3, wl, t_min=1e-4,
-                    t_max=torch.where(valid, dist - 2e-3, zero))
-                visible = valid & ~occluded
-                cos_c = torch.clamp(cos_s, min=0.0)
-                w_nee = pdf_l / torch.clamp(pdf_l + cos_c / PI, min=1e-12)
-                contrib = (throughput * (albedo / PI) * emitted
-                           * (cos_c / torch.clamp(pdf_l, min=1e-12)
-                              * w_nee)[..., None])
-                radiance = radiance + _cap(
-                    torch.where(visible[..., None], contrib, 0.0))
-
-        with record_function("path.env_nee"):
-            # ---- NEE: one environment sample at diffuse vertices ---------
-            if have_env_nee:
-                # dims 0/1 pick the texel, dims 2/3 jitter inside it
-                ub, ut, uj, vj = rng.uniform4(pixel_id, sample, b,
-                                              seed ^ _DIM_ENV, sampler)
-                we, pdf_e = env.sample_direction(ub, ut, uj, vj)
-                cos_e = dot(we, n_unit)
-                valid_e = (shading_alive & is_diffuse & (cos_e > 0.0)
-                           & (pdf_e > 0.0))
+        # ---- NEE at diffuse vertices: one area-light sample (with
+        # restir_direct the reservoir pass owns bounce 0's) and one
+        # environment sample, their shadow segments, their contributions
+        area_on = have_lights and not (restir_direct and b == 0)
+        if area_on or have_env_nee:
+            with record_function("path.nee_sample"):
+                origin, area, sky = nee_sample(
+                    point, n_unit, shading_alive, mtype, throughput, albedo,
+                    pixel_id, sample, b, seed, sampler,
+                    lights if area_on else None,
+                    env if have_env_nee else None, cap)
+            occ_l = occ_e = None
+            if area is not None:
+                with record_function("path.area_nee.query"):
+                    occ_l = shadow_any_hit(scene, origin, area[0],
+                                           t_min=1e-4, t_max=area[1])
+            if sky is not None:
                 # occlusion to infinity: the marcher, not bundles
-                occ_e = incoh.any_hit(scene, point + n_unit * 1e-3, we,
-                                      t_min=1e-4,
-                                      t_max=torch.where(valid_e, inf, zero))
-                vis_e = valid_e & ~occ_e
-                le = env.sample(we)
-                cos_ec = torch.clamp(cos_e, min=0.0)
-                w_env = pdf_e / torch.clamp(pdf_e + cos_ec / PI, min=1e-12)
-                contrib_e = (throughput * (albedo / PI) * le
-                             * (cos_ec / torch.clamp(pdf_e, min=1e-12)
-                                * w_env)[..., None])
-                radiance = radiance + _cap(
-                    torch.where(vis_e[..., None], contrib_e, 0.0))
+                with record_function("path.env_nee.query"):
+                    occ_e = incoh.any_hit(scene, origin, sky[0], t_min=1e-4,
+                                          t_max=sky[1])
+            c_l, valid_l = area[2:] if area else (None, None)
+            c_e, valid_e = sky[2:] if sky else (None, None)
+            with record_function("path.nee_add"):
+                radiance = nee_add(radiance, c_l, valid_l, occ_l, c_e,
+                                   valid_e, occ_e)
 
         with record_function("path.bsdf"):
             o, d, throughput, prev_pdf, alive = bsdf_step(

@@ -1445,7 +1445,10 @@ def test_bounce_kernels_raise_when_the_build_fails(dev, monkeypatch,
     for module, name in ((rng, "uniform4_plain"), (rng, "pcg4d_plain"),
                          (qmc, "sobol_owen4_plain"),
                          (wavefront, "scatter_plain"),
-                         (pathtracer, "bsdf_step_plain")):
+                         (pathtracer, "bsdf_step_plain"),
+                         (pathtracer, "nee_sample_plain"),
+                         (pathtracer, "nee_add_plain"),
+                         (pathtracer, "hit_radiance_plain")):
         monkeypatch.setattr(module, name, never)
     pix = torch.arange(1024, device=dev)
     with pytest.raises(RuntimeError, match="forced"):
@@ -1459,6 +1462,16 @@ def test_bounce_kernels_raise_when_the_build_fails(dev, monkeypatch,
         wavefront.scatter(*args, 0, 0)
     with pytest.raises(RuntimeError, match="forced"):
         pathtracer.bsdf_step(*_bsdf_wave(dev, 1024, 1), 3, 0, "sobol", 2)
+    lights, maps = _nee_tables(dev)
+    wave = _nee_wave(dev, 1024, 1)
+    with pytest.raises(RuntimeError, match="forced"):
+        pathtracer.nee_sample(*wave, 1, 0, "pcg", lights, maps["sky"])
+    z = torch.zeros(1024, 3, device=dev)
+    with pytest.raises(RuntimeError, match="forced"):
+        pathtracer.nee_add(z, z, wave[2], wave[2], None, None, None)
+    with pytest.raises(RuntimeError, match="forced"):
+        pathtracer.hit_radiance(*_hit_wave(dev, 1024, 1, lights), 1,
+                                torch.zeros(3, device=dev), lights)
 
 
 # ---- kernel K: the path tracer's BSDF step --------------------------------
@@ -1517,7 +1530,8 @@ def test_path_bsdf_kernel_equal_plain(dev, sampler, bounce):
 def test_path_frame_kernels_vs_cpu(dev, sampler):
     """A small path-traced frame (METAL, ROUGH, DIELECTRIC and an area
     light; Russian roulette from bounce 3) on the card, its BSDF steps on
-    K, against its CPU render: > 2 LSB on < 1% of channels."""
+    K and its NEE and MIS on L, M and N, against its CPU render: > 2 LSB
+    on < 1% of channels."""
     from optix_ray_tracer_tpu_torch.io.meshgen import quad
     from optix_ray_tracer_tpu_torch.render import pathtracer
     from optix_ray_tracer_tpu_torch.scene.lights import collect_area_lights
@@ -1549,7 +1563,154 @@ def test_path_frame_kernels_vs_cpu(dev, sampler):
             spp=4, seed=7, max_depth=5, sampler=sampler,
             intersector=make_march_intersector(scene, raster=True))[0].cpu())
         if device == dev:
-            launched = _lib.PATH_BSDF.launches
-    assert launched == 4 * 5, launched
+            launched = [k.launches for k in (
+                _lib.PATH_BSDF, _lib.PATH_NEE_SAMPLE, _lib.PATH_NEE_ADD,
+                _lib.PATH_HIT_RADIANCE)]
+    assert launched == [4 * 5] * 4, launched
     qa, qb = (color_to_uint8(x)[..., :3].int() for x in imgs)
     assert float(((qa - qb).abs() > 2).float().mean()) < 0.01
+
+
+# ---- kernels L, M, N: the path tracer's NEE and MIS ----------------------
+
+def _nee_tables(dev):
+    """A light table (a small bright and a large dim emitter quad over a
+    floor, as tests/test_torch_pathtracer.py's two-light scene) and three
+    maps: a sky with a sun, a 12 x 20 map (neither a power of two; its
+    second CDF block half padding) and a constant one (no tables)."""
+    from optix_ray_tracer_tpu_torch.io.meshgen import quad
+    from optix_ray_tracer_tpu_torch.render import envmap
+    from optix_ray_tracer_tpu_torch.scene.lights import collect_area_lights
+    from optix_ray_tracer_tpu_torch.scene.materials import MaterialBuilder
+
+    mb = MaterialBuilder()
+    mats = [mb.add_rough((0.7, 0.7, 0.7)), mb.add_emissive((80.0,) * 3),
+            mb.add_emissive((0.4,) * 3)]
+    parts = [quad([-3, -3, 0], [3, -3, 0], [3, 3, 0], [-3, 3, 0]),
+             quad([-1.1, 0.1, 2], [-0.9, 0.1, 2], [-0.9, -0.1, 2],
+                  [-1.1, -0.1, 2]),
+             quad([0, 1, 2], [2, 1, 2], [2, -1, 2], [0, -1, 2])]
+    scene = Scene(Spheres.empty(dev), Triangles.from_arrays(
+        np.concatenate([q[0] for q in parts]),
+        np.concatenate([q[1] for q in parts]),
+        np.repeat(np.int32(mats), 2), device=dev))
+    img = np.random.default_rng(8).uniform(0.05, 4.0, (12, 20, 3))
+    maps = {"sky": envmap.gradient_sky(sun_dir=(0.4, 0.25, 0.88),
+                                       device=dev),
+            "odd": envmap._with_tables(img.astype(np.float32), dev),
+            "constant": envmap.constant_env((0.7, 0.8, 0.9), dev)}
+    return collect_area_lights(scene, mb.build(dev)), maps
+
+
+def _nee_wave(dev, n, seed):
+    """The leading arguments of ``pathtracer.nee_sample`` for n shading
+    points over the floor and in the lights' plane (edge-on), unit normals
+    mostly up, every material type, dead lanes, a NaN point."""
+    r = np.random.default_rng(seed)
+    pts = np.concatenate([r.uniform(-3, 3, (n, 2)),
+                          r.uniform(0, 1.9, (n, 1))], -1).astype(np.float32)
+    pts[:256, 2] = 2.0
+    pts[256:260] = np.nan
+    nrm = r.normal(size=(n, 3)) + [0, 0, 1.5]
+    nrm /= np.linalg.norm(nrm, axis=-1, keepdims=True)
+    t = lambda x: torch.as_tensor(x, device=dev)   # noqa: E731
+    return (t(pts), t(nrm.astype(np.float32)), t(r.random(n) < 0.85),
+            t(r.integers(0, 4, n).astype(np.int32)),
+            t(r.uniform(0, 2.5, (n, 3)).astype(np.float32)),
+            t(r.uniform(0, 1, (n, 3)).astype(np.float32)),
+            t(r.integers(0, 1 << 22, n)), t(r.integers(0, 64, n)))
+
+
+def _hit_wave(dev, n, seed, lights):
+    """The leading arguments of ``pathtracer.hit_radiance`` (to
+    ``prim_diff``) for n ray ends: missed and hit lanes, prev_pdf 0 or >
+    0, EMISSIVE hits on light triangles, other triangles and spheres."""
+    from optix_ray_tracer_tpu_torch.ops.intersect import Hit
+    r = np.random.default_rng(seed)
+    d = r.normal(size=(n, 3))
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    state = r.integers(0, 3, n)
+    light_tris = lights.tri_id.cpu().numpy()
+    t = lambda x: torch.as_tensor(x, device=dev)   # noqa: E731
+    hit = Hit(t=t(np.where(state == 2, r.uniform(0.1, 5, n),
+                           1e16).astype(np.float32)),
+              prim_type=t(np.where(r.random(n) < 0.8, 2, 1).astype(
+                  np.int32)),
+              prim_id=t(np.where(r.random(n) < 0.6, r.choice(light_tris, n),
+                                 r.integers(0, 6, n)).astype(np.int32)),
+              u=t(np.zeros(n, np.float32)), v=t(np.zeros(n, np.float32)))
+    return (t(r.uniform(0, 1, (n, 3)).astype(np.float32)),
+            t(d.astype(np.float32)),
+            t(np.where(r.random(n) < 0.3, 0.0,
+                       r.uniform(0.01, 3, n)).astype(np.float32)),
+            t(r.uniform(0, 2.5, (n, 3)).astype(np.float32)), t(state == 1),
+            t(state == 2), hit, t(r.integers(0, 4, n).astype(np.int32)),
+            t(r.uniform(0, 20, (n, 3)).astype(np.float32)),
+            t(r.random(n) < 0.5))
+
+
+@pytest.mark.parametrize("cap", [0.0, 0.5])
+@pytest.mark.parametrize("parts", ["area", "odd", "sky", "both"])
+@pytest.mark.parametrize("sampler", ["pcg", "sobol"])
+def test_path_nee_kernels_equal_plain(dev, sampler, parts, cap):
+    """L against ``nee_sample_plain`` and M against ``nee_add_plain`` on
+    the card on a 1M-lane wave (dead, EMISSIVE and other non-ROUGH lanes,
+    edge-on and NaN points): every output bit for bit; each launches
+    once."""
+    from optix_ray_tracer_tpu_torch.render import pathtracer
+
+    lights, maps = _nee_tables(dev)
+    n = 1 << 20
+    wave = _nee_wave(dev, n, 7)
+    lt = lights if parts in ("area", "both") else None
+    env = maps["sky"] if parts in ("sky", "both") else (
+        maps["odd"] if parts == "odd" else None)
+    before = (_lib.PATH_NEE_SAMPLE.launches, _lib.PATH_NEE_ADD.launches)
+    kern = pathtracer.nee_sample(*wave, 2, 0xFFFFFFF0, sampler, lt, env, cap)
+    plain = pathtracer.nee_sample_plain(*wave, 2, 0xFFFFFFF0, sampler, lt,
+                                        env, cap)
+    flat = [[x[0]] + [y for part in x[1:] if part for y in part]
+            for x in (kern, plain)]
+    assert len(flat[0]) == len(flat[1]) == 1 + 4 * (1 + (parts == "both"))
+    assert _equal(flat[0], flat[1]) == 0
+    valid = [p[3] for p in kern[1:] if p]
+    assert all(v.any() and not v.all() for v in valid)
+    r = np.random.default_rng(2)
+    occ = [torch.as_tensor(r.random(n) < 0.4, device=dev) if p else None
+           for p in kern[1:]]
+    rad = torch.rand(n, 3, device=dev)
+    rad[:64] = -0.0
+    args = (rad, *(kern[1][2:] if kern[1] else (None, None)), occ[0],
+            *(kern[2][2:] if kern[2] else (None, None)), occ[1])
+    got = pathtracer.nee_add(*args)
+    want = pathtracer.nee_add_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert (_lib.PATH_NEE_SAMPLE.launches, _lib.PATH_NEE_ADD.launches) == (
+        before[0] + 1, before[1] + 1)
+
+
+@pytest.mark.parametrize("cap", [0.0, 0.5])
+@pytest.mark.parametrize("bounce,restir", [(1, False), (0, True), (1, True),
+                                           (2, True)])
+@pytest.mark.parametrize("env,lights", [(None, True), ("constant", False),
+                                        ("sky", True), ("odd", False)])
+def test_hit_radiance_kernel_equal_plain(dev, env, lights, bounce, restir,
+                                         cap):
+    """N against ``hit_radiance_plain`` on the card on a 1M-lane wave: the
+    background, a map without tables or with them, the light table's MIS
+    or none, ReSTIR's bounce-0 and -1 rules, the clamp: bit for bit; N
+    launches once."""
+    from optix_ray_tracer_tpu_torch.render import pathtracer
+
+    table, maps = _nee_tables(dev)
+    args = _hit_wave(dev, 1 << 20, 3, table) + (
+        bounce, torch.tensor([0.2, 0.3, 0.4], device=dev),
+        table if lights else None, maps[env] if env else None, cap, restir)
+    before = _lib.PATH_HIT_RADIANCE.launches
+    got = pathtracer.hit_radiance(*args)
+    want = pathtracer.hit_radiance_plain(*args)
+    torch.cuda.synchronize()
+    assert _lib.PATH_HIT_RADIANCE.launches == before + 1
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert not torch.equal(got, args[0])

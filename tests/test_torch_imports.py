@@ -1,7 +1,7 @@
 """Import hygiene of the port: optix_ray_tracer_tpu_torch and every module
 of the ported slices import neither jax nor the JAX package; on CPU
-tensors no kernel (A-K) launches; chip_smoke.py refuses to run without
-CUDA."""
+tensors no kernel (A-N) launches, and the wrappers of L, M and N refuse
+them; chip_smoke.py refuses to run without CUDA."""
 
 import ast
 import os
@@ -83,7 +83,8 @@ MODULES = [
 SOURCES = sorted(
     str(p.relative_to(ROOT))
     for p in (ROOT / "optix_ray_tracer_tpu_torch").rglob("*.py")) + [
-    "chip_smoke.py", "tools/kernel_bench.py", "tools/prof_port.py"]
+    "chip_smoke.py", "tools/kernel_bench.py", "tools/path_ab.py",
+    "tools/prof_port.py"]
 
 _CHECK = """
 import importlib, sys
@@ -257,12 +258,48 @@ def test_cpu_path_launches_no_kernel():
     path-traced frame with bundle NEE and a sky, an ortho wave, ReSTIR DI
     and GI frames with Sobol, an adaptive batch, a sharded frame, an LBVH
     frame) and a query routed to the hierarchical marcher take the plain
-    versions: every launch count (A-G, and the bounce loop's H-K)
+    versions: every launch count (A-G, and the bounce loop's H-N)
     stays 0 and the library is never built."""
     proc = _run(_LAUNCHES)
     assert proc.returncode == 0, proc.stderr
-    assert "LAUNCHES [0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0] True" in \
-        proc.stdout, proc.stdout
+    assert f"LAUNCHES {[0] * 14} True" in proc.stdout, proc.stdout
+
+
+_REFUSE = """
+import torch
+from optix_ray_tracer_tpu_torch.ops.intersect import Hit
+from optix_ray_tracer_tpu_torch.ops.kernels import _lib, bounce
+from optix_ray_tracer_tpu_torch.render.envmap import gradient_sky
+n = 64
+v3, f, i, b = (torch.zeros(n, 3), torch.zeros(n),
+               torch.zeros(n, dtype=torch.int32), torch.zeros(n, dtype=bool))
+hit = Hit(t=f, prim_type=i, prim_id=i, u=f, v=f)
+env = gradient_sky(sun_dir=(0.3, 0.2, 0.9), device="cpu")
+calls = {
+    "L": lambda: bounce.nee_sample_call(v3, v3, b, i, v3, v3, i.long(),
+                                        i.long(), 1, 7, "pcg", None, env),
+    "M": lambda: bounce.nee_add_call(v3, v3, b, b, None, None, None),
+    "N": lambda: bounce.hit_radiance_call(v3, v3, f, v3, b, b, hit, i, v3,
+                                          b, 1, torch.zeros(3)),
+}
+for name, call in calls.items():
+    try:
+        call()
+    except ValueError as e:
+        assert "CUDA" in str(e), e
+        print("REFUSED", name)
+print("LAUNCHES", [k.launches for k in _lib.KERNELS], _lib._lib is None)
+"""
+
+
+def test_nee_wrappers_refuse_cpu_tensors():
+    """The wrappers of L, M and N never run a plain version: CPU tensors
+    raise before any build or launch."""
+    proc = _run(_REFUSE)
+    assert proc.returncode == 0, proc.stderr
+    for name in "LMN":
+        assert f"REFUSED {name}" in proc.stdout, proc.stdout
+    assert f"LAUNCHES {[0] * 14} True" in proc.stdout, proc.stdout
 
 
 @pytest.mark.parametrize("where", ["repo", "alone"])

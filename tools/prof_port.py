@@ -22,7 +22,7 @@ then ``torch.profiler`` over the same number of iterations.  The device
 time is the sum of the kernel, memcpy and memset events of the exported
 trace (everything runs on one stream, so the events do not overlap);
 idle share = 1 - device time / wall.  Prints, per cell, one summary line,
-the time per group of kernels (A-K, cuDNN, the torch kernels by kind),
+the time per group of kernels (A-N, cuDNN, the torch kernels by kind),
 the heaviest int64 elementwise kernels by their functors and the
 heaviest kernels by name; for the path tracer's cells, the device ms,
 ops and heaviest groups of each ``path.*`` range of ``trace_path``
@@ -90,6 +90,12 @@ def group(name: str, cat: str) -> str:
         return "J whitted_scatter"
     if "path_bsdf_kernel" in name:
         return "K path_bsdf"
+    if "path_nee_sample_kernel" in name:
+        return "L path_nee_sample"
+    if "path_nee_add_kernel" in name:
+        return "M path_nee_add"
+    if "path_hit_radiance_kernel" in name:
+        return "N path_hit_radiance"
     if any(k in name.lower() for k in ("conv", "xmma", "implicit", "gemm",
                                         "winograd", "cudnn")):
         return "convolution (cuDNN)"
@@ -149,21 +155,23 @@ def profile(name: str, fn, iters: int, card: str) -> None:
         print(f"    {ms:9.3f} ms  x {count / iters:6.1f}  {kname[:90]}")
     ranges = range_split(trace_events, events, iters)
     if ranges:
-        print("  trace_path ranges (device ms, ops per iter; the heaviest "
-              "groups):")
+        print("  trace_path ranges (device ms, ops per iter; the five "
+              "heaviest groups):")
         for label, (ms, ops, by_group) in sorted(ranges.items(),
                                                  key=lambda kv: -kv[1][0]):
-            top = sorted(by_group.items(), key=lambda kv: -kv[1])[:3]
+            top = sorted(by_group.items(), key=lambda kv: -kv[1])[:5]
             print(f"    {ms:9.3f} ms  {ops:8.0f} ops  {label}: " + "; ".join(
                 f"{g} {g_ms:.3f}" for g, g_ms in top))
 
 
 def range_split(trace_events: list, device_events: list, iters: int):
     """Device ms, device ops and ms per group of each ``record_function``
-    range named ``path.*`` (``render/pathtracer.trace_path``'s sections),
-    per iteration: a device event belongs to the innermost range around
-    the host call that launched it (matched by CUPTI correlation id), or
-    to "(outside the ranges)"."""
+    range named ``path.*`` (``render/pathtracer.trace_path``'s sections;
+    ``path.area_nee.query`` and ``path.env_nee.query`` its NEE shadow
+    queries), per iteration: a device event belongs to the innermost
+    range around the host call that launched it (matched by CUPTI
+    correlation id), or to
+    "(outside the ranges)"."""
     import bisect
     ranges: dict[int, list] = defaultdict(list)
     for e in trace_events:
@@ -186,7 +194,11 @@ def range_split(trace_events: list, device_events: list, iters: int):
         if host is not None:
             rs = ranges.get(host["tid"], [])
             k = bisect.bisect_right(rs, (host["ts"], float("inf"), "")) - 1
-            if k >= 0 and rs[k][0] <= host["ts"] <= rs[k][1]:
+            # the innermost range that holds the launch: the latest start
+            # before it whose end lies after it (ranges nest)
+            while k >= 0 and not rs[k][0] <= host["ts"] <= rs[k][1]:
+                k -= 1
+            if k >= 0:
                 label = rs[k][2]
         ms = e["dur"] / 1e3 / iters
         cell = out.setdefault(label, [0.0, 0.0, defaultdict(float)])
