@@ -32,8 +32,9 @@ CPU or to the plain versions):
    runs, each the mean of 5 back-to-back steps), and the incoherent
    1M-ray metric;
 4. a 1024x1024, spp=4, depth-5 Whitted frame through wavefront.render with
-   a raster-enabled MarchIntersector; the launch counts of A, B, C, H and
-   J are zeroed just before and read just after it, and each must be > 0;
+   a raster-enabled MarchIntersector; the launch counts of A, B, C, H, J
+   and O-R are zeroed just before and read just after it, and each must
+   be > 0;
 5. the Time scene (models/renderer_time.py): a 4,096-particle DEM pile of
    three sphere shapes as instances over a static ground quad, its TLAS
    library and pairs (<= 8192) and its flatten route (>= 3072 clusters, so
@@ -174,7 +175,23 @@ CPU or to the plain versions):
    PCG and Sobol, the mixed scene of (d) with config 4's light table and
    config 5's sky (clamp NEE_CLAMP) and a ``restir_direct`` wave at
    bounces 0 and 1, exact.  Phase 11's config-5, config-4 and path-pile
-   frames must launch K-N too.
+   frames must launch K-N too;
+15. the marcher's wave glue and the shading frame (:func:`glue_phase`):
+   (a) O (coherence-sort keys), P (the sorted ray pack), Q (the hit
+   record, unsorted, with u and v) and R (the shading frame) against
+   ``march_glue.march_keys_plain``, ``gather_rays_plain``,
+   ``finish_hits_plain`` and ``intersect.shading_frame_plain`` on every
+   call of three waves, exact: phase 4's bounce-1 wave (probe: P, C, O,
+   P, B, Q, then its shading frame), the flatten frame's camera wave
+   (Morton: O, P, F, Q; its shading frame) and config 5's first env NEE
+   shadow wave (any-hit; R on that frame's first shading frame); (b)
+   each kernel's device ms per launch on phase 4's bounce-1 wave beside
+   its bytes bound (:func:`glue_work`) and P's beside
+   ``torch.index_select`` of the wave's prebuilt (R, 8) rows; (c) phase
+   4's Whitted frame and config 5's frame by the kernels (counts zeroed,
+   O-R > 0, no plain version of H-R called) and with O-R's twins called
+   explicitly (:func:`glue_twin_route`: no O-R launch), max |diff| 0.
+   Phase 4's frame must launch O-R too.
 
 Every kernel's row in the kernels' JSON object is one whole main-path
 wave (a subset would leave most of the card idle): A the bench camera
@@ -190,6 +207,9 @@ waves'), their launches those of phases 4, 12, 13 (b) and 14 (c) and
 (e), K config 5's bounce-1 wave (its error the largest of (d)'s waves),
 L, M and N config 5's bounce-1 wave (their errors the largest of (f)'s
 waves), the launches of K-N those of phases 11, 12, 13 (b) and 14 (e);
+O-R phase 4's bounce-1 wave (their errors the largest of phase 15 (a)'s
+calls), their launches those of phases 4, 12, 13 (b) and 15 (c), their
+bound the bytes each ray's own data and each table row it reads take;
 their work the RNG's integer operations (:func:`sobol_ops`: the per-byte
 table lookups) and J's to N's float operations per lobe or part
 (:func:`scatter_ops`, :func:`bsdf_ops`, :func:`nee_work`,
@@ -242,6 +262,7 @@ SPP = 4
 DEPTH = 5
 TILE = 32
 REPS = 5
+TRACE_TRIES = 3   # trace windows device_ms takes before it gives up
 SUBSET = 65_536
 LIGHT = (3.0, 3.0, 3.0)
 SKY = (218, 232, 244)     # sRGB of the default background (0.7, 0.8, 0.9)
@@ -820,8 +841,7 @@ def whitted(device, card: str):
                                          intersector=inter)
     torch.cuda.synchronize()
     s_frame = time.perf_counter() - t0
-    launches = {k.name: k.launches
-                for k in (K["A"], K["B"], K["C"], K["H"], K["J"])}
+    launches = {K[k].name: K[k].launches for k in "ABCHJOPQR"}
     print(f"[whitted] {WIDTH}x{HEIGHT} spp={SPP} depth {DEPTH}: "
           f"{s_frame:.3f} s/frame (first frame) [{card}]; launches "
           f"{launches}; live share of bounce waves 1-{DEPTH - 1}: "
@@ -2673,7 +2693,7 @@ def shared_builds():
         common.choose_intersector = real
 
 
-def launch_counts(keys: str = "ABCDEFHIJKLMN") -> dict:
+def launch_counts(keys: str = "ABCDEFHIJKLMNOPQR") -> dict:
     return {k: K[k].launches for k in keys}
 
 
@@ -3331,15 +3351,33 @@ def twin_route():
         (qmc, "sobol_owen4", qmc.sobol_owen4_plain))
 
 
+def glue_steps() -> tuple:
+    """The dispatchers of O-R, (module, name), each beside its ``_plain``
+    twin in its module."""
+    from optix_ray_tracer_tpu_torch.ops import intersect
+    from optix_ray_tracer_tpu_torch.ops.kernels import march_glue
+    return ((march_glue, "march_keys"), (march_glue, "gather_rays"),
+            (march_glue, "finish_hits"), (intersect, "shading_frame"))
+
+
+def glue_twin_route():
+    """The marcher's glue and the shading frame on the plain versions,
+    called explicitly on CUDA tensors (O-R's twins; everything else on
+    its kernels)."""
+    return swapped(*((m, name, getattr(m, f"{name}_plain"))
+                     for m, name in glue_steps()))
+
+
 @contextlib.contextmanager
 def no_twin_calls(label: str):
-    """Within the block, a call of any plain version of H-N fails the
+    """Within the block, a call of any plain version of H-R fails the
     run."""
     from optix_ray_tracer_tpu_torch.render import pathtracer, wavefront
     from optix_ray_tracer_tpu_torch.utils import qmc, rng
     twins = ((rng, "uniform4_plain"), (rng, "pcg4d_plain"),
              (qmc, "sobol_owen4_plain"), (wavefront, "scatter_plain"),
-             *((pathtracer, f"{name}_plain") for name in PATH_STEPS))
+             *((pathtracer, f"{name}_plain") for name in PATH_STEPS),
+             *((m, f"{name}_plain") for m, name in glue_steps()))
     with contextlib.ExitStack() as stack:
         calls = [stack.enter_context(calls_of(m, n)) for m, n in twins]
         yield
@@ -3356,31 +3394,45 @@ def sobol_ops(n: int, dims: int) -> int:
                 + dims * (OWEN_OPS + UNIT_OPS) + 1)
 
 
-def device_ms(fn, kernel: str, reps: int) -> float:
+def device_ms(fn, kernel: str, letter: str, reps: int) -> float:
     """Mean device ms of the kernel named ``kernel`` (a substring of its
-    CUDA name) per call of ``fn``, over ``reps`` calls after a warm-up,
-    from a ``torch.profiler`` trace (build/chip_smoke/trace_*.json): the
-    kernel's own time, without its wrapper's host work, which takes
-    longer than H, I or J themselves."""
+    CUDA name; launch counter ``K[letter]``) per call of ``fn``, over
+    ``reps`` calls after a warm-up, from a ``torch.profiler`` trace
+    (build/chip_smoke/trace_*.json): the kernel's own time, without its
+    wrapper's host work, which takes longer than H, I or J themselves.
+    Each call must launch the kernel once: a window whose counter rose by
+    another count fails.  A window whose counter rose by ``reps`` but
+    whose trace holds another count of the kernel's events (the card's
+    activity tracing dropped them) is profiled again, up to TRACE_TRIES
+    windows."""
     import torch
     fn()
     torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[
-            torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     trace = OUT_DIR / f"trace_{kernel}.json"
-    prof.export_chrome_trace(str(trace))
-    durs = [e["dur"] for e in json.loads(trace.read_text())["traceEvents"]
-            if e.get("ph") == "X" and e.get("cat") == "kernel"
-            and kernel in e.get("name", "")]
-    if len(durs) != reps:
-        raise AssertionError(f"{len(durs)} {kernel} events in the trace of "
-                             f"{reps} calls")
-    return sum(durs) / reps / 1e3
+    for _ in range(TRACE_TRIES):
+        before = K[letter].launches
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        launched = K[letter].launches - before
+        if launched != reps:
+            raise AssertionError(f"{letter} launched {launched} times in "
+                                 f"{reps} calls")
+        prof.export_chrome_trace(str(trace))
+        events = [e for e in json.loads(trace.read_text())["traceEvents"]
+                  if e.get("ph") == "X" and e.get("cat") == "kernel"]
+        durs = [e["dur"] for e in events if kernel in e.get("name", "")]
+        if len(durs) == reps:
+            return sum(durs) / reps / 1e3
+        print(f"    {len(durs)} {kernel} events in the trace of {reps} "
+              f"launches ({len(events)} kernel events in all): profiling "
+              f"the calls again")
+    raise AssertionError(f"{len(durs)} {kernel} events in the trace of "
+                         f"{reps} launches, {TRACE_TRIES} times")
 
 
 def held(name: str, kern, plain) -> tuple:
@@ -3438,7 +3490,7 @@ def rng_rows(frame, card: str) -> dict:
         if bad:
             raise AssertionError(f"{letter} disagrees with its plain "
                                  f"version on {bad} elements")
-        ms = device_ms(kern_fn, cuda_name, REPS)
+        ms = device_ms(kern_fn, cuda_name, letter, REPS)
         call_ms = time_ms(kern_fn, REPS)
         plain_ms = time_ms(plain_fn, 1)
         r = row(err, ms, plain_ms, tensor_bytes(pix, samp, kern), ops)
@@ -3517,7 +3569,7 @@ def scatter_row(frame, card: str) -> dict:
                                  f"{bad} elements ({sampler})")
         errs.append(err)
         ms = device_ms(lambda: wavefront.scatter(*args),
-                       "whitted_scatter_kernel", REPS)
+                       "whitted_scatter_kernel", "J", REPS)
         call_ms = time_ms(lambda: wavefront.scatter(*args), REPS)
         plain_ms = time_ms(lambda: wavefront.scatter_plain(*args), 1)
         r = row(err, ms, plain_ms, tensor_bytes(args[1:7], kern),
@@ -3751,7 +3803,7 @@ def bsdf_rows(p: SimpleNamespace, card: str) -> dict:
                 int((mtype == m).sum()) for _, m in kinds):
             raise AssertionError(f"the {label} wave lacks a material")
     ms = device_ms(lambda: pathtracer.bsdf_step(*args), "path_bsdf_kernel",
-                   REPS)
+                   "K", REPS)
     call_ms = time_ms(lambda: pathtracer.bsdf_step(*args), REPS)
     plain_ms = time_ms(lambda: pathtracer.bsdf_step_plain(*args), 1)
     r = row(max(errs), ms, plain_ms, bsdf_bytes(args, kern), bsdf_ops(args))
@@ -4002,7 +4054,7 @@ def nee_rows(p: SimpleNamespace, card: str) -> dict:
         twin = getattr(pathtracer, f"{name}_plain")
         io_bytes, ops = (nee_work(args, kern) if letter == "L" else
                          add_work(args) if letter == "M" else hit_work(args))
-        ms = device_ms(lambda: step(*args), cuda_name, REPS)
+        ms = device_ms(lambda: step(*args), cuda_name, letter, REPS)
         call_ms = time_ms(lambda: step(*args), REPS)
         plain_ms = time_ms(lambda: twin(*args), 1)
         r = row(max(errs[letter]), ms, plain_ms, io_bytes, ops)
@@ -4064,7 +4116,8 @@ def path_route_frames(p: SimpleNamespace, card: str) -> dict:
 
 def bounce_phase(frame, card: str) -> tuple:
     """Phase 14: the bounce loop's kernels H-N.  Returns (their JSON
-    rows, the launches of (c) and (e))."""
+    rows, the launches of (c) and (e), the path scenes of
+    :func:`path_setup`)."""
     t0 = time.perf_counter()
     rows = rng_rows(frame, card)
     rows["whitted_scatter"] = scatter_row(frame, card)
@@ -4075,6 +4128,283 @@ def bounce_phase(frame, card: str) -> tuple:
     for name, n in path_route_frames(p, card).items():
         launches[name] = launches.get(name, 0) + n
     print(f"[bounce] phase 14 in {time.perf_counter() - t0:.1f} s")
+    return rows, launches, p
+
+
+# ---- phase 15: the marcher's wave glue and the shading frame (O-R) --------
+
+# operations of O-R per unit (csrc/march_glue.cu, csrc/shading_frame.cu,
+# counted as J's: a compare, select, clamp, cast, shift or logic operation
+# counts as one): a point's Morton code (per axis a subtract, divide, two
+# clamps, a multiply, a cast, a clamp and the eight operations of the bit
+# spread, then two shifts and two ors), a key's composition; Q's u and v
+# from a Woop row (two dots of five, a subtract, a multiply, an add, each
+# twice) and its selects; R's point, a triangle's or a sphere's normal,
+# the dot and flip, the selects
+MORTON_OPS = 3 * 15 + 4
+KEY_OPS = 4
+FINISH_OPS = 6
+UV_OPS = 2 * 13
+SHADE_OPS = 6 + 5 + 3 + 4
+TRI_NORMAL_OPS = 2 + 15
+SPHERE_NORMAL_OPS = 1 + 6
+
+
+def glue_calls(run) -> list:
+    """(name, args, kwargs) of every call of O-R's dispatchers in
+    ``run()``, in order."""
+    seen = []
+    with contextlib.ExitStack() as stack:
+        for m, name in glue_steps():
+            stack.enter_context(calls_of(m, name, keep=lambda *a, _n=name,
+                                         **k: seen.append((_n, a, k))))
+        run()
+    return seen
+
+
+def query_calls(calls) -> dict:
+    """The glue calls of the last marcher query among ``calls`` (its P
+    calls in order, O and Q) and the last shading frame: {letter: [(args,
+    kwargs), ...]}."""
+    q = max(i for i, c in enumerate(calls) if c[0] == "finish_hits"
+            and c[2].get("u") is None)
+    start = q
+    while start > 0 and calls[start - 1][0] in ("gather_rays", "march_keys"):
+        start -= 1
+    out = {"O": [], "P": [], "Q": [calls[q][1:]], "R": []}
+    for name, a, k in calls[start:q]:
+        out["O" if name == "march_keys" else "P"].append((a, k))
+    shades = [c[1:] for c in calls if c[0] == "shading_frame"]
+    if shades:
+        out["R"].append(shades[-1])
+    return out
+
+
+def glue_waves(frame, t, p) -> list:
+    """Phase 15's waves: (label, {letter: [(args, kwargs)]}) of phase 4's
+    bounce-1 wave (probe: P, C, O, P, B, Q; its shading frame), the
+    flatten frame's camera wave (Morton, F) and its shading frame, and
+    config 5's first env NEE shadow wave (any-hit) with its frame's first
+    shading frame."""
+    from optix_ray_tracer_tpu_torch.ops import intersect, march
+    from optix_ray_tracer_tpu_torch.render import wavefront
+    whitted = query_calls(glue_calls(lambda: wavefront.render(
+        frame.scene, frame.mats, frame.cam, WIDTH, HEIGHT, spp=SPP,
+        seed=frame.seed, max_depth=2, intersector=frame.inter)))
+
+    def flatten():
+        hit = t.finter.intersect(t.flat, t.o, t.d, t.tmin, t.tmax)
+        intersect.shading_frame(t.flat, t.o, t.d, hit)
+    camera = query_calls(glue_calls(flatten))
+    with calls_of(march.MarchIntersector, "intersect",
+                  keep=lambda *a, **k: (a, k)) as queries:
+        shades = [c for c in glue_calls(lambda: path_frame(
+            p.c5, p.i5, spp=1, max_depth=2)) if c[0] == "shading_frame"]
+    a, k = next((a, k) for a, k in queries if k.get("_any_hit"))
+    env = query_calls(glue_calls(lambda: a[0].intersect(*a[1:], **k)))
+    env["R"] = [shades[0][1:]]
+    return [("phase 4's bounce-1 wave (probe)", whitted),
+            ("the flatten camera wave (Morton, F)", camera),
+            ("config 5's env NEE shadow wave (any-hit)", env)]
+
+
+def glue_rays(letter: str, args) -> int:
+    """The rays of a call of O-R with these positional arguments."""
+    return (args[0].shape[0] if letter in "OP" else
+            args[3] if letter == "Q" else args[3].t.numel())
+
+
+def glue_outputs(out) -> tuple:
+    """A dispatcher's outputs as a tuple of tensors (P's inverse is None
+    without a permutation)."""
+    return tuple(x for x in out if x is not None) if isinstance(
+        out, tuple) else (out,)
+
+
+def glue_work(letter: str, args, kw, kern) -> tuple:
+    """(bytes, operations) one launch of ``letter`` needs on its wave,
+    from the wave's data: every ray's own inputs and outputs; a table row
+    (a Woop row's eight used values, a prim_index entry, a triangle's
+    normals and material, a sphere's row) once however many rays read it;
+    a bound broadcast from one value once."""
+    import torch
+
+    def nbytes(*ts):
+        return sum(x.numel() * x.element_size() for x in ts
+                   if isinstance(x, torch.Tensor))
+
+    if letter == "O":
+        d, o = args[0], kw.get("o", args[1] if len(args) > 1 else None)
+        n = d.shape[0]
+        cid = kw.get("cid")
+        points = 1 if cid is not None else 2
+        io = nbytes(d, kern[0]) + (nbytes(cid) if cid is not None else
+                                   nbytes(o) + 24)
+        return io, n * (points * MORTON_OPS + KEY_OPS)
+    if letter == "P":
+        o, d, tmin, tmax = args[:4]
+        perm = args[4] if len(args) > 4 else kw.get("perm")
+        n = o.shape[0]
+        bounds = sum(4 if x.dim() and x.stride(0) == 0 else nbytes(x)
+                     for x in (tmin, tmax))
+        return nbytes(o, d, perm, *kern) + bounds, 0
+    if letter == "Q":
+        t, slot, prim_index, n = args[:4]
+        slot = slot[:n]
+        hits = slot >= 0
+        n_hits = int(hits.sum())
+        rows = torch.unique(slot[hits]).numel()
+        # slot on every ray, t (and given u, v) on hits only: a miss's
+        # outputs are constants
+        io = 4 * n + 4 * n_hits + nbytes(kw.get("inv"), *kern) + 4 * rows
+        ops = n * FINISH_OPS
+        if kw.get("u") is not None:
+            io += 8 * n_hits
+        elif not kw.get("any_hit"):
+            io += n_hits * 24 + rows * 32
+            ops += n_hits * UV_OPS
+        return io, ops
+    scene, o, d, hit = args[:4]
+    n = hit.t.numel()
+    tri = hit.prim_type.reshape(-1) == 2
+    pid = hit.prim_id.reshape(-1)
+    io = 32 * n + nbytes(*kern) + 12 * int(tri.sum())
+    io += 40 * torch.unique(pid[tri].clamp(
+        0, max(scene.triangle_count - 1, 0))).numel()
+    ops = n * SHADE_OPS + int(tri.sum()) * TRI_NORMAL_OPS
+    if scene.sphere_count:
+        sph = pid[~tri].clamp(0, scene.sphere_count - 1)
+        io += 4 * sph.numel() + 24 * torch.unique(sph).numel()
+        ops += sph.numel() * SPHERE_NORMAL_OPS
+    return io, ops
+
+
+GLUE_KERNELS = {"O": "march_keys_kernel", "P": "gather_rays_kernel",
+                "Q": "finish_hits_kernel", "R": "shading_frame_kernel"}
+
+
+def hold_glue(letter: str, args, kw, label: str) -> tuple:
+    """One of O-R (its dispatcher) against its twin on the same CUDA
+    tensors: one launch, every output equal.  Returns (kernel's outputs,
+    max |diff|)."""
+    import torch
+    module, name = glue_steps()["OPQR".index(letter)]
+    before = K[letter].launches
+    kern = glue_outputs(getattr(module, name)(*args, **kw))
+    if K[letter].launches != before + 1:
+        raise AssertionError(f"{letter} did not launch")
+    plain = glue_outputs(getattr(module, f"{name}_plain")(*args, **kw))
+    torch.cuda.synchronize()
+    bad, err = held(f"{letter} {K[letter].name}, {label}", kern, plain)
+    if bad:
+        raise AssertionError(f"{letter} disagrees with {name}_plain on {bad} "
+                             f"elements ({label})")
+    return kern, err
+
+
+def glue_rows(waves, card: str) -> dict:
+    """Phase 15 (a), (b): O-R against their twins on every wave, exact;
+    each kernel's row on phase 4's bounce-1 wave: device ms per launch
+    (profiler trace), the twin's ms, the bytes bound; P's library call,
+    ``torch.index_select`` of the wave's prebuilt (R, 8) rows."""
+    import torch
+    errs = {k: [] for k in "OPQR"}
+    for label, calls in waves:
+        for letter in "OPQR":
+            for a, k in calls[letter]:
+                n = glue_rays(letter, a)
+                mode = ("probe" if k.get("cid") is not None else "Morton"
+                        ) if letter == "O" else (
+                    "perm" if len(a) > 4 and a[4] is not None else "in place"
+                ) if letter == "P" else ""
+                errs[letter].append(hold_glue(
+                    letter, a, k, f"{label}, {n} rays {mode}".strip())[1])
+    rows = {}
+    calls = waves[0][1]
+    for letter in "OPQR":
+        module, name = glue_steps()["OPQR".index(letter)]
+        a, k = calls[letter][-1]
+        step = getattr(module, name)
+        twin = getattr(module, f"{name}_plain")
+        kern = glue_outputs(step(*a, **k))
+        io_bytes, ops = glue_work(letter, a, k, kern)
+        ms = device_ms(lambda: step(*a, **k), GLUE_KERNELS[letter], letter,
+                       REPS)
+        call_ms = time_ms(lambda: step(*a, **k), REPS)
+        plain_ms = time_ms(lambda: twin(*a, **k), 1)
+        r = row(max(errs[letter]), ms, plain_ms, io_bytes, ops)
+        n = glue_rays(letter, a)
+        lib = ""
+        if letter == "P":
+            o, d, tmin, tmax, perm = a[:5]
+            packed = torch.cat([o, d, tmin[:, None], tmax[:, None]], 1)
+            r["library_ms"] = time_ms(
+                lambda: torch.index_select(packed, 0, perm), REPS)
+            lib = f"; index_select of the (R, 8) rows {r['library_ms']:.4f} ms"
+        print(f"[glue] {letter} {K[letter].name}, phase 4's bounce-1 wave: "
+              f"device {ms:.4f} ms for {n} rays ({call_ms:.4f} ms per wrapper "
+              f"call; plain {plain_ms:.3f} ms{lib}) [{card}]; bound "
+              f"{r['bound_ms']:.4f} ms by {r['bound_by']}, "
+              f"{io_bytes / n:.1f} B a ray ({100 * r['bound_ms'] / ms:.1f}%)")
+        rows[K[letter].name] = r
+    return rows
+
+
+def glue_frames(frame, p, card: str) -> dict:
+    """Phase 15 (c): phase 4's Whitted frame and config 5's frame by the
+    kernels (counts zeroed just before and read just after: O-R launched,
+    no plain version of H-R called) and with O-R's twins called
+    explicitly (:func:`glue_twin_route`: no launch of O-R), held to each
+    other at max |diff| 0.  Returns the kernel routes' launches."""
+    import torch
+
+    from optix_ray_tracer_tpu_torch.render import wavefront
+    launches = {}
+
+    def timed(render):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        img = render()
+        torch.cuda.synchronize()
+        return img, time.perf_counter() - t0
+
+    for label, render in (
+            ("phase 4's Whitted frame", lambda: wavefront.render(
+                frame.scene, frame.mats, frame.cam, WIDTH, HEIGHT, spp=SPP,
+                seed=frame.seed, max_depth=DEPTH,
+                intersector=frame.inter)[0]),
+            ("config 5's frame", lambda: path_frame(p.c5, p.i5))):
+        zero_counts()
+        with no_twin_calls(label):
+            img, s_kern = timed(render)
+        counts = launch_counts("OPQR")
+        for k, n in counts.items():
+            launches[K[k].name] = launches.get(K[k].name, 0) + n
+        zero_counts()
+        with glue_twin_route():
+            twin, s_twin = timed(render)
+        twin_counts = launch_counts("OPQR")
+        err = float((img - twin).abs().max())
+        print(f"[glue] {label}: kernels {s_kern:.3f} s/frame (launches "
+              f"{counts_text(counts)}), O-R's twins {s_twin:.3f} s/frame "
+              f"[{card}]; max |diff| {err:.3g}")
+        if min(counts.values()) == 0:
+            raise AssertionError(f"{label} missed a kernel of O-R: {counts}")
+        if any(twin_counts.values()):
+            raise AssertionError(f"the twin route launched {twin_counts}")
+        if not torch.isfinite(img).all() or err != 0:
+            raise AssertionError(f"{label} by the kernels differs from the "
+                                 f"twins'")
+    return launches
+
+
+def glue_phase(frame, t, p, card: str) -> tuple:
+    """Phase 15: the marcher's wave glue and the shading frame, O-R.
+    Returns (their JSON rows, the launches of (c))."""
+    t0 = time.perf_counter()
+    rows = glue_rows(glue_waves(frame, t, p), card)
+    launches = glue_frames(frame, p, card)
+    print(f"[glue] phase 15 in {time.perf_counter() - t0:.1f} s")
     return rows, launches
 
 
@@ -4102,7 +4432,8 @@ def main() -> None:
              F=_lib.BLOCK_MARCH_HIER, G=_lib.LEAF_SWEEP, H=_lib.PCG4D,
              I=_lib.SOBOL_OWEN4, J=_lib.WHITTED_SCATTER, K=_lib.PATH_BSDF,
              L=_lib.PATH_NEE_SAMPLE, M=_lib.PATH_NEE_ADD,
-             N=_lib.PATH_HIT_RADIANCE)
+             N=_lib.PATH_HIT_RADIANCE, O=_lib.MARCH_KEYS,
+             P=_lib.GATHER_RAYS, Q=_lib.FINISH_HITS, R=_lib.SHADING_FRAME)
     card = card_line()
     print(card)      # name and power limit, as nvidia-smi reports them
     t_start = time.perf_counter()
@@ -4129,9 +4460,13 @@ def main() -> None:
         launches[name] = launches.get(name, 0) + n
     for name, n in parallel_phase(frame, card).items():
         launches[name] = launches.get(name, 0) + n
-    bounce_rows, bounce_launches = bounce_phase(frame, card)
+    bounce_rows, bounce_launches, p = bounce_phase(frame, card)
     rows.update(bounce_rows)
     for name, n in bounce_launches.items():
+        launches[name] = launches.get(name, 0) + n
+    glue_rows, glue_launches = glue_phase(frame, t, p, card)
+    rows.update(glue_rows)
+    for name, n in glue_launches.items():
         launches[name] = launches.get(name, 0) + n
     kernels = [{"name": k.name, "route": "cuda", "source": k.source,
                 "replaces": k.replaces, "launches": launches[k.name],
@@ -4139,7 +4474,7 @@ def main() -> None:
     kernels += [{"name": name, "route": "cuda", "source": K[k].source,
                  "replaces": replaces, "launches": launches[name],
                  **rows[name]} for name, (k, replaces) in VARIANT_ROWS.items()]
-    print(f"[smoke] phases 1-14 in {time.perf_counter() - t_start:.1f} s "
+    print(f"[smoke] phases 1-15 in {time.perf_counter() - t_start:.1f} s "
           f"[{card}]")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -176,7 +176,19 @@ def shading_frame(scene: Scene, o, d, hit: Hit):
     """Hit point and two-sided shading normal for a batch of hits: spheres
     use (p - c) / r, triangles interpolate vertex normals w*n1 + u*n2 +
     v*n3.  Returns (point, normal (un-normalized), front_face,
-    material_id)."""
+    material_id).  CUDA tensors launch kernel R
+    (``ops/kernels/march_glue.shading_frame_call``); others take
+    :func:`shading_frame_plain`, which computes the same bits."""
+    if o.is_cuda:
+        # imported here: the kernels' module imports this one
+        from optix_ray_tracer_tpu_torch.ops.kernels import march_glue
+        return march_glue.shading_frame_call(scene, o, d, hit)
+    return shading_frame_plain(scene, o, d, hit)
+
+
+def shading_frame_plain(scene: Scene, o, d, hit: Hit):
+    """Plain version of :func:`shading_frame` on any device (kernel R's
+    twin): both frames for every ray, then a select."""
     point = o + hit.t[..., None] * d
     sph_id = torch.clamp(hit.prim_id, 0, max(scene.sphere_count - 1, 0)
                          ).long()

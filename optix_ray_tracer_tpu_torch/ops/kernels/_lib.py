@@ -1,5 +1,6 @@
 """Build, load and launch the hand-written CUDA kernels of ``csrc/``:
-A-G on the hit path, H-N in the bounce loop.
+A-G on the hit path, H-N in the bounce loop, O-R the marcher's wave glue
+and the hit shading frame.
 
 All kernels compile into one shared library with a plain C interface,
 built on first use into ``build/kernels/`` beside the package and loaded
@@ -276,7 +277,34 @@ PATH_HIT_RADIANCE = Kernel(
     source="optix_ray_tracer_tpu_torch/csrc/path_nee.cu",
     replaces="optix_ray_tracer_tpu/render/pathtracer.py:201")
 
+# O-R have no Pallas counterpart either: the JAX package's intersect and
+# shading_frame are plain jnp around its pallas_call
+#: kernel O (coherence-sort keys)
+MARCH_KEYS = Kernel(
+    "march_keys", "ort_march_keys", [_I] + [_P] * 5 + [_L, _P, _P],
+    source="optix_ray_tracer_tpu_torch/csrc/march_glue.cu",
+    replaces="optix_ray_tracer_tpu/ops/raysort.py:17")
+#: kernel P (the sorted ray pack)
+GATHER_RAYS = Kernel(
+    "gather_rays", "ort_gather_rays",
+    [_P, _P, _P, _L, _P, _L, _P, _L, _L, _P, _P, _P],
+    source="optix_ray_tracer_tpu_torch/csrc/march_glue.cu",
+    replaces="optix_ray_tracer_tpu/ops/march.py:337")
+#: kernel Q (the hit record, unsorted, with its u and v)
+FINISH_HITS = Kernel(
+    "finish_hits", "ort_finish_hits",
+    [_I] + [_P] * 9 + [_L] + [_P] * 6,
+    source="optix_ray_tracer_tpu_torch/csrc/march_glue.cu",
+    replaces="optix_ray_tracer_tpu/ops/march.py:354")
+#: kernel R (the hit shading frame)
+SHADING_FRAME = Kernel(
+    "shading_frame", "ort_shading_frame",
+    [_P] * 10 + [_I, _P, _P, _I, _L] + [_P] * 5,
+    source="optix_ray_tracer_tpu_torch/csrc/shading_frame.cu",
+    replaces="optix_ray_tracer_tpu/ops/intersect.py:222")
+
 KERNELS = (TILE_RASTER, BLOCK_MARCH, PROBE, TILE_RASTER_INSTANCED,
            BLOCK_MARCH_INSTANCED, BLOCK_MARCH_HIER, LEAF_SWEEP, PCG4D,
            SOBOL_OWEN4, WHITTED_SCATTER, PATH_BSDF, PATH_NEE_SAMPLE,
-           PATH_NEE_ADD, PATH_HIT_RADIANCE)
+           PATH_NEE_ADD, PATH_HIT_RADIANCE, MARCH_KEYS, GATHER_RAYS,
+           FINISH_HITS, SHADING_FRAME)

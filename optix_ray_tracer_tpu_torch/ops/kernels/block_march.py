@@ -609,35 +609,46 @@ def _check_clusters(C: int) -> None:
             f"clusters = {MAX_CLUSTERS * CLUSTER_TRIS} triangles")
 
 
-def march_inputs(clusters, o, d, t_min, t_max, coherent: bool = True,
+def march_tables(clusters, coherent: bool = True, hier: bool = False,
                  block_rays: int | None = None) -> dict:
-    """The ``march_call`` arguments for a wave (padded to whole blocks)."""
-    C = clusters.num_clusters
-    _check_clusters(C)
-    c_pad = ((C + 7) // 8) * 8
-    W = block_rays or choose_block_rays(C, coherent)
-    sub_boxes, n_subs = _wave_sub_boxes(clusters, c_pad, coherent)
-    return dict(rays=pack_rays(*pad_rays(o, d, t_min, t_max, W)),
-                boxes=_pad_boxes(clusters.cluster_min, clusters.cluster_max,
-                                 c_pad - C),
-                sub_boxes=sub_boxes, woop_t=clusters.woop_t, n_clusters=C,
-                n_subs=n_subs, w=W)
-
-
-def hier_inputs(clusters, o, d, t_min, t_max,
-                coherent: bool = True) -> dict:
-    """The ``march_hier_call`` arguments for a wave: superclusters of
-    GROUP clusters (:func:`supercluster_boxes`)."""
+    """The ``march_call`` (with ``hier``: ``march_hier_call``, over
+    superclusters of GROUP clusters, :func:`supercluster_boxes`) arguments
+    of a wave but its rays; ``w`` is the block width the rays are padded
+    to."""
     C = clusters.num_clusters
     _check_clusters(C)
     c_pad = ((C + 7) // 8) * 8
     boxes = _pad_boxes(clusters.cluster_min, clusters.cluster_max, c_pad - C)
-    sup_boxes = supercluster_boxes(boxes)
     sub_boxes, n_subs = _wave_sub_boxes(clusters, c_pad, coherent)
+    tables = dict(boxes=boxes, sub_boxes=sub_boxes, woop_t=clusters.woop_t,
+                  n_clusters=C, n_subs=n_subs)
+    if hier:
+        return dict(sup_boxes=supercluster_boxes(boxes), **tables,
+                    w=BLOCK_RAYS)
+    return dict(tables, w=block_rays or choose_block_rays(C, coherent))
+
+
+def march_inputs(clusters, o, d, t_min, t_max, coherent: bool = True,
+                 block_rays: int | None = None) -> dict:
+    """The ``march_call`` arguments for a wave (padded to whole blocks)."""
+    tables = march_tables(clusters, coherent, block_rays=block_rays)
+    return dict(rays=pack_rays(*pad_rays(o, d, t_min, t_max, tables["w"])),
+                **tables)
+
+
+def hier_inputs(clusters, o, d, t_min, t_max,
+                coherent: bool = True) -> dict:
+    """The ``march_hier_call`` arguments for a wave."""
+    tables = march_tables(clusters, coherent, hier=True)
     return dict(rays=pack_rays(*pad_rays(o, d, t_min, t_max, BLOCK_RAYS)),
-                sup_boxes=sup_boxes, boxes=boxes, sub_boxes=sub_boxes,
-                woop_t=clusters.woop_t, n_clusters=C, n_subs=n_subs,
-                w=BLOCK_RAYS)
+                **tables)
+
+
+def use_hier(n_clusters: int, coherent: bool,
+             block_rays: int | None = None) -> bool:
+    """Whether a wave goes to kernel F: coherent, at HIER_MIN_CLUSTERS
+    clusters or more, and no explicit block width."""
+    return n_clusters >= HIER_MIN_CLUSTERS and coherent and block_rays is None
 
 
 def _finish(t, slot, any_hit: bool, winners):
@@ -671,8 +682,7 @@ def block_march(clusters, o, d, t_min, t_max, any_hit: bool = False,
     the flat kernel B.  Both are exact; on a tie at exactly equal t they
     may pick different triangles."""
     _check_clusters(clusters.num_clusters)
-    if (clusters.num_clusters >= HIER_MIN_CLUSTERS and coherent
-            and block_rays is None):
+    if use_hier(clusters.num_clusters, coherent, block_rays):
         return block_march_hier(clusters, o, d, t_min, t_max,
                                 any_hit=any_hit, coherent=coherent)
     n = o.shape[0]

@@ -2,9 +2,10 @@
 
 Host-side duties around the hit-path kernels: coherence-sort a wave
 (Morton keys for coherent waves, probe keys from kernel C for incoherent
-ones), pad it to blocks, run kernel B, unsort, and merge the analytic
-spheres; route common-point and common-direction waves through the
-tile-raster engine (kernel A) and secondary waves in a tile layout
+ones; kernel O), pack and pad it to blocks (kernel P), run kernel B or F,
+unsort it into a Hit (kernel Q), and merge the analytic spheres; route
+common-point and common-direction waves through the tile-raster engine
+(kernel A) and secondary waves in a tile layout
 through the bundle engine (3-D binning, kernel A), each with an exact
 whole-wave fallback to the marcher; refit or rebuild the intersector for
 new vertex positions on the device.
@@ -16,18 +17,16 @@ import dataclasses
 
 import torch
 
-from optix_ray_tracer_tpu_torch.ops.bvh import morton_codes
 from optix_ray_tracer_tpu_torch.ops.intersect import (
-    DEFAULT_T_MIN, PRIM_NONE, PRIM_TRIANGLE, Hit, ray_bound,
+    DEFAULT_T_MIN, Hit, ray_bound,
 )
-from optix_ray_tracer_tpu_torch.ops.kernels.block_march import (
-    block_march, probe_first_cluster,
-)
+from optix_ray_tracer_tpu_torch.ops.kernels import block_march as bm
+from optix_ray_tracer_tpu_torch.ops.kernels import march_glue
 from optix_ray_tracer_tpu_torch.ops.raster import (
     RasterSet, build_raster_set, bundle_query, raster_query,
 )
 from optix_ray_tracer_tpu_torch.ops.raysort import (
-    ray_sort_keys, sphere_bruteforce_merge,
+    probe_sort_keys, sphere_bruteforce_merge,
 )
 from optix_ray_tracer_tpu_torch.ops.sweep import (
     ClusterSet, build_clusters, rebuild_clusters, refit_clusters,
@@ -47,24 +46,31 @@ DEFAULT_ANYHIT_GRANULARITY = 2
 
 def ray_probe_keys(clusters, o, d, t_min, t_max):
     """(first-cluster id << 18) | direction Morton >> 12."""
-    cid = probe_first_cluster(clusters, o, d, t_min, t_max).to(torch.int64)
-    unit = torch.ones(3, device=d.device)
-    d_m = morton_codes(d, -unit, unit)
-    return (cid << 18) | (d_m >> 12)
+    return probe_sort_keys(
+        bm.probe_first_cluster(clusters, o, d, t_min, t_max), d)
 
 
 def _hit_from_slots(clusters: ClusterSet, t, slot, u, v) -> Hit:
-    missed = slot < 0
-    prim_id = clusters.prim_index[torch.clamp(slot, min=0).long()]
-    zero = torch.zeros_like(u)
-    return Hit(
-        t=torch.where(missed, torch.full_like(t, INF), t),
-        prim_type=torch.where(missed, PRIM_NONE, PRIM_TRIANGLE
-                              ).to(torch.int32),
-        prim_id=torch.where(missed, torch.zeros_like(prim_id), prim_id
-                            ).to(torch.int32),
-        u=torch.where(missed, zero, u),
-        v=torch.where(missed, zero, v))
+    """The Hit of a query's (t, slot, u, v) in the caller's order (kernel
+    Q on the card)."""
+    return Hit(*march_glue.finish_hits(t, slot, clusters.prim_index,
+                                       slot.shape[0], u=u, v=v))
+
+
+def _march_hit(clusters: ClusterSet, o, d, t_min, t_max, coherent: bool,
+               any_hit: bool, perm=None, tables=None) -> Hit:
+    """A wave's Hit in the caller's order: kernel P (through ``perm``, or
+    in place), B or F (``block_march``'s rule), then Q.  ``tables``: the
+    wave's ``march_tables``, when the caller has built them."""
+    hier = bm.use_hier(clusters.num_clusters, coherent)
+    if tables is None:
+        tables = bm.march_tables(clusters, coherent, hier)
+    rays, inv = march_glue.gather_rays(o, d, t_min, t_max, perm, tables["w"])
+    march = bm.march_hier_call if hier else bm.march_call
+    t, slot, _ = march(rays=rays, **tables, any_hit=any_hit)
+    return Hit(*march_glue.finish_hits(t, slot, clusters.prim_index,
+                                       o.shape[0], o, d, clusters.woop,
+                                       inv=inv, any_hit=any_hit))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -123,11 +129,11 @@ class MarchIntersector(TensorDataclass):
             self.raster, self.clusters, o2, d2, t_min_a, t_max_a, mode=mode,
             point=point, any_hit=any_hit, block_rays=block_rays,
             pc_max=pc_max, granularity=granularity)
-        if not ok:
-            t, slot, u, v = block_march(self.clusters, o2, d2, t_min_a,
-                                        t_max_a, any_hit=any_hit,
-                                        coherent=True)
-        hit = _hit_from_slots(self.clusters, t, slot, u, v)
+        if ok:
+            hit = _hit_from_slots(self.clusters, t, slot, u, v)
+        else:
+            hit = _march_hit(self.clusters, o2, d2, t_min_a, t_max_a,
+                             coherent=True, any_hit=any_hit)
         if scene.sphere_count > 0:
             hit = sphere_bruteforce_merge(scene, o2, d2, t_min_a, t_max_a,
                                           hit)
@@ -155,11 +161,11 @@ class MarchIntersector(TensorDataclass):
             self.clusters, o2, d2, t_min_a, t_max_a, any_hit=any_hit,
             block_rays=block_rays, pc_max=pc_max,
             granularity=granularity or 1)
-        if not ok:
-            t, slot, u, v = block_march(self.clusters, o2, d2, t_min_a,
-                                        t_max_a, any_hit=any_hit,
-                                        coherent=False)
-        hit = _hit_from_slots(self.clusters, t, slot, u, v)
+        if ok:
+            hit = _hit_from_slots(self.clusters, t, slot, u, v)
+        else:
+            hit = _march_hit(self.clusters, o2, d2, t_min_a, t_max_a,
+                             coherent=False, any_hit=any_hit)
         if scene.sphere_count > 0:
             hit = sphere_bruteforce_merge(scene, o2, d2, t_min_a, t_max_a,
                                           hit)
@@ -184,28 +190,25 @@ class MarchIntersector(TensorDataclass):
         t_min_a = ray_bound(t_min, n, o2.device)
         t_max_a = ray_bound(t_max, n, o2.device)
 
+        cs = self.clusters
         sort_free = self.num_tris <= SORT_FREE_TRIS
-        if sort_free:
-            o_s, d_s, tmin_s, tmax_s = o2, d2, t_min_a, t_max_a
-        else:
-            if self.sort_mode == "probe":
-                key = ray_probe_keys(self.clusters, o2, d2, t_min_a, t_max_a)
-            else:
-                key = ray_sort_keys(o2, d2, self.scene_lo, self.scene_hi)
-            perm = torch.argsort(key, stable=True)
-            packed = torch.cat([o2, d2, t_min_a[:, None], t_max_a[:, None]],
-                               1)[perm]
-            o_s, d_s = packed[:, 0:3], packed[:, 3:6]
-            tmin_s, tmax_s = packed[:, 6], packed[:, 7]
-
-        t, slot, u, v = block_march(
-            self.clusters, o_s, d_s, tmin_s, tmax_s, any_hit=_any_hit,
-            coherent=sort_free or self.sort_mode != "probe")
+        coherent = sort_free or self.sort_mode != "probe"
+        perm = tables = None
         if not sort_free:
-            inv = torch.empty_like(perm)
-            inv[perm] = torch.arange(n, device=perm.device)
-            t, slot, u, v = t[inv], slot[inv], u[inv], v[inv]
-        hit = _hit_from_slots(self.clusters, t, slot, u, v)
+            if self.sort_mode == "probe":
+                tables = bm.march_tables(cs, coherent=False)
+                boxes = tables["boxes"]
+                rays, _ = march_glue.gather_rays(o2, d2, t_min_a, t_max_a)
+                cid = bm.probe_call(rays=rays, boxes=boxes,
+                                    n_clusters=cs.num_clusters,
+                                    c_pad=boxes.shape[0])[0]
+                key = march_glue.march_keys(d2, cid=cid)
+            else:
+                key = march_glue.march_keys(d2, o2, self.scene_lo,
+                                            self.scene_hi)
+            perm = torch.argsort(key, stable=True)
+        hit = _march_hit(cs, o2, d2, t_min_a, t_max_a, coherent, _any_hit,
+                         perm, tables)
         if scene.sphere_count > 0:
             hit = sphere_bruteforce_merge(scene, o2, d2, t_min_a, t_max_a,
                                           hit)

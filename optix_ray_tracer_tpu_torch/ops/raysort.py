@@ -21,6 +21,13 @@ def ray_sort_keys(o, d, scene_lo, scene_hi):
     return ((o_morton >> 18) << 20) | (d_morton >> 10)
 
 
+def probe_sort_keys(cid, d):
+    """(first-cluster id << 18) | direction Morton >> 12, as int64 holding
+    the JAX package's uint32 keys; ``cid`` is kernel C's answer."""
+    unit = torch.ones(3, device=d.device)
+    return (cid.to(torch.int64) << 18) | (morton_codes(d, -unit, unit) >> 12)
+
+
 def sphere_bruteforce_merge(scene: Scene, o, d, t_min, t_max,
                             hit: Hit) -> Hit:
     """Fold the (few) analytic spheres in with a dense test; ``t_min`` and

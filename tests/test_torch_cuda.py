@@ -21,7 +21,7 @@ import torch
 
 from optix_ray_tracer_tpu_torch.io.meshgen import sphere_with_n_triangles
 from optix_ray_tracer_tpu_torch.ops import raster
-from optix_ray_tracer_tpu_torch.ops.intersect import hit_mismatches
+from optix_ray_tracer_tpu_torch.ops.intersect import Hit, hit_mismatches
 from optix_ray_tracer_tpu_torch.ops.kernels import _lib
 from optix_ray_tracer_tpu_torch.ops.kernels import block_march as bm
 from optix_ray_tracer_tpu_torch.ops.kernels import tile_raster as tr
@@ -255,14 +255,18 @@ def test_tile_raster_kernel(setup, dev, mode, any_hit, g):
 
 
 def test_overflow_fallback_on_card(setup, dev):
-    """A tiny pair capacity sends the camera wave to kernel B (coherent);
-    the hits equal the raster route's under the hit rule."""
+    """A tiny pair capacity sends the camera wave to kernel B (coherent),
+    between kernels P and Q; the hits equal the raster route's under the
+    hit rule."""
     scene, inter, o, d, _, _ = setup
-    before = (_lib.TILE_RASTER.launches, _lib.BLOCK_MARCH.launches)
+    before = (_lib.TILE_RASTER.launches, _lib.BLOCK_MARCH.launches,
+              _lib.GATHER_RAYS.launches, _lib.FINISH_HITS.launches)
     h_f = inter.intersect_from(scene, o, d, mode="origin", point=o[0],
                                pc_max=64)
     assert _lib.TILE_RASTER.launches == before[0]
     assert _lib.BLOCK_MARCH.launches == before[1] + 1
+    assert _lib.GATHER_RAYS.launches == before[2] + 1
+    assert _lib.FINISH_HITS.launches == before[3] + 1
     h_r = inter.intersect_from(scene, o, d, mode="origin", point=o[0])
     assert _lib.TILE_RASTER.launches == before[0] + 1
     assert hit_mismatches(h_f.prim_id, h_f.t, h_r.prim_id, h_r.t) == 0
@@ -1714,3 +1718,288 @@ def test_hit_radiance_kernel_equal_plain(dev, env, lights, bounce, restir,
     assert _lib.PATH_HIT_RADIANCE.launches == before + 1
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
     assert not torch.equal(got, args[0])
+
+
+# ---- kernels O-R: the marcher's wave glue and the hit shading frame -------
+
+def _bits(kern, plain):
+    """Elements of two tuples of tensors whose bits differ: floats compared
+    as int32 words (signed zeros count), any NaN equal to any NaN (its
+    sign and payload are the code generator's: a negation may flip a
+    NaN's sign bit or not)."""
+    bad = 0
+    for a, b in zip(kern, plain):
+        assert a.shape == b.shape and a.dtype == b.dtype
+        if a.is_floating_point():
+            nan = torch.isnan(a) & torch.isnan(b)
+            bad += int(((a.view(torch.int32) != b.view(torch.int32))
+                        & ~nan).sum())
+        else:
+            bad += int((a != b).sum())
+    return bad
+
+
+def _where_bits(kern, plain, hit, o, d, most: int = 8) -> str:
+    """The first mismatched elements of two tuples of (n, ...) outputs,
+    with their rays and hits, for an assertion message."""
+    lines = []
+    for k, (a, b) in enumerate(zip(kern, plain)):
+        ai, bi = ((a.view(torch.int32), b.view(torch.int32))
+                  if a.is_floating_point() else (a, b))
+        bad = (ai != bi) & ~(torch.isnan(a) & torch.isnan(b)
+                             if a.is_floating_point() else False)
+        bad = bad.reshape(a.shape[0], -1).any(-1)
+        for i in torch.nonzero(bad)[:most, 0].tolist():
+            lines.append(
+                f"output {k} ray {i}: kernel {a[i].tolist()} "
+                f"{ai[i].tolist()}, plain {b[i].tolist()} {bi[i].tolist()}; "
+                f"t {hit.t[i].item()}, type {hit.prim_type[i].item()}, "
+                f"id {hit.prim_id[i].item()}, o {o[i].tolist()}, "
+                f"d {d[i].tolist()}")
+    return "\n".join(lines)
+
+
+def _glue_wave(dev, n, seed, scene_hi=1.0):
+    """n rays around a unit-sized scene: origins in and outside its box,
+    on its high corner (Morton cell 1024 clamps to 1023); unit directions
+    with zero components among them; a few NaN origins and directions."""
+    r = np.random.default_rng(seed)
+    o = r.uniform(-2.5, 2.5, (n, 3)).astype(np.float32)
+    d = r.normal(size=(n, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    o[:64] = scene_hi
+    d[64:128, 1] = 0.0
+    d[128:192] = (0.0, 0.0, -1.0)
+    o[192:200, 0] = np.nan
+    d[200:208, 2] = np.nan
+    t = lambda x: torch.as_tensor(x, device=dev)   # noqa: E731
+    return t(o), t(d)
+
+
+@pytest.mark.parametrize("mode", ["morton", "probe"])
+def test_march_keys_kernel_equal_plain(setup, dev, mode):
+    """O against ``march_keys_plain`` on 1M rays with the Morton edge
+    values and NaN coordinates: every key bit for bit (Morton keys: the
+    sign bit set on some and clear on others), the same stable argsort;
+    O launches once."""
+    from optix_ray_tracer_tpu_torch.ops.kernels import march_glue as mg
+    _, inter, _, _, _, _ = setup
+    o, d = _glue_wave(dev, 1 << 20, 1)
+    if mode == "probe":
+        n = o.shape[0]
+        tmin = torch.full((n,), 1e-3, device=dev)
+        tmax = torch.full((n,), 1e16, device=dev)
+        args = dict(cid=bm.probe_first_cluster(inter.clusters, o, d, tmin,
+                                               tmax))
+    else:
+        args = dict(o=o, lo=inter.scene_lo, hi=inter.scene_hi)
+    before = _lib.MARCH_KEYS.launches
+    got = mg.march_keys_call(d, **args)
+    assert _lib.MARCH_KEYS.launches == before + 1
+    want = mg.march_keys_plain(d, **args)
+    torch.cuda.synchronize()
+    assert _bits((got,), (want,)) == 0
+    if mode == "morton":
+        assert 0 < int((got >= 0).sum()) < got.numel()
+    assert torch.equal(torch.argsort(got, stable=True),
+                       torch.argsort(want, stable=True))
+
+
+@pytest.mark.parametrize("bounds", ["per_ray", "scalar"])
+@pytest.mark.parametrize("w", [1, 128, 512])
+@pytest.mark.parametrize("perm", [False, True], ids=["identity", "perm"])
+def test_gather_rays_kernel_equal_plain(dev, perm, w, bounds):
+    """P against ``gather_rays_plain``: a permutation or none, padding
+    tails of every width, NaN t_min and +-inf and NaN t_max carried bit
+    for bit, bounds per ray or one value broadcast; P launches once."""
+    from optix_ray_tracer_tpu_torch.ops.kernels import march_glue as mg
+    n = 100_003
+    o, d = _glue_wave(dev, n, 2)
+    if bounds == "scalar":
+        tmin = torch.tensor(1e-3, device=dev).expand(n)
+        tmax = torch.tensor(float("inf"), device=dev).expand(n)
+    else:
+        r = np.random.default_rng(3)
+        tmin = torch.as_tensor(r.uniform(0, 1e-2, n).astype(np.float32),
+                               device=dev)
+        tmax = torch.as_tensor(r.uniform(0, 50, n).astype(np.float32),
+                               device=dev)
+        tmin[:50] = float("nan")
+        tmax[50:100] = float("inf")
+        tmax[100:150] = -float("inf")
+        tmax[150:160] = float("nan")
+    p = torch.randperm(n, device=dev) if perm else None
+    before = _lib.GATHER_RAYS.launches
+    got = mg.gather_rays_call(o, d, tmin, tmax, p, w)
+    assert _lib.GATHER_RAYS.launches == before + 1
+    want = mg.gather_rays_plain(o, d, tmin, tmax, p, w)
+    torch.cuda.synchronize()
+    assert got[0].shape == (8, n + (-n) % w)
+    assert (got[1] is None) == (want[1] is None) == (not perm)
+    assert _bits([x for x in got if x is not None],
+                 [x for x in want if x is not None]) == 0
+
+
+@pytest.mark.parametrize("perm", [False, True], ids=["unsorted", "sorted"])
+@pytest.mark.parametrize("mode", ["recompute", "any_hit", "given"])
+def test_finish_hits_kernel_equal_plain(setup, dev, mode, perm):
+    """Q against ``finish_hits_plain`` on a march's (t, slot) over the
+    setup's clusters (misses, a padded tail, NaN rays): every Hit field bit
+    for bit, read through the inverse of a permutation or in place; Q
+    launches once."""
+    from optix_ray_tracer_tpu_torch.ops.kernels import march_glue as mg
+    _, inter, _, _, _, _ = setup
+    cs = inter.clusters
+    r = np.random.default_rng(5)
+    n, n_pad = 1_000_000, 1_000_448
+    slot = r.integers(0, cs.woop.shape[0], n_pad).astype(np.int32)
+    slot[r.random(n_pad) < 0.3] = -1
+    t = r.uniform(0.01, 9.0, n_pad).astype(np.float32)
+    if mode == "any_hit":
+        t[slot >= 0] = -1e16
+    o = r.normal(size=(n, 3)).astype(np.float32)
+    o[:64, 0] = np.nan
+    dv = lambda x: torch.as_tensor(x, device=dev)   # noqa: E731
+    uv = {}
+    if mode == "given":
+        uv = dict(u=dv(r.random(n_pad).astype(np.float32)),
+                  v=dv(r.random(n_pad).astype(np.float32)))
+    inv = torch.randperm(n, device=dev).to(torch.int32) if perm else None
+    args = dict(o=dv(o), d=dv(r.normal(size=(n, 3)).astype(np.float32)),
+                woop=cs.woop, inv=inv, any_hit=mode == "any_hit", **uv)
+    before = _lib.FINISH_HITS.launches
+    got = mg.finish_hits_call(dv(t), dv(slot), cs.prim_index, n, **args)
+    assert _lib.FINISH_HITS.launches == before + 1
+    want = mg.finish_hits_plain(dv(t), dv(slot), cs.prim_index, n, **args)
+    torch.cuda.synchronize()
+    assert _bits(got, want) == 0
+
+
+@pytest.mark.parametrize("tables", ["both", "spheres", "triangles"])
+def test_shading_frame_kernel_equal_plain(setup, dev, tables):
+    """R against ``shading_frame_plain`` on 1M hits over a scene with
+    spheres and triangles, spheres only, triangles only: triangle and
+    sphere hits, misses, ids beyond each table, NaN directions; every
+    output bit for bit; R launches once."""
+    from optix_ray_tracer_tpu_torch.ops import intersect as isect
+    scene = setup[0]
+    sph = Spheres.from_list([((0.2, 1.5, -0.6), 0.4, 2),
+                             ((-1.0, 0.0, 0.3), 0.0, 1),
+                             ((0.0, -1.5, 0.0), 0.7, 3)])
+    tri = scene.triangles
+    if tables == "spheres":
+        tri = Triangles.empty()
+    scene = Scene(Spheres.empty() if tables == "triangles" else sph, tri)
+    n = 1 << 20
+    o, d = _glue_wave(dev, n, 6)
+    r = np.random.default_rng(7)
+    ptype = r.integers(0, 3, n).astype(np.int32)
+    pid = r.integers(0, max(scene.sphere_count, scene.triangle_count) + 5,
+                     n).astype(np.int32)
+    t = np.where(ptype == 0, np.float32(1e16),
+                 r.uniform(0.01, 5.0, n)).astype(np.float32)
+    dv = lambda x: torch.as_tensor(x, device=dev)   # noqa: E731
+    hit = Hit(dv(t), dv(ptype), dv(pid), dv(r.random(n).astype(np.float32)),
+              dv(r.random(n).astype(np.float32)))
+    before = _lib.SHADING_FRAME.launches
+    got = isect.shading_frame(scene, o, d, hit)
+    assert _lib.SHADING_FRAME.launches == before + 1
+    want = isect.shading_frame_plain(scene, o, d, hit)
+    torch.cuda.synchronize()
+    assert _bits(got, want) == 0, _where_bits(got, want, hit, o, d)
+    assert got[2].dtype == torch.bool and got[3].dtype == torch.int32
+
+
+def _twin_route(monkeypatch):
+    """The glue of ``MarchIntersector`` and ``shading_frame`` on the twins,
+    called explicitly on CUDA tensors."""
+    from optix_ray_tracer_tpu_torch.ops import intersect as isect
+    from optix_ray_tracer_tpu_torch.ops.kernels import march_glue as mg
+    for module, name in ((mg, "march_keys"), (mg, "gather_rays"),
+                         (mg, "finish_hits"), (isect, "shading_frame")):
+        monkeypatch.setattr(module, name, getattr(module, f"{name}_plain"))
+
+
+@pytest.mark.parametrize("any_hit", [False, True], ids=["nearest",
+                                                        "any_hit"])
+@pytest.mark.parametrize("route", ["morton", "morton_F", "probe",
+                                   "sort_free", "spheres"])
+def test_intersect_kernels_equal_twins(setup, dev, monkeypatch, route,
+                                       any_hit):
+    """``MarchIntersector.intersect`` routed through O, P and Q equals the
+    same query with the glue on its twins, every Hit field bit for bit:
+    Morton-sorted camera waves on B and on F (HIER_MIN_CLUSTERS lowered),
+    probe-sorted incoherent waves (P twice), sort-free waves of a
+    1,000-triangle sphere, and a scene with analytic spheres; 8,191 rays,
+    dead lanes and NaN t_min among them."""
+    scene, inter, o, d, oi, di = setup
+    if route == "morton_F":
+        monkeypatch.setattr(bm, "HIER_MIN_CLUSTERS", 8)
+    if route == "sort_free":
+        v, n_ = sphere_with_n_triangles(1000)
+        scene = Scene(Spheres.empty(), Triangles.from_arrays(v, n_))
+        inter = make_march_intersector(scene)
+    if route == "spheres":
+        scene = Scene(Spheres.from_list([((0.0, 0.0, 1.1), 0.3, 0)]),
+                      scene.triangles)
+    if route in ("probe", "spheres"):
+        inter = inter.for_incoherent()
+    wo, wd = (o, d) if route.startswith("morton") else (oi, di)
+    wo, wd = wo[:8191], wd[:8191]
+    n = wo.shape[0]
+    tmin = torch.full((n,), 1e-3, device=dev)
+    tmin[::97] = float("nan")
+    camera = route.startswith("morton")
+    tmax = torch.full((n,), (2.5 if camera else 0.8) if any_hit else 1e16,
+                      device=dev)
+    tmax[::7] = 0.0
+    counts = lambda: [k.launches for k in (   # noqa: E731
+        _lib.MARCH_KEYS, _lib.GATHER_RAYS, _lib.FINISH_HITS, _lib.PROBE,
+        _lib.BLOCK_MARCH, _lib.BLOCK_MARCH_HIER)]
+    before = counts()
+    got = inter.intersect(scene, wo, wd, tmin, tmax, _any_hit=any_hit)
+    ran = [a - b for a, b in zip(counts(), before)]
+    sort = route != "sort_free"
+    probe = route in ("probe", "spheres")
+    assert ran == [int(sort), 1 + int(probe), 1, int(probe),
+                   int(route != "morton_F"), int(route == "morton_F")]
+    with monkeypatch.context() as m:
+        _twin_route(m)
+        want = inter.intersect(scene, wo, wd, tmin, tmax, _any_hit=any_hit)
+        assert counts()[:3] == [b + r for b, r in zip(before, ran)][:3]
+    torch.cuda.synchronize()
+    fields = lambda h: (h.t, h.prim_type, h.prim_id, h.u, h.v)  # noqa: E731
+    assert _bits(fields(got), fields(want)) == 0
+    assert 0 < int(got.is_hit.sum()) < n
+
+
+def test_glue_kernels_raise_when_the_build_fails(setup, dev, monkeypatch,
+                                                 tmp_path):
+    """With no library and a build that fails, intersect and shading_frame
+    raise on CUDA tensors and never run a twin of O-R."""
+    from optix_ray_tracer_tpu_torch.ops import intersect as isect
+    from optix_ray_tracer_tpu_torch.ops.kernels import march_glue as mg
+
+    def no_nvcc():
+        raise RuntimeError("nvcc not found (forced)")
+
+    def never(*a, **k):
+        raise AssertionError("a plain version ran")
+
+    scene, inter, o, d, oi, di = setup
+    monkeypatch.setattr(_lib, "_lib", None)
+    monkeypatch.setattr(_lib, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(_lib, "_nvcc", no_nvcc)
+    for module, name in ((mg, "march_keys_plain"), (mg, "gather_rays_plain"),
+                         (mg, "finish_hits_plain"),
+                         (isect, "shading_frame_plain")):
+        monkeypatch.setattr(module, name, never)
+    with pytest.raises(RuntimeError, match="forced"):
+        inter.intersect(scene, o, d)
+    with pytest.raises(RuntimeError, match="forced"):
+        inter.for_incoherent().any_hit(scene, oi, di)
+    n = oi.shape[0]
+    f = torch.zeros(n, device=dev)
+    i = torch.zeros(n, dtype=torch.int32, device=dev)
+    with pytest.raises(RuntimeError, match="forced"):
+        isect.shading_frame(scene, oi, di, Hit(f, i, i, f, f))

@@ -39,6 +39,7 @@ MODULES = [
     "optix_ray_tracer_tpu_torch.ops.kernels.bounce",
     "optix_ray_tracer_tpu_torch.ops.kernels.block_march",
     "optix_ray_tracer_tpu_torch.ops.kernels.leaf_sweep",
+    "optix_ray_tracer_tpu_torch.ops.kernels.march_glue",
     "optix_ray_tracer_tpu_torch.ops.kernels.tile_raster",
     "optix_ray_tracer_tpu_torch.ops.march",
     "optix_ray_tracer_tpu_torch.ops.raster",
@@ -262,7 +263,7 @@ def test_cpu_path_launches_no_kernel():
     stays 0 and the library is never built."""
     proc = _run(_LAUNCHES)
     assert proc.returncode == 0, proc.stderr
-    assert f"LAUNCHES {[0] * 14} True" in proc.stdout, proc.stdout
+    assert f"LAUNCHES {[0] * 18} True" in proc.stdout, proc.stdout
 
 
 _REFUSE = """
@@ -299,7 +300,7 @@ def test_nee_wrappers_refuse_cpu_tensors():
     assert proc.returncode == 0, proc.stderr
     for name in "LMN":
         assert f"REFUSED {name}" in proc.stdout, proc.stdout
-    assert f"LAUNCHES {[0] * 14} True" in proc.stdout, proc.stdout
+    assert f"LAUNCHES {[0] * 18} True" in proc.stdout, proc.stdout
 
 
 @pytest.mark.parametrize("where", ["repo", "alone"])

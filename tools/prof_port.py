@@ -22,7 +22,7 @@ then ``torch.profiler`` over the same number of iterations.  The device
 time is the sum of the kernel, memcpy and memset events of the exported
 trace (everything runs on one stream, so the events do not overlap);
 idle share = 1 - device time / wall.  Prints, per cell, one summary line,
-the time per group of kernels (A-N, cuDNN, the torch kernels by kind),
+the time per group of kernels (A-R, cuDNN, the torch kernels by kind),
 the heaviest int64 elementwise kernels by their functors and the
 heaviest kernels by name; for the path tracer's cells, the device ms,
 ops and heaviest groups of each ``path.*`` range of ``trace_path``
@@ -96,6 +96,14 @@ def group(name: str, cat: str) -> str:
         return "M path_nee_add"
     if "path_hit_radiance_kernel" in name:
         return "N path_hit_radiance"
+    if "march_keys_kernel" in name:
+        return "O march_keys"
+    if "gather_rays_kernel" in name:
+        return "P gather_rays"
+    if "finish_hits_kernel" in name:
+        return "Q finish_hits"
+    if "shading_frame_kernel" in name:
+        return "R shading_frame"
     if any(k in name.lower() for k in ("conv", "xmma", "implicit", "gemm",
                                         "winograd", "cudnn")):
         return "convolution (cuDNN)"
