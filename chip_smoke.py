@@ -33,7 +33,7 @@ CPU or to the plain versions):
    1M-ray metric;
 4. a 1024x1024, spp=4, depth-5 Whitted frame through wavefront.render with
    a raster-enabled MarchIntersector; the launch counts of A, B, C, H, J
-   and O-R are zeroed just before and read just after it, and each must
+   and O-U are zeroed just before and read just after it, and each must
    be > 0;
 5. the Time scene (models/renderer_time.py): a 4,096-particle DEM pile of
    three sphere shapes as instances over a static ground quad, its TLAS
@@ -192,6 +192,21 @@ CPU or to the plain versions):
    O-R > 0, no plain version of H-R called) and with O-R's twins called
    explicitly (:func:`glue_twin_route`: no O-R launch), max |diff| 0.
    Phase 4's frame must launch O-R too.
+16. the raster binning (:func:`binning_phase`): (a) S (window rects), T
+   (block bounds and pair counts) and U (the sorted pair schedule)
+   against ``binning.bin_rects_plain``, ``bin_count_plain`` and
+   ``bin_emit_plain`` on every call of seven stages, exact: the bench
+   camera wave (g 4), the same cut at two thirds of its pairs, the bench
+   shadow wave (g 2), the TLAS camera wave (S on the pairs' boxes),
+   config 5's first camera wave, the path pile's first bundle NEE wave
+   (captured through ``raster.BUNDLE_OBSERVERS``) and one 1,024-ray block
+   pairing every one of the flatten route's 13,472 windows at g 4 (U's
+   long-row sort); (b) each kernel's device ms per launch on the bench
+   camera wave beside its bound (:func:`binning_work`); (c) phase 4's
+   Whitted frame, config 5's frame and the path pile's frame 0 by the
+   kernels (counts zeroed, S-U > 0, no plain version of H-U called) and
+   with S-U's twins called explicitly (:func:`binning_twin_route`),
+   max |diff| 0.  Phase 3's bench step must launch S, T and U twice each.
 
 Every kernel's row in the kernels' JSON object is one whole main-path
 wave (a subset would leave most of the card idle): A the bench camera
@@ -210,6 +225,11 @@ waves), the launches of K-N those of phases 11, 12, 13 (b) and 14 (e);
 O-R phase 4's bounce-1 wave (their errors the largest of phase 15 (a)'s
 calls), their launches those of phases 4, 12, 13 (b) and 15 (c), their
 bound the bytes each ray's own data and each table row it reads take;
+S-U the bench camera wave (their errors the largest of phase 16 (a)'s
+calls), their launches those of phases 4, 12, 13 (b) and 16 (c), their
+bound the larger of the bytes each input and output takes once and the
+operations of the wave's projections and of the tests its live blocks
+need (:func:`binning_work`);
 their work the RNG's integer operations (:func:`sobol_ops`: the per-byte
 table lookups) and J's to N's float operations per lobe or part
 (:func:`scatter_ops`, :func:`bsdf_ops`, :func:`nee_work`,
@@ -755,12 +775,18 @@ def bench(b: SimpleNamespace, card: str) -> None:
         k.launches = 0
     bench_step(b)
     torch.cuda.synchronize()
+    binned = [k.launches for k in (_lib.BIN_RECTS, _lib.BIN_COUNT,
+                                   _lib.BIN_EMIT)]
     if _lib.TILE_RASTER.launches != 2 or _lib.BLOCK_MARCH.launches != 0:
         raise AssertionError(
             f"bench step: raster launches {_lib.TILE_RASTER.launches} "
             f"(want 2), march launches {_lib.BLOCK_MARCH.launches} (want 0: "
             f"a schedule overflowed)")
-    print("[bench] both waves ran the raster kernel without overflow")
+    if binned != [2, 2, 2]:
+        raise AssertionError(f"bench step: S, T, U launches {binned} (want "
+                             f"2 each: one binning a wave)")
+    print("[bench] both waves ran the raster kernel without overflow, each "
+          "binned by S, T and U")
     dt = min(time_ms(lambda: bench_step(b), REPS) for _ in range(5))
     mrays = 2 * b.R / (dt * 1e-3) / 1e6
     inc = b.inter.for_incoherent()
@@ -841,7 +867,7 @@ def whitted(device, card: str):
                                          intersector=inter)
     torch.cuda.synchronize()
     s_frame = time.perf_counter() - t0
-    launches = {K[k].name: K[k].launches for k in "ABCHJOPQR"}
+    launches = {K[k].name: K[k].launches for k in "ABCHJOPQRSTU"}
     print(f"[whitted] {WIDTH}x{HEIGHT} spp={SPP} depth {DEPTH}: "
           f"{s_frame:.3f} s/frame (first frame) [{card}]; launches "
           f"{launches}; live share of bounce waves 1-{DEPTH - 1}: "
@@ -1150,7 +1176,8 @@ def check_time_kernels(t: SimpleNamespace) -> dict:
             ("shadow wave", shadow, light, pc2, True)):
         S = ri.instanced_coarse_stage(inter.pair_min, inter.pair_max, *wave,
                                       "origin", point, W,
-                                      raster.round_pc_max(pc))
+                                      raster.round_pc_max(pc),
+                                      inter.pair_shape, inter.pair_inst)
         if int(S["pc_total"]) > raster.round_pc_max(pc):
             raise AssertionError(f"D {label}: the schedule overflowed")
         d_rows.append(raster_wave(
@@ -2541,7 +2568,8 @@ def ortho_rows(b: SimpleNamespace, t: SimpleNamespace, card: str):
         if bad or K["D"].variants.get("dir", 0) != 1:
             raise AssertionError("D's ortho wave disagrees or missed \"dir\"")
         S = ri.instanced_coarse_stage(tlas.pair_min, tlas.pair_max, *wave,
-                                      "ortho", None, W, pc)
+                                      "ortho", None, W, pc, tlas.pair_shape,
+                                      tlas.pair_inst)
         d_rows.append(raster_wave(
             f"D dir sun wave {label}", tr.raster_instanced_call,
             tr.raster_instanced_plain, ri.instanced_schedule_inputs(tlas, S),
@@ -2693,7 +2721,7 @@ def shared_builds():
         common.choose_intersector = real
 
 
-def launch_counts(keys: str = "ABCDEFHIJKLMNOPQR") -> dict:
+def launch_counts(keys: str = "ABCDEFHIJKLMNOPQRSTU") -> dict:
     return {k: K[k].launches for k in keys}
 
 
@@ -3370,14 +3398,15 @@ def glue_twin_route():
 
 @contextlib.contextmanager
 def no_twin_calls(label: str):
-    """Within the block, a call of any plain version of H-R fails the
+    """Within the block, a call of any plain version of H-U fails the
     run."""
     from optix_ray_tracer_tpu_torch.render import pathtracer, wavefront
     from optix_ray_tracer_tpu_torch.utils import qmc, rng
     twins = ((rng, "uniform4_plain"), (rng, "pcg4d_plain"),
              (qmc, "sobol_owen4_plain"), (wavefront, "scatter_plain"),
              *((pathtracer, f"{name}_plain") for name in PATH_STEPS),
-             *((m, f"{name}_plain") for m, name in glue_steps()))
+             *((m, f"{name}_plain") for m, name in glue_steps()),
+             *((m, f"{name}_plain") for m, name in binning_steps()))
     with contextlib.ExitStack() as stack:
         calls = [stack.enter_context(calls_of(m, n)) for m, n in twins]
         yield
@@ -3401,10 +3430,12 @@ def device_ms(fn, kernel: str, letter: str, reps: int) -> float:
     (build/chip_smoke/trace_*.json): the kernel's own time, without its
     wrapper's host work, which takes longer than H, I or J themselves.
     Each call must launch the kernel once: a window whose counter rose by
-    another count fails.  A window whose counter rose by ``reps`` but
-    whose trace holds another count of the kernel's events (the card's
-    activity tracing dropped them) is profiled again, up to TRACE_TRIES
-    windows."""
+    another count fails.  A window opens with one more call, whose event
+    the card's activity tracing may drop (a whole smoke run lost one
+    event of S's windows every time); the last ``reps`` events are
+    timed.  A window whose trace holds fewer than ``reps`` of the
+    kernel's events (the tracing dropped more) is profiled again, up to
+    TRACE_TRIES windows."""
     import torch
     fn()
     torch.cuda.synchronize()
@@ -3415,24 +3446,25 @@ def device_ms(fn, kernel: str, letter: str, reps: int) -> float:
         with torch.profiler.profile(activities=[
                 torch.profiler.ProfilerActivity.CPU,
                 torch.profiler.ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
+            for _ in range(reps + 1):
                 fn()
             torch.cuda.synchronize()
         launched = K[letter].launches - before
-        if launched != reps:
+        if launched != reps + 1:
             raise AssertionError(f"{letter} launched {launched} times in "
-                                 f"{reps} calls")
+                                 f"{reps + 1} calls")
         prof.export_chrome_trace(str(trace))
         events = [e for e in json.loads(trace.read_text())["traceEvents"]
                   if e.get("ph") == "X" and e.get("cat") == "kernel"]
-        durs = [e["dur"] for e in events if kernel in e.get("name", "")]
-        if len(durs) == reps:
-            return sum(durs) / reps / 1e3
-        print(f"    {len(durs)} {kernel} events in the trace of {reps} "
+        durs = [e["dur"] for e in sorted(events, key=lambda e: e["ts"])
+                if kernel in e.get("name", "")]
+        if len(durs) >= reps:
+            return sum(durs[-reps:]) / reps / 1e3
+        print(f"    {len(durs)} {kernel} events in the trace of {reps + 1} "
               f"launches ({len(events)} kernel events in all): profiling "
               f"the calls again")
     raise AssertionError(f"{len(durs)} {kernel} events in the trace of "
-                         f"{reps} launches, {TRACE_TRIES} times")
+                         f"{reps + 1} launches, {TRACE_TRIES} times")
 
 
 def held(name: str, kern, plain) -> tuple:
@@ -4408,6 +4440,358 @@ def glue_phase(frame, t, p, card: str) -> tuple:
     return rows, launches
 
 
+# ---- phase 16: the raster binning (S, T, U) -------------------------------
+
+#: the kernels' CUDA names (substrings of their trace events)
+BIN_KERNELS = {"S": "bin_rects_kernel", "T": "bin_count_kernel",
+               "U": "bin_emit_kernel"}
+# operations per unit (csrc/binning.cu, counted as J's: a compare, select,
+# min, max or logic operation counts as one): a point's projection (the
+# subtraction, three dots of five, the test, two divides) and its rect
+# update (six min / max, the behind test); a ray's projective bounds (its
+# projection, two products, two min / max and two sums of the depth,
+# four min / max of the rect) or bundle bounds (the octant's three
+# compares, fourteen min / max); a (block, window) projective test
+# (eight compares, the full-plane or, four ands) or bundle test per live
+# octant (per axis two subtractions, four compares, two divides, four
+# selects, four min / max; the margins, two min / max, the compare and
+# the key); a sort comparison (the 64-bit compare and the swap)
+POINT_OPS = 3 + 15 + 1 + 2 + 8
+RAY_RECT_OPS = POINT_OPS + 6 + 4
+RAY_BOX_OPS = 3 + 14
+RECT_TEST_OPS = 13
+BOX_TEST_OPS = 3 * 16 + 8 + 4
+SORT_OPS = 2
+
+
+def binning_steps() -> tuple:
+    """The dispatchers of S, T and U, (module, name), each beside its
+    ``_plain`` twin in ``ops/kernels/binning``."""
+    from optix_ray_tracer_tpu_torch.ops.kernels import binning
+    return ((binning, "bin_rects"), (binning, "bin_count"),
+            (binning, "bin_emit"))
+
+
+def binning_twin_route():
+    """The raster binning on the plain versions, called explicitly on CUDA
+    tensors (S-U's twins; everything else on its kernels)."""
+    return swapped(*((m, name, getattr(m, f"{name}_plain"))
+                     for m, name in binning_steps()))
+
+
+def binning_calls(run) -> dict:
+    """{letter: [(args, kwargs), ...]} of every call of S-U's dispatchers
+    in ``run()``, in order."""
+    seen = {k: [] for k in "STU"}
+    with contextlib.ExitStack() as stack:
+        for letter, (m, name) in zip("STU", binning_steps()):
+            stack.enter_context(calls_of(m, name, keep=lambda *a, _l=letter,
+                                         **k: seen[_l].append((a, k))))
+        run()
+    return seen
+
+
+def binning_outputs(out) -> tuple:
+    """A dispatcher's outputs as a tuple of tensors (U's dict in key
+    order; S's cfull is None for bundle boxes)."""
+    if isinstance(out, dict):
+        return tuple(out[k] for k in sorted(out))
+    return tuple(x for x in out if x is not None)
+
+
+def hold_binning(letter: str, args, kw, label: str) -> tuple:
+    """One of S-U (its dispatcher) against its twin on the same CUDA
+    tensors: one launch, every output equal (NaN equal to NaN; a zero's
+    sign is a reduction's pick and compares equal).  Returns (kernel's
+    outputs, max |diff|)."""
+    import torch
+    module, name = binning_steps()["STU".index(letter)]
+    before = K[letter].launches
+    kern = getattr(module, name)(*args, **kw)
+    if K[letter].launches != before + 1:
+        raise AssertionError(f"{letter} did not launch")
+    plain = getattr(module, f"{name}_plain")(*args, **kw)
+    torch.cuda.synchronize()
+    bad, err = held(f"{letter} {K[letter].name}, {label}",
+                    binning_outputs(kern), binning_outputs(plain))
+    if bad:
+        raise AssertionError(f"{letter} disagrees with {name}_plain on {bad} "
+                             f"elements ({label})")
+    return kern, err
+
+
+def binning_work(letter: str, args, kw, kern) -> tuple:
+    """(bytes, operations) one launch of ``letter`` needs on its wave,
+    from the wave's data: each input read once (a bound or row broadcast
+    over the wave once), each output written once; T's and U's tests over
+    the blocks with a live lane (bundle: each live octant), U's sort n
+    log2 n comparisons a row."""
+    import torch
+
+    def nbytes(*ts):
+        return sum(x.numel() * x.element_size() for x in ts
+                   if isinstance(x, torch.Tensor))
+
+    def rays_in(x):
+        return 0 if not isinstance(x, torch.Tensor) or (
+            x.dim() and x.stride(0) == 0) else nbytes(x)
+
+    if letter == "S":
+        source, a = args[0], args[1]
+        b = args[2] if len(args) > 2 else kw.get("b")
+        io = nbytes(a, b, *binning_outputs(kern)) + 48
+        if source == 2:                               # bundle boxes
+            return io, (a.numel() // 3) * 6
+        points = a.numel() // 3 * (8 if source == 1 else 1)
+        return io, points * POINT_OPS
+    if letter == "T":
+        o, d, t_min, t_max, W, mode, rects = args[:7]
+        rays, cnt_b, offs, bounds = kern
+        C = rects.shape[1]
+        io = (rays_in(o) + rays_in(d) + rays_in(t_min) + rays_in(t_max)
+              + nbytes(rects, *args[7:8]) + nbytes(*kern))
+        n = o.shape[0]
+        if mode == "bundle":
+            live_oct = int((bounds[..., 12] < 1e16).sum())
+            return io, n * RAY_BOX_OPS + live_oct * C * BOX_TEST_OPS
+        live = int((bounds[:, 6] != 0).sum())
+        return io, n * RAY_RECT_OPS + live * C * RECT_TEST_OPS
+    rects, cfull, bounds, cnt_b, offs, pc_max, mode = args[:7]
+    C = rects.shape[1]
+    nb = cnt_b.shape[0]
+    keep = torch.clamp(torch.minimum(
+        cnt_b.long(), pc_max - offs[:nb].long()), min=0)
+    rows = int((keep > 0).sum())
+    tests = (int((bounds[keep > 0][..., 12] < 1e16).sum()) * BOX_TEST_OPS
+             if mode == "bundle" else rows * RECT_TEST_OPS) * C
+    kf = keep[keep > 1].double()
+    sort = int((kf * torch.log2(kf)).sum()) * SORT_OPS
+    io = nbytes(rects, cfull, bounds, cnt_b, offs, *binning_outputs(kern))
+    return io, tests + sort
+
+
+def path_pile_scene(t: SimpleNamespace):
+    """Frame 0 of the Time scene's flatten route with phase 11's area
+    light over the pile (an EMISSIVE ANIM_LIGHT panel): (scene,
+    materials, lights, intersector)."""
+    import torch
+
+    from optix_ray_tracer_tpu_torch.io.meshgen import quad
+    from optix_ray_tracer_tpu_torch.models.common import choose_intersector
+    from optix_ray_tracer_tpu_torch.scene.geometry import Scene, Triangles
+    from optix_ray_tracer_tpu_torch.scene.lights import collect_area_lights
+    from optix_ray_tracer_tpu_torch.scene.materials import (
+        EMISSIVE, MaterialTable,
+    )
+
+    device = t.device
+    z, half, radiance = ANIM_LIGHT
+    lv, ln = quad((-half, -half, z), (-half, half, z), (half, half, z),
+                  (half, -half, z))
+    m = t.mats
+    mats = MaterialTable(
+        mtype=torch.cat([m.mtype, torch.tensor([EMISSIVE], device=device,
+                                               dtype=torch.int32)]),
+        albedo=torch.cat([m.albedo, torch.zeros((1, 3), device=device)]),
+        param=torch.cat([m.param, torch.zeros(1, device=device)]),
+        emission=torch.cat([m.emission, torch.full((1, 3), radiance,
+                                                   device=device)]))
+    lamp = Triangles.from_arrays(lv, ln, np.int32(m.count), device=device)
+    scene = Scene(t.flat.spheres, t.flat.triangles.concat(lamp))
+    return scene, mats, collect_area_lights(scene, mats), choose_intersector(
+        scene)
+
+
+def pile_frame(t: SimpleNamespace, pile) -> "torch.Tensor":
+    """``render_path`` of the path pile's frame 0 (1200x800, spp 1, depth
+    DEPTH; its NEE segments on the bundle engine)."""
+    from optix_ray_tracer_tpu_torch.render import pathtracer
+    scene, mats, lights, inter = pile
+    return pathtracer.render_path(
+        scene, mats, lights, t.cam, ANIM_WIDTH, ANIM_HEIGHT, spp=1, seed=1,
+        max_depth=DEPTH, intersector=inter)[0]
+
+
+def full_block_wave(t: SimpleNamespace):
+    """A block that pairs every window: 32x32 rays from far off the
+    flatten pile (eye 200 units out, a 90-degree view), one 1,024-ray
+    block over the flatten route's 3,368 clusters at g = 4 (13,472
+    windows: U's row is longer than its shared-memory sort).  The
+    ``_coarse_stage`` arguments."""
+    import torch
+
+    from optix_ray_tracer_tpu_torch.scene.camera import Camera
+    eye = torch.tensor([150.0, 60.0, 120.0])
+    look = eye - eye / torch.linalg.norm(eye)
+    cam = Camera.look_at(tuple(eye.tolist()), tuple(look.tolist()),
+                         (0.0, 0.0, 1.0), device=t.device)
+    o, d = (x.reshape(-1, 3) for x in cam.generate_rays(TILE, TILE))
+    n = o.shape[0]
+    C = t.finter.clusters.num_clusters * 4
+    return (t.finter.raster, t.finter.clusters, o, d,
+            torch.full((n,), 1e-3, device=t.device),
+            torch.full((n,), 1e16, device=t.device), "origin", o[0], n,
+            C + 1000, 4)
+
+
+def binning_waves(b: SimpleNamespace, t: SimpleNamespace, p, pile) -> list:
+    """Phase 16's waves: (label, stage, args) of the bench camera wave (g =
+    4) and its cut at two thirds of its pairs, the bench shadow wave (g =
+    2), the TLAS camera wave (S on the pairs), config 5's first camera
+    wave and the path pile's first bundle NEE wave (each captured from a
+    frame), and :func:`full_block_wave`."""
+    from optix_ray_tracer_tpu_torch.ops import raster
+    from optix_ray_tracer_tpu_torch.ops import raster_instanced as ri
+    from optix_ray_tracer_tpu_torch.ops.march import (
+        DEFAULT_ANYHIT_GRANULARITY, DEFAULT_GRANULARITY,
+    )
+    W = TILE * TILE
+    G, GS = DEFAULT_GRANULARITY, DEFAULT_ANYHIT_GRANULARITY
+    camera = (b.inter.raster, b.cs, b.o, b.d, b.tmin0, b.tmax_inf, "origin",
+              b.o[0], W, b.pc_max1, G)
+    cut = camera[:9] + (int(raster._coarse_stage(*camera)["pc_total"]) * 2
+                        // 3, G)
+    tlas = time_frame(t, 0).tlas
+    with calls_of(raster, "_coarse_stage",
+                  keep=lambda *a, **k: a) as c5_waves:
+        path_frame(p.c5, p.i5, spp=1, max_depth=1)
+    nee = []
+    raster.BUNDLE_OBSERVERS.append(
+        lambda args, kw, S: nee.append((args, kw)) if not nee else None)
+    try:
+        pile_frame(t, pile)
+    finally:
+        raster.BUNDLE_OBSERVERS.pop()
+    args, kw = nee[0]
+    return [
+        ("the bench camera wave (g 4)", raster._coarse_stage, camera, {}),
+        ("the bench camera wave cut at 2/3 of its pairs",
+         raster._coarse_stage, cut, {}),
+        ("the bench shadow wave (g 2)", raster._coarse_stage,
+         (b.inter.raster, b.cs, *b.shadow, "origin", b.light, W, b.pc_max2,
+          GS), {}),
+        ("the TLAS camera wave (pairs)", ri.instanced_coarse_stage,
+         (tlas.pair_min, tlas.pair_max, t.o, t.d, t.tmin, t.tmax, "origin",
+          t.o[0], W, raster.round_pc_max(t.pc1), tlas.pair_shape,
+          tlas.pair_inst), {}),
+        ("config 5's first camera wave", raster._coarse_stage, c5_waves[0],
+         {}),
+        ("the path pile's first bundle NEE wave", raster.bundle_stage, args,
+         kw),
+        ("one block pairing every flatten window", raster._coarse_stage,
+         full_block_wave(t), {})]
+
+
+def binning_rows(waves, card: str) -> dict:
+    """Phase 16 (a), (b): S, T and U against their twins on every call of
+    every wave's stage, exact; each kernel's row on the bench camera wave:
+    device ms per launch (profiler trace), the twin's ms, the bound."""
+    import torch
+    errs = {k: [] for k in "STU"}
+    calls0 = None
+    for label, stage, args, kw in waves:
+        calls = binning_calls(lambda: stage(*args, **kw))
+        S = stage(*args, **kw)
+        nb, total = S["nb"], int(S["pc_total"])
+        print(f"[binning] {label}: {S['n']} rays in {nb} blocks, {total} "
+              f"pairs, capacity {S['b_i'].shape[0]}, longest row "
+              f"{int(S['cnt_b'].max())}")
+        for letter in "STU":
+            for a, k in calls[letter]:
+                errs[letter].append(hold_binning(letter, a, k, label)[1])
+        if "every" in label:
+            a, k = calls["S"][0]
+            windows = int((~torch.isnan(binning_steps()[0][0].bin_rects(
+                *a, **k)[0][4])).sum())
+            if nb != 1 or int(S["cnt_b"][0]) != windows:
+                raise AssertionError(f"{label}: {int(S['cnt_b'][0])} pairs "
+                                     f"of {windows} windows with a vertex")
+        calls0 = calls0 or calls
+    rows = {}
+    for letter in "STU":
+        module, name = binning_steps()["STU".index(letter)]
+        a, k = calls0[letter][0]
+        step = getattr(module, name)
+        twin = getattr(module, f"{name}_plain")
+        kern = step(*a, **k)
+        io_bytes, ops = binning_work(letter, a, k, kern)
+        ms = device_ms(lambda: step(*a, **k), BIN_KERNELS[letter], letter,
+                       REPS)
+        call_ms = time_ms(lambda: step(*a, **k), REPS)
+        plain_ms = time_ms(lambda: twin(*a, **k), 1)
+        r = row(max(errs[letter]), ms, plain_ms, io_bytes, ops)
+        print(f"[binning] {letter} {K[letter].name}, the bench camera wave: "
+              f"device {ms:.4f} ms ({call_ms:.4f} ms per wrapper call; "
+              f"plain {plain_ms:.3f} ms) [{card}]; bound "
+              f"{r['bound_ms']:.4f} ms by {r['bound_by']} ({io_bytes} B, "
+              f"{ops} operations; {100 * r['bound_ms'] / ms:.1f}%)")
+        rows[K[letter].name] = r
+    return rows
+
+
+def binning_frames(frame, p, t: SimpleNamespace, pile, card: str) -> dict:
+    """Phase 16 (c): phase 4's Whitted frame, config 5's frame and the path
+    pile's frame 0 by the kernels (counts zeroed just before and read just
+    after: S, T, U launched, no plain version of H-U called) and with
+    S-U's twins called explicitly (:func:`binning_twin_route`: no launch
+    of S-U), held to each other at max |diff| 0.  Returns the kernel
+    routes' launches."""
+    import torch
+
+    from optix_ray_tracer_tpu_torch.render import wavefront
+    launches = {}
+
+    def timed(render):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        img = render()
+        torch.cuda.synchronize()
+        return img, time.perf_counter() - t0
+
+    for label, render in (
+            ("phase 4's Whitted frame", lambda: wavefront.render(
+                frame.scene, frame.mats, frame.cam, WIDTH, HEIGHT, spp=SPP,
+                seed=frame.seed, max_depth=DEPTH,
+                intersector=frame.inter)[0]),
+            ("config 5's frame", lambda: path_frame(p.c5, p.i5)),
+            ("the path pile's frame 0", lambda: pile_frame(t, pile))):
+        zero_counts()
+        with no_twin_calls(label):
+            img, s_kern = timed(render)
+        counts = launch_counts("STU")
+        for k, n in counts.items():
+            launches[K[k].name] = launches.get(K[k].name, 0) + n
+        zero_counts()
+        with binning_twin_route():
+            twin, s_twin = timed(render)
+        twin_counts = launch_counts("STU")
+        err = float((img - twin).abs().max())
+        print(f"[binning] {label}: kernels {s_kern:.3f} s/frame (launches "
+              f"{counts_text(counts)}), S-U's twins {s_twin:.3f} s/frame "
+              f"[{card}]; max |diff| {err:.3g}")
+        if min(counts.values()) == 0:
+            raise AssertionError(f"{label} missed a kernel of S-U: {counts}")
+        if any(twin_counts.values()):
+            raise AssertionError(f"the twin route launched {twin_counts}")
+        if not torch.isfinite(img).all() or err != 0:
+            raise AssertionError(f"{label} by the kernels differs from the "
+                                 f"twins'")
+    return launches
+
+
+def binning_phase(b, frame, t, p, card: str) -> tuple:
+    """Phase 16: the raster binning, S-U.  Returns (their JSON rows, the
+    launches of (c))."""
+    t0 = time.perf_counter()
+    pile = path_pile_scene(t)
+    print(f"[binning] the path pile's scene: {pile[0].triangle_count} "
+          f"triangles (host build {time.perf_counter() - t0:.1f} s)")
+    rows = binning_rows(binning_waves(b, t, p, pile), card)
+    launches = binning_frames(frame, p, t, pile, card)
+    print(f"[binning] phase 16 in {time.perf_counter() - t0:.1f} s")
+    return rows, launches
+
+
 #: the variant rows of the kernels' JSON line: name -> (kernel letter,
 #: the TPU kernel's file:line)
 VARIANT_ROWS = {
@@ -4433,7 +4817,8 @@ def main() -> None:
              I=_lib.SOBOL_OWEN4, J=_lib.WHITTED_SCATTER, K=_lib.PATH_BSDF,
              L=_lib.PATH_NEE_SAMPLE, M=_lib.PATH_NEE_ADD,
              N=_lib.PATH_HIT_RADIANCE, O=_lib.MARCH_KEYS,
-             P=_lib.GATHER_RAYS, Q=_lib.FINISH_HITS, R=_lib.SHADING_FRAME)
+             P=_lib.GATHER_RAYS, Q=_lib.FINISH_HITS, R=_lib.SHADING_FRAME,
+             S=_lib.BIN_RECTS, T=_lib.BIN_COUNT, U=_lib.BIN_EMIT)
     card = card_line()
     print(card)      # name and power limit, as nvidia-smi reports them
     t_start = time.perf_counter()
@@ -4468,13 +4853,17 @@ def main() -> None:
     rows.update(glue_rows)
     for name, n in glue_launches.items():
         launches[name] = launches.get(name, 0) + n
+    bin_rows, bin_launches = binning_phase(b, frame, t, p, card)
+    rows.update(bin_rows)
+    for name, n in bin_launches.items():
+        launches[name] = launches.get(name, 0) + n
     kernels = [{"name": k.name, "route": "cuda", "source": k.source,
                 "replaces": k.replaces, "launches": launches[k.name],
                 **rows[k.name]} for k in _lib.KERNELS]
     kernels += [{"name": name, "route": "cuda", "source": K[k].source,
                  "replaces": replaces, "launches": launches[name],
                  **rows[name]} for name, (k, replaces) in VARIANT_ROWS.items()]
-    print(f"[smoke] phases 1-15 in {time.perf_counter() - t_start:.1f} s "
+    print(f"[smoke] phases 1-16 in {time.perf_counter() - t_start:.1f} s "
           f"[{card}]")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,6 @@
 """Build, load and launch the hand-written CUDA kernels of ``csrc/``:
 A-G on the hit path, H-N in the bounce loop, O-R the marcher's wave glue
-and the hit shading frame.
+and the hit shading frame, S-U the raster binning.
 
 All kernels compile into one shared library with a plain C interface,
 built on first use into ``build/kernels/`` beside the package and loaded
@@ -303,8 +303,27 @@ SHADING_FRAME = Kernel(
     source="optix_ray_tracer_tpu_torch/csrc/shading_frame.cu",
     replaces="optix_ray_tracer_tpu/ops/intersect.py:222")
 
+# S-U have no Pallas counterpart either: the JAX package bins in plain jnp
+# around its pallas_call
+#: kernel S (window rects)
+BIN_RECTS = Kernel(
+    "bin_rects", "ort_bin_rects", [_I] + [_P] * 4 + [_I] * 3 + [_P] * 2,
+    source="optix_ray_tracer_tpu_torch/csrc/binning.cu",
+    replaces="optix_ray_tracer_tpu/ops/raster.py:248")
+#: kernel T (block bounds and pair counts)
+BIN_COUNT = Kernel(
+    "bin_count", "ort_bin_count",
+    [_I, _I] + [_P, _L] * 4 + [_L, _I, _I] + [_P] * 4 + [_I] + [_P] * 4,
+    source="optix_ray_tracer_tpu_torch/csrc/binning.cu",
+    replaces="optix_ray_tracer_tpu/ops/raster.py:207")
+#: kernel U (the sorted pair schedule)
+BIN_EMIT = Kernel(
+    "bin_emit", "ort_bin_emit", [_I] * 6 + [_P] * 14,
+    source="optix_ray_tracer_tpu_torch/csrc/binning.cu",
+    replaces="optix_ray_tracer_tpu/ops/raster.py:156")
+
 KERNELS = (TILE_RASTER, BLOCK_MARCH, PROBE, TILE_RASTER_INSTANCED,
            BLOCK_MARCH_INSTANCED, BLOCK_MARCH_HIER, LEAF_SWEEP, PCG4D,
            SOBOL_OWEN4, WHITTED_SCATTER, PATH_BSDF, PATH_NEE_SAMPLE,
            PATH_NEE_ADD, PATH_HIT_RADIANCE, MARCH_KEYS, GATHER_RAYS,
-           FINISH_HITS, SHADING_FRAME)
+           FINISH_HITS, SHADING_FRAME, BIN_RECTS, BIN_COUNT, BIN_EMIT)

@@ -1,5 +1,6 @@
 """Binning for the tile-raster engine (port of
-``optix_ray_tracer_tpu/ops/raster.py``; kernel in
+``optix_ray_tracer_tpu/ops/raster.py``; the binning's kernels S, T and U
+in ``ops/kernels/binning.py``, the raster kernel in
 ``ops/kernels/tile_raster.py``).
 
 Projective binning (:func:`raster_query`): a wave qualifies when every ray
@@ -28,18 +29,13 @@ import dataclasses
 
 import torch
 
+from optix_ray_tracer_tpu_torch.ops.kernels import binning
 from optix_ray_tracer_tpu_torch.ops.kernels.tile_raster import (
     GROUP_TRIS, raster_cluster_call,
 )
-from optix_ray_tracer_tpu_torch.ops.sweep import (
-    CHUNK, SUBS_PER_CLUSTER, ClusterSet,
-)
-from optix_ray_tracer_tpu_torch.utils.tensors import (
-    TensorDataclass, nanmax, nanmin, tree_map,
-)
-from optix_ray_tracer_tpu_torch.utils.vecmath import INF, cross, dot
-
-GROUPS_PER_CLUSTER = CHUNK // GROUP_TRIS
+from optix_ray_tracer_tpu_torch.ops.sweep import SUBS_PER_CLUSTER, ClusterSet
+from optix_ray_tracer_tpu_torch.utils.tensors import TensorDataclass, tree_map
+from optix_ray_tracer_tpu_torch.utils.vecmath import INF, cross
 
 #: projection modes: the rays share their origin / their target point /
 #: their direction (orthographic)
@@ -75,28 +71,15 @@ def build_raster_set(clusters: ClusterSet, tri_vertices) -> RasterSet:
 
 
 def _basis_from(wvec):
-    """Right-handed orthonormal (u, v, w) with w along ``wvec``."""
+    """Right-handed orthonormal basis with w along ``wvec``: a (3, 3)
+    tensor, rows u, v, w."""
     w = wvec / torch.clamp(torch.linalg.norm(wvec), min=1e-12)
     ex = torch.tensor([1.0, 0.0, 0.0], device=w.device)
     ey = torch.tensor([0.0, 1.0, 0.0], device=w.device)
     a = torch.where(torch.abs(w[0]) < 0.9, ex, ey)
     u = cross(w, a)
     u = u / torch.clamp(torch.linalg.norm(u), min=1e-12)
-    return u, cross(w, u), w
-
-
-def _proj(q, basis, persp: bool = True):
-    """Projection of rows of q: (x, y, w, good).  NaN rows stay NaN and
-    read good=False.  Perspective: rows on or behind the plane (w <= 0)
-    read good=False with finite garbage coordinates; orthographic
-    (``persp`` False): the raw coordinates, w the depth."""
-    u, v, w = basis
-    qu, qv, qw = dot(q, u), dot(q, v), dot(q, w)
-    if not persp:
-        return qu, qv, qw, ~torch.isnan(qu)
-    good = qw > 0.0
-    den = torch.where(good, qw, torch.ones_like(qw))
-    return qu / den, qv / den, qw, good
+    return torch.stack([u, cross(w, u), w])
 
 
 def default_pc_max(n_blocks: int, n_clusters: int,
@@ -108,99 +91,26 @@ def default_pc_max(n_blocks: int, n_clusters: int,
     return ((pc + 1023) // 1024) * 1024
 
 
-def _rank_lookup(cum_rows, flat_dim: int, row_idx, rank):
-    """Smallest column c with cum_rows[row, c] >= rank + 1, by bisection
-    over the flattened inclusive row-cumsum matrix."""
-    flat = cum_rows.reshape(-1)
-    lo = torch.zeros_like(row_idx)
-    hi = torch.full_like(row_idx, flat_dim - 1)
-    for _ in range(max(1, (flat_dim - 1).bit_length())):
-        mid = (lo + hi) // 2
-        ge = flat[row_idx * flat_dim + mid] >= rank + 1
-        hi = torch.where(ge, mid, hi)
-        lo = torch.where(ge, lo, mid + 1)
-    return hi
-
-
-def _enumerate_sorted_pairs(ov, entry_depth, nb: int, C: int, pc_max: int):
-    """Enumerate the True cells of the (nb, C) overlap matrix into flat
-    (block, cluster) lists capped at ``pc_max`` (fixed shapes, no host
-    read), stable-sorted by (block, entry depth) so each tile sees its
-    windows near to far.  ``entry_depth`` is per cluster (C,) or per
-    (block, cluster) (nb, C).  Returns (b_i, c_i, validc, pc_total,
-    cnt_b)."""
-    dev = ov.device
-    ovi = ov.to(torch.int64)
-    cnt_b = ovi.sum(1)
-    cum_b = torch.cumsum(cnt_b, 0)
-    pc_total = cum_b[-1]
-    i = torch.arange(pc_max, device=dev)
-    b_i = torch.clamp(torch.searchsorted(cum_b, i, right=True), max=nb - 1)
-    validc = i < pc_total
-    j = i - (cum_b[b_i] - cnt_b[b_i])
-    c_i = _rank_lookup(torch.cumsum(ovi, 1), C, b_i, j)
-    key_tile = torch.where(validc, b_i, torch.full_like(b_i, nb))
-    ent = (entry_depth.reshape(-1)[b_i * C + c_i] if entry_depth.dim() == 2
-           else entry_depth[c_i])
-    key_depth = torch.where(validc, ent, torch.full_like(ent, INF))
-    # lexicographic stable sort: by depth, then (stably) by tile
-    o1 = torch.argsort(key_depth, stable=True)
-    perm = o1[torch.argsort(key_tile[o1], stable=True)]
-    return b_i[perm], c_i[perm], validc[perm], pc_total, cnt_b
-
-
-def _pad_wave(o, d, t_min, t_max, n: int, nb: int, W: int):
-    """Pad a wave to nb*W rays plus one trailing dead block; padded lanes
-    are dead (t_max <= t_min)."""
-    dev = o.device
-    t_min_a = torch.as_tensor(t_min, dtype=torch.float32, device=dev
-                              ).expand(n)
-    t_max_a = torch.clamp(torch.as_tensor(t_max, dtype=torch.float32,
-                                          device=dev).expand(n), max=INF)
-    pad = nb * W - n + W
-    dead_d = torch.zeros((pad, 3), device=dev)
-    dead_d[:, 2] = 1.0
-    return (torch.cat([o, torch.zeros((pad, 3), device=dev)]),
-            torch.cat([d, dead_d]),
-            torch.cat([t_min_a, torch.ones(pad, device=dev)]),
-            torch.cat([t_max_a, torch.zeros(pad, device=dev)]))
-
-
-def _block_rects(o_p, d_p, tmin_p, tmax_p, nb: int, W: int, basis,
-                 mode: str, point):
-    """Per-block ray rects and depth ranges on the projection plane.
-    Returns (bx0, bx1, by0, by1, bz0, bz1, live_any)."""
-    if mode == "origin":
-        q_rays = d_p[:nb * W]
-    elif mode == "ortho":
-        q_rays = o_p[:nb * W]
-    else:
-        q_rays = (o_p - point)[:nb * W]
-    rx, ry, rqw, rgood = _proj(q_rays, basis, mode != "ortho")
-    tmin_r = tmin_p[:nb * W]
-    tmax_r = tmax_p[:nb * W]
-    live = tmax_r > tmin_r
-    pv = rgood & live
-    nan = torch.full_like(rx, float("nan"))
-    pxm = torch.where(pv, rx, nan).reshape(nb, W)
-    pym = torch.where(pv, ry, nan).reshape(nb, W)
-    live_any = live.reshape(nb, W).any(1)
-    # depth along a ray is w0 + t * (d . w_basis) for every ray (no
-    # division): segments only need geometry inside their depth interval
-    if mode == "origin":
-        wd = rqw
-        w0 = torch.zeros_like(wd)
-    else:
-        wd = dot(d_p[:nb * W], basis[2])
-        w0 = rqw
-    dlo = w0 + torch.minimum(tmin_r * wd, tmax_r * wd)
-    dhi = w0 + torch.maximum(tmin_r * wd, tmax_r * wd)
-    bz0 = torch.where(live, dlo, torch.full_like(dlo, INF)
-                      ).reshape(nb, W).amin(1)
-    bz1 = torch.where(live, dhi, torch.full_like(dhi, -INF)
-                      ).reshape(nb, W).amax(1)
-    return (nanmin(pxm, 1), nanmax(pxm, 1), nanmin(pym, 1), nanmax(pym, 1),
-            bz0, bz1, live_any)
+def _schedule(o, d, t_min, t_max, W: int, pc_max: int, mode: str, rects,
+              cfull=None, basis=None, point=None, dir_octants: bool = True,
+              tables=None) -> dict:
+    """The (block, window) schedule of a wave against S's window
+    ``rects`` (``ops/kernels/binning``): T's ray pack, block bounds and
+    counts, then U's sorted pairs.  ``mode`` is one of MODES (projective,
+    on ``basis`` from ``point``) or "bundle"; ``tables`` the TLAS pairs'
+    (pair_shape, pair_inst) for U's pair_libs and pair_insts.  The dict
+    holds the padded wave as views of the ray pack ``rays_t_ext`` (8,
+    (nb + 1) W), b_i, c_i, validc, the kernels' pair arrays, pc_total (a
+    0-dim tensor: no host read) and cnt_b."""
+    rays, cnt_b, offs, bounds = binning.bin_count(
+        o, d, t_min, t_max, W, mode, rects, cfull, basis, point, dir_octants)
+    lib_of, inst_of = tables or (None, None)
+    S = binning.bin_emit(rects, cfull, bounds, cnt_b, offs, pc_max, mode,
+                         lib_of, inst_of)
+    nb = cnt_b.shape[0]
+    return dict(n=o.shape[0], nb=nb, o_p=rays[0:3].T, d_p=rays[3:6].T,
+                tmin_p=rays[6], tmax_p=rays[7], rays_t_ext=rays,
+                pc_total=offs[nb], cnt_b=cnt_b, **S)
 
 
 def _coarse_stage(rset: RasterSet, clusters: ClusterSet, o, d, t_min,
@@ -212,14 +122,7 @@ def _coarse_stage(rset: RasterSet, clusters: ClusterSet, o, d, t_min,
     if mode not in MODES:
         raise ValueError(f"mode {mode!r} not in {MODES}")
     dev = o.device
-    C = clusters.num_clusters * granularity
-    n_g = rset.num_groups
-    n = o.shape[0]
-    nb = -(-n // W)
-    o_p, d_p, tmin_p, tmax_p = _pad_wave(o, d, t_min, t_max, n, nb, W)
-
-    persp = mode != "ortho"
-    if persp:
+    if mode != "ortho":
         p = torch.as_tensor(point, dtype=torch.float32, device=dev)
         q_verts = rset.verts.reshape(-1, 3) - p
         # projection axis from the vertex centroid seen from the shared
@@ -234,46 +137,13 @@ def _coarse_stage(rset: RasterSet, clusters: ClusterSet, o, d, t_min,
                            torch.tensor([0.0, 0.0, 1.0], device=dev))
     else:
         p = None
-        q_verts = rset.verts.reshape(-1, 3)
         wvec = d[0]    # the ortho contract: every ray shares d
     basis = _basis_from(wvec)
-
-    # ---- window rects (plane + depth), via 8-triangle groups ----
-    vx, vy, vw, vgood = _proj(q_verts, basis, persp)
-    behind = ~vgood & ~torch.isnan(vx)
-    nan = torch.full_like(vx, float("nan"))
-    vxm = torch.where(vgood, vx, nan).reshape(n_g, 3 * GROUP_TRIS)
-    vym = torch.where(vgood, vy, nan).reshape(n_g, 3 * GROUP_TRIS)
-    vzm = vw.reshape(n_g, 3 * GROUP_TRIS)     # depth keeps behind verts
-    gx0, gx1 = nanmin(vxm, 1), nanmax(vxm, 1)
-    gy0, gy1 = nanmin(vym, 1), nanmax(vym, 1)
-    gz0, gz1 = nanmin(vzm, 1), nanmax(vzm, 1)
-    gfull = behind.reshape(n_g, 3 * GROUP_TRIS).any(1)
-    # conservative margin: dominates fp projection error (rel ~1e-7)
-    mx = 1e-5 * (torch.abs(gx0) + torch.abs(gx1)) + 1e-6
-    my = 1e-5 * (torch.abs(gy0) + torch.abs(gy1)) + 1e-6
-    mz = 1e-5 * (torch.abs(gz0) + torch.abs(gz1)) + 1e-6
-    G = GROUPS_PER_CLUSTER // granularity
-    cx0 = nanmin((gx0 - mx).reshape(C, G), 1)
-    cx1 = nanmax((gx1 + mx).reshape(C, G), 1)
-    cy0 = nanmin((gy0 - my).reshape(C, G), 1)
-    cy1 = nanmax((gy1 + my).reshape(C, G), 1)
-    cz0 = nanmin((gz0 - mz).reshape(C, G), 1)
-    cz1 = nanmax((gz1 + mz).reshape(C, G), 1)
-    cfull = gfull.reshape(C, G).any(1)
-
-    bx0, bx1, by0, by1, bz0, bz1, live_any = _block_rects(
-        o_p, d_p, tmin_p, tmax_p, nb, W, basis, mode, p)
-
-    ov = ((bx0[:, None] <= cx1[None, :]) & (bx1[:, None] >= cx0[None, :])
-          & (by0[:, None] <= cy1[None, :]) & (by1[:, None] >= cy0[None, :]))
-    ovz = (bz0[:, None] <= cz1[None, :]) & (bz1[:, None] >= cz0[None, :])
-    ov = (ov | cfull[None, :]) & ovz & live_any[:, None]
-    b_s, c_s, v_s, pc_total, cnt_b = _enumerate_sorted_pairs(
-        ov, cz0, nb, C, pc_max)
-    return dict(n=n, nb=nb, o_p=o_p, d_p=d_p, tmin_p=tmin_p, tmax_p=tmax_p,
-                b_i=b_s, c_i=c_s, validc=v_s, pc_total=pc_total,
-                cnt_b=cnt_b)
+    rects, cfull = binning.bin_rects(binning.RECTS_CLUSTER, rset.verts,
+                                     basis=basis, point=p,
+                                     granularity=granularity)
+    return _schedule(o, d, t_min, t_max, W, pc_max, mode, rects, cfull,
+                     basis, p)
 
 
 def raster_query(rset: RasterSet, clusters: ClusterSet, o, d, t_min, t_max,
@@ -346,16 +216,10 @@ def schedule_inputs(clusters: ClusterSet, S: dict, nb: int,
     C = clusters.num_clusters
     g = granularity
     n_subs = SUBS_PER_CLUSTER // g
-    validc = S["validc"]
-    dev = validc.device
+    dev = S["validc"].device
     return dict(
-        pair_tiles=torch.where(validc, S["b_i"], torch.full_like(S["b_i"], nb)
-                               ).to(torch.int32),
-        pair_clusters=torch.where(validc, S["c_i"],
-                                  torch.zeros_like(S["c_i"])
-                                  ).to(torch.int32),
-        rays_t_ext=torch.cat([S["o_p"].T, S["d_p"].T, S["tmin_p"][None, :],
-                              S["tmax_p"][None, :]], 0).contiguous(),
+        pair_tiles=S["pair_tiles"], pair_clusters=S["pair_clusters"],
+        rays_t_ext=S["rays_t_ext"],
         # per-window gate rows: a pure reshape of the build's sub boxes
         sub_boxes=torch.cat([clusters.sub_min.reshape(C * g, n_subs, 3),
                              clusters.sub_max.reshape(C * g, n_subs, 3),
@@ -413,78 +277,10 @@ def bundle_stage(clusters: ClusterSet, o, d, t_min, t_max, W: int,
     admit it, keyed by the smallest admitted entry t for the depth sort).
     Margins: absolute on the boxes, relative on the division results;
     |d| <= 1e-12 counts as always satisfiable."""
-    C = clusters.num_clusters * granularity
-    n = o.shape[0]
-    nb = -(-n // W)
-    o_p, d_p, tmin_p, tmax_p = _pad_wave(o, d, t_min, t_max, n, nb, W)
-    live_all = (tmax_p > tmin_p)[:nb * W].reshape(nb, W)
-    ob = o_p[:nb * W].reshape(nb, W, 3)
-    db = d_p[:nb * W].reshape(nb, W, 3)
-    tmin_b = tmin_p[:nb * W].reshape(nb, W)
-    tmax_b = tmax_p[:nb * W].reshape(nb, W)
-    live_any = live_all.any(1)
-
-    # margined window AABBs from the sub boxes (whole clusters at g=1)
-    n_subs = SUBS_PER_CLUSTER // granularity
-    clo = nanmin(clusters.sub_min.reshape(C, n_subs, 3), 1)
-    chi = nanmax(clusters.sub_max.reshape(C, n_subs, 3), 1)
-    m = 1e-5 * (torch.abs(clo) + torch.abs(chi)) + 1e-6
-    clo = clo - m
-    chi = chi + m
-
-    def _overlap(live):
-        """(ov (nb, C) bool, entry t (nb, C)) for the lanes ``live``."""
-        lv = live[..., None]
-        olo = torch.where(lv, ob, INF).amin(1)                # (nb, 3)
-        ohi = torch.where(lv, ob, -INF).amax(1)
-        dlo = torch.where(lv, db, INF).amin(1)
-        dhi = torch.where(lv, db, -INF).amax(1)
-        t_lo_b = torch.where(live, tmin_b, INF).amin(1)
-        t_hi_b = torch.where(live, tmax_b, -INF).amax(1)
-        eps = 1e-12
-        lo_t = torch.zeros((nb, C), device=o.device)
-        hi_t = torch.full((nb, C), INF, device=o.device)
-        for ax in range(3):
-            u = chi[None, :, ax] - olo[:, None, ax]   # want t dlo <= u
-            v = clo[None, :, ax] - ohi[:, None, ax]   # want t dhi >= v
-            dl = dlo[:, None, ax]
-            dh = dhi[:, None, ax]
-            hi1 = torch.where(dl > eps, u / torch.where(dl > eps, dl, 1.0),
-                              INF)
-            lo1 = torch.where(dl < -eps, u / torch.where(dl < -eps, dl, 1.0),
-                              0.0)
-            hi2 = torch.where(dh < -eps, v / torch.where(dh < -eps, dh, 1.0),
-                              INF)
-            lo2 = torch.where(dh > eps, v / torch.where(dh > eps, dh, 1.0),
-                              0.0)
-            lo_t = torch.maximum(lo_t, torch.maximum(lo1, lo2))
-            hi_t = torch.minimum(hi_t, torch.minimum(hi1, hi2))
-        # relative margins swallow the divisions' rounding
-        lo_t = lo_t - (torch.abs(lo_t) * 1e-6 + 1e-8)
-        hi_t = hi_t + (torch.abs(hi_t) * 1e-6 + 1e-8)
-        lo_eff = torch.maximum(lo_t, t_lo_b[:, None])
-        hi_eff = torch.minimum(hi_t, t_hi_b[:, None])
-        # NaN anywhere (padded windows) compares False
-        return lo_eff <= hi_eff, lo_eff
-
-    if dir_octants:
-        oct_id = ((db[..., 0] > 0).to(torch.int64)
-                  + 2 * (db[..., 1] > 0).to(torch.int64)
-                  + 4 * (db[..., 2] > 0).to(torch.int64))
-        ov = torch.zeros((nb, C), dtype=torch.bool, device=o.device)
-        lo_key = torch.full((nb, C), INF, device=o.device)
-        for q in range(8):
-            ov_q, lo_q = _overlap(live_all & (oct_id == q))
-            ov = ov | ov_q
-            lo_key = torch.minimum(lo_key, torch.where(ov_q, lo_q, INF))
-    else:
-        ov, lo_key = _overlap(live_all)
-    ov = ov & live_any[:, None]
-    b_s, c_s, v_s, pc_total, cnt_b = _enumerate_sorted_pairs(
-        ov, lo_key, nb, C, pc_max)
-    return dict(n=n, nb=nb, o_p=o_p, d_p=d_p, tmin_p=tmin_p, tmax_p=tmax_p,
-                b_i=b_s, c_i=c_s, validc=v_s, pc_total=pc_total,
-                cnt_b=cnt_b)
+    rects, _ = binning.bin_rects(binning.RECTS_BOX, clusters.sub_min,
+                                 clusters.sub_max, granularity=granularity)
+    return _schedule(o, d, t_min, t_max, W, pc_max, "bundle", rects,
+                     dir_octants=dir_octants)
 
 
 def bundle_query(clusters: ClusterSet, o, d, t_min, t_max,

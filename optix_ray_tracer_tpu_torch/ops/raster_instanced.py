@@ -8,7 +8,8 @@ common-direction ones (ortho / sun shadows) are binned as
 * each pair's WORLD box (refit per frame by
   ``ops/instanced.refit_instanced``) projects to a rect and a depth
   interval through its 8 corners;
-* ray blocks get the cluster path's rects (``ops/raster._block_rects``);
+* ray blocks get the cluster path's rects (kernel T,
+  ``ops/kernels/binning``);
 * kernel D (``ops/kernels/tile_raster.raster_instanced_call``) tests each
   scheduled pair's OBJECT-space library cluster with the tile's rays moved
   into the pair's instance space.
@@ -24,15 +25,12 @@ from __future__ import annotations
 
 import torch
 
+from optix_ray_tracer_tpu_torch.ops.kernels import binning
 from optix_ray_tracer_tpu_torch.ops.kernels.tile_raster import (
     raster_instanced_call,
 )
-from optix_ray_tracer_tpu_torch.ops.raster import (
-    MODES, _basis_from, _block_rects, _enumerate_sorted_pairs, _pad_wave,
-    _proj,
-)
+from optix_ray_tracer_tpu_torch.ops.raster import MODES, _basis_from, _schedule
 from optix_ray_tracer_tpu_torch.ops.sweep import SUBS_PER_CLUSTER
-from optix_ray_tracer_tpu_torch.utils.tensors import nanmax, nanmin
 from optix_ray_tracer_tpu_torch.utils.vecmath import INF
 
 
@@ -44,50 +42,18 @@ def default_instanced_pc_max(n_blocks: int, n_pairs: int) -> int:
     return ((pc + 1023) // 1024) * 1024
 
 
-def _pair_rects(pair_min, pair_max, basis, point):
-    """Project each pair's world box (8 corners) onto the plane seen from
-    ``point`` (orthographically when ``point`` is None).  Returns margined
-    (cx0, cx1, cy0, cy1, cz0, cz1, cfull); NaN boxes give NaN rects that
-    never overlap."""
-    Cp = pair_min.shape[0]
-    dev = pair_min.device
-    sel = torch.tensor([[(k >> a) & 1 for a in range(3)] for k in range(8)],
-                       dtype=torch.float32, device=dev)[None]     # (1, 8, 3)
-    corners = pair_min[:, None, :] * (1.0 - sel) + pair_max[:, None, :] * sel
-    q = corners.reshape(-1, 3)
-    if point is not None:
-        q = q - point
-    vx, vy, vw, vgood = _proj(q, basis, point is not None)
-    behind = ~vgood & ~torch.isnan(vx)
-    nan = torch.full_like(vx, float("nan"))
-    vxm = torch.where(vgood, vx, nan).reshape(Cp, 8)
-    vym = torch.where(vgood, vy, nan).reshape(Cp, 8)
-    vzm = vw.reshape(Cp, 8)           # depth keeps behind-plane corners
-    cx0, cx1 = nanmin(vxm, 1), nanmax(vxm, 1)
-    cy0, cy1 = nanmin(vym, 1), nanmax(vym, 1)
-    cz0, cz1 = nanmin(vzm, 1), nanmax(vzm, 1)
-    cfull = behind.reshape(Cp, 8).any(1)
-    # conservative margin dominating fp projection error (the cluster
-    # path's rule)
-    mx = 1e-5 * (torch.abs(cx0) + torch.abs(cx1)) + 1e-6
-    my = 1e-5 * (torch.abs(cy0) + torch.abs(cy1)) + 1e-6
-    mz = 1e-5 * (torch.abs(cz0) + torch.abs(cz1)) + 1e-6
-    return (cx0 - mx, cx1 + mx, cy0 - my, cy1 + my, cz0 - mz, cz1 + mz,
-            cfull)
-
-
 def instanced_coarse_stage(pair_min, pair_max, o, d, t_min, t_max,
-                           mode: str, point, W: int, pc_max: int) -> dict:
+                           mode: str, point, W: int, pc_max: int,
+                           pair_shape=None, pair_inst=None) -> dict:
     """Pair-granularity analog of ``ops/raster._coarse_stage``: pair rects
-    from world box corners, the shared block rects, and the depth-sorted
-    (block, pair) enumeration."""
+    from world box corners (kernel S, each pair projected through its 8
+    corners and margined once; NaN boxes give NaN rects that never
+    overlap), the shared block rects, and the depth-sorted (block, pair)
+    enumeration.  With the pairs' ``pair_shape`` and ``pair_inst``, the
+    schedule also holds kernel D's pair_libs and pair_insts."""
     if mode not in MODES:
         raise ValueError(f"mode {mode!r} not in {MODES}")
     dev = o.device
-    Cp = pair_min.shape[0]
-    n = o.shape[0]
-    nb = -(-n // W)
-    o_p, d_p, tmin_p, tmax_p = _pad_wave(o, d, t_min, t_max, n, nb, W)
 
     if mode != "ortho":
         p = torch.as_tensor(point, dtype=torch.float32, device=dev)
@@ -105,42 +71,29 @@ def instanced_coarse_stage(pair_min, pair_max, o, d, t_min, t_max,
         wvec = d[0]    # the ortho contract: every ray shares d
     basis = _basis_from(wvec)
 
-    cx0, cx1, cy0, cy1, cz0, cz1, cfull = _pair_rects(pair_min, pair_max,
-                                                      basis, p)
-    bx0, bx1, by0, by1, bz0, bz1, live_any = _block_rects(
-        o_p, d_p, tmin_p, tmax_p, nb, W, basis, mode, p)
-    ov = ((bx0[:, None] <= cx1[None, :]) & (bx1[:, None] >= cx0[None, :])
-          & (by0[:, None] <= cy1[None, :]) & (by1[:, None] >= cy0[None, :]))
-    ovz = (bz0[:, None] <= cz1[None, :]) & (bz1[:, None] >= cz0[None, :])
-    ov = (ov | cfull[None, :]) & ovz & live_any[:, None]
-    b_s, c_s, v_s, pc_total, cnt_b = _enumerate_sorted_pairs(
-        ov, cz0, nb, Cp, pc_max)
-    return dict(n=n, nb=nb, o_p=o_p, d_p=d_p, tmin_p=tmin_p, tmax_p=tmax_p,
-                b_i=b_s, c_i=c_s, validc=v_s, pc_total=pc_total,
-                cnt_b=cnt_b)
+    rects, cfull = binning.bin_rects(binning.RECTS_PAIR, pair_min, pair_max,
+                                     basis, p)
+    tables = None if pair_shape is None else (pair_shape, pair_inst)
+    return _schedule(o, d, t_min, t_max, W, pc_max, mode, rects, cfull,
+                     basis, p, tables=tables)
 
 
 def instanced_schedule_inputs(intersector, S: dict) -> dict:
     """The ``raster_instanced_call`` arguments (all but ``w``, ``any_hit``
     and ``common``) for a schedule ``S`` from
-    :func:`instanced_coarse_stage` over ``intersector``'s pairs."""
+    :func:`instanced_coarse_stage` over ``intersector``'s pairs, given
+    their ``pair_shape`` and ``pair_inst``."""
     nb = S["nb"]
-    validc = S["validc"]
     Cp = intersector.pair_min.shape[0]
-    dev = validc.device
-    pair_ids = torch.where(validc, S["c_i"], torch.zeros_like(S["c_i"]))
+    dev = S["validc"].device
     sub_boxes = torch.cat([
         intersector.sub_min.reshape(Cp, SUBS_PER_CLUSTER, 3),
         intersector.sub_max.reshape(Cp, SUBS_PER_CLUSTER, 3),
         torch.zeros((Cp, SUBS_PER_CLUSTER, 2), device=dev)], 2)
     return dict(
-        pair_tiles=torch.where(validc, S["b_i"], torch.full_like(S["b_i"], nb)
-                               ).to(torch.int32),
-        pair_libs=intersector.pair_shape[pair_ids].to(torch.int32),
-        pair_ids=pair_ids.to(torch.int32),
-        pair_insts=intersector.pair_inst[pair_ids].to(torch.int32),
-        rays_t_ext=torch.cat([S["o_p"].T, S["d_p"].T, S["tmin_p"][None, :],
-                              S["tmax_p"][None, :]], 0).contiguous(),
+        pair_tiles=S["pair_tiles"], pair_libs=S["pair_libs"],
+        pair_ids=S["pair_clusters"], pair_insts=S["pair_insts"],
+        rays_t_ext=S["rays_t_ext"],
         sub_boxes=sub_boxes.contiguous(), inst_rows=intersector.inst_rows,
         woop_t=intersector.library.woop_t, n_blocks=nb)
 
@@ -164,7 +117,8 @@ def instanced_raster_query(intersector, o, d, t_min, t_max,
     pc_max = pc_max or default_instanced_pc_max(
         nb, intersector.pair_min.shape[0])
     S = instanced_coarse_stage(intersector.pair_min, intersector.pair_max,
-                               o, d, t_min, t_max, mode, point, W, pc_max)
+                               o, d, t_min, t_max, mode, point, W, pc_max,
+                               intersector.pair_shape, intersector.pair_inst)
     ok = int(S["pc_total"]) <= pc_max
     dev = o.device
     if not ok:

@@ -1,0 +1,410 @@
+"""The raster binning's plain versions (kernels S, T and U,
+``ops/kernels/binning``) against the JAX package's binning on the same
+inputs, exactly: the window rects, the ray pack, the block bounds, the
+pair counts and the depth-sorted schedule of the projective stage
+(modes "origin", "target" and "ortho" at g = 1, 2, 4), of the TLAS pair
+stage and of the bundle stage (with and without direction octants).
+Cases: a dead block, NaN-padded windows and sub boxes, NaN pair boxes,
+keys -0.0 and +0.0 in one row (they tie, in window order), a block that
+pairs every window, an overflowed capacity (the straddling row keeps its
+lowest windows; the tail is (nb - 1, C - 1, invalid)).  Tolerance: none,
+every array equal (NaN equal to NaN), but for projected coordinates (the
+rects and block bounds of the projective and TLAS stages), which XLA's
+CPU dot products round otherwise, by an ulp or two (rtol and atol 1e-6;
+the bundle boxes, not projected, are exact).  The kernels are held to
+these plain versions bit for bit on the card
+(tests/test_torch_cuda.py)."""
+
+import warnings
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from optix_ray_tracer_tpu.io.meshgen import quad, sphere_with_n_triangles
+from optix_ray_tracer_tpu.ops import march as jmarch
+from optix_ray_tracer_tpu.ops import raster as jraster
+from optix_ray_tracer_tpu.ops import raster_instanced as jri
+from optix_ray_tracer_tpu.scene.camera import Camera as JCamera
+from optix_ray_tracer_tpu.scene.geometry import Scene as JScene
+from optix_ray_tracer_tpu.scene.geometry import Spheres as JSpheres
+from optix_ray_tracer_tpu.scene.geometry import Triangles as JTriangles
+from optix_ray_tracer_tpu_torch import convert
+from optix_ray_tracer_tpu_torch.ops import raster as traster
+from optix_ray_tracer_tpu_torch.ops import raster_instanced as tri
+from optix_ray_tracer_tpu_torch.ops.kernels import binning
+
+torch.set_num_threads(2)
+
+W = 64                 # rays a block
+EYE = (3.0, 0.5, 1.0)
+LIGHT = (0.2, -0.3, 2.5)
+SUN = (0.3, 0.2, 0.9)
+GROUP_VERTS = 24
+
+
+def _t(x):
+    return torch.as_tensor(np.array(x))
+
+
+def _eq(got, ref):
+    """Equal arrays, NaN equal to NaN, -0.0 equal to +0.0."""
+    np.testing.assert_array_equal(np.asarray(got), np.asarray(ref))
+
+
+def _close(got, ref):
+    """Projected coordinates against the JAX package's: XLA's CPU dot
+    product (``q @ u``) rounds a projection otherwise than torch's three
+    products and two sums, by an ulp or two (the binning's margins, 1e-5
+    relative, absorb it); NaN where the JAX package has NaN."""
+    np.testing.assert_allclose(np.asarray(got), np.asarray(ref), rtol=1e-6,
+                               atol=1e-6)
+
+
+@pytest.fixture(scope="module")
+def setup():
+    """A 2,000-triangle sphere over a floor that reaches behind the eye
+    (8 clusters, the last padded: NaN windows at g = 2 and 4), and three
+    512-ray waves in 64-ray blocks, each with block 1 dead and every
+    11th ray dead: a camera wave ("origin" at EYE), segments toward
+    LIGHT ("target") and a sun wave ("ortho")."""
+    v, n = sphere_with_n_triangles(2000)
+    fv, fn = quad([-3, -3, -1.2], [3, -3, -1.2], [3, 3, -1.2], [-3, 3, -1.2])
+    jscene = JScene(spheres=JSpheres.empty(), triangles=JTriangles.from_arrays(
+        np.concatenate([v, fv]), np.concatenate([n, fn])))
+    jinter = jmarch.make_march_intersector(jscene, raster=True)
+    tscene = convert.scene(convert.state_arrays(jscene), device="cpu")
+    tinter = convert.march_intersector(
+        convert.state_arrays(jinter.clusters), tscene, raster=True,
+        device="cpu")
+    cam = JCamera.look_at(EYE, (0.0, 0.0, 0.0), (0.0, 0.0, 1.0))
+    o, d = (np.asarray(x).reshape(-1, 3) for x in cam.generate_rays(32, 16))
+    n_rays = o.shape[0]
+    dead = np.zeros(n_rays, bool)
+    dead[W:2 * W] = True
+    dead[::11] = True
+    tmin = np.full(n_rays, 1e-3, np.float32)
+    h = tinter.intersect(tscene, _t(o), _t(d))
+    p = torch.where(h.is_hit[:, None], _t(o) + h.t[:, None] * _t(d),
+                    _t(o)).numpy()
+    to_l = np.asarray(LIGHT, np.float32) - p
+    dist = np.linalg.norm(to_l, axis=-1).astype(np.float32)
+    wl = (to_l / dist[:, None]).astype(np.float32)
+    sun = np.asarray(SUN, np.float32) / np.linalg.norm(SUN).astype(np.float32)
+    waves = {
+        "origin": (o, d, tmin, np.where(dead, 0.0, 1e16).astype(np.float32),
+                   o[0]),
+        "target": ((p + wl * 1e-3).astype(np.float32), wl, tmin,
+                   np.where(dead, 0.0, dist - 1e-3).astype(np.float32),
+                   np.asarray(LIGHT, np.float32)),
+        "ortho": ((p + sun * 1e-3).astype(np.float32),
+                  np.broadcast_to(sun, p.shape).copy(), tmin,
+                  np.where(dead, 0.0, 1e16).astype(np.float32), None),
+    }
+    return dict(jinter=jinter, tinter=tinter, waves=waves)
+
+
+def _jax_captured(monkeypatch, run):
+    """Run a JAX stage with its basis, block rects and overlap matrix
+    recorded: (its output, {"basis", "blocks", "ov", "key"})."""
+    seen = {}
+    basis_from, block_rects, enum = (jraster._basis_from, jraster._block_rects,
+                                     jraster._enumerate_sorted_pairs)
+
+    def b_from(wvec):
+        seen["basis"] = basis_from(wvec)
+        return seen["basis"]
+
+    def b_rects(*a):
+        seen["blocks"] = block_rects(*a)
+        return seen["blocks"]
+
+    def e_pairs(ov, key, *a):
+        seen["ov"], seen["key"] = ov, key
+        return enum(ov, key, *a)
+
+    monkeypatch.setattr(jraster, "_basis_from", b_from)
+    monkeypatch.setattr(jraster, "_block_rects", b_rects)
+    monkeypatch.setattr(jraster, "_enumerate_sorted_pairs", e_pairs)
+    monkeypatch.setattr(jri, "_basis_from", b_from)
+    monkeypatch.setattr(jri, "_block_rects", b_rects)
+    monkeypatch.setattr(jri, "_enumerate_sorted_pairs", e_pairs)
+    return run(), seen
+
+
+def _jax_window_rects(verts, basis, point, g):
+    """The JAX package's window rects (optix_ray_tracer_tpu/ops/raster.py
+    ``_coarse_stage``, its 8-triangle group steps) on its basis."""
+    q = verts.reshape(-1, 3)
+    persp = point is not None
+    if persp:
+        q = q - jnp.asarray(point)
+    vx, vy, vw, vgood = jraster._proj(q, basis, persp)
+    behind = ~vgood & ~jnp.isnan(vx)
+    n_g = q.shape[0] // GROUP_VERTS
+    vxm = jnp.where(vgood, vx, jnp.nan).reshape(n_g, GROUP_VERTS)
+    vym = jnp.where(vgood, vy, jnp.nan).reshape(n_g, GROUP_VERTS)
+    vzm = vw.reshape(n_g, GROUP_VERTS)
+    lo_hi = []
+    for m in (vxm, vym, vzm):
+        lo, hi = jnp.nanmin(m, axis=1), jnp.nanmax(m, axis=1)
+        mg = 1e-5 * (jnp.abs(lo) + jnp.abs(hi)) + 1e-6
+        lo_hi += [lo - mg, hi + mg]
+    G = 32 // g
+    C = n_g // G
+    rects = [(jnp.nanmin if k % 2 == 0 else jnp.nanmax)(
+        x.reshape(C, G), axis=1) for k, x in enumerate(lo_hi)]
+    return np.stack(rects), np.asarray(
+        jnp.any(behind.reshape(C, G * GROUP_VERTS), axis=1))
+
+
+def _hold_schedule(ts, js):
+    """The port's stage output ``ts`` equals the JAX one's ``js``: the
+    counts, the schedule and the padded wave (the ray pack's rows)."""
+    assert int(ts["pc_total"]) == int(js["pc_total"])
+    _eq(ts["cnt_b"], js["cnt_b"])
+    for k in ("b_i", "c_i", "validc"):
+        _eq(ts[k], js[k])
+    for k in ("o_p", "d_p", "tmin_p", "tmax_p"):
+        _eq(ts[k], js[k])
+    rays = ts["rays_t_ext"]
+    _eq(rays, np.concatenate([np.asarray(js["o_p"]).T,
+                              np.asarray(js["d_p"]).T,
+                              np.asarray(js["tmin_p"])[None],
+                              np.asarray(js["tmax_p"])[None]]))
+    nb = ts["nb"]
+    _eq(ts["pair_tiles"], np.where(np.asarray(js["validc"]),
+                                   np.asarray(js["b_i"]), nb))
+    _eq(ts["pair_clusters"], np.where(np.asarray(js["validc"]),
+                                      np.asarray(js["c_i"]), 0))
+
+
+@pytest.mark.parametrize("g", [1, 2, 4])
+@pytest.mark.parametrize("mode", ["origin", "target", "ortho"])
+def test_projective_stage_equals_jax(setup, monkeypatch, mode, g):
+    """``_coarse_stage`` on S, T and U's plain versions equals the JAX
+    package's: the schedule, the counts (the dead block pairs nothing)
+    and the ray pack; on the JAX package's projection basis, the window
+    rects (x, y, depth and the full-plane flag, NaN windows included),
+    the block bounds and the overlap matrix."""
+    jinter, tinter = setup["jinter"], setup["tinter"]
+    o, d, tmin, tmax, point = setup["waves"][mode]
+    pc_max = 4096
+    js, seen = _jax_captured(monkeypatch, lambda: jraster._coarse_stage(
+        jinter.raster, jinter.clusters, jnp.asarray(o), jnp.asarray(d),
+        jnp.asarray(tmin), jnp.asarray(tmax), mode,
+        None if point is None else jnp.asarray(point), W, pc_max, g))
+    p = None if point is None else _t(point)
+    ts = traster._coarse_stage(tinter.raster, tinter.clusters, _t(o), _t(d),
+                               _t(tmin), _t(tmax), mode, p, W, pc_max, g)
+    _hold_schedule(ts, js)
+    assert int(ts["cnt_b"][1]) == 0 and int(js["pc_total"]) > 0
+    # S and T on the JAX package's basis (the port's basis, torch's cross
+    # products, may differ from it in the last bit; the margins absorb
+    # that, and the schedules above are equal)
+    tb = _t(np.stack(seen["basis"]))
+    rects, cfull = binning.bin_rects_plain(binning.RECTS_CLUSTER,
+                                           tinter.raster.verts, basis=tb,
+                                           point=p, granularity=g)
+    jrects, jfull = _jax_window_rects(jinter.raster.verts, seen["basis"],
+                                      point, g)
+    _close(rects, jrects)
+    _eq(cfull, jfull)
+    _close(rects[4], seen["key"])
+    if g > 1:
+        assert bool(torch.isnan(rects[0]).any())
+    # T: the ray pack, the block bounds and the counts
+    rays, cnt_b, offs, bounds = binning.bin_count_plain(
+        _t(o), _t(d), _t(tmin), _t(tmax), W, mode, rects, cfull, tb, p)
+    _eq(rays, ts["rays_t_ext"])
+    _close(bounds[:, :6].T, np.stack(seen["blocks"][:6]))
+    _eq(bounds[:, 6] != 0, seen["blocks"][6])
+    _eq(cnt_b, js["cnt_b"])
+    _eq(offs, np.r_[0, np.cumsum(np.asarray(js["cnt_b"]))])
+    ov, key = binning._overlap(mode, rects, cfull, bounds)
+    _eq(ov, seen["ov"])
+
+
+@pytest.mark.parametrize("mode", ["origin", "target", "ortho"])
+def test_instanced_stage_equals_jax(setup, monkeypatch, mode):
+    """``instanced_coarse_stage`` equals the JAX package's on 40 random
+    world boxes, two of them NaN (invalid instances): the pair rects
+    (``_pair_rects``), the schedule and the ray pack; with the pairs'
+    tables, pair_libs and pair_insts are the tables at pair_clusters."""
+    o, d, tmin, tmax, point = setup["waves"][mode]
+    r = np.random.default_rng(4)
+    lo = r.uniform(-1.5, 1.0, (40, 3)).astype(np.float32)
+    hi = (lo + r.uniform(0.05, 0.6, (40, 3))).astype(np.float32)
+    lo[[7, 23]] = np.nan
+    hi[[7, 23]] = np.nan
+    pc_max = 2048
+    jp = None if point is None else jnp.asarray(point)
+    js, seen = _jax_captured(monkeypatch, lambda: jri.instanced_coarse_stage(
+        jnp.asarray(lo), jnp.asarray(hi), jnp.asarray(o), jnp.asarray(d),
+        jnp.asarray(tmin), jnp.asarray(tmax), mode, jp, W, pc_max))
+    shape = torch.as_tensor(r.integers(0, 3, 40).astype(np.int32))
+    inst = torch.arange(40, dtype=torch.int32) // 2
+    tp = None if point is None else _t(point)
+    ts = tri.instanced_coarse_stage(_t(lo), _t(hi), _t(o), _t(d), _t(tmin),
+                                    _t(tmax), mode, tp, W, pc_max, shape,
+                                    inst)
+    _hold_schedule(ts, js)
+    assert int(js["pc_total"]) > 0
+    ids = ts["pair_clusters"].long()
+    _eq(ts["pair_libs"], shape[ids])
+    _eq(ts["pair_insts"], inst[ids])
+    jrect = jri._pair_rects(jnp.asarray(lo), jnp.asarray(hi), seen["basis"],
+                            point is not None, jp)
+    rects, cfull = binning.bin_rects_plain(
+        binning.RECTS_PAIR, _t(lo), _t(hi), _t(np.stack(seen["basis"])), tp)
+    _close(rects, np.stack(jrect[:6]))
+    _eq(cfull, jrect[6])
+    assert bool(torch.isnan(rects[:, 7]).all())
+
+
+@pytest.mark.parametrize("g", [1, 2])
+@pytest.mark.parametrize("octants", [True, False], ids=["octants", "flat"])
+def test_bundle_stage_equals_jax(setup, octants, g):
+    """``bundle_stage`` equals the JAX package's on the "target" wave
+    (block 1 dead; NaN sub boxes at g = 2): counts, schedule, ray pack;
+    S's margined boxes are the sub boxes' union."""
+    jinter, tinter = setup["jinter"], setup["tinter"]
+    o, d, tmin, tmax, _ = setup["waves"]["target"]
+    pc_max = 2048
+    js = jraster.bundle_stage(jinter.clusters, jnp.asarray(o), jnp.asarray(d),
+                              jnp.asarray(tmin), jnp.asarray(tmax), W, pc_max,
+                              dir_octants=octants, granularity=g)
+    ts = traster.bundle_stage(tinter.clusters, _t(o), _t(d), _t(tmin),
+                              _t(tmax), W, pc_max, dir_octants=octants,
+                              granularity=g)
+    _hold_schedule(ts, js)
+    assert int(ts["cnt_b"][1]) == 0 and int(js["pc_total"]) > 0
+    rects, _ = binning.bin_rects_plain(binning.RECTS_BOX,
+                                       tinter.clusters.sub_min,
+                                       tinter.clusters.sub_max,
+                                       granularity=g)
+    sm = np.asarray(jinter.clusters.sub_min).reshape(rects.shape[1], -1, 3)
+    sx = np.asarray(jinter.clusters.sub_max).reshape(rects.shape[1], -1, 3)
+    assert np.isnan(sm).all(axis=(1, 2)).any() == (g == 2)
+    with warnings.catch_warnings():      # all-NaN windows give NaN
+        warnings.simplefilter("ignore", RuntimeWarning)
+        clo = np.nanmin(sm, axis=1)
+        chi = np.nanmax(sx, axis=1)
+    m = np.float32(1e-5) * (np.abs(clo) + np.abs(chi)) + np.float32(1e-6)
+    _eq(rects[0::2].T, clo - m)
+    _eq(rects[1::2].T, chi + m)
+
+
+@pytest.mark.parametrize("per_block", [False, True],
+                         ids=["window_keys", "pair_keys"])
+def test_signed_zero_keys_tie(per_block):
+    """Keys -0.0 and +0.0 in one row tie and keep ascending window ids, in
+    the JAX package's sort and in U's plain version, with per-window
+    (projective) and per-pair (bundle) keys; row 1 pairs nothing."""
+    ov = np.array([[1, 1, 1, 1, 1, 0],
+                   [0, 0, 0, 0, 0, 0],
+                   [1, 0, 1, 1, 0, 1]], bool)
+    keys = np.array([0.0, -0.0, 1.0, -0.0, 0.0, -2.0], np.float32)
+    if per_block:
+        keys = np.stack([keys, keys[::-1], -keys])
+    j = jraster._enumerate_sorted_pairs(jnp.asarray(ov), jnp.asarray(keys), 3,
+                                        6, 12)
+    t = binning._enumerate_sorted_pairs(_t(ov), _t(keys), 3, 6, 12)
+    for a, b in zip(t, j[:3]):
+        _eq(a, b)
+    if not per_block:
+        _eq(t[1][:5], [0, 1, 3, 4, 2])
+    # the same row through U's plain version: rects whose near depth is
+    # the key, bounds that admit every window of row 0
+    rects = torch.stack([torch.full((6,), -1.0), torch.full((6,), 1.0),
+                         torch.full((6,), -1.0), torch.full((6,), 1.0),
+                         _t(keys if not per_block else keys[0]),
+                         torch.full((6,), 5.0)])
+    bounds = torch.tensor([[-0.5, 0.5, -0.5, 0.5, -3.0, 3.0, 1.0, 0.0],
+                           [-0.5, 0.5, -0.5, 0.5, -3.0, 3.0, 0.0, 0.0]])
+    cfull = torch.zeros(6, dtype=torch.bool)
+    S = binning.bin_emit_plain(rects, cfull, bounds, None, None, 9, "origin")
+    _eq(S["c_i"][:6], [5, 0, 1, 3, 4, 2])
+    _eq(S["b_i"][6:], [1, 1, 1])
+    _eq(S["c_i"][6:], [5, 5, 5])
+
+
+def test_block_pairing_every_window(setup, monkeypatch):
+    """One 512-ray block (the whole camera wave) pairs every window but
+    the NaN ones, as in the JAX package."""
+    jinter, tinter = setup["jinter"], setup["tinter"]
+    o, d, tmin, _, point = setup["waves"]["origin"]
+    tmax = np.full(o.shape[0], 1e16, np.float32)
+    n = o.shape[0]
+    js = jraster._coarse_stage(
+        jinter.raster, jinter.clusters, jnp.asarray(o), jnp.asarray(d),
+        jnp.asarray(tmin), jnp.asarray(tmax), "origin", jnp.asarray(point), n,
+        4096, 4)
+    ts = traster._coarse_stage(tinter.raster, tinter.clusters, _t(o), _t(d),
+                               _t(tmin), _t(tmax), "origin", _t(point), n,
+                               4096, 4)
+    _hold_schedule(ts, js)
+    C = tinter.clusters.num_clusters * 4
+    # windows with no vertex (padding): NaN depth on any basis
+    empty = torch.isnan(binning.bin_rects_plain(
+        binning.RECTS_CLUSTER, tinter.raster.verts, basis=torch.eye(3),
+        point=_t(point), granularity=4)[0][4])
+    assert 0 < int(empty.sum()) < C
+    assert int(ts["cnt_b"][0]) == C - int(empty.sum())
+    # the row holds each other window once
+    _eq(torch.sort(ts["c_i"][:C - int(empty.sum())]).values,
+        torch.nonzero(~empty)[:, 0])
+
+
+@pytest.mark.parametrize("stage", ["projective", "bundle"])
+def test_overflow_cut_and_tail(setup, stage):
+    """A capacity below the pair count: the first pc_max pairs in (block,
+    window) order, each block's sorted, as the JAX package cuts them (the
+    straddling row keeps its lowest windows); a capacity above it: the
+    slots past the total hold (nb - 1, C - 1, invalid), tile nb, window
+    0."""
+    jinter, tinter = setup["jinter"], setup["tinter"]
+    o, d, tmin, tmax, point = setup["waves"]["target"]
+
+    def run(pc_max):
+        if stage == "bundle":
+            return (jraster.bundle_stage(
+                jinter.clusters, jnp.asarray(o), jnp.asarray(d),
+                jnp.asarray(tmin), jnp.asarray(tmax), W, pc_max),
+                traster.bundle_stage(tinter.clusters, _t(o), _t(d),
+                                     _t(tmin), _t(tmax), W, pc_max))
+        return (jraster._coarse_stage(
+            jinter.raster, jinter.clusters, jnp.asarray(o), jnp.asarray(d),
+            jnp.asarray(tmin), jnp.asarray(tmax), "target",
+            jnp.asarray(point), W, pc_max, 2),
+            traster._coarse_stage(tinter.raster, tinter.clusters, _t(o),
+                                  _t(d), _t(tmin), _t(tmax), "target",
+                                  _t(point), W, pc_max, 2))
+
+    js, ts = run(8)
+    total = int(ts["pc_total"])
+    cnt = ts["cnt_b"].long()
+    offs = torch.cumsum(cnt, 0) - cnt
+    row = int(torch.nonzero((offs < total // 2)
+                            & (offs + cnt > total // 2))[0])
+    cut = total // 2
+    js, ts = run(cut)
+    _hold_schedule(ts, js)
+    assert bool(ts["validc"].all()) and int(ts["pc_total"]) == total
+    keep = cut - int(offs[row])
+    assert 0 < keep < int(cnt[row])
+    assert bool((ts["b_i"][int(offs[row]):] == row).all())
+    _, full = run(total)
+    lowest = full["c_i"][int(offs[row]):int(offs[row]) + int(cnt[row])]
+    _eq(torch.sort(ts["c_i"][int(offs[row]):]).values,
+        torch.sort(lowest).values[:keep])
+    js, ts = run(total + 37)
+    _hold_schedule(ts, js)
+    nb = ts["nb"]
+    C = tinter.clusters.num_clusters * (1 if stage == "bundle" else 2)
+    _eq(ts["b_i"][total:], np.full(37, nb - 1))
+    _eq(ts["c_i"][total:], np.full(37, C - 1))
+    assert not bool(ts["validc"][total:].any())
+    _eq(ts["pair_tiles"][total:], np.full(37, nb))
+    _eq(ts["pair_clusters"][total:], np.zeros(37))

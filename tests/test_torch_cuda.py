@@ -574,7 +574,8 @@ def test_tile_raster_instanced_kernel(tlas, dev, any_hit):
     tmax = torch.full((n,), 16.0 if any_hit else 1e16, device=dev)
     S = ri.instanced_coarse_stage(inter.pair_min, inter.pair_max, o, d,
                                   torch.full((n,), 1e-3, device=dev), tmax,
-                                  "origin", o[0], 1024, 1 << 16)
+                                  "origin", o[0], 1024, 1 << 16,
+                                  inter.pair_shape, inter.pair_inst)
     assert int(S["pc_total"]) <= 1 << 16
     inp = ri.instanced_schedule_inputs(inter, S)
     before = _lib.TILE_RASTER_INSTANCED.launches
@@ -627,7 +628,8 @@ def _raster_kernel_case(kernel, inter, cam, th, tw, any_hit, dev,
         else:
             S = ri.instanced_coarse_stage(inter.pair_min, inter.pair_max, o,
                                           d, tmin, tmax, "origin", o[0], w,
-                                          1 << 17)
+                                          1 << 17, inter.pair_shape,
+                                          inter.pair_inst)
             inp = ri.instanced_schedule_inputs(inter, S)
         assert int(S["pc_total"]) <= 1 << 17
         subs = inp["sub_boxes"].clone()
@@ -753,7 +755,8 @@ def test_raster_dir_kernel(setup, tlas, dev, kernel, any_hit):
                                        16.0, dev)
         S = ri.instanced_coarse_stage(inter.pair_min, inter.pair_max, o, d,
                                       tmin, tmax, "ortho", None, 1024,
-                                      1 << 17)
+                                      1 << 17, inter.pair_shape,
+                                      inter.pair_inst)
         inp = ri.instanced_schedule_inputs(inter, S)
         call, plain_fn = tr.raster_instanced_call, tr.raster_instanced_plain
         counter = _lib.TILE_RASTER_INSTANCED
@@ -2003,3 +2006,215 @@ def test_glue_kernels_raise_when_the_build_fails(setup, dev, monkeypatch,
     i = torch.zeros(n, dtype=torch.int32, device=dev)
     with pytest.raises(RuntimeError, match="forced"):
         isect.shading_frame(scene, oi, di, Hit(f, i, i, f, f))
+
+
+# ---- S, T, U: the raster binning -------------------------------------------
+
+def _bin_equal(kern, plain):
+    """Two binning outputs (tensors, tuples of them or stage dicts) equal
+    element for element: floats by value, NaN equal to NaN (a zero's sign
+    is a reduction's choice of operand, which compares equal)."""
+    if isinstance(kern, dict):
+        assert kern.keys() == plain.keys()
+        for k in kern:
+            _bin_equal(kern[k], plain[k])
+        return
+    if isinstance(kern, (tuple, list)):
+        for a, b in zip(kern, plain, strict=True):
+            _bin_equal(a, b)
+        return
+    if not isinstance(kern, torch.Tensor):
+        assert kern == plain
+        return
+    assert kern.shape == plain.shape and kern.dtype == plain.dtype
+    same = kern == plain
+    if kern.is_floating_point():
+        same |= torch.isnan(kern) & torch.isnan(plain)
+    assert bool(same.all()), (kern[~same][:8], plain[~same][:8])
+
+
+def _bin_counts():
+    return [k.launches for k in (_lib.BIN_RECTS, _lib.BIN_COUNT,
+                                 _lib.BIN_EMIT)]
+
+
+def _stage_both(monkeypatch, run):
+    """(the stage ``run()`` on S, T and U, the same with their twins called
+    explicitly on the same CUDA tensors, the kernels' launches)."""
+    from optix_ray_tracer_tpu_torch.ops.kernels import binning
+    before = _bin_counts()
+    got = run()
+    ran = [a - b for a, b in zip(_bin_counts(), before)]
+    with monkeypatch.context() as m:
+        for name in ("bin_rects", "bin_count", "bin_emit"):
+            m.setattr(binning, name, getattr(binning, f"{name}_plain"))
+        want = run()
+    assert _bin_counts() == [b + r for b, r in zip(before, ran)]
+    torch.cuda.synchronize()
+    return got, want, ran
+
+
+def _bin_wave(setup, dev, mode):
+    """A 16,384-ray wave of the 20k-triangle sphere in 32x32 tiles, block
+    3 dead and every 13th ray dead: the camera wave ("origin"), segments
+    from its hits toward a point light ("target", "bundle") or along a
+    sun direction ("ortho").  (o, d, t_min, t_max, point)."""
+    scene, inter, o, d, _, _ = setup
+    n = o.shape[0]
+    dead = torch.zeros(n, dtype=torch.bool, device=dev)
+    dead[3 * 1024:4 * 1024] = True
+    dead[::13] = True
+    tmin = torch.full((n,), 1e-3, device=dev)
+    if mode == "origin":
+        return o, d, tmin, torch.where(dead, 0.0, 1e16), o[0]
+    h = inter.intersect(scene, o, d)
+    p = torch.where(h.is_hit[:, None], o + h.t[:, None] * d, o)
+    if mode == "ortho":
+        sun = torch.tensor([0.3, 0.2, 0.9], device=dev)
+        sun = sun / torch.linalg.norm(sun)
+        return (p + sun * 1e-3, sun.expand(n, 3), tmin,
+                torch.where(dead | ~h.is_hit, 0.0, 1e16), None)
+    light = torch.tensor([2.0, 1.5, 2.5], device=dev)
+    wl = light - p
+    dist = torch.linalg.norm(wl, dim=-1)
+    wl = wl / dist[:, None]
+    return (p + wl * 1e-3, wl, tmin, torch.where(dead, 0.0, dist - 1e-3),
+            light)
+
+
+@pytest.mark.parametrize("pc", ["fits", "overflows"])
+@pytest.mark.parametrize("g", [1, 2, 4])
+@pytest.mark.parametrize("mode", ["origin", "target", "ortho", "bundle",
+                                  "bundle_flat"])
+def test_binning_kernels_equal_plain(setup, dev, monkeypatch, mode, g, pc):
+    """S, T and U against their twins on the same CUDA inputs, every
+    output equal: each kernel alone (S's rects, T's ray pack, bounds,
+    counts and offsets, U's schedule from T's outputs), then the whole
+    stage (``_coarse_stage`` or ``bundle_stage``), one launch of each, at
+    a capacity above the pair count (the padded tail) and below it (the
+    cut)."""
+    from optix_ray_tracer_tpu_torch.ops.kernels import binning
+    scene, inter, *_ = setup
+    o, d, tmin, tmax, point = _bin_wave(setup, dev, mode)
+    bundle = mode.startswith("bundle")
+    octants = mode == "bundle"
+    W = 1024
+    if bundle:
+        run = lambda pc_max: raster.bundle_stage(   # noqa: E731
+            inter.clusters, o, d, tmin, tmax, W, pc_max,
+            dir_octants=octants, granularity=g)
+    else:
+        run = lambda pc_max: raster._coarse_stage(   # noqa: E731
+            inter.raster, inter.clusters, o, d, tmin, tmax, mode, point, W,
+            pc_max, g)
+    total = int(run(8)["pc_total"])
+    assert total > 0
+    pc_max = total + 517 if pc == "fits" else total * 2 // 3
+    got, want, ran = _stage_both(monkeypatch, lambda: run(pc_max))
+    assert ran == [1, 1, 1]
+    _bin_equal(got, want)
+    assert int(got["cnt_b"][3]) == 0
+    if pc == "fits":
+        assert not bool(got["validc"][total:].any())
+    # each kernel alone on the same inputs
+    if bundle:
+        args = (binning.RECTS_BOX, inter.clusters.sub_min,
+                inter.clusters.sub_max)
+        kw = dict(granularity=g)
+        basis, p = None, None
+    else:
+        basis = raster._basis_from(d[0] if point is None else
+                                   torch.tensor([-1.0, 0.2, 0.1],
+                                                device=dev))
+        p = None if mode == "ortho" else point
+        args = (binning.RECTS_CLUSTER, inter.raster.verts)
+        kw = dict(basis=basis, point=p, granularity=g)
+    rects = binning.bin_rects_call(*args, **kw)
+    _bin_equal(rects, binning.bin_rects_plain(*args, **kw))
+    tm = "bundle" if bundle else mode
+    counted = binning.bin_count_call(o, d, tmin, tmax, W, tm, *rects,
+                                     basis, p if mode == "target" else None,
+                                     octants)
+    _bin_equal(counted, binning.bin_count_plain(
+        o, d, tmin, tmax, W, tm, *rects, basis,
+        p if mode == "target" else None, octants))
+    _, cnt_b, offs, bounds = counted
+    _bin_equal(binning.bin_emit_call(*rects, bounds, cnt_b, offs, pc_max,
+                                     tm),
+               binning.bin_emit_plain(*rects, bounds, cnt_b, offs, pc_max,
+                                      tm))
+
+
+@pytest.mark.parametrize("mode", ["origin", "target", "ortho"])
+def test_binning_pair_kernels_equal_plain(tlas, dev, monkeypatch, mode):
+    """The TLAS pair stage (``instanced_coarse_stage`` with the pairs'
+    tables: S on the pairs' box corners, an invalid instance's NaN box
+    among them; U's pair_libs and pair_insts) equals its twins'."""
+    from optix_ray_tracer_tpu_torch.ops import raster_instanced as ri
+    inter = tlas[0]
+    cam = Camera.look_at((16.0, 2.0, 3.0), (0.0, 0.0, 0.0), (0.0, 0.0, 1.0))
+    o, d = (raster.to_tiles(x.reshape(-1, 3), 1, 64, 64, 32, 32)
+            for x in cam.generate_rays(64, 64))
+    n = o.shape[0]
+    tmin = torch.full((n,), 1e-3, device=dev)
+    tmax = torch.full((n,), 1e16, device=dev)
+    point = None if mode == "ortho" else (
+        o[0] if mode == "origin" else torch.tensor([3.0, 4.0, 9.0],
+                                                   device=dev))
+    if mode == "target":
+        o = o + d * 20.0
+    if mode == "ortho":
+        d = d[0].expand(n, 3)
+        o = o + torch.linspace(-6, 6, n, device=dev)[:, None] * torch.tensor(
+            [0.0, 1.0, 0.3], device=dev)
+
+    def run():
+        return ri.instanced_coarse_stage(
+            inter.pair_min, inter.pair_max, o, d, tmin, tmax, mode, point,
+            1024, 1 << 14, inter.pair_shape, inter.pair_inst)
+
+    got, want, ran = _stage_both(monkeypatch, run)
+    assert ran == [1, 1, 1]
+    _bin_equal(got, want)
+    assert 0 < int(got["pc_total"]) <= 1 << 14
+    assert "pair_libs" in got
+
+
+@pytest.mark.parametrize("cut", ["whole", "straddles"])
+def test_bin_emit_long_rows(dev, cut):
+    """U on rows longer than its shared-memory sort (20,000 windows, all
+    admitted by blocks 0 and 2, none by block 1): sorted in place in their
+    output segments, keys with many ties, -0.0 and +0.0 among them, equal
+    to the twin; with a capacity that cuts block 2's row, its lowest
+    windows, sorted."""
+    from optix_ray_tracer_tpu_torch.ops.kernels import binning
+    C = 20_000
+    r = np.random.default_rng(8)
+    keys = r.integers(-40, 40, C).astype(np.float32) / 8
+    keys[::7] = -0.0
+    keys[3::7] = 0.0
+    keys[5] = np.nan          # a NaN window: never admitted
+    t = lambda x: torch.as_tensor(x, device=dev)   # noqa: E731
+    rects = torch.stack([t(np.full(C, -1.0, np.float32)),
+                         t(np.full(C, 1.0, np.float32)),
+                         t(np.full(C, -1.0, np.float32)),
+                         t(np.full(C, 1.0, np.float32)), t(keys),
+                         t(keys + 10)])
+    cfull = torch.zeros(C, dtype=torch.bool, device=dev)
+    bounds = t(np.array([[-0.5, 0.5, -0.5, 0.5, -9.0, 90.0, 1.0, 0.0],
+                         [-0.5, 0.5, -0.5, 0.5, -9.0, 90.0, 0.0, 0.0],
+                         [-0.5, 0.5, -0.5, 0.5, -9.0, 90.0, 1.0, 0.0]],
+                        np.float32))
+    cnt_b = t(np.array([C - 1, 0, C - 1], np.int32))
+    offs = t(np.array([0, C - 1, C - 1, 2 * C - 2], np.int32))
+    pc_max = 2 * C + 300 if cut == "whole" else C + 12_345
+    assert binning.shared_row(C) < C - 1
+    got = binning.bin_emit_call(rects, cfull, bounds, cnt_b, offs, pc_max,
+                                "origin")
+    want = binning.bin_emit_plain(rects, cfull, bounds, cnt_b, offs, pc_max,
+                                  "origin")
+    torch.cuda.synchronize()
+    _bin_equal(got, want)
+    assert bool((got["b_i"][:C - 1] == 0).all())
+    k = rects[4][got["c_i"][:C - 1].long()]
+    assert bool((k[1:] >= k[:-1]).all())

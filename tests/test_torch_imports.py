@@ -1,7 +1,7 @@
 """Import hygiene of the port: optix_ray_tracer_tpu_torch and every module
 of the ported slices import neither jax nor the JAX package; on CPU
-tensors no kernel (A-N) launches, and the wrappers of L, M and N refuse
-them; chip_smoke.py refuses to run without CUDA."""
+tensors no kernel (A-U) launches, and the wrappers of L, M, N, S, T and U
+refuse them; chip_smoke.py refuses to run without CUDA."""
 
 import ast
 import os
@@ -36,6 +36,7 @@ MODULES = [
     "optix_ray_tracer_tpu_torch.ops.instanced",
     "optix_ray_tracer_tpu_torch.ops.intersect",
     "optix_ray_tracer_tpu_torch.ops.kernels._lib",
+    "optix_ray_tracer_tpu_torch.ops.kernels.binning",
     "optix_ray_tracer_tpu_torch.ops.kernels.bounce",
     "optix_ray_tracer_tpu_torch.ops.kernels.block_march",
     "optix_ray_tracer_tpu_torch.ops.kernels.leaf_sweep",
@@ -259,17 +260,18 @@ def test_cpu_path_launches_no_kernel():
     path-traced frame with bundle NEE and a sky, an ortho wave, ReSTIR DI
     and GI frames with Sobol, an adaptive batch, a sharded frame, an LBVH
     frame) and a query routed to the hierarchical marcher take the plain
-    versions: every launch count (A-G, and the bounce loop's H-N)
-    stays 0 and the library is never built."""
+    versions: every launch count (A-G, the bounce loop's H-N, the
+    marcher's glue O-R and the binning's S-U) stays 0 and the library is
+    never built."""
     proc = _run(_LAUNCHES)
     assert proc.returncode == 0, proc.stderr
-    assert f"LAUNCHES {[0] * 18} True" in proc.stdout, proc.stdout
+    assert f"LAUNCHES {[0] * 21} True" in proc.stdout, proc.stdout
 
 
 _REFUSE = """
 import torch
 from optix_ray_tracer_tpu_torch.ops.intersect import Hit
-from optix_ray_tracer_tpu_torch.ops.kernels import _lib, bounce
+from optix_ray_tracer_tpu_torch.ops.kernels import _lib, binning, bounce
 from optix_ray_tracer_tpu_torch.render.envmap import gradient_sky
 n = 64
 v3, f, i, b = (torch.zeros(n, 3), torch.zeros(n),
@@ -282,6 +284,13 @@ calls = {
     "M": lambda: bounce.nee_add_call(v3, v3, b, b, None, None, None),
     "N": lambda: bounce.hit_radiance_call(v3, v3, f, v3, b, b, hit, i, v3,
                                           b, 1, torch.zeros(3)),
+    "S": lambda: binning.bin_rects_call(binning.RECTS_PAIR, v3, v3,
+                                        torch.eye(3), None),
+    "T": lambda: binning.bin_count_call(v3, v3, f, f, 32, "bundle",
+                                        torch.zeros(6, 4)),
+    "U": lambda: binning.bin_emit_call(torch.zeros(6, 4), None,
+                                       torch.zeros(2, 1, 14),
+                                       i[:2], i[:3], 64, "bundle"),
 }
 for name, call in calls.items():
     try:
@@ -294,13 +303,13 @@ print("LAUNCHES", [k.launches for k in _lib.KERNELS], _lib._lib is None)
 
 
 def test_nee_wrappers_refuse_cpu_tensors():
-    """The wrappers of L, M and N never run a plain version: CPU tensors
-    raise before any build or launch."""
+    """The wrappers of L, M, N, S, T and U never run a plain version: CPU
+    tensors raise before any build or launch."""
     proc = _run(_REFUSE)
     assert proc.returncode == 0, proc.stderr
-    for name in "LMN":
+    for name in "LMNSTU":
         assert f"REFUSED {name}" in proc.stdout, proc.stdout
-    assert f"LAUNCHES {[0] * 18} True" in proc.stdout, proc.stdout
+    assert f"LAUNCHES {[0] * 21} True" in proc.stdout, proc.stdout
 
 
 @pytest.mark.parametrize("where", ["repo", "alone"])

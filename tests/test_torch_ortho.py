@@ -211,7 +211,8 @@ def test_instanced_dir_twin_against_full_width(tlas):
     n = so.shape[0]
     S = tri.instanced_coarse_stage(
         s["tinter"].pair_min, s["tinter"].pair_max, _t(so), _t(sd),
-        torch.full((n,), 1e-4), _t(tmax), "ortho", None, 256, 8192)
+        torch.full((n,), 1e-4), _t(tmax), "ortho", None, 256, 8192,
+        s["tinter"].pair_shape, s["tinter"].pair_inst)
     inp = tri.instanced_schedule_inputs(s["tinter"], S)
     a = ttr.raster_instanced_call(**inp, w=256, common="dir", visits=True)
     b = ttr.raster_instanced_call(**inp, w=256, common=None, visits=True)

@@ -320,7 +320,8 @@ def test_needed_raster_work_matches_brute_force(case):
     tmax[::7] = 0.0                          # dead rays
     if case.startswith("D"):
         S = ri.instanced_coarse_stage(inter.pair_min, inter.pair_max, o, d,
-                                      tmin, tmax, "origin", o[0], W, 1 << 14)
+                                      tmin, tmax, "origin", o[0], W, 1 << 14,
+                                      inter.pair_shape, inter.pair_inst)
         inp = ri.instanced_schedule_inputs(inter, S)
         t, slot, _, _ = tr.raster_instanced_plain(
             **inp, w=W, any_hit=any_hit, common="origin")

@@ -111,7 +111,8 @@ def _cluster_case(setup):
 
 def _tlas_inputs(inter, o, d, tmin, tmax):
     S = ri.instanced_coarse_stage(inter.pair_min, inter.pair_max, o, d, tmin,
-                                  tmax, "origin", o[0], W, 1 << 14)
+                                  tmax, "origin", o[0], W, 1 << 14,
+                                  inter.pair_shape, inter.pair_inst)
     assert int(S["pc_total"]) <= 1 << 14
     return ri.instanced_schedule_inputs(inter, S)
 

@@ -66,7 +66,8 @@ def _d_wave(e, wave, point, any_hit):
     pc = ri.measure_instanced_pair_count(e.tlas, *wave, "origin", point)
     S = ri.instanced_coarse_stage(e.tlas.pair_min, e.tlas.pair_max, *wave,
                                   "origin", point, W,
-                                  raster.round_pc_max(pc))
+                                  raster.round_pc_max(pc), e.tlas.pair_shape,
+                                  e.tlas.pair_inst)
     return dict(ri.instanced_schedule_inputs(e.tlas, S), w=W,
                 any_hit=any_hit, common="origin")
 

@@ -22,7 +22,7 @@ then ``torch.profiler`` over the same number of iterations.  The device
 time is the sum of the kernel, memcpy and memset events of the exported
 trace (everything runs on one stream, so the events do not overlap);
 idle share = 1 - device time / wall.  Prints, per cell, one summary line,
-the time per group of kernels (A-R, cuDNN, the torch kernels by kind),
+the time per group of kernels (A-U, cuDNN, the torch kernels by kind),
 the heaviest int64 elementwise kernels by their functors and the
 heaviest kernels by name; for the path tracer's cells, the device ms,
 ops and heaviest groups of each ``path.*`` range of ``trace_path``
@@ -104,6 +104,12 @@ def group(name: str, cat: str) -> str:
         return "Q finish_hits"
     if "shading_frame_kernel" in name:
         return "R shading_frame"
+    if "bin_rects_kernel" in name:
+        return "S bin_rects"
+    if "bin_count_kernel" in name:
+        return "T bin_count"
+    if "bin_emit_kernel" in name:
+        return "U bin_emit"
     if any(k in name.lower() for k in ("conv", "xmma", "implicit", "gemm",
                                         "winograd", "cudnn")):
         return "convolution (cuDNN)"
@@ -221,37 +227,15 @@ def path_cells(t, device):
     through ``benchmarks.run``, and frame 0 of the Time scene's flatten
     route with phase 11's area light over the pile (``render_path``,
     1200x800, spp 1, depth 5), and the same frame through ReSTIR DI."""
-    import numpy as np
-
-    from optix_ray_tracer_tpu_torch.io.meshgen import quad
     from optix_ray_tracer_tpu_torch.models import benchmarks
     from optix_ray_tracer_tpu_torch.models.common import choose_intersector
     from optix_ray_tracer_tpu_torch.render import pathtracer, restir
-    from optix_ray_tracer_tpu_torch.scene.geometry import Scene, Triangles
-    from optix_ray_tracer_tpu_torch.scene.lights import collect_area_lights
-    from optix_ray_tracer_tpu_torch.scene.materials import (
-        EMISSIVE, MaterialTable,
-    )
 
     c5 = benchmarks.config5_sponza_class(device=device)
     i5 = choose_intersector(c5["scene"])
     c4 = benchmarks.config4_cornell(device=device)
     i4 = choose_intersector(c4["scene"])
-    z, half, radiance = chip_smoke.ANIM_LIGHT
-    lv, ln = quad((-half, -half, z), (-half, half, z), (half, half, z),
-                  (half, -half, z))
-    m = t.mats
-    mats = MaterialTable(
-        mtype=torch.cat([m.mtype, torch.tensor([EMISSIVE], device=device,
-                                               dtype=torch.int32)]),
-        albedo=torch.cat([m.albedo, torch.zeros((1, 3), device=device)]),
-        param=torch.cat([m.param, torch.zeros(1, device=device)]),
-        emission=torch.cat([m.emission, torch.full((1, 3), radiance,
-                                                   device=device)]))
-    lamp = Triangles.from_arrays(lv, ln, np.int32(m.count), device=device)
-    scene = Scene(t.flat.spheres, t.flat.triangles.concat(lamp))
-    inter = choose_intersector(scene)
-    lights = collect_area_lights(scene, mats)
+    scene, mats, lights, inter = chip_smoke.path_pile_scene(t)
     w, h = chip_smoke.ANIM_WIDTH, chip_smoke.ANIM_HEIGHT
     return (lambda: benchmarks.run(c5, intersector=i5),
             lambda: benchmarks.run(c4, spp=1, intersector=i4),
