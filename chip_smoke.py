@@ -202,7 +202,8 @@ CPU or to the plain versions):
    (captured through ``raster.BUNDLE_OBSERVERS``) and one 1,024-ray block
    pairing every one of the flatten route's 13,472 windows at g 4 (U's
    long-row sort); (b) each kernel's device ms per launch on the bench
-   camera wave beside its bound (:func:`binning_work`); (c) phase 4's
+   camera wave, and T's and U's on the path pile's first bundle NEE wave,
+   beside its bound (:func:`binning_work`); (c) phase 4's
    Whitted frame, config 5's frame and the path pile's frame 0 by the
    kernels (counts zeroed, S-U > 0, no plain version of H-U called) and
    with S-U's twins called explicitly (:func:`binning_twin_route`),
@@ -226,10 +227,13 @@ O-R phase 4's bounce-1 wave (their errors the largest of phase 15 (a)'s
 calls), their launches those of phases 4, 12, 13 (b) and 15 (c), their
 bound the bytes each ray's own data and each table row it reads take;
 S-U the bench camera wave (their errors the largest of phase 16 (a)'s
-calls), their launches those of phases 4, 12, 13 (b) and 16 (c), their
-bound the larger of the bytes each input and output takes once and the
-operations of the wave's projections and of the tests its live blocks
-need (:func:`binning_work`);
+calls), their launches those of phases 4, 7, 10, 11, 12, 13 (b) and 16
+(c), their bound the larger of the bytes each input and output takes
+once and the operations of the wave's projections, of the tests its live
+blocks (octants) need and of U's keys and sorts of the pairs it keeps
+(:func:`binning_work`); two more rows hold T and U on the path pile's
+first bundle NEE wave (launches: their bundle launches in those phases,
+``Kernel.variants``);
 their work the RNG's integer operations (:func:`sobol_ops`: the per-byte
 table lookups) and J's to N's float operations per lobe or part
 (:func:`scatter_ops`, :func:`bsdf_ops`, :func:`nee_work`,
@@ -314,8 +318,21 @@ INST_OPS = 33     # one ray moved into an instance's space
 FP32_FLOPS = 67e12
 HBM_BYTES_PER_S = 3.35e12
 CHUNK = 256       # triangles per cluster (ops/sweep.CHUNK)
-#: the kernels by letter, filled in by main()
+#: the kernels by letter, filled in by main(); "t" and "u" are T's and
+#: U's launches on bundle waves (:class:`VariantCount`)
 K: dict = {}
+
+
+class VariantCount:
+    """One variant's launches of a kernel (its ``Kernel.variants`` entry,
+    zeroed with the kernel's counts), read as a row of its own."""
+
+    def __init__(self, kernel, variant: str, name: str):
+        self.kernel, self.variant, self.name = kernel, variant, name
+
+    @property
+    def launches(self) -> int:
+        return self.kernel.variants.get(self.variant, 0)
 
 
 def card_line() -> str:
@@ -384,16 +401,17 @@ def warp_rays(R: int, n: int):
 
 
 def row(err: float, ms: float, plain_ms: float, io_bytes: int,
-        ops: float) -> dict:
+        ops: float, ms_by: str = "cuda events") -> dict:
     """A kernel's JSON row from its measurements and its work: the bound
     is the larger of bytes over the memory rate and operations over the
-    FP32 rate."""
+    FP32 rate; ``ms_by`` says how ``ms`` was timed (:func:`time_ms`'s
+    "cuda events", or :func:`device_ms`'s method)."""
     t_bytes = io_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / FP32_FLOPS * 1e3
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                 bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
-                library_ms=None)
+                library_ms=None, ms_by=ms_by)
 
 
 def wave_row(name: str, err: float, full_ms: float, plain_ms: float,
@@ -1317,7 +1335,8 @@ def time_frames(t: SimpleNamespace, card: str) -> dict:
     both routes (counts zeroed before, read after: D and F), then frames 0
     and 1 through the TLAS route and frame 0 through the flatten route at
     1024x1024, spp 4, depth 5 (counts zeroed before the TLAS frames, read
-    after: D and E).  Returns the launch counts of D, E and F."""
+    after: D, E and the pairs' binning S-U).  Returns the launch counts
+    of D, E, F and S-U."""
     import torch
 
     from optix_ray_tracer_tpu_torch.ops.instanced import refit_instanced
@@ -1378,6 +1397,8 @@ def time_frames(t: SimpleNamespace, card: str) -> dict:
     torch.cuda.synchronize()
     launches["tile_raster_instanced"] = K["D"].launches
     launches["block_march_instanced"] = K["E"].launches
+    for k in "STU":                    # the TLAS pairs' binning
+        launches[K[k].name] = K[k].launches
     print(f"[time frame] TLAS route {WIDTH}x{HEIGHT} spp={SPP} depth "
           f"{DEPTH}: frame 0 {s0:.3f} s, frame 1 {s1:.3f} s (frame "
           f"builds {build0 * 1e3:.1f} / {build1 * 1e3:.1f} ms) [{card}]; "
@@ -1910,7 +1931,8 @@ def run_cli(argv) -> None:
 
 def animation_phase(card: str) -> dict:
     """Phase 10: the animation entry point, ``__main__.main(argv)`` on a
-    series this phase writes.  Returns the launches of A-F it made."""
+    series this phase writes.  Returns the launches of A-F and S-U it
+    made."""
     import os
     import tempfile
 
@@ -1976,8 +1998,8 @@ def animation_phase(card: str) -> dict:
                 end.synchronize()
         finally:
             fused.refit_march_intersector = real_refit
-        counts = {k: K[k].launches for k in "ABCDEF"}
-        for k in "ABCDEF":
+        counts = {k: K[k].launches for k in "ABCDEFSTUtu"}
+        for k in counts:
             launches[K[k].name] = counts[k]
         pngs = sorted((root / "out1").glob("frame_*.png"))
         if len(pngs) != ANIM_FRAMES or frame[0] != ANIM_FRAMES - 1:
@@ -2053,7 +2075,7 @@ def animation_phase(card: str) -> dict:
             del os.environ["ORT_TIME_TLAS"]
         tlas_s = time.perf_counter() - t0
         tlas_peak = torch.cuda.max_memory_allocated() - mem0
-        for k in "DE":
+        for k in "DESTU":
             launches[K[k].name] += K[k].launches
         per_frame = (tlas_frames[1][1].elapsed_time(end)
                      / (ANIM_TLAS_FRAMES - 1) / 1e3)
@@ -2082,7 +2104,7 @@ def animation_phase(card: str) -> dict:
                  ANIM_CHECK_FRAMES])
         torch.cuda.synchronize()
         flat_peak = torch.cuda.max_memory_allocated() - mem0
-        for k in "ABCF":
+        for k in "ABCFSTU":
             launches[K[k].name] += K[k].launches
         fused_imgs = check_pngs(sorted((root / "out3").glob("frame_*.png")),
                                 "flatten fused, temporal off")
@@ -2098,7 +2120,7 @@ def animation_phase(card: str) -> dict:
         print(f"  per-frame loop (set_update_fn): {ANIM_CHECK_FRAMES} frames "
               f"in {time.perf_counter() - t0:.2f} s with its host build "
               f"[{card}]")
-        for k in "ABCF":
+        for k in "ABCFSTU":
             launches[K[k].name] += K[k].launches
         for j, (a, b) in enumerate(zip(fused_imgs, per)):
             agree(a, b, f"fused vs per-frame frame {j}")
@@ -2136,7 +2158,7 @@ def animation_phase(card: str) -> dict:
             end.record()
             end.synchronize()
         mesh_s = time.perf_counter() - t0
-        for k in "ABCF":
+        for k in "ABCFSTU":
             launches[K[k].name] += K[k].launches
         mesh_pngs = sorted((root / "out4").glob("frame_*.png"))
         check_pngs(mesh_pngs, "Mesh")
@@ -2182,7 +2204,7 @@ def sponza_cell(card: str) -> dict:
     builds it, through ``benchmarks.run``: twice with raster tables (the
     first frame's launches counted, the second timed), then with none (B
     and C only), and the two images held to each other.  Returns the
-    launches of A, B and C of one frame."""
+    launches of A, B, C, K-N and S-U of one frame."""
     import dataclasses
 
     import torch
@@ -2205,6 +2227,7 @@ def sponza_cell(card: str) -> dict:
     zero_counts()
     (img, alb, nrm), st = benchmarks.run(cfg, intersector=inter)
     counts = {k: K[k].launches for k in "ABCKLMN"}
+    binning = launch_counts("STUtu")
     _, st2 = benchmarks.run(cfg, seed=1, intersector=inter)
     print(f"[path sponza] {st2['render_s']:.3f} s/frame, "
           f"{st2['spp_per_sec']:.3f} spp/s, {st2['mpaths_per_sec']:.2f} "
@@ -2213,6 +2236,7 @@ def sponza_cell(card: str) -> dict:
                                                 counts.items()))
     if min(counts.values()) == 0:
         raise AssertionError(f"config 5 missed a kernel: {counts}")
+    counts.update(binning)
     if not all(bool(torch.isfinite(x).all()) for x in (img, alb, nrm)):
         raise AssertionError("config 5's frame has non-finite values")
     plain = dataclasses.replace(inter, raster=None)
@@ -2232,8 +2256,8 @@ def sponza_cell(card: str) -> dict:
 
 def cornell_cell(card: str) -> dict:
     """Phase 11 (b): config 4 (Cornell box, NEE+MIS) at 1024x1024, depth
-    8, its 1024 spp cut to CORNELL_SPP.  Returns the launches of A and
-    B."""
+    8, its 1024 spp cut to CORNELL_SPP.  Returns the launches of A, B,
+    K-N and S-U."""
     import torch
 
     from optix_ray_tracer_tpu_torch.models import benchmarks
@@ -2256,6 +2280,7 @@ def cornell_cell(card: str) -> dict:
         raise AssertionError("the Cornell frame is not finite and lit")
     if min(counts.values()) == 0:
         raise AssertionError(f"config 4 missed a kernel: {counts}")
+    counts.update(launch_counts("STUtu"))
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     write_png(OUT_DIR / "path_cornell.png", color_to_uint8(img))
     return counts
@@ -2345,7 +2370,7 @@ def path_animation(card: str):
 
     tmp = tempfile.TemporaryDirectory(prefix="anim_path_")
     root = Path(tmp.name)
-    launches = {K[k].name: 0 for k in "ABCDEFKLMN"}
+    launches = {K[k].name: 0 for k in "ABCDEFKLMNSTUtu"}
     try:
         config = path_pile_configs(root)
         z, half, radiance = ANIM_LIGHT
@@ -2368,8 +2393,8 @@ def path_animation(card: str):
                 end = torch.cuda.Event(enable_timing=True)
                 end.record()
                 end.synchronize()
-            counts = {k: K[k].launches for k in "ABCDEFKLMN"}
-            for k in "ABCDEFKLMN":
+            counts = launch_counts("ABCDEFKLMNSTUtu")
+            for k in counts:
                 launches[K[k].name] += counts[k]
             check_pngs(sorted((root / out).glob("frame_*.png")), out)
             wall = refits[2][1].elapsed_time(end) / (frames - 2) / 1e3
@@ -2419,7 +2444,7 @@ def path_animation(card: str):
                 end.synchronize()
         finally:
             del os.environ["ORT_TIME_TLAS"]
-        for k in "DEKLMN":
+        for k in "DEKLMNSTUtu":
             launches[K[k].name] += K[k].launches
         per_frame = (tlas_frames[1][1].elapsed_time(end)
                      / (ANIM_TLAS_FRAMES - 1) / 1e3)
@@ -2441,7 +2466,7 @@ def path_animation(card: str):
             run_cli(["--config", config("path_nt.json", half,
                                          temporal=False),
                      "--output", root / "out3", "--frames", 1])
-        for k in "ABCFKLMN":
+        for k in "ABCFKLMNSTUtu":
             launches[K[k].name] += K[k].launches
         nt_launches = K["A"].variants.get("None", 0)
         bundle_launches += nt_launches
@@ -2721,7 +2746,7 @@ def shared_builds():
         common.choose_intersector = real
 
 
-def launch_counts(keys: str = "ABCDEFHIJKLMNOPQRSTU") -> dict:
+def launch_counts(keys: str = "ABCDEFHIJKLMNOPQRSTUtu") -> dict:
     return {k: K[k].launches for k in keys}
 
 
@@ -3423,8 +3448,8 @@ def sobol_ops(n: int, dims: int) -> int:
                 + dims * (OWEN_OPS + UNIT_OPS) + 1)
 
 
-def device_ms(fn, kernel: str, letter: str, reps: int) -> float:
-    """Mean device ms of the kernel named ``kernel`` (a substring of its
+def device_ms(fn, kernel: str, letter: str, reps: int) -> tuple:
+    """(mean device ms, how it was timed) of the kernel named ``kernel`` (a substring of its
     CUDA name; launch counter ``K[letter]``) per call of ``fn``, over
     ``reps`` calls after a warm-up, from a ``torch.profiler`` trace
     (build/chip_smoke/trace_*.json): the kernel's own time, without its
@@ -3435,12 +3460,18 @@ def device_ms(fn, kernel: str, letter: str, reps: int) -> float:
     event of S's windows every time); the last ``reps`` events are
     timed.  A window whose trace holds fewer than ``reps`` of the
     kernel's events (the tracing dropped more) is profiled again, up to
-    TRACE_TRIES windows."""
+    TRACE_TRIES windows.  When every window's trace holds no kernel event
+    at all (a whole smoke run's tracing recorded none in U's windows; the
+    cause is not known), the calls are timed by :func:`queued_ms`
+    instead, which counts the wrapper's other device work and the gaps
+    between launches too: the method reads "profiler trace" or "queued
+    cuda events"."""
     import torch
     fn()
     torch.cuda.synchronize()
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     trace = OUT_DIR / f"trace_{kernel}.json"
+    traced = 0
     for _ in range(TRACE_TRIES):
         before = K[letter].launches
         with torch.profiler.profile(activities=[
@@ -3459,12 +3490,56 @@ def device_ms(fn, kernel: str, letter: str, reps: int) -> float:
         durs = [e["dur"] for e in sorted(events, key=lambda e: e["ts"])
                 if kernel in e.get("name", "")]
         if len(durs) >= reps:
-            return sum(durs[-reps:]) / reps / 1e3
+            return sum(durs[-reps:]) / reps / 1e3, "profiler trace"
+        traced += len(events)
         print(f"    {len(durs)} {kernel} events in the trace of {reps + 1} "
               f"launches ({len(events)} kernel events in all): profiling "
               f"the calls again")
+    if traced == 0:
+        ms = queued_ms(fn, letter, reps)
+        print(f"    no kernel event traced in {TRACE_TRIES} windows: {kernel} "
+              f"timed on the device's clock, {ms:.4f} ms a call "
+              f"(:func:`queued_ms`)")
+        return ms, "queued cuda events"
     raise AssertionError(f"{len(durs)} {kernel} events in the trace of "
                          f"{reps + 1} launches, {TRACE_TRIES} times")
+
+
+#: cycles of the spin kernel that queued_ms puts before the timed calls
+#: (~10 ms on the H100: longer than the host takes to queue them)
+QUEUE_SPIN_CYCLES = 20_000_000
+
+
+def queued_ms(fn, letter: str, reps: int) -> float:
+    """Mean device ms per call of ``fn`` (one launch of ``K[letter]``
+    each, and whatever device work its wrapper queues, such as T's
+    memset), by CUDA events around ``reps`` calls queued behind a spin
+    kernel (``torch.cuda._sleep``), so that the device runs them back to
+    back and the host's work between launches does not show.  Fails when
+    the host took longer to queue the calls than the device spun."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    spun, start, end = (torch.cuda.Event(enable_timing=True)
+                        for _ in range(3))
+    before = K[letter].launches
+    spun.record()
+    torch.cuda._sleep(QUEUE_SPIN_CYCLES)
+    start.record()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    end.record()
+    queued_s = time.perf_counter() - t0
+    end.synchronize()
+    if K[letter].launches - before != reps:
+        raise AssertionError(f"{letter} launched "
+                             f"{K[letter].launches - before} times in "
+                             f"{reps} calls")
+    if queued_s * 1e3 >= spun.elapsed_time(start):
+        raise AssertionError(f"queueing {reps} calls took {queued_s:.4f} s, "
+                             f"longer than the device's spin")
+    return start.elapsed_time(end) / reps
 
 
 def held(name: str, kern, plain) -> tuple:
@@ -3522,10 +3597,10 @@ def rng_rows(frame, card: str) -> dict:
         if bad:
             raise AssertionError(f"{letter} disagrees with its plain "
                                  f"version on {bad} elements")
-        ms = device_ms(kern_fn, cuda_name, letter, REPS)
+        ms, by = device_ms(kern_fn, cuda_name, letter, REPS)
         call_ms = time_ms(kern_fn, REPS)
         plain_ms = time_ms(plain_fn, 1)
-        r = row(err, ms, plain_ms, tensor_bytes(pix, samp, kern), ops)
+        r = row(err, ms, plain_ms, tensor_bytes(pix, samp, kern), ops, by)
         print(f"[bounce] {letter} {name}: device {ms:.4f} ms for {n} ids "
               f"({call_ms:.4f} ms per wrapper call; plain {plain_ms:.3f} "
               f"ms) [{card}]; bound {r['bound_ms']:.4f} ms by "
@@ -3600,12 +3675,12 @@ def scatter_row(frame, card: str) -> dict:
             raise AssertionError(f"J disagrees with scatter_plain on "
                                  f"{bad} elements ({sampler})")
         errs.append(err)
-        ms = device_ms(lambda: wavefront.scatter(*args),
-                       "whitted_scatter_kernel", "J", REPS)
+        ms, by = device_ms(lambda: wavefront.scatter(*args),
+                           "whitted_scatter_kernel", "J", REPS)
         call_ms = time_ms(lambda: wavefront.scatter(*args), REPS)
         plain_ms = time_ms(lambda: wavefront.scatter_plain(*args), 1)
         r = row(err, ms, plain_ms, tensor_bytes(args[1:7], kern),
-                scatter_ops(args, sampler))
+                scatter_ops(args, sampler), by)
         print(f"[bounce] J whitted_scatter, {sampler}: device {ms:.4f} ms "
               f"for {R} rays ({call_ms:.4f} ms per wrapper call; plain "
               f"{plain_ms:.3f} ms) [{card}]; bound {r['bound_ms']:.4f} ms "
@@ -3834,11 +3909,12 @@ def bsdf_rows(p: SimpleNamespace, card: str) -> dict:
         if label.startswith("mixed") and not all(
                 int((mtype == m).sum()) for _, m in kinds):
             raise AssertionError(f"the {label} wave lacks a material")
-    ms = device_ms(lambda: pathtracer.bsdf_step(*args), "path_bsdf_kernel",
-                   "K", REPS)
+    ms, by = device_ms(lambda: pathtracer.bsdf_step(*args),
+                       "path_bsdf_kernel", "K", REPS)
     call_ms = time_ms(lambda: pathtracer.bsdf_step(*args), REPS)
     plain_ms = time_ms(lambda: pathtracer.bsdf_step_plain(*args), 1)
-    r = row(max(errs), ms, plain_ms, bsdf_bytes(args, kern), bsdf_ops(args))
+    r = row(max(errs), ms, plain_ms, bsdf_bytes(args, kern), bsdf_ops(args),
+            by)
     print(f"[bounce] K path_bsdf, config 5's bounce-1 wave: device {ms:.4f} "
           f"ms for {args[4].numel()} rays ({call_ms:.4f} ms per wrapper "
           f"call; plain {plain_ms:.3f} ms) [{card}]; bound "
@@ -4086,10 +4162,10 @@ def nee_rows(p: SimpleNamespace, card: str) -> dict:
         twin = getattr(pathtracer, f"{name}_plain")
         io_bytes, ops = (nee_work(args, kern) if letter == "L" else
                          add_work(args) if letter == "M" else hit_work(args))
-        ms = device_ms(lambda: step(*args), cuda_name, letter, REPS)
+        ms, by = device_ms(lambda: step(*args), cuda_name, letter, REPS)
         call_ms = time_ms(lambda: step(*args), REPS)
         plain_ms = time_ms(lambda: twin(*args), 1)
-        r = row(max(errs[letter]), ms, plain_ms, io_bytes, ops)
+        r = row(max(errs[letter]), ms, plain_ms, io_bytes, ops, by)
         R = (args[3] if letter == "L" else args[0]).shape[0]
         print(f"[bounce] {letter} {K[letter].name}, config 5's bounce-1 "
               f"wave: device {ms:.4f} ms for {R} rays ({call_ms:.4f} ms per "
@@ -4360,11 +4436,11 @@ def glue_rows(waves, card: str) -> dict:
         twin = getattr(module, f"{name}_plain")
         kern = glue_outputs(step(*a, **k))
         io_bytes, ops = glue_work(letter, a, k, kern)
-        ms = device_ms(lambda: step(*a, **k), GLUE_KERNELS[letter], letter,
-                       REPS)
+        ms, by = device_ms(lambda: step(*a, **k), GLUE_KERNELS[letter],
+                           letter, REPS)
         call_ms = time_ms(lambda: step(*a, **k), REPS)
         plain_ms = time_ms(lambda: twin(*a, **k), 1)
-        r = row(max(errs[letter]), ms, plain_ms, io_bytes, ops)
+        r = row(max(errs[letter]), ms, plain_ms, io_bytes, ops, by)
         n = glue_rays(letter, a)
         lib = ""
         if letter == "P":
@@ -4442,6 +4518,8 @@ def glue_phase(frame, t, p, card: str) -> tuple:
 
 # ---- phase 16: the raster binning (S, T, U) -------------------------------
 
+#: phase 16's bundle wave, the rows bin_count_bundle and bin_emit_bundle
+BUNDLE_WAVE = "the path pile's first bundle NEE wave"
 #: the kernels' CUDA names (substrings of their trace events)
 BIN_KERNELS = {"S": "bin_rects_kernel", "T": "bin_count_kernel",
                "U": "bin_emit_kernel"}
@@ -4523,9 +4601,11 @@ def hold_binning(letter: str, args, kw, label: str) -> tuple:
 def binning_work(letter: str, args, kw, kern) -> tuple:
     """(bytes, operations) one launch of ``letter`` needs on its wave,
     from the wave's data: each input read once (a bound or row broadcast
-    over the wave once), each output written once; T's and U's tests over
-    the blocks with a live lane (bundle: each live octant), U's sort n
-    log2 n comparisons a row."""
+    over the wave once), each output written once; T's tests over the
+    blocks with a live lane (bundle: each live octant of a block, every
+    window), U's keys of the pairs it keeps (bundle: the test over the
+    row's live octants; projective: a load) and its sort, n log2 n
+    comparisons a row."""
     import torch
 
     def nbytes(*ts):
@@ -4546,7 +4626,7 @@ def binning_work(letter: str, args, kw, kern) -> tuple:
         return io, points * POINT_OPS
     if letter == "T":
         o, d, t_min, t_max, W, mode, rects = args[:7]
-        rays, cnt_b, offs, bounds = kern
+        bounds = kern[3]
         C = rects.shape[1]
         io = (rays_in(o) + rays_in(d) + rays_in(t_min) + rays_in(t_max)
               + nbytes(rects, *args[7:8]) + nbytes(*kern))
@@ -4556,18 +4636,18 @@ def binning_work(letter: str, args, kw, kern) -> tuple:
             return io, n * RAY_BOX_OPS + live_oct * C * BOX_TEST_OPS
         live = int((bounds[:, 6] != 0).sum())
         return io, n * RAY_RECT_OPS + live * C * RECT_TEST_OPS
-    rects, cfull, bounds, cnt_b, offs, pc_max, mode = args[:7]
-    C = rects.shape[1]
+    rects, bounds, cnt_b, offs, mask, pc_max, mode = args[:7]
     nb = cnt_b.shape[0]
     keep = torch.clamp(torch.minimum(
         cnt_b.long(), pc_max - offs[:nb].long()), min=0)
-    rows = int((keep > 0).sum())
-    tests = (int((bounds[keep > 0][..., 12] < 1e16).sum()) * BOX_TEST_OPS
-             if mode == "bundle" else rows * RECT_TEST_OPS) * C
     kf = keep[keep > 1].double()
     sort = int((kf * torch.log2(kf)).sum()) * SORT_OPS
-    io = nbytes(rects, cfull, bounds, cnt_b, offs, *binning_outputs(kern))
-    return io, tests + sort
+    io = nbytes(cnt_b, offs, mask, *binning_outputs(kern))
+    if mode != "bundle":
+        return io + nbytes(rects[4]), sort
+    live = (bounds[..., 12] < 1e16).sum(1).long()
+    keys = int((keep * live).sum()) * BOX_TEST_OPS
+    return io + nbytes(rects, bounds), keys + sort
 
 
 def path_pile_scene(t: SimpleNamespace):
@@ -4676,19 +4756,42 @@ def binning_waves(b: SimpleNamespace, t: SimpleNamespace, p, pile) -> list:
           tlas.pair_inst), {}),
         ("config 5's first camera wave", raster._coarse_stage, c5_waves[0],
          {}),
-        ("the path pile's first bundle NEE wave", raster.bundle_stage, args,
-         kw),
+        (BUNDLE_WAVE, raster.bundle_stage, args, kw),
         ("one block pairing every flatten window", raster._coarse_stage,
          full_block_wave(t), {})]
 
 
+def binning_row(letter: str, call, err: float, label: str,
+                card: str) -> dict:
+    """One kernel's JSON row on one call ``(args, kwargs)`` of its
+    dispatcher: device ms per launch (profiler trace), the twin's ms, the
+    bound (:func:`binning_work`)."""
+    module, name = binning_steps()["STU".index(letter)]
+    a, k = call
+    step = getattr(module, name)
+    twin = getattr(module, f"{name}_plain")
+    kern = step(*a, **k)
+    io_bytes, ops = binning_work(letter, a, k, kern)
+    ms, by = device_ms(lambda: step(*a, **k), BIN_KERNELS[letter], letter,
+                       REPS)
+    call_ms = time_ms(lambda: step(*a, **k), REPS)
+    plain_ms = time_ms(lambda: twin(*a, **k), 1)
+    r = row(err, ms, plain_ms, io_bytes, ops, by)
+    print(f"[binning] {letter} {K[letter].name}, {label}: device {ms:.4f} "
+          f"ms ({call_ms:.4f} ms per wrapper call; plain {plain_ms:.3f} ms) "
+          f"[{card}]; bound {r['bound_ms']:.4f} ms by {r['bound_by']} "
+          f"({io_bytes} B, {ops} operations; "
+          f"{100 * r['bound_ms'] / ms:.1f}%)")
+    return r
+
+
 def binning_rows(waves, card: str) -> dict:
     """Phase 16 (a), (b): S, T and U against their twins on every call of
-    every wave's stage, exact; each kernel's row on the bench camera wave:
-    device ms per launch (profiler trace), the twin's ms, the bound."""
+    every wave's stage, exact; each kernel's row on the bench camera wave,
+    and T's and U's (the rows bin_count_bundle, bin_emit_bundle) on the
+    path pile's first bundle NEE wave."""
     import torch
-    errs = {k: [] for k in "STU"}
-    calls0 = None
+    errs, calls_of_wave = {}, {}
     for label, stage, args, kw in waves:
         calls = binning_calls(lambda: stage(*args, **kw))
         S = stage(*args, **kw)
@@ -4697,8 +4800,8 @@ def binning_rows(waves, card: str) -> dict:
               f"pairs, capacity {S['b_i'].shape[0]}, longest row "
               f"{int(S['cnt_b'].max())}")
         for letter in "STU":
-            for a, k in calls[letter]:
-                errs[letter].append(hold_binning(letter, a, k, label)[1])
+            errs[label, letter] = max(
+                hold_binning(letter, a, k, label)[1] for a, k in calls[letter])
         if "every" in label:
             a, k = calls["S"][0]
             windows = int((~torch.isnan(binning_steps()[0][0].bin_rects(
@@ -4706,26 +4809,16 @@ def binning_rows(waves, card: str) -> dict:
             if nb != 1 or int(S["cnt_b"][0]) != windows:
                 raise AssertionError(f"{label}: {int(S['cnt_b'][0])} pairs "
                                      f"of {windows} windows with a vertex")
-        calls0 = calls0 or calls
+        calls_of_wave[label] = calls
+    bench, pile = waves[0][0], BUNDLE_WAVE
     rows = {}
     for letter in "STU":
-        module, name = binning_steps()["STU".index(letter)]
-        a, k = calls0[letter][0]
-        step = getattr(module, name)
-        twin = getattr(module, f"{name}_plain")
-        kern = step(*a, **k)
-        io_bytes, ops = binning_work(letter, a, k, kern)
-        ms = device_ms(lambda: step(*a, **k), BIN_KERNELS[letter], letter,
-                       REPS)
-        call_ms = time_ms(lambda: step(*a, **k), REPS)
-        plain_ms = time_ms(lambda: twin(*a, **k), 1)
-        r = row(max(errs[letter]), ms, plain_ms, io_bytes, ops)
-        print(f"[binning] {letter} {K[letter].name}, the bench camera wave: "
-              f"device {ms:.4f} ms ({call_ms:.4f} ms per wrapper call; "
-              f"plain {plain_ms:.3f} ms) [{card}]; bound "
-              f"{r['bound_ms']:.4f} ms by {r['bound_by']} ({io_bytes} B, "
-              f"{ops} operations; {100 * r['bound_ms'] / ms:.1f}%)")
-        rows[K[letter].name] = r
+        err = max(e for (_, k), e in errs.items() if k == letter)
+        rows[K[letter].name] = binning_row(
+            letter, calls_of_wave[bench][letter][0], err, bench, card)
+    for letter, name in (("T", "bin_count_bundle"), ("U", "bin_emit_bundle")):
+        rows[name] = binning_row(letter, calls_of_wave[pile][letter][0],
+                                 errs[pile, letter], pile, card)
     return rows
 
 
@@ -4759,7 +4852,7 @@ def binning_frames(frame, p, t: SimpleNamespace, pile, card: str) -> dict:
         with no_twin_calls(label):
             img, s_kern = timed(render)
         counts = launch_counts("STU")
-        for k, n in counts.items():
+        for k, n in {**counts, **launch_counts("tu")}.items():
             launches[K[k].name] = launches.get(K[k].name, 0) + n
         zero_counts()
         with binning_twin_route():
@@ -4801,6 +4894,8 @@ VARIANT_ROWS = {
                                   "tile_raster.py:219"),
     "tile_raster_bundle": ("A", "optix_ray_tracer_tpu/ops/pallas/"
                            "tile_raster.py:70"),
+    "bin_count_bundle": ("T", "optix_ray_tracer_tpu/ops/raster.py:573"),
+    "bin_emit_bundle": ("U", "optix_ray_tracer_tpu/ops/raster.py:638"),
 }
 
 
@@ -4819,6 +4914,8 @@ def main() -> None:
              N=_lib.PATH_HIT_RADIANCE, O=_lib.MARCH_KEYS,
              P=_lib.GATHER_RAYS, Q=_lib.FINISH_HITS, R=_lib.SHADING_FRAME,
              S=_lib.BIN_RECTS, T=_lib.BIN_COUNT, U=_lib.BIN_EMIT)
+    K.update(t=VariantCount(K["T"], "bundle", "bin_count_bundle"),
+             u=VariantCount(K["U"], "bundle", "bin_emit_bundle"))
     card = card_line()
     print(card)      # name and power limit, as nvidia-smi reports them
     t_start = time.perf_counter()
@@ -4832,11 +4929,12 @@ def main() -> None:
     t = time_setup(device)
     t.card = card
     rows.update(check_time_kernels(t))
-    launches.update(time_frames(t, card))
+    for name, n in time_frames(t, card).items():
+        launches[name] = launches.get(name, 0) + n
     rows["leaf_sweep"], launches["leaf_sweep"] = sweep_phase(b, frame, card)
     frame_tail(frame, card)
     for name, n in animation_phase(card).items():
-        launches[name] += n
+        launches[name] = launches.get(name, 0) + n
     path_rows, path_launches = path_phase(b, t, card)
     rows.update(path_rows)
     for name, n in path_launches.items():

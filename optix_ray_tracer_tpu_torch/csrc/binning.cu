@@ -18,31 +18,45 @@
 //   the window reduced over the group threads of a warp), from a TLAS
 //   pair's 8 box corners (one thread a pair), or, for bundles, from its
 //   sub boxes (one thread a window).
-// - T runs one CTA per W-ray block: it writes the block's columns of the
-//   transposed ray pack A and D read (the trailing dead block by one more
-//   CTA), reduces the block's bounds (projective: the rect, depth range
-//   and live flag; bundle: per direction octant the origin, direction and
-//   t ranges of the live lanes), tests every window against them and
-//   writes the block's pair count; the last CTA to finish scans the counts
-//   into row offsets (offs[nb] is the pair total).
-// - U runs one CTA per block: it repeats T's test for its row in ascending
-//   window order, keeps the row's first windows up to the capacity
-//   pc_max, sorts them by (key, window) and writes the schedule at the
-//   row's offset; the slots past the total get the plain version's
-//   padding (nb - 1, C - 1, invalid), cut in nb slices.  The key is a
-//   window's near depth (projective) or the bundle's smallest admitted
-//   entry t, as a float: -0.0 ties +0.0, equal keys keep ascending window
-//   ids, as the plain version's stable argsorts keep them.  A row sorts in
-//   shared memory (up to 8,192 pairs); a longer one sorts in place in its
-//   output segment (the key bits in b_i, the window in c_i), each
-//   8,192-pair chunk in shared memory, then the bitonic merges across
-//   chunks in device memory.
+// - T runs one CTA per W-ray block: it stages the block's rays in shared
+//   memory (cp.async copies of the contiguous rows, a broadcast row read
+//   once; 1,024 rays at a time), so each ray is read from device memory
+//   once, writes the block's columns of the transposed ray pack A and D
+//   read from there (the trailing dead block by one more CTA), and reduces
+//   the block's bounds: projective, the rect, depth range and live flag in
+//   one pass and one CTA reduction; bundle, per direction octant the
+//   origin, direction and t ranges of the live lanes, warp q reducing
+//   octant q (8 warps, 8 octants) with no CTA barrier.  Then each warp
+//   tests 32 windows at a time, a bundle window against the block's live
+//   octants only (a compacted list), each axis and side one IEEE divide on
+//   the branch its octant's guard takes, the axis loop left early once the
+//   interval can no longer be non-empty (proven at octant_admits), the
+//   octant loop at the first that admits it.  It writes the block's hit
+//   mask (bit c of the row where window c passes) and the pair count, the
+//   mask's popcounts; the last CTA to finish scans the counts into row
+//   offsets (offs[nb] is the pair total).
+// - U reads T's mask: a row's kept windows are its first set bits, up to
+//   the capacity pc_max, found from the words' popcount prefixes.  Only a
+//   kept bundle pair runs the octant test again, for its key.  A warp
+//   takes a row of up to 128 kept pairs (eight rows a CTA) and sorts it by
+//   (key, window) with a shuffle bitonic network, no barrier; a CTA of its
+//   own takes a longer row and sorts it in shared memory (up to 8,192 pairs)
+//   or, longer still, in place in its output segment (the key bits in b_i,
+//   the window in c_i), each 8,192-pair chunk in shared memory, then the
+//   bitonic merges across chunks in device memory.  It writes the schedule
+//   at the row's offset; the slots past the total get the plain version's
+//   padding (nb - 1, C - 1, invalid), cut in one slice per CTA.  The key
+//   is a window's near depth (projective) or the bundle's smallest
+//   admitted entry t, as a float: -0.0 ties +0.0, equal keys keep
+//   ascending window ids, as the plain version's stable argsorts keep
+//   them.
 //
-// What bounds them on the H100: T reads 32 B and writes 32 B a ray, and T
-// and U test every (block, window) pair (a dozen operations projective,
-// up to some 40 per live octant with four divides for bundles); each
-// CTA reads the window table from L2.  They are latency-scale at the
-// waves' sizes (tens of microseconds).
+// What bounds them on the H100: T reads 32 B and writes 32 B a ray, and
+// tests every (block, window) pair (a dozen operations projective, up to
+// some 60 per live octant with two divides an axis for bundles); each CTA
+// reads the window table from L2.  U reads the mask, computes the kept
+// pairs' keys and sorts them.  They are latency-scale at the waves' sizes
+// (tens of microseconds).
 //
 // Exactness: every float step is the plain version's in its order, with
 // IEEE divides (no fast math) and the library built with -fmad=false.
@@ -50,7 +64,9 @@
 // every element is NaN); torch's amin / amax, minimum / maximum with
 // min_nan / max_nan (a NaN operand gives NaN).  Min and max do not depend
 // on the order of their operands, so T's and S's reductions equal the
-// plain version's (a zero may differ in sign, which compares equal).
+// plain version's (a zero may differ in sign, which compares equal).  The
+// bundle test takes torch's minimum / maximum as min.NaN / max.NaN, which
+// may give another NaN or signed zero: no bool or kept key depends on it.
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -73,6 +89,11 @@ constexpr int kOrigin = 0, kOrtho = 2, kBundle = 3;
 constexpr int kRectVals = 8;
 constexpr int kBoxVals = 14;
 constexpr int kMaxOctants = 8;
+// rays T stages in shared memory at a time (32 KB)
+constexpr int kStage = 1024;
+// U: the most kept pairs a warp sorts alone (32, 64 and 128 were
+// measured; 128 was the fastest), a longer row takes a CTA
+constexpr int kWarpRow = 128;
 constexpr float kEps = 1e-12f;
 
 __device__ __forceinline__ float nan_f() { return __int_as_float(0x7fc00000); }
@@ -260,31 +281,6 @@ struct Wave {
   long long n;
 };
 
-struct Ray {
-  V3 o, d;
-  float t0, t1;
-};
-
-// ray i of the wave (t_max clamped to INF), or _pad_wave's dead ray past
-// its end
-__device__ __forceinline__ Ray load_ray(const Wave& w, long long i) {
-  Ray r;
-  if (i < w.n) {
-    const float* o = w.o + i * w.o_step;
-    const float* d = w.d + i * w.d_step;
-    r.o = {__ldg(o), __ldg(o + 1), __ldg(o + 2)};
-    r.d = {__ldg(d), __ldg(d + 1), __ldg(d + 2)};
-    r.t0 = __ldg(w.t_min + i * w.tmin_step);
-    r.t1 = clamp_max(__ldg(w.t_max + i * w.tmax_step), ORT_INF);
-  } else {
-    r.o = {0.0f, 0.0f, 0.0f};
-    r.d = {0.0f, 0.0f, 1.0f};
-    r.t0 = 1.0f;
-    r.t1 = 0.0f;
-  }
-  return r;
-}
-
 __device__ __forceinline__ int octant(V3 d) {
   return (d.x > 0.0f ? 1 : 0) + (d.y > 0.0f ? 2 : 0) + (d.z > 0.0f ? 4 : 0);
 }
@@ -311,18 +307,24 @@ struct BoxOp {
   }
 };
 
-// v[0..N) reduced over the CTA with op; every thread gets the result.
-// scratch: kWarps * N floats.
+// v[0..N) reduced over the warp with op (every lane gets the result)
 template <int N, class Op>
-__device__ __forceinline__ void block_reduce(float (&v)[N], float* scratch,
-                                             Op op) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+__device__ __forceinline__ void warp_reduce(float (&v)[N], Op op) {
 #pragma unroll
   for (int s = 16; s >= 1; s >>= 1) {
 #pragma unroll
     for (int k = 0; k < N; ++k)
       v[k] = op(k, v[k], __shfl_xor_sync(0xffffffffu, v[k], s));
   }
+}
+
+// v[0..N) reduced over the CTA with op; every thread gets the result.
+// scratch: kWarps * N floats.
+template <int N, class Op>
+__device__ __forceinline__ void block_reduce(float (&v)[N], float* scratch,
+                                             Op op) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  warp_reduce(v, op);
   if (lane == 0) {
 #pragma unroll
     for (int k = 0; k < N; ++k) scratch[warp * N + k] = v[k];
@@ -347,148 +349,352 @@ __device__ __forceinline__ int block_sum(int x, int* scratch) {
   return total;
 }
 
-// Window c against a block's bounds sb: the projective rect, depth and
-// full-plane test, or the bundle's interval test OR'd over the octants;
-// key: the window's near depth, or the smallest admitted entry t.
-__device__ __forceinline__ bool window_test(int mode, int n_oct,
-                                            const float* sb,
-                                            const float* __restrict__ rects,
-                                            const bool* __restrict__ cfull,
-                                            int C, int c, float& key) {
-  float r[6];
+// The early exit of the bundle test.  After an axis the interval [lo_t,
+// hi_t] only narrows: lo_t only grows through fmax_nan, hi_t only shrinks
+// through fmin_nan, and a NaN stays NaN (and fails the final compare).  The
+// final test margins them, f(x) = x - (|x| 1e-6 + 1e-8) and g(x) = x +
+// (|x| 1e-6 + 1e-8) in float, then compares max(f(lo_t), t_lo) <=
+// min(g(hi_t), t_hi).  f and g are not monotone in float (f(x) falls by
+// an ulp as x passes 4.44e-10, tests/test_torch_binning.py), but the
+// margin m(y) = fl(fl(|y| c) + e) (c, e the float 1e-6, 1e-8) is at most
+// |y| kSlackRel + kSlackAbs (each rounding adds at most 2^-24 relative,
+// 2^-150 absolute below the normal range; kSlackRel and kSlackAbs are 1e-5
+// relative above c and e), so for any later y >= x (x the lo_t so far):
+// y - m(y) >= y - kSlackRel |y| - kSlackAbs >= x - kSlackRel |x| -
+// kSlackAbs (the right side grows with y, slope 1 +- kSlackRel) >=
+// exit_floor(x), computed with rounding toward -inf; f(y), the
+// nearest-rounded y - m(y), is then >= exit_floor(x) too, a float below
+// it.  Likewise g(y) <= exit_ceil(x) for y <= x.  So once
+// max(exit_floor(lo_t), t_lo) <= min(exit_ceil(hi_t), t_hi)
+// fails (NaN included: a NaN bound makes the final compare fail too, and
+// exit_floor(+inf) and exit_ceil(-inf) are NaN where f(+inf) and
+// g(-inf) are), the final test fails: the exit gives the full test's bool,
+// and a passing octant runs every axis, so its entry t is the full test's.
+constexpr float kSlackRel = 1.00001e-6f, kSlackAbs = 1.00001e-8f;
+
+// max_nan and min_nan in one instruction (max.NaN / min.NaN: a NaN
+// operand gives the canonical NaN).  The bundle test's bool and an
+// admitted entry t are the same whichever NaN or signed zero comes out: a
+// NaN fails every compare, and the sort key takes -0.0 as +0.0.
+__device__ __forceinline__ float fmax_nan(float a, float b) {
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+
+__device__ __forceinline__ float fmin_nan(float a, float b) {
+  float r;
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+
+__device__ __forceinline__ float exit_floor(float x) {
+  return __fsub_rd(x, __fadd_ru(__fmul_ru(fabsf(x), kSlackRel), kSlackAbs));
+}
+
+__device__ __forceinline__ float exit_ceil(float x) {
+  return __fadd_ru(x, __fadd_ru(__fmul_ru(fabsf(x), kSlackRel), kSlackAbs));
+}
+
+// One direction octant's bounds s (BOX_VALS floats: olo, ohi, dlo, dhi,
+// t_lo, t_hi) against a window's margined box r (lo x, hi x, lo y, hi y,
+// lo z, hi z): whether interval arithmetic admits some t, and then its
+// smallest admitted entry t (lo_eff).  One IEEE divide per axis and side,
+// on the branch whose guard holds (the guards are the octant's, uniform
+// over a warp); the axis loop exits early as proven above.
+__device__ __forceinline__ bool octant_admits(const float* s,
+                                              const float (&r)[6],
+                                              float& lo_eff) {
+  const float t_lo = s[12], t_hi = s[13];
+  float lo_t = 0.0f, hi_t = ORT_INF;
+#pragma unroll
+  for (int ax = 0; ax < 3; ++ax) {
+    const float u = r[2 * ax + 1] - s[ax];      // want t dlo <= u
+    const float v = r[2 * ax] - s[3 + ax];      // want t dhi >= v
+    const float dl = s[6 + ax], dh = s[9 + ax];
+    float lo1 = 0.0f, hi1 = ORT_INF, lo2 = 0.0f, hi2 = ORT_INF;
+    if (dl > kEps) {
+      hi1 = u / dl;
+    } else if (dl < -kEps) {
+      lo1 = u / dl;
+    }
+    if (dh < -kEps) {
+      hi2 = v / dh;
+    } else if (dh > kEps) {
+      lo2 = v / dh;
+    }
+    lo_t = fmax_nan(lo_t, fmax_nan(lo1, lo2));
+    hi_t = fmin_nan(hi_t, fmin_nan(hi1, hi2));
+    if (ax < 2 && !(fmax_nan(exit_floor(lo_t), t_lo) <=
+                    fmin_nan(exit_ceil(hi_t), t_hi)))
+      return false;
+  }
+  lo_t = lo_t - (fabsf(lo_t) * 1e-6f + 1e-8f);
+  hi_t = hi_t + (fabsf(hi_t) * 1e-6f + 1e-8f);
+  lo_eff = fmax_nan(lo_t, t_lo);
+  const float hi_eff = fmin_nan(hi_t, t_hi);
+  return lo_eff <= hi_eff;          // NaN anywhere compares False
+}
+
+__device__ __forceinline__ void load_rect(const float* __restrict__ rects,
+                                          int C, int c, float (&r)[6]) {
 #pragma unroll
   for (int k = 0; k < 6; ++k)
     r[k] = __ldg(rects + static_cast<long long>(k) * C + c);
-  if (mode != kBundle) {
-    key = r[4];
-    const bool plane = (sb[0] <= r[1] && sb[1] >= r[0] && sb[2] <= r[3] &&
-                        sb[3] >= r[2]) || cfull[c];
-    return plane && sb[4] <= r[5] && sb[5] >= r[4] && sb[6] != 0.0f;
+}
+
+// The projective rect, depth and full-plane test of a window (rect r,
+// flag full) against a block's bounds sb.
+__device__ __forceinline__ bool rect_admits(const float* sb,
+                                            const float (&r)[6], bool full) {
+  const bool plane = (sb[0] <= r[1] && sb[1] >= r[0] && sb[2] <= r[3] &&
+                      sb[3] >= r[2]) || full;
+  return plane && sb[4] <= r[5] && sb[5] >= r[4];
+}
+
+// cp.async: a copy from device to shared memory through no register,
+// completed by copy_wait
+__device__ __forceinline__ void copy16(float* dst, const float* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void copy4(float* dst, const float* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void copy_wait() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// count contiguous floats from src to dst (shared, 16-byte aligned), in
+// 16-byte copies where src is aligned as well
+__device__ __forceinline__ void stage_floats(float* dst, const float* src,
+                                             int count) {
+  int j0 = 0;
+  if ((reinterpret_cast<unsigned long long>(src) & 15) == 0) {
+    const int n4 = count >> 2;
+    for (int j = threadIdx.x; j < n4; j += kThreads)
+      copy16(dst + 4 * j, src + 4 * j);
+    j0 = 4 * n4;
   }
-  bool any = false;
-  key = ORT_INF;
-  for (int q = 0; q < n_oct; ++q) {
-    const float* s = sb + q * kBoxVals;
-    // no live lane in the octant: its bounds are +-INF and it admits
-    // nothing (t_lo of a live lane is below its t_max <= INF)
-    if (!(s[12] < ORT_INF)) continue;
-    float lo_t = 0.0f, hi_t = ORT_INF;
-#pragma unroll
-    for (int ax = 0; ax < 3; ++ax) {
-      const float u = r[2 * ax + 1] - s[ax];      // want t dlo <= u
-      const float v = r[2 * ax] - s[3 + ax];      // want t dhi >= v
-      const float dl = s[6 + ax], dh = s[9 + ax];
-      const float hi1 = dl > kEps ? u / dl : ORT_INF;
-      const float lo1 = dl < -kEps ? u / dl : 0.0f;
-      const float hi2 = dh < -kEps ? v / dh : ORT_INF;
-      const float lo2 = dh > kEps ? v / dh : 0.0f;
-      lo_t = max_nan(lo_t, max_nan(lo1, lo2));
-      hi_t = min_nan(hi_t, min_nan(hi1, hi2));
-    }
-    lo_t = lo_t - (fabsf(lo_t) * 1e-6f + 1e-8f);
-    hi_t = hi_t + (fabsf(hi_t) * 1e-6f + 1e-8f);
-    const float lo_eff = max_nan(lo_t, s[12]);
-    const float hi_eff = min_nan(hi_t, s[13]);
-    if (lo_eff <= hi_eff) {          // NaN anywhere compares False
-      any = true;
-      key = min_nan(key, lo_eff);
-    }
+  for (int j = j0 + threadIdx.x; j < count; j += kThreads)
+    copy4(dst + j, src + j);
+}
+
+// rows of 3 (o or d) of rays [i0, i0 + m) into dst (3 m floats): the
+// contiguous rows of the wave's first mv rays copied (stage_floats), a
+// broadcast row written, the rays past the wave's end given `dead`
+__device__ __forceinline__ void stage_rows(float* dst, const float* src,
+                                           long long step, long long i0,
+                                           int mv, int m, V3 dead) {
+  if (step != 0) stage_floats(dst, src + i0 * 3, 3 * mv);
+  const V3 row = step == 0 ? V3{__ldg(src), __ldg(src + 1), __ldg(src + 2)}
+                           : dead;
+  for (int l = (step != 0 ? mv : 0) + threadIdx.x; l < m; l += kThreads) {
+    const V3 x = l < mv ? row : dead;
+    dst[3 * l] = x.x;
+    dst[3 * l + 1] = x.y;
+    dst[3 * l + 2] = x.z;
   }
-  return any;
+}
+
+// a per-ray bound (t_min or t_max) of rays [i0, i0 + m), as stage_rows
+__device__ __forceinline__ void stage_bound(float* dst, const float* src,
+                                            long long step, long long i0,
+                                            int mv, int m, float dead) {
+  if (step != 0) stage_floats(dst, src + i0, mv);
+  const float one = step == 0 ? __ldg(src) : dead;
+  for (int l = (step != 0 ? mv : 0) + threadIdx.x; l < m; l += kThreads)
+    dst[l] = l < mv ? one : dead;
 }
 
 // T.  One CTA per block b < nb, one more for the trailing dead block's
 // pack.  rays (8, (nb + 1) W); bounds (nb, 8) or (nb, n_oct, 14); cnt
 // (nb,); offs (nb + 2,): the row offsets, offs[nb] the total, offs[nb + 1]
-// the count of finished CTAs (zeroed before the launch).
-__global__ void __launch_bounds__(kThreads) bin_count_kernel(
+// the count of finished CTAs (zeroed before the launch); mask (nb, ceil(C
+// / 32)): bit c % 32 of word c / 32 set where window c passes.  Dynamic
+// shared memory: the staged rays, 8 sw floats (o, d, t_min, t_max) and
+// sw class bytes, sw = min(W, kStage) rounded up to 4.
+__global__ void __launch_bounds__(kThreads, 4) bin_count_kernel(
     int mode, int n_oct, Wave wave, int W, int nb,
     const float* __restrict__ basis, const float* __restrict__ point,
     const float* __restrict__ rects, const bool* __restrict__ cfull, int C,
     float* __restrict__ rays, float* __restrict__ bounds,
-    int* __restrict__ cnt, int* __restrict__ offs) {
+    int* __restrict__ cnt, int* __restrict__ offs, int* __restrict__ mask) {
+  extern __shared__ __align__(16) float stage[];
   __shared__ float scratch[kWarps * kBoxVals];
   __shared__ float sb[kMaxOctants * kBoxVals];
   __shared__ int s_int[kWarps];
+  __shared__ int s_live[kMaxOctants];
+  __shared__ int s_n_live;
   __shared__ bool s_last;
   const int b = blockIdx.x, tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int sw = (min(W, kStage) + 3) & ~3;
+  float* so = stage;
+  float* sd = stage + 3 * sw;
+  float* st0 = stage + 6 * sw;
+  float* st1 = stage + 7 * sw;
+  unsigned char* cls = reinterpret_cast<unsigned char*>(stage + 8 * sw);
   const long long np = static_cast<long long>(nb + 1) * W;
-  for (int l = tid; l < W; l += kThreads) {
-    const long long i = static_cast<long long>(b) * W + l;
-    const Ray r = load_ray(wave, i);
-    rays[i] = r.o.x;
-    rays[np + i] = r.o.y;
-    rays[2 * np + i] = r.o.z;
-    rays[3 * np + i] = r.d.x;
-    rays[4 * np + i] = r.d.y;
-    rays[5 * np + i] = r.d.z;
-    rays[6 * np + i] = r.t0;
-    rays[7 * np + i] = r.t1;
+  const long long first = static_cast<long long>(b) * W;
+  const bool bundle = mode == kBundle;
+  const bool live_block = b < nb;
+  // each warp's octant in the bundle bounds: warp q reduces octant q over
+  // the block; with one octant every warp reduces its share of it
+  const int my_oct = n_oct == kMaxOctants ? warp : 0;
+  const int l_from = n_oct == kMaxOctants ? lane : tid;
+  const int l_step = n_oct == kMaxOctants ? 32 : kThreads;
+  const bool persp = mode != kOrtho;
+  const V3 p = point ? load3(point, 0) : V3{0.0f, 0.0f, 0.0f};
+  const Basis B = bundle ? Basis{} : load_basis(basis);
+  float box[kBoxVals];
+#pragma unroll
+  for (int k = 0; k < kBoxVals; ++k)
+    box[k] = box_low(k) ? ORT_INF : -ORT_INF;       // no live lane
+  float rv[kRectVals] = {nan_f(), nan_f(), nan_f(), nan_f(),
+                         ORT_INF, -ORT_INF, 0.0f, 0.0f};
+  for (int cs = 0; cs < W; cs += sw) {
+    // stage rays [i0, i0 + m): each read from device memory once; past
+    // the wave's end, _pad_wave's dead ray
+    const int m = min(sw, W - cs);
+    const long long i0 = first + cs;
+    const int mv = static_cast<int>(
+        max(0LL, min(static_cast<long long>(m), wave.n - i0)));
+    if (cs > 0) __syncthreads();            // the last chunk is read
+    stage_rows(so, wave.o, wave.o_step, i0, mv, m, V3{0.0f, 0.0f, 0.0f});
+    stage_rows(sd, wave.d, wave.d_step, i0, mv, m, V3{0.0f, 0.0f, 1.0f});
+    stage_bound(st0, wave.t_min, wave.tmin_step, i0, mv, m, 1.0f);
+    stage_bound(st1, wave.t_max, wave.tmax_step, i0, mv, m, 0.0f);
+    copy_wait();
+    __syncthreads();
+    // the transposed pack (coalesced stores), each ray's class (its
+    // octant if live, else kMaxOctants), the projective bounds
+    for (int l = tid; l < m; l += kThreads) {
+      const long long i = i0 + l;
+      const V3 o = {so[3 * l], so[3 * l + 1], so[3 * l + 2]};
+      const V3 d = {sd[3 * l], sd[3 * l + 1], sd[3 * l + 2]};
+      const float t0 = st0[l];
+      const float t1 = clamp_max(st1[l], ORT_INF);
+      st1[l] = t1;
+      rays[i] = o.x;
+      rays[np + i] = o.y;
+      rays[2 * np + i] = o.z;
+      rays[3 * np + i] = d.x;
+      rays[4 * np + i] = d.y;
+      rays[5 * np + i] = d.z;
+      rays[6 * np + i] = t0;
+      rays[7 * np + i] = t1;
+      const bool live = t1 > t0;
+      cls[l] = !live ? kMaxOctants
+                     : n_oct == kMaxOctants ? octant(d) : 0;
+      if (!live_block || bundle || !live) continue;
+      const V3 q = mode == kOrigin ? d : mode == kOrtho ? o : sub3(o, p);
+      float x, y, qw;
+      bool good;
+      project(q, B, persp, x, y, qw, good);
+      if (good) {
+        rv[0] = fminf(rv[0], x);
+        rv[1] = fmaxf(rv[1], x);
+        rv[2] = fminf(rv[2], y);
+        rv[3] = fmaxf(rv[3], y);
+      }
+      // depth along the ray: w0 + t (d . w)
+      const float wd = mode == kOrigin ? qw : dot3(d, B.w);
+      const float w0 = mode == kOrigin ? 0.0f : qw;
+      const float a0 = t0 * wd, a1 = t1 * wd;
+      rv[4] = min_nan(rv[4], w0 + min_nan(a0, a1));
+      rv[5] = max_nan(rv[5], w0 + max_nan(a0, a1));
+      rv[6] = 1.0f;
+    }
+    if (!live_block || !bundle) continue;
+    __syncthreads();
+    // the bundle bounds: warp q over octant q's live rays
+    for (int l = l_from; l < m; l += l_step) {
+      if (cls[l] != my_oct) continue;
+      const float x[kBoxVals] = {so[3 * l], so[3 * l + 1], so[3 * l + 2],
+                                 so[3 * l], so[3 * l + 1], so[3 * l + 2],
+                                 sd[3 * l], sd[3 * l + 1], sd[3 * l + 2],
+                                 sd[3 * l], sd[3 * l + 1], sd[3 * l + 2],
+                                 st0[l], st1[l]};
+#pragma unroll
+      for (int k = 0; k < kBoxVals; ++k) box[k] = BoxOp()(k, box[k], x[k]);
+    }
   }
-  if (b < nb) {
-    const long long first = static_cast<long long>(b) * W;
-    if (mode == kBundle) {
-      for (int q = 0; q < n_oct; ++q) {
-        float v[kBoxVals];
+  if (live_block) {
+    if (bundle) {
+      warp_reduce(box, BoxOp());
+      if (lane == 0) {
 #pragma unroll
         for (int k = 0; k < kBoxVals; ++k)
-          v[k] = box_low(k) ? ORT_INF : -ORT_INF;     // no live lane
-        for (int l = tid; l < W; l += kThreads) {
-          const Ray r = load_ray(wave, first + l);
-          if (!(r.t1 > r.t0) || (n_oct > 1 && octant(r.d) != q)) continue;
-          const float x[kBoxVals] = {r.o.x, r.o.y, r.o.z, r.o.x, r.o.y, r.o.z,
-                                     r.d.x, r.d.y, r.d.z, r.d.x, r.d.y, r.d.z,
-                                     r.t0, r.t1};
-#pragma unroll
-          for (int k = 0; k < kBoxVals; ++k) v[k] = BoxOp()(k, v[k], x[k]);
+          scratch[warp * kBoxVals + k] = box[k];
+      }
+      __syncthreads();
+      if (tid < n_oct * kBoxVals) {
+        // one warp per octant, or all warps' shares of the one octant
+        const int k = tid % kBoxVals;
+        float r = scratch[tid];
+        if (n_oct == 1) {
+          for (int w = 1; w < kWarps; ++w)
+            r = BoxOp()(k, r, scratch[w * kBoxVals + k]);
         }
-        block_reduce(v, scratch, BoxOp());
-        if (tid < kBoxVals) {
-          sb[q * kBoxVals + tid] = v[tid];
-          bounds[(static_cast<long long>(b) * n_oct + q) * kBoxVals + tid] =
-              v[tid];
-        }
+        sb[tid] = r;
+        bounds[static_cast<long long>(b) * n_oct * kBoxVals + tid] = r;
+      }
+      __syncthreads();
+      if (warp == 0) {
+        // the octants with a live lane (t_lo < INF), in ascending order
+        const bool live = lane < n_oct && sb[lane * kBoxVals + 12] < ORT_INF;
+        const unsigned ballot = __ballot_sync(0xffffffffu, live);
+        if (live) s_live[__popc(ballot & ((1u << lane) - 1u))] = lane;
+        if (lane == 0) s_n_live = __popc(ballot);
       }
     } else {
-      const bool persp = mode != kOrtho;
-      const V3 p = point ? load3(point, 0) : V3{0.0f, 0.0f, 0.0f};
-      const Basis B = load_basis(basis);
-      float v[kRectVals] = {nan_f(), nan_f(), nan_f(), nan_f(),
-                            ORT_INF, -ORT_INF, 0.0f, 0.0f};
-      for (int l = tid; l < W; l += kThreads) {
-        const Ray r = load_ray(wave, first + l);
-        if (!(r.t1 > r.t0)) continue;
-        const V3 q = mode == kOrigin ? r.d : mode == kOrtho ? r.o
-                                                             : sub3(r.o, p);
-        float x, y, qw;
-        bool good;
-        project(q, B, persp, x, y, qw, good);
-        if (good) {
-          v[0] = fminf(v[0], x);
-          v[1] = fmaxf(v[1], x);
-          v[2] = fminf(v[2], y);
-          v[3] = fmaxf(v[3], y);
-        }
-        // depth along the ray: w0 + t (d . w)
-        const float wd = mode == kOrigin ? qw : dot3(r.d, B.w);
-        const float w0 = mode == kOrigin ? 0.0f : qw;
-        const float a0 = r.t0 * wd, a1 = r.t1 * wd;
-        v[4] = min_nan(v[4], w0 + min_nan(a0, a1));
-        v[5] = max_nan(v[5], w0 + max_nan(a0, a1));
-        v[6] = 1.0f;
-      }
-      block_reduce(v, scratch, RectOp());
+      block_reduce(rv, scratch, RectOp());
       if (tid < kRectVals) {
-        sb[tid] = v[tid];
-        bounds[static_cast<long long>(b) * kRectVals + tid] = v[tid];
+        sb[tid] = rv[tid];
+        bounds[static_cast<long long>(b) * kRectVals + tid] = rv[tid];
       }
     }
     __syncthreads();
+    // each warp a 32-window word of the mask at a time, two words in
+    // flight; the count from the words' popcounts
+    const int n_live = bundle ? s_n_live : (sb[6] != 0.0f ? 1 : 0);
+    const int words = (C + 31) >> 5;
+    int* mrow = mask + static_cast<long long>(b) * words;
     int count = 0;
-    if (mode == kBundle || sb[6] != 0.0f) {
-      for (int c = tid; c < C; c += kThreads) {
+    for (int base = warp * 32; base < C; base += 2 * kThreads) {
+      const int c0 = base + lane, c1 = c0 + kThreads;
+      float r0[6], r1[6];
+      const bool in0 = n_live > 0 && c0 < C, in1 = n_live > 0 && c1 < C;
+      if (in0) load_rect(rects, C, c0, r0);
+      if (in1) load_rect(rects, C, c1, r1);
+      bool hit0 = false, hit1 = false;
+      if (bundle) {
         float key;
-        count += window_test(mode, n_oct, sb, rects, cfull, C, c, key);
+        for (int j = 0; j < n_live && in0 && !hit0; ++j)
+          hit0 = octant_admits(sb + s_live[j] * kBoxVals, r0, key);
+        for (int j = 0; j < n_live && in1 && !hit1; ++j)
+          hit1 = octant_admits(sb + s_live[j] * kBoxVals, r1, key);
+      } else {
+        hit0 = in0 && rect_admits(sb, r0, cfull[c0]);
+        hit1 = in1 && rect_admits(sb, r1, cfull[c1]);
+      }
+      const unsigned w0 = __ballot_sync(0xffffffffu, hit0);
+      const unsigned w1 = __ballot_sync(0xffffffffu, hit1);
+      if (lane == 0) {
+        mrow[base >> 5] = static_cast<int>(w0);
+        count += __popc(w0);
+        if (base + kThreads < C) {
+          mrow[(base + kThreads) >> 5] = static_cast<int>(w1);
+          count += __popc(w1);
+        }
       }
     }
     count = block_sum(count, s_int);
@@ -508,7 +714,6 @@ __global__ void __launch_bounds__(kThreads) bin_count_kernel(
   int sum = 0;
   for (int i = lo; i < hi; ++i) sum += __ldcg(cnt + i);
   // exclusive scan of the per-thread sums
-  const int lane = tid & 31, warp = tid >> 5;
   int incl = sum;
   for (int s = 1; s < 32; s <<= 1) {
     const int o = __shfl_up_sync(0xffffffffu, incl, s);
@@ -687,63 +892,218 @@ struct Emit {
   }
 };
 
-// U.  One CTA per block; cap: the longest row sorted in shared memory
-// (cap 64-bit keys of dynamic shared memory, a power of two).
-__global__ void __launch_bounds__(kThreads) bin_emit_kernel(
-    int mode, int n_oct, int C, int pc_max, int cap,
-    const float* __restrict__ rects, const bool* __restrict__ cfull,
-    const float* __restrict__ bounds, const int* __restrict__ cnt,
-    const int* __restrict__ offs, Emit emit) {
-  extern __shared__ unsigned long long s_keys[];
-  __shared__ float sb[kMaxOctants * kBoxVals];
-  __shared__ int s_warp[kWarps];
-  const int nb = emit.nb, b = blockIdx.x, tid = threadIdx.x;
-  const int total = __ldg(offs + nb), off = __ldg(offs + b);
-  const int n_row = __ldg(cnt + b);
-  if (total < pc_max) {
-    // the slots past the total, cut in nb slices
-    const long long tail = pc_max - total, per = (tail + nb - 1) / nb;
-    const long long t0 = total + b * per;
-    const long long t1 = t0 + per < pc_max ? t0 + per : pc_max;
-    for (long long i = t0 + tid; i < t1; i += kThreads)
-      emit(i, nb - 1, C - 1, false);
+// A kept pair's sort key: the window's near depth (projective), or the
+// smallest entry t that the live octants of block b admit (bundle; the
+// pair passed T's test, so some octant admits it).
+__device__ __forceinline__ unsigned long long pair_key(
+    int mode, int n_oct, int b, int c, const float* __restrict__ rects,
+    const float* __restrict__ bounds, int C) {
+  if (mode != kBundle)
+    return sort_key(__ldg(rects + 4LL * C + c), c);
+  float r[6];
+  load_rect(rects, C, c, r);
+  float key = ORT_INF;
+  const float* sb = bounds + static_cast<long long>(b) * n_oct * kBoxVals;
+  for (int q = 0; q < n_oct; ++q) {
+    const float* s = sb + q * kBoxVals;
+    float lo_eff;
+    if (s[12] < ORT_INF && octant_admits(s, r, lo_eff))
+      key = fmin_nan(key, lo_eff);
   }
-  const int keep = min(n_row, max(pc_max - off, 0));
-  if (keep <= 0) return;
-  const int n_vals = mode == kBundle ? n_oct * kBoxVals : kRectVals;
-  for (int k = tid; k < n_vals; k += kThreads)
-    sb[k] = __ldg(bounds + static_cast<long long>(b) * n_vals + k);
-  __syncthreads();
-  const bool long_row = keep > cap;
-  int* kb = emit.b_i + off;
-  int* ids = emit.c_i + off;
-  const int lane = tid & 31, warp = tid >> 5;
-  // the row's first `keep` windows in ascending order
+  return sort_key(key, c);
+}
+
+// Bitonic sort of a warp's 32 K keys, key e = lane K + k in v[k] of its
+// lane, ascending: shuffles across lanes, swaps within one; no barrier.
+template <int K>
+__device__ __forceinline__ void warp_sort(unsigned long long (&v)[K]) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int size = 2; size <= 32 * K; size <<= 1) {
+#pragma unroll
+    for (int stride = size >> 1; stride >= 1; stride >>= 1) {
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        const int e = lane * K + k;
+        const bool up = (e & size) == 0;
+        if (stride >= K) {
+          const unsigned long long o =
+              __shfl_xor_sync(0xffffffffu, v[k], stride / K);
+          const bool low = (e & stride) == 0;
+          v[k] = (low == up) ? (o < v[k] ? o : v[k]) : (o > v[k] ? o : v[k]);
+        } else if ((k & stride) == 0) {
+          const unsigned long long a = v[k], c = v[k + stride];
+          if ((c < a) == up) {
+            v[k] = c;
+            v[k + stride] = a;
+          }
+        }
+      }
+    }
+  }
+}
+
+// The first `keep` set bits of a mask row (words 32-bit), in ascending
+// order, to ids[0, keep): a warp reads 32 words at a time, positions from
+// the popcounts' prefix sums.
+__device__ __forceinline__ void warp_ids(const int* __restrict__ mrow,
+                                         int words, int keep, int* ids) {
+  const int lane = threadIdx.x & 31;
   int found = 0;
-  for (int base = 0; base < C && found < keep; base += kThreads) {
-    const int c = base + tid;
-    float key = 0.0f;
-    const bool hit = c < C && window_test(mode, n_oct, sb, rects, cfull, C,
-                                          c, key);
-    const unsigned ballot = __ballot_sync(0xffffffffu, hit);
-    if (lane == 0) s_warp[warp] = __popc(ballot);
+  for (int base = 0; base < words && found < keep; base += 32) {
+    unsigned w = base + lane < words
+                     ? static_cast<unsigned>(__ldg(mrow + base + lane))
+                     : 0u;
+    const int pc = __popc(w);
+    int incl = pc;
+#pragma unroll
+    for (int s = 1; s < 32; s <<= 1) {
+      const int o = __shfl_up_sync(0xffffffffu, incl, s);
+      if (lane >= s) incl += o;
+    }
+    for (int pos = found + incl - pc; w && pos < keep; ++pos) {
+      ids[pos] = (base + lane) * 32 + __ffs(w) - 1;
+      w &= w - 1;
+    }
+    found += __shfl_sync(0xffffffffu, incl, 31);
+  }
+  __syncwarp();
+}
+
+// A row of keep <= 32 K pairs by one warp: its windows, their keys, the
+// shuffle sort, the schedule at the row's offset.
+template <int K>
+__device__ __forceinline__ void warp_row(int mode, int n_oct, int C, int b,
+                                         int keep, int off, int words,
+                                         const float* __restrict__ rects,
+                                         const float* __restrict__ bounds,
+                                         const int* __restrict__ mask,
+                                         int* ids, const Emit& emit) {
+  const int lane = threadIdx.x & 31;
+  warp_ids(mask + static_cast<long long>(b) * words, words, keep, ids);
+  unsigned long long v[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const int e = lane * K + k;
+    v[k] = e < keep ? pair_key(mode, n_oct, b, ids[e], rects, bounds, C)
+                    : ~0ULL;
+  }
+  __syncwarp();
+  warp_sort<K>(v);
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const int e = lane * K + k;
+    if (e < keep)
+      emit(static_cast<long long>(off) + e, b, static_cast<int>(v[k]), true);
+  }
+}
+
+// The first `keep` set bits of a mask row by the whole CTA, 256 words at
+// a time: window c at its position p in ids[p] (a long row: c_i's
+// segment) or s_keys[p] (the low half).
+__device__ void cta_ids(const int* __restrict__ mrow, int words, int keep,
+                        bool long_row, int* ids, unsigned long long* s_keys,
+                        int* s_warp) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  int found = 0;
+  for (int base = 0; base < words && found < keep; base += kThreads) {
+    unsigned w = base + tid < words
+                     ? static_cast<unsigned>(__ldg(mrow + base + tid))
+                     : 0u;
+    const int pc = __popc(w);
+    int incl = pc;
+#pragma unroll
+    for (int s = 1; s < 32; s <<= 1) {
+      const int o = __shfl_up_sync(0xffffffffu, incl, s);
+      if (lane >= s) incl += o;
+    }
+    if (lane == 31) s_warp[warp] = incl;
     __syncthreads();
     int before = 0, all = 0;
-    for (int w = 0; w < kWarps; ++w) {
-      before += w < warp ? s_warp[w] : 0;
-      all += s_warp[w];
+    for (int k = 0; k < kWarps; ++k) {
+      before += k < warp ? s_warp[k] : 0;
+      all += s_warp[k];
     }
-    const int pos = found + before + __popc(ballot & ((1u << lane) - 1u));
-    if (hit && pos < keep) {
-      const unsigned long long k64 = sort_key(key, c);
+    for (int pos = found + before + incl - pc; w && pos < keep; ++pos) {
+      const int c = (base + tid) * 32 + __ffs(w) - 1;
       if (long_row)
-        row_store(kb, ids, pos, k64);
+        ids[pos] = c;
       else
-        s_keys[pos] = k64;
+        s_keys[pos] = static_cast<unsigned>(c);
+      w &= w - 1;
     }
     found += all;
     __syncthreads();
   }
+}
+
+// U.  The first `groups` CTAs take the rows in groups of kWarps, warp w
+// of CTA g row g kWarps + w when its kept pairs fit a warp (at most
+// kWarpRow); CTA groups + r takes row r when it is longer,
+// sorted in shared memory (cap 64-bit keys of dynamic shared memory, a
+// power of two) or, past cap, in place in its output segment, and exits
+// at once otherwise.  The kept windows come from T's mask; only a bundle
+// pair's key runs the octant test.
+__global__ void __launch_bounds__(kThreads) bin_emit_kernel(
+    int mode, int n_oct, int C, int pc_max, int cap,
+    const float* __restrict__ rects, const float* __restrict__ bounds,
+    const int* __restrict__ cnt, const int* __restrict__ offs,
+    const int* __restrict__ mask, Emit emit) {
+  extern __shared__ unsigned long long s_keys[];
+  __shared__ int s_ids[kWarps][kWarpRow];
+  __shared__ int s_warp[kWarps];
+  const int nb = emit.nb, tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int total = __ldg(offs + nb);
+  const int words = (C + 31) >> 5;
+  if (total < pc_max) {
+    // the slots past the total, cut in gridDim.x slices
+    const long long tail = pc_max - total;
+    const long long per = (tail + gridDim.x - 1) / gridDim.x;
+    const long long t0 = total + blockIdx.x * per;
+    const long long t1 = t0 + per < pc_max ? t0 + per : pc_max;
+    for (long long i = t0 + tid; i < t1; i += kThreads)
+      emit(i, nb - 1, C - 1, false);
+  }
+  const int groups = (nb + kWarps - 1) / kWarps;
+  if (blockIdx.x < groups) {
+    const int b = blockIdx.x * kWarps + warp;
+    if (b >= nb) return;
+    const int off = __ldg(offs + b);
+    const int keep = min(__ldg(cnt + b), max(pc_max - off, 0));
+    int* ids = s_ids[warp];
+    if (keep <= 0 || keep > kWarpRow) return;
+    if (keep <= 32) {
+      warp_row<1>(mode, n_oct, C, b, keep, off, words, rects, bounds, mask,
+                  ids, emit);
+    } else if (keep <= 64) {
+      warp_row<2>(mode, n_oct, C, b, keep, off, words, rects, bounds, mask,
+                  ids, emit);
+    } else {
+      warp_row<4>(mode, n_oct, C, b, keep, off, words, rects, bounds, mask,
+                  ids, emit);
+    }
+    return;
+  }
+  const int rb = blockIdx.x - groups;
+  const int off = __ldg(offs + rb);
+  const int keep = min(__ldg(cnt + rb), max(pc_max - off, 0));
+  if (keep <= kWarpRow) return;
+  const bool long_row = keep > cap;
+  int* kb = emit.b_i + off;
+  int* ids = emit.c_i + off;
+  cta_ids(mask + static_cast<long long>(rb) * words, words, keep, long_row,
+          ids, s_keys, s_warp);
+  for (int r = tid; r < keep; r += kThreads) {
+    const int c = long_row ? ids[r] : static_cast<int>(s_keys[r]);
+    const unsigned long long k64 =
+        pair_key(mode, n_oct, rb, c, rects, bounds, C);
+    if (long_row)
+      row_store(kb, ids, r, k64);
+    else
+      s_keys[r] = k64;
+  }
+  __syncthreads();
   if (long_row)
     sort_long(kb, ids, keep, s_keys, cap);
   else
@@ -751,7 +1111,7 @@ __global__ void __launch_bounds__(kThreads) bin_emit_kernel(
   for (int r = tid; r < keep; r += kThreads) {
     const int c = long_row ? ids[r]
                            : static_cast<int>(s_keys[r] & 0xffffffffu);
-    emit(static_cast<long long>(off) + r, b, c, true);
+    emit(static_cast<long long>(off) + r, rb, c, true);
   }
 }
 
@@ -789,8 +1149,8 @@ extern "C" int ort_bin_rects(int source, const float* a, const float* b,
 // T.  mode 0-2 projective ("origin", "target", "ortho": basis (3, 3),
 // point (3,) for "target"), 3 bundle (n_oct direction octants, 8 or 1);
 // the wave (Wave above) in W-ray blocks, nb of them; rects (6, C), cfull
-// (C,) (projective).  Writes rays (8, (nb + 1) W), bounds, cnt (nb,) and
-// offs (nb + 2,).
+// (C,) (projective).  Writes rays (8, (nb + 1) W), bounds, cnt (nb,), offs
+// (nb + 2,) and mask (nb, ceil(C / 32)).
 extern "C" int ort_bin_count(int mode, int n_oct, const float* o,
                              long long o_step, const float* d,
                              long long d_step, const float* t_min,
@@ -799,34 +1159,35 @@ extern "C" int ort_bin_count(int mode, int n_oct, const float* o,
                              const float* basis, const float* point,
                              const float* rects, const bool* cfull, int C,
                              float* rays, float* bounds, int* cnt, int* offs,
-                             void* stream) {
+                             int* mask, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const cudaError_t err = cudaMemsetAsync(offs + nb + 1, 0, sizeof(int), st);
   if (err != cudaSuccess) return static_cast<int>(err);
   const Wave wave = {o, o_step, d, d_step, t_min, tmin_step, t_max,
                      tmax_step, n};
-  bin_count_kernel<<<nb + 1, kThreads, 0, st>>>(
+  const int sw = (min(W, kStage) + 3) & ~3;
+  const size_t smem = static_cast<size_t>(sw) * (8 * sizeof(float) + 1);
+  bin_count_kernel<<<nb + 1, kThreads, smem, st>>>(
       mode, n_oct, wave, W, nb, basis, point, rects, cfull, C, rays, bounds,
-      cnt, offs);
+      cnt, offs, mask);
   return static_cast<int>(cudaGetLastError());
 }
 
-// U.  T's bounds, cnt and offs, the rects of S; pc_max slots; cap a power
-// of two, the longest row sorted in shared memory.  lib_of, inst_of (C,)
-// int32 or null: the TLAS pairs' library shape and instance.  Writes
+// U.  T's bounds, cnt, offs and mask, the rects of S; pc_max slots; cap a
+// power of two, the longest row sorted in shared memory.  lib_of, inst_of
+// (C,) int32 or null: the TLAS pairs' library shape and instance.  Writes
 // b_i, c_i, pair_tiles, pair_clusters (pc_max,) int32, validc (pc_max,)
 // bool, and with the tables pair_libs, pair_insts (pc_max,) int32.
 extern "C" int ort_bin_emit(int mode, int n_oct, int nb, int C, int pc_max,
-                            int cap, const float* rects, const bool* cfull,
-                            const float* bounds, const int* cnt,
-                            const int* offs, const int* lib_of,
-                            const int* inst_of, int* b_i, int* c_i,
-                            bool* validc, int* pair_tiles,
+                            int cap, const float* rects, const float* bounds,
+                            const int* cnt, const int* offs, const int* mask,
+                            const int* lib_of, const int* inst_of, int* b_i,
+                            int* c_i, bool* validc, int* pair_tiles,
                             int* pair_clusters, int* pair_libs,
                             int* pair_insts, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const size_t smem = static_cast<size_t>(cap) * sizeof(unsigned long long);
-  if (smem > 48 * 1024) {
+  if (smem > 48 * 1024 - sizeof(int) * kWarps * (kWarpRow + 1)) {
     const cudaError_t err = cudaFuncSetAttribute(
         bin_emit_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
@@ -834,8 +1195,8 @@ extern "C" int ort_bin_emit(int mode, int n_oct, int nb, int C, int pc_max,
   }
   const Emit emit = {b_i,     c_i,     validc,    pair_tiles, pair_clusters,
                      lib_of,  inst_of, pair_libs, pair_insts, nb};
-  bin_emit_kernel<<<nb, kThreads, smem, st>>>(mode, n_oct, C, pc_max, cap,
-                                              rects, cfull, bounds, cnt,
-                                              offs, emit);
+  const int groups = (nb + kWarps - 1) / kWarps;
+  bin_emit_kernel<<<groups + nb, kThreads, smem, st>>>(
+      mode, n_oct, C, pc_max, cap, rects, bounds, cnt, offs, mask, emit);
   return static_cast<int>(cudaGetLastError());
 }

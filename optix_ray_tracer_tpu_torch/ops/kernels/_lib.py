@@ -313,7 +313,7 @@ BIN_RECTS = Kernel(
 #: kernel T (block bounds and pair counts)
 BIN_COUNT = Kernel(
     "bin_count", "ort_bin_count",
-    [_I, _I] + [_P, _L] * 4 + [_L, _I, _I] + [_P] * 4 + [_I] + [_P] * 4,
+    [_I, _I] + [_P, _L] * 4 + [_L, _I, _I] + [_P] * 4 + [_I] + [_P] * 5,
     source="optix_ray_tracer_tpu_torch/csrc/binning.cu",
     replaces="optix_ray_tracer_tpu/ops/raster.py:207")
 #: kernel U (the sorted pair schedule)

@@ -6,12 +6,14 @@ the wave's projection plane with its depth range and full-plane flag
 (from a window's triangles, or a TLAS pair's world box), or a bundle
 window's margined box; T (:func:`bin_count_call`) packs the wave into the
 transposed, padded ray rows A and D read, reduces each W-ray block's
-bounds, tests every window against them and counts each block's pairs
-(and scans the counts into row offsets); U (:func:`bin_emit_call`) repeats
-T's test per block and writes the schedule, each block's windows sorted
-near to far, capped at ``pc_max``.  They are CUDA (``csrc/binning.cu``;
-design notes there) and have no Pallas counterpart: the JAX package bins
-in plain jnp, which XLA fuses around the pallas_call.
+bounds, tests every window against them, writes each block's hit mask
+(one bit a window) and counts each block's pairs (and scans the counts
+into row offsets); U (:func:`bin_emit_call`) reads each block's kept
+windows from the mask and writes the schedule, each block's windows
+sorted near to far, capped at ``pc_max``.  They are CUDA
+(``csrc/binning.cu``; design notes there) and have no Pallas
+counterpart: the JAX package bins in plain jnp, which XLA fuses around
+the pallas_call.
 
 ``ops/raster`` and ``ops/raster_instanced`` call the dispatchers
 :func:`bin_rects`, :func:`bin_count` and :func:`bin_emit`: CUDA tensors
@@ -45,6 +47,8 @@ RECT_VALS, BOX_VALS = 8, 14
 #: U sorts a row of up to this many pairs in shared memory, a longer one
 #: in place in its output segment
 SHARED_ROW = 8192
+#: bits of a hit-mask word
+MASK_BITS = 32
 
 
 def _proj(q, basis, persp: bool = True):
@@ -302,7 +306,7 @@ def _overlap(mode: str, rects, cfull, bounds):
 def bin_count_plain(o, d, t_min, t_max, W: int, mode: str, rects,
                     cfull=None, basis=None, point=None,
                     dir_octants: bool = True):
-    """Plain version of kernel T: (rays, cnt_b, offs, bounds) of a wave
+    """Plain version of kernel T: (rays, cnt_b, offs, bounds, mask) of a wave
     (o, d (n, 3), t_min, t_max: (n,) tensors or one value) in W-ray
     blocks, nb = ceil(n / W) of them.  rays: the (8, (nb + 1) W) rows [o,
     d, t_min, min(t_max, INF)] padded with dead rays (o 0, d (0, 0, 1),
@@ -312,7 +316,8 @@ def bin_count_plain(o, d, t_min, t_max, W: int, mode: str, rects,
     "ortho") or (nb, Q, BOX_VALS) bundle intervals (``mode`` "bundle",
     Q = 8 octants with ``dir_octants``, else 1); cnt_b (nb,) int32: the
     windows (``rects``, ``cfull`` of S) that pass :func:`_overlap`; offs
-    (nb + 1,) int32: its exclusive cumsum, offs[nb] the pair total."""
+    (nb + 1,) int32: its exclusive cumsum, offs[nb] the pair total; mask:
+    those windows as bits (:func:`pack_mask`)."""
     n = o.shape[0]
     nb = -(-n // W)
     o_p, d_p, tmin_p, tmax_p = _pad_wave(o, d, t_min, t_max, n, nb, W)
@@ -323,21 +328,43 @@ def bin_count_plain(o, d, t_min, t_max, W: int, mode: str, rects,
     else:
         bounds = _block_rects(o_p, d_p, tmin_p, tmax_p, nb, W, basis, mode,
                               point)
-    cnt_b = _overlap(mode, rects, cfull, bounds)[0].to(torch.int64).sum(1)
+    ov = _overlap(mode, rects, cfull, bounds)[0]
+    cnt_b = ov.to(torch.int64).sum(1)
     offs = torch.cat([torch.zeros(1, dtype=torch.int64, device=o.device),
                       torch.cumsum(cnt_b, 0)])
-    return rays, cnt_b.to(torch.int32), offs.to(torch.int32), bounds
+    return (rays, cnt_b.to(torch.int32), offs.to(torch.int32), bounds,
+            pack_mask(ov))
+
+
+def pack_mask(ov):
+    """The (nb, ceil(C / 32)) int32 hit mask of an (nb, C) overlap matrix:
+    bit c % 32 of word c // 32 set where window c passes."""
+    nb, C = ov.shape
+    words = -(-C // MASK_BITS)
+    bits = torch.zeros((nb, words * MASK_BITS), dtype=torch.int64,
+                       device=ov.device)
+    bits[:, :C] = ov.to(torch.int64)
+    w = (bits.reshape(nb, words, MASK_BITS)
+         << torch.arange(MASK_BITS, device=ov.device)).sum(2)
+    return torch.where(w >= 1 << 31, w - (1 << 32), w).to(torch.int32)
+
+
+def unpack_mask(mask, C: int):
+    """The (nb, C) bool overlap matrix of a hit mask (:func:`pack_mask`)."""
+    w = mask.to(torch.int64) & 0xFFFFFFFF
+    bits = (w[..., None] >> torch.arange(MASK_BITS, device=mask.device)) & 1
+    return bits.reshape(mask.shape[0], -1)[:, :C].bool()
 
 
 # ---- U: the sorted pair schedule -------------------------------------------
 
-def bin_emit(rects, cfull, bounds, cnt_b, offs, pc_max: int, mode: str,
+def bin_emit(rects, bounds, cnt_b, offs, mask, pc_max: int, mode: str,
              lib_of=None, inst_of=None) -> dict:
     """Kernel U on CUDA tensors, :func:`bin_emit_plain` on others."""
     if bounds.is_cuda:
-        return bin_emit_call(rects, cfull, bounds, cnt_b, offs, pc_max, mode,
+        return bin_emit_call(rects, bounds, cnt_b, offs, mask, pc_max, mode,
                              lib_of, inst_of)
-    return bin_emit_plain(rects, cfull, bounds, cnt_b, offs, pc_max, mode,
+    return bin_emit_plain(rects, bounds, cnt_b, offs, mask, pc_max, mode,
                           lib_of, inst_of)
 
 
@@ -383,12 +410,14 @@ def _enumerate_sorted_pairs(ov, entry_depth, nb: int, C: int, pc_max: int):
             validc[perm])
 
 
-def bin_emit_plain(rects, cfull, bounds, cnt_b, offs, pc_max: int,
+def bin_emit_plain(rects, bounds, cnt_b, offs, mask, pc_max: int,
                    mode: str, lib_of=None, inst_of=None) -> dict:
-    """Plain version of kernel U: the schedule of T's ``bounds`` against
-    S's ``rects`` / ``cfull`` (:func:`_overlap`, recomputed), capped at
-    ``pc_max`` (the first pc_max pairs in (block, window) order, then each
-    block's sorted by key, equal keys in window order).  A dict of
+    """Plain version of kernel U: the schedule of T's hit ``mask``, capped
+    at ``pc_max`` (the first pc_max pairs in (block, window) order, then
+    each block's sorted by key, equal keys in window order; the mask
+    already holds the windows' full-plane flags).  The key is a window's
+    near depth (rects[4]), or for bundles the smallest entry t that
+    :func:`_overlap` admits from T's ``bounds``.  A dict of
     (pc_max,) tensors: b_i, c_i (int32), validc (bool); slots past the
     pair total hold (nb - 1, C - 1, False); pair_tiles, pair_clusters
     (int32): b_i, c_i where valid, else nb and 0 (kernel A's and D's pair
@@ -396,7 +425,9 @@ def bin_emit_plain(rects, cfull, bounds, cnt_b, offs, pc_max: int,
     int32, pair_libs and pair_insts: each slot's pair_clusters entry
     looked up.  (``cnt_b`` and ``offs``, T's counts, are the kernel's
     inputs; the plain version counts again.)"""
-    ov, key = _overlap(mode, rects, cfull, bounds)
+    key = (_overlap(mode, rects, None, bounds)[1] if mode == "bundle"
+           else rects[4])
+    ov = unpack_mask(mask, rects.shape[1])
     nb, C = ov.shape
     b_i, c_i, validc = _enumerate_sorted_pairs(ov, key, nb, C, pc_max)
     out = dict(b_i=b_i, c_i=c_i, validc=validc,
@@ -496,8 +527,10 @@ def bin_rects_call(source: int, a, b=None, basis=None, point=None,
 
 def bin_count_call(o, d, t_min, t_max, W: int, mode: str, rects, cfull=None,
                    basis=None, point=None, dir_octants: bool = True):
-    """Kernel T: :func:`bin_count_plain`'s (rays, cnt_b, offs, bounds) on
-    the card.  ``o``, ``d``: (n, 3), contiguous or one row expanded."""
+    """Kernel T: :func:`bin_count_plain`'s (rays, cnt_b, offs, bounds,
+    mask) on the card.  ``o``, ``d``: (n, 3), contiguous or one row
+    expanded.  The outputs are views of two allocations, one float32
+    (rays, bounds), one int32 (cnt_b, offs, mask)."""
     dev = _device(o)
     n = o.shape[0]
     if n == 0:
@@ -512,7 +545,7 @@ def bin_count_call(o, d, t_min, t_max, W: int, mode: str, rects, cfull=None,
     rects = _flat(rects, "rects", torch.float32, dev, 6 * C)
     if mode == "bundle":
         n_oct = 8 if dir_octants else 1
-        bounds = torch.empty((nb, n_oct, BOX_VALS), device=dev)
+        shape = (nb, n_oct, BOX_VALS)
         basis = point = None
     else:
         n_oct = 1
@@ -520,16 +553,23 @@ def bin_count_call(o, d, t_min, t_max, W: int, mode: str, rects, cfull=None,
         basis = _basis(basis, dev)
         point = (_flat(point, "point", torch.float32, dev, 3)
                  if mode == "target" else None)
-        bounds = torch.empty((nb, RECT_VALS), device=dev)
-    rays = torch.empty((8, (nb + 1) * W), dtype=torch.float32, device=dev)
-    cnt_b = torch.empty(nb, dtype=torch.int32, device=dev)
-    offs = torch.empty(nb + 2, dtype=torch.int32, device=dev)
+        shape = (nb, RECT_VALS)
+    n_rays = 8 * (nb + 1) * W
+    words = -(-C // MASK_BITS)
+    floats = torch.empty(n_rays + nb * n_oct * shape[-1], device=dev)
+    ints = torch.empty(2 * nb + 2 + nb * words, dtype=torch.int32,
+                       device=dev)
+    rays = floats[:n_rays].view(8, (nb + 1) * W)
+    bounds = floats[n_rays:].view(shape)
+    cnt_b, offs = ints[:nb], ints[nb:2 * nb + 2]
+    mask = ints[2 * nb + 2:].view(nb, words)
     _lib.BIN_COUNT(dev, mode_id, n_oct, o.data_ptr(), o_step, d.data_ptr(),
                    d_step, tmin.data_ptr(), tmin_step, tmax.data_ptr(),
                    tmax_step, n, W, nb, _ptr(basis), _ptr(point),
                    rects.data_ptr(), _ptr(cfull), C, rays.data_ptr(),
-                   bounds.data_ptr(), cnt_b.data_ptr(), offs.data_ptr())
-    return rays, cnt_b, offs[:nb + 1], bounds
+                   bounds.data_ptr(), cnt_b.data_ptr(), offs.data_ptr(),
+                   mask.data_ptr(), variant=mode)
+    return rays, cnt_b, offs[:nb + 1], bounds, mask
 
 
 def shared_row(C: int) -> int:
@@ -538,9 +578,10 @@ def shared_row(C: int) -> int:
     return min(1 << max(C - 1, 0).bit_length(), SHARED_ROW)
 
 
-def bin_emit_call(rects, cfull, bounds, cnt_b, offs, pc_max: int, mode: str,
-                  lib_of=None, inst_of=None) -> dict:
-    """Kernel U: :func:`bin_emit_plain`'s schedule on the card."""
+def bin_emit_call(rects, bounds, cnt_b, offs, mask, pc_max: int,
+                  mode: str, lib_of=None, inst_of=None) -> dict:
+    """Kernel U: :func:`bin_emit_plain`'s schedule on the card, from T's
+    ``mask``."""
     dev = _device(bounds)
     nb = cnt_b.shape[0]
     C = rects.shape[1]
@@ -552,10 +593,10 @@ def bin_emit_call(rects, cfull, bounds, cnt_b, offs, pc_max: int, mode: str,
                        nb * n_oct * BOX_VALS)
     else:
         n_oct = 1
-        cfull = _flat(cfull, "cfull", torch.bool, dev, C)
         bounds = _flat(bounds, "bounds", torch.float32, dev, nb * RECT_VALS)
     cnt_b = _flat(cnt_b, "cnt_b", torch.int32, dev, nb)
     offs = _flat(offs, "offs", torch.int32, dev, nb + 1)
+    mask = _flat(mask, "mask", torch.int32, dev, nb * -(-C // MASK_BITS))
     if lib_of is not None:
         lib_of = _flat(lib_of, "lib_of", torch.int32, dev, C)
         inst_of = _flat(inst_of, "inst_of", torch.int32, dev, C)
@@ -570,9 +611,10 @@ def bin_emit_call(rects, cfull, bounds, cnt_b, offs, pc_max: int, mode: str,
         out["pair_insts"] = torch.empty(pc_max, dtype=torch.int32,
                                         device=dev)
     _lib.BIN_EMIT(dev, mode_id, n_oct, nb, C, pc_max, shared_row(C),
-                  rects.data_ptr(), _ptr(cfull), bounds.data_ptr(),
-                  cnt_b.data_ptr(), offs.data_ptr(), _ptr(lib_of),
-                  _ptr(inst_of), *(out[k].data_ptr() for k in (
+                  rects.data_ptr(), bounds.data_ptr(),
+                  cnt_b.data_ptr(), offs.data_ptr(), mask.data_ptr(),
+                  _ptr(lib_of), _ptr(inst_of), *(out[k].data_ptr() for k in (
                       "b_i", "c_i", "validc", "pair_tiles", "pair_clusters")),
-                  _ptr(out.get("pair_libs")), _ptr(out.get("pair_insts")))
+                  _ptr(out.get("pair_libs")), _ptr(out.get("pair_insts")),
+                  variant=mode)
     return out

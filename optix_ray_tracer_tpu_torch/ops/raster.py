@@ -95,17 +95,18 @@ def _schedule(o, d, t_min, t_max, W: int, pc_max: int, mode: str, rects,
               cfull=None, basis=None, point=None, dir_octants: bool = True,
               tables=None) -> dict:
     """The (block, window) schedule of a wave against S's window
-    ``rects`` (``ops/kernels/binning``): T's ray pack, block bounds and
-    counts, then U's sorted pairs.  ``mode`` is one of MODES (projective,
-    on ``basis`` from ``point``) or "bundle"; ``tables`` the TLAS pairs'
-    (pair_shape, pair_inst) for U's pair_libs and pair_insts.  The dict
+    ``rects`` (``ops/kernels/binning``): T's ray pack, block bounds,
+    counts and hit mask, then U's sorted pairs.  ``mode`` is one of MODES
+    (projective, on ``basis`` from ``point``) or "bundle"; ``tables`` the
+    TLAS pairs' (pair_shape, pair_inst) for U's pair_libs and pair_insts.
+    The dict
     holds the padded wave as views of the ray pack ``rays_t_ext`` (8,
     (nb + 1) W), b_i, c_i, validc, the kernels' pair arrays, pc_total (a
     0-dim tensor: no host read) and cnt_b."""
-    rays, cnt_b, offs, bounds = binning.bin_count(
+    rays, cnt_b, offs, bounds, mask = binning.bin_count(
         o, d, t_min, t_max, W, mode, rects, cfull, basis, point, dir_octants)
     lib_of, inst_of = tables or (None, None)
-    S = binning.bin_emit(rects, cfull, bounds, cnt_b, offs, pc_max, mode,
+    S = binning.bin_emit(rects, bounds, cnt_b, offs, mask, pc_max, mode,
                          lib_of, inst_of)
     nb = cnt_b.shape[0]
     return dict(n=o.shape[0], nb=nb, o_p=rays[0:3].T, d_p=rays[3:6].T,

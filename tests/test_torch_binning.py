@@ -3,7 +3,8 @@
 inputs, exactly: the window rects, the ray pack, the block bounds, the
 pair counts and the depth-sorted schedule of the projective stage
 (modes "origin", "target" and "ortho" at g = 1, 2, 4), of the TLAS pair
-stage and of the bundle stage (with and without direction octants).
+stage and of the bundle stage (with and without direction octants),
+T's hit mask (the overlap matrix as bits) and U's schedule from it.
 Cases: a dead block, NaN-padded windows and sub boxes, NaN pair boxes,
 keys -0.0 and +0.0 in one row (they tie, in window order), a block that
 pairs every window, an overflowed capacity (the straddling row keeps its
@@ -13,9 +14,11 @@ rects and block bounds of the projective and TLAS stages), which XLA's
 CPU dot products round otherwise, by an ulp or two (rtol and atol 1e-6;
 the bundle boxes, not projected, are exact).  The kernels are held to
 these plain versions bit for bit on the card
-(tests/test_torch_cuda.py)."""
+(tests/test_torch_cuda.py); the early exit of the kernels' bundle test is
+held here to the margins it bounds (``test_early_exit_bounds``)."""
 
 import warnings
+from fractions import Fraction
 
 import jax.numpy as jnp
 import numpy as np
@@ -159,6 +162,22 @@ def _jax_window_rects(verts, basis, point, g):
         jnp.any(behind.reshape(C, G * GROUP_VERTS), axis=1))
 
 
+def _hold_mask(mask, ov):
+    """T's hit mask holds the JAX package's overlap matrix ``ov`` as bits:
+    bit c % 32 of word c // 32 of a row is (block, window c); the words
+    past the last window are 0; a dead block's row is all 0."""
+    ov = np.array(ov)
+    nb, C = ov.shape
+    mask = np.asarray(mask)
+    assert mask.dtype == np.int32 and mask.shape == (nb, -(-C // 32))
+    bits = (mask.view(np.uint32)[..., None] >> np.arange(32, dtype=np.uint32)
+            ) & 1
+    _eq(bits.reshape(nb, -1)[:, :C] != 0, ov)
+    assert not bits.reshape(nb, -1)[:, C:].any()
+    _eq(binning.unpack_mask(torch.as_tensor(mask), C), ov)
+    _eq(binning.pack_mask(torch.as_tensor(ov)), mask)
+
+
 def _hold_schedule(ts, js):
     """The port's stage output ``ts`` equals the JAX one's ``js``: the
     counts, the schedule and the padded wave (the ray pack's rows)."""
@@ -215,7 +234,7 @@ def test_projective_stage_equals_jax(setup, monkeypatch, mode, g):
     if g > 1:
         assert bool(torch.isnan(rects[0]).any())
     # T: the ray pack, the block bounds and the counts
-    rays, cnt_b, offs, bounds = binning.bin_count_plain(
+    rays, cnt_b, offs, bounds, mask = binning.bin_count_plain(
         _t(o), _t(d), _t(tmin), _t(tmax), W, mode, rects, cfull, tb, p)
     _eq(rays, ts["rays_t_ext"])
     _close(bounds[:, :6].T, np.stack(seen["blocks"][:6]))
@@ -224,6 +243,7 @@ def test_projective_stage_equals_jax(setup, monkeypatch, mode, g):
     _eq(offs, np.r_[0, np.cumsum(np.asarray(js["cnt_b"]))])
     ov, key = binning._overlap(mode, rects, cfull, bounds)
     _eq(ov, seen["ov"])
+    _hold_mask(mask, seen["ov"])
 
 
 @pytest.mark.parametrize("mode", ["origin", "target", "ortho"])
@@ -243,9 +263,16 @@ def test_instanced_stage_equals_jax(setup, monkeypatch, mode):
     js, seen = _jax_captured(monkeypatch, lambda: jri.instanced_coarse_stage(
         jnp.asarray(lo), jnp.asarray(hi), jnp.asarray(o), jnp.asarray(d),
         jnp.asarray(tmin), jnp.asarray(tmax), mode, jp, W, pc_max))
+    # T's mask on the JAX package's basis: its overlap matrix
+    tb = _t(np.stack(seen["basis"]))
+    tp = None if point is None else _t(point)
+    prects, pfull = binning.bin_rects_plain(binning.RECTS_PAIR, _t(lo),
+                                            _t(hi), tb, tp)
+    _hold_mask(binning.bin_count_plain(_t(o), _t(d), _t(tmin), _t(tmax), W,
+                                       mode, prects, pfull, tb, tp)[4],
+               seen["ov"])
     shape = torch.as_tensor(r.integers(0, 3, 40).astype(np.int32))
     inst = torch.arange(40, dtype=torch.int32) // 2
-    tp = None if point is None else _t(point)
     ts = tri.instanced_coarse_stage(_t(lo), _t(hi), _t(o), _t(d), _t(tmin),
                                     _t(tmax), mode, tp, W, pc_max, shape,
                                     inst)
@@ -265,16 +292,17 @@ def test_instanced_stage_equals_jax(setup, monkeypatch, mode):
 
 @pytest.mark.parametrize("g", [1, 2])
 @pytest.mark.parametrize("octants", [True, False], ids=["octants", "flat"])
-def test_bundle_stage_equals_jax(setup, octants, g):
+def test_bundle_stage_equals_jax(setup, monkeypatch, octants, g):
     """``bundle_stage`` equals the JAX package's on the "target" wave
-    (block 1 dead; NaN sub boxes at g = 2): counts, schedule, ray pack;
-    S's margined boxes are the sub boxes' union."""
+    (block 1 dead; NaN sub boxes at g = 2): counts, schedule, ray pack,
+    T's mask (the JAX overlap matrix); S's margined boxes are the sub
+    boxes' union."""
     jinter, tinter = setup["jinter"], setup["tinter"]
     o, d, tmin, tmax, _ = setup["waves"]["target"]
     pc_max = 2048
-    js = jraster.bundle_stage(jinter.clusters, jnp.asarray(o), jnp.asarray(d),
-                              jnp.asarray(tmin), jnp.asarray(tmax), W, pc_max,
-                              dir_octants=octants, granularity=g)
+    js, seen = _jax_captured(monkeypatch, lambda: jraster.bundle_stage(
+        jinter.clusters, jnp.asarray(o), jnp.asarray(d), jnp.asarray(tmin),
+        jnp.asarray(tmax), W, pc_max, dir_octants=octants, granularity=g))
     ts = traster.bundle_stage(tinter.clusters, _t(o), _t(d), _t(tmin),
                               _t(tmax), W, pc_max, dir_octants=octants,
                               granularity=g)
@@ -294,14 +322,19 @@ def test_bundle_stage_equals_jax(setup, octants, g):
     m = np.float32(1e-5) * (np.abs(clo) + np.abs(chi)) + np.float32(1e-6)
     _eq(rects[0::2].T, clo - m)
     _eq(rects[1::2].T, chi + m)
+    mask = binning.bin_count_plain(_t(o), _t(d), _t(tmin), _t(tmax), W,
+                                   "bundle", rects, dir_octants=octants)[4]
+    _hold_mask(mask, seen["ov"])
+    assert not bool(mask[1].any())
 
 
 @pytest.mark.parametrize("per_block", [False, True],
                          ids=["window_keys", "pair_keys"])
 def test_signed_zero_keys_tie(per_block):
     """Keys -0.0 and +0.0 in one row tie and keep ascending window ids, in
-    the JAX package's sort and in U's plain version, with per-window
-    (projective) and per-pair (bundle) keys; row 1 pairs nothing."""
+    the JAX package's sort and in U's plain version (from T's mask), with
+    per-window (projective) and per-pair (bundle) keys; row 1 pairs
+    nothing."""
     ov = np.array([[1, 1, 1, 1, 1, 0],
                    [0, 0, 0, 0, 0, 0],
                    [1, 0, 1, 1, 0, 1]], bool)
@@ -324,7 +357,10 @@ def test_signed_zero_keys_tie(per_block):
     bounds = torch.tensor([[-0.5, 0.5, -0.5, 0.5, -3.0, 3.0, 1.0, 0.0],
                            [-0.5, 0.5, -0.5, 0.5, -3.0, 3.0, 0.0, 0.0]])
     cfull = torch.zeros(6, dtype=torch.bool)
-    S = binning.bin_emit_plain(rects, cfull, bounds, None, None, 9, "origin")
+    mask = binning.pack_mask(binning._overlap("origin", rects, cfull,
+                                              bounds)[0])
+    _eq(mask, [[0b111111], [0]])
+    S = binning.bin_emit_plain(rects, bounds, None, None, mask, 9, "origin")
     _eq(S["c_i"][:6], [5, 0, 1, 3, 4, 2])
     _eq(S["b_i"][6:], [1, 1, 1])
     _eq(S["c_i"][6:], [5, 5, 5])
@@ -357,23 +393,26 @@ def test_block_pairing_every_window(setup, monkeypatch):
         torch.nonzero(~empty)[:, 0])
 
 
-@pytest.mark.parametrize("stage", ["projective", "bundle"])
+@pytest.mark.parametrize("stage", ["projective", "bundle", "bundle_flat"])
 def test_overflow_cut_and_tail(setup, stage):
     """A capacity below the pair count: the first pc_max pairs in (block,
     window) order, each block's sorted, as the JAX package cuts them (the
     straddling row keeps its lowest windows); a capacity above it: the
     slots past the total hold (nb - 1, C - 1, invalid), tile nb, window
-    0."""
+    0.  Bundles with and without direction octants."""
     jinter, tinter = setup["jinter"], setup["tinter"]
     o, d, tmin, tmax, point = setup["waves"]["target"]
 
     def run(pc_max):
-        if stage == "bundle":
+        if stage != "projective":
+            octants = stage == "bundle"
             return (jraster.bundle_stage(
                 jinter.clusters, jnp.asarray(o), jnp.asarray(d),
-                jnp.asarray(tmin), jnp.asarray(tmax), W, pc_max),
+                jnp.asarray(tmin), jnp.asarray(tmax), W, pc_max,
+                dir_octants=octants),
                 traster.bundle_stage(tinter.clusters, _t(o), _t(d),
-                                     _t(tmin), _t(tmax), W, pc_max))
+                                     _t(tmin), _t(tmax), W, pc_max,
+                                     dir_octants=octants))
         return (jraster._coarse_stage(
             jinter.raster, jinter.clusters, jnp.asarray(o), jnp.asarray(d),
             jnp.asarray(tmin), jnp.asarray(tmax), "target",
@@ -402,9 +441,106 @@ def test_overflow_cut_and_tail(setup, stage):
     js, ts = run(total + 37)
     _hold_schedule(ts, js)
     nb = ts["nb"]
-    C = tinter.clusters.num_clusters * (1 if stage == "bundle" else 2)
+    C = tinter.clusters.num_clusters * (1 if stage != "projective" else 2)
     _eq(ts["b_i"][total:], np.full(37, nb - 1))
     _eq(ts["c_i"][total:], np.full(37, C - 1))
     assert not bool(ts["validc"][total:].any())
     _eq(ts["pair_tiles"][total:], np.full(37, nb))
     _eq(ts["pair_clusters"][total:], np.zeros(37))
+
+
+# ---- the early exit of the kernels' bundle test ----------------------------
+
+#: csrc/binning.cu kSlackRel, kSlackAbs
+SLACK_REL, SLACK_ABS = np.float32(1.00001e-6), np.float32(1.00001e-8)
+
+
+def _margined(x, sign):
+    """The bundle test's margins as the plain version and the kernels
+    round them (each step in float32): x - (|x| 1e-6 + 1e-8) for sign -1,
+    x + (..) for +1."""
+    x = np.asarray(x, np.float32)
+    m = np.abs(x) * np.float32(1e-6) + np.float32(1e-8)
+    return x - m if sign < 0 else x + m
+
+
+def _round32(q, up: bool) -> np.float32:
+    """The exact rational q rounded to float32 toward +inf (up) or -inf."""
+    r = np.float32(float(q))
+    step = np.float32(np.inf if up else -np.inf)
+    back = np.float32(-np.inf if up else np.inf)
+
+    def past(v):
+        return Fraction(float(v)) >= q if up else Fraction(float(v)) <= q
+
+    while not past(r):
+        r = np.nextafter(r, step)
+    while past(np.nextafter(r, back)):
+        r = np.nextafter(r, back)
+    return r
+
+
+def _exit_bound(x, sign) -> np.float32:
+    """The kernels' exit_floor (sign -1) or exit_ceil (+1) of a finite
+    float32 x, each operation rounded as its intrinsic rounds it (__fmul_ru,
+    __fadd_ru, then __fsub_rd or __fadd_ru)."""
+    fx = Fraction(float(x))
+    slack = _round32(_round32(abs(fx) * Fraction(float(SLACK_REL)), True)
+                     + Fraction(float(SLACK_ABS)), True)
+    return (_round32(fx - Fraction(float(slack)), False) if sign < 0 else
+            _round32(fx + Fraction(float(slack)), True))
+
+
+def _exit_samples(kind):
+    r = np.random.default_rng(17)
+    if kind == "margin_steps":
+        # the float32 margin is not monotone: around 4.44e-10 a larger x
+        # gets a smaller x - m(x) (the rounded 1e-6 |x| carries 1e-8 to
+        # its next float)
+        x = np.float32(4.4408918e-10)
+        lo = x.view(np.int32) - 20_000
+        xs = np.arange(lo, lo + 40_000, dtype=np.int32).view(np.float32)
+        f = _margined(xs, -1)
+        assert (f[1:] < f[:-1]).any()
+        assert _margined(np.nextafter(x, np.float32(1)), -1) < _margined(x, -1)
+        pick = np.nonzero(f[1:] < f[:-1])[0]
+        return np.concatenate([xs[pick], xs[pick + 1], -xs[pick],
+                               xs[::400]])
+    if kind == "specials":
+        tiny = np.float32(1e-45)
+        return np.array([0.0, -0.0, tiny, -tiny, 1e-38, -1e-38, 1e-8, -1e-8,
+                         1.0, -1.0, 1e16, -1e16, 3e38, -3e38], np.float32)
+    mag = 10.0 ** r.uniform(-44, 38, 300)
+    return (mag * r.choice([-1.0, 1.0], 300)).astype(np.float32)
+
+
+@pytest.mark.parametrize("kind", ["margin_steps", "specials", "wide"])
+def test_early_exit_bounds(kind):
+    """The kernels' bundle test leaves its axis loop once
+    max(exit_floor(lo_t), t_lo) > min(exit_ceil(hi_t), t_hi)
+    (csrc/binning.cu, octant_admits): that is sound when every later
+    lo_t' >= lo_t has margined lo_t' >= exit_floor(lo_t), and every later
+    hi_t' <= hi_t has margined hi_t' <= exit_ceil(hi_t), though the float
+    margins are not monotone.  Exact rational arithmetic for the bounds'
+    directed roundings; later values a few ulps and up to 2x away, of
+    either sign; infinities as IEEE gives them (exit_floor(+inf) and
+    exit_ceil(-inf) are NaN, so the exit takes them, as the final test
+    fails on them)."""
+    up = np.float32(np.inf)
+    for x in _exit_samples(kind):
+        with np.errstate(over="ignore"):
+            ys = [x, np.nextafter(x, up),
+                  np.nextafter(np.nextafter(x, up), up),
+                  np.float32(x + abs(x) * np.float32(0.5)),
+                  np.float32(x + abs(x)), np.float32(x + np.float32(1e-9))]
+        later_lo = np.array([y for y in ys if np.isfinite(y) and y >= x],
+                            np.float32)
+        assert (_margined(later_lo, -1) >= _exit_bound(x, -1)).all(), x
+        later_hi = -later_lo
+        assert (_margined(later_hi, 1) <= _exit_bound(-x, 1)).all(), x
+    with np.errstate(invalid="ignore", over="ignore"):
+        inf = np.float32(np.inf)
+        slack = np.abs(inf) * SLACK_REL + SLACK_ABS
+        assert np.isnan(inf - slack) and np.isnan(_margined(inf, -1))
+        assert np.isnan(-inf + slack) and np.isnan(_margined(-inf, 1))
+        assert -inf - slack == -inf and inf + slack == inf

@@ -2089,10 +2089,10 @@ def _bin_wave(setup, dev, mode):
 def test_binning_kernels_equal_plain(setup, dev, monkeypatch, mode, g, pc):
     """S, T and U against their twins on the same CUDA inputs, every
     output equal: each kernel alone (S's rects, T's ray pack, bounds,
-    counts and offsets, U's schedule from T's outputs), then the whole
-    stage (``_coarse_stage`` or ``bundle_stage``), one launch of each, at
-    a capacity above the pair count (the padded tail) and below it (the
-    cut)."""
+    counts, offsets and hit mask, U's schedule from T's outputs), then
+    the whole stage (``_coarse_stage`` or ``bundle_stage``), one launch
+    of each, at a capacity above the pair count (the padded tail) and
+    below it (the cut)."""
     from optix_ray_tracer_tpu_torch.ops.kernels import binning
     scene, inter, *_ = setup
     o, d, tmin, tmax, point = _bin_wave(setup, dev, mode)
@@ -2138,11 +2138,11 @@ def test_binning_kernels_equal_plain(setup, dev, monkeypatch, mode, g, pc):
     _bin_equal(counted, binning.bin_count_plain(
         o, d, tmin, tmax, W, tm, *rects, basis,
         p if mode == "target" else None, octants))
-    _, cnt_b, offs, bounds = counted
-    _bin_equal(binning.bin_emit_call(*rects, bounds, cnt_b, offs, pc_max,
-                                     tm),
-               binning.bin_emit_plain(*rects, bounds, cnt_b, offs, pc_max,
-                                      tm))
+    _, cnt_b, offs, bounds, mask = counted
+    _bin_equal(binning.bin_emit_call(rects[0], bounds, cnt_b, offs, mask,
+                                     pc_max, tm),
+               binning.bin_emit_plain(rects[0], bounds, cnt_b, offs, mask,
+                                      pc_max, tm))
 
 
 @pytest.mark.parametrize("mode", ["origin", "target", "ortho"])
@@ -2207,14 +2207,194 @@ def test_bin_emit_long_rows(dev, cut):
                         np.float32))
     cnt_b = t(np.array([C - 1, 0, C - 1], np.int32))
     offs = t(np.array([0, C - 1, C - 1, 2 * C - 2], np.int32))
+    mask = binning.pack_mask(binning._overlap("origin", rects, cfull,
+                                              bounds)[0])
     pc_max = 2 * C + 300 if cut == "whole" else C + 12_345
     assert binning.shared_row(C) < C - 1
-    got = binning.bin_emit_call(rects, cfull, bounds, cnt_b, offs, pc_max,
+    got = binning.bin_emit_call(rects, bounds, cnt_b, offs, mask, pc_max,
                                 "origin")
-    want = binning.bin_emit_plain(rects, cfull, bounds, cnt_b, offs, pc_max,
+    want = binning.bin_emit_plain(rects, bounds, cnt_b, offs, mask, pc_max,
                                   "origin")
     torch.cuda.synchronize()
     _bin_equal(got, want)
     assert bool((got["b_i"][:C - 1] == 0).all())
     k = rects[4][got["c_i"][:C - 1].long()]
     assert bool((k[1:] >= k[:-1]).all())
+
+
+def _t_and_u(o, d, tmin, tmax, W, mode, rects, cfull=None, basis=None,
+             point=None, octants=True, pc_fits=True):
+    """T on a wave against its twin (ray pack, bounds, counts, offsets,
+    mask; one launch), then U on T's outputs against its twin, at a
+    capacity above the pair count or at two thirds of it.  Returns T's
+    outputs."""
+    from optix_ray_tracer_tpu_torch.ops.kernels import binning
+    before = _lib.BIN_COUNT.launches
+    got = binning.bin_count_call(o, d, tmin, tmax, W, mode, rects, cfull,
+                                 basis, point, octants)
+    assert _lib.BIN_COUNT.launches == before + 1
+    want = binning.bin_count_plain(o, d, tmin, tmax, W, mode, rects, cfull,
+                                   basis, point, octants)
+    torch.cuda.synchronize()
+    _bin_equal(got, want)
+    _, cnt_b, offs, bounds, mask = got
+    total = int(offs[-1])
+    pc_max = total + 300 if pc_fits else max(total * 2 // 3, 1)
+    _bin_equal(binning.bin_emit_call(rects, bounds, cnt_b, offs, mask,
+                                     pc_max, mode),
+               binning.bin_emit_plain(rects, bounds, cnt_b, offs, mask,
+                                      pc_max, mode))
+    return got
+
+
+@pytest.mark.parametrize("layout", ["contiguous", "broadcast", "unaligned",
+                                    "W1500", "W37"])
+@pytest.mark.parametrize("mode", ["origin", "target", "ortho", "bundle",
+                                  "bundle_flat"])
+def test_bin_count_staging(setup, dev, mode, layout):
+    """T's staging of the block's rays: contiguous rows (16-byte copies),
+    one broadcast row of o (or d) and broadcast bounds, rows whose start
+    is not 16-byte aligned (4-byte copies), blocks longer than the 1,024 rays
+    staged at a time (W = 1,500: two chunks, the wave's end inside a
+    block) and of a W that is no multiple of 4 (37); every output equal
+    to the twin's, then U's on them, at a fitting and a cut capacity."""
+    from optix_ray_tracer_tpu_torch.ops.kernels import binning
+    scene, inter, *_ = setup
+    bundle = mode.startswith("bundle")
+    o, d, tmin, tmax, point = _bin_wave(setup, dev,
+                                        "target" if bundle else mode)
+    W = {"W1500": 1500, "W37": 37}.get(layout, 1024)
+    if layout == "broadcast":
+        # the camera's origin, or one direction for the other waves (the
+        # sun wave's is broadcast already)
+        if mode == "origin":
+            o = o[:1].expand(o.shape[0], 3)
+        else:
+            d = d[:1].expand(d.shape[0], 3)
+        tmin = 1e-3
+        tmax = torch.tensor(7.5, device=dev).expand(o.shape[0])
+    elif layout == "unaligned":
+        o, d = (torch.cat([torch.zeros((1, 3), device=dev), x])[1:]
+                for x in (o, d))
+        tmin, tmax = (torch.cat([torch.zeros(1, device=dev), x])[1:]
+                      for x in (tmin, tmax))
+        assert o.data_ptr() % 16 and tmax.data_ptr() % 16
+    if bundle:
+        rects, cfull = binning.bin_rects_call(
+            binning.RECTS_BOX, inter.clusters.sub_min, inter.clusters.sub_max,
+            granularity=2)
+        basis = p = None
+    else:
+        basis = raster._basis_from(d[0] if point is None else
+                                   torch.tensor([-1.0, 0.2, 0.1],
+                                                device=dev))
+        p = None if mode == "ortho" else point
+        rects, cfull = binning.bin_rects_call(
+            binning.RECTS_CLUSTER, inter.raster.verts, basis=basis, point=p,
+            granularity=2)
+    tm = "bundle" if bundle else mode
+    for fits in (True, False):
+        got = _t_and_u(o, d, tmin, tmax, W, tm, rects, cfull, basis,
+                       p if mode == "target" else None, mode == "bundle",
+                       fits)
+    assert int(got[2][-1]) > 0
+
+
+def _octant_wave(dev, W):
+    """Bundle blocks of W rays with 0, 1, 2 and 8 live direction octants,
+    then a block of NaN and +-inf rays among live ones: origins in a unit
+    box, unit directions of the chosen sign patterns, t in [1e-3, 4];
+    block 0 all dead."""
+    r = np.random.default_rng(21)
+    n = 5 * W
+    o = r.uniform(-1.0, 1.0, (n, 3)).astype(np.float32)
+    d = np.abs(r.normal(size=(n, 3))).astype(np.float32) + 0.05
+    sign = np.ones((n, 3), np.float32)
+    octs = [np.zeros(W, int), np.full(W, 3), r.choice([1, 6], W),
+            np.arange(W) % 8, r.integers(0, 8, W)]
+    for blk, oc in enumerate(octs):
+        for ax in range(3):
+            sign[blk * W:(blk + 1) * W, ax] = np.where((oc >> ax) & 1, 1, -1)
+    d = d * sign
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    tmin = np.full(n, 1e-3, np.float32)
+    tmax = r.uniform(0.5, 4.0, n).astype(np.float32)
+    tmax[:W] = 0.0                                   # block 0 dead
+    odd = slice(4 * W, 5 * W, 7)
+    o[odd][::3, 0] = np.nan
+    d[odd][1::3, 1] = np.inf
+    d[odd][2::3, 2] = -np.inf
+    tmax[4 * W + 3::11] = np.inf
+    tmin[4 * W + 5::13] = np.nan
+    return tuple(torch.as_tensor(x, device=dev) for x in (o, d, tmin, tmax))
+
+
+@pytest.mark.parametrize("octants", [True, False], ids=["octants", "flat"])
+@pytest.mark.parametrize("W", [512, 1024])
+def test_bin_count_live_octants(setup, dev, W, octants):
+    """T and U on bundle blocks with 0, 1, 2 and 8 live direction octants
+    (one warp reduces each octant; the window loop runs the live ones
+    only) and a block with NaN and +-inf rays, against the sphere's
+    windows at g = 1 and 4: equal to the twins bit for bit, NaN to NaN."""
+    from optix_ray_tracer_tpu_torch.ops.kernels import binning
+    inter = setup[1]
+    o, d, tmin, tmax = _octant_wave(dev, W)
+    for g in (1, 4):
+        rects, _ = binning.bin_rects_call(
+            binning.RECTS_BOX, inter.clusters.sub_min, inter.clusters.sub_max,
+            granularity=g)
+        got = _t_and_u(o, d, tmin, tmax, W, "bundle", rects,
+                       octants=octants)
+        bounds = got[3]
+        if octants:
+            live = (bounds[..., 12] < 1e16).sum(1).tolist()
+            assert live[:4] == [0, 1, 2, 8], live
+        assert int(got[1][0]) == 0 and int(got[1][1:4].min()) > 0
+
+
+@pytest.mark.parametrize("tables", [False, True], ids=["plain", "tables"])
+@pytest.mark.parametrize("pc", ["fits", "cuts_warp_row", "cuts_long_row"])
+def test_bin_emit_row_lengths(dev, pc, tables):
+    """U on rows of 0, 1, 31, 32, 33, 64, 65, 128, 129, 8,192, 8,193 and
+    20,000 kept pairs (one warp up to 32, 64 and 128; the CTA's shared
+    sort up to 8,192; in place beyond), windows drawn at random from a
+    mask, keys with ties and -0.0 / +0.0, at a capacity above the total
+    and cutting a warp row and a long row; with and without the TLAS
+    tables (pair_libs, pair_insts): equal to the twin."""
+    from optix_ray_tracer_tpu_torch.ops.kernels import binning
+    lengths = [0, 1, 31, 32, 33, 64, 65, 128, 129, 8192, 8193, 20_000, 5, 0]
+    C = 20_001
+    r = np.random.default_rng(9)
+    keys = r.integers(-40, 40, C).astype(np.float32) / 8
+    keys[::7] = -0.0
+    keys[3::7] = 0.0
+    keys[5] = np.nan
+    t = lambda x: torch.as_tensor(x, device=dev)   # noqa: E731
+    rects = t(np.stack([np.full(C, -1.0, np.float32),
+                        np.full(C, 1.0, np.float32),
+                        np.full(C, -1.0, np.float32),
+                        np.full(C, 1.0, np.float32), keys, keys + 10]))
+    ov = np.zeros((len(lengths), C), bool)
+    pool = np.delete(np.arange(C), 5)
+    for row, n in enumerate(lengths):
+        ov[row, r.choice(pool, n, replace=False)] = True
+    mask = binning.pack_mask(t(ov))
+    nb = len(lengths)
+    bounds = t(np.tile(np.array([-0.5, 0.5, -0.5, 0.5, -9.0, 90.0, 1.0, 0.0],
+                                np.float32), (nb, 1)))
+    cnt = np.array(lengths, np.int32)
+    offs = np.r_[0, np.cumsum(cnt)].astype(np.int32)
+    pc_max = {"fits": int(offs[-1]) + 777,
+              "cuts_warp_row": int(offs[lengths.index(33)]) + 17,
+              "cuts_long_row": int(offs[lengths.index(8193)]) + 5000}[pc]
+    lib_of = inst_of = None
+    if tables:
+        lib_of = t(r.integers(0, 9, C).astype(np.int32))
+        inst_of = t(r.integers(0, 999, C).astype(np.int32))
+    args = (rects, bounds, t(cnt), t(offs), mask, pc_max, "origin", lib_of,
+            inst_of)
+    got = binning.bin_emit_call(*args)
+    want = binning.bin_emit_plain(*args)
+    torch.cuda.synchronize()
+    _bin_equal(got, want)
+    assert ("pair_libs" in got) == tables

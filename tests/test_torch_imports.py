@@ -288,9 +288,9 @@ calls = {
                                         torch.eye(3), None),
     "T": lambda: binning.bin_count_call(v3, v3, f, f, 32, "bundle",
                                         torch.zeros(6, 4)),
-    "U": lambda: binning.bin_emit_call(torch.zeros(6, 4), None,
-                                       torch.zeros(2, 1, 14),
-                                       i[:2], i[:3], 64, "bundle"),
+    "U": lambda: binning.bin_emit_call(torch.zeros(6, 4),
+                                       torch.zeros(2, 1, 14), i[:2], i[:3],
+                                       i[:2, None], 64, "bundle"),
 }
 for name, call in calls.items():
     try:
@@ -326,3 +326,21 @@ def test_chip_smoke_refuses_without_cuda(tmp_path, where):
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode != 0
     assert '"ok": true' not in proc.stdout
+
+
+def test_kernel_bench_binning_entries():
+    """tools/kernel_bench.py: ``--waves "T, U"`` keeps the ``BINNING``
+    stages (T and U, staged by each tree itself) and no saved wave, and
+    the tool refuses to run without CUDA."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "kernel_bench", ROOT / "tools" / "kernel_bench.py")
+    kb = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(kb)
+    assert kb.BINNING and all("T, U" in name for name in kb.BINNING)
+    assert not any("T, U" in name for name in kb.WAVES)
+    proc = subprocess.run(
+        [sys.executable, str(ROOT / "tools" / "kernel_bench.py"), "--waves",
+         "T, U"], cwd=ROOT, capture_output=True, text=True, timeout=120)
+    assert proc.returncode != 0
+    assert "no CUDA device" in proc.stderr, proc.stderr

@@ -16,10 +16,13 @@ DIR's kernel sources.  The wrappers are called with the keyword arguments
 they have taken since the kernels were ported, so an older checkout times
 the same work.  ``--waves`` keeps the waves whose name holds one of the
 given texts.  Prints, per tree and wave, the mean ms of ``REPS`` launches
-after a warm-up, twice; then, per tree, five readings of the mean ms of
-``REPS`` bench steps (chip_smoke.py's camera + shadow waves through the
-tree's own intersector, host-bound, so its wall spreads from run to
-run).
+after a warm-up, twice; then, per tree and entry of ``BINNING`` (also
+kept by ``--waves``), kernels T and U of the raster binning: their
+device ms per launch (``chip_smoke.device_ms``, a profiler trace) and
+their wrapper's ms per call (CUDA events, host work included); then,
+per tree, five readings of the mean ms of ``REPS`` bench steps
+(chip_smoke.py's camera + shadow waves through the tree's own
+intersector, host-bound, so its wall spreads from run to run).
 
 A wave is an entry of ``WAVES``: its name, the wrapper (module under
 ``optix_ray_tracer_tpu_torch/ops/kernels``, function) and a function of
@@ -264,6 +267,62 @@ def _bench_routes(e):
              e.b.inter.for_incoherent(), e.b.scene, _bench_nee(e), 1024)]
 
 
+def _binning_bench_camera(e):
+    """The bench camera wave's binning at g 4, as chip_smoke.py's phase 16
+    bins it."""
+    from optix_ray_tracer_tpu_torch.ops import march, raster
+    W = e.cs.TILE * e.cs.TILE
+    return lambda: raster._coarse_stage(
+        e.b.inter.raster, e.b.cs, *_bench_camera(e), "origin", e.b.o[0], W,
+        e.b.pc_max1, march.DEFAULT_GRANULARITY)
+
+
+def _binning_pile_nee(e):
+    """The binning of the path pile's first bundle NEE wave (bounce 0 of
+    :func:`_pile_nee`, 8 direction octants) at its heuristic capacity."""
+    from optix_ray_tracer_tpu_torch.ops import raster
+    _, clusters, _, _, wave, W = _pile_nee(e)[0]
+    cap = raster.default_bundle_pc_max(-(-wave[0].shape[0] // W),
+                                       clusters.num_clusters)
+    return lambda: raster.bundle_stage(clusters, *wave, W, cap)
+
+
+#: binning waves: name -> function of a tree's setups returning the stage
+#: whose T and U launches are timed.  Each tree builds its own stage and
+#: takes T's and U's arguments from it (``chip_smoke.binning_calls``):
+#: their arguments changed when U came to read T's hit mask.
+BINNING = {"T, U bench camera": _binning_bench_camera,
+           "T, U path pile NEE, bounce 0": _binning_pile_nee}
+
+
+def time_binning(e, name: str, tree: str, card: str) -> None:
+    """T's and U's device ms and wrapper ms on the stage of ``BINNING``
+    entry ``name``, with checkout ``tree``'s code."""
+    import torch
+    from optix_ray_tracer_tpu_torch.ops.kernels import _lib, binning
+    cs = e.cs
+    cs.K.update(T=_lib.BIN_COUNT, U=_lib.BIN_EMIT)
+    stage = BINNING[name](e)
+    S = stage()
+    cnt = S["cnt_b"].long()
+    keep = torch.clamp(torch.minimum(
+        cnt, S["b_i"].shape[0] - (torch.cumsum(cnt, 0) - cnt)), min=0)
+    print(f"[binning] {tree}: {name}: {S['n']} rays in {S['nb']} blocks, "
+          f"{int(S['pc_total'])} pairs, capacity {S['b_i'].shape[0]}, "
+          f"longest row {int(cnt.max())}, rows keeping over 128 pairs "
+          f"{int((keep > 128).sum())}", flush=True)
+    calls = cs.binning_calls(stage)
+    for letter, fn in (("T", binning.bin_count), ("U", binning.bin_emit)):
+        a, k = calls[letter][0]
+        ms = cs.device_ms(lambda: fn(*a, **k), cs.BIN_KERNELS[letter],
+                          letter, REPS)
+        # (ms, method) since the method is recorded; a float before
+        ms, by = ms if isinstance(ms, tuple) else (ms, "profiler trace")
+        call_ms = cs.time_ms(lambda: fn(*a, **k), REPS)
+        print(f"[binning] {tree}: {name}: {letter} device {ms:.4f} ms "
+              f"({by}), wrapper call {call_ms:.4f} ms [{card}]", flush=True)
+
+
 #: route comparisons: name -> function of the setups returning [(label,
 #: clusters, incoherent intersector, scene, (o, d, t_min, t_max), W)]
 ROUTES = {"bench NEE": _bench_routes, "path pile NEE": _pile_nee}
@@ -316,17 +375,18 @@ def run_routes(names: list) -> None:
 def build_waves(names: list) -> None:
     """Set the waves up with this checkout and save their arguments."""
     import torch
-    sys.path.insert(0, str(ROOT))
-    import chip_smoke as cs
-    from optix_ray_tracer_tpu_torch.ops import march
-    from optix_ray_tracer_tpu_torch.ops.kernels import block_march as bm
-    device = torch.device("cuda", 0)
-    cs.build_kernels()
-    b, t = cs.bench_setup(device), cs.time_setup(device)
-    tlas = cs.time_frame(t, 0).tlas
-    e = SimpleNamespace(cs=cs, b=b, t=t, tlas=tlas, march=march, bm=bm,
-                        shadow=cs.tlas_shadow_wave(t, tlas))
     waves = {}
+    if names:
+        sys.path.insert(0, str(ROOT))
+        import chip_smoke as cs
+        from optix_ray_tracer_tpu_torch.ops import march
+        from optix_ray_tracer_tpu_torch.ops.kernels import block_march as bm
+        device = torch.device("cuda", 0)
+        cs.build_kernels()
+        b, t = cs.bench_setup(device), cs.time_setup(device)
+        tlas = cs.time_frame(t, 0).tlas
+        e = SimpleNamespace(cs=cs, b=b, t=t, tlas=tlas, march=march, bm=bm,
+                            shadow=cs.tlas_shadow_wave(t, tlas))
     for name in names:
         module, fn, make = WAVES[name]
         kw = make(e)
@@ -338,9 +398,10 @@ def build_waves(names: list) -> None:
     torch.save(waves, WAVE_FILE)
 
 
-def time_tree(tree: str) -> None:
-    """Time the kernels of checkout ``tree`` on the saved waves, then its
-    bench step."""
+def time_tree(tree: str, binning: list) -> None:
+    """Time the kernels of checkout ``tree`` on the saved waves, then T
+    and U on the ``BINNING`` entries named in ``binning``, then its bench
+    step."""
     import importlib
     sys.path.insert(0, tree)
     import chip_smoke as cs
@@ -361,6 +422,9 @@ def time_tree(tree: str) -> None:
               f"[{card}]", flush=True)
     del waves
     b = cs.bench_setup(torch.device("cuda", 0))
+    e = SimpleNamespace(cs=cs, b=b)
+    for name in binning:
+        time_binning(e, name, tree, card)
     steps = [cs.time_ms(lambda: cs.bench_step(b), REPS) for _ in range(5)]
     print(f"[bench] {tree}: bench step: "
           f"{', '.join(f'{x:.3f}' for x in steps)} ms [{card}]", flush=True)
@@ -372,9 +436,11 @@ def main() -> None:
     ap.add_argument("--waves", nargs="+")
     ap.add_argument("--routes", nargs="*")
     ap.add_argument("--time-tree", help=argparse.SUPPRESS)
+    ap.add_argument("--binning", nargs="*", default=[],
+                    help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.time_tree:
-        time_tree(args.time_tree)
+        time_tree(args.time_tree, args.binning)
         return
     import torch
     if not torch.cuda.is_available():
@@ -382,12 +448,14 @@ def main() -> None:
     if args.routes is not None:
         run_routes(args.routes)
         return
-    names = [n for n in WAVES
-             if not args.waves or any(x in n for x in args.waves)]
+    names, binning = ([n for n in table
+                       if not args.waves or any(x in n for x in args.waves)]
+                      for table in (WAVES, BINNING))
     build_waves(names)
     for tree in args.tree or [str(ROOT)]:
         subprocess.run([sys.executable, __file__, "--time-tree",
-                        str(Path(tree).resolve())], check=True)
+                        str(Path(tree).resolve()), "--binning", *binning],
+                       check=True)
 
 
 if __name__ == "__main__":
