@@ -192,18 +192,20 @@ CPU or to the plain versions):
    O-R > 0, no plain version of H-R called) and with O-R's twins called
    explicitly (:func:`glue_twin_route`: no O-R launch), max |diff| 0.
    Phase 4's frame must launch O-R too.
-16. the raster binning (:func:`binning_phase`): (a) S (window rects), T
-   (block bounds and pair counts) and U (the sorted pair schedule)
-   against ``binning.bin_rects_plain``, ``bin_count_plain`` and
-   ``bin_emit_plain`` on every call of seven stages, exact: the bench
+16. the raster binning (:func:`binning_phase`): (a) S (the projection
+   basis and the window rects), T (block bounds and pair counts) and U
+   (the sorted pair schedule) against ``binning.bin_basis_rects_plain``
+   (``bin_basis_plain``, then ``bin_rects_plain``), ``bin_count_plain``
+   and ``bin_emit_plain`` on every call of seven stages, exact: the bench
    camera wave (g 4), the same cut at two thirds of its pairs, the bench
    shadow wave (g 2), the TLAS camera wave (S on the pairs' boxes),
    config 5's first camera wave, the path pile's first bundle NEE wave
    (captured through ``raster.BUNDLE_OBSERVERS``) and one 1,024-ray block
    pairing every one of the flatten route's 13,472 windows at g 4 (U's
    long-row sort); (b) each kernel's device ms per launch on the bench
-   camera wave, and T's and U's on the path pile's first bundle NEE wave,
-   beside its bound (:func:`binning_work`); (c) phase 4's
+   camera wave, S's also on the TLAS camera wave (pairs) and S's, T's
+   and U's on the path pile's first bundle NEE wave (boxes), beside its
+   bound (:func:`binning_work`); (c) phase 4's
    Whitted frame, config 5's frame and the path pile's frame 0 by the
    kernels (counts zeroed, S-U > 0, no plain version of H-U called) and
    with S-U's twins called explicitly (:func:`binning_twin_route`),
@@ -231,9 +233,10 @@ calls), their launches those of phases 4, 7, 10, 11, 12, 13 (b) and 16
 (c), their bound the larger of the bytes each input and output takes
 once and the operations of the wave's projections, of the tests its live
 blocks (octants) need and of U's keys and sorts of the pairs it keeps
-(:func:`binning_work`); two more rows hold T and U on the path pile's
-first bundle NEE wave (launches: their bundle launches in those phases,
-``Kernel.variants``);
+(:func:`binning_work`); four more rows hold S on the TLAS camera wave's
+pairs and on the path pile's first bundle NEE wave's boxes, T and U on
+that bundle wave (launches: their pair, box and bundle launches in those
+phases, ``Kernel.variants``);
 their work the RNG's integer operations (:func:`sobol_ops`: the per-byte
 table lookups) and J's to N's float operations per lobe or part
 (:func:`scatter_ops`, :func:`bsdf_ops`, :func:`nee_work`,
@@ -1397,7 +1400,7 @@ def time_frames(t: SimpleNamespace, card: str) -> dict:
     torch.cuda.synchronize()
     launches["tile_raster_instanced"] = K["D"].launches
     launches["block_march_instanced"] = K["E"].launches
-    for k in "STU":                    # the TLAS pairs' binning
+    for k in BIN_KEYS:                 # the TLAS pairs' binning
         launches[K[k].name] = K[k].launches
     print(f"[time frame] TLAS route {WIDTH}x{HEIGHT} spp={SPP} depth "
           f"{DEPTH}: frame 0 {s0:.3f} s, frame 1 {s1:.3f} s (frame "
@@ -1998,7 +2001,7 @@ def animation_phase(card: str) -> dict:
                 end.synchronize()
         finally:
             fused.refit_march_intersector = real_refit
-        counts = {k: K[k].launches for k in "ABCDEFSTUtu"}
+        counts = {k: K[k].launches for k in (*"ABCDEF", *BIN_KEYS)}
         for k in counts:
             launches[K[k].name] = counts[k]
         pngs = sorted((root / "out1").glob("frame_*.png"))
@@ -2075,7 +2078,7 @@ def animation_phase(card: str) -> dict:
             del os.environ["ORT_TIME_TLAS"]
         tlas_s = time.perf_counter() - t0
         tlas_peak = torch.cuda.max_memory_allocated() - mem0
-        for k in "DESTU":
+        for k in (*"DE", *BIN_KEYS):
             launches[K[k].name] += K[k].launches
         per_frame = (tlas_frames[1][1].elapsed_time(end)
                      / (ANIM_TLAS_FRAMES - 1) / 1e3)
@@ -2104,7 +2107,7 @@ def animation_phase(card: str) -> dict:
                  ANIM_CHECK_FRAMES])
         torch.cuda.synchronize()
         flat_peak = torch.cuda.max_memory_allocated() - mem0
-        for k in "ABCFSTU":
+        for k in (*"ABCF", *BIN_KEYS):
             launches[K[k].name] += K[k].launches
         fused_imgs = check_pngs(sorted((root / "out3").glob("frame_*.png")),
                                 "flatten fused, temporal off")
@@ -2120,7 +2123,7 @@ def animation_phase(card: str) -> dict:
         print(f"  per-frame loop (set_update_fn): {ANIM_CHECK_FRAMES} frames "
               f"in {time.perf_counter() - t0:.2f} s with its host build "
               f"[{card}]")
-        for k in "ABCFSTU":
+        for k in (*"ABCF", *BIN_KEYS):
             launches[K[k].name] += K[k].launches
         for j, (a, b) in enumerate(zip(fused_imgs, per)):
             agree(a, b, f"fused vs per-frame frame {j}")
@@ -2158,7 +2161,7 @@ def animation_phase(card: str) -> dict:
             end.record()
             end.synchronize()
         mesh_s = time.perf_counter() - t0
-        for k in "ABCFSTU":
+        for k in (*"ABCF", *BIN_KEYS):
             launches[K[k].name] += K[k].launches
         mesh_pngs = sorted((root / "out4").glob("frame_*.png"))
         check_pngs(mesh_pngs, "Mesh")
@@ -2227,7 +2230,7 @@ def sponza_cell(card: str) -> dict:
     zero_counts()
     (img, alb, nrm), st = benchmarks.run(cfg, intersector=inter)
     counts = {k: K[k].launches for k in "ABCKLMN"}
-    binning = launch_counts("STUtu")
+    binning = launch_counts(BIN_KEYS)
     _, st2 = benchmarks.run(cfg, seed=1, intersector=inter)
     print(f"[path sponza] {st2['render_s']:.3f} s/frame, "
           f"{st2['spp_per_sec']:.3f} spp/s, {st2['mpaths_per_sec']:.2f} "
@@ -2280,7 +2283,7 @@ def cornell_cell(card: str) -> dict:
         raise AssertionError("the Cornell frame is not finite and lit")
     if min(counts.values()) == 0:
         raise AssertionError(f"config 4 missed a kernel: {counts}")
-    counts.update(launch_counts("STUtu"))
+    counts.update(launch_counts(BIN_KEYS))
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     write_png(OUT_DIR / "path_cornell.png", color_to_uint8(img))
     return counts
@@ -2370,7 +2373,7 @@ def path_animation(card: str):
 
     tmp = tempfile.TemporaryDirectory(prefix="anim_path_")
     root = Path(tmp.name)
-    launches = {K[k].name: 0 for k in "ABCDEFKLMNSTUtu"}
+    launches = {K[k].name: 0 for k in (*"ABCDEFKLMN", *BIN_KEYS)}
     try:
         config = path_pile_configs(root)
         z, half, radiance = ANIM_LIGHT
@@ -2393,7 +2396,7 @@ def path_animation(card: str):
                 end = torch.cuda.Event(enable_timing=True)
                 end.record()
                 end.synchronize()
-            counts = launch_counts("ABCDEFKLMNSTUtu")
+            counts = launch_counts((*"ABCDEFKLMN", *BIN_KEYS))
             for k in counts:
                 launches[K[k].name] += counts[k]
             check_pngs(sorted((root / out).glob("frame_*.png")), out)
@@ -2444,7 +2447,7 @@ def path_animation(card: str):
                 end.synchronize()
         finally:
             del os.environ["ORT_TIME_TLAS"]
-        for k in "DEKLMNSTUtu":
+        for k in (*"DEKLMN", *BIN_KEYS):
             launches[K[k].name] += K[k].launches
         per_frame = (tlas_frames[1][1].elapsed_time(end)
                      / (ANIM_TLAS_FRAMES - 1) / 1e3)
@@ -2466,7 +2469,7 @@ def path_animation(card: str):
             run_cli(["--config", config("path_nt.json", half,
                                          temporal=False),
                      "--output", root / "out3", "--frames", 1])
-        for k in "ABCFKLMNSTUtu":
+        for k in (*"ABCFKLMN", *BIN_KEYS):
             launches[K[k].name] += K[k].launches
         nt_launches = K["A"].variants.get("None", 0)
         bundle_launches += nt_launches
@@ -2746,7 +2749,14 @@ def shared_builds():
         common.choose_intersector = real
 
 
-def launch_counts(keys: str = "ABCDEFHIJKLMNOPQRSTUtu") -> dict:
+#: the keys of K's variant counts: T's and U's bundle launches, S's on
+#: pairs and boxes; with S, T and U, the binning's
+BIN_VARIANTS = ("t", "u", "s_pair", "s_box")
+BIN_KEYS = ("S", "T", "U") + BIN_VARIANTS
+
+
+def launch_counts(keys=tuple("ABCDEFHIJKLMNOPQRSTU") + BIN_VARIANTS) -> dict:
+    """{key: launches} of K's counters ``keys`` (letters or names)."""
     return {k: K[k].launches for k in keys}
 
 
@@ -3431,7 +3441,8 @@ def no_twin_calls(label: str):
              (qmc, "sobol_owen4_plain"), (wavefront, "scatter_plain"),
              *((pathtracer, f"{name}_plain") for name in PATH_STEPS),
              *((m, f"{name}_plain") for m, name in glue_steps()),
-             *((m, f"{name}_plain") for m, name in binning_steps()))
+             *((binning_steps()[0][0], name) for name in sorted(
+                 binning_plain_names(binning_steps()[0][0]))))
     with contextlib.ExitStack() as stack:
         calls = [stack.enter_context(calls_of(m, n)) for m, n in twins]
         yield
@@ -4520,6 +4531,8 @@ def glue_phase(frame, t, p, card: str) -> tuple:
 
 #: phase 16's bundle wave, the rows bin_count_bundle and bin_emit_bundle
 BUNDLE_WAVE = "the path pile's first bundle NEE wave"
+#: phase 16's TLAS wave, the row bin_rects_pair
+TLAS_WAVE = "the TLAS camera wave (pairs)"
 #: the kernels' CUDA names (substrings of their trace events)
 BIN_KERNELS = {"S": "bin_rects_kernel", "T": "bin_count_kernel",
                "U": "bin_emit_kernel"}
@@ -4533,8 +4546,12 @@ BIN_KERNELS = {"S": "bin_rects_kernel", "T": "bin_count_kernel",
 # (eight compares, the full-plane or, four ands) or bundle test per live
 # octant (per axis two subtractions, four compares, two divides, four
 # selects, four min / max; the margins, two min / max, the compare and
-# the key); a sort comparison (the 64-bit compare and the swap)
+# the key); a sort comparison (the 64-bit compare and the swap); a row
+# of S's centroid (the subtraction, the NaN test, three additions; a pair
+# center's sum and product first)
 POINT_OPS = 3 + 15 + 1 + 2 + 8
+CENTROID_OPS = 3 + 1 + 3
+CENTER_OPS = 6
 RAY_RECT_OPS = POINT_OPS + 6 + 4
 RAY_BOX_OPS = 3 + 14
 RECT_TEST_OPS = 13
@@ -4543,17 +4560,28 @@ SORT_OPS = 2
 
 
 def binning_steps() -> tuple:
-    """The dispatchers of S, T and U, (module, name), each beside its
-    ``_plain`` twin in ``ops/kernels/binning``."""
+    """The dispatchers of S, T and U, (module, name), each beside its twin
+    in ``ops/kernels/binning`` (:func:`binning_twin`)."""
     from optix_ray_tracer_tpu_torch.ops.kernels import binning
     return ((binning, "bin_rects"), (binning, "bin_count"),
             (binning, "bin_emit"))
 
 
+def binning_twin(module, name: str):
+    """The plain version of dispatcher ``name``, with its arguments
+    (``binning.TWINS``: S's is ``bin_basis_rects_plain``)."""
+    return getattr(module, module.TWINS[name])
+
+
+def binning_plain_names(module) -> set:
+    """Every plain version of S-U: the twins and the two halves of S's."""
+    return {*module.TWINS.values(), "bin_basis_plain", "bin_rects_plain"}
+
+
 def binning_twin_route():
     """The raster binning on the plain versions, called explicitly on CUDA
     tensors (S-U's twins; everything else on its kernels)."""
-    return swapped(*((m, name, getattr(m, f"{name}_plain"))
+    return swapped(*((m, name, binning_twin(m, name))
                      for m, name in binning_steps()))
 
 
@@ -4571,7 +4599,7 @@ def binning_calls(run) -> dict:
 
 def binning_outputs(out) -> tuple:
     """A dispatcher's outputs as a tuple of tensors (U's dict in key
-    order; S's cfull is None for bundle boxes)."""
+    order; S's cfull and basis are None for bundle boxes)."""
     if isinstance(out, dict):
         return tuple(out[k] for k in sorted(out))
     return tuple(x for x in out if x is not None)
@@ -4588,13 +4616,14 @@ def hold_binning(letter: str, args, kw, label: str) -> tuple:
     kern = getattr(module, name)(*args, **kw)
     if K[letter].launches != before + 1:
         raise AssertionError(f"{letter} did not launch")
-    plain = getattr(module, f"{name}_plain")(*args, **kw)
+    twin = binning_twin(module, name)
+    plain = twin(*args, **kw)
     torch.cuda.synchronize()
     bad, err = held(f"{letter} {K[letter].name}, {label}",
                     binning_outputs(kern), binning_outputs(plain))
     if bad:
-        raise AssertionError(f"{letter} disagrees with {name}_plain on {bad} "
-                             f"elements ({label})")
+        raise AssertionError(f"{letter} disagrees with {twin.__name__} on "
+                             f"{bad} elements ({label})")
     return kern, err
 
 
@@ -4617,13 +4646,20 @@ def binning_work(letter: str, args, kw, kern) -> tuple:
             x.dim() and x.stride(0) == 0) else nbytes(x)
 
     if letter == "S":
+        # the geometry read once (the rects' second read is L2's), the
+        # point or the wave's first direction, the rects, flags and basis
         source, a = args[0], args[1]
         b = args[2] if len(args) > 2 else kw.get("b")
-        io = nbytes(a, b, *binning_outputs(kern)) + 48
+        io = nbytes(a, b, *binning_outputs(kern)) + 12
         if source == 2:                               # bundle boxes
             return io, (a.numel() // 3) * 6
-        points = a.numel() // 3 * (8 if source == 1 else 1)
-        return io, points * POINT_OPS
+        rows = a.numel() // 3
+        points = rows * (8 if source == 1 else 1)
+        centroid = 0
+        if (args[3] if len(args) > 3 else kw.get("point")) is not None:
+            centroid = rows * (CENTROID_OPS + (CENTER_OPS if source == 1
+                                               else 0))
+        return io, points * POINT_OPS + centroid
     if letter == "T":
         o, d, t_min, t_max, W, mode, rects = args[:7]
         bounds = kern[3]
@@ -4750,7 +4786,7 @@ def binning_waves(b: SimpleNamespace, t: SimpleNamespace, p, pile) -> list:
         ("the bench shadow wave (g 2)", raster._coarse_stage,
          (b.inter.raster, b.cs, *b.shadow, "origin", b.light, W, b.pc_max2,
           GS), {}),
-        ("the TLAS camera wave (pairs)", ri.instanced_coarse_stage,
+        (TLAS_WAVE, ri.instanced_coarse_stage,
          (tlas.pair_min, tlas.pair_max, t.o, t.d, t.tmin, t.tmax, "origin",
           t.o[0], W, raster.round_pc_max(t.pc1), tlas.pair_shape,
           tlas.pair_inst), {}),
@@ -4769,7 +4805,7 @@ def binning_row(letter: str, call, err: float, label: str,
     module, name = binning_steps()["STU".index(letter)]
     a, k = call
     step = getattr(module, name)
-    twin = getattr(module, f"{name}_plain")
+    twin = binning_twin(module, name)
     kern = step(*a, **k)
     io_bytes, ops = binning_work(letter, a, k, kern)
     ms, by = device_ms(lambda: step(*a, **k), BIN_KERNELS[letter], letter,
@@ -4788,7 +4824,8 @@ def binning_row(letter: str, call, err: float, label: str,
 def binning_rows(waves, card: str) -> dict:
     """Phase 16 (a), (b): S, T and U against their twins on every call of
     every wave's stage, exact; each kernel's row on the bench camera wave,
-    and T's and U's (the rows bin_count_bundle, bin_emit_bundle) on the
+    S's on the TLAS camera wave (the row bin_rects_pair), and S's, T's and
+    U's (the rows bin_rects_box, bin_count_bundle, bin_emit_bundle) on the
     path pile's first bundle NEE wave."""
     import torch
     errs, calls_of_wave = {}, {}
@@ -4816,9 +4853,12 @@ def binning_rows(waves, card: str) -> dict:
         err = max(e for (_, k), e in errs.items() if k == letter)
         rows[K[letter].name] = binning_row(
             letter, calls_of_wave[bench][letter][0], err, bench, card)
-    for letter, name in (("T", "bin_count_bundle"), ("U", "bin_emit_bundle")):
-        rows[name] = binning_row(letter, calls_of_wave[pile][letter][0],
-                                 errs[pile, letter], pile, card)
+    for letter, name, wave in (("S", "bin_rects_pair", TLAS_WAVE),
+                               ("S", "bin_rects_box", pile),
+                               ("T", "bin_count_bundle", pile),
+                               ("U", "bin_emit_bundle", pile)):
+        rows[name] = binning_row(letter, calls_of_wave[wave][letter][0],
+                                 errs[wave, letter], wave, card)
     return rows
 
 
@@ -4852,7 +4892,7 @@ def binning_frames(frame, p, t: SimpleNamespace, pile, card: str) -> dict:
         with no_twin_calls(label):
             img, s_kern = timed(render)
         counts = launch_counts("STU")
-        for k, n in {**counts, **launch_counts("tu")}.items():
+        for k, n in {**counts, **launch_counts(BIN_VARIANTS)}.items():
             launches[K[k].name] = launches.get(K[k].name, 0) + n
         zero_counts()
         with binning_twin_route():
@@ -4894,6 +4934,8 @@ VARIANT_ROWS = {
                                   "tile_raster.py:219"),
     "tile_raster_bundle": ("A", "optix_ray_tracer_tpu/ops/pallas/"
                            "tile_raster.py:70"),
+    "bin_rects_pair": ("S", "optix_ray_tracer_tpu/ops/raster_instanced.py:52"),
+    "bin_rects_box": ("S", "optix_ray_tracer_tpu/ops/raster.py:512"),
     "bin_count_bundle": ("T", "optix_ray_tracer_tpu/ops/raster.py:573"),
     "bin_emit_bundle": ("U", "optix_ray_tracer_tpu/ops/raster.py:638"),
 }
@@ -4915,7 +4957,9 @@ def main() -> None:
              P=_lib.GATHER_RAYS, Q=_lib.FINISH_HITS, R=_lib.SHADING_FRAME,
              S=_lib.BIN_RECTS, T=_lib.BIN_COUNT, U=_lib.BIN_EMIT)
     K.update(t=VariantCount(K["T"], "bundle", "bin_count_bundle"),
-             u=VariantCount(K["U"], "bundle", "bin_emit_bundle"))
+             u=VariantCount(K["U"], "bundle", "bin_emit_bundle"),
+             s_pair=VariantCount(K["S"], "pair", "bin_rects_pair"),
+             s_box=VariantCount(K["S"], "box", "bin_rects_box"))
     card = card_line()
     print(card)      # name and power limit, as nvidia-smi reports them
     t_start = time.perf_counter()

@@ -13,11 +13,20 @@
 // octant for bundles), a cumsum and searchsorted, an 11-round bisection
 // over the (blocks, windows) cumsum, and two stable argsorts.  Here:
 //
-// - S writes each window's margined rect (6, C) and its full-plane flag,
-//   from its triangles' vertices (8-triangle groups, one thread a group,
-//   the window reduced over the group threads of a warp), from a TLAS
-//   pair's 8 box corners (one thread a pair), or, for bundles, from its
-//   sub boxes (one thread a window).
+// - S writes the projection basis and each window's margined rect (6, C)
+//   and its full-plane flag, in one launch.  The basis: the centroid of
+//   the geometry seen from the shared point (vertices, or TLAS pair
+//   centers) as a fixed halving tree over the rows padded to a power of
+//   two (centroid_share: CTAs c < G each sum their share, a warp's loads
+//   32 consecutive rows; the last CTA to arrive folds the partials and
+//   publishes the basis, which every CTA waits for; the same bits at every
+//   call and on every band of a wave), or the wave's shared direction
+//   (ortho); then the rects from triangles (a CTA a cluster staged by
+//   cp.async in 16-byte copies while the basis is made, a thread a
+//   triangle, 8 lanes a group reduced by shuffles and margined, the window
+//   over the warp's groups and then the CTA's warps), from a TLAS pair's 8
+//   box corners (a lane a corner) or, for bundles, from a window's sub
+//   boxes (a lane a sub box).
 // - T runs one CTA per W-ray block: it stages the block's rays in shared
 //   memory (cp.async copies of the contiguous rows, a broadcast row read
 //   once; 1,024 rays at a time), so each ray is read from device memory
@@ -51,12 +60,14 @@
 //   ascending window ids, as the plain version's stable argsorts keep
 //   them.
 //
-// What bounds them on the H100: T reads 32 B and writes 32 B a ray, and
-// tests every (block, window) pair (a dozen operations projective, up to
-// some 60 per live octant with two divides an axis for bundles); each CTA
-// reads the window table from L2.  U reads the mask, computes the kept
-// pairs' keys and sorts them.  They are latency-scale at the waves' sizes
-// (tens of microseconds).
+// What bounds them on the H100: S reads the geometry twice, the second
+// time from L2 (the bench scene's 3.6 MB of vertices), and its CTAs meet
+// once (tools/s_phases.py times the phases); T reads 32 B and writes 32 B
+// a ray, and tests every (block, window) pair (a dozen operations
+// projective, up to some 60 per live octant with two divides an axis for
+// bundles); each CTA reads the window table from L2.  U reads the mask,
+// computes the kept pairs' keys and sorts them.  They are latency-scale
+// at the waves' sizes (tens of microseconds).
 //
 // Exactness: every float step is the plain version's in its order, with
 // IEEE divides (no fast math) and the library built with -fmad=false.
@@ -64,7 +75,10 @@
 // every element is NaN); torch's amin / amax, minimum / maximum with
 // min_nan / max_nan (a NaN operand gives NaN).  Min and max do not depend
 // on the order of their operands, so T's and S's reductions equal the
-// plain version's (a zero may differ in sign, which compares equal).  The
+// plain version's (a zero may differ in sign, which compares equal).
+// Sums do depend on it: S's centroid adds in the twin's halving tree, its
+// padding -0.0 (x + -0.0 is x, so padding past the twin's power of two
+// changes no bit).  The
 // bundle test takes torch's minimum / maximum as min.NaN / max.NaN, which
 // may give another NaN or signed zero: no bool or kept key depends on it.
 #include <cuda_runtime.h>
@@ -79,7 +93,7 @@ using namespace ort;
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kGroupVerts = 24;          // an 8-triangle group's vertices
+constexpr int kGroupTris = 8;   // triangles of a window group (GROUP_TRIS)
 // S's window sources (ops/kernels/binning.RECTS_*)
 constexpr int kSrcCluster = 0, kSrcPair = 1, kSrcBox = 2;
 // T's and U's modes (binning.MODE_IDS)
@@ -191,80 +205,477 @@ __device__ __forceinline__ void rect_store(const Rect& r, int c, int C,
   if (cfull) cfull[c] = r.full;
 }
 
-// S.  kSrcCluster: a = the sorted vertices (n_items groups x 24 points),
-// per_window groups a window; kSrcPair: a, b = the pairs' world boxes
-// (n_items, 3); kSrcBox: a, b = the sub boxes (n_items windows x
-// per_window, 3).  point: the shared point (perspective) or null
-// (orthographic).  Writes rects (6, C) and cfull (C,) (not for boxes).
+// the sum of x over the CTA (every thread gets it)
+__device__ __forceinline__ int block_sum(int x, int* scratch) {
+  x = __reduce_add_sync(0xffffffffu, x);
+  if ((threadIdx.x & 31) == 0) scratch[threadIdx.x >> 5] = x;
+  __syncthreads();
+  int total = 0;
+  for (int w = 0; w < kWarps; ++w) total += scratch[w];
+  __syncthreads();
+  return total;
+}
+
+// cp.async: a copy from device to shared memory through no register,
+// completed by copy_wait
+__device__ __forceinline__ void copy16(float* dst, const float* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void copy4(float* dst, const float* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void copy_wait() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// The projection basis of a (3, 3) rows u, v, w with w along wvec
+// (binning.bin_basis_plain's _frame): each step rounded on its own, the
+// norms sqrt((x x + y y) + z z), clamps that pass NaN.
+__device__ __forceinline__ void frame_from(V3 wv, float* __restrict__ out) {
+  const float n = max_nan(sqrtf((wv.x * wv.x + wv.y * wv.y) + wv.z * wv.z),
+                          1e-12f);
+  const V3 w = {wv.x / n, wv.y / n, wv.z / n};
+  const bool side = fabsf(w.x) < 0.9f;
+  const float ax = side ? 1.0f : 0.0f, ay = side ? 0.0f : 1.0f, az = 0.0f;
+  // u = w x a, normalised; v = w x u
+  V3 u = {w.y * az - w.z * ay, w.z * ax - w.x * az, w.x * ay - w.y * ax};
+  const float un = max_nan(sqrtf((u.x * u.x + u.y * u.y) + u.z * u.z),
+                           1e-12f);
+  u = {u.x / un, u.y / un, u.z / un};
+  const V3 v = {w.y * u.z - w.z * u.y, w.z * u.x - w.x * u.z,
+                w.x * u.y - w.y * u.x};
+  const float f[9] = {u.x, u.y, u.z, v.x, v.y, v.z, w.x, w.y, w.z};
+#pragma unroll
+  for (int k = 0; k < 9; ++k) out[k] = f[k];
+}
+
+// S's centroid: the most sum roles (a power of two, a multiple of 32: the
+// fold's lanes hold kBasisCtas / 32 slots of each of 12 columns), the rows
+// a thread sums in one static tree, the most levels of a thread's counter
+// over those trees, the rows a role's thread should read (sizing the
+// grid).
+constexpr int kBasisCtas = 128;
+constexpr int kBasisBlock = 8;
+constexpr int kBasisLevels = 12;
+constexpr int kBasisRowsPerThread = 4;
+// floats of S's work buffer before the partials: the basis, padded
+constexpr int kWorkHead = 16;
+
+// S_PHASE(k): with ORT_S_PHASES defined (tools/s_phases.py builds so),
+// thread 0 of each CTA writes the device's global timer to slot k of its
+// row of s_phases; compiled out otherwise.
+#ifdef ORT_S_PHASES
+constexpr int kPhaseCtas = 8192, kPhaseSlots = 10;
+__device__ unsigned long long s_phases[kPhaseCtas][kPhaseSlots];
+__device__ __forceinline__ void s_phase(int k, unsigned long long v) {
+  if (threadIdx.x == 0 && blockIdx.x < kPhaseCtas) s_phases[blockIdx.x][k] = v;
+}
+__device__ __forceinline__ unsigned long long global_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+#define S_PHASE(k) s_phase((k), global_ns())
+#define S_PHASE_VALUE(k, v) s_phase((k), (v))
+#else
+#define S_PHASE(k)
+#define S_PHASE_VALUE(k, v)
+#endif
+
+// The rows whose centroid gives S's axis: vertices less the shared point
+// (kSrcCluster), or TLAS pair centers (lo + hi) 0.5 less it (kSrcPair);
+// a row whose x is NaN counts as -0.0, the sum's identity.
+struct CentroidRows {
+  const float* a;
+  const float* b;
+  long long n;
+  bool pair;
+  V3 p;
+
+  __device__ __forceinline__ V3 row(long long i, int& kept) const {
+    if (i >= n) return {-0.0f, -0.0f, -0.0f};
+    V3 q;
+    if (pair) {
+      const V3 lo = load3(a, i), hi = load3(b, i);
+      q = {(lo.x + hi.x) * 0.5f - p.x, (lo.y + hi.y) * 0.5f - p.y,
+           (lo.z + hi.z) * 0.5f - p.z};
+    } else {
+      q = sub3(load3(a, i), p);
+    }
+    if (isnan(q.x)) return {-0.0f, -0.0f, -0.0f};
+    ++kept;
+    return q;
+  }
+};
+
+__device__ __forceinline__ V3 add3(V3 a, V3 b) {
+  return {a.x + b.x, a.y + b.y, a.z + b.z};
+}
+
+// The k-th subtree of a thread's rows, in bit-reversed order, into a
+// binary counter of partial sums (level l holds 2^l subtrees), merged
+// while k's low bits are set.
+__device__ __forceinline__ void tree_push(float (&st)[kBasisLevels + 1][3],
+                                          V3 v, int k) {
+  int l = 0;
+  for (; (k >> l) & 1; ++l)
+    v = {st[l][0] + v.x, st[l][1] + v.y, st[l][2] + v.z};
+  st[l][0] = v.x;
+  st[l][1] = v.y;
+  st[l][2] = v.z;
+}
+
+// The work buffer of S's centroid (floats after kWorkHead): partials
+// (96 columns (component, lane) x G roles) and the roles' kept-row counts
+// (G ints).
+struct CentroidWork {
+  float* partials;
+  int* counts;
+
+  __device__ CentroidWork(float* work, int G)
+      : partials(work + kWorkHead),
+        counts(reinterpret_cast<int*>(work + kWorkHead + 96 * G)) {}
+};
+
+// Where an S launch's CTAs meet: the CTAs arrived (the last one sets it
+// back to 0) and the bases published so far.  They live on the device
+// from the library's load on, so a launch needs no memset; S's launches
+// on one device must not overlap (the port runs one stream a device).
+__device__ __align__(128) unsigned s_arrived;
+__device__ __align__(128) unsigned s_epoch;
+
+// GPU-scope orderings of the meeting words: an acquiring load; an
+// addition that releases what this CTA wrote before it (the CTA's writes
+// reach thread 0 through its barrier) and acquires what the CTAs before
+// released; an addition that releases.
+__device__ __forceinline__ unsigned load_acquire(const unsigned* p) {
+  unsigned v;
+  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];" : "=r"(v) : "l"(p)
+               : "memory");
+  return v;
+}
+
+__device__ __forceinline__ unsigned add_acq_rel(unsigned* p, unsigned x) {
+  unsigned old;
+  asm volatile("atom.acq_rel.gpu.global.add.u32 %0, [%1], %2;"
+               : "=r"(old) : "l"(p), "r"(x) : "memory");
+  return old;
+}
+
+__device__ __forceinline__ void add_release(unsigned* p, unsigned x) {
+  unsigned old;
+  asm volatile("atom.release.gpu.global.add.u32 %0, [%1], %2;"
+               : "=r"(old) : "l"(p), "r"(x) : "memory");
+}
+
+// Step 1 of S's centroid (perspective waves), sum role c < G, the CTA of
+// that index.  The centroid's sum is the halving tree of bin_basis_plain
+// over the rows padded with -0.0 to Q = 256 G 8 B rows (a power of two;
+// more padding adds nothing), and the tree pairs the highest bits of a
+// row's index first.  Role c takes the rows i = lane + 32 (c + G (warp +
+// 8 m)): a warp's loads are 32 consecutive rows.  Each thread sums its 8 B
+// rows m = r + B t in a static tree over t for each r (8 rows in flight),
+// those B sums in a binary counter (r in bit-reversed order); then the
+// CTA its warps (w with w + h, h = 4, 2, 1).  The lanes' 32 partials and
+// the kept-row count go to work: the lowest bits, the lanes, add last.
+__device__ __forceinline__ void centroid_share(CentroidRows rows, int c,
+                                               int G, int outer,
+                                               const CentroidWork& cw,
+                                               float (&fold)[3][kThreads],
+                                               int* s_int) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int B = 1 << outer;
+  const long long base = lane + 32LL * (c + static_cast<long long>(G) * warp);
+  const long long step = 32LL * G * kWarps;
+  float st[kBasisLevels + 1][3];
+  int kept = 0;
+  for (int k = 0; k < B; ++k) {
+    const long long r =
+        outer ? __brev(static_cast<unsigned>(k)) >> (32 - outer) : 0;
+    V3 y[kBasisBlock];
+#pragma unroll
+    for (int t = 0; t < kBasisBlock; ++t)
+      y[t] = rows.row(base + step * (r + static_cast<long long>(B) * t),
+                      kept);
+    // t with t + h, h = 4, 2, 1
+#pragma unroll
+    for (int h = kBasisBlock / 2; h >= 1; h >>= 1) {
+#pragma unroll
+      for (int t = 0; t < h; ++t) y[t] = add3(y[t], y[t + h]);
+    }
+    tree_push(st, y[0], k);
+  }
+  S_PHASE(2);
+#pragma unroll
+  for (int k = 0; k < 3; ++k) fold[k][tid] = st[outer][k];
+  __syncthreads();
+  for (int h = kWarps / 2; h >= 1; h >>= 1) {
+    if (warp < h) {
+#pragma unroll
+      for (int k = 0; k < 3; ++k)
+        fold[k][tid] = fold[k][tid] + fold[k][tid + 32 * h];
+    }
+    __syncthreads();
+  }
+  if (tid < 96) cw.partials[tid * G + c] = fold[tid >> 5][lane];
+  kept = block_sum(kept, s_int);
+  if (tid == 0) cw.counts[c] = kept;
+}
+
+// Step 2, by the last CTA to arrive: warp w sums columns j = w + 8 i (i
+// < 12) of the partials over the roles (c = e 32 + l for its lane l, e <
+// kBasisCtas / 32, padded with -0.0: e with e + h, then the lanes by
+// shuffles), every load in flight at once; then warp 0 the columns' lanes
+// (l with l + h, h = 16 .. 1), the count, the centroid, its fallback and
+// the frame, into out.
+__device__ __forceinline__ void centroid_fold(int G, const CentroidWork& cw,
+                                              float (&fold)[3][kThreads],
+                                              int* s_int, float* out) {
+  constexpr int kCols = 96 / kWarps, kSlots = kBasisCtas / 32;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  float* columns = &fold[0][0];
+  const int kept = tid < G ? __ldcg(cw.counts + tid) : 0;
+  float v[kCols][kSlots];
+#pragma unroll
+  for (int i = 0; i < kCols; ++i) {
+#pragma unroll
+    for (int e = 0; e < kSlots; ++e) {
+      const int c = e * 32 + lane;
+      v[i][e] = c < G ? __ldcg(cw.partials + (warp + kWarps * i) * G + c)
+                      : -0.0f;
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < kCols; ++i) {
+#pragma unroll
+    for (int h = kSlots / 2; h >= 1; h >>= 1) {
+#pragma unroll
+      for (int e = 0; e < h; ++e) v[i][e] = v[i][e] + v[i][e + h];
+    }
+#pragma unroll
+    for (int h = 16; h >= 1; h >>= 1)
+      v[i][0] = v[i][0] + __shfl_down_sync(0xffffffffu, v[i][0], h);
+    if (lane == 0) columns[warp + kWarps * i] = v[i][0];
+  }
+  S_PHASE(8);
+  const int total = block_sum(kept, s_int);
+  if (warp != 0) return;
+  float w[3];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    w[k] = columns[k * 32 + lane];
+#pragma unroll
+    for (int h = 16; h >= 1; h >>= 1)
+      w[k] = w[k] + __shfl_down_sync(0xffffffffu, w[k], h);
+  }
+  if (lane != 0) return;
+  const float cnt = static_cast<float>(max(total, 1));
+  V3 wv = {w[0] / cnt, w[1] / cnt, w[2] / cnt};
+  if (!(sqrtf((wv.x * wv.x + wv.y * wv.y) + wv.z * wv.z) > 1e-12f))
+    wv = {0.0f, 0.0f, 1.0f};
+  frame_from(wv, out);
+}
+
+// two rects' union over shuffle distance s (every lane of the warp takes
+// part)
+__device__ __forceinline__ void rect_shfl(Rect& r, int s) {
+#pragma unroll
+  for (int k = 0; k < 6; ++k) {
+    const float o = __shfl_xor_sync(0xffffffffu, r.v[k], s);
+    r.v[k] = (k & 1) ? fmaxf(r.v[k], o) : fminf(r.v[k], o);
+  }
+  r.full = __shfl_xor_sync(0xffffffffu, static_cast<int>(r.full), s) ||
+           r.full;
+}
+
+// S, one launch.  kSrcCluster: a = the sorted vertices, a CTA a cluster
+// at a time (ORT_CHUNK triangles, a thread a triangle, staged in shared
+// memory by 16-byte cp.async copies, the first while the basis is made),
+// per_window groups a window (a multiple of 4: whole warps), n_items
+// groups; kSrcPair: a, b = the pairs' world boxes, 8 lanes a pair, a lane
+// a corner, n_items pairs; kSrcBox: a, b = the sub boxes, a lane a sub
+// box, per_window a window, n_items windows (no basis, an ordinary
+// launch).  The others launch cooperatively (every CTA resident, so a CTA
+// may wait for another) and write the basis to work[0, 9): perspective
+// (persp; the point in device memory at point, else pv), CTAs c < G sum
+// the centroid's shares, the last CTA to arrive folds them and publishes
+// the basis (s_epoch), the others wait for it; orthographic, from the row
+// wdir in every CTA, CTA 0 writing it.
 template <int SRC>
 __global__ void __launch_bounds__(kThreads) bin_rects_kernel(
     const float* __restrict__ a, const float* __restrict__ b,
-    const float* __restrict__ basis, const float* __restrict__ point,
-    int per_window, int n_items, int C, float* __restrict__ rects,
+    const float* __restrict__ point, V3 pv, int persp,
+    const float* __restrict__ wdir, float* __restrict__ work, int G,
+    int outer, int per_window, int n_items, int C, float* __restrict__ rects,
     bool* __restrict__ cfull) {
-  const int gid = blockIdx.x * kThreads + threadIdx.x;
+  __shared__ __align__(16) float sv[SRC == kSrcCluster ? ORT_CHUNK * 9 : 4];
+  __shared__ float fold[3][kThreads];
+  __shared__ float s_basis[9];
+  __shared__ Rect s_warp[kWarps];
+  __shared__ int s_int[kWarps];
+  __shared__ int s_role;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   if (SRC == kSrcBox) {
-    if (gid >= n_items) return;
+    const long long gid = static_cast<long long>(blockIdx.x) * kThreads + tid;
+    const long long rows = static_cast<long long>(n_items) * per_window;
     Rect r;
     rect_init(r);
-    for (int s = 0; s < per_window; ++s) {
-      const long long row = static_cast<long long>(gid) * per_window + s;
-      const V3 lo = load3(a, row), hi = load3(b, row);
-      r.v[0] = fminf(r.v[0], lo.x);
-      r.v[1] = fmaxf(r.v[1], hi.x);
-      r.v[2] = fminf(r.v[2], lo.y);
-      r.v[3] = fmaxf(r.v[3], hi.y);
-      r.v[4] = fminf(r.v[4], lo.z);
-      r.v[5] = fmaxf(r.v[5], hi.z);
+    if (gid < rows) {
+      const V3 lo = load3(a, gid), hi = load3(b, gid);
+      r.v[0] = lo.x;
+      r.v[1] = hi.x;
+      r.v[2] = lo.y;
+      r.v[3] = hi.y;
+      r.v[4] = lo.z;
+      r.v[5] = hi.z;
     }
+    for (int s = 1; s < per_window; s <<= 1) rect_shfl(r, s);
     rect_margin(r);
-    rect_store(r, gid, C, rects, nullptr);
+    if (gid < rows && gid % per_window == 0)
+      rect_store(r, static_cast<int>(gid / per_window), C, rects, nullptr);
     return;
   }
-  const bool persp = point != nullptr;
-  const V3 p = persp ? load3(point, 0) : V3{0.0f, 0.0f, 0.0f};
-  const Basis B = load_basis(basis);
-  Rect r;
-  rect_init(r);
+  S_PHASE(0);
+#ifdef ORT_S_PHASES
+  unsigned smid;
+  asm volatile("mov.u32 %0, %%smid;" : "=r"(smid));
+  S_PHASE_VALUE(9, smid);
+#endif
+  const bool pp = persp != 0;
+  const V3 p = point ? load3(point, 0) : pv;
+  const int clusters = n_items / (ORT_CHUNK / kGroupTris);
+  // the CTA's first cluster's triangles, in flight while the basis is made
+  auto stage = [&](int cl) {
+    const float* src = a + static_cast<long long>(cl) * ORT_CHUNK * 9;
+    if ((reinterpret_cast<unsigned long long>(src) & 15) == 0) {
+      for (int t = tid; t < ORT_CHUNK * 9 / 4; t += kThreads)
+        copy16(sv + 4 * t, src + 4 * t);
+    } else {
+      for (int t = tid; t < ORT_CHUNK * 9; t += kThreads) copy4(sv + t, src + t);
+    }
+  };
+  if (SRC == kSrcCluster && blockIdx.x < clusters) stage(blockIdx.x);
+  if (pp) {
+    // every CTA arrives once its role (if any) is posted; the last to
+    // arrive folds, writes and publishes the basis, the others wait for
+    // the epoch read before they arrived to move on
+    const unsigned epoch = tid == 0 ? *reinterpret_cast<volatile unsigned*>(
+                                          &s_epoch)
+                                    : 0u;
+    const CentroidWork cw(work, G);
+    if (blockIdx.x < G) {
+      const CentroidRows rows = {
+          a, b,
+          SRC == kSrcPair ? n_items
+                          : static_cast<long long>(n_items) * kGroupTris * 3,
+          SRC == kSrcPair, p};
+      centroid_share(rows, blockIdx.x, G, outer, cw, fold, s_int);
+    }
+    S_PHASE(3);
+    if (tid == 0) s_role = add_acq_rel(&s_arrived, 1u) == gridDim.x - 1;
+    __syncthreads();
+    S_PHASE(1);
+    if (s_role) {
+      centroid_fold(G, cw, fold, s_int, s_basis);
+      __syncthreads();
+      S_PHASE(4);
+      if (tid < 9) work[tid] = s_basis[tid];
+      __syncthreads();
+      if (tid == 0) {
+        s_arrived = 0;
+        add_release(&s_epoch, 1u);
+      }
+    } else {
+      if (tid == 0) {
+        while (load_acquire(&s_epoch) == epoch) __nanosleep(32);
+      }
+      __syncthreads();
+      if (tid < 9) s_basis[tid] = __ldcg(work + tid);
+    }
+    S_PHASE(5);
+  } else if (tid == 0) {
+    frame_from(load3(wdir, 0), s_basis);
+  }
+  __syncthreads();
+  if (!pp && blockIdx.x == 0 && tid < 9) work[tid] = s_basis[tid];
+  const Basis Bs = {{s_basis[0], s_basis[1], s_basis[2]},
+                    {s_basis[3], s_basis[4], s_basis[5]},
+                    {s_basis[6], s_basis[7], s_basis[8]}};
   if (SRC == kSrcPair) {
-    if (gid >= n_items) return;
-    const V3 lo = load3(a, gid), hi = load3(b, gid);
-    for (int k = 0; k < 8; ++k) {
-      // corner k: bit a of k picks the max on axis a, as min (1 - s) + max s
-      const float sx = static_cast<float>(k & 1);
-      const float sy = static_cast<float>((k >> 1) & 1);
-      const float sz = static_cast<float>((k >> 2) & 1);
-      V3 q = {lo.x * (1.0f - sx) + hi.x * sx, lo.y * (1.0f - sy) + hi.y * sy,
-              lo.z * (1.0f - sz) + hi.z * sz};
-      if (persp) q = sub3(q, p);
-      rect_add(r, q, B, persp);
+    for (long long gid = static_cast<long long>(blockIdx.x) * kThreads + tid;
+         (gid - tid) < 8LL * n_items;
+         gid += static_cast<long long>(gridDim.x) * kThreads) {
+      const bool mine = (gid >> 3) < n_items;
+      Rect r;
+      rect_init(r);
+      if (mine) {
+        // corner k = lane % 8: bit a of k picks the max on axis a, as min
+        // (1 - s) + max s
+        const V3 lo = load3(a, gid >> 3), hi = load3(b, gid >> 3);
+        const int k = static_cast<int>(gid & 7);
+        const float sx = static_cast<float>(k & 1);
+        const float sy = static_cast<float>((k >> 1) & 1);
+        const float sz = static_cast<float>((k >> 2) & 1);
+        V3 q = {lo.x * (1.0f - sx) + hi.x * sx,
+                lo.y * (1.0f - sy) + hi.y * sy,
+                lo.z * (1.0f - sz) + hi.z * sz};
+        if (pp) q = sub3(q, p);
+        rect_add(r, q, Bs, pp);
+      }
+      for (int s = 1; s < 8; s <<= 1) rect_shfl(r, s);
+      rect_margin(r);
+      if (mine && (gid & 7) == 0)
+        rect_store(r, static_cast<int>(gid >> 3), C, rects, cfull);
     }
-    rect_margin(r);
-    rect_store(r, gid, C, rects, cfull);
+    S_PHASE(7);
     return;
   }
-  // clusters: whole warps, so that the window reduction's shuffles see
-  // every lane (n_items, whole clusters of 32 groups, is a multiple of 32)
-  if ((gid & ~31) >= n_items) return;
-  if (gid < n_items) {
-    for (int k = 0; k < kGroupVerts; ++k) {
-      V3 q = load3(a, static_cast<long long>(gid) * kGroupVerts + k);
-      if (persp) q = sub3(q, p);
-      rect_add(r, q, B, persp);
+  for (int cl = blockIdx.x; cl < clusters; cl += gridDim.x) {
+    if (cl != blockIdx.x) {
+      __syncthreads();                     // sv and s_warp are read
+      stage(cl);
     }
-    rect_margin(r);          // each group's rect gets its margin
-  }
-  for (int s = per_window >> 1; s >= 1; s >>= 1) {
+    copy_wait();
+    __syncthreads();
+    S_PHASE(6);
+    Rect r;
+    rect_init(r);
 #pragma unroll
-    for (int k = 0; k < 6; ++k) {
-      const float o = __shfl_xor_sync(0xffffffffu, r.v[k], s);
-      r.v[k] = (k & 1) ? fmaxf(r.v[k], o) : fminf(r.v[k], o);
+    for (int k = 0; k < 3; ++k) {
+      V3 q = {sv[9 * tid + 3 * k], sv[9 * tid + 3 * k + 1],
+              sv[9 * tid + 3 * k + 2]};
+      if (pp) q = sub3(q, p);
+      rect_add(r, q, Bs, pp);
     }
-    r.full = __shfl_xor_sync(0xffffffffu, static_cast<int>(r.full), s) ||
-             r.full;
+    // the 8-triangle group (8 lanes), its margin, then the window: the
+    // warp's groups, then its warps
+    for (int s = 1; s < kGroupTris; s <<= 1) rect_shfl(r, s);
+    rect_margin(r);
+    for (int s = kGroupTris; s < 32; s <<= 1) rect_shfl(r, s);
+    if (lane == 0) s_warp[warp] = r;
+    __syncthreads();
+    const int wpw = per_window / 4;            // warps a window
+    if (tid < kWarps / wpw) {
+      Rect u = s_warp[tid * wpw];
+      for (int w = 1; w < wpw; ++w) {
+        const Rect& o = s_warp[tid * wpw + w];
+#pragma unroll
+        for (int k = 0; k < 6; ++k)
+          u.v[k] = (k & 1) ? fmaxf(u.v[k], o.v[k]) : fminf(u.v[k], o.v[k]);
+        u.full = u.full || o.full;
+      }
+      rect_store(u, cl * (kWarps / wpw) + tid, C, rects, cfull);
+    }
   }
-  if (gid < n_items && gid % per_window == 0)
-    rect_store(r, gid / per_window, C, rects, cfull);
+  S_PHASE(7);
 }
 
 // The wave T packs and bins: element i of o and d at o + i * o_step (3,
@@ -337,16 +748,6 @@ __device__ __forceinline__ void block_reduce(float (&v)[N], float* scratch,
     v[k] = r;
   }
   __syncthreads();
-}
-
-__device__ __forceinline__ int block_sum(int x, int* scratch) {
-  x = __reduce_add_sync(0xffffffffu, x);
-  if ((threadIdx.x & 31) == 0) scratch[threadIdx.x >> 5] = x;
-  __syncthreads();
-  int total = 0;
-  for (int w = 0; w < kWarps; ++w) total += scratch[w];
-  __syncthreads();
-  return total;
 }
 
 // The early exit of the bundle test.  After an axis the interval [lo_t,
@@ -450,26 +851,6 @@ __device__ __forceinline__ bool rect_admits(const float* sb,
   const bool plane = (sb[0] <= r[1] && sb[1] >= r[0] && sb[2] <= r[3] &&
                       sb[3] >= r[2]) || full;
   return plane && sb[4] <= r[5] && sb[5] >= r[4];
-}
-
-// cp.async: a copy from device to shared memory through no register,
-// completed by copy_wait
-__device__ __forceinline__ void copy16(float* dst, const float* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void copy4(float* dst, const float* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
-               "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void copy_wait() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
 // count contiguous floats from src to dst (shared, 16-byte aligned), in
@@ -1121,28 +1502,85 @@ int grid_for(long long n) {
 
 }  // namespace
 
-// S.  source 0 (clusters): a = the sorted vertices (n_items * 24 points,
-// 3), per_window groups a window; source 1 (TLAS pairs): a, b = pair_min,
-// pair_max (n_items, 3); source 2 (bundle boxes): a, b = sub_min, sub_max
-// (n_items * per_window, 3).  basis (3, 3) rows u, v, w; point (3,) or
-// null (orthographic).  Writes rects (6, C) and, but for boxes, cfull
-// (C,).
-extern "C" int ort_bin_rects(int source, const float* a, const float* b,
-                             const float* basis, const float* point,
-                             int per_window, int n_items, int C, float* rects,
-                             bool* cfull, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int grid = grid_for(n_items);
-  if (source == kSrcCluster) {
-    bin_rects_kernel<kSrcCluster><<<grid, kThreads, 0, st>>>(
-        a, b, basis, point, per_window, n_items, C, rects, cfull);
-  } else if (source == kSrcPair) {
-    bin_rects_kernel<kSrcPair><<<grid, kThreads, 0, st>>>(
-        a, b, basis, point, per_window, n_items, C, rects, cfull);
-  } else {
-    bin_rects_kernel<kSrcBox><<<grid, kThreads, 0, st>>>(
-        a, b, basis, point, per_window, n_items, C, rects, cfull);
+// The CTAs of one S launch the card holds at once (a cooperative launch
+// needs them all resident), per device and source, found once.
+template <int SRC>
+int resident_ctas() {
+  static int known[64];
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 0;
+  if (known[dev] == 0) {
+    int per_sm = 0, sms = 0;
+    if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &per_sm, bin_rects_kernel<SRC>, kThreads, 0) != cudaSuccess ||
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+            cudaSuccess)
+      return 0;
+    known[dev] = per_sm * sms;
   }
+  return known[dev];
+}
+
+// S.  source 0 (clusters): a = the sorted vertices (n_items groups of
+// 8 triangles), per_window groups a window (a multiple of 4 dividing 32);
+// source 1 (TLAS pairs): a, b = pair_min, pair_max (n_items, 3); source 2
+// (bundle boxes): a, b = sub_min, sub_max (n_items * per_window, 3).
+// Sources 0 and 1 also write their basis (3, 3) rows u, v, w to work[0, 9):
+// with persp, seen from the shared point (point in device memory, else
+// (px, py, pz)), its axis the rows' centroid; else (orthographic) its axis
+// the row wdir.  work: kWorkHead + 97 kBasisCtas floats.  Writes rects
+// (6, C) and, but for boxes, cfull (C,).  One launch.
+extern "C" int ort_bin_rects(int source, const float* a, const float* b,
+                             const float* point, float px, float py,
+                             float pz, int persp, const float* wdir,
+                             int per_window, int n_items, int C, float* rects,
+                             bool* cfull, float* work, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  V3 pv = {px, py, pz};
+  if (source == kSrcBox) {
+    const int grid = grid_for(static_cast<long long>(n_items) * per_window);
+    if (grid > 0)
+      bin_rects_kernel<kSrcBox><<<grid, kThreads, 0, st>>>(
+          a, b, nullptr, pv, 0, nullptr, nullptr, 1, 0, per_window, n_items,
+          C, rects, nullptr);
+    return static_cast<int>(cudaGetLastError());
+  }
+  if (source == kSrcCluster &&
+      (per_window % 4 != 0 || kWarps % (per_window / 4) != 0))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bool pair = source == kSrcPair;
+  const int cap = pair ? resident_ctas<kSrcPair>()
+                       : resident_ctas<kSrcCluster>();
+  if (cap <= 0) return static_cast<int>(cudaErrorLaunchOutOfResources);
+  // CTAs: one a cluster (or 32 pairs), and enough for the centroid's rows,
+  // kBasisRowsPerThread a thread; G sum roles, a power of two up to the
+  // grid and kBasisCtas; 8 B rows a thread
+  const long long n =
+      pair ? n_items : static_cast<long long>(n_items) * kGroupTris * 3;
+  long long want = pair ? (8LL * n_items + kThreads - 1) / kThreads
+                        : n_items / (ORT_CHUNK / kGroupTris);
+  if (persp) {
+    const long long per = static_cast<long long>(kThreads) *
+                          kBasisRowsPerThread;
+    const long long sum_ctas = (n + per - 1) / per;
+    if (sum_ctas > want) want = sum_ctas < kBasisCtas ? sum_ctas : kBasisCtas;
+  }
+  int grid = static_cast<int>(want < cap ? want : cap);
+  if (grid < 1) grid = 1;
+  int G = 1;
+  while (2 * G <= grid && 2 * G <= kBasisCtas) G *= 2;
+  int outer = 0;
+  while ((static_cast<long long>(kThreads) * kBasisBlock * G << outer) < n)
+    ++outer;
+  if (outer > kBasisLevels) return static_cast<int>(cudaErrorInvalidValue);
+  void* args[] = {&a,    &b,     &point,      &pv,      &persp,
+                  &wdir, &work,  &G,          &outer,   &per_window,
+                  &n_items, &C,  &rects,      &cfull};
+  const cudaError_t err = cudaLaunchCooperativeKernel(
+      pair ? reinterpret_cast<const void*>(bin_rects_kernel<kSrcPair>)
+           : reinterpret_cast<const void*>(bin_rects_kernel<kSrcCluster>),
+      grid, kThreads, args, 0, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1200,3 +1638,16 @@ extern "C" int ort_bin_emit(int mode, int n_oct, int nb, int C, int pc_max,
       mode, n_oct, C, pc_max, cap, rects, bounds, cnt, offs, mask, emit);
   return static_cast<int>(cudaGetLastError());
 }
+
+#ifdef ORT_S_PHASES
+// S's phase stamps (kPhaseCtas x kPhaseSlots unsigned long long) to dst,
+// then zeroed
+extern "C" int ort_s_phases(void* dst) {
+  cudaError_t err = cudaMemcpyFromSymbol(dst, s_phases, sizeof(s_phases));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  void* at = nullptr;
+  err = cudaGetSymbolAddress(&at, s_phases);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaMemset(at, 0, sizeof(s_phases)));
+}
+#endif

@@ -305,9 +305,10 @@ SHADING_FRAME = Kernel(
 
 # S-U have no Pallas counterpart either: the JAX package bins in plain jnp
 # around its pallas_call
-#: kernel S (window rects)
+#: kernel S (the projection basis and the window rects, one launch)
 BIN_RECTS = Kernel(
-    "bin_rects", "ort_bin_rects", [_I] + [_P] * 4 + [_I] * 3 + [_P] * 2,
+    "bin_rects", "ort_bin_rects",
+    [_I] + [_P] * 3 + [_F] * 3 + [_I, _P] + [_I] * 3 + [_P] * 3,
     source="optix_ray_tracer_tpu_torch/csrc/binning.cu",
     replaces="optix_ray_tracer_tpu/ops/raster.py:248")
 #: kernel T (block bounds and pair counts)

@@ -1,10 +1,12 @@
 """The raster binning on the card: the (ray block, window) schedules that
 kernels A and D run.
 
-Kernel S (:func:`bin_rects_call`) writes each window's margined rect on
-the wave's projection plane with its depth range and full-plane flag
-(from a window's triangles, or a TLAS pair's world box), or a bundle
-window's margined box; T (:func:`bin_count_call`) packs the wave into the
+Kernel S (:func:`bin_rects_call`) writes the wave's projection basis
+(the axis from the geometry's centroid seen from the shared point, or the
+shared direction) and each window's margined rect on the projection
+plane with its depth range and full-plane flag (from a window's
+triangles, or a TLAS pair's world box), or a bundle window's margined
+box; T (:func:`bin_count_call`) packs the wave into the
 transposed, padded ray rows A and D read, reduces each W-ray block's
 bounds, tests every window against them, writes each block's hit mask
 (one bit a window) and counts each block's pairs (and scans the counts
@@ -18,7 +20,8 @@ the pallas_call.
 ``ops/raster`` and ``ops/raster_instanced`` call the dispatchers
 :func:`bin_rects`, :func:`bin_count` and :func:`bin_emit`: CUDA tensors
 go to the kernels, CPU tensors to the plain versions (``*_plain``: the
-code the port ran before), which compute the same schedule.  The
+code the port ran before; :func:`bin_basis_plain` spells out the basis
+that ran as eager torch before), which compute the same schedule.  The
 ``*_call`` wrappers take CUDA tensors only: anything else raises, and so
 does a library that fails to build.
 """
@@ -49,6 +52,15 @@ RECT_VALS, BOX_VALS = 8, 14
 SHARED_ROW = 8192
 #: bits of a hit-mask word
 MASK_BITS = 32
+#: S's work buffer in floats: the basis, then the centroid's partials and
+#: counts (csrc/binning.cu: kWorkHead + 97 kBasisCtas)
+BASIS_WORK = 16 + 97 * 128
+#: the launch variants S counts, by source
+SOURCE_NAMES = {RECTS_CLUSTER: "cluster", RECTS_PAIR: "pair",
+                RECTS_BOX: "box"}
+#: each dispatcher's plain version with the dispatcher's arguments
+TWINS = {"bin_rects": "bin_basis_rects_plain", "bin_count": "bin_count_plain",
+         "bin_emit": "bin_emit_plain"}
 
 
 def _proj(q, basis, persp: bool = True):
@@ -65,14 +77,94 @@ def _proj(q, basis, persp: bool = True):
     return qu / den, qv / den, qw, good
 
 
-# ---- S: window rects -------------------------------------------------------
+# ---- S: the projection basis and the window rects --------------------------
 
-def bin_rects(source: int, a, b=None, basis=None, point=None,
-              granularity: int = 1):
-    """Kernel S on CUDA tensors, :func:`bin_rects_plain` on others."""
+def bin_rects(source: int, a, b=None, point=None, granularity: int = 1,
+              d=None):
+    """Kernel S on CUDA tensors, :func:`bin_basis_plain` then
+    :func:`bin_rects_plain` on others: (rects, cfull, basis), cfull and
+    basis None for bundle boxes.  ``point``: the shared point (a tuple or
+    a tensor) of a perspective wave, None for an orthographic one, whose
+    axis is the first row of its directions ``d``."""
     if a.is_cuda:
-        return bin_rects_call(source, a, b, basis, point, granularity)
-    return bin_rects_plain(source, a, b, basis, point, granularity)
+        return bin_rects_call(source, a, b, point, granularity, d)
+    return bin_basis_rects_plain(source, a, b, point, granularity, d)
+
+
+def bin_basis_rects_plain(source: int, a, b=None, point=None,
+                          granularity: int = 1, d=None):
+    """Plain version of the whole of kernel S, :func:`bin_rects`'s
+    arguments and outputs: :func:`bin_basis_plain`, then
+    :func:`bin_rects_plain` on that basis."""
+    basis = bin_basis_plain(source, a, b, point, d)
+    if point is not None:
+        point = torch.as_tensor(point, dtype=torch.float32, device=a.device)
+    return (*bin_rects_plain(source, a, b, basis, point, granularity),
+            basis)
+
+
+def _norm(v):
+    """|v| of a 3-vector as the kernel rounds it: sqrt((x x + y y) + z z)."""
+    return torch.sqrt(v[0] * v[0] + v[1] * v[1] + v[2] * v[2])
+
+
+def _cross(a, b):
+    """a x b, each component two products and a subtraction."""
+    return torch.stack([a[1] * b[2] - a[2] * b[1], a[2] * b[0] - a[0] * b[2],
+                        a[0] * b[1] - a[1] * b[0]])
+
+
+def _frame(wvec):
+    """Right-handed orthonormal basis with w along ``wvec``: a (3, 3)
+    tensor, rows u, v, w (the JAX package's ``_basis_from``); the clamps
+    pass NaN, as torch's do."""
+    w = wvec / torch.clamp(_norm(wvec), min=1e-12)
+    side = torch.abs(w[0]) < 0.9
+    a = torch.stack([torch.where(side, 1.0, 0.0), torch.where(side, 0.0, 1.0),
+                     torch.zeros_like(w[0])])
+    u = _cross(w, a)
+    u = u / torch.clamp(_norm(u), min=1e-12)
+    return torch.stack([u, _cross(w, u), w])
+
+
+def _halving_sum(x):
+    """The sum of the rows of x (n, 3) in a fixed tree: the rows padded
+    with -0.0 (which adds nothing, bit for bit) to a power of two, then
+    ``x[:h] + x[h:]`` until one row is left."""
+    n = x.shape[0]
+    pad = (1 << max(n - 1, 0).bit_length()) - n
+    x = torch.cat([x, torch.full((pad, 3), -0.0, device=x.device)])
+    while x.shape[0] > 1:
+        h = x.shape[0] // 2
+        x = x[:h] + x[h:]
+    return x[0]
+
+
+def bin_basis_plain(source: int, a, b=None, point=None, d=None):
+    """Plain version of kernel S's projection basis, a (3, 3) tensor of
+    rows u, v, w (None for RECTS_BOX).  Perspective (``point`` given): w
+    along the centroid of the geometry seen from the point: of the vertices
+    ``a`` (RECTS_CLUSTER) or the pair centers (a + b) 0.5 (RECTS_PAIR),
+    less the point, rows whose x is NaN left out; the sum in the fixed
+    tree of :func:`_halving_sum`, over the count of rows kept (at least
+    1); (0, 0, 1) where that centroid's norm is at most 1e-12 (the point at
+    the centroid).  Orthographic: w along ``d[0]``, the wave's shared
+    direction.  The geometry, not the wave, decides it, so any band of a
+    wave bins with the whole wave's basis, and the tree's order makes it
+    the same bits at every call."""
+    if source == RECTS_BOX:
+        return None
+    if point is None:
+        return _frame(d[0])
+    p = torch.as_tensor(point, dtype=torch.float32, device=a.device)
+    q = ((a + b) * 0.5 if source == RECTS_PAIR else a.reshape(-1, 3)) - p
+    keep = ~torch.isnan(q[:, 0])
+    total = _halving_sum(torch.where(keep[:, None], q,
+                                     torch.full_like(q, -0.0)))
+    wvec = total / torch.clamp(keep.sum(), min=1).to(torch.float32)
+    up = torch.zeros_like(wvec)
+    up[2] = 1.0
+    return _frame(torch.where(_norm(wvec) > 1e-12, wvec, up))
 
 
 def bin_rects_plain(source: int, a, b=None, basis=None, point=None,
@@ -489,18 +581,22 @@ def _basis(basis, dev):
     return _flat(b, "basis", torch.float32, dev, 9)
 
 
-def bin_rects_call(source: int, a, b=None, basis=None, point=None,
-                   granularity: int = 1):
-    """Kernel S: :func:`bin_rects_plain`'s (rects, cfull) on the card."""
+def bin_rects_call(source: int, a, b=None, point=None,
+                   granularity: int = 1, d=None):
+    """Kernel S: :func:`bin_rects`'s (rects, cfull, basis) on the card,
+    the basis :func:`bin_basis_plain`'s.  A point in device memory is
+    read there; any other (a tuple, a CPU tensor) goes by value, and no
+    device value is read on the host.  ``basis`` is a view of S's work
+    buffer."""
     dev = _device(a)
-    cfull = None
+    cfull = basis = work = p_dev = wdir = None
+    pv = (0.0, 0.0, 0.0)
     if source == RECTS_BOX:
         per = SUBS_PER_CLUSTER // granularity
         rows = a.shape[0]
         n_items = C = rows // per
         a = _flat(a, "sub_min", torch.float32, dev, 3 * rows)
         b = _flat(b, "sub_max", torch.float32, dev, 3 * rows)
-        basis = point = None
     else:
         if source == RECTS_PAIR:
             per = 1
@@ -513,16 +609,22 @@ def bin_rects_call(source: int, a, b=None, basis=None, point=None,
             C = n_items // per
             a = _flat(a, "verts", torch.float32, dev, a.numel())
             b = None
-        basis = _basis(basis, dev)
-        if point is not None:
-            point = _flat(point, "point", torch.float32, dev, 3)
+        if point is None:
+            wdir = _flat(d[0], "d", torch.float32, dev, 3)
+        elif isinstance(point, torch.Tensor) and point.is_cuda:
+            p_dev = _flat(point, "point", torch.float32, dev, 3)
+        else:
+            pv = torch.as_tensor(point, dtype=torch.float32).reshape(3
+                                                                     ).tolist()
+        work = torch.empty(BASIS_WORK, dtype=torch.float32, device=dev)
+        basis = work[:9].view(3, 3)
         cfull = torch.empty(C, dtype=torch.bool, device=dev)
     rects = torch.empty((6, C), dtype=torch.float32, device=dev)
-    if n_items:
-        _lib.BIN_RECTS(dev, source, a.data_ptr(), _ptr(b), _ptr(basis),
-                       _ptr(point), per, n_items, C, rects.data_ptr(),
-                       _ptr(cfull))
-    return rects, cfull
+    _lib.BIN_RECTS(dev, source, a.data_ptr(), _ptr(b), _ptr(p_dev), *pv,
+                   int(point is not None), _ptr(wdir), per, n_items, C,
+                   rects.data_ptr(), _ptr(cfull), _ptr(work),
+                   variant=SOURCE_NAMES[source])
+    return rects, cfull, basis
 
 
 def bin_count_call(o, d, t_min, t_max, W: int, mode: str, rects, cfull=None,

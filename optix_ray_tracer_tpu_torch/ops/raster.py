@@ -35,7 +35,7 @@ from optix_ray_tracer_tpu_torch.ops.kernels.tile_raster import (
 )
 from optix_ray_tracer_tpu_torch.ops.sweep import SUBS_PER_CLUSTER, ClusterSet
 from optix_ray_tracer_tpu_torch.utils.tensors import TensorDataclass, tree_map
-from optix_ray_tracer_tpu_torch.utils.vecmath import INF, cross
+from optix_ray_tracer_tpu_torch.utils.vecmath import INF
 
 #: projection modes: the rays share their origin / their target point /
 #: their direction (orthographic)
@@ -70,18 +70,6 @@ def build_raster_set(clusters: ClusterSet, tri_vertices) -> RasterSet:
     return RasterSet(torch.where(live, sv, torch.full_like(sv, float("nan"))))
 
 
-def _basis_from(wvec):
-    """Right-handed orthonormal basis with w along ``wvec``: a (3, 3)
-    tensor, rows u, v, w."""
-    w = wvec / torch.clamp(torch.linalg.norm(wvec), min=1e-12)
-    ex = torch.tensor([1.0, 0.0, 0.0], device=w.device)
-    ey = torch.tensor([0.0, 1.0, 0.0], device=w.device)
-    a = torch.where(torch.abs(w[0]) < 0.9, ex, ey)
-    u = cross(w, a)
-    u = u / torch.clamp(torch.linalg.norm(u), min=1e-12)
-    return torch.stack([u, cross(w, u), w])
-
-
 def default_pc_max(n_blocks: int, n_clusters: int,
                    granularity: int = 1) -> int:
     """Pair-capacity heuristic sized for coherent waves; overflow falls back
@@ -89,6 +77,14 @@ def default_pc_max(n_blocks: int, n_clusters: int,
     pc = 12 * n_blocks + 2 * n_clusters + 1024
     pc = pc * (1 + granularity) // 2
     return ((pc + 1023) // 1024) * 1024
+
+
+def _target(point, mode: str, dev):
+    """The shared point as T reads it: a tensor on ``dev`` in the "target"
+    mode (the only one whose block bounds use it), else None."""
+    if mode != "target":
+        return None
+    return torch.as_tensor(point, dtype=torch.float32, device=dev)
 
 
 def _schedule(o, d, t_min, t_max, W: int, pc_max: int, mode: str, rects,
@@ -119,32 +115,19 @@ def _coarse_stage(rset: RasterSet, clusters: ClusterSet, o, d, t_min,
                   granularity: int = 1) -> dict:
     """Projections, window/block rects with depth ranges, coarse (block,
     window) pair enumeration and the per-block depth sort.  A window is
-    CHUNK/granularity consecutive triangles; its id is cluster * g + sub."""
+    CHUNK/granularity consecutive triangles; its id is cluster * g + sub.
+    Kernel S takes the projection axis from the vertex centroid seen from
+    the shared point (not from the wave's rays, so any band of the wave
+    bins alike), or, "ortho", from ``d[0]`` (the contract: every ray
+    shares d)."""
     if mode not in MODES:
         raise ValueError(f"mode {mode!r} not in {MODES}")
-    dev = o.device
-    if mode != "ortho":
-        p = torch.as_tensor(point, dtype=torch.float32, device=dev)
-        q_verts = rset.verts.reshape(-1, 3) - p
-        # projection axis from the vertex centroid seen from the shared
-        # point (not from the wave's rays, so any band of the wave bins
-        # alike)
-        vmask = torch.isnan(q_verts[:, 0])
-        vsum = torch.where(vmask[:, None], torch.zeros_like(q_verts),
-                           q_verts).sum(0)
-        vcnt = torch.clamp((~vmask).sum(), min=1).to(torch.float32)
-        wvec = vsum / vcnt
-        wvec = torch.where(torch.linalg.norm(wvec) > 1e-12, wvec,
-                           torch.tensor([0.0, 0.0, 1.0], device=dev))
-    else:
-        p = None
-        wvec = d[0]    # the ortho contract: every ray shares d
-    basis = _basis_from(wvec)
-    rects, cfull = binning.bin_rects(binning.RECTS_CLUSTER, rset.verts,
-                                     basis=basis, point=p,
-                                     granularity=granularity)
+    rects, cfull, basis = binning.bin_rects(
+        binning.RECTS_CLUSTER, rset.verts,
+        point=None if mode == "ortho" else point, granularity=granularity,
+        d=d)
     return _schedule(o, d, t_min, t_max, W, pc_max, mode, rects, cfull,
-                     basis, p)
+                     basis, _target(point, mode, o.device))
 
 
 def raster_query(rset: RasterSet, clusters: ClusterSet, o, d, t_min, t_max,
@@ -278,8 +261,8 @@ def bundle_stage(clusters: ClusterSet, o, d, t_min, t_max, W: int,
     admit it, keyed by the smallest admitted entry t for the depth sort).
     Margins: absolute on the boxes, relative on the division results;
     |d| <= 1e-12 counts as always satisfiable."""
-    rects, _ = binning.bin_rects(binning.RECTS_BOX, clusters.sub_min,
-                                 clusters.sub_max, granularity=granularity)
+    rects = binning.bin_rects(binning.RECTS_BOX, clusters.sub_min,
+                              clusters.sub_max, granularity=granularity)[0]
     return _schedule(o, d, t_min, t_max, W, pc_max, "bundle", rects,
                      dir_octants=dir_octants)
 

@@ -29,7 +29,7 @@ from optix_ray_tracer_tpu_torch.ops.kernels import binning
 from optix_ray_tracer_tpu_torch.ops.kernels.tile_raster import (
     raster_instanced_call,
 )
-from optix_ray_tracer_tpu_torch.ops.raster import MODES, _basis_from, _schedule
+from optix_ray_tracer_tpu_torch.ops.raster import MODES, _schedule, _target
 from optix_ray_tracer_tpu_torch.ops.sweep import SUBS_PER_CLUSTER
 from optix_ray_tracer_tpu_torch.utils.vecmath import INF
 
@@ -53,29 +53,14 @@ def instanced_coarse_stage(pair_min, pair_max, o, d, t_min, t_max,
     schedule also holds kernel D's pair_libs and pair_insts."""
     if mode not in MODES:
         raise ValueError(f"mode {mode!r} not in {MODES}")
-    dev = o.device
-
-    if mode != "ortho":
-        p = torch.as_tensor(point, dtype=torch.float32, device=dev)
-        # projection axis from the finite pair centers' centroid seen from
-        # the shared point (geometry, not the wave, decides it)
-        c = (pair_min + pair_max) * 0.5 - p
-        cmask = torch.isnan(c[:, 0])
-        csum = torch.where(cmask[:, None], torch.zeros_like(c), c).sum(0)
-        ccnt = torch.clamp((~cmask).sum(), min=1).to(torch.float32)
-        wvec = csum / ccnt
-        wvec = torch.where(torch.linalg.norm(wvec) > 1e-12, wvec,
-                           torch.tensor([0.0, 0.0, 1.0], device=dev))
-    else:
-        p = None
-        wvec = d[0]    # the ortho contract: every ray shares d
-    basis = _basis_from(wvec)
-
-    rects, cfull = binning.bin_rects(binning.RECTS_PAIR, pair_min, pair_max,
-                                     basis, p)
+    # S's projection axis: the finite pair centers' centroid seen from the
+    # shared point (geometry, not the wave, decides it), or d[0] ("ortho")
+    rects, cfull, basis = binning.bin_rects(
+        binning.RECTS_PAIR, pair_min, pair_max,
+        point=None if mode == "ortho" else point, d=d)
     tables = None if pair_shape is None else (pair_shape, pair_inst)
     return _schedule(o, d, t_min, t_max, W, pc_max, mode, rects, cfull,
-                     basis, p, tables=tables)
+                     basis, _target(point, mode, o.device), tables=tables)
 
 
 def instanced_schedule_inputs(intersector, S: dict) -> dict:

@@ -4,7 +4,14 @@ inputs, exactly: the window rects, the ray pack, the block bounds, the
 pair counts and the depth-sorted schedule of the projective stage
 (modes "origin", "target" and "ortho" at g = 1, 2, 4), of the TLAS pair
 stage and of the bundle stage (with and without direction octants),
-T's hit mask (the overlap matrix as bits) and U's schedule from it.
+T's hit mask (the overlap matrix as bits) and U's schedule from it;
+the stages run S's projection basis (``bin_basis_plain``, through the
+dispatcher ``bin_rects``), which is held to the JAX package's within 4
+ulps per component (its sums round in XLA's order, its norms and cross
+products by XLA's kernels), and on its own: the fallback axis at a point
+on the centroid and for all-NaN geometry, the same bits at every call and
+on a band of the wave, and its fixed halving tree against the order in
+which kernel S adds (``test_centroid_tree_order``).
 Cases: a dead block, NaN-padded windows and sub boxes, NaN pair boxes,
 keys -0.0 and +0.0 in one row (they tie, in window order), a block that
 pairs every window, an overflowed capacity (the straddling row keeps its
@@ -544,3 +551,237 @@ def test_early_exit_bounds(kind):
         assert np.isnan(inf - slack) and np.isnan(_margined(inf, -1))
         assert np.isnan(-inf + slack) and np.isnan(_margined(-inf, 1))
         assert -inf - slack == -inf and inf + slack == inf
+
+
+# ---- S's projection basis ----------------------------------------------------
+
+#: the basis's tolerance against the JAX package's, in float32 ulps per
+#: component
+BASIS_ULPS = 4
+
+
+def _ulps(got, ref):
+    """Per-element distance in float32 ulps (-0.0 and +0.0 the same)."""
+    def ordered(x):
+        i = np.asarray(x, np.float32).reshape(-1).view(np.int32).astype(
+            np.int64)
+        return np.where(i < 0, -(i & 0x7FFFFFFF), i)
+    return np.abs(ordered(got) - ordered(ref))
+
+
+def _frame_np(w):
+    """The JAX package's basis for an axis w (``ops/raster._basis_from``)."""
+    return np.stack(jraster._basis_from(jnp.asarray(w, jnp.float32)))
+
+
+def _bits(x):
+    return np.asarray(x, np.float32).view(np.int32)
+
+
+@pytest.mark.parametrize("g", [1, 2, 4])
+@pytest.mark.parametrize("mode", ["origin", "target", "ortho"])
+def test_basis_equals_jax(setup, monkeypatch, mode, g):
+    """S's basis (``bin_basis_plain`` on the RasterSet's vertices) within
+    BASIS_ULPS of the basis the JAX package's ``_coarse_stage`` bins on,
+    in the three projection modes at g 1, 2, 4; the dispatcher returns the
+    same bits, and the stage hands them to T."""
+    jinter, tinter = setup["jinter"], setup["tinter"]
+    o, d, tmin, tmax, point = setup["waves"][mode]
+    _, seen = _jax_captured(monkeypatch, lambda: jraster._coarse_stage(
+        jinter.raster, jinter.clusters, jnp.asarray(o), jnp.asarray(d),
+        jnp.asarray(tmin), jnp.asarray(tmax), mode,
+        None if point is None else jnp.asarray(point), W, 4096, g))
+    p = None if point is None else _t(point)
+    basis = binning.bin_basis_plain(binning.RECTS_CLUSTER, tinter.raster.verts,
+                                    point=p, d=_t(d))
+    assert basis.shape == (3, 3) and basis.dtype == torch.float32
+    assert _ulps(basis, np.stack(seen["basis"])).max() <= BASIS_ULPS
+    got = binning.bin_rects(binning.RECTS_CLUSTER, tinter.raster.verts,
+                            point=p, granularity=g, d=_t(d))
+    _eq(_bits(got[2]), _bits(basis))
+    handed = []
+    real = binning.bin_count
+    monkeypatch.setattr(binning, "bin_count", lambda *a: handed.append(a[8])
+                        or real(*a))
+    traster._coarse_stage(tinter.raster, tinter.clusters, _t(o), _t(d),
+                          _t(tmin), _t(tmax), mode, p, W, 4096, g)
+    _eq(_bits(handed[0]), _bits(basis))
+
+
+@pytest.mark.parametrize("mode", ["origin", "target", "ortho"])
+def test_pair_basis_equals_jax(setup, monkeypatch, mode):
+    """S's basis on TLAS pairs (the centroid of the finite pair centers;
+    two NaN boxes left out) within BASIS_ULPS of the JAX package's
+    ``instanced_coarse_stage``'s."""
+    o, d, tmin, tmax, point = setup["waves"][mode]
+    r = np.random.default_rng(4)
+    lo = r.uniform(-1.5, 1.0, (40, 3)).astype(np.float32)
+    hi = (lo + r.uniform(0.05, 0.6, (40, 3))).astype(np.float32)
+    lo[[7, 23]] = np.nan
+    hi[[7, 23]] = np.nan
+    jp = None if point is None else jnp.asarray(point)
+    _, seen = _jax_captured(monkeypatch, lambda: jri.instanced_coarse_stage(
+        jnp.asarray(lo), jnp.asarray(hi), jnp.asarray(o), jnp.asarray(d),
+        jnp.asarray(tmin), jnp.asarray(tmax), mode, jp, W, 2048))
+    tp = None if point is None else _t(point)
+    basis = binning.bin_basis_plain(binning.RECTS_PAIR, _t(lo), _t(hi), tp,
+                                    _t(d))
+    assert _ulps(basis, np.stack(seen["basis"])).max() <= BASIS_ULPS
+    _eq(_bits(binning.bin_rects(binning.RECTS_PAIR, _t(lo), _t(hi), tp,
+                                d=_t(d))[2]), _bits(basis))
+
+
+def _symmetric_rows(n, seed):
+    """n points (n = 2^k or 3 2^k) whose halving tree sums to exactly 0:
+    rows i and i + n / 2 opposite for n = 2^k; for n = 3 2^k, padded to
+    4 2^k, rows [A, C, -C, -A] (A 2^k rows, C 2^(k-1)): the first step
+    cancels A, the pad's -0.0 keeps C, -C, the third step cancels them."""
+    r = np.random.default_rng(seed)
+    if n & (n - 1) == 0:
+        x = r.uniform(-3, 3, (n // 2, 3)).astype(np.float32)
+        return np.concatenate([x, -x])
+    a = r.uniform(-3, 3, (n // 3, 3)).astype(np.float32)
+    c = r.uniform(-3, 3, (n // 6, 3)).astype(np.float32)
+    return np.concatenate([a, c, -c, -a])
+
+
+@pytest.mark.parametrize("source", ["cluster", "pair"])
+def test_basis_degenerate_point(source):
+    """The shared point on the centroid (a camera inside a symmetric
+    mesh): the centroid's norm is 0, so the axis falls back to (0, 0, 1)
+    (as the JAX package's does), and the windows still bin (finite
+    rects)."""
+    if source == "cluster":
+        # one cluster: 256 triangles, 768 vertex rows
+        verts = _t(_symmetric_rows(768, 3).reshape(256, 3, 3))
+        args = (binning.RECTS_CLUSTER, verts)
+    else:
+        # pair centers (lo + hi) 0.5 opposite in rows i and i + 16
+        c = _symmetric_rows(32, 5)
+        args = (binning.RECTS_PAIR, _t(c - 0.25), _t(c + 0.25))
+    q = (args[1].reshape(-1, 3) if len(args) == 2
+         else (args[1] + args[2]) * 0.5)
+    assert bool((binning._halving_sum(q) == 0).all())
+    rects, cfull, basis = binning.bin_rects(*args, point=(0.0, 0.0, 0.0))
+    _eq(basis, _frame_np([0.0, 0.0, 1.0]))
+    _eq(basis, [[0, 1, 0], [-1, 0, 0], [0, 0, 1]])
+    assert bool(torch.isfinite(rects[4:]).all()) and bool(cfull.any())
+
+
+@pytest.mark.parametrize("source", ["cluster", "pair"])
+def test_basis_all_nan_geometry(source):
+    """Geometry whose every row is NaN (padding, invalid instances): no
+    row is kept, the count clamps to 1, the sum is -0.0 (the tree's
+    padding) and the axis falls back to (0, 0, 1); every rect is NaN."""
+    if source == "cluster":
+        args = (binning.RECTS_CLUSTER, torch.full((256, 3, 3), float("nan")))
+    else:
+        nan = torch.full((5, 3), float("nan"))
+        args = (binning.RECTS_PAIR, nan, nan)
+    rects, _, basis = binning.bin_rects(*args, point=(1.0, 2.0, 3.0))
+    _eq(basis, _frame_np([0.0, 0.0, 1.0]))
+    assert bool(torch.isnan(rects).all())
+    rows = torch.full((37, 3), -0.0)
+    assert (_bits(binning._halving_sum(rows)) == _bits(-0.0)).all()
+
+
+@pytest.mark.parametrize("source", ["cluster", "pair"])
+def test_basis_repeats_and_bands(setup, monkeypatch, source):
+    """The basis is the same bits at every call, and a band of a wave (a
+    sharded row band) bins with the whole wave's basis: T gets the same
+    bits from both stages."""
+    tinter = setup["tinter"]
+    o, d, tmin, tmax, point = setup["waves"]["target"]
+    r = np.random.default_rng(4)
+    lo = _t(r.uniform(-1.5, 1.0, (40, 3)).astype(np.float32))
+    hi = lo + _t(r.uniform(0.05, 0.6, (40, 3)).astype(np.float32))
+    handed = []
+    real = binning.bin_count
+    monkeypatch.setattr(binning, "bin_count", lambda *a: handed.append(a[8])
+                        or real(*a))
+    for rows in (slice(None), slice(3 * W, 5 * W), slice(None)):
+        wave = (_t(o[rows]), _t(d[rows]), _t(tmin[rows]), _t(tmax[rows]))
+        if source == "cluster":
+            traster._coarse_stage(tinter.raster, tinter.clusters, *wave,
+                                  "target", _t(point), W, 4096, 2)
+        else:
+            tri.instanced_coarse_stage(lo, hi, *wave, "target", _t(point), W,
+                                       2048)
+    assert len(handed) == 3
+    for b in handed[1:]:
+        _eq(_bits(b), _bits(handed[0]))
+
+
+def _kernel_order_sum(x, G):
+    """The sum of the rows of x (n, 3) float32 in the order kernel S adds
+    them with G sum roles (csrc/binning.cu, ``centroid_share`` and
+    ``centroid_fold``: kBasisBlock 8, 256 threads): rows padded with
+    -0.0 to 256 G 8 B, B the least power of two that holds them; thread
+    (warp, lane) of role c takes rows lane + 32 (c + G (warp + 8 m)), m = r
+    + B t: for each r (in bit-reversed order, into a binary counter) the
+    static tree of its 8 rows t; then the CTA's warps pairwise (w with w
+    + h, h = 4, 2, 1); then (the last CTA to arrive) for each lane the
+    roles c = e 32 + l, padded with -0.0 to 128 (e with e + h, h = 2, 1,
+    then l with l + h, h = 16 .. 1); then the lanes (h = 16 .. 1)."""
+    n = x.shape[0]
+    outer = 0
+    while (256 * 8 * G) << outer < n:
+        outer += 1
+    B = 1 << outer
+    rows = np.full((256 * 8 * G * B, 3), -0.0, np.float32)
+    rows[:n] = x
+    a = rows.reshape(8, B, 8, G, 32, 3)            # (t, r, warp, c, lane)
+    stack = {}
+    for k in range(B):
+        r = int(format(k, f"0{outer}b")[::-1], 2) if outer else 0
+        v = a[:, r]
+        for h in (4, 2, 1):
+            v = v[:h] + v[h:2 * h]
+        v = v[0]
+        lvl = 0
+        while (k >> lvl) & 1:
+            v = stack.pop(lvl) + v
+            lvl += 1
+        stack[lvl] = v
+    t = stack[outer]                               # (warp, c, lane)
+    for h in (4, 2, 1):
+        t = t[:h] + t[h:2 * h]
+    slots = np.full((128, 32, 3), -0.0, np.float32)
+    slots[:G] = t[0]                               # (c, lane)
+    t = slots.reshape(4, 32, 32, 3)                # (e, l, lane)
+    for h in (2, 1):
+        t = t[:h] + t[h:2 * h]
+    t = t[0]                                       # (l, lane)
+    for h in (16, 8, 4, 2, 1):
+        t = t[:h] + t[h:2 * h]
+    t = t[0]                                       # (lane,)
+    for h in (16, 8, 4, 2, 1):
+        t = t[:h] + t[h:2 * h]
+    return t[0]
+
+
+@pytest.mark.parametrize("n, G", [
+    (0, 1), (1, 1), (37, 1), (2048, 2), (5000, 4), (5495, 128),
+    (70_001, 64), (297_984, 128), (600_000, 128), (1_000_000, 128)])
+def test_centroid_tree_order(n, G):
+    """The fixed tree of ``bin_basis_plain``'s sum (``_halving_sum``: x[:h]
+    + x[h:] over the rows padded with -0.0 to a power of two) is the order
+    kernel S adds in, bit for bit, for the sum roles S launches (G: the
+    largest power of two up to its grid and 128; the TLAS camera wave's
+    5,495 pairs and the bench scene's 297,984 vertex rows take 128), from
+    no row to more rows than 128 roles take in one 8-row tree a thread
+    (1,000,000 rows: 4 trees a thread in the counter), with
+    NaN-masked rows (-0.0), +-0.0 and magnitudes over 12 decades mixed;
+    and within float32 rounding of the exact sum."""
+    r = np.random.default_rng(n)
+    x = (r.normal(size=(n, 3)) * 10.0 ** r.uniform(-6, 6, (n, 1))).astype(
+        np.float32)
+    if n > 8:
+        x[::7] = -0.0
+        x[3::11] = 0.0
+        x[5::13] = -0.0                 # a NaN row, as the kernel masks it
+    got = binning._halving_sum(torch.as_tensor(x))
+    _eq(_bits(got), _bits(_kernel_order_sum(x, G)))
+    exact = x.astype(np.float64).sum(0)
+    scale = np.abs(x).astype(np.float64).sum(0)
+    assert (np.abs(got.numpy() - exact) <= 1e-6 * scale + 1e-30).all()

@@ -2046,8 +2046,8 @@ def _stage_both(monkeypatch, run):
     got = run()
     ran = [a - b for a, b in zip(_bin_counts(), before)]
     with monkeypatch.context() as m:
-        for name in ("bin_rects", "bin_count", "bin_emit"):
-            m.setattr(binning, name, getattr(binning, f"{name}_plain"))
+        for name, twin in binning.TWINS.items():
+            m.setattr(binning, name, getattr(binning, twin))
         want = run()
     assert _bin_counts() == [b + r for b, r in zip(before, ran)]
     torch.cuda.synchronize()
@@ -2116,21 +2116,17 @@ def test_binning_kernels_equal_plain(setup, dev, monkeypatch, mode, g, pc):
     assert int(got["cnt_b"][3]) == 0
     if pc == "fits":
         assert not bool(got["validc"][total:].any())
-    # each kernel alone on the same inputs
+    # each kernel alone on the same inputs (S with its own basis)
     if bundle:
         args = (binning.RECTS_BOX, inter.clusters.sub_min,
                 inter.clusters.sub_max)
-        kw = dict(granularity=g)
-        basis, p = None, None
+        p = None
     else:
-        basis = raster._basis_from(d[0] if point is None else
-                                   torch.tensor([-1.0, 0.2, 0.1],
-                                                device=dev))
         p = None if mode == "ortho" else point
         args = (binning.RECTS_CLUSTER, inter.raster.verts)
-        kw = dict(basis=basis, point=p, granularity=g)
-    rects = binning.bin_rects_call(*args, **kw)
-    _bin_equal(rects, binning.bin_rects_plain(*args, **kw))
+    kw = dict(point=p, granularity=g, d=d)
+    *rects, basis = binning.bin_rects_call(*args, **kw)
+    _bin_equal((*rects, basis), binning.bin_basis_rects_plain(*args, **kw))
     tm = "bundle" if bundle else mode
     counted = binning.bin_count_call(o, d, tmin, tmax, W, tm, *rects,
                                      basis, p if mode == "target" else None,
@@ -2280,18 +2276,15 @@ def test_bin_count_staging(setup, dev, mode, layout):
                       for x in (tmin, tmax))
         assert o.data_ptr() % 16 and tmax.data_ptr() % 16
     if bundle:
-        rects, cfull = binning.bin_rects_call(
+        rects, cfull, basis = binning.bin_rects_call(
             binning.RECTS_BOX, inter.clusters.sub_min, inter.clusters.sub_max,
             granularity=2)
-        basis = p = None
+        p = None
     else:
-        basis = raster._basis_from(d[0] if point is None else
-                                   torch.tensor([-1.0, 0.2, 0.1],
-                                                device=dev))
         p = None if mode == "ortho" else point
-        rects, cfull = binning.bin_rects_call(
-            binning.RECTS_CLUSTER, inter.raster.verts, basis=basis, point=p,
-            granularity=2)
+        rects, cfull, basis = binning.bin_rects_call(
+            binning.RECTS_CLUSTER, inter.raster.verts, point=p,
+            granularity=2, d=d)
     tm = "bundle" if bundle else mode
     for fits in (True, False):
         got = _t_and_u(o, d, tmin, tmax, W, tm, rects, cfull, basis,
@@ -2340,9 +2333,9 @@ def test_bin_count_live_octants(setup, dev, W, octants):
     inter = setup[1]
     o, d, tmin, tmax = _octant_wave(dev, W)
     for g in (1, 4):
-        rects, _ = binning.bin_rects_call(
+        rects = binning.bin_rects_call(
             binning.RECTS_BOX, inter.clusters.sub_min, inter.clusters.sub_max,
-            granularity=g)
+            granularity=g)[0]
         got = _t_and_u(o, d, tmin, tmax, W, "bundle", rects,
                        octants=octants)
         bounds = got[3]
@@ -2398,3 +2391,149 @@ def test_bin_emit_row_lengths(dev, pc, tables):
     torch.cuda.synchronize()
     _bin_equal(got, want)
     assert ("pair_libs" in got) == tables
+
+
+# ---- S: the projection basis with the rects ---------------------------------
+
+def _s_both(args, kw):
+    """Kernel S (two launches) against its twin on the same CUDA inputs:
+    the basis bit for bit, the rects and full-plane flags equal (NaN to
+    NaN), the second launch bit for bit the first.  Returns S's
+    outputs."""
+    from optix_ray_tracer_tpu_torch.ops.kernels import binning
+    before = _lib.BIN_RECTS.launches
+    got = binning.bin_rects_call(*args, **kw)
+    again = binning.bin_rects_call(*args, **kw)
+    assert _lib.BIN_RECTS.launches == before + 2
+    want = binning.bin_basis_rects_plain(*args, **kw)
+    torch.cuda.synchronize()
+    _bin_equal(got, want)
+    if want[2] is not None:
+        assert torch.equal(got[2].view(torch.int32),
+                           want[2].view(torch.int32)), (got[2], want[2])
+    for x, y in zip(got, again, strict=True):
+        if x is not None:
+            assert torch.equal(x.view(torch.uint8), y.view(torch.uint8))
+    return got
+
+
+def _sun_wave(n, dev):
+    sun = torch.tensor([0.3, 0.2, 0.9], device=dev)
+    return (sun / torch.linalg.norm(sun)).expand(n, 3)
+
+
+@pytest.mark.parametrize("view", ["device_point", "host_point", "ortho"])
+@pytest.mark.parametrize("g", [1, 2, 4])
+def test_bin_rects_clusters(setup, dev, g, view):
+    """S on the 20k-triangle sphere's RasterSet (NaN-padded rows in its
+    last cluster) at g 1, 2, 4: seen from a point in device memory (the
+    camera wave's origin), from a host point (by value), and along a sun
+    direction read from the wave's first row."""
+    from optix_ray_tracer_tpu_torch.ops.kernels import binning
+    _, inter, o, d, _, _ = setup
+    verts = inter.raster.verts
+    assert bool(torch.isnan(verts).any())
+    point = {"device_point": o[0], "host_point": (0.4, -2.5, 1.5),
+             "ortho": None}[view]
+    if view == "ortho":
+        d = _sun_wave(o.shape[0], dev)
+    rects, cfull, basis = _s_both((binning.RECTS_CLUSTER, verts),
+                                  dict(point=point, granularity=g, d=d))
+    assert rects.shape[1] == inter.clusters.num_clusters * g
+    assert bool(torch.isfinite(basis).all())
+
+
+@pytest.mark.parametrize("view", ["device_point", "host_point", "ortho"])
+def test_bin_rects_pairs(tlas, dev, view):
+    """S on the TLAS pairs' world boxes (an invalid instance's NaN boxes
+    among them): the centroid of the pair centers from a point in device
+    memory or on the host, or a sun direction."""
+    from optix_ray_tracer_tpu_torch.ops.kernels import binning
+    inter = tlas[0]
+    n = 64
+    point = {"device_point": torch.tensor([16.0, 2.0, 3.0], device=dev),
+             "host_point": (3.0, 4.0, 9.0), "ortho": None}[view]
+    rects, _, _ = _s_both((binning.RECTS_PAIR, inter.pair_min,
+                           inter.pair_max),
+                          dict(point=point, d=_sun_wave(n, dev)))
+    assert bool(torch.isnan(rects[0]).any())
+
+
+@pytest.mark.parametrize("g", [1, 2, 4])
+def test_bin_rects_boxes(setup, dev, g):
+    """S on the bundle windows' sub boxes at g 1, 2, 4 (no basis)."""
+    from optix_ray_tracer_tpu_torch.ops.kernels import binning
+    clusters = setup[1].clusters
+    got = _s_both((binning.RECTS_BOX, clusters.sub_min, clusters.sub_max),
+                  dict(granularity=g))
+    assert got[1] is None and got[2] is None
+    assert got[0].shape[1] == clusters.num_clusters * g
+
+
+def _symmetric(n, seed, dev):
+    """n rows (a power of two, or 3 times one) whose halving tree sums to
+    exactly 0 (tests/test_torch_binning.py's ``_symmetric_rows``)."""
+    r = np.random.default_rng(seed)
+    if n & (n - 1) == 0:
+        x = r.uniform(-3, 3, (n // 2, 3)).astype(np.float32)
+        rows = np.concatenate([x, -x])
+    else:
+        a = r.uniform(-3, 3, (n // 3, 3)).astype(np.float32)
+        c = r.uniform(-3, 3, (n // 6, 3)).astype(np.float32)
+        rows = np.concatenate([a, c, -c, -a])
+    return torch.as_tensor(rows, device=dev)
+
+
+@pytest.mark.parametrize("geometry", ["point_at_centroid", "all_nan"])
+@pytest.mark.parametrize("source", ["cluster", "pair"])
+def test_bin_rects_fallback_axis(dev, source, geometry):
+    """The axis falls back to (0, 0, 1) on the card as in the twin: the
+    shared point on the geometry's centroid (a sum of exactly 0), and
+    geometry whose every row is NaN (no row kept, the count clamped to
+    1)."""
+    from optix_ray_tracer_tpu_torch.ops.kernels import binning
+    nan = geometry == "all_nan"
+    if source == "cluster":
+        verts = _symmetric(3 * 512, 3, dev).reshape(512, 3, 3)
+        args = (binning.RECTS_CLUSTER, torch.full_like(verts, float("nan"))
+                if nan else verts)
+    else:
+        c = _symmetric(32, 5, dev)
+        args = ((binning.RECTS_PAIR, torch.full_like(c, float("nan")),
+                 torch.full_like(c, float("nan"))) if nan else
+                (binning.RECTS_PAIR, c - 0.25, c + 0.25))
+    point = torch.zeros(3, device=dev)
+    _, _, basis = _s_both(args, dict(point=point))
+    assert basis.tolist() == [[0.0, 1.0, 0.0], [-1.0, 0.0, 0.0],
+                              [0.0, 0.0, 1.0]]
+
+
+def test_bin_rects_many_levels(dev):
+    """S over 1,048,576 triangles, every 97th NaN, from a host point: its
+    centroid over 3,145,728 vertex rows (several 8-row trees a thread, in
+    its counter) and its 4,096 clusters' rects on a grid of the CTAs the
+    card holds at once (each CTA loops over clusters), bit for bit the
+    twin's."""
+    from optix_ray_tracer_tpu_torch.ops.kernels import binning
+    r = np.random.default_rng(31)
+    v = r.normal(size=(1 << 20, 3, 3)).astype(np.float32) * 4 + 1.5
+    v[::97] = np.nan
+    verts = torch.as_tensor(v, device=dev)
+    _s_both((binning.RECTS_CLUSTER, verts),
+            dict(point=(0.5, -7.0, 2.0), granularity=4))
+
+
+@pytest.mark.parametrize("mode", ["origin", "ortho"])
+def test_binning_one_ray(setup, dev, monkeypatch, mode):
+    """A wave of one ray through ``_coarse_stage`` (S, T and U, one launch
+    each) equals its twins' stage."""
+    scene, inter, o, d, _, _ = setup
+    o, d = o[:1], (d[:1] if mode == "origin" else _sun_wave(1, dev))
+    tmin = torch.full((1,), 1e-3, device=dev)
+    tmax = torch.full((1,), 1e16, device=dev)
+    got, want, ran = _stage_both(monkeypatch, lambda: raster._coarse_stage(
+        inter.raster, inter.clusters, o, d, tmin, tmax, mode,
+        o[0] if mode == "origin" else None, 1024, 4096, 2))
+    assert ran == [1, 1, 1]
+    _bin_equal(got, want)
+    assert got["nb"] == 1

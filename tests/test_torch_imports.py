@@ -285,7 +285,7 @@ calls = {
     "N": lambda: bounce.hit_radiance_call(v3, v3, f, v3, b, b, hit, i, v3,
                                           b, 1, torch.zeros(3)),
     "S": lambda: binning.bin_rects_call(binning.RECTS_PAIR, v3, v3,
-                                        torch.eye(3), None),
+                                        (0.0, 0.0, 0.0)),
     "T": lambda: binning.bin_count_call(v3, v3, f, f, 32, "bundle",
                                         torch.zeros(6, 4)),
     "U": lambda: binning.bin_emit_call(torch.zeros(6, 4),
@@ -330,15 +330,18 @@ def test_chip_smoke_refuses_without_cuda(tmp_path, where):
 
 def test_kernel_bench_binning_entries():
     """tools/kernel_bench.py: ``--waves "T, U"`` keeps the ``BINNING``
-    stages (T and U, staged by each tree itself) and no saved wave, and
-    the tool refuses to run without CUDA."""
+    stages of T and U and ``--waves "S:"`` those of S (each staged by each
+    tree itself), neither a saved wave, and the tool refuses to run
+    without CUDA."""
     import importlib.util
     spec = importlib.util.spec_from_file_location(
         "kernel_bench", ROOT / "tools" / "kernel_bench.py")
     kb = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(kb)
-    assert kb.BINNING and all("T, U" in name for name in kb.BINNING)
-    assert not any("T, U" in name for name in kb.WAVES)
+    assert kb.BINNING and all(("T, U" in name) != ("S:" in name)
+                              for name in kb.BINNING)
+    assert {letters for _, letters in kb.BINNING.values()} == {"TU", "S"}
+    assert not any("T, U" in name or "S:" in name for name in kb.WAVES)
     proc = subprocess.run(
         [sys.executable, str(ROOT / "tools" / "kernel_bench.py"), "--waves",
          "T, U"], cwd=ROOT, capture_output=True, text=True, timeout=120)

@@ -17,9 +17,12 @@ they have taken since the kernels were ported, so an older checkout times
 the same work.  ``--waves`` keeps the waves whose name holds one of the
 given texts.  Prints, per tree and wave, the mean ms of ``REPS`` launches
 after a warm-up, twice; then, per tree and entry of ``BINNING`` (also
-kept by ``--waves``), kernels T and U of the raster binning: their
+kept by ``--waves``), kernels S, T or U of the raster binning: their
 device ms per launch (``chip_smoke.device_ms``, a profiler trace) and
-their wrapper's ms per call (CUDA events, host work included); then,
+their wrapper's ms per call (CUDA events, host work included), and for
+S the whole of the device work and the host ms of one call with the
+projection basis it needs (a checkout whose S takes the basis as an
+argument computes it in eager torch first, as its stages do); then,
 per tree, five readings of the mean ms of ``REPS`` bench steps
 (chip_smoke.py's camera + shadow waves through the tree's own
 intersector, host-bound, so its wall spreads from run to run).
@@ -41,6 +44,7 @@ checks that both routes find the same occlusion.
 from __future__ import annotations
 
 import argparse
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -48,6 +52,7 @@ from types import SimpleNamespace
 
 ROOT = Path(__file__).resolve().parents[1]
 WAVE_FILE = ROOT / "build" / "kernel_bench" / "waves.pt"
+PAIRS_FILE = ROOT / "build" / "kernel_bench" / "tlas_pairs.pt"
 REPS = 10
 
 
@@ -287,22 +292,122 @@ def _binning_pile_nee(e):
     return lambda: raster.bundle_stage(clusters, *wave, W, cap)
 
 
-#: binning waves: name -> function of a tree's setups returning the stage
-#: whose T and U launches are timed.  Each tree builds its own stage and
-#: takes T's and U's arguments from it (``chip_smoke.binning_calls``):
-#: their arguments changed when U came to read T's hit mask.
-BINNING = {"T, U bench camera": _binning_bench_camera,
-           "T, U path pile NEE, bounce 0": _binning_pile_nee}
+def _binning_tlas_camera(e):
+    """The TLAS pairs' binning (chip_smoke.py's Time scene, frame 0: 5,495
+    pairs) of the first 1,024 rays of its camera wave, from the saved
+    :func:`build_pairs`: S's inputs do not depend on the wave."""
+    import torch
+    from optix_ray_tracer_tpu_torch.ops import raster_instanced as ri
+    pmin, pmax, o, d, point = torch.load(PAIRS_FILE, map_location="cuda:0",
+                                         weights_only=True)
+    tmin = torch.full((o.shape[0],), 1e-3, device=o.device)
+    tmax = torch.full((o.shape[0],), 1e16, device=o.device)
+    return lambda: ri.instanced_coarse_stage(pmin, pmax, o, d, tmin, tmax,
+                                             "origin", point, 1024, 1 << 14)
+
+
+#: binning waves: name -> (function of a tree's setups returning the
+#: stage, the kernels timed on it).  Each tree builds its own stage and
+#: takes the kernels' arguments from it (``chip_smoke.binning_calls``):
+#: T's and U's changed when U came to read T's hit mask, S's when it came
+#: to compute the projection basis.
+BINNING = {"T, U bench camera": (_binning_bench_camera, "TU"),
+           "T, U path pile NEE, bounce 0": (_binning_pile_nee, "TU"),
+           "S: bench camera (clusters)": (_binning_bench_camera, "S"),
+           "S: TLAS camera (pairs)": (_binning_tlas_camera, "S"),
+           "S: path pile NEE, bounce 0 (boxes)": (_binning_pile_nee, "S")}
+
+
+def _eager_basis(raster, source: int, a, b, point):
+    """The projection basis as the stages computed it in eager torch
+    before S took it over (the centroid, its fallback and
+    ``raster._basis_from``), for a checkout whose S takes a basis."""
+    import torch
+    dev = a.device
+    p = torch.as_tensor(point, dtype=torch.float32, device=dev)
+    q = (a + b) * 0.5 - p if source == 1 else a.reshape(-1, 3) - p
+    mask = torch.isnan(q[:, 0])
+    qsum = torch.where(mask[:, None], torch.zeros_like(q), q).sum(0)
+    cnt = torch.clamp((~mask).sum(), min=1).to(torch.float32)
+    wvec = qsum / cnt
+    wvec = torch.where(torch.linalg.norm(wvec) > 1e-12, wvec,
+                       torch.tensor([0.0, 0.0, 1.0], device=dev))
+    return raster._basis_from(wvec)
+
+
+def _s_with_basis(a, k):
+    """One S call (its dispatcher's captured arguments ``a``, ``k``) with
+    the basis it needs: the call itself where S computes it, else the
+    eager basis then S."""
+    import inspect
+
+    from optix_ray_tracer_tpu_torch.ops import raster
+    from optix_ray_tracer_tpu_torch.ops.kernels import binning
+    params = inspect.signature(binning.bin_rects).parameters
+    if "basis" not in params or a[0] == 2:
+        return lambda: binning.bin_rects(*a, **k)
+    bound = inspect.signature(binning.bin_rects).bind(*a, **k).arguments
+    source, geo, b = bound["source"], bound["a"], bound.get("b")
+    point, g = bound.get("point"), bound.get("granularity", 1)
+    return lambda: binning.bin_rects(
+        source, geo, b, _eager_basis(raster, source, geo, b, point), point, g)
+
+
+def _device_work(cs, fn) -> tuple:
+    """(device ms, device operations, {event name: ms}) per call of
+    ``fn``: every kernel, memcpy and memset event of a profiler trace of
+    REPS calls."""
+    import json
+
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(REPS):
+            fn()
+        torch.cuda.synchronize()
+    cs.OUT_DIR.mkdir(parents=True, exist_ok=True)
+    trace = cs.OUT_DIR / "trace_s_with_basis.json"
+    prof.export_chrome_trace(str(trace))
+    events = [e for e in json.loads(trace.read_text())["traceEvents"]
+              if e.get("ph") == "X"
+              and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    by_name: dict = {}
+    for e in events:
+        m = re.search(r"(\w+)(?:<[^>(]*>)?\(", e["name"])
+        name = m.group(1) if m else e["name"]
+        by_name[name] = by_name.get(name, 0.0) + e["dur"] / REPS / 1e3
+    return (sum(e["dur"] for e in events) / REPS / 1e3, len(events) / REPS,
+            by_name)
+
+
+def _host_ms(fn) -> float:
+    """Host ms per call of ``fn`` over REPS calls (the device catches up
+    at the end)."""
+    import time
+
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(REPS):
+        fn()
+    host = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return host * 1e3 / REPS
 
 
 def time_binning(e, name: str, tree: str, card: str) -> None:
-    """T's and U's device ms and wrapper ms on the stage of ``BINNING``
-    entry ``name``, with checkout ``tree``'s code."""
+    """The device ms and wrapper ms of the kernels of ``BINNING`` entry
+    ``name`` on its stage, with checkout ``tree``'s code."""
     import torch
     from optix_ray_tracer_tpu_torch.ops.kernels import _lib, binning
     cs = e.cs
-    cs.K.update(T=_lib.BIN_COUNT, U=_lib.BIN_EMIT)
-    stage = BINNING[name](e)
+    cs.K.update(S=_lib.BIN_RECTS, T=_lib.BIN_COUNT, U=_lib.BIN_EMIT)
+    make, letters = BINNING[name]
+    stage = make(e)
     S = stage()
     cnt = S["cnt_b"].long()
     keep = torch.clamp(torch.minimum(
@@ -312,7 +417,9 @@ def time_binning(e, name: str, tree: str, card: str) -> None:
           f"longest row {int(cnt.max())}, rows keeping over 128 pairs "
           f"{int((keep > 128).sum())}", flush=True)
     calls = cs.binning_calls(stage)
-    for letter, fn in (("T", binning.bin_count), ("U", binning.bin_emit)):
+    for letter in letters:
+        fn = getattr(binning, {"S": "bin_rects", "T": "bin_count",
+                               "U": "bin_emit"}[letter])
         a, k = calls[letter][0]
         ms = cs.device_ms(lambda: fn(*a, **k), cs.BIN_KERNELS[letter],
                           letter, REPS)
@@ -321,6 +428,15 @@ def time_binning(e, name: str, tree: str, card: str) -> None:
         call_ms = cs.time_ms(lambda: fn(*a, **k), REPS)
         print(f"[binning] {tree}: {name}: {letter} device {ms:.4f} ms "
               f"({by}), wrapper call {call_ms:.4f} ms [{card}]", flush=True)
+        if letter == "S":
+            run = _s_with_basis(a, k)
+            work_ms, ops, by_name = _device_work(cs, run)
+            top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+            print(f"[binning] {tree}: {name}: S with its basis: device "
+                  f"{work_ms:.4f} ms in {ops:g} device operations, host "
+                  f"{_host_ms(run):.4f} ms a call [{card}]; heaviest: "
+                  + "; ".join(f"{n[:40]} {ms:.4f}" for n, ms in top),
+                  flush=True)
 
 
 #: route comparisons: name -> function of the setups returning [(label,
@@ -398,9 +514,28 @@ def build_waves(names: list) -> None:
     torch.save(waves, WAVE_FILE)
 
 
+def build_pairs(names: list) -> None:
+    """Save the TLAS pairs (and 1,024 camera rays) that the binning entry
+    "S: TLAS camera (pairs)" bins, set up with this checkout, when it is
+    among ``names``."""
+    import torch
+    if not any("pairs" in n for n in names):
+        return
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke as cs
+    device = torch.device("cuda", 0)
+    cs.build_kernels()
+    t = cs.time_setup(device)
+    tlas = cs.time_frame(t, 0).tlas
+    PAIRS_FILE.parent.mkdir(parents=True, exist_ok=True)
+    torch.save((tlas.pair_min, tlas.pair_max, t.o[:1024].contiguous(),
+                t.d[:1024].contiguous(), t.o[0].clone()), PAIRS_FILE)
+    print(f"[pairs] {tlas.pair_min.shape[0]} TLAS pairs saved", flush=True)
+
+
 def time_tree(tree: str, binning: list) -> None:
-    """Time the kernels of checkout ``tree`` on the saved waves, then T
-    and U on the ``BINNING`` entries named in ``binning``, then its bench
+    """Time the kernels of checkout ``tree`` on the saved waves, then S,
+    T or U on the ``BINNING`` entries named in ``binning``, then its bench
     step."""
     import importlib
     sys.path.insert(0, tree)
@@ -452,6 +587,7 @@ def main() -> None:
                        if not args.waves or any(x in n for x in args.waves)]
                       for table in (WAVES, BINNING))
     build_waves(names)
+    build_pairs(binning)
     for tree in args.tree or [str(ROOT)]:
         subprocess.run([sys.executable, __file__, "--time-tree",
                         str(Path(tree).resolve()), "--binning", *binning],
