@@ -2640,11 +2640,12 @@ def full_schedule(args, kw):
 
 
 def bundle_row(waves, card: str) -> dict:
-    """Phase 11 (e): kernel A (common=None) on the first NEE bundle wave of
-    the path animation's flatten run, the whole wave timed, against its
-    plain twin on BUNDLE_BLOCKS blocks spread over the wave (t, slot, u,
-    v and the Woop-tested rows equal).  The bound counts the work its
-    live rays need up to their first hit in the kernel's visit order
+    """Phase 11 (e): kernel A (common=None, the bundle walk) on the first
+    NEE bundle wave of the path animation's flatten run, the whole wave
+    timed, against its plain twin on BUNDLE_BLOCKS blocks spread over the
+    wave and the block with the longest row (t, slot, u, v and the
+    Woop-tested rows equal).  The bound counts the work its live rays need
+    up to their first hit in the kernel's visit order
     (:func:`needed_raster_work`) at WOOP_OPS per Woop test."""
     import torch
 
@@ -2660,8 +2661,9 @@ def bundle_row(waves, card: str) -> dict:
     call = dict(w=W, any_hit=True, common=None)
     kern = tr.raster_cluster_call(**inp, **call, visits=True)
     ms = time_ms(lambda: tr.raster_cluster_call(**inp, **call), REPS)
+    cnt = S["cnt_b"].long()
     blocks = torch.linspace(0, nb - 1, min(BUNDLE_BLOCKS, nb)).round().long()
-    blocks = torch.unique(blocks)
+    blocks = torch.unique(torch.cat([blocks, cnt.argmax().reshape(1).cpu()]))
     sub = block_subset(inp, W, blocks)
     ks = tr.raster_cluster_call(**sub, **call, visits=True)
     ref, p_ms = time_once(lambda: tr.raster_cluster_plain(**sub, **call,
@@ -2674,17 +2676,25 @@ def bundle_row(waves, card: str) -> dict:
                              "plain twin")
     work = tr.needed_raster_work(inp, W, kern[0], kern[1], any_hit=True)
     n_pairs = int((inp["pair_tiles"] < nb).sum())
-    run = int(kern[4].sum()) * 32
-    live = int((S["tmax_p"] > S["tmin_p"]).sum())
+    run = int(kern[4].sum())             # the bundle walk counts its tests
+    live = (S["tmax_p"][:nb * W] > S["tmin_p"][:nb * W]).reshape(nb, W)
+    n_live = int(live.sum())
+    packed = (live.sum(1) + 31) // 32
     r = row(err, ms, p_ms, tensor_bytes(inp, kern),
             work["slab"] * SLAB_OPS + work["woop"] * WOOP_OPS)
-    print(f"  A bundle NEE wave: {nb} blocks of {W} rays ({live} live), "
-          f"{n_pairs} pairs ({int(S['pc_total'])}); kernel {ms:.3f} ms "
-          f"[{card}], plain {p_ms:.1f} ms on {len(blocks)} blocks (equal, "
-          f"Woop-tested rows included); Woop tests run {run}, needed "
-          f"{work['woop']} ({run / max(work['woop'], 1):.2f}x), slab tests "
-          f"needed {work['slab']}; bound {r['bound_ms']:.4f} ms by "
-          f"{r['bound_by']}, {100 * r['bound_ms'] / ms:.2f}% of the wave; "
+    print(f"  A bundle NEE wave: {nb} blocks of {W} rays, {n_live} live "
+          f"({n_live / (nb * W):.3f}) in {int(packed.sum())} packed warps "
+          f"(of {nb * W // 32}), {n_pairs} pairs ({int(S['pc_total'])}), "
+          f"rows mean {cnt.float().mean():.1f}, longest {int(cnt.max())} "
+          f"(block {int(cnt.argmax())}), staged 64 pairs at a time "
+          f"(kChunk); {int(((packed + 3) // 4).sum())} CTAs of 4 packed "
+          f"warps walk; kernel "
+          f"{ms:.3f} ms [{card}], plain {p_ms:.1f} ms on {len(blocks)} "
+          f"blocks, the longest row's among them (equal, Woop-tested rows "
+          f"included); Woop tests run {run}, needed {work['woop']} "
+          f"({run / max(work['woop'], 1):.2f}x), slab tests needed "
+          f"{work['slab']}; bound {r['bound_ms']:.4f} ms by {r['bound_by']}, "
+          f"{100 * r['bound_ms'] / ms:.2f}% of the wave; "
           f"{tr.raster_occupancy(False, True, None)} resident warps per SM")
     return r
 

@@ -216,26 +216,6 @@ __device__ __forceinline__ int block_sum(int x, int* scratch) {
   return total;
 }
 
-// cp.async: a copy from device to shared memory through no register,
-// completed by copy_wait
-__device__ __forceinline__ void copy16(float* dst, const float* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void copy4(float* dst, const float* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
-               "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void copy_wait() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
-
 // The projection basis of a (3, 3) rows u, v, w with w along wvec
 // (binning.bin_basis_plain's _frame): each step rounded on its own, the
 // norms sqrt((x x + y y) + z z), clamps that pass NaN.
@@ -557,9 +537,10 @@ __global__ void __launch_bounds__(kThreads) bin_rects_kernel(
     const float* src = a + static_cast<long long>(cl) * ORT_CHUNK * 9;
     if ((reinterpret_cast<unsigned long long>(src) & 15) == 0) {
       for (int t = tid; t < ORT_CHUNK * 9 / 4; t += kThreads)
-        copy16(sv + 4 * t, src + 4 * t);
+        ort_copy16(sv + 4 * t, src + 4 * t);
     } else {
-      for (int t = tid; t < ORT_CHUNK * 9; t += kThreads) copy4(sv + t, src + t);
+      for (int t = tid; t < ORT_CHUNK * 9; t += kThreads)
+        ort_copy4(sv + t, src + t);
     }
   };
   if (SRC == kSrcCluster && blockIdx.x < clusters) stage(blockIdx.x);
@@ -643,7 +624,7 @@ __global__ void __launch_bounds__(kThreads) bin_rects_kernel(
       __syncthreads();                     // sv and s_warp are read
       stage(cl);
     }
-    copy_wait();
+    ort_copy_wait();
     __syncthreads();
     S_PHASE(6);
     Rect r;
@@ -861,11 +842,11 @@ __device__ __forceinline__ void stage_floats(float* dst, const float* src,
   if ((reinterpret_cast<unsigned long long>(src) & 15) == 0) {
     const int n4 = count >> 2;
     for (int j = threadIdx.x; j < n4; j += kThreads)
-      copy16(dst + 4 * j, src + 4 * j);
+      ort_copy16(dst + 4 * j, src + 4 * j);
     j0 = 4 * n4;
   }
   for (int j = j0 + threadIdx.x; j < count; j += kThreads)
-    copy4(dst + j, src + j);
+    ort_copy4(dst + j, src + j);
 }
 
 // rows of 3 (o or d) of rays [i0, i0 + m) into dst (3 m floats): the
@@ -953,7 +934,7 @@ __global__ void __launch_bounds__(kThreads, 4) bin_count_kernel(
     stage_rows(sd, wave.d, wave.d_step, i0, mv, m, V3{0.0f, 0.0f, 1.0f});
     stage_bound(st0, wave.t_min, wave.tmin_step, i0, mv, m, 1.0f);
     stage_bound(st1, wave.t_max, wave.tmax_step, i0, mv, m, 0.0f);
-    copy_wait();
+    ort_copy_wait();
     __syncthreads();
     // the transposed pack (coalesced stores), each ray's class (its
     // octant if live, else kMaxOctants), the projective bounds

@@ -213,6 +213,37 @@ __device__ __forceinline__ void ort_to_instance(
   tdz = (m[6] * dx + m[7] * dy) + m[8] * dz;
 }
 
+// cp.async: a copy from device to shared memory through no register,
+// completed by ort_copy_wait
+__device__ __forceinline__ void ort_copy16(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void ort_copy4(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void ort_copy_wait() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// Close the thread's copies issued since the last commit into a group;
+// ort_copy_wait_group<N> waits until at most N groups are in flight.
+__device__ __forceinline__ void ort_copy_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void ort_copy_wait_group() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
 // Order-preserving map of a non-NaN float onto uint32.
 __device__ __forceinline__ unsigned ort_ordered(float f) {
   unsigned u = __float_as_uint(f);

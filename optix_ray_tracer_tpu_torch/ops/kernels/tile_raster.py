@@ -10,10 +10,12 @@ and keeps best t / slot / u / v per ray.  Kernel D
 ``ops/raster_instanced.py`` the same way, moving the tile's rays into each
 pair's instance space before the Woop test.  CUDA in
 ``csrc/tile_raster.cu`` (design notes there): each warp walks its tile's
-pairs for 32 of the tile's rays and gates on a warp vote.  For CPU tensors
-the wrappers run the plain PyTorch versions below, which walk the same
-pairs in the same order with the same gates over the same groups of rays,
-so they agree bit for bit, the count of Woop-tested rows included.
+pairs for 32 of the tile's rays and gates on a warp vote; A with no
+common origin or direction (bundle schedules) packs each tile's live rays
+into warps and gates each ray on its own (:func:`_bundle_plain`).  For
+CPU tensors the wrappers run the plain PyTorch versions below, which walk
+the same pairs in the same order with the same gates over the same groups
+of rays, so they agree bit for bit, the count of Woop tests included.
 
 A warp's rays are 32 consecutive rays of a tile: in a camera wave in
 ``ops/raster.to_tiles`` order, an 8-wide, 4-tall pixel block.
@@ -44,6 +46,10 @@ from optix_ray_tracer_tpu_torch.utils.vecmath import INF
 GROUP_TRIS = 8    # binning granularity of the schedule's rects
 WARP = 32         # rays per gate group of the kernels
 MAX_SUBS = 4      # sub boxes per window the kernels take
+#: a part that at least this many rays of a packed warp enter is tested on
+#: all 32 lanes row by row, one that fewer enter ray by ray
+#: (csrc/tile_raster.cu kDenseLanes); the answers do not depend on it
+BUNDLE_DENSE_LANES = 24
 
 #: the ``common`` variants, in the order of the kernels' COMMON code
 #: (csrc/common.cuh ORT_COMMON_*): full-width dots, a tile's shared origin,
@@ -74,13 +80,15 @@ def raster_cluster_plain(pair_tiles, pair_clusters, rays_t_ext, sub_boxes,
                          common: str | None = None, granularity: int = 1,
                          visits: bool = False):
     """Plain version of kernel A (the arguments and results of
-    :func:`raster_cluster_call`): the same pairs in the same order, each
-    part gated per warp of 32 consecutive rays, vectorised over warps."""
-    out = _raster_plain(dict(
-        pair_tiles=pair_tiles, pair_clusters=pair_clusters,
-        rays_t_ext=rays_t_ext, sub_boxes=sub_boxes, woop_t=woop_t,
-        n_blocks=n_blocks, n_subs=n_subs, granularity=granularity),
-        w, any_hit, common)
+    :func:`raster_cluster_call`): with a common origin or direction the
+    same pairs in the same order, each part gated per warp of 32
+    consecutive rays (:func:`_raster_plain`); with ``common`` None the
+    bundle walk (:func:`_bundle_plain`); vectorised over warps."""
+    inp = dict(pair_tiles=pair_tiles, pair_clusters=pair_clusters,
+               rays_t_ext=rays_t_ext, sub_boxes=sub_boxes, woop_t=woop_t,
+               n_blocks=n_blocks, n_subs=n_subs, granularity=granularity)
+    out = (_bundle_plain(inp, w, any_hit) if common is None
+           else _raster_plain(inp, w, any_hit, common))
     return out if visits else out[:4]
 
 
@@ -103,35 +111,25 @@ def _raster_plain(inp: dict, w: int, any_hit: bool, common: str | None,
                   group: int = WARP):
     """Kernels A and D in plain PyTorch over the schedule ``inp`` (the
     :func:`raster_cluster_call` or :func:`raster_instanced_call` arguments;
-    D when it holds ``pair_insts``).  Entry p of tile b gates on its pair's
-    sub boxes, tests its window (A: ``pair_clusters[p]`` = cluster * g +
-    sub; D: library cluster ``pair_libs[p]``, the tile's rays first moved
-    by the affine row ``inst_rows[pair_insts[p]]``) and writes slot
-    box * CHUNK/g + row (box: the window, or D's TLAS pair
-    ``pair_ids[p]``).  A part is tested for a group of ``group``
-    consecutive rays of a tile when one of them enters its sub box before
-    its best t: WARP, the kernels' warps; 1 gates each ray alone and w the
-    whole tile (the CTA-wide gate of the kernels' first design), for the
-    counts the kernels are measured against.  Returns (t, slot, u, v)
-    (n_blocks, w) and the Woop-tested rows per group, (n_blocks * w //
-    group,) int32."""
+    D when it holds ``pair_insts``), in the sequential walk of the warp
+    design: every group of ``group`` consecutive rays of a tile walks the
+    tile's whole row (for A with ``common`` None, the walk the bundle walk
+    (:func:`_bundle_plain`) is held against).  Entry p of tile b gates on
+    its pair's sub boxes, tests its window (A: ``pair_clusters[p]`` =
+    cluster * g + sub; D: library cluster ``pair_libs[p]``, the tile's rays
+    first moved by the affine row ``inst_rows[pair_insts[p]]``) and writes
+    slot box * CHUNK/g + row (box: the window, or D's TLAS pair
+    ``pair_ids[p]``).  A part is tested for a group when one of its rays
+    enters its sub box before its best t: WARP, the kernels' warps; 1
+    gates each ray alone and w the whole tile (the CTA-wide gate of the
+    kernels' first design), for the counts the kernels are measured
+    against.  Returns (t, slot, u, v) (n_blocks, w) and the Woop-tested
+    rows per group, (n_blocks * w // group,) int32."""
     if w % group:
         raise ValueError(f"group={group} must divide w={w}")
     n_blocks = inp["n_blocks"]
-    sub_boxes, woop_t = inp["sub_boxes"], inp["woop_t"]
     rays = inp["rays_t_ext"]
-    if "pair_insts" in inp:
-        win_ids, tile_start = _tile_schedule(inp["pair_tiles"],
-                                             inp["pair_libs"], n_blocks)
-        box_ids = inp["pair_ids"].to(torch.int32)
-        inst_ids = inp["pair_insts"].to(torch.int32)
-        inst_rows = inp["inst_rows"]
-        n_subs, granularity = sub_boxes.shape[1], 1
-    else:
-        win_ids, tile_start = _tile_schedule(inp["pair_tiles"],
-                                             inp["pair_clusters"], n_blocks)
-        box_ids, inst_ids, inst_rows = win_ids, None, None
-        n_subs, granularity = inp["n_subs"], inp["granularity"]
+    tab = _tables(inp)
     common_code(common)
     dev = rays.device
     nw = n_blocks * w
@@ -142,24 +140,72 @@ def _raster_plain(inp: dict, w: int, any_hit: bool, common: str | None,
         """(nw, ...) -> (ng, group, ...)."""
         return x.reshape((ng, group) + x.shape[1:])
 
-    o = grouped(rays[0:3, :nw].T)
-    d = grouped(rays[3:6, :nw].T)
-    inv = inv_dir(d)
-    tmin = grouped(rays[6, :nw])
-    bt = grouped(rays[7, :nw]).clone()
     # a common origin's o-projections (a common direction's d-projections)
     # come from the tile's first ray
     o_first = rays[0:3, 0:nw:w].T.repeat_interleave(per, 0)[:, None]
     d_first = rays[3:6, 0:nw:w].T.repeat_interleave(per, 0)[:, None]
+    tile = torch.arange(ng, device=dev) // per
+    tile_start = tab["tile_start"]
+    start = tile_start[:-1].long()[tile]
+    cnt = (tile_start[1:] - tile_start[:-1]).long()[tile]
+    out = _walk(tab, grouped(rays[0:3, :nw].T), grouped(rays[3:6, :nw].T),
+                grouped(rays[6, :nw]), grouped(rays[7, :nw]).clone(), start,
+                cnt, any_hit, common, o_first, d_first)
+    return (*(x.reshape(n_blocks, w) for x in out[:4]),
+            out[4].to(torch.int32))
+
+
+def _tables(inp: dict) -> dict:
+    """The schedule ``inp`` as the walks read it: window ids and tile
+    offsets (:func:`_tile_schedule`), slot boxes, D's instances, parts and
+    granularity."""
+    sub_boxes = inp["sub_boxes"]
+    if "pair_insts" in inp:
+        win_ids, tile_start = _tile_schedule(inp["pair_tiles"],
+                                             inp["pair_libs"],
+                                             inp["n_blocks"])
+        return dict(win_ids=win_ids, tile_start=tile_start,
+                    box_ids=inp["pair_ids"].to(torch.int32),
+                    inst_ids=inp["pair_insts"].to(torch.int32),
+                    inst_rows=inp["inst_rows"], sub_boxes=sub_boxes,
+                    woop_t=inp["woop_t"], n_subs=sub_boxes.shape[1],
+                    granularity=1)
+    win_ids, tile_start = _tile_schedule(inp["pair_tiles"],
+                                         inp["pair_clusters"],
+                                         inp["n_blocks"])
+    return dict(win_ids=win_ids, tile_start=tile_start, box_ids=win_ids,
+                inst_ids=None, inst_rows=None, sub_boxes=sub_boxes,
+                woop_t=inp["woop_t"], n_subs=inp["n_subs"],
+                granularity=inp["granularity"])
+
+
+def _walk(tab: dict, o, d, tmin, bt, start, cnt, any_hit: bool,
+          common: str | None, o_first=None, d_first=None,
+          dense: int | None = None):
+    """Groups of rays walk schedule ranges, vectorised over groups: group
+    i (rays o, d, tmin, bt (ng, group[, 3]); ``bt`` updated in place)
+    walks entries [start[i], start[i] + cnt[i]) of the schedule tables
+    ``tab`` in order, each part gated on a vote of its rays (entry < best
+    t) and its Woop rows tested on all of them; with ``dense`` a ray takes
+    a part's hits only if it enters the part itself (the per-ray gate).
+    ``o_first`` / ``d_first`` (ng, 1, 3): the shared origin or direction
+    of ``common``.  Returns (bt, slot, u, v) (ng, group) and per group its
+    Woop-tested rows, or with ``dense`` its Woop tests: a part that at
+    least ``dense`` of its rays enter counts group x rows, any other the
+    rays that enter it x rows."""
+    dev = bt.device
+    ng, group = bt.shape
+    win_ids, box_ids = tab["win_ids"], tab["box_ids"]
+    inst_ids, inst_rows = tab["inst_ids"], tab["inst_rows"]
+    sub_boxes, woop_t = tab["sub_boxes"], tab["woop_t"]
+    n_subs, granularity = tab["n_subs"], tab["granularity"]
+    inv = inv_dir(d)
     slot = torch.full((ng, group), -1, dtype=torch.int32, device=dev)
     u = torch.zeros((ng, group), device=dev)
     v = torch.zeros((ng, group), device=dev)
     rows = torch.zeros(ng, dtype=torch.int64, device=dev)
     ct = CHUNK // granularity
     step = ct // n_subs
-    tile = torch.arange(ng, device=dev) // per
-    start = tile_start[:-1].long()[tile]
-    cnt = (tile_start[1:] - tile_start[:-1]).long()[tile]
     cols = torch.arange(step, device=dev)
     k12 = torch.arange(12, device=dev)[None, :, None]
     for k in range(int(cnt.max()) if ng else 0):
@@ -185,11 +231,16 @@ def _raster_plain(inp: dict, w: int, any_hit: bool, common: str | None,
         rows_i = (None if inst_ids is None
                   else inst_rows[inst_ids[entry].long()][:, None, :])
         for part in range(n_subs):
-            gate = (part_entry(part, tl, sb) < bt[tl]).any(1)
+            need = part_entry(part, tl, sb) < bt[tl]
+            gate = need.any(1)
             tp = tl[gate]
             if tp.numel() == 0:
                 continue
-            rows[tp] += step
+            if dense is None:
+                rows[tp] += step
+            else:
+                n_need = need[gate].sum(1)
+                rows[tp] += torch.where(n_need >= dense, group, n_need) * step
             col = (col0[gate] + part * step)[:, None] + cols   # (T', step)
             wp = woop_t[c[gate][:, None, None], k12, col[:, None, :]]
             o_t = o_first[tp] if common == "origin" else o[tp]
@@ -203,6 +254,8 @@ def _raster_plain(inp: dict, w: int, any_hit: bool, common: str | None,
             ok = (dz_ok & (uu >= 0.0) & (vv >= 0.0)
                   & (1.0 - (uu + vv) >= 0.0) & (t > tmin[tp][..., None])
                   & (t < b_cur))
+            if dense is not None:
+                ok &= need[gate][..., None]
             base = (box[gate] * ct + part * step)[:, None]
             if any_hit:
                 hit = ok.any(-1)
@@ -223,8 +276,65 @@ def _raster_plain(inp: dict, w: int, any_hit: bool, common: str | None,
                                 [..., 0], u[tp])
             v[tp] = torch.where(closer, torch.gather(vv, 2, li[..., None])
                                 [..., 0], v[tp])
-    return (*(x.reshape(n_blocks, w) for x in (bt, slot, u, v)),
-            rows.to(torch.int32))
+    return bt, slot, u, v, rows
+
+
+def _bundle_plain(inp: dict, w: int, any_hit: bool):
+    """Kernel A's bundle walk (``common`` None) in plain PyTorch over the
+    :func:`raster_cluster_call` arguments ``inp``: each tile's live rays
+    (t_max > t_min), in ray order, packed into warps of 32, each packed
+    warp walking the tile's whole row, each ray testing the parts it
+    enters (the answers of the per-ray gate, ``_raster_plain`` with group
+    1).  A dead ray answers t = t_max, slot -1, u = v = 0.  Returns (t,
+    slot, u, v) (n_blocks, w) and the Woop tests of each tile's packed
+    warp k at [b * w // 32 + k] (a part entered by BUNDLE_DENSE_LANES of
+    its rays or more counts 32 tests a row, any other one a row for each
+    ray that enters it), (n_blocks * w // 32,) int32 (0 past the tile's
+    packed warps)."""
+    n_blocks = inp["n_blocks"]
+    rays = inp["rays_t_ext"]
+    tab = _tables(inp)
+    dev = rays.device
+    nw = n_blocks * w
+    per = w // WARP
+    t_out = rays[7, :nw].clone()
+    slot_out = torch.full((nw,), -1, dtype=torch.int32, device=dev)
+    u_out = torch.zeros(nw, device=dev)
+    v_out = torch.zeros(nw, device=dev)
+    visits = torch.zeros(n_blocks * per, dtype=torch.int64, device=dev)
+    # the packed warps: tile by tile, each tile's live rays in ray order
+    live_rays = torch.nonzero(rays[7, :nw] > rays[6, :nw])[:, 0]
+    if live_rays.numel():
+        n_live = torch.bincount(live_rays // w, minlength=n_blocks)
+        n_warps = (n_live + WARP - 1) // WARP
+        g_tile = torch.repeat_interleave(
+            torch.arange(n_blocks, device=dev), n_warps)
+        g_k = (torch.arange(g_tile.numel(), device=dev)
+               - (torch.cumsum(n_warps, 0) - n_warps)[g_tile])
+        pos = g_k[:, None] * WARP + torch.arange(WARP, device=dev)
+        valid = pos < n_live[g_tile][:, None]
+        at = (torch.cumsum(n_live, 0) - n_live)[g_tile][:, None] + pos
+        ray = live_rays[at.clamp(max=live_rays.numel() - 1)]
+        # a lane past its tile's live rays never passes a gate nor a test
+        o = torch.where(valid[..., None], rays[0:3, ray].permute(1, 2, 0),
+                        0.0)
+        d = torch.where(valid[..., None], rays[3:6, ray].permute(1, 2, 0),
+                        torch.tensor([0.0, 0.0, 1.0], device=dev))
+        tmin = torch.where(valid, rays[6, ray], 0.0)
+        bt = torch.where(valid, rays[7, ray], -INF)
+        tile_start = tab["tile_start"].long()
+        start = tile_start[:-1][g_tile]
+        cnt = (tile_start[1:] - tile_start[:-1])[g_tile]
+        bt, slot, u, v, rows = _walk(tab, o, d, tmin, bt, start, cnt,
+                                     any_hit, None,
+                                     dense=BUNDLE_DENSE_LANES)
+        r = ray[valid]
+        t_out[r], slot_out[r] = bt[valid], slot[valid]
+        u_out[r], v_out[r] = u[valid], v[valid]
+        visits[g_tile * per + g_k] = rows
+    return (*(x.reshape(n_blocks, w) for x in (t_out, slot_out, u_out,
+                                                v_out)),
+            visits.to(torch.int32))
 
 
 def needed_raster_work(inp: dict, w: int, t, slot, any_hit: bool = False,
@@ -336,12 +446,15 @@ def raster_cluster_call(pair_tiles, pair_clusters, rays_t_ext, sub_boxes,
     nothing hit; -INF for any-hit hits), slot into the sorted triangles
     (-1 miss), barycentrics of the winner; with ``visits`` also the
     Woop-tested rows of each warp of 32 rays, (n_blocks * w // 32,)
-    int32."""
+    int32 (``common`` None: the Woop tests of each tile's packed warp,
+    :func:`_bundle_plain`)."""
     code = common_code(common)
     dev = rays_t_ext.device
     if CHUNK % granularity or (CHUNK // granularity) % n_subs:
         raise ValueError(f"granularity {granularity} / n_subs {n_subs} "
                          f"must divide CHUNK={CHUNK}")
+    if common is None:    # the bundle walk's tiles, on either device
+        _check_width(w)
     if not rays_t_ext.is_cuda:
         return raster_cluster_plain(pair_tiles, pair_clusters, rays_t_ext,
                                     sub_boxes, woop_t, n_blocks, w, any_hit,
@@ -364,14 +477,19 @@ def raster_cluster_call(pair_tiles, pair_clusters, rays_t_ext, sub_boxes,
     return out
 
 
+def _check_width(w: int) -> None:
+    """Refuse a tile width the kernels cannot take."""
+    if w % WARP or not WARP <= w <= 1024:
+        raise ValueError(f"w={w}: need a multiple of {WARP} in "
+                         f"[{WARP}, 1024]")
+
+
 def _check_raster(rays_t_ext, sub_boxes, woop_t, n_subs: int, n_blocks: int,
                   w: int, window: int) -> int:
     """Validate a raster schedule's rays and tables for the card (windows
     of ``window`` rows); returns the ray stride."""
     dev = rays_t_ext.device
-    if w % WARP or not WARP <= w <= 1024:
-        raise ValueError(f"w={w}: need a multiple of {WARP} in "
-                         f"[{WARP}, 1024]")
+    _check_width(w)
     if n_subs > MAX_SUBS or window % n_subs or window // n_subs % WARP:
         raise ValueError(f"{n_subs} parts of a {window}-row window: need at "
                          f"most {MAX_SUBS} parts of a multiple of {WARP} "

@@ -26,7 +26,9 @@ from optix_ray_tracer_tpu.scene.geometry import Triangles as JTriangles
 from optix_ray_tracer_tpu_torch import convert
 from optix_ray_tracer_tpu_torch.ops import raster as traster
 from optix_ray_tracer_tpu_torch.ops.intersect import hit_mismatches
+from optix_ray_tracer_tpu_torch.ops.kernels import tile_raster as ttr
 from optix_ray_tracer_tpu_torch.ops.kernels.block_march import block_march
+from bundle_cases import check_copies, copies_schedule, same_bits
 
 torch.set_num_threads(2)
 
@@ -151,6 +153,113 @@ def test_bundle_query_matches_jax(setup, any_hit):
     live = s["tmax"] > s["tmin"]
     assert 0 < (pt >= 0).sum() < live.sum()
     assert (pt[~live] == -1).all()
+
+
+def _split_wave(s):
+    """The fixture's wave with block 1 all dead and block 2 one live
+    ray."""
+    tmax = s["tmax"].copy()
+    tmax[BLOCK:2 * BLOCK] = 0.0
+    tmax[2 * BLOCK:3 * BLOCK] = 0.0
+    tmax[2 * BLOCK + 7] = 3.0
+    return s["o"], s["d"], s["tmin"], tmax
+
+
+@pytest.mark.parametrize("octants", [True, False], ids=["octants", "flat"])
+@pytest.mark.parametrize("any_hit", [False, True], ids=["nearest", "any"])
+def test_bundle_walk_matches_jax(setup, any_hit, octants):
+    """Kernel A's bundle walk (each tile's live rays packed into warps that
+    walk its whole row) in its plain twin, through bundle_query, against
+    the JAX bundle_query on a wave with an all-dead block and a block of
+    one live ray: is_hit equal (any-hit), prim ids under the hit rule
+    (nearest)."""
+    s = setup
+    wave = _split_wave(s)
+    kw = dict(any_hit=any_hit, block_rays=BLOCK, dir_octants=octants)
+    S = traster.bundle_stage(s["tinter"].clusters, *(_t(x) for x in wave),
+                             BLOCK, 4096, dir_octants=octants)
+    assert int(S["cnt_b"][1]) == 0 < int(S["cnt_b"][2])
+    jt, js, _, _, jok = jraster.bundle_query(
+        s["jinter"].clusters, *(jnp.asarray(x) for x in wave), **kw)
+    tt, ts, _, _, tok = traster.bundle_query(
+        s["tinter"].clusters, *(_t(x) for x in wave), **kw)
+    assert bool(jok) and tok
+    pi = s["tinter"].clusters.prim_index
+    pj, pt = _prims(pi, js), _prims(pi, ts.numpy())
+    if any_hit:
+        np.testing.assert_array_equal(pt >= 0, pj >= 0)
+    else:
+        assert hit_mismatches(_t(pt), tt, _t(pj), _t(jt)) == 0
+    assert (pt[BLOCK:2 * BLOCK] == -1).all()
+    assert 0 < (pt >= 0).sum()
+
+
+@pytest.mark.parametrize("octants", [True, False], ids=["octants", "flat"])
+@pytest.mark.parametrize("any_hit", [False, True], ids=["nearest", "any"])
+def test_bundle_walk_against_sequential(setup, any_hit, octants):
+    """The bundle walk against the sequential warp walk (every 32
+    consecutive rays of a tile walk its whole row) on the same schedule:
+    any-hit is_hit and slot equal, nearest under the hit rule; against the
+    per-ray gate's walk bit for bit (t, slot, u, v); dead rays answer
+    t_max, slot -1, u = v = 0; Woop tests only for packed warps, and no
+    more in all than the sequential walk's rows x 32."""
+    s = setup
+    wave = _split_wave(s)
+    S = traster.bundle_stage(s["tinter"].clusters, *(_t(x) for x in wave),
+                             BLOCK, 4096, dir_octants=octants)
+    inp = traster.schedule_inputs(s["tinter"].clusters, S, S["nb"])
+    new = ttr._bundle_plain(inp, BLOCK, any_hit)
+    old = ttr._raster_plain(inp, BLOCK, any_hit, None)
+    per_ray = ttr._raster_plain(inp, BLOCK, any_hit, None, 1)
+    for a, b in zip(new[:4], per_ray[:4]):
+        assert same_bits(a, b)
+    if any_hit:
+        assert torch.equal(new[1], old[1])
+    else:
+        pi = s["tinter"].clusters.prim_index
+        assert hit_mismatches(_t(_prims(pi, new[1].reshape(-1))),
+                              new[0].reshape(-1),
+                              _t(_prims(pi, old[1].reshape(-1))),
+                              old[0].reshape(-1)) == 0
+    rays = inp["rays_t_ext"][:, :S["nb"] * BLOCK]
+    dead = ~(rays[7] > rays[6])
+    assert same_bits(new[0].reshape(-1)[dead], rays[7][dead])
+    assert bool((new[1].reshape(-1)[dead] == -1).all())
+    assert not bool(new[2].reshape(-1)[dead].any())
+    live = (~dead).reshape(S["nb"], BLOCK).sum(1)
+    packed = (live + 31) // 32
+    k = torch.arange(BLOCK // 32)
+    assert bool((new[4].reshape(S["nb"], -1)[k >= packed[:, None]] == 0)
+                .all())
+    assert 0 < int(new[4].sum()) <= 32 * int(old[4].sum())
+
+
+@pytest.mark.parametrize("w", [64, 128])
+@pytest.mark.parametrize("any_hit", [False, True], ids=["nearest", "any"])
+def test_bundle_walk_copies(setup, any_hit, w):
+    """The copies schedule (tests/bundle_cases.py: rows of four identical
+    copies of the windows, every hit a tie at equal t; dead, one-live, NaN
+    and pair-less tiles): the earliest copy wins, the dead rays answer
+    t_max, and the walk equals the sequential one (t, slot, u, v)."""
+    s = setup
+    inp = copies_schedule(s["tinter"].clusters, *(_t(x) for x in _wave(s)),
+                          w)
+    new = ttr._bundle_plain(inp, w, any_hit)
+    check_copies(inp, new, w)
+    old = ttr._raster_plain(inp, w, any_hit, None)
+    for a, b in zip(new[:4], old[:4]):
+        assert same_bits(a, b)
+
+
+@pytest.mark.parametrize("w", [2048, 1056, 48])
+def test_bundle_walk_refuses_wide_tiles(setup, w):
+    """The bundle walk takes tiles of a multiple of 32 rays up to 1024 on
+    either device (the kernel stages at most 1024 rays a tile): the CPU
+    path refuses any other width as the card's does, before any walk."""
+    inp = copies_schedule(setup["tinter"].clusters,
+                          *(_t(x) for x in _wave(setup)), 64)
+    with pytest.raises(ValueError, match="multiple of 32"):
+        ttr.raster_cluster_call(**inp, w=w, common=None)
 
 
 def test_intersect_bundled_matches_intersect(setup):

@@ -822,6 +822,46 @@ def test_bundle_kernel(setup, dev, any_hit):
     assert 0 < int(got.is_hit.sum()) < int(h.is_hit.sum())
 
 
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_bundle_kernel_copies(setup, dev, any_hit):
+    """Kernel A's bundle walk on the copies schedule (tests/bundle_cases.py:
+    rows of 4 copies of every window, staged in at least 4 chunks of 64
+    pairs, every hit a tie at equal t across copies; a tile of 0 live rays
+    and one of 1; NaN t_min, t_max and origins, t_max == t_min; NaN sub
+    boxes; a tile with no pair; padding pairs) against its plain twin, bit
+    for bit (t, slot, u, v, Woop tests; NaN equal to NaN), one launch; the
+    earliest copy wins; the sequential warp walk gives the same hits
+    (any-hit: slots; nearest: the hit rule)."""
+    from bundle_cases import check_copies, copies_schedule, same_bits
+    _, inter, o, d, _, _ = setup
+    o, d = o[5 * 1024:], d[5 * 1024:]    # from the image's tile (1, 1) on
+    n = o.shape[0]
+    inp = copies_schedule(inter.clusters, o, d,
+                          torch.full((n,), 1e-3, device=dev),
+                          torch.full((n,), 1e16, device=dev), 256)
+    assert int((inp["pair_tiles"] == 0).sum()) >= 4 * 64
+    kw = dict(w=256, any_hit=any_hit, common=None, visits=True)
+    before = _lib.TILE_RASTER.launches
+    kern = tr.raster_cluster_call(**inp, **kw)
+    assert _lib.TILE_RASTER.launches == before + 1
+    plain = tr.raster_cluster_plain(**inp, **kw)
+    torch.cuda.synchronize()
+    for a, b in zip(kern, plain):
+        assert same_bits(a, b)
+    check_copies(inp, kern, 256)
+    old = tr._raster_plain(inp, 256, any_hit, None)
+    if any_hit:
+        assert torch.equal(kern[1], old[1])
+    else:
+        def prims(slot):    # the copy's own slot: copies hold equal rows
+            slot = slot.reshape(-1)
+            return _prims(inter.clusters, torch.where(
+                slot < 0, -1, slot % (inter.clusters.num_clusters * 256)))
+
+        assert hit_mismatches(prims(kern[1]), kern[0].reshape(-1),
+                              prims(old[1]), old[0].reshape(-1)) == 0
+
+
 @pytest.mark.parametrize("coherent", [True, False])
 @pytest.mark.parametrize("any_hit", [False, True])
 def test_block_march_hier_kernel(setup, dev, coherent, any_hit):

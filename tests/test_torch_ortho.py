@@ -127,9 +127,10 @@ def _dir_schedule(tinter, so, sd, tmax, W=128):
 @pytest.mark.parametrize("any_hit", [False, True], ids=["nearest", "any"])
 def test_dir_twin_against_full_width(flat, any_hit):
     """The "dir" plain twin against the same schedule with full-width dots
-    (common=None): the same hits under the hit rule (only exact fp ties may
-    flip), and the same Woop-tested rows per warp (the gate does not
-    change)."""
+    (common=None, the bundle walk): the same hits under the hit rule (only
+    exact fp ties may flip); and the same Woop-tested rows per warp as the
+    full-width dots in the warp walk of the "dir" variant (the gate does
+    not change)."""
     _, _, _, tinter, so, sd, tmax = flat
     inp, n = _dir_schedule(tinter, so, sd, tmax)
     a = ttr.raster_cluster_call(**inp, w=128, any_hit=any_hit, common="dir",
@@ -144,7 +145,8 @@ def test_dir_twin_against_full_width(flat, any_hit):
     else:
         assert hit_mismatches(pa, a[0].reshape(-1)[:n], pb,
                               b[0].reshape(-1)[:n]) == 0
-    assert torch.equal(a[4], b[4]) and int(a[4].sum()) > 0
+    walk = ttr._raster_plain(inp, 128, any_hit, None)
+    assert torch.equal(a[4], walk[4]) and int(a[4].sum()) > 0
 
 
 def test_common_code_refuses_unknown():

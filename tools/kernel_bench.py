@@ -16,7 +16,8 @@ DIR's kernel sources.  The wrappers are called with the keyword arguments
 they have taken since the kernels were ported, so an older checkout times
 the same work.  ``--waves`` keeps the waves whose name holds one of the
 given texts.  Prints, per tree and wave, the mean ms of ``REPS`` launches
-after a warm-up, twice; then, per tree and entry of ``BINNING`` (also
+after a warm-up, twice (and, once every tree ran, which outputs of A and
+D each tree gives bit for bit as the first tree does); then, per tree and entry of ``BINNING`` (also
 kept by ``--waves``), kernels S, T or U of the raster binning: their
 device ms per launch (``chip_smoke.device_ms``, a profiler trace) and
 their wrapper's ms per call (CUDA events, host work included), and for
@@ -167,6 +168,53 @@ def _a_bundle(e, wave, W=1024):
                 any_hit=True, common=None)
 
 
+def _a_sun(e, any_hit):
+    """Kernel A's "dir" schedule of the bench scene's sun wave
+    (chip_smoke.py phase 11 (d))."""
+    from optix_ray_tracer_tpu_torch.ops import raster
+    b, W = e.b, e.cs.TILE * e.cs.TILE
+    g = (e.march.DEFAULT_ANYHIT_GRANULARITY if any_hit
+         else e.march.DEFAULT_GRANULARITY)
+    hit = b.inter.intersect_from(b.scene, b.o, b.d, mode="origin",
+                                 point=b.o[0], pc_max=b.pc_max1)
+    wave = e.cs.sun_wave(b.o, b.d, hit)
+    pc = raster.round_pc_max(raster.measure_pair_count(
+        b.inter.raster, b.cs, *wave, "ortho", granularity=g))
+    S = raster._coarse_stage(b.inter.raster, b.cs, *wave, "ortho", None, W,
+                             pc, g)
+    return dict(raster.schedule_inputs(b.cs, S, S["nb"], g), w=W,
+                any_hit=any_hit, common="dir")
+
+
+def _d_sun(e, any_hit):
+    """Kernel D's "dir" schedule of the Time scene's sun wave (chip_smoke.py
+    phase 11 (d))."""
+    from optix_ray_tracer_tpu_torch.ops import raster
+    from optix_ray_tracer_tpu_torch.ops import raster_instanced as ri
+    t, tlas, W = e.t, e.tlas, e.cs.TILE * e.cs.TILE
+    hit, _ = tlas.intersect_from(t.o, t.d, point=t.o[0],
+                                 pc_max=raster.round_pc_max(t.pc1))
+    wave = e.cs.sun_wave(t.o, t.d, hit)
+    pc = raster.round_pc_max(ri.measure_instanced_pair_count(
+        tlas, *wave, "ortho", None))
+    S = ri.instanced_coarse_stage(tlas.pair_min, tlas.pair_max, *wave,
+                                  "ortho", None, W, pc, tlas.pair_shape,
+                                  tlas.pair_inst)
+    return dict(ri.instanced_schedule_inputs(tlas, S), w=W, any_hit=any_hit,
+                common="dir")
+
+
+def _a_pile_bundle(e):
+    """Kernel A's bundle schedule (any-hit, full-width dots) of the path
+    pile's first NEE wave (:func:`_pile_nee`, bounce 0), at the capacity
+    its pairs need."""
+    from optix_ray_tracer_tpu_torch.ops import raster
+    _, clusters, _, _, wave, W = _pile_nee(e)[0]
+    S, _ = _bundle_schedule(clusters, wave, W)
+    return dict(raster.schedule_inputs(clusters, S, S["nb"]), w=W,
+                any_hit=True, common=None)
+
+
 def _sweep(e, o, d):
     """Kernel G's arguments in the first sweep pass of the wave (o, d)."""
     return dict(zip(("woop", "starts", "o", "d", "t_min", "best"),
@@ -222,6 +270,16 @@ WAVES = {
             e, e.b.inter, _bench_camera(e), False)),
     "A bench NEE bundle": ("tile_raster", "raster_cluster_call",
                            lambda e: _a_bundle(e, _bench_nee(e))),
+    "A dir bench sun": ("tile_raster", "raster_cluster_call",
+                        lambda e: _a_sun(e, False)),
+    "A dir bench sun any-hit": ("tile_raster", "raster_cluster_call",
+                                lambda e: _a_sun(e, True)),
+    "D dir pile sun": ("tile_raster", "raster_instanced_call",
+                       lambda e: _d_sun(e, False)),
+    "D dir pile sun any-hit": ("tile_raster", "raster_instanced_call",
+                               lambda e: _d_sun(e, True)),
+    "A pile NEE bundle": ("tile_raster", "raster_cluster_call",
+                          lambda e: _a_pile_bundle(e)),
     "G camera first pass": ("leaf_sweep", "window_sweep_call",
                             lambda e: _sweep(e, e.b.o, e.b.d)),
     "G incoherent first pass": ("leaf_sweep", "window_sweep_call",
@@ -549,12 +607,16 @@ def time_tree(tree: str, binning: list) -> None:
     card = cs.card_line()
     _lib.load()
     waves = torch.load(WAVE_FILE, map_location="cuda:0", weights_only=True)
+    outs = {}
     for name, (module, fn, kw) in waves.items():
         call = getattr(importlib.import_module(
             f"optix_ray_tracer_tpu_torch.ops.kernels.{module}"), fn)
         ms = [cs.time_ms(lambda: call(**kw), REPS) for _ in range(2)]
         print(f"[bench] {tree}: {name}: {ms[0]:.3f} ms, {ms[1]:.3f} ms "
               f"[{card}]", flush=True)
+        if module == "tile_raster":
+            outs[name] = [x.cpu() for x in call(**kw, visits=True)]
+    torch.save(outs, _out_file(tree))
     del waves
     b = cs.bench_setup(torch.device("cuda", 0))
     e = SimpleNamespace(cs=cs, b=b)
@@ -563,6 +625,30 @@ def time_tree(tree: str, binning: list) -> None:
     steps = [cs.time_ms(lambda: cs.bench_step(b), REPS) for _ in range(5)]
     print(f"[bench] {tree}: bench step: "
           f"{', '.join(f'{x:.3f}' for x in steps)} ms [{card}]", flush=True)
+
+
+def _out_file(tree: str) -> Path:
+    """Where ``time_tree`` keeps a tree's raster outputs."""
+    tag = str(Path(tree).resolve()).strip("/").replace("/", "_")
+    return WAVE_FILE.parent / f"out_{tag}.pt"
+
+
+def compare_outputs(trees: list) -> None:
+    """Print, per raster wave, which outputs (t, slot, u, v, Woop-tested
+    rows) of each tree equal the first tree's bit for bit (NaN equal to
+    NaN)."""
+    import torch
+    runs = [torch.load(_out_file(t), weights_only=True) for t in trees]
+    for name, ref in runs[0].items():
+        for tree, run in zip(trees[1:], runs[1:]):
+            same = []
+            for label, a, b in zip(("t", "slot", "u", "v", "rows"), ref,
+                                   run[name]):
+                eq = a.shape == b.shape and bool(
+                    ((a == b) | (a != a) & (b != b)).all())
+                same.append(f"{label} {'equal' if eq else 'DIFFER'}")
+            print(f"[same] {name}: {tree} against {trees[0]}: "
+                  + ", ".join(same), flush=True)
 
 
 def main() -> None:
@@ -588,10 +674,11 @@ def main() -> None:
                       for table in (WAVES, BINNING))
     build_waves(names)
     build_pairs(binning)
-    for tree in args.tree or [str(ROOT)]:
-        subprocess.run([sys.executable, __file__, "--time-tree",
-                        str(Path(tree).resolve()), "--binning", *binning],
-                       check=True)
+    trees = [str(Path(t).resolve()) for t in args.tree or [str(ROOT)]]
+    for tree in trees:
+        subprocess.run([sys.executable, __file__, "--time-tree", tree,
+                        "--binning", *binning], check=True)
+    compare_outputs(list(dict.fromkeys(trees)))
 
 
 if __name__ == "__main__":

@@ -74,6 +74,8 @@ def group(name: str, cat: str) -> str:
     if "warp_raster_kernel" in name:   # <ANY_HIT, COMMON, INST>
         args = _template_args(name, "warp_raster_kernel")
         return "D tile_raster_inst" if args and args[-1] else "A tile_raster"
+    if "bundle_raster_kernel" in name:   # A with no common origin or dir
+        return "A tile_raster"
     if "warp_march_kernel" in name:    # <ANY_HIT, INST, HIER>
         args = _template_args(name, "warp_march_kernel") or [False] * 3
         return ("F block_march_hier" if args[2] else
