@@ -16,6 +16,14 @@ pipelined: a chunk's outputs go to pinned host buffers by a
 ``non_blocking`` copy queued right behind it, and the next chunk is
 queued before the host waits for that copy.
 
+Spans (``utils/profiling.span``): ``fused.file`` around a file's set-up
+(``fused.rebuild`` inside), ``fused.chunk`` around the queueing of a
+chunk and its fetch, ``fused.deliver`` around the wait for the fetch
+(``sync.fetch``) and the building of the chunk's frames; inside a chunk,
+``fused.frame`` holds ``fused.refit``, ``fused.trace`` and
+``fused.tail``.  None is open across a ``yield``: the consumer's time
+between frames lies under none of them.
+
 With a ``mesh`` (``parallel/sharding.make_mesh``) each frame traces in
 row bands, one per shard, each on its device (the JAX package's
 ``shard_map`` around the scan); the bands gather into full frames on the
@@ -42,6 +50,7 @@ from optix_ray_tracer_tpu_torch.render.denoise import (
 )
 from optix_ray_tracer_tpu_torch.render.film import Film, U8Frame
 from optix_ray_tracer_tpu_torch.scene.geometry import Scene, Triangles
+from optix_ray_tracer_tpu_torch.utils import profiling
 from optix_ray_tracer_tpu_torch.utils.color import color_to_uint8
 from optix_ray_tracer_tpu_torch.utils.vecmath import INF, normalize
 
@@ -129,49 +138,58 @@ def fused_chunk(fd, ks, seeds, base_inter, materials, camera,
         carry = tmod.empty_state(width, height, camera.center.device)
     imgs, albs, nrms = [], [], []
     for k, seed in zip(ks, seeds):
-        if mode == "mesh":
-            scene = _mesh_scene(fd, k, extra_spheres, extra_triangles,
-                                has_extras)
-        else:
-            scene = _time_scene(fd, k, extra_spheres, extra_triangles,
-                                has_extras, euler_path)
-        # the per-frame refit, always from the file's rebuild
-        inter = (refit_march_intersector(base_inter, scene) if use_march
-                 else None)
-        if mesh is not None:
-            # each band's camera wave on the raster engine when the band
-            # tiles cleanly (sharding._band_route), else on the marcher
-            kw = dict(seed=int(seed), background=background,
-                      max_depth=max_depth, intersector=inter, env=env,
-                      want_guides=True, want_aux=temporal, sampler=sampler)
-            out = (sharding.render_path_sharded(
-                       scene, materials, lights, camera, width, height, spp,
-                       mesh, textures=textures, **kw)
-                   if integrator == "path" else sharding.render_sharded(
-                       scene, materials, camera, width, height, spp, mesh,
-                       **kw))
-        elif integrator == "path":
-            out = pathtracer.render_path(
-                scene, materials, lights, camera, width, height, spp=spp,
-                seed=int(seed), background=background, max_depth=max_depth,
-                intersector=inter, env=env, textures=textures,
-                want_aux=temporal, sampler=sampler)
-        else:
-            out = wavefront.render(
-                scene, materials, camera, width, height, spp=spp,
-                seed=int(seed), background=background, max_depth=max_depth,
-                intersector=inter, env=env, want_aux=temporal,
-                sampler=sampler)
-        img, alb, nrm = out[:3]
-        if temporal:
-            img, carry = _temporal_tail(fd, k, out[3], img, alb, nrm, carry,
-                                        camera, width, height, mode,
-                                        euler_path, do_denoise, denoiser)
-        elif do_denoise and denoiser == "neural":
-            img = neural_denoise.denoise_neural(img, alb, nrm)
-        elif do_denoise:
-            img = denoise(img, alb, nrm)
-        imgs.append(color_to_uint8(img) if quantize else img)
+        with profiling.span("fused.frame"):
+            with profiling.span("fused.refit"):
+                if mode == "mesh":
+                    scene = _mesh_scene(fd, k, extra_spheres,
+                                        extra_triangles, has_extras)
+                else:
+                    scene = _time_scene(fd, k, extra_spheres,
+                                        extra_triangles, has_extras,
+                                        euler_path)
+                # the per-frame refit, always from the file's rebuild
+                inter = (refit_march_intersector(base_inter, scene)
+                         if use_march else None)
+            with profiling.span("fused.trace"):
+                if mesh is not None:
+                    # each band's camera wave on the raster engine when
+                    # the band tiles cleanly (sharding._band_route), else
+                    # on the marcher
+                    kw = dict(seed=int(seed), background=background,
+                              max_depth=max_depth, intersector=inter,
+                              env=env, want_guides=True, want_aux=temporal,
+                              sampler=sampler)
+                    out = (sharding.render_path_sharded(
+                               scene, materials, lights, camera, width,
+                               height, spp, mesh, textures=textures, **kw)
+                           if integrator == "path"
+                           else sharding.render_sharded(
+                               scene, materials, camera, width, height, spp,
+                               mesh, **kw))
+                elif integrator == "path":
+                    out = pathtracer.render_path(
+                        scene, materials, lights, camera, width, height,
+                        spp=spp, seed=int(seed), background=background,
+                        max_depth=max_depth, intersector=inter, env=env,
+                        textures=textures, want_aux=temporal,
+                        sampler=sampler)
+                else:
+                    out = wavefront.render(
+                        scene, materials, camera, width, height, spp=spp,
+                        seed=int(seed), background=background,
+                        max_depth=max_depth, intersector=inter, env=env,
+                        want_aux=temporal, sampler=sampler)
+            img, alb, nrm = out[:3]
+            with profiling.span("fused.tail"):
+                if temporal:
+                    img, carry = _temporal_tail(
+                        fd, k, out[3], img, alb, nrm, carry, camera, width,
+                        height, mode, euler_path, do_denoise, denoiser)
+                elif do_denoise and denoiser == "neural":
+                    img = neural_denoise.denoise_neural(img, alb, nrm)
+                elif do_denoise:
+                    img = denoise(img, alb, nrm)
+                imgs.append(color_to_uint8(img) if quantize else img)
         if want_guides:
             albs.append(alb)
             nrms.append(nrm)
@@ -269,43 +287,51 @@ def render_frames_fused(data, mode: str, file_data_fn, width: int,
                         if use_temporal else None)}
 
     def dispatch_chunks():
-        """Queue the chunks; yields (fi, k0, chunk, host outputs, event)."""
+        """Queue the chunks; yields (fi, k0, chunk, host outputs) with
+        no span open (``fused.file`` per file, ``fused.chunk`` per
+        chunk)."""
         planned = 0
         while True:
             for fi in range(data.file_count):
-                n_frames = common.frame_count_for_file(
-                    data.durations[fi], ld.fps, ld.render_speed_ratio)
-                scene0 = frontend.frame_scene(data, fi, 0, n_frames)
-                if state["lights"] is None:
-                    state["lights"] = common.collect_lights(
-                        cfg, scene0, data.materials)
-                state["base"] = common.rebuild_or_choose(state["base"],
-                                                         scene0)
-                use_march = isinstance(state["base"], MarchIntersector)
-                fd = file_data_fn(data, fi, n_frames)
-                bpp = (4 if quantize else 12) + (24 if fetch_guides else 0)
-                chunk = chunk_size(width, hp, n_frames, bpp)
+                with profiling.span("fused.file"):
+                    n_frames = common.frame_count_for_file(
+                        data.durations[fi], ld.fps, ld.render_speed_ratio)
+                    scene0 = frontend.frame_scene(data, fi, 0, n_frames)
+                    if state["lights"] is None:
+                        state["lights"] = common.collect_lights(
+                            cfg, scene0, data.materials)
+                    with profiling.span("fused.rebuild"):
+                        state["base"] = common.rebuild_or_choose(
+                            state["base"], scene0)
+                    use_march = isinstance(state["base"], MarchIntersector)
+                    fd = file_data_fn(data, fi, n_frames)
+                    bpp = ((4 if quantize else 12)
+                           + (24 if fetch_guides else 0))
+                    chunk = chunk_size(width, hp, n_frames, bpp)
                 for k0 in range(0, n_frames, chunk):
-                    out = fused_chunk(
-                        fd, range(k0, k0 + chunk),
-                        range(cfg.seed + planned, cfg.seed + planned + chunk),
-                        state["base"], data.materials, data.camera,
-                        data.extra_spheres, data.extra_triangles, data.env,
-                        data.textures, state["lights"], cfg.background,
-                        state["tstate"], mode=mode, width=width,
-                        height=hp, spp=spp, integrator=cfg.integrator,
-                        do_denoise=cfg.denoise,
-                        denoiser=common.resolve_denoiser(cfg),
-                        sampler=getattr(cfg, "sampler", "pcg"),
-                        max_depth=cfg.max_depth, use_march=use_march,
-                        has_extras=bool(data.extra_triangles.count),
-                        euler_path=getattr(data, "reference_euler_path",
-                                           False),
-                        quantize=quantize, want_guides=fetch_guides,
-                        temporal=use_temporal, mesh=mesh)
-                    if use_temporal:
-                        out, state["tstate"] = out
-                    host = [_to_host(x) for x in out]
+                    with profiling.span("fused.chunk"):
+                        out = fused_chunk(
+                            fd, range(k0, k0 + chunk),
+                            range(cfg.seed + planned,
+                                  cfg.seed + planned + chunk),
+                            state["base"], data.materials, data.camera,
+                            data.extra_spheres, data.extra_triangles,
+                            data.env, data.textures, state["lights"],
+                            cfg.background, state["tstate"], mode=mode,
+                            width=width, height=hp, spp=spp,
+                            integrator=cfg.integrator,
+                            do_denoise=cfg.denoise,
+                            denoiser=common.resolve_denoiser(cfg),
+                            sampler=getattr(cfg, "sampler", "pcg"),
+                            max_depth=cfg.max_depth, use_march=use_march,
+                            has_extras=bool(data.extra_triangles.count),
+                            euler_path=getattr(data, "reference_euler_path",
+                                               False),
+                            quantize=quantize, want_guides=fetch_guides,
+                            temporal=use_temporal, mesh=mesh)
+                        if use_temporal:
+                            out, state["tstate"] = out
+                        host = [_to_host(x) for x in out]
                     yield fi, k0, chunk, host
                     planned += chunk
                     if max_frames is not None and planned >= max_frames:
@@ -316,27 +342,33 @@ def render_frames_fused(data, mode: str, file_data_fn, width: int,
     produced = 0
 
     def emit(item):
+        """The chunk's frames, built after its fetch (span
+        ``fused.deliver``, closed before the first of them is yielded)."""
         nonlocal produced
         fi, k0, chunk, host = item
-        for _, ev in host:
+        n = chunk if max_frames is None else min(chunk,
+                                                 max_frames - produced)
+        with profiling.span("fused.deliver"):
+            ev = host[-1][1]    # the last copy's: the stream runs in order
             if ev is not None:
-                ev.synchronize()
-        imgs = host[0][0]
-        albs = host[1][0] if fetch_guides else None
-        nrms = host[2][0] if fetch_guides else None
-        for j in range(chunk):
-            if quantize:
-                frame = U8Frame(imgs[j][:height].numpy(), spp)
-            else:
-                z = torch.zeros((height, width, 3))
-                frame = Film.create(width, height, "cpu").add(
-                    imgs[j][:height],
-                    albs[j][:height] if albs is not None else z,
-                    nrms[j][:height] if nrms is not None else z, spp)
+                with profiling.span("sync.fetch"):
+                    ev.synchronize()
+            imgs = host[0][0]
+            albs = host[1][0] if fetch_guides else None
+            nrms = host[2][0] if fetch_guides else None
+            frames = []
+            for j in range(n):
+                if quantize:
+                    frames.append(U8Frame(imgs[j][:height].numpy(), spp))
+                else:
+                    z = torch.zeros((height, width, 3))
+                    frames.append(Film.create(width, height, "cpu").add(
+                        imgs[j][:height],
+                        albs[j][:height] if albs is not None else z,
+                        nrms[j][:height] if nrms is not None else z, spp))
+        for j, frame in enumerate(frames):
             yield fi, k0 + j, frame
             produced += 1
-            if max_frames is not None and produced >= max_frames:
-                return
 
     prev = None
     for item in dispatch_chunks():

@@ -52,7 +52,7 @@ from optix_ray_tracer_tpu_torch.render.wavefront import (
 from optix_ray_tracer_tpu_torch.scene.geometry import (
     Scene, ShapeLibrary, Spheres, Triangles,
 )
-from optix_ray_tracer_tpu_torch.utils import debug
+from optix_ray_tracer_tpu_torch.utils import debug, profiling
 from optix_ray_tracer_tpu_torch.utils.logging import LOG
 from optix_ray_tracer_tpu_torch.utils.tensors import resolve_device
 from optix_ray_tracer_tpu_torch.utils.transforms import (
@@ -93,7 +93,10 @@ def packing_tables(library: ShapeLibrary, shape_ids, valid):
 
 
 def _f32(x, dev) -> torch.Tensor:
-    return torch.as_tensor(x, dtype=torch.float32, device=dev)
+    """A host scalar or array on ``dev`` as float32: on a CUDA device a
+    copy that waits for the work queued before it."""
+    with profiling.span("sync.pose_scalars"):
+        return torch.as_tensor(x, dtype=torch.float32, device=dev)
 
 
 def _instance_poses(pos_cur, quat_cur, quat_next, vel, duration, frame_idx,

@@ -8,7 +8,10 @@ common-point and common-direction waves through the tile-raster engine
 (kernel A) and secondary waves in a tile layout
 through the bundle engine (3-D binning, kernel A), each with an exact
 whole-wave fallback to the marcher; refit or rebuild the intersector for
-new vertex positions on the device.
+new vertex positions on the device.  Spans (``utils/profiling.span``):
+``route.raster`` around each raster or bundle schedule wave,
+``route.overflow`` around the marcher's re-trace of a wave whose schedule
+overflowed.
 """
 
 from __future__ import annotations
@@ -32,6 +35,7 @@ from optix_ray_tracer_tpu_torch.ops.sweep import (
     ClusterSet, build_clusters, rebuild_clusters, refit_clusters,
 )
 from optix_ray_tracer_tpu_torch.scene.geometry import Scene
+from optix_ray_tracer_tpu_torch.utils import profiling
 from optix_ray_tracer_tpu_torch.utils.tensors import TensorDataclass
 from optix_ray_tracer_tpu_torch.utils.vecmath import INF, dot
 
@@ -125,15 +129,18 @@ class MarchIntersector(TensorDataclass):
         if granularity is None:
             granularity = (DEFAULT_ANYHIT_GRANULARITY if any_hit
                            else DEFAULT_GRANULARITY)
-        t, slot, u, v, ok = raster_query(
-            self.raster, self.clusters, o2, d2, t_min_a, t_max_a, mode=mode,
-            point=point, any_hit=any_hit, block_rays=block_rays,
-            pc_max=pc_max, granularity=granularity)
+        with profiling.span("route.raster"):
+            t, slot, u, v, ok = raster_query(
+                self.raster, self.clusters, o2, d2, t_min_a, t_max_a,
+                mode=mode, point=point, any_hit=any_hit,
+                block_rays=block_rays, pc_max=pc_max,
+                granularity=granularity)
         if ok:
             hit = _hit_from_slots(self.clusters, t, slot, u, v)
         else:
-            hit = _march_hit(self.clusters, o2, d2, t_min_a, t_max_a,
-                             coherent=True, any_hit=any_hit)
+            with profiling.span("route.overflow"):
+                hit = _march_hit(self.clusters, o2, d2, t_min_a, t_max_a,
+                                 coherent=True, any_hit=any_hit)
         if scene.sphere_count > 0:
             hit = sphere_bruteforce_merge(scene, o2, d2, t_min_a, t_max_a,
                                           hit)
@@ -157,15 +164,17 @@ class MarchIntersector(TensorDataclass):
         t_max_a = ray_bound(t_max, n, o2.device)
         # bundles keep whole-cluster windows (the JAX package's measured
         # choice: finer windows pair secondary blocks with more windows)
-        t, slot, u, v, ok = bundle_query(
-            self.clusters, o2, d2, t_min_a, t_max_a, any_hit=any_hit,
-            block_rays=block_rays, pc_max=pc_max,
-            granularity=granularity or 1)
+        with profiling.span("route.raster"):
+            t, slot, u, v, ok = bundle_query(
+                self.clusters, o2, d2, t_min_a, t_max_a, any_hit=any_hit,
+                block_rays=block_rays, pc_max=pc_max,
+                granularity=granularity or 1)
         if ok:
             hit = _hit_from_slots(self.clusters, t, slot, u, v)
         else:
-            hit = _march_hit(self.clusters, o2, d2, t_min_a, t_max_a,
-                             coherent=False, any_hit=any_hit)
+            with profiling.span("route.overflow"):
+                hit = _march_hit(self.clusters, o2, d2, t_min_a, t_max_a,
+                                 coherent=False, any_hit=any_hit)
         if scene.sphere_count > 0:
             hit = sphere_bruteforce_merge(scene, o2, d2, t_min_a, t_max_a,
                                           hit)

@@ -34,6 +34,7 @@ from optix_ray_tracer_tpu_torch.ops.kernels.tile_raster import (
     GROUP_TRIS, raster_cluster_call,
 )
 from optix_ray_tracer_tpu_torch.ops.sweep import SUBS_PER_CLUSTER, ClusterSet
+from optix_ray_tracer_tpu_torch.utils import profiling
 from optix_ray_tracer_tpu_torch.utils.tensors import TensorDataclass, tree_map
 from optix_ray_tracer_tpu_torch.utils.vecmath import INF
 
@@ -170,7 +171,8 @@ def _run_pair_schedule(clusters: ClusterSet, S: dict, W: int, n: int,
                          f"({SUBS_PER_CLUSTER})")
     # the overflow decides on the host: one read of the pair count per
     # wave (the JAX package selects on the device with lax.cond)
-    pc_total = int(S["pc_total"])
+    with profiling.span("sync.pair_count"):
+        pc_total = int(S["pc_total"])
     ok = pc_total <= pc_max
     dev = S["o_p"].device
     if ok:

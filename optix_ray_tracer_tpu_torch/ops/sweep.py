@@ -33,6 +33,7 @@ from optix_ray_tracer_tpu_torch.ops.intersect import (
     DEFAULT_T_MIN, PRIM_NONE, PRIM_TRIANGLE, Hit, ray_bound,
 )
 from optix_ray_tracer_tpu_torch.scene.geometry import Scene
+from optix_ray_tracer_tpu_torch.utils import profiling
 from optix_ray_tracer_tpu_torch.utils.tensors import (
     TensorDataclass, resolve_device,
 )
@@ -73,7 +74,11 @@ def _transpose_woop(woop):
     """(n_pad, 12) Woop rows -> (C, WOOP_T_ROWS, CHUNK) per-cluster blocks
     (a numpy array or a tensor, as given)."""
     C = woop.shape[0] // CHUNK
-    wt = woop[:, list(_WOOP_T_PERM)].reshape(C, CHUNK, 12).swapaxes(1, 2)
+    # a tensor's index list goes to its device by a copy that waits for
+    # the work queued before it
+    with profiling.span("sync.woop_perm"):
+        wt = woop[:, list(_WOOP_T_PERM)]
+    wt = wt.reshape(C, CHUNK, 12).swapaxes(1, 2)
     if isinstance(woop, torch.Tensor):
         pad = woop.new_zeros((C, WOOP_T_ROWS - 12, CHUNK))
         return torch.cat([wt, pad], 1).contiguous()
@@ -288,7 +293,9 @@ def _median_order_device(cents: torch.Tensor) -> torch.Tensor:
     cur = cents
     for seg_np in _median_levels(n):
         num_seg = int(seg_np[-1]) + 1
-        seg = torch.as_tensor(seg_np, device=dev).long()
+        with profiling.span("sync.rebuild_segments"):
+            seg = torch.as_tensor(seg_np, device=dev)
+        seg = seg.long()
         idx = seg[:, None].expand(n, 3)
         lo = torch.full((num_seg, 3), float("inf"), device=dev
                         ).scatter_reduce(0, idx, cur, "amin",
@@ -338,7 +345,8 @@ def refit_clusters(clusters: ClusterSet, tri_vertices) -> ClusterSet:
     c = torch.stack([_dot(r0, v0), _dot(r1, v0), _dot(r2, v0)], -1)
     woop = torch.cat([r0, r1, r2, c], -1)
 
-    inf = torch.tensor(INF, device=tv.device)
+    with profiling.span("sync.refit_inf"):
+        inf = torch.tensor(INF, device=tv.device)
     tmin = torch.where(valid[:, None], sorted_tris.amin(1), inf)
     tmax = torch.where(valid[:, None], sorted_tris.amax(1), -inf)
 
@@ -348,7 +356,8 @@ def refit_clusters(clusters: ClusterSet, tri_vertices) -> ClusterSet:
         # pure-padding groups get NaN boxes: every slab comparison is
         # false, so they are never entered
         empty = (glo[:, 0] > ghi[:, 0])[:, None]
-        nan = torch.tensor(float("nan"), device=tv.device)
+        with profiling.span("sync.refit_nan"):
+            nan = torch.tensor(float("nan"), device=tv.device)
         return torch.where(empty, nan, glo), torch.where(empty, nan, ghi)
 
     C = n_pad // CHUNK

@@ -24,9 +24,9 @@ CUDA tensors the BSDF step of each bounce (:func:`bsdf_step`: lobe,
 throughput, roulette, next ray) runs on kernel K, its NEE samples
 (:func:`nee_sample`) on L, their shadowed contributions
 (:func:`nee_add`) on M, and the miss and emitter terms
-(:func:`hit_radiance`) on N.  Each section of a bounce is a
-``torch.profiler.record_function`` range (``path.*``), which
-``tools/prof_port.py`` reads.
+(:func:`hit_radiance`) on N.  Each section of a bounce is a span
+(``utils/profiling.span``, ``path.*``), which ``tools/prof_port.py``
+reads.
 ``sampler`` selects PCG4D or Owen-scrambled Sobol; ``restir_direct``
 hands the primary vertex's area-light direct lighting to ReSTIR
 (``render/restir.render_restir_gi``).
@@ -37,7 +37,6 @@ from __future__ import annotations
 import os
 
 import torch
-from torch.profiler import record_function
 
 from optix_ray_tracer_tpu_torch.ops import intersect as isect
 from optix_ray_tracer_tpu_torch.ops.kernels import bounce as bounce_kernels
@@ -51,7 +50,7 @@ from optix_ray_tracer_tpu_torch.scene.lights import (
 from optix_ray_tracer_tpu_torch.scene.materials import (
     DIELECTRIC, EMISSIVE, METAL, ROUGH, MaterialTable,
 )
-from optix_ray_tracer_tpu_torch.utils import rng
+from optix_ray_tracer_tpu_torch.utils import profiling, rng
 from optix_ray_tracer_tpu_torch.utils.vecmath import (
     INF, PI, dot, normalize, reflect, refract, schlick_fresnel,
 )
@@ -397,7 +396,9 @@ def trace_path(scene: Scene, materials: MaterialTable,
     shade_fn = isect.shading_frame_fn(intersector)
     dev = origins.device
     nrays = origins.shape[0]
-    background = torch.as_tensor(background, dtype=torch.float32, device=dev)
+    with profiling.span("sync.path_background"):
+        background = torch.as_tensor(background, dtype=torch.float32,
+                                     device=dev)
     have_lights = lights is not None and lights.count > 0
     have_env_nee = env is not None and env.can_sample
 
@@ -421,7 +422,7 @@ def trace_path(scene: Scene, materials: MaterialTable,
         # the firefly clamp, on indirect bounces only (0: off)
         cap = clamp if b >= 1 and clamp > 0.0 else 0.0
 
-        with record_function("path.intersect"):
+        with profiling.span("path.intersect"):
             # dead lanes trace with t_max=0: free in the marchers and absent
             # from the bundle engine's block bounds
             if b == 0 and first_hit is not None:
@@ -434,7 +435,7 @@ def trace_path(scene: Scene, materials: MaterialTable,
                 missed = torch.zeros_like(missed)   # in ReSTIR's base image
             hit_alive = alive & hit.is_hit
 
-        with record_function("path.shade"):
+        with profiling.span("path.shade"):
             point, normal, front_face, material_id = shade_fn(scene, o, d, hit)
             n_unit = normalize(normal)
             mtype, albedo, param, emission = materials.gather(material_id)
@@ -442,14 +443,14 @@ def trace_path(scene: Scene, materials: MaterialTable,
                 albedo = albedo * textures.sample(
                     material_id, isect.interpolate_uv(scene, hit))
 
-        with record_function("path.hit_radiance"):
+        with profiling.span("path.hit_radiance"):
             # the miss term, then emitted light at BSDF hits, MIS-weighted
             radiance = hit_radiance(
                 radiance, d, prev_pdf, throughput, missed, hit_alive, hit,
                 mtype, emission, prim_diff, b, background,
                 lights if have_lights else None, env, cap, restir_direct)
 
-        with record_function("path.shade"):
+        with profiling.span("path.shade"):
             is_emitter = hit_alive & (mtype == EMISSIVE)
             # guide buffers
             if b == 0:
@@ -474,7 +475,7 @@ def trace_path(scene: Scene, materials: MaterialTable,
         # environment sample, their shadow segments, their contributions
         area_on = have_lights and not (restir_direct and b == 0)
         if area_on or have_env_nee:
-            with record_function("path.nee_sample"):
+            with profiling.span("path.nee_sample"):
                 origin, area, sky = nee_sample(
                     point, n_unit, shading_alive, mtype, throughput, albedo,
                     pixel_id, sample, b, seed, sampler,
@@ -482,21 +483,21 @@ def trace_path(scene: Scene, materials: MaterialTable,
                     env if have_env_nee else None, cap)
             occ_l = occ_e = None
             if area is not None:
-                with record_function("path.area_nee.query"):
+                with profiling.span("path.area_nee.query"):
                     occ_l = shadow_any_hit(scene, origin, area[0],
                                            t_min=1e-4, t_max=area[1])
             if sky is not None:
                 # occlusion to infinity: the marcher, not bundles
-                with record_function("path.env_nee.query"):
+                with profiling.span("path.env_nee.query"):
                     occ_e = incoh.any_hit(scene, origin, sky[0], t_min=1e-4,
                                           t_max=sky[1])
             c_l, valid_l = area[2:] if area else (None, None)
             c_e, valid_e = sky[2:] if sky else (None, None)
-            with record_function("path.nee_add"):
+            with profiling.span("path.nee_add"):
                 radiance = nee_add(radiance, c_l, valid_l, occ_l, c_e,
                                    valid_e, occ_e)
 
-        with record_function("path.bsdf"):
+        with profiling.span("path.bsdf"):
             o, d, throughput, prev_pdf, alive = bsdf_step(
                 d, n_unit, point, front_face, mtype, albedo, param,
                 throughput, shading_alive, o, pixel_id, sample, b, seed,

@@ -87,7 +87,7 @@ SOURCES = sorted(
     for p in (ROOT / "optix_ray_tracer_tpu_torch").rglob("*.py")) + [
     "chip_smoke.py", "tools/a_phases.py", "tools/kernel_bench.py",
     "tools/path_ab.py", "tools/prof_port.py", "tools/ptxas_report.py",
-    "tools/s_phases.py"]
+    "tools/s_phases.py", "tools/sync_sites.py"]
 
 _CHECK = """
 import importlib, sys

@@ -1,5 +1,5 @@
-"""The viewer of the port (render/viewer.py), its fly camera
-(scene/camera.FlyCameraController) and utils/profiling.py.
+"""The viewer of the port (render/viewer.py) and its fly camera
+(scene/camera.FlyCameraController).
 
 The controller is held to the JAX package's over an input sequence that
 moves, looks, clamps the pitch and scrolls the speed: equal camera
@@ -9,7 +9,6 @@ function: every request has a timeout of at most 5 s, the server binds
 port 0 and is always stopped in a ``finally``; no frame rate is
 asserted."""
 
-import json
 import time
 import urllib.request
 
@@ -24,7 +23,6 @@ from optix_ray_tracer_tpu_torch.scene.camera import Camera as TCamera
 from optix_ray_tracer_tpu_torch.scene.camera import (
     FlyCameraController as TFly,
 )
-from optix_ray_tracer_tpu_torch.utils import profiling
 from optix_ray_tracer_tpu_torch.utils.color import png_bytes
 
 EVENTS = [
@@ -196,30 +194,3 @@ def test_encode_frame_png_branch(monkeypatch):
     assert tviewer.encoder() == "png"
     assert tviewer._encode_frame(img) == (png_bytes(img), b"image/png")
 
-
-def test_stage_timer_and_metrics(tmp_path):
-    timer = profiling.StageTimer()
-    for _ in range(3):
-        with timer.stage("render"):
-            time.sleep(0.002)
-    with timer.stage("fetch", block=False):
-        pass
-    s = timer.summary()
-    assert s["render"]["count"] == 3 and s["fetch"]["count"] == 1
-    assert s["render"]["total_s"] >= 0.006
-    assert s["render"]["mean_s"] == pytest.approx(s["render"]["total_s"] / 3)
-    path = tmp_path / "m.jsonl"
-    log = profiling.MetricsLogger(str(path))
-    log.log(frame=0, rays_per_s=1.5)
-    log.log(frame=1, ts=7.0)
-    log.close()
-    log.close()
-    rows = [json.loads(x) for x in path.read_text().splitlines()]
-    assert rows[0]["frame"] == 0 and "ts" in rows[0] and rows[1]["ts"] == 7.0
-    profiling.MetricsLogger(None).log(x=1)
-    assert profiling.rays_per_second(4, 2, 3, 5, 2.0) == 60.0
-    with profiling.device_trace(None):
-        pass
-    with profiling.device_trace(str(tmp_path / "trace")):
-        torch.ones(8).sum()
-    assert list((tmp_path / "trace").glob("*.json"))
