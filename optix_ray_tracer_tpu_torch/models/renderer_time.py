@@ -52,9 +52,11 @@ from optix_ray_tracer_tpu_torch.render.wavefront import (
 from optix_ray_tracer_tpu_torch.scene.geometry import (
     Scene, ShapeLibrary, Spheres, Triangles,
 )
-from optix_ray_tracer_tpu_torch.utils import debug, profiling
+from optix_ray_tracer_tpu_torch.utils import debug
 from optix_ray_tracer_tpu_torch.utils.logging import LOG
-from optix_ray_tracer_tpu_torch.utils.tensors import resolve_device
+from optix_ray_tracer_tpu_torch.utils.tensors import (
+    device_constant, resolve_device,
+)
 from optix_ray_tracer_tpu_torch.utils.transforms import (
     quat_slerp, quat_to_euler_degrees, quat_to_rotation_matrix,
     rotation_matrix_euler_xyz_degrees,
@@ -92,31 +94,29 @@ def packing_tables(library: ShapeLibrary, shape_ids, valid):
     return lib_idx, inst_idx, tri_ok
 
 
-def _f32(x, dev) -> torch.Tensor:
-    """A host scalar or array on ``dev`` as float32: on a CUDA device a
-    copy that waits for the work queued before it."""
-    with profiling.span("sync.pose_scalars"):
-        return torch.as_tensor(x, dtype=torch.float32, device=dev)
-
-
 def _instance_poses(pos_cur, quat_cur, quat_next, vel, duration, frame_idx,
                     inv_frames_minus1, inv_frame_count, particle_shift,
                     euler_path: bool):
     """Per-particle rigid pose at (possibly fractional) frame index:
     rot (P, 3, 3) + shift (P, 3), the render loop's motion model.  The
-    scalars are float32, as the JAX package casts them."""
+    scalars are float32, as the JAX package casts them; their products
+    are formed on the host, where float32 rounds as on the device, and
+    reach it as operands and fills, never as copies (a copy of host
+    memory waits for the work queued before it)."""
     dev = pos_cur.device
     duration, frame_idx, inv_frames_minus1, inv_frame_count = (
-        _f32(x, dev) for x in (duration, frame_idx, inv_frames_minus1,
-                               inv_frame_count))
-    factor = torch.clamp(frame_idx * inv_frames_minus1, 0.0, 1.0)
-    q = quat_slerp(quat_cur, quat_next, factor.expand(quat_cur.shape[:-1]))
+        np.float32(x) for x in (duration, frame_idx, inv_frames_minus1,
+                                inv_frame_count))
+    factor = np.clip(frame_idx * inv_frames_minus1, np.float32(0.0),
+                     np.float32(1.0))
+    q = quat_slerp(quat_cur, quat_next, torch.full(
+        quat_cur.shape[:-1], float(factor), dtype=torch.float32, device=dev))
     if euler_path:
         rot = rotation_matrix_euler_xyz_degrees(quat_to_euler_degrees(q))
     else:
         rot = quat_to_rotation_matrix(q)
-    shift = (pos_cur + vel * (duration * frame_idx * inv_frame_count)
-             + _f32(particle_shift, dev)[None, :])
+    shift = (pos_cur + vel * float(duration * frame_idx * inv_frame_count)
+             + device_constant(particle_shift, dev)[None, :])
     return rot, shift
 
 
@@ -145,7 +145,7 @@ def _frame_triangles(lib_vertices, lib_normals, tri_lib_idx, tri_inst,
     inst = torch.as_tensor(tri_inst, device=dev).long()
     ok = torch.as_tensor(tri_ok, device=dev)
     rot_t = rot[inst]
-    v = lib_vertices[lib] * _f32(particle_scale, dev)
+    v = lib_vertices[lib] * device_constant(particle_scale, dev)
     v = _rotate(rot_t, v) + shift[inst][:, None, :]
     n = _rotate(rot_t, lib_normals[lib])
     v = torch.where(ok[:, None, None], v, torch.zeros_like(v))

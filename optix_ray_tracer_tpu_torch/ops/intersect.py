@@ -10,10 +10,10 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from optix_ray_tracer_tpu_torch.scene.geometry import Scene
-from optix_ray_tracer_tpu_torch.utils import profiling
 from optix_ray_tracer_tpu_torch.utils.tensors import TensorDataclass, tree_map
 from optix_ray_tracer_tpu_torch.utils.vecmath import INF, cross, dot
 
@@ -52,13 +52,14 @@ class Hit(TensorDataclass):
 
 def ray_bound(t, n: int, device) -> torch.Tensor:
     """A scalar or (n,)-shaped ray bound as an (n,) float32 tensor.  A
-    host value's copy to a CUDA device waits for the work queued before
-    it (span ``sync.ray_bound``)."""
-    if isinstance(t, torch.Tensor):
+    host number, rounded to float32, becomes a fill on ``device``: a copy
+    of host memory to a CUDA device would wait for the work queued before
+    it."""
+    if isinstance(t, torch.Tensor) or np.ndim(t):
         t = torch.as_tensor(t, dtype=torch.float32, device=device)
     else:
-        with profiling.span("sync.ray_bound"):
-            t = torch.as_tensor(t, dtype=torch.float32, device=device)
+        t = torch.full((), float(np.float32(t)), dtype=torch.float32,
+                       device=device)
     return t.reshape(-1).expand(n) if t.dim() else t.expand(n)
 
 

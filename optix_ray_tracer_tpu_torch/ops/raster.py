@@ -365,7 +365,7 @@ def make_tiled_bundle_intersect(intersector, S: int, H: int, W: int,
         return (to_tiles(x.expand(n), *layout)
                 if isinstance(x, torch.Tensor) and x.dim() else x)
 
-    def isect(scene, o, d, t_min=1e-3, t_max=INF, any_hit=False):
+    def query(scene, o, d, t_min, t_max, any_hit):
         n = o.shape[0]
         hit = intersector.intersect_bundled(
             scene, to_tiles(o, *layout), to_tiles(d, *layout),
@@ -373,9 +373,14 @@ def make_tiled_bundle_intersect(intersector, S: int, H: int, W: int,
             block_rays=br, pc_max=pc_max)
         return tree_map(lambda a: from_tiles(a, *layout), hit)
 
+    # both call ``query``, never each other: ``isect`` holds ``any_hit_fn``,
+    # so a reference back would be a cycle that keeps the frame's
+    # intersector on the device until the garbage collector's next full pass
+    def isect(scene, o, d, t_min=1e-3, t_max=INF, any_hit=False):
+        return query(scene, o, d, t_min, t_max, any_hit)
+
     def any_hit_fn(scene, o, d, t_min=1e-3, t_max=INF):
-        return isect(scene, o, d, t_min=t_min, t_max=t_max,
-                     any_hit=True).is_hit
+        return query(scene, o, d, t_min, t_max, True).is_hit
 
     isect.any_hit = any_hit_fn
     return isect

@@ -33,9 +33,8 @@ from optix_ray_tracer_tpu_torch.ops.intersect import (
     DEFAULT_T_MIN, PRIM_NONE, PRIM_TRIANGLE, Hit, ray_bound,
 )
 from optix_ray_tracer_tpu_torch.scene.geometry import Scene
-from optix_ray_tracer_tpu_torch.utils import profiling
 from optix_ray_tracer_tpu_torch.utils.tensors import (
-    TensorDataclass, resolve_device,
+    CONSTANTS, TensorDataclass, resolve_device,
 )
 from optix_ray_tracer_tpu_torch.utils.vecmath import INF
 
@@ -74,14 +73,16 @@ def _transpose_woop(woop):
     """(n_pad, 12) Woop rows -> (C, WOOP_T_ROWS, CHUNK) per-cluster blocks
     (a numpy array or a tensor, as given)."""
     C = woop.shape[0] // CHUNK
-    # a tensor's index list goes to its device by a copy that waits for
-    # the work queued before it
-    with profiling.span("sync.woop_perm"):
-        wt = woop[:, list(_WOOP_T_PERM)]
-    wt = wt.reshape(C, CHUNK, 12).swapaxes(1, 2)
     if isinstance(woop, torch.Tensor):
+        # the index list is kept on the device: a copy of it would wait
+        # for the work queued before it
+        perm = CONSTANTS.get(("woop_t_perm", woop.device),
+                             lambda: torch.tensor(_WOOP_T_PERM,
+                                                  device=woop.device))
+        wt = woop[:, perm].reshape(C, CHUNK, 12).swapaxes(1, 2)
         pad = woop.new_zeros((C, WOOP_T_ROWS - 12, CHUNK))
         return torch.cat([wt, pad], 1).contiguous()
+    wt = woop[:, list(_WOOP_T_PERM)].reshape(C, CHUNK, 12).swapaxes(1, 2)
     pad = np.zeros((C, WOOP_T_ROWS - 12, CHUNK), woop.dtype)
     return np.ascontiguousarray(np.concatenate([wt, pad], axis=1))
 
@@ -281,6 +282,17 @@ def _median_levels(n: int) -> list[np.ndarray]:
         segs = nxt
 
 
+def _median_segments(n: int, dev) -> list[tuple[torch.Tensor, int]]:
+    """Per level of :func:`_median_levels` (n), its segment ids as an
+    (n,) int64 tensor on ``dev`` and its segment count: built once per
+    (n, device) and kept, since a rebuild of the same triangle count
+    repeats them and their copies would wait for the work queued before
+    them."""
+    return CONSTANTS.get(("median_segments", n, dev), lambda: [
+        (torch.as_tensor(seg.astype(np.int64), device=dev),
+         int(seg[-1]) + 1) for seg in _median_levels(n)])
+
+
 def _median_order_device(cents: torch.Tensor) -> torch.Tensor:
     """Median-split partition on the centroids' device: each level sorts
     the elements of every segment by that segment's widest centroid axis
@@ -291,11 +303,7 @@ def _median_order_device(cents: torch.Tensor) -> torch.Tensor:
     n = cents.shape[0]
     perm = torch.arange(n, dtype=torch.int32, device=dev)
     cur = cents
-    for seg_np in _median_levels(n):
-        num_seg = int(seg_np[-1]) + 1
-        with profiling.span("sync.rebuild_segments"):
-            seg = torch.as_tensor(seg_np, device=dev)
-        seg = seg.long()
+    for seg, num_seg in _median_segments(n, dev):
         idx = seg[:, None].expand(n, 3)
         lo = torch.full((num_seg, 3), float("inf"), device=dev
                         ).scatter_reduce(0, idx, cur, "amin",
@@ -345,10 +353,10 @@ def refit_clusters(clusters: ClusterSet, tri_vertices) -> ClusterSet:
     c = torch.stack([_dot(r0, v0), _dot(r1, v0), _dot(r2, v0)], -1)
     woop = torch.cat([r0, r1, r2, c], -1)
 
-    with profiling.span("sync.refit_inf"):
-        inf = torch.tensor(INF, device=tv.device)
-    tmin = torch.where(valid[:, None], sorted_tris.amin(1), inf)
-    tmax = torch.where(valid[:, None], sorted_tris.amax(1), -inf)
+    # host constants as operands: a copy to the device would wait for the
+    # work queued before it
+    tmin = torch.where(valid[:, None], sorted_tris.amin(1), INF)
+    tmax = torch.where(valid[:, None], sorted_tris.amax(1), -INF)
 
     def boxes(groups: int):
         glo = tmin.reshape(groups, -1, 3).amin(1)
@@ -356,9 +364,8 @@ def refit_clusters(clusters: ClusterSet, tri_vertices) -> ClusterSet:
         # pure-padding groups get NaN boxes: every slab comparison is
         # false, so they are never entered
         empty = (glo[:, 0] > ghi[:, 0])[:, None]
-        with profiling.span("sync.refit_nan"):
-            nan = torch.tensor(float("nan"), device=tv.device)
-        return torch.where(empty, nan, glo), torch.where(empty, nan, ghi)
+        return (torch.where(empty, float("nan"), glo),
+                torch.where(empty, float("nan"), ghi))
 
     C = n_pad // CHUNK
     cmin, cmax = boxes(C)

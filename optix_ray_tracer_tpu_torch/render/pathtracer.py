@@ -51,6 +51,7 @@ from optix_ray_tracer_tpu_torch.scene.materials import (
     DIELECTRIC, EMISSIVE, METAL, ROUGH, MaterialTable,
 )
 from optix_ray_tracer_tpu_torch.utils import profiling, rng
+from optix_ray_tracer_tpu_torch.utils.tensors import device_constant
 from optix_ray_tracer_tpu_torch.utils.vecmath import (
     INF, PI, dot, normalize, reflect, refract, schlick_fresnel,
 )
@@ -396,9 +397,7 @@ def trace_path(scene: Scene, materials: MaterialTable,
     shade_fn = isect.shading_frame_fn(intersector)
     dev = origins.device
     nrays = origins.shape[0]
-    with profiling.span("sync.path_background"):
-        background = torch.as_tensor(background, dtype=torch.float32,
-                                     device=dev)
+    background = device_constant(background, dev)
     have_lights = lights is not None and lights.count > 0
     have_env_nee = env is not None and env.can_sample
 

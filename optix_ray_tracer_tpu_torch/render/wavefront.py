@@ -25,7 +25,8 @@ from optix_ray_tracer_tpu_torch.scene.geometry import Scene
 from optix_ray_tracer_tpu_torch.scene.materials import (
     DIELECTRIC, EMISSIVE, METAL, MaterialTable,
 )
-from optix_ray_tracer_tpu_torch.utils import profiling, rng
+from optix_ray_tracer_tpu_torch.utils import rng
+from optix_ray_tracer_tpu_torch.utils.tensors import device_constant
 from optix_ray_tracer_tpu_torch.utils.vecmath import (
     EPS, INF, dot, length_squared, normalize, reflect, refract,
     schlick_fresnel,
@@ -139,9 +140,7 @@ def trace(scene: Scene, materials: MaterialTable, origins, directions,
     shade_fn = isect.shading_frame_fn(intersector)
     dev = origins.device
     nrays = origins.shape[0]
-    with profiling.span("sync.whitted_background"):
-        background = torch.as_tensor(background, dtype=torch.float32,
-                                     device=dev)
+    background = device_constant(background, dev)
 
     o, d = origins, directions
     throughput = torch.ones((nrays, 3), device=dev)

@@ -349,3 +349,22 @@ def test_tiled_bundle_intersect(setup, monkeypatch):
         return torch.where(h.is_hit, h.prim_type * 2 ** 20 + h.prim_id, -1)
 
     assert hit_mismatches(key(hit), hit.t, key(ref), ref.t) == 0
+
+
+def test_tiled_bundle_intersect_leaves_no_cycle(setup):
+    """The callable and its ``any_hit`` hold the intersector through no
+    reference cycle: once dropped they are freed at once, with the
+    garbage collector off (a cycle would keep each frame's refit
+    intersector on the device until the collector's next full pass)."""
+    import gc
+
+    fn = traster.make_tiled_bundle_intersect(setup["tinter"], 1, H, W, 32,
+                                             32)
+    any_hit = fn.any_hit
+    gc.collect()
+    gc.disable()
+    try:
+        del fn, any_hit
+        assert gc.collect() == 0
+    finally:
+        gc.enable()

@@ -2577,3 +2577,50 @@ def test_binning_one_ray(setup, dev, monkeypatch, mode):
     assert ran == [1, 1, 1]
     _bin_equal(got, want)
     assert got["nb"] == 1
+
+
+@pytest.mark.parametrize("traffic", ["whitted_stream", "path_stream"])
+def test_pile_frames_wait_only_at_real_reads(dev, monkeypatch, traffic):
+    """The benchmark's pile (``portbench`` driver, 320x240, 512 particles)
+    through the fused loop after its set-up's warm loop: one more loop over
+    the files (a device rebuild a file, a 4-frame chunk, a refit a frame)
+    under ``torch.cuda.set_sync_debug_mode("error")``, relaxed only inside
+    the two real reads, ``sync.pair_count`` and ``sync.fetch``.  No other
+    call waits for the stream, and the loop takes every device constant
+    from the cache without building one."""
+    import contextlib
+
+    from optix_ray_tracer_tpu_torch.utils import profiling
+    from optix_ray_tracer_tpu_torch.utils.tensors import CONSTANTS
+    from portbench import harness
+    from portbench.drivers import time_stream
+
+    run = time_stream.Run(harness.config("dem_pile"),
+                          harness.traffic(traffic), 3_000_000_019, dev,
+                          size=dict(width=320, height=240, particles=512))
+    run.setup()
+    real = profiling.span
+
+    @contextlib.contextmanager
+    def relaxed(name):
+        wait = name in ("sync.pair_count", "sync.fetch")
+        if wait:
+            torch.cuda.set_sync_debug_mode("default")
+        try:
+            with real(name):
+                yield
+        finally:
+            if wait:
+                torch.cuda.set_sync_debug_mode("error")
+
+    monkeypatch.setattr(profiling, "span", relaxed)
+    CONSTANTS.reset()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(run.loop):
+            run._take()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+        run.release()
+    assert run.failed == 0
+    assert CONSTANTS.built == 0 and CONSTANTS.reused > 0

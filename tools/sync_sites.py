@@ -21,8 +21,10 @@ and their counts per frame beside the ``sync.*`` spans per frame of the
 first pass (``syncs_per_frame.pile``), and from the second every
 per-layer metric that reads the spans, the idle ms a frame by the name
 ``harness.Trace.idle_gaps`` gives a gap and the ten longest gaps with
-the host events before and after them; writes the same as JSON to
-``--out``.  Exits 1 if a call of the port escaped its span.
+the host events before and after them, and the device constants
+(``utils/tensors.CONSTANTS``) built and reused in the set-up and in the
+first pass; writes the same as JSON to ``--out``.  Exits 1 if a call of
+the port escaped its span.
 """
 
 from __future__ import annotations
@@ -46,6 +48,7 @@ sys.path.insert(0, str(ROOT))
 import torch  # noqa: E402
 
 from optix_ray_tracer_tpu_torch.utils import profiling  # noqa: E402
+from optix_ray_tracer_tpu_torch.utils.tensors import CONSTANTS  # noqa: E402
 from portbench import harness, spans  # noqa: E402
 
 PACKAGE = str(ROOT / "optix_ray_tracer_tpu_torch")
@@ -205,8 +208,12 @@ def cell_sites(cell: str, frames: int, seed: int) -> dict:
     run = harness.driver(mix["driver"]).Run(
         harness.config(w["config"]), mix, seed=seed,
         device=torch.device("cuda", 0))
+    CONSTANTS.reset()
     run.setup()
     torch.cuda.synchronize()
+    constants = {"setup": dict(built=CONSTANTS.built,
+                               reused=CONSTANTS.reused)}
+    CONSTANTS.reset()
     run.gen = _program(run.gen)
     obs = Observer()
 
@@ -218,6 +225,8 @@ def cell_sites(cell: str, frames: int, seed: int) -> dict:
 
     found = _traced(sites)
     torch.cuda.synchronize()
+    constants["frames"] = dict(built=CONSTANTS.built,
+                               reused=CONSTANTS.reused)
 
     def window():
         with _gc_ranges():
@@ -262,7 +271,8 @@ def cell_sites(cell: str, frames: int, seed: int) -> dict:
                 longest_gaps_ms=[[label, g / 1e3, before, after]
                                  for g, label, before, after in
                                  sorted(gaps, reverse=True)[:10]],
-                escapes=escapes, device=torch.cuda.get_device_name(0))
+                constants=constants, escapes=escapes,
+                device=torch.cuda.get_device_name(0))
 
 
 def main(argv=None) -> int:
@@ -288,6 +298,9 @@ def main(argv=None) -> int:
         for who, site, inner, n in r["sites"]:
             print(f"  {n:8.4g}/frame  {who:22s} {inner or 'NO SPAN':24s} "
                   f"{site}")
+        print(f"constant cache (tables built, reused): set-up "
+              f"{r['constants']['setup']}, {r['frames']} frames "
+              f"{r['constants']['frames']}")
         print(f"metrics: {r['metrics']}")
         print(f"idle ms a frame by name: {r['idle_ms_per_frame_by_label']}")
         print(f"longest gaps (ms): {r['longest_gaps_ms']}")
