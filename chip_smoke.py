@@ -210,6 +210,18 @@ CPU or to the plain versions):
    kernels (counts zeroed, S-U > 0, no plain version of H-U called) and
    with S-U's twins called explicitly (:func:`binning_twin_route`),
    max |diff| 0.  Phase 3's bench step must launch S, T and U twice each.
+17. the deep marchers past ``block_march.MAX_CLUSTERS`` (:func:`deep_phase`)
+   at the chute cell's shapes: 16,900 spheres of 396 triangles (26,143
+   clusters) built by the device median build; counts zeroed, a coherent
+   and an incoherent wave through the intersector launch F2 and C2 and
+   none of B, C and F; F2 on a Morton-sorted 1200x800 camera wave
+   (nearest) and on a probe-sorted 960,000-ray incoherent wave, a third
+   of it dead (nearest and any-hit), C2 on that wave, each timed whole and
+   held to ``march_deep_plain`` / ``probe_deep_plain`` (and C2 to the flat
+   ``probe_plain``) on SUBSET_DEEP rays spread over the wave, 0
+   mismatches.  Their rows' bound: the bytes the wave's inputs and outputs
+   take, or each live ray's slab test of every hypercluster (the level
+   no exact answer can skip).
 
 Every kernel's row in the kernels' JSON object is one whole main-path
 wave (a subset would leave most of the card idle): A the bench camera
@@ -237,6 +249,9 @@ blocks (octants) need and of U's keys and sorts of the pairs it keeps
 pairs and on the path pile's first bundle NEE wave's boxes, T and U on
 that bundle wave (launches: their pair, box and bundle launches in those
 phases, ``Kernel.variants``);
+F2 (``block_march_deep``) and C2 (``probe_deep``) phase 17's incoherent
+960,000-ray wave at the chute's shapes (F2's error the largest of its
+three waves'), their launches those of phase 17's two routed waves;
 their work the RNG's integer operations (:func:`sobol_ops`: the per-byte
 table lookups) and J's to N's float operations per lobe or part
 (:func:`scatter_ops`, :func:`bsdf_ops`, :func:`nee_work`,
@@ -304,6 +319,7 @@ TIME_DURATION = 1.0
 TIME_FRAMES = 2
 SUBSET_TIME = 16_384
 SUBSET_E = 8_192          # the plain E visits every pair: the slowest twin
+SUBSET_DEEP = 8_192       # F2's and C2's plain twins walk every level
 F_SEGMENT = 40.0          # t_max of F's occlusion (any-hit) camera wave
 SWEEP_HIT_EXCEPTIONS = 1e-5   # sweep vs marcher: allowed share of rays
 # card vs CPU, relative: tests/test_torch_denoise.py's tolerances
@@ -4937,6 +4953,172 @@ def binning_phase(b, frame, t, p, card: str) -> tuple:
 
 #: the variant rows of the kernels' JSON line: name -> (kernel letter,
 #: the TPU kernel's file:line)
+# ---- phase 17: the deep marchers past MAX_CLUSTERS (F2, C2) ---------------
+
+def deep_setup(device) -> SimpleNamespace:
+    """The chute cell's shapes: 16,900 UV spheres of 396 triangles in a
+    130 x 130 grid (26,143 clusters, past MAX_CLUSTERS) through the device
+    median build a scene of that size gets first, a 1200x800 camera wave
+    from above and a 960,000-ray incoherent wave inside the layer, every
+    third ray dead (t_max 0)."""
+    import torch
+
+    from optix_ray_tracer_tpu_torch.io.meshgen import sphere_with_n_triangles
+    from optix_ray_tracer_tpu_torch.ops.kernels import block_march as bm
+    from optix_ray_tracer_tpu_torch.ops.march import make_march_intersector
+    from optix_ray_tracer_tpu_torch.scene.camera import Camera
+    from optix_ray_tracer_tpu_torch.scene.geometry import (
+        Scene, Spheres, Triangles,
+    )
+
+    v, n = sphere_with_n_triangles(450)
+    k = np.arange(16900)
+    centers = (np.stack([k % 130, k // 130, np.zeros(16900)], -1) * 2.2
+               ).astype(np.float32)
+    scene = Scene(Spheres.empty(device), Triangles.from_arrays(
+        (v[None] + centers[:, None, None]).reshape(-1, 3, 3),
+        np.broadcast_to(n[None], (16900,) + n.shape).reshape(-1, 3, 3),
+        device=device))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    inter = make_march_intersector(scene, method="median")
+    torch.cuda.synchronize()
+    cs = inter.clusters
+    print(f"[deep scene] {scene.triangle_count} triangles, "
+          f"{cs.num_clusters} clusters (device median build "
+          f"{time.perf_counter() - t0:.3f} s)")
+    if not bm.is_deep(cs.num_clusters):
+        raise AssertionError("the deep scene is not past MAX_CLUSTERS")
+    cam = Camera.look_at((-30.0, -30.0, 60.0), (143.0, 143.0, 0.0),
+                         (0.0, 0.0, 1.0), device=device)
+    o, d = (x.reshape(-1, 3) for x in cam.generate_rays(1200, 800))
+    gen = np.random.default_rng(8)
+    R = 960_000
+    oi = torch.as_tensor(np.concatenate([
+        gen.uniform(0.0, 286.0, (R, 2)), gen.uniform(-1.2, 1.2, (R, 1))],
+        -1).astype(np.float32), device=device)
+    di = gen.normal(size=(R, 3)).astype(np.float32)
+    di = torch.as_tensor(di / np.linalg.norm(di, axis=-1, keepdims=True),
+                         device=device)
+    tmax = torch.full((R,), 1e16, device=device)
+    tmax[::3] = 0.0
+    return SimpleNamespace(scene=scene, inter=inter, cs=cs, o=o, d=d, oi=oi,
+                           di=di, tmin=torch.full((R,), 1e-3, device=device),
+                           tmax=tmax, R=R)
+
+
+def deep_bound_ops(rays, n_clusters: int) -> int:
+    """Float operations no exact answer of F2 or C2 can skip: each live
+    ray's slab test of every hypercluster (the tables' top level)."""
+    from optix_ray_tracer_tpu_torch.ops.kernels import block_march as bm
+    live = int(bm.probe_live(rays).sum())
+    return live * bm._deep_rows(n_clusters)[1] * SLAB_OPS
+
+
+def deep_phase(device, card: str) -> tuple:
+    """Phase 17: F2 and C2 at the chute cell's shapes.  Returns (their
+    JSON rows, their launches in the routed waves)."""
+    import torch
+
+    from optix_ray_tracer_tpu_torch.ops.kernels import _lib
+    from optix_ray_tracer_tpu_torch.ops.kernels import block_march as bm
+    from optix_ray_tracer_tpu_torch.ops.march import ray_probe_keys
+    from optix_ray_tracer_tpu_torch.ops.raysort import ray_sort_keys
+
+    t0 = time.perf_counter()
+    g = deep_setup(device)
+    cs, dev = g.cs, device
+    prims = prim_keys(cs)
+    old = (K["B"], K["C"], K["F"])
+    new = (_lib.BLOCK_MARCH_DEEP, _lib.PROBE_DEEP)
+
+    # the intersector's routing: counts zeroed, one coherent and one
+    # incoherent wave
+    zero_counts()
+    g.inter.intersect(g.scene, g.o, g.d)
+    g.inter.for_incoherent().intersect(g.scene, g.oi, g.di)
+    torch.cuda.synchronize()
+    launches = {k.name: k.launches for k in new}
+    ran_old = [k.launches for k in old]
+    print(f"[deep] routed waves: launches F2 {launches['block_march_deep']}, "
+          f"C2 {launches['probe_deep']}, B/C/F {ran_old}")
+    if any(ran_old) or launches != {"block_march_deep": 2, "probe_deep": 1}:
+        raise AssertionError("the deep scene's waves did not take F2 and C2 "
+                             "alone")
+    print(f"  F2: {bm.deep_occupancy()} resident warps per SM (any-hit "
+          f"{bm.deep_occupancy(any_hit=True)}); C2: "
+          f"{bm.deep_occupancy(probe=True)}")
+
+    # C2 on the incoherent wave, which also gives its probe sort
+    pin = bm.probe_inputs(cs, g.oi, g.di, g.tmin, g.tmax)
+    ids, tests = bm.probe_call(**pin)
+    c_ms = time_ms(lambda: bm.probe_call(**pin), REPS)
+    pick = warp_rays(g.R, SUBSET_DEEP).to(dev)
+    psub = dict(pin, rays=pin["rays"][:, pick].contiguous())
+    kern = bm.probe_call(**psub)[0]
+    plain, cp_ms = time_once(lambda: bm.probe_deep_plain(**psub))
+    flat = bm.probe_plain(psub["rays"], psub["boxes"], psub["n_clusters"],
+                          psub["c_pad"])
+    bad = int((kern != plain).sum()) + int((kern != flat).sum())
+    bad += int((ids[pick] != kern).sum())
+    print(f"  C2 incoherent: {bad} id mismatches of {SUBSET_DEEP} rays "
+          f"against the deep and the flat plain probes "
+          f"({int((plain < pin['c_pad']).sum())} entered a cluster); full "
+          f"wave {g.R} rays {c_ms:.3f} ms [{card}], plain {cp_ms:.1f} ms on "
+          f"the subset; box tests run {int(tests)}")
+    if bad:
+        raise AssertionError(f"C2: {bad} ids differ")
+    c_row = row(0.0, c_ms, cp_ms, tensor_bytes(pin, ids),
+                deep_bound_ops(pin["rays"], cs.num_clusters))
+    print(f"    C2: bound {c_row['bound_ms']:.4f} ms by {c_row['bound_by']}, "
+          f"{100 * c_row['bound_ms'] / c_ms:.2f}% of the wave")
+
+    # F2 on the camera wave (Morton-sorted) and on the incoherent wave
+    # (probe-sorted), each as the intersector sorts it
+    R = g.o.shape[0]
+    perm_c = torch.argsort(ray_sort_keys(g.o, g.d, g.inter.scene_lo,
+                                         g.inter.scene_hi), stable=True)
+    perm_i = torch.argsort(ray_probe_keys(cs, g.oi, g.di, g.tmin, g.tmax),
+                           stable=True)
+    cam_tmin = torch.full((R,), 1e-3, device=dev)
+    cam_tmax = torch.full((R,), 1e16, device=dev)
+    f_rows = []
+    for label, wave, coherent, any_hit in (
+            ("camera nearest", (g.o[perm_c], g.d[perm_c], cam_tmin,
+                                cam_tmax), True, False),
+            ("incoherent nearest", (g.oi[perm_i], g.di[perm_i], g.tmin,
+                                    g.tmax[perm_i]), False, False),
+            ("incoherent any-hit", (g.oi[perm_i], g.di[perm_i], g.tmin,
+                                   torch.where(g.tmax[perm_i] > 0, 1.5, 0.0)),
+             False, True)):
+        inp = bm.deep_inputs(cs, *wave, coherent)
+        full = bm.march_deep_call(**inp, any_hit=any_hit)
+        full_ms = time_ms(lambda: bm.march_deep_call(**inp, any_hit=any_hit),
+                          REPS)
+        n = inp["rays"].shape[1]
+        sub = dict(inp, rays=inp["rays"][:, warp_rays(n, SUBSET_DEEP).to(
+            dev)].contiguous())
+        kern = bm.march_deep_call(**sub, any_hit=any_hit)
+        plain, p_ms = time_once(lambda: bm.march_deep_plain(
+            **{k: v for k, v in sub.items() if k != "w"}, any_hit=any_hit))
+        err = compare(f"F2 {label}", prims, kern, plain, any_hit)
+        ms = time_ms(lambda: bm.march_deep_call(**sub, any_hit=any_hit),
+                     REPS)
+        r = row(err, full_ms, p_ms, tensor_bytes(inp, full),
+                deep_bound_ops(inp["rays"], cs.num_clusters))
+        print(f"    {label}: kernel {ms:.3f} ms vs plain {p_ms:.1f} ms on "
+              f"{SUBSET_DEEP} rays; full wave ({n} rays) {full_ms:.3f} ms "
+              f"[{card}], {full[2].float().mean().item() / CHUNK:.2f} "
+              f"cluster-equivalent visits per warp; bound "
+              f"{r['bound_ms']:.4f} ms by {r['bound_by']}, "
+              f"{100 * r['bound_ms'] / full_ms:.2f}% of the wave")
+        f_rows.append(r)
+    rows = {"block_march_deep": dict(f_rows[1], max_abs_err=max(
+        r["max_abs_err"] for r in f_rows)), "probe_deep": c_row}
+    print(f"[deep] phase 17 in {time.perf_counter() - t0:.1f} s")
+    return rows, launches
+
+
 VARIANT_ROWS = {
     "tile_raster_dir": ("A", "optix_ray_tracer_tpu/ops/pallas/"
                         "tile_raster.py:219"),
@@ -5009,13 +5191,16 @@ def main() -> None:
     rows.update(bin_rows)
     for name, n in bin_launches.items():
         launches[name] = launches.get(name, 0) + n
+    deep_rows, deep_launches = deep_phase(device, card)
+    rows.update(deep_rows)
+    launches.update(deep_launches)
     kernels = [{"name": k.name, "route": "cuda", "source": k.source,
                 "replaces": k.replaces, "launches": launches[k.name],
                 **rows[k.name]} for k in _lib.KERNELS]
     kernels += [{"name": name, "route": "cuda", "source": K[k].source,
                  "replaces": replaces, "launches": launches[name],
                  **rows[name]} for name, (k, replaces) in VARIANT_ROWS.items()]
-    print(f"[smoke] phases 1-16 in {time.perf_counter() - t_start:.1f} s "
+    print(f"[smoke] phases 1-17 in {time.perf_counter() - t_start:.1f} s "
           f"[{card}]")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -14,6 +14,9 @@
 // ort_probe_first_cluster replaces
 //   optix_ray_tracer_tpu/ops/pallas/block_march.py:694 _make_probe_kernel
 //   (via probe_first_cluster).
+// ort_block_march_deep (F2) and ort_probe_deep (C2) have no Pallas
+//   counterpart: they take F's and C's waves past MAX_CLUSTERS, where the
+//   JAX package's marchers stop (design notes below C's).
 //
 // What bounds the march (B, E, F) on the H100: FP32 CUDA-core work, ~47
 // operations per (ray, triangle) Woop test and ~26 per (ray, box) slab
@@ -509,6 +512,307 @@ __global__ void __launch_bounds__(kProbeThreads, 4) probe_kernel(
   }
 }
 
+// ---- Past MAX_CLUSTERS: the deep march (F2) and the deep probe (C2) ------
+//
+// C stages at most 8,192 / 8 superclusters, and B and F cull every cull
+// row per lane and round: at the 26k clusters of a 32,000-particle chute B
+// would slab-test 26k rows a lane and F 3.3k.  Past MAX_CLUSTERS both take
+// one more cull level: hyperclusters, the NaN-aware unions of 8
+// consecutive superclusters (64 clusters), which the host forms with the
+// superclusters (block_march.supercluster_boxes, twice).  A hypercluster's
+// entry is <= each member's under monotone rounding, so every argument
+// that keeps F and C exact holds one level up.
+//
+// F2 is F with three levels of keys in one sorted list: the cull rows are
+// hyperclusters; a visited hypercluster merges its entered superclusters'
+// keys into the list, a visited supercluster its entered clusters' keys,
+// nearest first across every level (key bits 31-30: 0 hypercluster, 1
+// supercluster, 2 cluster; members that do not fit below the cap are
+// opened at once, a supercluster's clusters visited at once).
+//
+// C2 is C with the hyperclusters staged in shared memory (32 B each, a
+// NaN-free flag in the padding: 32 KB for MAX_DEEP_CLUSTERS) and the
+// superclusters and clusters read from the tables by 16-byte broadcasts
+// with the NaN test (a pure-padding row is NaN and never fires), in
+// ascending id order at every level, so the lowest id still wins a tie.
+
+constexpr unsigned kSupKey = 0x40000000u;   // F2: the key's row: supercluster
+constexpr unsigned kLevelMask = 0xc0000000u;
+constexpr int kMaxHyper = 65536 / (kGroup * kGroup);   // MAX_DEEP_CLUSTERS/64
+
+// Lane j's key for member m0 + j (< n_mem) of a visited row: the warp-min
+// entry of the lanes that enter it before their best t, tagged; kNoKey
+// where no lane does (or j >= kGroup).
+__device__ __forceinline__ unsigned long long member_key(
+    int lane, const float* __restrict__ mem_boxes, int m0, int n_mem,
+    unsigned tag, float ox, float oy, float oz, float ix, float iy, float iz,
+    float tmin, float bt) {
+  unsigned long long mk = kNoKey;
+  for (int j = 0; j < kGroup && m0 + j < n_mem; ++j) {
+    const float em = ort_row_entry(mem_boxes + 8 * static_cast<size_t>(m0 + j),
+                                   ox, oy, oz, ix, iy, iz, tmin);
+    const unsigned m = __reduce_min_sync(kFull,
+                                         em < bt ? ort_ordered(em) : kNone);
+    if (lane == j && m != kNone)
+      mk = (static_cast<unsigned long long>(m) << 32) |
+           (tag | static_cast<unsigned>(m0 + j));
+  }
+  return mk;
+}
+
+// Merge each lane's member key mk into the sorted list after position k
+// if all of them fit below cap; false (list untouched) if they do not.
+__device__ __forceinline__ bool place_keys(WarpScratch& ws, int lane, int k,
+                                           int& n, unsigned long long cap,
+                                           unsigned long long mk) {
+  const int add = __popc(__ballot_sync(kFull, mk != kNoKey));
+  if (n + add > kWarpKeys || __any_sync(kFull, mk != kNoKey && mk >= cap))
+    return false;
+  insert_keys(ws.keys, lane, k, n, mk);
+  n += add;
+  return true;
+}
+
+// Open supercluster s: its entered clusters join the list, or where they
+// do not fit are visited now; returns the Woop rows tested.
+template <bool ANY_HIT>
+__device__ __forceinline__ int open_sup(
+    WarpScratch& ws, int lane, int s, int k, int& n, unsigned long long cap,
+    const float* __restrict__ cl_boxes, int n_clusters,
+    const float* __restrict__ sub_boxes, int n_subs,
+    const float* __restrict__ woop_t, float ox, float oy, float oz, float ix,
+    float iy, float iz, float dx, float dy, float dz, float tmin, float& bt,
+    int& slot) {
+  const int m0 = s * kGroup;
+  const unsigned long long mk = member_key(lane, cl_boxes, m0, n_clusters,
+                                           kMember, ox, oy, oz, ix, iy, iz,
+                                           tmin, bt);
+  if (place_keys(ws, lane, k, n, cap, mk)) return 0;
+  int tested = 0;
+  for (unsigned b = __ballot_sync(kFull, mk != kNoKey); b; b &= b - 1) {
+    const int m = m0 + __ffs(b) - 1;
+    const float em = ort_row_entry(cl_boxes + 8 * static_cast<size_t>(m), ox,
+                                   oy, oz, ix, iy, iz, tmin);
+    if (!__any_sync(kFull, em < bt)) continue;
+    tested += visit_row<ANY_HIT, false>(
+        ws, lane, m, sub_boxes, n_subs, woop_t, nullptr, nullptr, nullptr, ox,
+        oy, oz, ix, iy, iz, dx, dy, dz, tmin, bt, slot);
+  }
+  return tested;
+}
+
+// F2: the cull rows are hyperclusters (hy_boxes, n_hyper), their members
+// superclusters (sup_boxes, n_sup), theirs clusters (cl_boxes,
+// n_clusters); sub_boxes and woop_t per cluster; outputs as F's.
+template <bool ANY_HIT>
+__global__ void __launch_bounds__(32 * kCtaWarps, 7) deep_warp_march_kernel(
+    const float* __restrict__ rays, int n_rays,
+    const float* __restrict__ hy_boxes, int n_hyper,
+    const float* __restrict__ sup_boxes, int n_sup,
+    const float* __restrict__ cl_boxes, int n_clusters,
+    const float* __restrict__ sub_boxes, int n_subs,
+    const float* __restrict__ woop_t, float* __restrict__ out_t,
+    int* __restrict__ out_slot, int* __restrict__ out_visits) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  WarpScratch& ws = reinterpret_cast<WarpScratch*>(smem)[threadIdx.x >> 5];
+  const int lane = threadIdx.x & 31;
+  const int ray = blockIdx.x * blockDim.x + threadIdx.x;
+  const float ox = rays[0 * n_rays + ray], oy = rays[1 * n_rays + ray],
+              oz = rays[2 * n_rays + ray];
+  const float dx = rays[3 * n_rays + ray], dy = rays[4 * n_rays + ray],
+              dz = rays[5 * n_rays + ray];
+  const float tmin = rays[6 * n_rays + ray];
+  float bt = rays[7 * n_rays + ray];
+  const float ix = ort_inv_dir(dx), iy = ort_inv_dir(dy), iz = ort_inv_dir(dz);
+  int slot = -1;
+  int tested = 0;
+
+  unsigned long long lo = 0;
+  bool more = __any_sync(kFull, tmin < bt);
+  while (more) {
+    unsigned long long cap;
+    int n = cull_round(ws, lane, hy_boxes, n_hyper, ox, oy, oz, ix, iy, iz,
+                       tmin, bt, lo, cap);
+    int k = 0;
+    for (; k < n; ++k) {
+      const unsigned long long key = ws.keys[k];
+      if (!__any_sync(kFull, key_entry(key) < bt)) break;
+      const unsigned id = static_cast<unsigned>(key);
+      const unsigned level = id & kLevelMask;
+      const int c = static_cast<int>(id & ~kLevelMask);
+      const float* row = level == kMember ? cl_boxes
+                         : level == kSupKey ? sup_boxes : hy_boxes;
+      const float e = ort_row_entry(row + 8 * static_cast<size_t>(c), ox, oy,
+                                    oz, ix, iy, iz, tmin);
+      if (!__any_sync(kFull, e < bt)) continue;
+      if (level == kMember) {
+        tested += visit_row<ANY_HIT, false>(
+            ws, lane, c, sub_boxes, n_subs, woop_t, nullptr, nullptr, nullptr,
+            ox, oy, oz, ix, iy, iz, dx, dy, dz, tmin, bt, slot);
+      } else if (level == kSupKey) {
+        tested += open_sup<ANY_HIT>(ws, lane, c, k, n, cap, cl_boxes,
+                                    n_clusters, sub_boxes, n_subs, woop_t, ox,
+                                    oy, oz, ix, iy, iz, dx, dy, dz, tmin, bt,
+                                    slot);
+      } else {
+        const int s0 = c * kGroup;
+        const unsigned long long mk = member_key(
+            lane, sup_boxes, s0, n_sup, kSupKey, ox, oy, oz, ix, iy, iz, tmin,
+            bt);
+        if (place_keys(ws, lane, k, n, cap, mk)) continue;
+        // no room: open its superclusters now, in id order
+        for (unsigned b = __ballot_sync(kFull, mk != kNoKey); b; b &= b - 1) {
+          const int s = s0 + __ffs(b) - 1;
+          const float es = ort_row_entry(
+              sup_boxes + 8 * static_cast<size_t>(s), ox, oy, oz, ix, iy, iz,
+              tmin);
+          if (!__any_sync(kFull, es < bt)) continue;
+          tested += open_sup<ANY_HIT>(ws, lane, s, k, n, cap, cl_boxes,
+                                      n_clusters, sub_boxes, n_subs, woop_t,
+                                      ox, oy, oz, ix, iy, iz, dx, dy, dz,
+                                      tmin, bt, slot);
+        }
+      }
+    }
+    more = k == n && cap != kNoKey && __any_sync(kFull, key_entry(cap) < bt);
+    lo = cap;
+    __syncwarp();
+  }
+  out_t[ray] = bt;
+  out_slot[ray] = slot;
+  if (lane == 0) out_visits[ray >> 5] = tested;
+}
+
+// One warp of packed live rays over the staged hyperclusters (C2).
+__device__ __forceinline__ void deep_probe_warp(
+    const float* __restrict__ rays, int n_rays,
+    const float* __restrict__ boxes, int n_clusters,
+    const float* __restrict__ sup_boxes, int n_sup, const float* hyper,
+    int n_hyper_pad, int c_pad, int ray, int lane, int* __restrict__ out,
+    unsigned long long* __restrict__ out_tests) {
+  float ox = 0.0f, oy = 0.0f, oz = 0.0f, dx = 0.0f, dy = 0.0f, dz = 1.0f,
+        tmin = 0.0f, tmax = 0.0f;
+  if (ray >= 0) {
+    ox = rays[0 * n_rays + ray]; oy = rays[1 * n_rays + ray];
+    oz = rays[2 * n_rays + ray]; dx = rays[3 * n_rays + ray];
+    dy = rays[4 * n_rays + ray]; dz = rays[5 * n_rays + ray];
+    tmin = rays[6 * n_rays + ray]; tmax = rays[7 * n_rays + ray];
+  }
+  const float ix = ort_inv_dir(dx), iy = ort_inv_dir(dy), iz = ort_inv_dir(dz);
+  float emin = ORT_INF;
+  int first = c_pad;
+  unsigned rows = 0;
+  const bool finite = isfinite(ox) && isfinite(oy) && isfinite(oz) &&
+                      isfinite(dx) && isfinite(dy) && isfinite(dz);
+  if (__any_sync(kFull, !finite)) {
+    for (int c = 0; c < n_clusters; ++c) {
+      const float e = ort_row_entry(boxes + 8 * static_cast<size_t>(c), ox,
+                                    oy, oz, ix, iy, iz, tmin);
+      if (e < tmax && e < emin) { emin = e; first = c; }
+    }
+    rows = n_clusters;
+  } else {
+    for (int h0 = 0; h0 < n_hyper_pad; h0 += kSupBatch) {
+      float eu[kSupBatch];
+      bool real[kSupBatch];
+      bool need = false;
+#pragma unroll
+      for (int j = 0; j < kSupBatch; ++j) {
+        const float4* q =
+            reinterpret_cast<const float4*>(hyper + 8 * (h0 + j));
+        const float4 a = q[0], b = q[1];
+        real[j] = b.z != 0.0f;
+        eu[j] = ort_slab_entry6<false>(a.x, a.y, a.z, a.w, b.x, b.y, ox, oy,
+                                       oz, ix, iy, iz, tmin);
+        rows += real[j];
+        need |= real[j] && eu[j] < emin && eu[j] < tmax;
+      }
+      if (!__any_sync(kFull, need)) continue;
+      for (int j = 0; j < kSupBatch; ++j) {
+        if (!real[j] || !__any_sync(kFull, eu[j] < emin && eu[j] < tmax))
+          continue;
+        const int s0 = (h0 + j) * kGroup;
+        for (int s = s0; s < s0 + kGroup && s < n_sup; ++s) {
+          const float es = ort_row_entry(
+              sup_boxes + 8 * static_cast<size_t>(s), ox, oy, oz, ix, iy, iz,
+              tmin);
+          ++rows;
+          if (!__any_sync(kFull, es < emin && es < tmax)) continue;
+          const int c0 = s * kGroup;
+          for (int c = c0; c < c0 + kGroup && c < n_clusters; ++c) {
+            const float e = ort_row_entry(boxes + 8 * static_cast<size_t>(c),
+                                          ox, oy, oz, ix, iy, iz, tmin);
+            ++rows;
+            if (e < tmax && e < emin) { emin = e; first = c; }
+          }
+        }
+      }
+    }
+  }
+  if (ray >= 0) out[ray] = first;
+  if (lane == 0) atomicAdd(out_tests, 32ull * rows);
+}
+
+// C2's persistent CTAs: stage the hyperclusters once (rows [min3, max3,
+// 1 if NaN-free else 0, 0]), then walk 256-ray tiles as C does.
+__global__ void __launch_bounds__(kProbeThreads, 4) deep_probe_kernel(
+    const float* __restrict__ rays, int n_rays,
+    const float* __restrict__ boxes, int n_clusters,
+    const float* __restrict__ sup_boxes, int n_sup,
+    const float* __restrict__ hy_boxes, int n_hyper, int c_pad,
+    int* __restrict__ out, unsigned long long* __restrict__ out_tests) {
+  __shared__ __align__(16) float hyper[kMaxHyper * 8];
+  __shared__ int live_rays[kProbeThreads];
+  __shared__ int warp_live[kProbeWarps];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int n_hyper_pad = (n_hyper + kSupBatch - 1) / kSupBatch * kSupBatch;
+  for (int h = tid; h < n_hyper_pad; h += kProbeThreads) {
+    float4 p = make_float4(0.0f, 0.0f, 0.0f, 0.0f), q = p;
+    if (h < n_hyper) {
+      const float4* row = reinterpret_cast<const float4*>(
+          hy_boxes + 8 * static_cast<size_t>(h));
+      p = __ldg(row);
+      q = __ldg(row + 1);
+    }
+    const bool real = h < n_hyper && !(isnan(p.x) || isnan(p.y) ||
+                                       isnan(p.z) || isnan(p.w) ||
+                                       isnan(q.x) || isnan(q.y));
+    float4* dst = reinterpret_cast<float4*>(hyper + 8 * h);
+    dst[0] = real ? p : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    dst[1] = make_float4(real ? q.x : 0.0f, real ? q.y : 0.0f,
+                         real ? 1.0f : 0.0f, 0.0f);
+  }
+  __syncthreads();
+  const int n_tiles = (n_rays + kProbeThreads - 1) / kProbeThreads;
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    const int ray = tile * kProbeThreads + tid;
+    bool live = false;
+    if (ray < n_rays) {
+      const float tmin = rays[6 * n_rays + ray], tmax = rays[7 * n_rays + ray];
+      live = tmin < tmax && !isnan(rays[0 * n_rays + ray]) &&
+             !isnan(rays[1 * n_rays + ray]) && !isnan(rays[2 * n_rays + ray]);
+      if (!live) out[ray] = c_pad;
+    }
+    const unsigned ballot = __ballot_sync(kFull, live);
+    if (lane == 0) warp_live[warp] = __popc(ballot);
+    __syncthreads();
+    int base = 0, n_live = 0;
+    for (int w = 0; w < kProbeWarps; ++w) {
+      const int n = warp_live[w];
+      base += w < warp ? n : 0;
+      n_live += n;
+    }
+    if (live) live_rays[base + __popc(ballot & ((1u << lane) - 1u))] = ray;
+    __syncthreads();
+    if (warp * 32 < n_live)
+      deep_probe_warp(rays, n_rays, boxes, n_clusters, sup_boxes, n_sup,
+                      hyper, n_hyper_pad, c_pad,
+                      tid < n_live ? live_rays[tid] : -1, lane, out,
+                      out_tests);
+    __syncthreads();
+  }
+}
+
 enum MarchKind { kFlat = 0, kInstanced = 1, kHier = 2 };   // B, E, F
 
 template <bool A>
@@ -639,5 +943,69 @@ extern "C" int ort_probe_occupancy(int* warps_per_sm) {
   const int err = static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
       &blocks, probe_kernel, kProbeThreads, 0));
   *warps_per_sm = blocks * kProbeWarps;
+  return err;
+}
+
+// F2, the deep march past MAX_CLUSTERS: hy_boxes (>= n_hyper, 8) unions of
+// superclusters [8 h, 8 h + 8), sup_boxes (>= n_sup, 8) unions of clusters
+// [8 s, 8 s + 8), boxes (>= n_clusters, 8); the rest as ort_block_march
+// (4-warp CTAs, n_rays % 128 == 0; out_visits per warp).
+extern "C" int ort_block_march_deep(
+    const float* rays, int n_rays, const float* hy_boxes, int n_hyper,
+    const float* sup_boxes, int n_sup, const float* boxes, int n_clusters,
+    const float* sub_boxes, int n_subs, const float* woop_t, int any_hit,
+    float* out_t, int* out_slot, int* out_visits, void* stream) {
+  const int threads = 32 * kCtaWarps;
+  const size_t smem = kCtaWarps * sizeof(WarpScratch);
+  auto kernel = any_hit ? deep_warp_march_kernel<true>
+                        : deep_warp_march_kernel<false>;
+  kernel<<<n_rays / threads, threads, smem,
+           static_cast<cudaStream_t>(stream)>>>(
+      rays, n_rays, hy_boxes, n_hyper, sup_boxes, n_sup, boxes, n_clusters,
+      sub_boxes, n_subs, woop_t, out_t, out_slot, out_visits);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// C2, the deep probe past MAX_CLUSTERS: as ort_probe_first_cluster, with
+// the supercluster and hypercluster tables of ort_block_march_deep
+// (n_hyper <= 65,536 / 64).
+extern "C" int ort_probe_deep(const float* rays, int n_rays,
+                              const float* boxes, int n_clusters,
+                              const float* sup_boxes, int n_sup,
+                              const float* hy_boxes, int n_hyper, int c_pad,
+                              int* out, unsigned long long* out_tests,
+                              void* stream) {
+  if (n_hyper > kMaxHyper) return static_cast<int>(cudaErrorInvalidValue);
+  int dev = 0, sms = 0, blocks = 0;
+  int err = static_cast<int>(cudaGetDevice(&dev));
+  if (!err) err = static_cast<int>(cudaDeviceGetAttribute(
+      &sms, cudaDevAttrMultiProcessorCount, dev));
+  if (!err) err = static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &blocks, deep_probe_kernel, kProbeThreads, 0));
+  if (err) return err;
+  const int n_tiles = (n_rays + kProbeThreads - 1) / kProbeThreads;
+  deep_probe_kernel<<<max(1, min(n_tiles, blocks * sms)), kProbeThreads, 0,
+                      static_cast<cudaStream_t>(stream)>>>(
+      rays, n_rays, boxes, n_clusters, sup_boxes, n_sup, hy_boxes, n_hyper,
+      c_pad, out, out_tests);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Resident warps per SM of F2 (kind 0) or C2 (kind 1) on the current
+// device, by cudaOccupancyMaxActiveBlocksPerMultiprocessor.
+extern "C" int ort_deep_occupancy(int kind, int any_hit, int* warps_per_sm) {
+  int blocks = 0;
+  int err;
+  if (kind == 1) {
+    err = static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &blocks, deep_probe_kernel, kProbeThreads, 0));
+    *warps_per_sm = blocks * kProbeWarps;
+    return err;
+  }
+  err = static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &blocks, any_hit ? deep_warp_march_kernel<true>
+                       : deep_warp_march_kernel<false>,
+      32 * kCtaWarps, kCtaWarps * sizeof(WarpScratch)));
+  *warps_per_sm = blocks * kCtaWarps;
   return err;
 }

@@ -209,9 +209,28 @@ def choose_intersector(scene):
     threshold = 1024 if tv.device.type == "cpu" else 1
     if scene.triangle_count < threshold:
         return None
-    intersector = make_march_intersector(scene, raster=not debug.DEBUG_MODE)
+    intersector = make_march_intersector(
+        scene, method=first_build_method(scene),
+        raster=not debug.DEBUG_MODE)
     debug.maybe_validate_accel(intersector, scene)
     return intersector
+
+
+#: triangles past which a scene's first build on the card is the device
+#: median build that every later file's rebuild uses: the host SAH build
+#: costs 15-26 us a triangle on the card's host (102-172 s at 6.69M
+#: triangles), so past here it would hold the set-up for over 30 s, while
+#: the device build takes a tenth of a second
+HOST_BUILD_MAX_TRIS = 2_000_000
+
+
+def first_build_method(scene) -> str:
+    """The first build of a scene: the host SAH build, or on the card past
+    HOST_BUILD_MAX_TRIS triangles the device median build."""
+    if (scene.triangles.vertices.is_cuda
+            and scene.triangle_count > HOST_BUILD_MAX_TRIS):
+        return "median"
+    return "sah"
 
 
 def refit_or_choose(prev, scene):

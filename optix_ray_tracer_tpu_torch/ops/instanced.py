@@ -15,8 +15,9 @@ Here:
   the instance's space (rigid + uniform scale, so t is the same parameter
   in both spaces).
 
-Limits: pairs <= ``block_march.MAX_CLUSTERS`` (8192); transforms rigid +
-uniform scale (the Time frontend's pose model).
+Limits: pairs <= ``block_march.MAX_CLUSTERS`` (8,192: kernel E has no
+deep variant; flattened scenes go past it through F2 and C2); transforms
+rigid + uniform scale (the Time frontend's pose model).
 """
 
 from __future__ import annotations

@@ -1,6 +1,7 @@
 """Build, load and launch the hand-written CUDA kernels of ``csrc/``:
-A-G on the hit path, H-N in the bounce loop, O-R the marcher's wave glue
-and the hit shading frame, S-U the raster binning.
+A-G on the hit path (with F2 and C2, F and C past
+``block_march.MAX_CLUSTERS``), H-N in the bounce loop, O-R the
+marcher's wave glue and the hit shading frame, S-U the raster binning.
 
 All kernels compile into one shared library with a plain C interface,
 built on first use into ``build/kernels/`` beside the package and loaded
@@ -218,6 +219,21 @@ BLOCK_MARCH_HIER = Kernel(
     source="optix_ray_tracer_tpu_torch/csrc/block_march.cu",
     replaces="optix_ray_tracer_tpu/ops/pallas/block_march.py:463")
 
+#: kernel F2 (the deep march past block_march.MAX_CLUSTERS: F with a
+#: hypercluster level; no Pallas counterpart, whose marchers stop at the
+#: JAX package's 8,192-cluster cap)
+BLOCK_MARCH_DEEP = Kernel(
+    "block_march_deep", "ort_block_march_deep",
+    [_P, _I, _P, _I, _P, _I, _P, _I, _P, _I, _P, _I, _P, _P, _P],
+    source="optix_ray_tracer_tpu_torch/csrc/block_march.cu",
+    replaces="optix_ray_tracer_tpu/ops/pallas/block_march.py:463")
+#: kernel C2 (the deep probe past block_march.MAX_CLUSTERS)
+PROBE_DEEP = Kernel(
+    "probe_deep", "ort_probe_deep",
+    [_P, _I, _P, _I, _P, _I, _P, _I, _I, _P, _P],
+    source="optix_ray_tracer_tpu_torch/csrc/block_march.cu",
+    replaces="optix_ray_tracer_tpu/ops/pallas/block_march.py:694")
+
 #: kernel G (leaf sweep)
 LEAF_SWEEP = Kernel(
     "leaf_sweep", "ort_leaf_sweep",
@@ -327,4 +343,5 @@ KERNELS = (TILE_RASTER, BLOCK_MARCH, PROBE, TILE_RASTER_INSTANCED,
            BLOCK_MARCH_INSTANCED, BLOCK_MARCH_HIER, LEAF_SWEEP, PCG4D,
            SOBOL_OWEN4, WHITTED_SCATTER, PATH_BSDF, PATH_NEE_SAMPLE,
            PATH_NEE_ADD, PATH_HIT_RADIANCE, MARCH_KEYS, GATHER_RAYS,
-           FINISH_HITS, SHADING_FRAME, BIN_RECTS, BIN_COUNT, BIN_EMIT)
+           FINISH_HITS, SHADING_FRAME, BIN_RECTS, BIN_COUNT, BIN_EMIT,
+           BLOCK_MARCH_DEEP, PROBE_DEEP)

@@ -6,7 +6,10 @@ blocks of rays over a ClusterSet; kernel F (``march_hier_call``) does the
 same over 8-cluster superclusters, for coherent waves of large scenes;
 kernel E (``march_instanced_call``) over the (instance, library cluster)
 pairs of a TLAS; kernel C (``probe_call``) returns each ray's nearest
-entered cluster, the sort key of incoherent waves.  All are CUDA
+entered cluster, the sort key of incoherent waves.  Past MAX_CLUSTERS
+clusters every wave goes to the deep kernels, which cull on one more
+level, 64-cluster hyperclusters: F2 (``march_deep_call``) marches, C2
+(``probe_call``'s deep route) probes, up to MAX_DEEP_CLUSTERS.  All are CUDA
 (``csrc/block_march.cu``, design notes there: B, E and F march per warp
 of 32 rays, F with superclusters as its cull rows, C per warp of packed
 live rays over superclusters; the third output of B, E and F counts each
@@ -33,7 +36,11 @@ from optix_ray_tracer_tpu_torch.utils.vecmath import INF, dot
 
 BLOCK_RAYS = 128          # minimum block granularity callers pad to
 CLUSTER_TRIS = CHUNK
-MAX_CLUSTERS = 8192       # the JAX package's cap
+#: B, C and F take scenes up to this many clusters (C stages its
+#: superclusters in 32 KB); past it the deep kernels F2 and C2 take every
+#: wave, up to MAX_DEEP_CLUSTERS (C2 stages 1,024 hyperclusters in 32 KB)
+MAX_CLUSTERS = 8192
+MAX_DEEP_CLUSTERS = 65536
 WARP = 32                 # B, E and F count their work per warp of rays
 N_SUBS = SUBS_PER_CLUSTER
 N_SUBS_INCOHERENT = 2     # incoherent waves pair-merge the sub boxes
@@ -222,6 +229,29 @@ def march_hier_plain(rays, sup_boxes, boxes, sub_boxes, woop_t,
     return bt, slot
 
 
+def march_deep_plain(rays, hyper_boxes, sup_boxes, boxes, sub_boxes, woop_t,
+                     n_clusters: int, n_subs: int, any_hit: bool):
+    """Plain version of kernel F2 (same arguments as
+    :func:`march_deep_call`): hyperclusters in id order, each gating its
+    superclusters, each of those its clusters, all per ray."""
+    o, d, tmin, bt, inv, slot = _unpack(rays)
+    every = torch.arange(o.shape[0], device=o.device)
+    n_sup, n_hyper = _deep_rows(n_clusters)
+    for h in range(n_hyper):
+        hidx = _enter(hyper_boxes[h], o, inv, tmin, bt, every)
+        for s in range(h * GROUP, min(h * GROUP + GROUP, n_sup)):
+            if hidx.numel() == 0:
+                break
+            sidx = _enter(sup_boxes[s], o, inv, tmin, bt, hidx)
+            for c in range(s * GROUP, min(s * GROUP + GROUP, n_clusters)):
+                if sidx.numel() == 0:
+                    break
+                idx = _enter(boxes[c], o, inv, tmin, bt, sidx)
+                _visit(o, d, inv, tmin, bt, slot, idx, c, sub_boxes, n_subs,
+                       woop_t[c, :12], any_hit)
+    return bt, slot
+
+
 def needed_work(rays, t, slot, boxes, sub_boxes, n_rows: int, n_subs: int,
                 instanced: bool = False, sup_boxes=None) -> dict:
     """The work a wave's answers require of an exact marcher that culls
@@ -303,20 +333,21 @@ def march_call(rays, boxes, sub_boxes, woop_t, n_clusters: int,
 
 
 def _check_march(rays, boxes, sub_boxes, n_rows: int, n_subs: int,
-                 w: int) -> int:
+                 w: int, cap: int = MAX_CLUSTERS) -> int:
     """Validate a march's rays and cull rows for the card (blocks of a
     multiple of BLOCK_RAYS rays, the 4-warp CTA; parts of a multiple of
-    WARP rows, the warp's staged slice); returns R."""
+    WARP rows, the warp's staged slice; at most ``cap`` rows); returns
+    R."""
     dev = rays.device
     R = rays.shape[1]
     if R % w or w % BLOCK_RAYS or not BLOCK_RAYS <= w <= 1024:
         raise ValueError(f"{R} rays in blocks of {w}: need R % w == 0 and "
                          f"w a multiple of {BLOCK_RAYS} in [{BLOCK_RAYS}, "
                          f"1024]")
-    if (not 0 < n_rows <= MAX_CLUSTERS or CLUSTER_TRIS % n_subs
+    if (not 0 < n_rows <= cap or CLUSTER_TRIS % n_subs
             or CLUSTER_TRIS // n_subs % WARP):
         raise ValueError(f"{n_rows} cull rows / {n_subs} sub boxes "
-                         f"unsupported (max {MAX_CLUSTERS} rows, parts of a "
+                         f"unsupported (max {cap} rows, parts of a "
                          f"multiple of {WARP} rows)")
     _lib.check(rays, "rays", torch.float32, dev, (8, R))
     _lib.check(boxes, "boxes", torch.float32, dev, (-1, 8))
@@ -416,6 +447,60 @@ def march_hier_call(rays, sup_boxes, boxes, sub_boxes, woop_t,
     return t, slot, visits
 
 
+def march_deep_call(rays, hyper_boxes, sup_boxes, boxes, sub_boxes, woop_t,
+                    n_clusters: int, n_subs: int, any_hit: bool = False,
+                    w: int = BLOCK_RAYS):
+    """Kernel F2, the deep march past MAX_CLUSTERS.  As
+    :func:`march_hier_call`, plus hyper_boxes: (>= ceil(n_sup / GROUP), 8)
+    NaN-aware unions of superclusters [GROUP h, GROUP h + GROUP) of
+    sup_boxes (:func:`deep_tables`), the kernel's cull rows.  Up to
+    MAX_DEEP_CLUSTERS clusters."""
+    if not rays.is_cuda:
+        t, slot = march_deep_plain(rays, hyper_boxes, sup_boxes, boxes,
+                                   sub_boxes, woop_t, n_clusters, n_subs,
+                                   any_hit)
+        return t, slot, None
+    dev = rays.device
+    R = _check_march(rays, boxes, sub_boxes, n_clusters, n_subs, w,
+                     cap=MAX_DEEP_CLUSTERS)
+    n_sup, n_hyper = _deep_rows(n_clusters)
+    _lib.check(sup_boxes, "sup_boxes", torch.float32, dev, (-1, 8))
+    _lib.check(hyper_boxes, "hyper_boxes", torch.float32, dev, (-1, 8))
+    _lib.check(woop_t, "woop_t", torch.float32, dev, (-1, 16, CLUSTER_TRIS))
+    if (sup_boxes.shape[0] < n_sup or hyper_boxes.shape[0] < n_hyper
+            or woop_t.shape[0] < n_clusters):
+        raise ValueError(f"sup_boxes must cover {n_sup} superclusters, "
+                         f"hyper_boxes {n_hyper} hyperclusters and woop_t "
+                         f"{n_clusters} clusters")
+    t, slot, visits = _march_outputs(R, dev)
+    if R:
+        _lib.BLOCK_MARCH_DEEP(
+            dev, rays.data_ptr(), R, hyper_boxes.data_ptr(), n_hyper,
+            sup_boxes.data_ptr(), n_sup, boxes.data_ptr(), n_clusters,
+            sub_boxes.data_ptr(), n_subs, woop_t.data_ptr(), int(any_hit),
+            t.data_ptr(), slot.data_ptr(), visits.data_ptr())
+    return t, slot, visits
+
+
+def _deep_rows(n_clusters: int) -> tuple[int, int]:
+    """(superclusters, hyperclusters) of a deep wave's tables."""
+    n_sup = -(-n_clusters // GROUP)
+    return n_sup, -(-n_sup // GROUP)
+
+
+def deep_occupancy(probe: bool = False, any_hit: bool = False) -> int:
+    """Resident warps per SM of kernel F2 (C2 with ``probe``) on the
+    current CUDA device, by the runtime's occupancy number."""
+    fn = _lib.load().ort_deep_occupancy
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    warps = ctypes.c_int(0)
+    err = fn(int(probe), int(any_hit), ctypes.byref(warps))
+    if err:
+        raise RuntimeError(f"occupancy query failed with CUDA error {err}")
+    return warps.value
+
+
 def probe_plain(rays, boxes, n_clusters: int, c_pad: int):
     """Plain version of kernel C (same arguments as :func:`probe_call`):
     every cluster box in ascending chunks, the lowest id winning ties."""
@@ -439,15 +524,68 @@ def probe_plain(rays, boxes, n_clusters: int, c_pad: int):
                        ).to(torch.int32)
 
 
-def probe_call(rays, boxes, n_clusters: int, c_pad: int):
-    """Kernel C.  rays: (8, R); boxes: (c_pad, 8) rows [min3, max3, 0, 0]
-    (min <= max per axis, or NaN).  The kernel pre-culls on the unions of
-    GROUP consecutive clusters, which it forms as it stages them.
+def probe_deep_plain(rays, boxes, sup_boxes, hyper_boxes, n_clusters: int,
+                     c_pad: int):
+    """Plain version of kernel C2 (``probe_call`` past MAX_CLUSTERS):
+    hyperclusters, their superclusters and their clusters in ascending id
+    order, each level tested per ray only where the union is entered below
+    the ray's best entry and its t_max; a cluster takes the answer on a
+    strictly smaller entry, so the lowest id wins ties.  Dead rays get
+    c_pad."""
+    R = rays.shape[1]
+    dev = rays.device
+    emin = torch.full((R,), INF, device=dev)
+    first = torch.full((R,), c_pad, dtype=torch.int64, device=dev)
+    live = torch.nonzero(probe_live(rays))[:, 0]
+    o = rays[0:3, live].T
+    inv = inv_dir(rays[3:6, live].T)
+    tmin, tmax = rays[6, live], rays[7, live]
+    em, fi = emin[live], first[live]
+    n_sup, n_hyper = _deep_rows(n_clusters)
+
+    def gate(box, idx):
+        e = slab_entry(box[0:3], box[3:6], o[idx], inv[idx], tmin[idx])
+        return idx[(e < em[idx]) & (e < tmax[idx])]
+
+    every = torch.arange(live.numel(), device=dev)
+    for h in range(n_hyper):
+        hidx = gate(hyper_boxes[h], every)
+        for s in range(h * GROUP, min(h * GROUP + GROUP, n_sup)):
+            if hidx.numel() == 0:
+                break
+            sidx = gate(sup_boxes[s], hidx)
+            for c in range(s * GROUP, min(s * GROUP + GROUP, n_clusters)):
+                if sidx.numel() == 0:
+                    break
+                b = boxes[c]
+                e = slab_entry(b[0:3], b[3:6], o[sidx], inv[sidx],
+                               tmin[sidx])
+                take = sidx[(e < tmax[sidx]) & (e < em[sidx])]
+                em[take] = e[(e < tmax[sidx]) & (e < em[sidx])]
+                fi[take] = c
+    first[live] = fi
+    return first.to(torch.int32)
+
+
+def probe_call(rays, boxes, n_clusters: int, c_pad: int, sup_boxes=None,
+               hyper_boxes=None):
+    """Kernel C, or past MAX_CLUSTERS kernel C2.  rays: (8, R); boxes:
+    (c_pad, 8) rows [min3, max3, 0, 0] (min <= max per axis, or NaN).  C
+    pre-culls on the unions of GROUP consecutive clusters, which it forms
+    as it stages them; C2 on :func:`deep_tables`' hyperclusters, then
+    their superclusters (``sup_boxes``, ``hyper_boxes``: formed here where
+    not given).
 
     Returns (ids, tests): (R,) int32, the nearest cluster each ray enters
     before t_max (lowest id on ties), else c_pad; and on the card a (1,)
     int64 count of the box tests the kernel ran (rows tested x 32 lanes
     per warp; None for the plain version)."""
+    if is_deep(n_clusters):
+        _check_clusters(n_clusters)
+        if sup_boxes is None or hyper_boxes is None:
+            sup_boxes, hyper_boxes = deep_tables(boxes)
+        return _probe_deep(rays, boxes, sup_boxes, hyper_boxes, n_clusters,
+                           c_pad)
     if not rays.is_cuda:
         return probe_plain(rays, boxes, n_clusters, c_pad), None
     dev = rays.device
@@ -464,6 +602,32 @@ def probe_call(rays, boxes, n_clusters: int, c_pad: int):
     if R:
         _lib.PROBE(dev, rays.data_ptr(), R, boxes.data_ptr(), n_clusters,
                    c_pad, out.data_ptr(), tests.data_ptr())
+    return out, tests
+
+
+def _probe_deep(rays, boxes, sup_boxes, hyper_boxes, n_clusters: int,
+                c_pad: int):
+    """Kernel C2 (:func:`probe_call` past MAX_CLUSTERS)."""
+    if not rays.is_cuda:
+        return probe_deep_plain(rays, boxes, sup_boxes, hyper_boxes,
+                                n_clusters, c_pad), None
+    dev = rays.device
+    R = rays.shape[1]
+    n_sup, n_hyper = _deep_rows(n_clusters)
+    _lib.check(rays, "rays", torch.float32, dev, (8, R))
+    for name, t, rows in (("boxes", boxes, n_clusters),
+                          ("sup_boxes", sup_boxes, n_sup),
+                          ("hyper_boxes", hyper_boxes, n_hyper)):
+        _lib.check(t, name, torch.float32, dev, (-1, 8))
+        if t.shape[0] < rows:
+            raise ValueError(f"{name} must cover {rows} rows")
+    out = torch.empty(R, dtype=torch.int32, device=dev)
+    tests = torch.zeros(1, dtype=torch.int64, device=dev)
+    if R:
+        _lib.PROBE_DEEP(dev, rays.data_ptr(), R, boxes.data_ptr(),
+                        n_clusters, sup_boxes.data_ptr(), n_sup,
+                        hyper_boxes.data_ptr(), n_hyper, c_pad,
+                        out.data_ptr(), tests.data_ptr())
     return out, tests
 
 
@@ -575,13 +739,16 @@ def _wave_sub_boxes(clusters, c_pad: int, coherent: bool):
 
 
 def probe_inputs(clusters, o, d, t_min, t_max) -> dict:
-    """The ``probe_call`` arguments for a wave."""
+    """The ``probe_call`` arguments for a wave (past MAX_CLUSTERS with the
+    deep tables)."""
     C = clusters.num_clusters
     c_pad = ((C + 7) // 8) * 8
-    return dict(rays=pack_rays(o, d, t_min, t_max),
-                boxes=_pad_boxes(clusters.cluster_min, clusters.cluster_max,
-                                 c_pad - C),
-                n_clusters=C, c_pad=c_pad)
+    boxes = _pad_boxes(clusters.cluster_min, clusters.cluster_max, c_pad - C)
+    out = dict(rays=pack_rays(o, d, t_min, t_max), boxes=boxes,
+               n_clusters=C, c_pad=c_pad)
+    if is_deep(C):
+        out["sup_boxes"], out["hyper_boxes"] = deep_tables(boxes)
+    return out
 
 
 def probe_first_cluster(clusters, o, d, t_min, t_max):
@@ -602,19 +769,46 @@ def supercluster_boxes(boxes):
                       ((S + 7) // 8) * 8 - S)
 
 
+def deep_tables(boxes):
+    """(sup_boxes, hyper_boxes) of padded cluster rows ``boxes`` (c_pad,
+    8): the superclusters (:func:`supercluster_boxes`) and the unions of
+    GROUP superclusters each, the hyperclusters (64 clusters), both
+    NaN-aware and padded with NaN rows to a multiple of 8: the cull levels
+    of kernels F2 and C2."""
+    sup = supercluster_boxes(boxes)
+    return sup, supercluster_boxes(sup)
+
+
+def probe_key_shift(c_pad: int) -> int:
+    """The right shift that fits kernel C's ids (up to ``c_pad``) into the
+    14 bits a probe sort key gives them (kernel O: id << 18 | direction
+    Morton >> 12, 32 bits): 0 up to 16,383, so below MAX_CLUSTERS the
+    keys are the JAX package's; past it, pairs (quads, ...) of consecutive
+    clusters share a key's id field, and the sort only coheres less."""
+    return max(0, int(c_pad).bit_length() - 14)
+
+
+def is_deep(n_clusters: int) -> bool:
+    """Whether a scene's waves go to the deep kernels F2 and C2: past the
+    MAX_CLUSTERS that B, C and F take."""
+    return n_clusters > MAX_CLUSTERS
+
+
 def _check_clusters(C: int) -> None:
-    if C > MAX_CLUSTERS:
+    if C > MAX_DEEP_CLUSTERS:
         raise ValueError(
-            f"scene has {C} clusters; the marcher caps at {MAX_CLUSTERS} "
-            f"clusters = {MAX_CLUSTERS * CLUSTER_TRIS} triangles")
+            f"scene has {C:,} clusters; the marcher caps at "
+            f"{MAX_DEEP_CLUSTERS:,} clusters = "
+            f"{MAX_DEEP_CLUSTERS * CLUSTER_TRIS:,} triangles")
 
 
 def march_tables(clusters, coherent: bool = True, hier: bool = False,
                  block_rays: int | None = None) -> dict:
     """The ``march_call`` (with ``hier``: ``march_hier_call``, over
-    superclusters of GROUP clusters, :func:`supercluster_boxes`) arguments
-    of a wave but its rays; ``w`` is the block width the rays are padded
-    to."""
+    superclusters of GROUP clusters, :func:`supercluster_boxes`; past
+    MAX_CLUSTERS, whatever ``hier``: ``march_deep_call``, over
+    :func:`deep_tables`) arguments of a wave but its rays; ``w`` is the
+    block width the rays are padded to."""
     C = clusters.num_clusters
     _check_clusters(C)
     c_pad = ((C + 7) // 8) * 8
@@ -622,6 +816,10 @@ def march_tables(clusters, coherent: bool = True, hier: bool = False,
     sub_boxes, n_subs = _wave_sub_boxes(clusters, c_pad, coherent)
     tables = dict(boxes=boxes, sub_boxes=sub_boxes, woop_t=clusters.woop_t,
                   n_clusters=C, n_subs=n_subs)
+    if is_deep(C):
+        sup_boxes, hyper_boxes = deep_tables(boxes)
+        return dict(hyper_boxes=hyper_boxes, sup_boxes=sup_boxes, **tables,
+                    w=BLOCK_RAYS)
     if hier:
         return dict(sup_boxes=supercluster_boxes(boxes), **tables,
                     w=BLOCK_RAYS)
@@ -640,6 +838,14 @@ def hier_inputs(clusters, o, d, t_min, t_max,
                 coherent: bool = True) -> dict:
     """The ``march_hier_call`` arguments for a wave."""
     tables = march_tables(clusters, coherent, hier=True)
+    return dict(rays=pack_rays(*pad_rays(o, d, t_min, t_max, BLOCK_RAYS)),
+                **tables)
+
+
+def deep_inputs(clusters, o, d, t_min, t_max,
+                coherent: bool = True) -> dict:
+    """The ``march_deep_call`` arguments for a wave (past MAX_CLUSTERS)."""
+    tables = march_tables(clusters, coherent)
     return dict(rays=pack_rays(*pad_rays(o, d, t_min, t_max, BLOCK_RAYS)),
                 **tables)
 
@@ -677,11 +883,15 @@ def block_march(clusters, o, d, t_min, t_max, any_hit: bool = False,
     (-1 miss), u/v are recomputed from the winner's Woop row.  With
     ``any_hit`` only slot's hit/miss distinction is meaningful.
 
-    Coherent waves at HIER_MIN_CLUSTERS clusters or more (and no explicit
-    ``block_rays``) go to the hierarchical kernel F; every other wave to
-    the flat kernel B.  Both are exact; on a tie at exactly equal t they
-    may pick different triangles."""
+    Past MAX_CLUSTERS clusters every wave goes to the deep kernel F2;
+    below, coherent waves at HIER_MIN_CLUSTERS clusters or more (and no
+    explicit ``block_rays``) go to the hierarchical kernel F, every other
+    wave to the flat kernel B.  All are exact; on a tie at exactly equal t
+    they may pick different triangles."""
     _check_clusters(clusters.num_clusters)
+    if is_deep(clusters.num_clusters):
+        return block_march_deep(clusters, o, d, t_min, t_max,
+                                any_hit=any_hit, coherent=coherent)
     if use_hier(clusters.num_clusters, coherent, block_rays):
         return block_march_hier(clusters, o, d, t_min, t_max,
                                 any_hit=any_hit, coherent=coherent)
@@ -700,6 +910,19 @@ def block_march_hier(clusters, o, d, t_min, t_max, any_hit: bool = False,
     contract and the same exact results, through kernel F."""
     n = o.shape[0]
     t, slot, _ = march_hier_call(**hier_inputs(clusters, o, d, t_min, t_max,
+                                               coherent), any_hit=any_hit)
+    t, slot = t[:n], slot[:n]
+    return _finish(t, slot, any_hit, lambda: (
+        clusters.woop[torch.clamp(slot, min=0).long()], o, d))
+
+
+def block_march_deep(clusters, o, d, t_min, t_max, any_hit: bool = False,
+                     coherent: bool = True):
+    """The deep (hypercluster) variant of :func:`block_march`, past
+    MAX_CLUSTERS: the same contract and exact results, through kernel
+    F2."""
+    n = o.shape[0]
+    t, slot, _ = march_deep_call(**deep_inputs(clusters, o, d, t_min, t_max,
                                                coherent), any_hit=any_hit)
     t, slot = t[:n], slot[:n]
     return _finish(t, slot, any_hit, lambda: (

@@ -11,11 +11,14 @@ whole-wave fallback to the marcher; refit or rebuild the intersector for
 new vertex positions on the device.  Spans (``utils/profiling.span``):
 ``route.raster`` around each raster or bundle schedule wave,
 ``route.overflow`` around the marcher's re-trace of a wave whose schedule
-overflowed.
+overflowed, ``march.deep`` around each marcher wave past
+``block_march.MAX_CLUSTERS`` (its probe, sort and march on the deep kernels
+C2 and F2).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 
 import torch
@@ -49,9 +52,11 @@ DEFAULT_ANYHIT_GRANULARITY = 2
 
 
 def ray_probe_keys(clusters, o, d, t_min, t_max):
-    """(first-cluster id << 18) | direction Morton >> 12."""
-    return probe_sort_keys(
-        bm.probe_first_cluster(clusters, o, d, t_min, t_max), d)
+    """(first-cluster id << 18) | direction Morton >> 12, the id shifted
+    right by ``block_march.probe_key_shift`` past 16,383 clusters."""
+    cid = bm.probe_first_cluster(clusters, o, d, t_min, t_max)
+    shift = bm.probe_key_shift(-(-clusters.num_clusters // 8) * 8)
+    return probe_sort_keys(cid >> shift if shift else cid, d)
 
 
 def _hit_from_slots(clusters: ClusterSet, t, slot, u, v) -> Hit:
@@ -61,16 +66,27 @@ def _hit_from_slots(clusters: ClusterSet, t, slot, u, v) -> Hit:
                                        slot.shape[0], u=u, v=v))
 
 
+def _deep_span(clusters: ClusterSet):
+    """The ``march.deep`` span for a wave past MAX_CLUSTERS, else a null
+    context (the waves of smaller scenes open no span)."""
+    if bm.is_deep(clusters.num_clusters):
+        return profiling.span("march.deep")
+    return contextlib.nullcontext()
+
+
 def _march_hit(clusters: ClusterSet, o, d, t_min, t_max, coherent: bool,
                any_hit: bool, perm=None, tables=None) -> Hit:
     """A wave's Hit in the caller's order: kernel P (through ``perm``, or
-    in place), B or F (``block_march``'s rule), then Q.  ``tables``: the
-    wave's ``march_tables``, when the caller has built them."""
-    hier = bm.use_hier(clusters.num_clusters, coherent)
+    in place), B, F or past MAX_CLUSTERS F2 (``block_march``'s rule), then
+    Q.  ``tables``: the wave's ``march_tables``, when the caller has built
+    them."""
+    deep = bm.is_deep(clusters.num_clusters)
+    hier = not deep and bm.use_hier(clusters.num_clusters, coherent)
     if tables is None:
         tables = bm.march_tables(clusters, coherent, hier)
     rays, inv = march_glue.gather_rays(o, d, t_min, t_max, perm, tables["w"])
-    march = bm.march_hier_call if hier else bm.march_call
+    march = (bm.march_deep_call if deep else
+             bm.march_hier_call if hier else bm.march_call)
     t, slot, _ = march(rays=rays, **tables, any_hit=any_hit)
     return Hit(*march_glue.finish_hits(t, slot, clusters.prim_index,
                                        o.shape[0], o, d, clusters.woop,
@@ -138,7 +154,8 @@ class MarchIntersector(TensorDataclass):
         if ok:
             hit = _hit_from_slots(self.clusters, t, slot, u, v)
         else:
-            with profiling.span("route.overflow"):
+            with profiling.span("route.overflow"), \
+                    _deep_span(self.clusters):
                 hit = _march_hit(self.clusters, o2, d2, t_min_a, t_max_a,
                                  coherent=True, any_hit=any_hit)
         if scene.sphere_count > 0:
@@ -172,7 +189,8 @@ class MarchIntersector(TensorDataclass):
         if ok:
             hit = _hit_from_slots(self.clusters, t, slot, u, v)
         else:
-            with profiling.span("route.overflow"):
+            with profiling.span("route.overflow"), \
+                    _deep_span(self.clusters):
                 hit = _march_hit(self.clusters, o2, d2, t_min_a, t_max_a,
                                  coherent=False, any_hit=any_hit)
         if scene.sphere_count > 0:
@@ -203,21 +221,29 @@ class MarchIntersector(TensorDataclass):
         sort_free = self.num_tris <= SORT_FREE_TRIS
         coherent = sort_free or self.sort_mode != "probe"
         perm = tables = None
-        if not sort_free:
-            if self.sort_mode == "probe":
-                tables = bm.march_tables(cs, coherent=False)
-                boxes = tables["boxes"]
-                rays, _ = march_glue.gather_rays(o2, d2, t_min_a, t_max_a)
-                cid = bm.probe_call(rays=rays, boxes=boxes,
-                                    n_clusters=cs.num_clusters,
-                                    c_pad=boxes.shape[0])[0]
-                key = march_glue.march_keys(d2, cid=cid)
-            else:
-                key = march_glue.march_keys(d2, o2, self.scene_lo,
-                                            self.scene_hi)
-            perm = torch.argsort(key, stable=True)
-        hit = _march_hit(cs, o2, d2, t_min_a, t_max_a, coherent, _any_hit,
-                         perm, tables)
+        with _deep_span(cs):
+            if not sort_free:
+                if self.sort_mode == "probe":
+                    tables = bm.march_tables(cs, coherent=False)
+                    boxes = tables["boxes"]
+                    rays, _ = march_glue.gather_rays(o2, d2, t_min_a,
+                                                     t_max_a)
+                    # past MAX_CLUSTERS, C2's tables: the wave's own
+                    deep = {k: tables[k] for k in ("sup_boxes", "hyper_boxes")
+                            if k in tables}
+                    cid = bm.probe_call(
+                        rays=rays, boxes=boxes, n_clusters=cs.num_clusters,
+                        c_pad=boxes.shape[0], **deep)[0]
+                    shift = bm.probe_key_shift(boxes.shape[0])
+                    if shift:
+                        cid = cid >> shift
+                    key = march_glue.march_keys(d2, cid=cid)
+                else:
+                    key = march_glue.march_keys(d2, o2, self.scene_lo,
+                                                self.scene_hi)
+                perm = torch.argsort(key, stable=True)
+            hit = _march_hit(cs, o2, d2, t_min_a, t_max_a, coherent,
+                             _any_hit, perm, tables)
         if scene.sphere_count > 0:
             hit = sphere_bruteforce_merge(scene, o2, d2, t_min_a, t_max_a,
                                           hit)
@@ -249,11 +275,15 @@ def march_intersector_from_clusters(clusters: ClusterSet, scene: Scene,
 
 def make_march_intersector(scene: Scene, method: str = "sah",
                            raster: bool = False) -> MarchIntersector:
-    """Build the ClusterSet on the host and the intersector on the scene's
-    device."""
+    """Build the ClusterSet on the host ("sah", "morton"), or with
+    "median" on the scene's device (``rebuild_clusters`` from scratch), and
+    the intersector on the scene's device."""
     tv = scene.triangles.vertices
-    clusters = build_clusters(tv.cpu().numpy(), method=method,
-                              device=tv.device)
+    if method == "median":
+        clusters = rebuild_clusters(None, tv)
+    else:
+        clusters = build_clusters(tv.cpu().numpy(), method=method,
+                                  device=tv.device)
     return march_intersector_from_clusters(clusters, scene, raster=raster)
 
 

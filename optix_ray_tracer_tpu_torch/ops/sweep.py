@@ -293,6 +293,16 @@ def _median_segments(n: int, dev) -> list[tuple[torch.Tensor, int]]:
          int(seg[-1]) + 1) for seg in _median_levels(n)])
 
 
+def _block_bounds(cur: torch.Tensor, nf: int, low: bool) -> torch.Tensor:
+    """Per-axis min (``low``) or max of each SUB_TRIS-block of ``cur``:
+    ``nf`` whole blocks, then the tail, if any, as one more block."""
+    op = torch.amin if low else torch.amax
+    whole = op(cur[:nf * SUB_TRIS].view(nf, SUB_TRIS, 3), 1)
+    if nf * SUB_TRIS == cur.shape[0]:
+        return whole
+    return torch.cat([whole, op(cur[nf * SUB_TRIS:], 0, keepdim=True)])
+
+
 def _median_order_device(cents: torch.Tensor) -> torch.Tensor:
     """Median-split partition on the centroids' device: each level sorts
     the elements of every segment by that segment's widest centroid axis
@@ -303,14 +313,20 @@ def _median_order_device(cents: torch.Tensor) -> torch.Tensor:
     n = cents.shape[0]
     perm = torch.arange(n, dtype=torch.int32, device=dev)
     cur = cents
+    # every segment starts at a multiple of SUB_TRIS (_median_levels), so
+    # its bounds reduce over the bounds of its SUB_TRIS-blocks (the last
+    # block the n % SUB_TRIS tail).  A scatter-reduce over every centroid
+    # put 6.7M atomics on the first levels' one or two rows: ~2.5 s a
+    # rebuild on the card
+    nf = n // SUB_TRIS
     for seg, num_seg in _median_segments(n, dev):
-        idx = seg[:, None].expand(n, 3)
+        idx = seg[::SUB_TRIS, None].expand(-(-n // SUB_TRIS), 3)
         lo = torch.full((num_seg, 3), float("inf"), device=dev
-                        ).scatter_reduce(0, idx, cur, "amin",
-                                         include_self=False)
+                        ).scatter_reduce(0, idx, _block_bounds(cur, nf, True),
+                                         "amin", include_self=False)
         hi = torch.full((num_seg, 3), float("-inf"), device=dev
-                        ).scatter_reduce(0, idx, cur, "amax",
-                                         include_self=False)
+                        ).scatter_reduce(0, idx, _block_bounds(cur, nf, False),
+                                         "amax", include_self=False)
         axis = torch.argmax(hi - lo, dim=1)
         key = torch.gather(cur, 1, axis[seg][:, None])[:, 0]
         by_key = torch.argsort(key, stable=True)
@@ -329,10 +345,14 @@ def refit_clusters(clusters: ClusterSet, tri_vertices) -> ClusterSet:
     ``tri_vertices`` (T, 3, 3) must have the triangle count the clusters
     were built with.  Pure-padding groups get NaN boxes; pad slots get
     zero Woop rows."""
-    tv = tri_vertices.float()
+    return _refit_order(clusters.prim_index, tri_vertices.float(),
+                        clusters.woop.shape[0])
+
+
+def _refit_order(order, tv, n_pad: int) -> ClusterSet:
+    """:func:`refit_clusters` of slot order ``order`` ((n_pad,) int32) over
+    float32 vertices ``tv``."""
     n = tv.shape[0]
-    n_pad = clusters.woop.shape[0]
-    order = clusters.prim_index
     sorted_tris = tv[order.long()]                 # pad slots gather tri 0
     valid = torch.arange(n_pad, device=tv.device) < n
 
@@ -375,17 +395,19 @@ def refit_clusters(clusters: ClusterSet, tri_vertices) -> ClusterSet:
                       sub_min=smin, sub_max=smax)
 
 
-def rebuild_clusters(clusters: ClusterSet, tri_vertices,
+def rebuild_clusters(clusters: ClusterSet | None, tri_vertices,
                      method: str = "median") -> ClusterSet:
     """A fresh partition of new vertex positions, then a refit, on the
-    device (the per-file build without a host round trip).
+    device (the per-file build without a host round trip).  ``clusters``
+    None builds from scratch: the slots padded to whole clusters.
 
     method: "median" (:func:`_median_order_device`) or "morton" (one
     stable sort of the centroids' Morton codes, the host "morton"
     build's order)."""
     tv = tri_vertices.float()
     n = tv.shape[0]
-    n_pad = clusters.woop.shape[0]
+    n_pad = (max(-(-n // CHUNK) * CHUNK, CHUNK) if clusters is None
+             else clusters.woop.shape[0])
     cents = centroids(tv)
     if method == "median":
         order = _median_order_device(cents)
@@ -396,8 +418,7 @@ def rebuild_clusters(clusters: ClusterSet, tri_vertices,
         raise ValueError(f"unknown cluster rebuild method: {method!r}")
     if n_pad > n:
         order = torch.cat([order, order.new_zeros(n_pad - n)])
-    return refit_clusters(dataclasses.replace(clusters, prim_index=order),
-                          tv)
+    return _refit_order(order, tv, n_pad)
 
 
 # ---------------------------------------------------------------------------

@@ -2624,3 +2624,104 @@ def test_pile_frames_wait_only_at_real_reads(dev, monkeypatch, traffic):
         run.release()
     assert run.failed == 0
     assert CONSTANTS.built == 0 and CONSTANTS.reused > 0
+
+
+@pytest.fixture(scope="module")
+def chute_shapes(dev):
+    """Waves at the chute cell's shapes: 16,900 UV spheres of 396
+    triangles (6,692,400 triangles, 26,143 clusters, the device median
+    build a scene past MAX_CLUSTERS gets first) in a 130 x 130 grid of
+    layers, a 1200x800 camera wave from above (Morton-sorted) and a
+    960,000-ray incoherent wave inside the bed, a third of it dead."""
+    from optix_ray_tracer_tpu_torch.ops.sweep import rebuild_clusters
+    v, _ = sphere_with_n_triangles(450)
+    k = np.arange(16900)
+    centers = np.stack([k % 130, k // 130, np.zeros(16900)], -1) * 2.2
+    tri = torch.as_tensor((v[None] + centers[:, None, None].astype(
+        np.float32)).reshape(-1, 3, 3), device=dev)
+    cs = rebuild_clusters(None, tri)
+    assert bm.is_deep(cs.num_clusters) and cs.num_clusters == 26143
+    cam = Camera.look_at((-30.0, -30.0, 60.0), (143.0, 143.0, 0.0),
+                         (0.0, 0.0, 1.0))
+    o, d = (x.reshape(-1, 3).to(dev) for x in cam.generate_rays(1200, 800))
+    lo, hi = tri.reshape(-1, 3).amin(0), tri.reshape(-1, 3).amax(0)
+    from optix_ray_tracer_tpu_torch.ops.raysort import ray_sort_keys
+    perm = torch.argsort(ray_sort_keys(o, d, lo, hi), stable=True)
+    r = np.random.default_rng(8)
+    n = 960000
+    oi = torch.as_tensor(np.concatenate([
+        r.uniform(0.0, 286.0, (n, 2)), r.uniform(-1.2, 1.2, (n, 1))],
+        -1).astype(np.float32), device=dev)
+    di = torch.as_tensor(r.normal(size=(n, 3)).astype(np.float32),
+                         device=dev)
+    di = di / torch.linalg.norm(di, dim=-1, keepdim=True)
+    tmax = torch.full((n,), 1e16, device=dev)
+    tmax[::3] = 0.0
+    return cs, {"coherent": (o[perm], d[perm], torch.full_like(tmax, 1e16)),
+                "incoherent": (oi, di, tmax)}
+
+
+@pytest.mark.parametrize("wave,any_hit", [("coherent", False),
+                                          ("incoherent", False),
+                                          ("incoherent", True)])
+def test_deep_march_kernel_at_chute_shapes(chute_shapes, dev, wave,
+                                           any_hit):
+    """Kernel F2 against its plain version on full waves past the cap:
+    0 mismatches under the hit rule (hit / miss for occlusion)."""
+    cs, waves = chute_shapes
+    o, d, tmax = waves[wave]
+    n = o.shape[0]
+    tmin = torch.full((n,), 1e-3, device=dev)
+    if any_hit:
+        tmax = torch.where(tmax > 0, torch.full_like(tmax, 1.5), tmax)
+    inp = bm.deep_inputs(cs, o, d, tmin, tmax, wave == "coherent")
+    before = _lib.BLOCK_MARCH_DEEP.launches
+    kern = bm.march_deep_call(**inp, any_hit=any_hit)
+    assert _lib.BLOCK_MARCH_DEEP.launches == before + 1
+    assert kern[2].shape == (inp["rays"].shape[1] // 32,)
+    plain = bm.march_deep_plain(**_plain_args(inp), any_hit=any_hit)
+    _hold(kern, plain, any_hit)
+    assert int((kern[1] >= 0).sum()) > n // 8
+    assert bm.deep_occupancy(any_hit=any_hit) >= 24
+
+
+def test_deep_probe_kernel_at_chute_shapes(chute_shapes, dev):
+    """Kernel C2 against its plain version on the incoherent wave (ids
+    equal, the lowest id on ties), and against the flat plain probe on a
+    slice of it."""
+    cs, waves = chute_shapes
+    o, d, tmax = waves["incoherent"]
+    inp = bm.probe_inputs(cs, o, d, torch.full_like(tmax, 1e-3), tmax)
+    before = _lib.PROBE_DEEP.launches
+    ids, tests = bm.probe_call(**inp)
+    assert _lib.PROBE_DEEP.launches == before + 1
+    assert torch.equal(ids, bm.probe_deep_plain(**inp))
+    part = dict(inp, rays=inp["rays"][:, :65536].contiguous())
+    assert torch.equal(ids[:65536], bm.probe_plain(
+        part["rays"], part["boxes"], part["n_clusters"], part["c_pad"]))
+    assert int((ids < cs.num_clusters).sum()) > 0 and int(tests) > 0
+    assert bm.deep_occupancy(probe=True) >= 32
+
+
+def test_deep_routing_on_card(setup, dev, monkeypatch):
+    """Below the cap the intersector launches C and B or F, never C2 or
+    F2; with the cap lowered under the scene's 80 clusters, C2 and F2 and
+    nothing else of the marcher, with the same hits."""
+    scene, inter, o, d, oi, di = setup
+    old = (_lib.PROBE, _lib.BLOCK_MARCH, _lib.BLOCK_MARCH_HIER)
+    new = (_lib.PROBE_DEEP, _lib.BLOCK_MARCH_DEEP)
+    inc = inter.for_incoherent()
+
+    def count(fn):
+        before = [k.launches for k in old + new]
+        out = fn()
+        return out, [k.launches - b for k, b in zip(old + new, before)]
+
+    h0, n0 = count(lambda: inc.intersect(scene, oi, di))
+    assert n0 == [1, 1, 0, 0, 0]
+    monkeypatch.setattr(bm, "MAX_CLUSTERS", 8)
+    h1, n1 = count(lambda: inc.intersect(scene, oi, di))
+    assert n1 == [0, 0, 0, 1, 1]
+    assert hit_mismatches(h0.prim_id, h0.t, h1.prim_id, h1.t) == 0
+    h2, n2 = count(lambda: inter.intersect(scene, oi, di))
+    assert n2 == [0, 0, 0, 0, 1]

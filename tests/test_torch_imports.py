@@ -261,12 +261,12 @@ def test_cpu_path_launches_no_kernel():
     path-traced frame with bundle NEE and a sky, an ortho wave, ReSTIR DI
     and GI frames with Sobol, an adaptive batch, a sharded frame, an LBVH
     frame) and a query routed to the hierarchical marcher take the plain
-    versions: every launch count (A-G, the bounce loop's H-N, the
-    marcher's glue O-R and the binning's S-U) stays 0 and the library is
-    never built."""
+    versions: every launch count (A-G with the deep marchers F2 and C2,
+    the bounce loop's H-N, the marcher's glue O-R and the binning's S-U)
+    stays 0 and the library is never built."""
     proc = _run(_LAUNCHES)
     assert proc.returncode == 0, proc.stderr
-    assert f"LAUNCHES {[0] * 21} True" in proc.stdout, proc.stdout
+    assert f"LAUNCHES {[0] * 23} True" in proc.stdout, proc.stdout
 
 
 _REFUSE = """
@@ -310,7 +310,7 @@ def test_nee_wrappers_refuse_cpu_tensors():
     assert proc.returncode == 0, proc.stderr
     for name in "LMNSTU":
         assert f"REFUSED {name}" in proc.stdout, proc.stdout
-    assert f"LAUNCHES {[0] * 21} True" in proc.stdout, proc.stdout
+    assert f"LAUNCHES {[0] * 23} True" in proc.stdout, proc.stdout
 
 
 @pytest.mark.parametrize("where", ["repo", "alone"])
